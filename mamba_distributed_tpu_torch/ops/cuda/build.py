@@ -1,0 +1,101 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each source under ``csrc/`` compiles, at first use, into a shared
+library with a plain C interface under ``build/torch_kernels/`` at the
+root of the checkout (listed in ``.gitignore``).  The library name
+carries a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  ``build_all`` starts one
+``nvcc`` per source, all at once, and waits for them together.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a host with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+# every kernel source of the port, by library name
+SOURCES = {"ssd_fwd": CSRC / "ssd_fwd.cu"}
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler, or RuntimeError when there is none."""
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+            "built from source at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start(name: str) -> subprocess.Popen | None:
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    out = library_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name].name}:\n{log}")
+    os.replace(tmp, out)
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every missing library in parallel; returns each source's
+    compiler log (``-Xptxas=-v`` prints registers and shared memory)."""
+    names = list(SOURCES) if names is None else list(names)
+    procs = {n: _start(n) for n in names}
+    logs = {}
+    for n, proc in procs.items():
+        if proc is None:
+            log_file = library_path(n).with_suffix(".log")
+            logs[n] = log_file.read_text() if log_file.exists() else ""
+        else:
+            logs[n] = _finish(n, proc)
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name`` (building it first if needed)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,323 @@
+"""Continuous-batching serving engine over the pooled recurrent-state cache
+(counterpart of the core of ``mamba_distributed_tpu/serving/engine.py``).
+
+Each ``step()`` first admits queued requests into free slots (FCFS):
+prompts up to ``cfg.effective_prefill_chunk_tokens`` prefill one-shot
+over their pow2 bucket right there; longer ones park a zero carry in
+their slot and prefill chunk by chunk, at most
+``prefill_tokens_per_tick`` chunk tokens per step (at least one chunk),
+round-robin across concurrent long prompts.  Then one tick advances
+every decodable slot by ``tokens_per_tick`` tokens: a loop of sub-steps
+at the fixed slot count S (sample, then ``lm_step`` over all S rows).
+Slots mid-prefill are held out of the tick: they sample nothing and
+their rows are restored after it.  The slot count and every tensor shape
+of the tick stay fixed, so a later change can capture it in a CUDA
+graph.
+
+Parity contract: a request's token stream is bit-identical to
+``generate(params, cfg, prompt[None], seed=request.seed,
+decode_rows=capacity, ...)`` when ``request.top_k == max_top_k``,
+whatever else shares the batch.  Both sides prefill the same layout
+with the same decode-cast params and the same kernels; the step-i draw
+depends on (seed, i) alone (inference/generate.step_uniform); and the
+decode step runs at the same row count S on both sides, where each
+row's arithmetic is independent of the other rows' values.
+
+Left out of the port for now: prefix cache, adapters, speculative
+decoding, preemption and priorities, migration, tick compaction,
+meshes, paged KV (hybrid stacks), metrics and the tracer.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from mamba_distributed_tpu_torch.config import ModelConfig
+from mamba_distributed_tpu_torch.inference.bucketing import next_pow2_bucket, pad_to_bucket
+from mamba_distributed_tpu_torch.inference.generate import (
+    step_uniform,
+    top_k_sample,
+    vocab_pad_mask,
+)
+from mamba_distributed_tpu_torch.models.lm import (
+    init_lm_blocks_state,
+    lm_prefill,
+    lm_step,
+)
+from mamba_distributed_tpu_torch.serving import state_cache
+from mamba_distributed_tpu_torch.serving.prefill import (
+    cast_decode_params,
+    chunk_inputs,
+    plan_chunks,
+    prefill_chunk,
+)
+from mamba_distributed_tpu_torch.serving.scheduler import (
+    FCFSScheduler,
+    GenerationRequest,
+    GenerationResult,
+    RequestStatus,
+    TokenEvent,
+    _Tracked,
+)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class ServingEngine:
+    """Continuous-batching host loop: FCFS admission -> ticks.
+
+    Args:
+      params: fp32 master params (``models/lm.init_lm_params`` layout),
+        moved to ``device`` and cast once to the decode layout here.
+      cfg: a pure Mamba-2 ``ModelConfig``.
+      capacity: slot count S, the max concurrent requests.
+      max_top_k: top-k width of the sampler; a request's ``top_k`` may
+        be anything in [1, max_top_k] (rows mask past their own k).
+      tokens_per_tick: decode sub-steps per tick.
+      prefill_tokens_per_tick: chunk-prefill tokens spent per step
+        (None => ``cfg.prefill_tokens_per_tick``; 0 => unbounded).
+      device: where the engine runs; None means "cuda", which raises
+        on a host without a card (pass ``device="cpu"`` there).
+    """
+
+    def __init__(self, params: dict, cfg: ModelConfig, capacity: int = 8,
+                 max_top_k: int = 50, tokens_per_tick: int = 8,
+                 prefill_tokens_per_tick: int | None = None, device=None):
+        if not 1 <= max_top_k <= cfg.vocab_size_padded:
+            raise ValueError(
+                f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
+        if tokens_per_tick < 1:
+            raise ValueError("tokens_per_tick must be >= 1")
+        if prefill_tokens_per_tick is None:
+            prefill_tokens_per_tick = cfg.prefill_tokens_per_tick
+        if prefill_tokens_per_tick < 0:
+            raise ValueError("prefill_tokens_per_tick must be >= 0 (0 => unbounded)")
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServingEngine runs on the card by default and this host has "
+                "none; pass device='cpu' to serve with the plain versions"
+            )
+        self.cfg = cfg
+        self.device = device
+        self.capacity = capacity
+        self.max_top_k = max_top_k
+        self.tokens_per_tick = tokens_per_tick
+        self.prefill_tokens_per_tick = prefill_tokens_per_tick
+        self._params = cast_decode_params(_to_device(params, device), cfg)
+        self.pool = state_cache.init_pool(cfg, capacity, device)
+        self._pad_mask = vocab_pad_mask(cfg, device)
+        self.scheduler = FCFSScheduler()
+        self._free: list[int] = list(range(capacity))
+        self._slots: dict[int, _Tracked] = {}
+        # slots holding a partial chunked prefill, in grant rotation order
+        self._prefill_queue: list[int] = []
+        self.results: dict[int, GenerationResult] = {}
+
+    # ------------------------------------------------------------ admission
+
+    def submit(self, request: GenerationRequest) -> int:
+        """Queue a request; returns its request_id."""
+        if not 1 <= request.top_k <= self.max_top_k:
+            raise ValueError(
+                f"request top_k={request.top_k} must be in "
+                f"[1, max_top_k={self.max_top_k}]")
+        return self.scheduler.submit(request).request_id
+
+    def _slot_meta(self, r: GenerationRequest) -> dict:
+        return dict(max_new=r.max_new_tokens, top_k=r.top_k,
+                    temperature=r.temperature,
+                    eos_id=-1 if r.eos_id is None else r.eos_id)
+
+    def _admit(self, tracked: _Tracked) -> None:
+        """Grant the next queued request a slot: a short prompt prefills
+        one-shot here; a long one parks a zero carry and prefills in the
+        chunk budget (``_advance_prefill``)."""
+        r = tracked.request
+        plan = plan_chunks(len(r.prompt_ids), self.cfg.effective_prefill_chunk_tokens)
+        slot = self._free.pop(0)
+        tracked.status = RequestStatus.PREFILL
+        try:
+            if plan is None:
+                prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
+                                         device=self.device)[None]
+                ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
+                logits, state = lm_prefill(self._params, self.cfg, ids, token_mask=mask)
+                state_cache.insert(self.pool, slot, state, logits, **self._slot_meta(r))
+            else:
+                tracked.plan = plan
+                tracked.chunks_done = 0
+                state_cache.stash_prefill(
+                    self.pool, slot,
+                    {"blocks": init_lm_blocks_state(self.cfg, 1, self.device)},
+                    **self._slot_meta(r))
+        except Exception:
+            # a failed prefill neither leaks the slot nor drops the request
+            self._free.insert(0, slot)
+            self.scheduler.requeue(tracked)
+            raise
+        tracked.t_admit = time.perf_counter()
+        tracked.slot = slot
+        self._slots[slot] = tracked
+        if plan is None:
+            tracked.status = RequestStatus.DECODE
+        else:
+            self._prefill_queue.append(slot)
+
+    def _advance_prefill(self, slot: int, budget_left: float) -> float:
+        """Run ONE chunk of ``slot``'s prefill; returns the budget left."""
+        tracked = self._slots[slot]
+        plan, r = tracked.plan, tracked.request
+        try:
+            state = state_cache.read_state(self.pool, slot)
+            ids, mask = chunk_inputs(r.prompt_ids, plan, tracked.chunks_done,
+                                     device=self.device)
+            logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg)
+            tracked.chunks_done += 1
+            self._prefill_queue.remove(slot)
+            if tracked.chunks_done == plan.n_chunks:
+                state_cache.finish_prefill(self.pool, slot, state, logits)
+                tracked.status = RequestStatus.DECODE
+            else:
+                state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(r))
+                # rotate to the back: the next grant goes to the others first
+                self._prefill_queue.append(slot)
+        except Exception:
+            state_cache.evict(self.pool, slot)
+            if slot in self._prefill_queue:
+                self._prefill_queue.remove(slot)
+            del self._slots[slot]
+            self._free.insert(0, slot)
+            self._free.sort()
+            self.scheduler.requeue(tracked)
+            raise
+        return budget_left - plan.chunk
+
+    def _prefill_phase(self) -> None:
+        while self._free and self.scheduler.depth:
+            self._admit(self.scheduler.pop())
+        budget = self.prefill_tokens_per_tick
+        left = float("inf") if budget == 0 else float(budget)
+        chunks_run = 0
+        while self._prefill_queue and (left > 0 or chunks_run == 0):
+            left = self._advance_prefill(self._prefill_queue[0], left)
+            chunks_run += 1
+
+    # ------------------------------------------------------------- decoding
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished (queued + in flight)."""
+        return self.scheduler.depth + len(self._slots)
+
+    def _tick(self):
+        """Advance every decodable slot ``tokens_per_tick`` tokens.
+        Returns host arrays (tokens, emitted, done), each (steps, S)."""
+        S, steps, dev = self.capacity, self.tokens_per_tick, self.device
+        pool, meta = self.pool, self.pool["meta"]
+        # the draws of this tick: slot s's sub-step j samples token
+        # len(new_tokens) + j of its request (it stays live until done)
+        u = np.full((steps, S), 0.5, np.float32)
+        for s, t in self._slots.items():
+            if t.status is RequestStatus.DECODE:
+                n0 = len(t.new_tokens)
+                u[:, s] = [step_uniform(t.request.seed, n0 + j) for j in range(steps)]
+        u = torch.from_numpy(u).to(dev)
+        # lm_step updates the pool's state rows in place; a prefilling
+        # slot's rows hold a real carry, so save and restore them
+        held = sorted(self._prefill_queue)
+        if held:
+            idx = torch.tensor(held, device=dev)
+            saved = [t.index_select(1, idx) for t in pool["state"]["blocks"]]
+        logits = pool["logits"]
+        has_eos = meta["eos_id"] >= 0
+        step, done = meta["step"], meta["done"]
+        toks, emitted, dones = [], [], []
+        for j in range(steps):
+            live = meta["active"] & ~done & ~meta["prefilling"]
+            tok = top_k_sample(logits + self._pad_mask, u[j], self.max_top_k,
+                               meta["temperature"], meta["top_k"])
+            tok = torch.where(done & has_eos, meta["eos_id"], tok)
+            logits, _ = lm_step(self._params, self.cfg, pool["state"], tok)
+            step = step + live
+            done = done | (live & ((has_eos & (tok == meta["eos_id"]))
+                                   | (step >= meta["max_new"])))
+            toks.append(tok)
+            emitted.append(live)
+            dones.append(done)
+        if held:
+            for t, v in zip(pool["state"]["blocks"], saved):
+                t.index_copy_(1, idx, v)
+        pool["logits"] = logits
+        meta["step"], meta["done"] = step, done
+        # the one host sync of the tick
+        return (torch.stack(toks).cpu().numpy(), torch.stack(emitted).cpu().numpy(),
+                torch.stack(dones).cpu().numpy())
+
+    @torch.no_grad()
+    def step(self) -> list[TokenEvent]:
+        """One engine iteration: prefill phase, then one tick.  Returns the
+        tick's TokenEvents in emission order (none while only partial
+        prefills are resident); finished requests are evicted and their
+        results kept in ``self.results``."""
+        self._prefill_phase()
+        if not any(t.status is RequestStatus.DECODE for t in self._slots.values()):
+            return []
+        tokens, emitted, done = self._tick()
+        t_now = time.perf_counter()
+        events: list[TokenEvent] = []
+        for j in range(tokens.shape[0]):
+            for slot, tracked in self._slots.items():
+                if not emitted[j, slot]:
+                    continue
+                r = tracked.request
+                tok = int(tokens[j, slot])
+                tracked.new_tokens.append(tok)
+                if done[j, slot]:
+                    tracked.status = RequestStatus.FINISHED
+                    tracked.finish_reason = (
+                        "eos" if r.eos_id is not None and tok == r.eos_id else "length")
+                events.append(TokenEvent(tracked.request_id, tok,
+                                         len(tracked.new_tokens) - 1,
+                                         bool(done[j, slot]), tracked.finish_reason))
+        for slot, tracked in self._slots.items():
+            if emitted[:, slot].any():
+                if tracked.t_first_token is None:
+                    tracked.t_first_token = t_now
+                tracked.t_last_token = t_now
+        for slot in [s for s, t in self._slots.items()
+                     if t.status is RequestStatus.FINISHED]:
+            tracked = self._slots.pop(slot)
+            state_cache.evict(self.pool, slot)
+            self._free.append(slot)
+            r = tracked.request
+            self.results[tracked.request_id] = GenerationResult(
+                request_id=tracked.request_id, prompt_ids=r.prompt_ids,
+                new_tokens=np.asarray(tracked.new_tokens, np.int64),
+                finish_reason=tracked.finish_reason)
+        self._free.sort()
+        return events
+
+    # ------------------------------------------------------------ frontends
+
+    def serve(self, requests=()):  # -> Iterator[TokenEvent]
+        """Accept requests, stream TokenEvents back as ticks complete."""
+        for r in requests:
+            self.submit(r)
+        while self.pending:
+            yield from self.step()
+
+    def run(self, requests=()) -> list[GenerationResult]:
+        """Submit ``requests``, drain the engine, return results in
+        submission order."""
+        ids = [self.submit(r) for r in requests]
+        for _ in self.serve():
+            pass
+        return [self.results[i] for i in ids]

@@ -1,0 +1,185 @@
+"""The port's model stack against the JAX package's, on the CPU in fp32.
+
+One parameter tree is built with the JAX ``init_lm_params``, converted
+with ``convert.params_from_jax``, and both packages run it on the same
+numpy inputs: the mixer, ``lm_prefill`` (with a left-pad token mask),
+``lm_prefill_chunk`` and ``lm_step`` agree in logits and states at
+1e-4.  JAX runs ``ssm_impl="xla"``, the plain reference that
+tests/test_pallas.py holds its kernel to, and ``ssm_impl="pallas"`` (in
+interpret mode) once at the smallest shape.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mamba_distributed_tpu.config import ModelConfig as JaxConfig
+from mamba_distributed_tpu.inference.bucketing import pad_to_bucket as jax_pad
+from mamba_distributed_tpu.models import lm as jlm
+from mamba_distributed_tpu.models.mamba2 import mamba2_mixer as jax_mixer
+from mamba_distributed_tpu_torch import convert
+from mamba_distributed_tpu_torch.config import ModelConfig, get_preset
+from mamba_distributed_tpu_torch.inference.bucketing import pad_to_bucket
+from mamba_distributed_tpu_torch.models import lm
+from mamba_distributed_tpu_torch.models.mamba2 import mamba2_mixer
+
+pytestmark = pytest.mark.torch
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+# the tiny config of tests/test_serving.py:33
+TINY = dict(d_model=32, n_layer=2, vocab_size=64, headdim=8, chunk_size=16,
+            d_state=16, compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = JaxConfig(**TINY)
+    jparams = jlm.init_lm_params(jax.random.PRNGKey(0), jcfg)
+    np_tree = jax.tree.map(np.asarray, jparams)
+    return jcfg, jparams, ModelConfig(**TINY), convert.params_from_jax(np_tree)
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+def _ids(seed, b, t):
+    return np.random.default_rng(seed).integers(0, 64, (b, t)).astype(np.int32)
+
+
+def test_params_round_trip(pair):
+    jcfg, jparams, cfg, params = pair
+    back = convert.params_to_numpy(params)
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat_j) == len(jax.tree.leaves(back))
+    for path, leaf in flat_j:
+        node = back
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+    assert params["blocks"]["mixer"]["in_proj"]["kernel"].shape == (
+        2, 32, jnp.shape(jparams["blocks"]["mixer"]["in_proj"]["kernel"])[2])
+    with pytest.raises(ValueError, match="pure Mamba-2"):
+        convert.params_from_jax({**jax.tree.map(np.asarray, jparams), "lm_head": {}})
+
+
+def test_port_init_matches_jax_shapes_and_scale(pair):
+    """The port's own init builds the same tree (same keys, shapes and
+    init scales) from a torch.Generator."""
+    _, jparams, cfg, _ = pair
+    mine = lm.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    ref = convert.params_to_numpy(convert.params_from_jax(jax.tree.map(np.asarray, jparams)))
+    for (p, a), b in zip(jax.tree_util.tree_flatten_with_path(ref)[0],
+                         jax.tree.leaves(convert.params_to_numpy(mine))):
+        assert a.shape == b.shape, p
+        assert abs(float(np.abs(a).max()) - float(np.abs(b).max())) < 0.5 * float(np.abs(a).max()) + 1e-6, p
+
+
+def test_config_rejects_unserved_models():
+    with pytest.raises(ValueError, match="attn_layer_idx"):
+        ModelConfig(**TINY, attn_layer_idx=(1,))
+    with pytest.raises(ValueError, match="mamba2"):
+        ModelConfig(**TINY, ssm_layer="mamba1")
+    cfg = get_preset("mamba2-280m")
+    assert (cfg.d_model, cfg.n_layer, cfg.effective_d_state, cfg.nheads,
+            cfg.vocab_size_padded) == (768, 64, 128, 24, 50304)
+    assert ModelConfig(**{**TINY, "prefill_chunk_tokens": 20}).effective_prefill_chunk_tokens == 32
+
+
+@pytest.mark.parametrize("masked,seeded", [(False, False), (True, True)])
+def test_mixer_matches_jax(pair, masked, seeded):
+    jcfg, jparams, cfg, params = pair
+    rng = np.random.default_rng(1)
+    u = rng.standard_normal((2, 32, 32)).astype(np.float32)
+    mask = np.ones((2, 32), np.float32)
+    if masked:
+        mask[0, :9] = 0.0
+    conv0 = rng.standard_normal((2, 3, 96)).astype(np.float32)  # conv_dim
+    ssm0 = rng.standard_normal((2, 8, 8, 16)).astype(np.float32)
+    jb = jax.tree.map(lambda a: a[0], jparams["blocks"]["mixer"])
+    tb = jax.tree.map(lambda a: a[0], params["blocks"]["mixer"])
+    kw_j = dict(return_final_state=True, token_mask=jnp.asarray(mask) if masked else None)
+    kw_t = dict(return_final_state=True, token_mask=torch.from_numpy(mask) if masked else None)
+    if seeded:
+        kw_j.update(initial_conv_state=jnp.asarray(conv0), initial_ssm_state=jnp.asarray(ssm0))
+        kw_t.update(initial_conv_state=torch.from_numpy(conv0),
+                    initial_ssm_state=torch.from_numpy(ssm0))
+    yj, (cj, sj) = jax_mixer(jb, jcfg, jnp.asarray(u), **kw_j)
+    yt, (ct, st) = mamba2_mixer(tb, cfg, torch.from_numpy(u), **kw_t)
+    _close(yt, yj)
+    _close(ct, cj)
+    _close(st, sj)
+
+
+@pytest.mark.parametrize("t", [5, 16, 27])
+def test_lm_prefill_matches_jax(pair, t):
+    """Left-padded bucketed prefill: logits and every layer's state."""
+    jcfg, jparams, cfg, params = pair
+    ids = _ids(t, 1, t)
+    bucket = 32 if t > 16 else 16
+    pj, mj = jax_pad(jnp.asarray(ids), bucket)
+    pt, mt = pad_to_bucket(torch.from_numpy(ids).long(), bucket)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    lj, stj = jlm.lm_prefill(jparams, jcfg, pj, token_mask=mj)
+    lt, stt = lm.lm_prefill(params, cfg, pt, token_mask=mt)
+    _close(lt, lj)
+    for a, b in zip(stt["blocks"], stj["blocks"]):
+        _close(a, b)
+
+
+def test_lm_prefill_chunk_matches_jax(pair):
+    jcfg, jparams, cfg, params = pair
+    rng = np.random.default_rng(5)
+    conv0 = rng.standard_normal((2, 2, 3, 96)).astype(np.float32)
+    ssm0 = rng.standard_normal((2, 2, 8, 8, 16)).astype(np.float32) * 0.1
+    ids = _ids(9, 2, 16)
+    mask = np.ones((2, 16), np.float32)
+    mask[1, :4] = 0.0
+    lj, sj = jlm.lm_prefill_chunk(jparams, jcfg, jnp.asarray(ids),
+                                  {"blocks": (jnp.asarray(conv0), jnp.asarray(ssm0))},
+                                  token_mask=jnp.asarray(mask))
+    state = {"blocks": (torch.from_numpy(conv0), torch.from_numpy(ssm0))}
+    lt, st = lm.lm_prefill_chunk(params, cfg, torch.from_numpy(ids).long(), state,
+                                 token_mask=torch.from_numpy(mask))
+    _close(lt, lj)
+    for a, b in zip(st["blocks"], sj["blocks"]):
+        _close(a, b)
+    # the input state is left untouched
+    np.testing.assert_array_equal(state["blocks"][0].numpy(), conv0)
+
+
+def test_lm_step_matches_jax(pair):
+    """Three decode steps from a prefill state: logits and states."""
+    jcfg, jparams, cfg, params = pair
+    ids = _ids(2, 3, 8)
+    _, sj = jlm.lm_prefill(jparams, jcfg, jnp.asarray(ids))
+    state = {"blocks": tuple(torch.from_numpy(np.array(a)) for a in sj["blocks"])}
+    for i in range(3):
+        tok = _ids(20 + i, 1, 3)[0]
+        lj, sj = jlm.lm_step(jparams, jcfg, sj, jnp.asarray(tok))
+        lt, state = lm.lm_step(params, cfg, state, torch.from_numpy(tok).long())
+        _close(lt, lj)
+        for a, b in zip(state["blocks"], sj["blocks"]):
+            _close(a, b)
+
+
+def test_pallas_impl_prefill_matches_jax_pallas(pair):
+    """ssm_impl="pallas" on both sides at the smallest shape: JAX runs its
+    kernel in interpret mode, the port its plain version (CPU tensors)."""
+    jcfg, jparams, cfg, params = pair
+    jcfg_p = dataclasses.replace(jcfg, ssm_impl="pallas")
+    cfg_p = dataclasses.replace(cfg, ssm_impl="pallas")
+    ids = _ids(3, 1, 8)
+    lj, sj = jlm.lm_prefill(jparams, jcfg_p, jnp.asarray(ids))
+    lt, st = lm.lm_prefill(params, cfg_p, torch.from_numpy(ids).long())
+    _close(lt, lj)
+    for a, b in zip(st["blocks"], sj["blocks"]):
+        _close(a, b)
