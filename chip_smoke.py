@@ -8,15 +8,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (mamba2-280m: 24 heads, headdim 64,
-   d_state 128), in fp32 with TF32 off and in bf16, and time both;
+   the serving paths' shapes, in fp32 with TF32 off and in bf16, and
+   time both, beside a bound from the bytes and operations the work
+   needs and, for attention, a PyTorch SDPA call on the pre-gathered
+   cache view: ``ssd_fwd`` at mamba2-280m's (24 heads, headdim 64,
+   d_state 128); ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page
+   write + chunk prefill) at hybrid-280m's (12 query / 4 KV heads,
+   head dim 64, pages of 64 tokens, 16 pages per slot) over ragged
+   length mixes, with the written pages compared bit for bit;
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
-   prefill, 300 and 700 the chunked prefill.  The kernels' launch
-   counts are zeroed just before and read just after; every kernel of
-   the path must have launched.  One greedy request's stream must equal
-   the port's solo ``generate()``;
+   prefill, 300 and 700 the chunked prefill; then on a full-width
+   hybrid-280m engine (64 layers, 8 of them attention over the paged
+   KV cache), where every prompt takes the chunked prefill.  Before
+   each run the kernels' launch counts are zeroed, and after it every
+   kernel of that path must have launched.  One greedy request's stream
+   must equal the port's solo ``generate()``, and a hybrid engine must
+   end with no KV page in use;
 4. print the serving numbers, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
@@ -33,6 +42,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -150,14 +160,190 @@ def check_ssd(gen):
     return row
 
 
+# ---------------------------------------------------- paged attention kernels
+
+
+def rel_err(got, ref):
+    err = float((got.float() - ref.float()).abs().max())
+    return err, err / max(float(ref.float().abs().max()), 1e-6)
+
+
+def paged_pool(gen, P, nkv, pg, hd, dtype):
+    shape = (P, nkv, pg, hd)
+    return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
+            torch.randn(shape, generator=gen, device="cuda").to(dtype))
+
+
+def disjoint_table(gen, rows, W, P):
+    """Disjoint per-row pages of [1, P) (the allocator's invariant)."""
+    perm = 1 + torch.randperm(P - 1, generator=gen, device="cuda")[:rows * W]
+    return perm.reshape(rows, W).to(torch.int32)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_rpa(gen):
+    """Paged decode: kernel vs plain over ragged kv_len mixes (0, mid-page,
+    an exact page multiple, a full table); the bf16 hybrid-280m case at
+    8 slots is timed."""
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+
+    cases = [  # (dtype, nh, nkv, pg, W, kv_len of the 8 slots)
+        (torch.float32, 12, 4, 64, 16, [0, 37, 128, 1024, 1, 500, 64, 999]),
+        (torch.bfloat16, 12, 4, 64, 16, [0, 37, 128, 1024, 1, 500, 64, 999]),
+        (torch.float32, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
+        (torch.bfloat16, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
+    ]
+    hd, S, row = 64, 8, None
+    for dtype, nh, nkv, pg, W, lens in cases:
+        P = 1 + S * W
+        kp, vp = paged_pool(gen, P, nkv, pg, hd, dtype)
+        q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
+        tbl = disjoint_table(gen, S, W, P)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, tbl, kv_len)
+        got = ak.ragged_paged_decode_attention(*args)
+        ref = ak.ragged_paged_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        empty = kv_len == 0
+        if not torch.isfinite(got).all() or got[empty].abs().max() != 0:
+            raise SystemExit(f"rpa_fwd: non-finite output or a nonzero empty row ({dtype})")
+        err, rel = rel_err(got[~empty], ref[~empty])
+        print(f"check rpa_fwd {str(dtype)[6:]} S={S} nh={nh} nkv={nkv} pg={pg} W={W} "
+              f"kv_len={lens}: max_abs_err={err:.3e} (rel {rel:.2e}), "
+              f"tol rel {TOL[dtype]:.0e}", flush=True)
+        if rel > TOL[dtype]:
+            raise SystemExit(f"rpa_fwd disagrees with the plain version: rel {rel:.3e}")
+        if dtype is torch.bfloat16 and pg == 64:
+            ms = cuda_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
+            plain_ms = cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10)
+            # yardstick: SDPA over the pre-gathered contiguous view (the
+            # page gather is not timed), heads expanded to nh
+            kk, vv = ak.gather_kv_pages(kp, vp, tbl)
+            kk = kk.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+            vv = vv.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+            mask = (torch.arange(W * pg, device="cuda") < kv_len.clamp(min=1)[:, None])
+            qq = q[:, :, None]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask[:, None, None]), 50)
+            e = torch.finfo(dtype).bits // 8
+            tokens = int(kv_len.sum())
+            nbytes = (2 * tokens * nkv * hd * e + 2 * S * nh * hd * e
+                      + tbl.numel() * 4 + S * 4)
+            bound_ms, bound_by = bound(nbytes, 4 * tokens * nh * hd)
+            print(f"time rpa_fwd bf16 S={S} kv_len={lens}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA on the pre-gathered view (no page gather) "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
+                  f"{4 * tokens * nh * hd} FLOP)", flush=True)
+            row = dict(name="rpa_fwd", route="cuda",
+                       source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
+                       replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:525",
+                       launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return row
+
+
+def check_rpp(gen):
+    """Fused page write + chunk prefill: kernel vs plain over the ragged
+    mixes of tests/test_paged_attention.py (positions scaled by 8 to
+    pages of 64) and the second 256-token chunk of a 700-token prompt
+    (ln = 188, the timed case).  Output rows at real query positions
+    agree within the tolerance; every page but the trash page 0 is
+    bit-identical."""
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+
+    hd = 64
+    mixes = [  # (b, c, nh, nkv, pg, W, lengths, chunk_real)
+        (3, 128, 12, 4, 64, 8, [0, 40, 136], [128, 88, 128]),
+        (3, 128, 12, 4, 64, 8, [0, 72, 0], [0, 128, 56]),
+        (2, 128, 12, 4, 64, 8, [96, 96], [128, 128]),
+        (2, 128, 12, 4, 64, 8, [384, 384], [128, 128]),
+        (2, 128, 4, 1, 128, 4, [24, 160], [128, 128]),
+        (2, 128, 12, 4, 64, 8, [96, 32], [0, 128]),
+        (1, 256, 12, 4, 64, 16, [188], [256]),
+    ]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, c, nh, nkv, pg, W, lens, reals in mixes:
+            P = 1 + b * W
+            kp, vp = paged_pool(gen, P, nkv, pg, hd, dtype)
+            q = torch.randn((b, c, nh, hd), generator=gen, device="cuda").to(dtype)
+            kc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
+            vc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
+            tbl = disjoint_table(gen, b, W, P)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            cr = torch.tensor(reals, dtype=torch.int32, device="cuda")
+            kp2, vp2 = kp.clone(), vp.clone()
+            got, gk, gv = ak.ragged_paged_prefill_attention(q, kc, vc, kp, vp, tbl, ln, cr)
+            ref, rk, rv = ak.ragged_paged_prefill_attention_plain(
+                q, kc, vc, kp2, vp2, tbl, ln, cr)
+            torch.cuda.synchronize()
+            if not (torch.equal(gk[1:], rk[1:]) and torch.equal(gv[1:], rv[1:])):
+                raise SystemExit(f"rpp_fwd wrote pages unlike the plain version "
+                                 f"({dtype}, lengths {lens}, chunk_real {reals})")
+            real = torch.arange(c, device="cuda")[None, :] >= (c - cr)[:, None]
+            if not torch.isfinite(got[real]).all():
+                raise SystemExit(f"rpp_fwd: non-finite output ({dtype}, lengths {lens})")
+            err, rel = rel_err(got[real], ref[real]) if bool(real.any()) else (0.0, 0.0)
+            print(f"check rpp_fwd {str(dtype)[6:]} b={b} c={c} nh={nh} nkv={nkv} pg={pg} "
+                  f"W={W} lengths={lens} chunk_real={reals}: max_abs_err={err:.3e} "
+                  f"(rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; pages bit-identical",
+                  flush=True)
+            if rel > TOL[dtype]:
+                raise SystemExit(f"rpp_fwd disagrees with the plain version: rel {rel:.3e}")
+            if dtype is torch.bfloat16 and c == 256:
+                args = (q, kc, vc, kp, vp, tbl, ln, cr)
+                ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50)
+                plain_ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 10)
+                # yardstick: causal SDPA over the pre-gathered view of
+                # prefix + chunk (no page gather, no page write)
+                total = lens[0] + reals[0]
+                kk, vv = ak.gather_kv_pages(kp, vp, tbl)
+                kk = kk[:, :total].transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
+                vv = vv[:, :total].transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
+                kk, vv = kk.contiguous(), vv.contiguous()
+                qq = q.transpose(1, 2).contiguous()
+                qpos = lens[0] + torch.arange(c, device="cuda")
+                mask = torch.arange(total, device="cuda")[None, :] <= qpos[:, None]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask), 50)
+                e = torch.finfo(dtype).bits // 8
+                kv_row = nkv * hd * e
+                nbytes = (lens[0] * 2 * kv_row      # prefix pages read
+                          + reals[0] * 2 * kv_row   # pages written
+                          + c * 2 * kv_row          # chunk K/V
+                          + 2 * c * nh * hd * e     # q, o
+                          + tbl.numel() * 4 + 8)
+                flops = 4 * nh * hd * sum(p + 1 for p in range(lens[0], total))
+                bound_ms, bound_by = bound(nbytes, flops)
+                print(f"time rpp_fwd bf16 b=1 c=256 lengths={lens} chunk_real={reals}: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+                      f"pre-gathered view (no page gather or write) {library_ms:.4f} ms, "
+                      f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP)",
+                      flush=True)
+                row = dict(name="rpp_fwd", route="cuda",
+                           source="mamba_distributed_tpu_torch/ops/cuda/csrc/"
+                                  "ragged_paged_attention.cu",
+                           replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:722",
+                           launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return row
+
+
 # ------------------------------------------------------------ serving path
 
 
-def serve():
+def serve(preset: str, path_kernels: tuple[str, ...]):
+    """Serve 8 requests on a full-width engine of ``preset``; returns the
+    launch counts of the run.  Every kernel in ``path_kernels`` (keys of
+    ``build.LAUNCHES``) must have launched in it."""
     from mamba_distributed_tpu_torch.config import get_preset
     from mamba_distributed_tpu_torch.inference.generate import generate
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
-    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
     from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
     from mamba_distributed_tpu_torch.serving.prefill import (
         cast_decode_params,
@@ -166,7 +352,8 @@ def serve():
         prefill_chunk,
     )
 
-    cfg = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16")
+    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16")
+    hybrid = bool(cfg.attn_layer_idx)
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
     capacity, new = 8, 32
@@ -187,8 +374,8 @@ def serve():
 
     eng = ServingEngine(params, cfg, capacity=capacity)
     reqs = requests()
-    for k in ssd_kernels.LAUNCHES:
-        ssd_kernels.LAUNCHES[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
     t0 = time.perf_counter()
     ids = [eng.submit(r) for r in reqs]
     tracked = {t.request_id: t for t in eng.scheduler}
@@ -200,7 +387,7 @@ def serve():
         if events and not prefill_pending:
             decode_ticks.append(time.perf_counter() - ts)
     wall = time.perf_counter() - t0
-    launches = dict(ssd_kernels.LAUNCHES)
+    launches = dict(LAUNCHES)
     results = [eng.results[i] for i in ids]
 
     n_tokens = sum(len(r.new_tokens) for r in results)
@@ -208,8 +395,11 @@ def serve():
         if len(r.new_tokens) != new or not (0 <= r.new_tokens.min() and
                                             r.new_tokens.max() < cfg.vocab_size):
             raise SystemExit(f"request {r.request_id}: bad stream {r.new_tokens}")
-    if launches["ssd_fwd"] < 1:
-        raise SystemExit("the serving path launched no ssd_fwd kernel")
+    for k in path_kernels:
+        if launches[k] < 1:
+            raise SystemExit(f"the {preset} serving path launched no {k} kernel")
+    if hybrid and eng.page_pool.pages_in_use:
+        raise SystemExit(f"{eng.page_pool.pages_in_use} KV pages leaked")
     ttft = sorted((tracked[i].t_first_token - tracked[i].t_submit) * 1e3 for i in ids)
 
     solo = generate(params, cfg, torch.from_numpy(prompts[0])[None], seed=0,
@@ -219,27 +409,34 @@ def serve():
         raise SystemExit(f"engine greedy stream {results[0].new_tokens.tolist()} != "
                          f"generate() {solo}")
 
-    # prefill cost per token: one chunked-prefill step (256 tokens, batch 1)
+    # prefill cost per token: the second 256-token chunk step of the
+    # 700-token prompt, batch 1 (a hybrid's pages hold its first 188)
     dparams = cast_decode_params(params, cfg)
     plan = plan_chunks(700, cfg.effective_prefill_chunk_tokens)
     cids, cmask = chunk_inputs(prompts[3], plan, 1, device=eng.device)
-    st = init_lm_state(cfg, 1, device=eng.device)
+    st = init_lm_state(cfg, 1, max_len=cfg.kv_slot_tokens if hybrid else 0,
+                       device=eng.device)
+    if hybrid:
+        st["attn_meta"] = (st["attn_meta"][0],
+                           torch.tensor([plan.real_tokens(0)], dtype=torch.int32,
+                                        device=eng.device))
     with torch.no_grad():
         chunk_ms = cuda_ms(lambda: prefill_chunk(dparams, cids, cmask, st, cfg), 3, 1)
     card = smi()
-    print(f"serve mamba2-280m n_layer={cfg.n_layer} bf16 capacity={capacity}: "
+    print(f"serve {preset} n_layer={cfg.n_layer} bf16 capacity={capacity}: "
           f"{len(reqs)} requests, prompts {lens}, {n_tokens} new tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s [{card}]")
-    print(f"serve TTFT ms: min {ttft[0]:.1f} median {ttft[len(ttft) // 2]:.1f} "
+    print(f"serve {preset} TTFT ms: min {ttft[0]:.1f} median {ttft[len(ttft) // 2]:.1f} "
           f"max {ttft[-1]:.1f} [{card}]")
-    print(f"serve prefill: {chunk_ms / 256:.4f} ms per token "
+    print(f"serve {preset} prefill: {chunk_ms / 256:.4f} ms per token "
           f"(one 256-token chunk step, batch 1: {chunk_ms:.2f} ms) [{card}]")
     if decode_ticks:
         dt = sorted(decode_ticks)
-        print(f"serve decode: {dt[len(dt) // 2] * 1e3:.2f} ms per tick (median of "
+        print(f"serve {preset} decode: {dt[len(dt) // 2] * 1e3:.2f} ms per tick (median of "
               f"{len(dt)} decode-only ticks, {eng.tokens_per_tick} sub-steps x "
               f"{capacity} slots) [{card}]")
-    print(f"serve launches during the run: {launches}; greedy stream == generate(): True")
+    print(f"serve {preset} launches during the run: {launches}; greedy stream == "
+          f"generate(): True" + ("; KV pages in use at the end: 0" if hybrid else ""))
     return launches
 
 
@@ -265,12 +462,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = check_ssd(gen)
+    rows = [check_ssd(gen), check_rpa(gen), check_rpp(gen)]
     if not args.kernels_only:
-        launches = serve()
-        row["launches"] = launches["ssd_fwd"]
+        ssd_launches = serve("mamba2-280m", ("ssd_fwd",))
+        launches = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
+        # each kernel's launches on its own path: the mamba2 run for
+        # ssd_fwd, the hybrid run for the attention kernels
+        for row, n in zip(rows, (ssd_launches["ssd_fwd"], launches["ragged_decode"],
+                                 launches["ragged_prefill"])):
+            row["launches"] = n
     print(smi())
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

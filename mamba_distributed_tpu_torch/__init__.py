@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``mamba_distributed_tpu`` (serving slice).
+"""PyTorch/CUDA port of ``mamba_distributed_tpu`` (serving of Mamba-2 and hybrid stacks).
 
 A second package beside the JAX one: it imports ``torch`` and never
 ``jax``, and nothing of ``mamba_distributed_tpu``.  Module names mirror

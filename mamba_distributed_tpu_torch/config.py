@@ -1,15 +1,17 @@
 """Model configuration of the PyTorch port.
 
-An own copy of the ``ModelConfig`` fields the serving slice reads, with
+An own copy of the ``ModelConfig`` fields the serving path reads, with
 the same names, defaults and validation as
 ``mamba_distributed_tpu/config.py``, so a test can build both configs
-from one keyword dict.  Hybrid attention, MoE, LoRA, quantization and
-mesh knobs are left out; a config the port cannot serve raises at
-construction.
+from one keyword dict.  Pure Mamba-2 stacks and hybrid stacks (attention
+layers at ``attn_layer_idx`` over a paged KV cache) are served; MoE,
+LoRA, quantization and mesh knobs are left out, and a config the port
+cannot serve raises at construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
-means "the hand-written CUDA kernel" here (ops/dispatch.py), and
-``"xla"`` means "the plain PyTorch formulation".
+and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
+kernel" here (ops/dispatch.py), and ``"xla"`` means "the plain PyTorch
+formulation".
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Pure Mamba-2 LM config (same field names as the JAX package)."""
+    """Mamba-2 or hybrid LM config (same field names as the JAX package)."""
 
     d_model: int = 768
     n_layer: int = 64
@@ -52,9 +54,18 @@ class ModelConfig:
     a_init_max: float = 16.0
     d_has_hdim: bool = False
 
-    # empty => pure SSM stack; anything else raises (hybrid serving is a
-    # later slice of the port)
+    # --- hybrid attention layers; empty => pure SSM stack ---
     attn_layer_idx: tuple[int, ...] = ()
+    attn_num_heads: int = 0  # 0 => auto: d_model // 64
+    attn_num_kv_heads: int = 0  # 0 => same as attn_num_heads (MHA)
+    attn_head_dim: int = 0  # 0 => auto: d_model // num_heads
+    # -1 => full head dim; 0 => no rotary
+    attn_rotary_dim: int = -1
+    rope_theta: float = 10000.0
+    # "auto"/"pallas" -> the hand-written ragged paged attention kernels
+    # on a CUDA tensor (the plain versions on a CPU tensor); "xla" -> the
+    # plain versions everywhere
+    attn_impl: str = "auto"
 
     # --- precision policy ---
     compute_dtype: str = "bfloat16"
@@ -74,6 +85,18 @@ class ModelConfig:
     # (serving/engine.py); 0 => unbounded
     prefill_tokens_per_tick: int = 512
 
+    # --- paged attention KV cache (hybrid stacks; models/attention.py,
+    # serving/state_cache.py) ---
+    # tokens per KV page: a positive multiple of 8
+    kv_page_tokens: int = 64
+    # per-request KV budget in the serving pool (prompt + max_new_tokens)
+    kv_slot_tokens: int = 1024
+    # pages in the serving pool; 0 => capacity * kv_pages_per_slot
+    kv_pool_pages: int = 0
+    # "bf16" stores pages in the compute dtype; "int8" raises (it waits
+    # for the port of ops/quant.py)
+    kv_page_dtype: str = "bf16"
+
     def __post_init__(self):
         if self.ssm_layer != "mamba2":
             raise ValueError(
@@ -81,11 +104,7 @@ class ModelConfig:
                 f"{self.ssm_layer!r} (Mamba-1 is a later slice)"
             )
         if self.attn_layer_idx:
-            raise ValueError(
-                "the PyTorch port serves pure Mamba-2 stacks only: "
-                f"attn_layer_idx={self.attn_layer_idx} needs the paged "
-                "attention slice"
-            )
+            self._check_hybrid()
         if self.d_intermediate:
             raise ValueError(
                 "the PyTorch port serves the pure mixer stack only "
@@ -117,6 +136,36 @@ class ModelConfig:
                 f"prefill_tokens_per_tick must be >= 0 (0 => unbounded), "
                 f"got {self.prefill_tokens_per_tick}"
             )
+        if self.attn_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"attn_impl must be 'auto', 'xla' or 'pallas', got "
+                f"{self.attn_impl!r}"
+            )
+        if self.kv_page_tokens < 8 or self.kv_page_tokens % 8:
+            raise ValueError(
+                f"kv_page_tokens must be a positive multiple of 8, got "
+                f"{self.kv_page_tokens}"
+            )
+        if self.kv_slot_tokens < self.kv_page_tokens:
+            raise ValueError(
+                f"kv_slot_tokens={self.kv_slot_tokens} must hold at least "
+                f"one page of kv_page_tokens={self.kv_page_tokens}"
+            )
+        if self.kv_pool_pages < 0:
+            raise ValueError(
+                f"kv_pool_pages must be >= 0 (0 => auto-size from "
+                f"capacity), got {self.kv_pool_pages}"
+            )
+        if self.kv_page_dtype == "int8":
+            raise ValueError(
+                "kv_page_dtype='int8' is not served by the PyTorch port yet: "
+                "int8 KV pages wait for the port of ops/quant.py"
+            )
+        if self.kv_page_dtype != "bf16":
+            raise ValueError(
+                f"kv_page_dtype must be 'bf16' or 'int8', got "
+                f"{self.kv_page_dtype!r}"
+            )
         if self.d_inner % self.headdim:
             raise ValueError(
                 f"d_inner={self.d_inner} must be a multiple of "
@@ -126,6 +175,33 @@ class ModelConfig:
             raise ValueError(
                 f"nheads={self.nheads} must be a multiple of "
                 f"ngroups={self.ngroups}"
+            )
+
+    def _check_hybrid(self) -> None:
+        idx = self.attn_layer_idx
+        if len(set(idx)) != len(idx) or not all(0 <= i < self.n_layer for i in idx):
+            raise ValueError(
+                f"attn_layer_idx={idx} must name distinct layers in "
+                f"[0, n_layer={self.n_layer})"
+            )
+        if self.effective_prefill_chunk_tokens == 0:
+            raise ValueError(
+                "hybrid serving needs chunked prefill: every hybrid prompt "
+                "runs through the chunk step, the one prefill that writes "
+                "into the paged KV cache (the full-sequence attention path "
+                "is not ported); set prefill_chunk_tokens > 0"
+            )
+        nh, nkv = self.effective_attn_num_heads, self.effective_attn_num_kv_heads
+        if nh < 1 or nkv < 1 or nh % nkv:
+            raise ValueError(
+                f"attn_num_heads={nh} must be a positive multiple of "
+                f"attn_num_kv_heads={nkv} (grouped-query attention)"
+            )
+        hd = self.effective_attn_head_dim
+        rot = hd if self.attn_rotary_dim < 0 else self.attn_rotary_dim
+        if rot % 2 or rot > hd:
+            raise ValueError(
+                f"attn_rotary_dim={rot} must be even and <= head dim {hd}"
             )
 
     @property
@@ -162,12 +238,39 @@ class ModelConfig:
             return ((c + self.chunk_size - 1) // self.chunk_size) * self.chunk_size
         return c
 
+    @property
+    def effective_attn_num_heads(self) -> int:
+        return self.attn_num_heads or self.d_model // 64
+
+    @property
+    def effective_attn_num_kv_heads(self) -> int:
+        return self.attn_num_kv_heads or self.effective_attn_num_heads
+
+    @property
+    def effective_attn_head_dim(self) -> int:
+        return self.attn_head_dim or self.d_model // self.effective_attn_num_heads
+
+    @property
+    def kv_pages_per_slot(self) -> int:
+        """Page-table width of one serving slot (ceil of the per-request
+        KV budget in pages)."""
+        return -(-self.kv_slot_tokens // self.kv_page_tokens)
+
 
 # The presets the slice serves (the JAX package's PRESETS, model half).
 PRESETS: dict[str, dict[str, Any]] = {
     "mamba2-tiny": dict(d_model=128, n_layer=4, headdim=32, d_state=64,
                         chunk_size=64, vocab_size=4096),
     "mamba2-280m": dict(d_model=768, n_layer=64),
+    "hybrid-tiny": dict(d_model=128, n_layer=4, headdim=32, d_state=64,
+                        chunk_size=64, vocab_size=4096, attn_layer_idx=(1, 3),
+                        attn_num_heads=4, attn_num_kv_heads=2,
+                        prefill_chunk_tokens=128, kv_page_tokens=32,
+                        kv_slot_tokens=512),
+    # attention every 8th layer from layer 3, GQA 12 query / 4 KV heads
+    "hybrid-280m": dict(d_model=768, n_layer=64,
+                        attn_layer_idx=tuple(range(3, 64, 8)),
+                        attn_num_heads=12, attn_num_kv_heads=4),
 }
 
 

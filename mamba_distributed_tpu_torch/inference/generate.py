@@ -92,6 +92,9 @@ def _decode_params(params: dict, cfg: ModelConfig) -> dict:
 
 
 def _pad_rows(state: dict, logits: torch.Tensor, rows: int):
+    """Pad the decode batch to ``rows`` idle rows: zero carries and
+    logits; for a hybrid, a table row of the trash page 0 and length 0
+    (the idle rows write and read the trash page only)."""
     conv, ssm = state["blocks"]
     b = logits.shape[0]
     if rows == b:
@@ -102,7 +105,15 @@ def _pad_rows(state: dict, logits: torch.Tensor, rows: int):
     pssm[:, :b] = ssm
     plog = logits.new_zeros((rows, logits.shape[1]))
     plog[:b] = logits
-    return {"blocks": (pconv, pssm)}, plog
+    padded = {**state, "blocks": (pconv, pssm)}
+    if "attn_meta" in state:
+        tbl, lengths = state["attn_meta"]
+        ptbl = tbl.new_zeros((rows, tbl.shape[1]))
+        plen = lengths.new_zeros((rows,))
+        ptbl[:b] = tbl
+        plen[:b] = lengths
+        padded["attn_meta"] = (ptbl, plen)
+    return padded, plog
 
 
 def decode_loop(params: dict, cfg: ModelConfig, state: dict, last_logits,
@@ -147,6 +158,10 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     than ``cfg.effective_prefill_chunk_tokens`` prefill chunk by chunk
     through the serving chunk step; shorter ones prefill one-shot over
     their pow2 bucket (``length_bucketing=False`` prefills unpadded).
+    Hybrid prompts of any length take the chunk step
+    (``length_bucketing=False`` raises for them: the full-sequence
+    attention it would need is not ported; the config already refuses a
+    hybrid without chunked prefill).
     ``decode_rows`` pads the decode batch (see the module docstring)."""
     dev = params["embedding"].device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
@@ -158,11 +173,20 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     if not 1 <= top_k <= cfg.vocab_size_padded:
         raise ValueError(f"top_k={top_k} out of range")
     dparams = _decode_params(params, cfg)
-    if length_bucketing and use_chunked_prefill(t, cfg.effective_prefill_chunk_tokens):
+    chunk = cfg.effective_prefill_chunk_tokens
+    hybrid = bool(cfg.attn_layer_idx)
+    if hybrid and not length_bucketing:
+        raise ValueError(
+            "a hybrid prompt prefills through the chunk step only, which needs "
+            "length_bucketing=True (the one-shot full-sequence attention is not "
+            "ported)"
+        )
+    if length_bucketing and (hybrid or use_chunked_prefill(t, chunk)):
         # deferred import: serving imports this module
         from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
 
-        logits, state = chunked_prefill(dparams, cfg, prompt.cpu())
+        logits, state = chunked_prefill(dparams, cfg, prompt.cpu(),
+                                        max_len=t + max_new_tokens if hybrid else 0)
     else:
         if length_bucketing:
             ids, mask = pad_to_bucket(prompt, next_pow2_bucket(t))

@@ -1,4 +1,4 @@
-"""Model stack of the port (pure Mamba-2 LM)."""
+"""Model stack of the port (Mamba-2 and hybrid LMs)."""
 
 from mamba_distributed_tpu_torch.models.lm import (
     init_lm_params,

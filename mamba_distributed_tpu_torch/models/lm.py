@@ -1,6 +1,7 @@
-"""Language model, pure-SSM branch (counterpart of
-``mamba_distributed_tpu/models/lm.py``): embedding -> N prenorm Mamba-2
-blocks -> final norm -> tied head.
+"""Language model (counterpart of ``mamba_distributed_tpu/models/lm.py``):
+embedding -> N prenorm blocks -> final norm -> tied head.  Every block is
+a Mamba-2 mixer, or, in a hybrid stack, an attention mixer at the layers
+``cfg.attn_layer_idx`` over a paged KV cache (models/attention.py).
 
 Parameters are a plain dict that mirrors the JAX ``init_lm_params`` tree
 key for key, with the blocks stacked on a leading layer axis:
@@ -11,11 +12,20 @@ key for key, with the blocks stacked on a leading layer axis:
                           "conv": {"kernel": (L, conv_dim, w), "bias": (L, conv_dim)},
                           "dt_bias": (L, h), "A_log": (L, h), "D": (L, h),
                           "norm": {"weight": (L, d_inner)},
-                          "out_proj": {"kernel": (L, d_inner, d)}}}}
+                          "out_proj": {"kernel": (L, d_inner, d)}}},
+     # hybrid stacks only; "blocks" then stacks the Mamba layers alone
+     "attn_blocks": {"norm": {"weight": (A, d)},
+                     "mixer": {"wqkv": {"kernel": (A, d, (nh + 2 nkv) hd)},
+                               "out_proj": {"kernel": (A, nh hd, d)}}}}
 
-The JAX ``lax.scan`` over stacked layers becomes a Python loop over the
-stacked tensors' per-layer views.  Decode state is
-``{"blocks": (conv (L, b, d_conv-1, conv_dim), ssm (L, b, h, p, n) fp32)}``.
+The JAX ``lax.scan`` over stacked layers (and, for periodic hybrids, its
+scan over supersteps) becomes one Python loop over the layers in global
+order, with a Mamba and an attention counter; it computes the same thing
+in the same order.  Decode state is ``{"blocks": (conv (L, b, d_conv-1,
+conv_dim), ssm (L, b, h, p, n) fp32)}``, plus, for hybrids,
+``"attn_blocks": (k_pages, v_pages)`` each (A, P, nkv, page, hd) and
+``"attn_meta": (page_table (b, W) int32, lengths (b,) int32)``, shared by
+every attention layer.
 """
 
 from __future__ import annotations
@@ -23,6 +33,13 @@ from __future__ import annotations
 import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
+from mamba_distributed_tpu_torch.models.attention import (
+    attention_mixer_chunk,
+    attention_mixer_step,
+    attention_page_meta,
+    init_attention_params,
+    init_attention_state,
+)
 from mamba_distributed_tpu_torch.models.common import mm_f32
 from mamba_distributed_tpu_torch.models.mamba2 import (
     init_mamba2_params,
@@ -41,13 +58,28 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _layer_plan(cfg: ModelConfig) -> list[tuple[bool, int]]:
+    """(is_attention, index in its own stack) for every layer, in order."""
+    attn = set(cfg.attn_layer_idx)
+    plan, mi, ai = [], 0, 0
+    for i in range(cfg.n_layer):
+        if i in attn:
+            plan.append((True, ai))
+            ai += 1
+        else:
+            plan.append((False, mi))
+            mi += 1
+    return plan
+
+
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
                    device=None) -> dict:
     """Full parameter tree (fp32 masters), random from ``generator``."""
-    n = cfg.n_layer
+    n_attn = len(cfg.attn_layer_idx)
+    n = cfg.n_layer - n_attn
     emb = torch.randn((cfg.vocab_size_padded, cfg.d_model), generator=generator,
                       device=device) * cfg.initializer_range
-    return {
+    params = {
         "embedding": emb,
         "norm_f": {"weight": torch.ones((cfg.d_model,), device=device)},
         "blocks": {
@@ -55,6 +87,12 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
             "mixer": init_mamba2_params(cfg, generator, n, device),
         },
     }
+    if n_attn:
+        params["attn_blocks"] = {
+            "norm": {"weight": torch.ones((n_attn, cfg.d_model), device=device)},
+            "mixer": init_attention_params(cfg, generator, n_attn, device),
+        }
+    return params
 
 
 def _embed(params: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -66,13 +104,22 @@ def _residual_dtype(cfg: ModelConfig):
 
 
 def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
-               initial_state=None):
+               initial_state=None, attn: bool = False):
     """One prenorm block with its mixer's decode state:
-    (hidden, residual) -> (hidden, residual, (conv_state, ssm_state))."""
+    (hidden, residual) -> (hidden, residual, state).  A Mamba block's
+    ``initial_state``/state is ``(conv_state, ssm_state)``; an attention
+    block (``attn=True``, chunked prefill only) takes ``((k_pages,
+    v_pages), page_table, lengths)`` and returns the pages, written in
+    place."""
     normed, residual = add_rms_norm(
         hidden, residual, bp["norm"]["weight"], cfg.norm_eps,
         residual_dtype=_residual_dtype(cfg),
     )
+    if attn:
+        kv, page_table, lengths = initial_state
+        hidden, state = attention_mixer_chunk(bp["mixer"], cfg, normed, kv, page_table,
+                                              lengths, token_mask=token_mask)
+        return hidden, residual, state
     ics, iss = (None, None) if initial_state is None else initial_state
     hidden, state = mamba2_mixer(
         bp["mixer"], cfg, normed, initial_conv_state=ics,
@@ -102,7 +149,15 @@ def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     every layer's decode state.  ``token_mask`` (b, t) marks left-padded
     bucketed prompts (inference/bucketing.py).
 
-    Returns (last_logits (b, V) fp32, {"blocks": (conv, ssm)})."""
+    Returns (last_logits (b, V) fp32, {"blocks": (conv, ssm)}).  Pure
+    Mamba-2 stacks only: a hybrid prompt prefills through the chunk step
+    (``lm_prefill_chunk``), since the full-sequence attention is not
+    ported."""
+    if cfg.attn_layer_idx:
+        raise ValueError(
+            "lm_prefill is the pure-SSM one-shot prefill; hybrid prompts "
+            "prefill through lm_prefill_chunk (serving/prefill.py)"
+        )
     cd = cfg.torch_compute_dtype
     hidden = _embed(params, input_ids, cd)
     residual = torch.zeros_like(hidden, dtype=_residual_dtype(cfg))
@@ -117,27 +172,50 @@ def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,
                     token_mask=None):
-    """Embed -> carry-threaded layer stack -> (hidden, residual, state')."""
+    """Embed -> carry-threaded layer stack -> (hidden, residual, state').
+    Hybrid stacks write each attention layer's pages in place and
+    advance ``lengths`` by the chunk's real tokens."""
     cd = cfg.torch_compute_dtype
     hidden = _embed(params, input_ids, cd)
     residual = torch.zeros_like(hidden, dtype=_residual_dtype(cfg))
     conv, ssm = state["blocks"]
+    mblocks = _unstack(params["blocks"], conv.shape[0])
     states = []
-    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layer)):
-        hidden, residual, st = _block_fwd(
-            bp, cfg, hidden, residual, token_mask=token_mask,
-            initial_state=(conv[i], ssm[i]),
-        )
-        states.append(st)
-    return hidden, residual, {"blocks": _stack_states(states)}
+    if cfg.attn_layer_idx:
+        ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
+        k_all, v_all = state["attn_blocks"]
+        tbl, lengths = state["attn_meta"]
+    for attn, j in _layer_plan(cfg):
+        if attn:
+            hidden, residual, _ = _block_fwd(
+                ablocks[j], cfg, hidden, residual, token_mask=token_mask,
+                initial_state=((k_all[j], v_all[j]), tbl, lengths), attn=True,
+            )
+        else:
+            hidden, residual, st = _block_fwd(
+                mblocks[j], cfg, hidden, residual, token_mask=token_mask,
+                initial_state=(conv[j], ssm[j]),
+            )
+            states.append(st)
+    new_state = {"blocks": _stack_states(states)}
+    if cfg.attn_layer_idx:
+        b, c = input_ids.shape
+        n_real = (torch.full((b,), c, dtype=torch.int32, device=lengths.device)
+                  if token_mask is None
+                  else (token_mask > 0.5).sum(dim=1).to(torch.int32))
+        new_state["attn_blocks"] = (k_all, v_all)
+        new_state["attn_meta"] = (tbl, lengths + n_real)
+    return hidden, residual, new_state
 
 
 def lm_prefill_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                      state: dict, token_mask: torch.Tensor | None = None):
     """Resumable prefill of one chunk: every layer's mixer starts from
     ``state`` (what ``init_lm_state`` or a previous chunk produced).
-    Returns (last_logits (b, V) fp32, new state); ``state`` is not
-    modified."""
+    Returns (last_logits (b, V) fp32, new state).  The conv and SSM
+    carries of ``state`` are not modified; a hybrid stack's KV pages are
+    written IN PLACE (the new state holds the same page tensors) and its
+    lengths advance by the chunk's real tokens."""
     hidden, residual, new_state = _chunk_backbone(params, cfg, input_ids,
                                                   state, token_mask)
     logits = _final_logits(params, cfg, hidden[:, -1:], residual[:, -1:])
@@ -145,38 +223,75 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def init_lm_blocks_state(cfg: ModelConfig, batch: int, device=None):
-    """Layer-stacked zero conv+SSM decode states."""
+    """Layer-stacked zero conv+SSM decode states of the Mamba layers (in a
+    hybrid stack the attention layers' KV lives in the paged cache)."""
     cs, ss = init_mamba2_state(cfg, batch, device)
-    n = cfg.n_layer
+    n = cfg.n_layer - len(cfg.attn_layer_idx)
     return (cs[None].repeat(n, *([1] * cs.ndim)),
             ss[None].repeat(n, *([1] * ss.ndim)))
 
 
-def init_lm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    return {"blocks": init_lm_blocks_state(cfg, batch, device)}
+def init_lm_state(cfg: ModelConfig, batch: int, max_len: int = 0,
+                  device=None) -> dict:
+    """Zero decode state.  Hybrid stacks add a private paged KV cache
+    sized for ``max_len`` tokens per row (identity page table, zero
+    lengths), one page pool per attention layer."""
+    state = {"blocks": init_lm_blocks_state(cfg, batch, device)}
+    if cfg.attn_layer_idx:
+        n_attn = len(cfg.attn_layer_idx)
+        k, v = init_attention_state(cfg, batch, max_len, device)
+        state["attn_blocks"] = (k[None].repeat(n_attn, *([1] * k.ndim)),
+                                v[None].repeat(n_attn, *([1] * v.ndim)))
+        state["attn_meta"] = attention_page_meta(cfg, batch, max_len, device)
+    return state
 
 
-def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, conv, ssm):
-    """One decode-step block; ``conv``/``ssm`` are updated in place."""
+def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None):
+    """One decode-step block; its state ``st`` is updated in place.  A
+    Mamba block's ``st`` is ``(conv, ssm)``; an attention block's is
+    ``(k_pages, v_pages)`` with ``attn_ctx = (page_table, lengths,
+    write_mask)``."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm"]["weight"],
                                     cfg.norm_eps)
-    hidden, _ = mamba2_mixer_step(bp["mixer"], cfg, normed, conv, ssm)
+    if attn_ctx is not None:
+        hidden, _ = attention_mixer_step(bp["mixer"], cfg, normed, st, *attn_ctx)
+    else:
+        hidden, _ = mamba2_mixer_step(bp["mixer"], cfg, normed, *st)
     return hidden, residual
 
 
-def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor):
+def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
+            write_mask: torch.Tensor | None = None):
     """One decode step: token (b,) -> (logits (b, V) fp32, state).
 
-    The state is updated IN PLACE (each layer's conv cache and SSM state
-    are overwritten in the caller's tensors) and returned: decode state
-    is the largest thing a decode step touches, and a functional update
-    would copy all of it every token."""
+    The state is updated IN PLACE (each layer's conv cache and SSM state,
+    and a hybrid's KV pages, are overwritten in the caller's tensors):
+    decode state is the largest thing a decode step touches, and a
+    functional update would copy all of it every token.  A hybrid's
+    ``lengths`` advance by one per row (by ``write_mask`` when given: its
+    masked rows write the trash page and keep their length) in a new
+    ``attn_meta`` of the returned state dict."""
     cd = cfg.torch_compute_dtype
     hidden = _embed(params, token, cd)
     residual = torch.zeros_like(hidden, dtype=torch.float32)
     conv, ssm = state["blocks"]
-    for i, bp in enumerate(_unstack(params["blocks"], cfg.n_layer)):
-        hidden, residual = _block_step(bp, cfg, hidden, residual, conv[i], ssm[i])
+    mblocks = _unstack(params["blocks"], conv.shape[0])
+    if cfg.attn_layer_idx:
+        ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
+        k_all, v_all = state["attn_blocks"]
+        tbl, lengths = state["attn_meta"]
+        attn_ctx = (tbl, lengths, write_mask)
+    for attn, j in _layer_plan(cfg):
+        if attn:
+            hidden, residual = _block_step(ablocks[j], cfg, hidden, residual,
+                                           (k_all[j], v_all[j]), attn_ctx)
+        else:
+            hidden, residual = _block_step(mblocks[j], cfg, hidden, residual,
+                                           (conv[j], ssm[j]))
     normed, _ = add_rms_norm(hidden, residual, params["norm_f"]["weight"],
                              cfg.norm_eps)
-    return mm_f32(normed.to(cd), params["embedding"].to(cd).t()), state
+    logits = mm_f32(normed.to(cd), params["embedding"].to(cd).t())
+    if cfg.attn_layer_idx:
+        adv = 1 if write_mask is None else write_mask.to(lengths.dtype)
+        state = {**state, "attn_meta": (tbl, lengths + adv)}
+    return logits, state

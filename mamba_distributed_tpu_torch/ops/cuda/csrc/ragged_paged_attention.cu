@@ -1,0 +1,368 @@
+// Ragged paged attention over the head-major KV page pool, hand-written for
+// Hopper (sm_90a): the decode step (rpa_fwd) and the fused chunk write +
+// chunk prefill (rpp_fwd).
+//
+// rpa_fwd replaces the TPU kernel _rpa_kernel
+// (mamba_distributed_tpu/ops/pallas/attention_kernels.py:525, launched by
+// ragged_paged_decode_attention at :675); rpp_fwd replaces _rpp_kernel
+// (:722, launched by ragged_paged_prefill_attention at :969).  Both take
+// bf16 or fp32 pages; the int8 branches of the TPU kernels are not here.
+//
+// Layouts (the JAX package's): pages (P, nkv, pg, hd), page 0 the trash
+// page; page_table (b, W) int32; per-row lengths int32.  Query head
+// g * rep + e reads KV head g (rep = nh / nkv).
+//
+// Decode, per (slot s, KV head g): the rep query rows attend keys
+// [0, kv_len[s]) read through page_table[s, j] for j < ceil(kv_len / pg).
+// Prefill, per row r with pad = c - chunk_real[r], ln = lengths[r] and
+// total = ln + chunk_real[r]: chunk row i >= pad is written to absolute
+// position ln + i - pad, then query i (position max(ln + i - pad, 0))
+// attends keys kpos <= qpos with kpos < total, as the pool holds them
+// after the write.  A page written by one CTA must not be read by another
+// in the same launch, so the write and the attend are two kernels, launched
+// in that order on one stream.  The write touches only the pages the row's
+// table names for its real tokens (never page 0, never another row's page:
+// row tables are disjoint by the allocator's invariant).
+//
+// Numerics follow the TPU kernels: scores q.k^T * (1/sqrt(hd)) in fp32;
+// online softmax (m, den, acc) in fp32, with the exp and the rescale
+// guarded where m = -inf; p rounded to V's dtype before the PV product;
+// out = acc / max(den, 1e-30), so a row with nothing to read emits zeros.
+// Products of two bf16 values are exact in fp32, so a bf16 result differs
+// from the plain PyTorch version only by summation order.
+//
+// Design.  One CTA of 256 threads per (slot, KV head) for decode, and per
+// (row, KV head, tile of 64 query rows) for prefill (query rows are the
+// (chunk position, GQA rep) pairs in the TPU kernel's order i * rep + e).
+// The page walk reads keys in blocks of at most 64 tokens that never cross
+// a page; each block's K and V land in shared memory as fp32 (rows padded
+// to hd + 1 floats, so neither the score nor the PV loop has bank
+// conflicts), and the walk stops at the tile's own largest query position.
+// Scores, row statistics and the accumulator stay in shared memory.  The
+// products are CUDA-core fp32 FMAs.
+//
+// Bound on the H100.  Decode reads each live K/V token once (2 * nkv * hd
+// elements) for 4 * nh * hd operations: about 3 operations per byte in
+// bf16, far below the card's ~295, so the least time is the live pages'
+// bytes over 3.35 TB/s.  A 256-token prefill chunk at hybrid-280m does
+// about 4 * nh * hd * sum(qpos + 1) operations against the pages it reads:
+// a few hundred operations per byte, near the ridge.  This first version
+// is far from either bound: it uses no tensor cores, one CTA per (slot,
+// KV head) walks every page of a decode row alone, and a batch-1 chunk
+// launches 48 attend CTAs on 132 SMs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kRows = 64;      // query rows per prefill CTA
+constexpr int kKeys = 64;      // keys per block of the page walk
+constexpr int kMaxHeadDim = 128;
+constexpr int kMaxRep = 64;    // query heads per KV head (decode rows per CTA)
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as astype(bfloat16)
+}
+
+// round an fp32 value to T and back (p is rounded to V's dtype for PV)
+template <typename T> __device__ __forceinline__ float rnd(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+// bytes of dynamic shared memory for `rows` query rows of head dim hd
+__host__ __device__ inline size_t smem_bytes(int rows, int hd) {
+  const size_t hp = size_t(hd) + 1;
+  return size_t(rows) * (2 * sizeof(long long) + sizeof(int)) +
+         sizeof(float) * (rows * hp + 2 * kKeys * hp + size_t(rows) * kKeys +
+                          size_t(rows) * hd + 3 * size_t(rows));
+}
+
+struct Smem {
+  long long* q_off;  // element offset of each query row in q
+  long long* o_off;  // element offset of each output row
+  int* qpos;         // absolute position of each query row
+  float *Q, *K, *V, *S, *acc, *m, *den, *scale;
+};
+
+__device__ inline Smem carve(char* base, int rows, int hd) {
+  Smem sm;
+  const int hp = hd + 1;
+  sm.q_off = reinterpret_cast<long long*>(base);
+  sm.o_off = sm.q_off + rows;
+  sm.qpos = reinterpret_cast<int*>(sm.o_off + rows);
+  sm.Q = reinterpret_cast<float*>(sm.qpos + rows);
+  sm.K = sm.Q + rows * hp;
+  sm.V = sm.K + kKeys * hp;
+  sm.S = sm.V + kKeys * hp;
+  sm.acc = sm.S + rows * kKeys;
+  sm.m = sm.acc + rows * hd;
+  sm.den = sm.m + rows;
+  sm.scale = sm.den + rows;
+  return sm;
+}
+
+// The shared body: `nrows` query rows (offsets and positions already in
+// sm) of KV head `g` attend keys [0, walk_end) of one row's pages,
+// masked to kpos <= qpos and kpos < n_keys.
+template <typename T>
+__device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __restrict__ out,
+                       const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+                       const int* __restrict__ tbl_row, int nkv, int g, int pg, int hd,
+                       int n_keys, int walk_end, float sm_scale) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hp = hd + 1;
+  for (int e = tid; e < nrows * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    sm.Q[r * hp + d] = to_f<T>(q[sm.q_off[r] + d]);
+    sm.acc[r * hd + d] = 0.f;
+  }
+  for (int r = tid; r < nrows; r += kThreads) {
+    sm.m[r] = -CUDART_INF_F;
+    sm.den[r] = 0.f;
+  }
+  __syncthreads();
+
+  for (int k0 = 0; k0 < walk_end;) {
+    // one block of keys inside one page
+    const int j = k0 / pg, t0 = k0 % pg;
+    const int nk = min(kKeys, min(pg - t0, walk_end - k0));
+    const long long base = ((long long)tbl_row[j] * nkv + g) * pg * hd + (long long)t0 * hd;
+    for (int e = tid; e < nk * hd; e += kThreads) {
+      const int t = e / hd, d = e % hd;
+      sm.K[t * hp + d] = to_f<T>(k_pages[base + e]);
+      sm.V[t * hp + d] = to_f<T>(v_pages[base + e]);
+    }
+    __syncthreads();
+
+    for (int e = tid; e < nrows * nk; e += kThreads) {
+      const int r = e / nk, t = e % nk;
+      const int kpos = k0 + t;
+      float s = -CUDART_INF_F;
+      if (kpos <= sm.qpos[r] && kpos < n_keys) {
+        const float* qr = sm.Q + r * hp;
+        const float* kt = sm.K + t * hp;
+        float dot = 0.f;
+        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kt[d], dot);
+        s = dot * sm_scale;
+      }
+      sm.S[r * kKeys + t] = s;
+    }
+    __syncthreads();
+
+    // online softmax statistics, one warp per row
+    for (int r = warp; r < nrows; r += kThreads / 32) {
+      float* srow = sm.S + r * kKeys;
+      float mx = -CUDART_INF_F;
+      for (int t = lane; t < nk; t += 32) mx = fmaxf(mx, srow[t]);
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = sm.m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < nk; t += 32) {
+        const float s = srow[t];
+        const float p = s > -CUDART_INF_F ? expf(s - m_new) : 0.f;
+        srow[t] = p;
+        sum += p;
+      }
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float sc = m_prev > -CUDART_INF_F ? expf(m_prev - m_new) : 0.f;
+        sm.scale[r] = sc;
+        sm.den[r] = sm.den[r] * sc + sum;
+        sm.m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int e = tid; e < nrows * hd; e += kThreads) {
+      const int r = e / hd, d = e % hd;
+      const float* prow = sm.S + r * kKeys;
+      float a = sm.acc[e] * sm.scale[r];
+      for (int t = 0; t < nk; ++t) a = fmaf(rnd<T>(prow[t]), sm.V[t * hp + d], a);
+      sm.acc[e] = a;
+    }
+    __syncthreads();
+    k0 += nk;
+  }
+
+  for (int e = tid; e < nrows * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
+    out[sm.o_off[r] + d] = from_f<T>(sm.acc[e] / fmaxf(sm.den[r], 1e-30f));
+  }
+}
+
+struct DecodeParams {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* table;
+  const int* kv_len;
+  void* out;
+  int nh, nkv, hd, pg, W;
+  long long q_ss, q_sh;
+  float sm_scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rpa_fwd_kernel(DecodeParams p) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int g = blockIdx.x, s = blockIdx.y;
+  const int rep = p.nh / p.nkv;
+  const Smem sm = carve(smem_raw, rep, p.hd);
+  const int kv_len = min(p.kv_len[s], p.W * p.pg);
+  for (int e = threadIdx.x; e < rep; e += kThreads) {
+    const int head = g * rep + e;
+    sm.q_off[e] = s * p.q_ss + head * p.q_sh;
+    sm.o_off[e] = ((long long)s * p.nh + head) * p.hd;
+    sm.qpos[e] = kv_len - 1;
+  }
+  __syncthreads();
+  attend<T>(sm, rep, static_cast<const T*>(p.q), static_cast<T*>(p.out),
+            static_cast<const T*>(p.k_pages), static_cast<const T*>(p.v_pages),
+            p.table + (long long)s * p.W, p.nkv, g, p.pg, p.hd, kv_len, max(kv_len, 0),
+            p.sm_scale);
+}
+
+struct PrefillParams {
+  const void* q;
+  const void* k_chunk;
+  const void* v_chunk;
+  void* k_pages;
+  void* v_pages;
+  const int* table;
+  const int* lengths;
+  const int* chunk_real;
+  void* out;
+  int c, nh, nkv, hd, pg, W, P;
+  long long q_sb, q_st, q_sh, kc_sb, kc_st, kc_sh, vc_sb, vc_st, vc_sh;
+  float sm_scale;
+};
+
+// the fused write: chunk row i of row r (grid (c, b)) into its page cell
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rpp_write_kernel(PrefillParams p) {
+  const int i = blockIdx.x, r = blockIdx.y;
+  const int pad = p.c - p.chunk_real[r];
+  if (i < pad) return;  // left pad: never written
+  const int pos = p.lengths[r] + i - pad;
+  if (pos >= p.W * p.pg) return;  // past the row's table: no page owns it
+  const int phys = p.table[(long long)r * p.W + pos / p.pg];
+  if (phys <= 0 || phys >= p.P) return;  // trash or outside the pool
+  const int off = pos % p.pg;
+  const T* kc = static_cast<const T*>(p.k_chunk) + r * p.kc_sb + i * p.kc_st;
+  const T* vc = static_cast<const T*>(p.v_chunk) + r * p.vc_sb + i * p.vc_st;
+  T* kp = static_cast<T*>(p.k_pages);
+  T* vp = static_cast<T*>(p.v_pages);
+  for (int e = threadIdx.x; e < p.nkv * p.hd; e += kThreads) {
+    const int h = e / p.hd, d = e % p.hd;
+    const long long dst = (((long long)phys * p.nkv + h) * p.pg + off) * p.hd + d;
+    kp[dst] = kc[h * p.kc_sh + d];
+    vp[dst] = vc[h * p.vc_sh + d];
+  }
+}
+
+// the attend: grid (query tiles, nkv, b)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rpp_attend_kernel(PrefillParams p) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int tile = blockIdx.x, g = blockIdx.y, r = blockIdx.z;
+  const int rep = p.nh / p.nkv;
+  const Smem sm = carve(smem_raw, kRows, p.hd);
+  const int ln = p.lengths[r], creal = p.chunk_real[r];
+  const int pad = p.c - creal;
+  const int total = min(ln + creal, p.W * p.pg);
+  const int s0 = tile * kRows;
+  const int nrows = min(kRows, p.c * rep - s0);
+  for (int k = threadIdx.x; k < nrows; k += kThreads) {
+    const int srow = s0 + k, i = srow / rep, head = g * rep + srow % rep;
+    sm.q_off[k] = r * p.q_sb + i * p.q_st + head * p.q_sh;
+    sm.o_off[k] = (((long long)r * p.c + i) * p.nh + head) * p.hd;
+    sm.qpos[k] = max(ln + i - pad, 0);
+  }
+  __syncthreads();
+  // this tile's page walk stops at its own largest query position
+  const int qpos_max = max(ln + (s0 + nrows - 1) / rep - pad, 0);
+  const int walk_end = min(total, qpos_max + 1);
+  attend<T>(sm, nrows, static_cast<const T*>(p.q), static_cast<T*>(p.out),
+            static_cast<const T*>(p.k_pages), static_cast<const T*>(p.v_pages),
+            p.table + (long long)r * p.W, p.nkv, g, p.pg, p.hd, total, walk_end, p.sm_scale);
+}
+
+template <typename T>
+cudaError_t launch_decode(const DecodeParams& p, int S, cudaStream_t stream) {
+  const int rep = p.nh / p.nkv;
+  const size_t smem = smem_bytes(rep, p.hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      rpa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  rpa_fwd_kernel<T><<<dim3(p.nkv, S), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_prefill(const PrefillParams& p, int b, cudaStream_t stream) {
+  const int rep = p.nh / p.nkv;
+  rpp_write_kernel<T><<<dim3(p.c, b), kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(kRows, p.hd);
+  err = cudaFuncSetAttribute(rpp_attend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.c * rep + kRows - 1) / kRows;
+  rpp_attend_kernel<T><<<dim3(tiles, p.nkv, b), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool shape_ok(int nh, int nkv, int hd, int pg) {
+  return nkv > 0 && nh % nkv == 0 && nh / nkv <= kMaxRep && hd > 0 && hd <= kMaxHeadDim &&
+         pg > 0;
+}
+
+}  // namespace
+
+// Limits the library is built for; the Python wrapper checks the same
+// ones first and names the shape it refuses.
+extern "C" int mdt_rpa_max_rep() { return kMaxRep; }
+extern "C" int mdt_rpa_max_head_dim() { return kMaxHeadDim; }
+
+// Returns a cudaError_t (0 on success).  dtype: 0 = float32, 1 = bfloat16.
+extern "C" int mdt_rpa_fwd(const void* q, const void* k_pages, const void* v_pages,
+                           const int* table, const int* kv_len, void* out, int S, int nh,
+                           int nkv, int hd, int pg, int W, long long q_ss, long long q_sh,
+                           float sm_scale, int dtype, void* stream) {
+  if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  DecodeParams p{q, k_pages, v_pages, table, kv_len, out, nh, nkv, hd, pg, W, q_ss, q_sh,
+                 sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_decode<__nv_bfloat16>(p, S, s) : launch_decode<float>(p, S, s));
+}
+
+extern "C" int mdt_rpp_fwd(const void* q, const void* k_chunk, const void* v_chunk,
+                           void* k_pages, void* v_pages, const int* table, const int* lengths,
+                           const int* chunk_real, void* out, int b, int c, int nh, int nkv,
+                           int hd, int pg, int W, int P, long long q_sb, long long q_st,
+                           long long q_sh, long long kc_sb, long long kc_st, long long kc_sh,
+                           long long vc_sb, long long vc_st, long long vc_sh, float sm_scale,
+                           int dtype, void* stream) {
+  if (!shape_ok(nh, nkv, hd, pg) || b < 1 || c < 1 || W < 1 || P < 1)
+    return (int)cudaErrorInvalidValue;
+  PrefillParams p{q,     k_chunk, v_chunk, k_pages, v_pages, table, lengths, chunk_real,
+                  out,   c,       nh,      nkv,     hd,      pg,    W,       P,
+                  q_sb,  q_st,    q_sh,    kc_sb,   kc_st,   kc_sh, vc_sb,   vc_st,
+                  vc_sh, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 1 ? launch_prefill<__nv_bfloat16>(p, b, s)
+                          : launch_prefill<float>(p, b, s));
+}

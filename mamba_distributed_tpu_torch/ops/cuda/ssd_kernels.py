@@ -7,8 +7,9 @@ states what bounds it on the card and what its design does about that.
 
 ``ssd_chunked_kernel`` on a CPU tensor runs the plain ``ops/ssd.py``
 formulation (the CPU tests); on a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` counts the kernel launches, so a run can show that
-its main path went through the kernel.
+raises.  ``LAUNCHES`` (shared by every kernel of the port, ``build.py``)
+counts the kernel launches, so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -19,10 +20,9 @@ import functools
 import torch
 
 from mamba_distributed_tpu_torch.ops.cuda import build
+from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
 from mamba_distributed_tpu_torch.ops.ssd import _add_D, _divisor_chunk, ssd_chunked
-
-LAUNCHES = {"ssd_fwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

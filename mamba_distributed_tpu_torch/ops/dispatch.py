@@ -5,9 +5,13 @@ Counterpart of ``mamba_distributed_tpu/ops/pallas/common.py``
 on a TPU and interpreted elsewhere.  Here:
 
 * ``impl="xla"``: the plain PyTorch version, on any device;
-* ``impl="pallas"`` and a CUDA tensor: the hand-written kernel.  It
-  launches or it raises; nothing falls back to the plain version;
-* ``impl="pallas"`` and a CPU tensor: the plain version (the CPU tests).
+* ``impl="pallas"`` (or ``"auto"``, which ``attn_impl`` defaults to) and
+  a CUDA tensor: the hand-written kernel.  It launches or it raises;
+  nothing falls back to the plain version;
+* ``impl="pallas"``/``"auto"`` and a CPU tensor: the plain version (the
+  CPU tests).
+
+``cfg.ssm_impl`` and ``cfg.attn_impl`` both go through this rule.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ def use_kernel(impl: str, x: torch.Tensor) -> bool:
     """True when ``x`` must go through the hand-written CUDA kernel."""
     if impl == "xla":
         return False
-    if impl != "pallas":
-        raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+    if impl not in ("pallas", "auto"):
+        raise ValueError(f"impl must be 'xla', 'pallas' or 'auto', got {impl!r}")
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":

@@ -1,12 +1,14 @@
 """Where the serving path's time goes on the card.
 
-    python3 -m mamba_distributed_tpu_torch.profile_serving
+    python3 -m mamba_distributed_tpu_torch.profile_serving [PRESET ...]
 
-Builds the full-width mamba2-280m ``ServingEngine`` (bf16,
-``ssm_impl="pallas"``, random weights from a seeded generator, capacity
-8), fills every slot, and traces with ``torch.profiler`` (a) one
-decode-only engine step (``tokens_per_tick`` sub-steps over 8 slots) and
-(b) one 256-token chunked-prefill step at batch 1.  For each it prints
+For each preset (default: mamba2-280m and hybrid-280m), builds the
+full-width ``ServingEngine`` (bf16, ``ssm_impl="pallas"``, random weights
+from a seeded generator, capacity 8), fills every slot, and traces with
+``torch.profiler`` (a) one decode-only engine step (``tokens_per_tick``
+sub-steps over 8 slots) and (b) one 256-token chunked-prefill step at
+batch 1 (for a hybrid, the second chunk of a 700-token prompt, after 188
+cached tokens).  For each it prints
 the host wall time, the device busy time (sum of kernel times on the one
 stream), the busy share, the kernel launch count and the kernels that
 take the most device time, beside the card's name and power limit.
@@ -14,6 +16,7 @@ take the most device time, beside the card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -53,11 +56,9 @@ def _report(label: str, prof, wall_s: float, card: str, top: int = 8) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serving needs a CUDA device")
-    card = _card()
-    cfg = get_preset("mamba2-280m", ssm_impl="pallas")
+def profile_preset(preset: str, card: str) -> None:
+    cfg = get_preset(preset, ssm_impl="pallas")
+    hybrid = bool(cfg.attn_layer_idx)
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
     rng = np.random.default_rng(0)
@@ -66,22 +67,30 @@ def main() -> int:
         eng.submit(GenerationRequest(prompt_ids=rng.integers(0, cfg.vocab_size, 12),
                                      max_new_tokens=64, seed=i))
     eng.step()  # admissions + first tick: warm-up
+    while eng.scheduler.depth or eng._prefill_queue:
+        eng.step()  # a hybrid's prompts all take the chunk budget
     t0 = time.perf_counter()
     eng.step()
     torch.cuda.synchronize()
-    print(f"decode tick without the profiler: wall "
+    print(f"{preset} decode tick without the profiler: wall "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms [{card}]")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()  # decode only: every slot is decoding
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"decode tick ({eng.tokens_per_tick} sub-steps x 8 slots)", prof, wall, card)
+    _report(f"{preset} decode tick ({eng.tokens_per_tick} sub-steps x 8 slots)", prof,
+            wall, card)
 
     dparams = cast_decode_params(params, cfg)
     plan = plan_chunks(700, cfg.effective_prefill_chunk_tokens)
     ids, mask = chunk_inputs(rng.integers(0, cfg.vocab_size, 700), plan, 1, device="cuda")
-    state = init_lm_state(cfg, 1, device="cuda")
+    state = init_lm_state(cfg, 1, max_len=cfg.kv_slot_tokens if hybrid else 0,
+                          device="cuda")
+    if hybrid:
+        state["attn_meta"] = (state["attn_meta"][0],
+                              torch.tensor([plan.real_tokens(0)], dtype=torch.int32,
+                                           device="cuda"))
     with torch.no_grad():
         prefill_chunk(dparams, ids, mask, state, cfg)
         torch.cuda.synchronize()
@@ -90,7 +99,18 @@ def main() -> int:
             prefill_chunk(dparams, ids, mask, state, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _report("chunked-prefill step (256 tokens, batch 1)", prof, wall, card)
+    _report(f"{preset} chunked-prefill step (256 tokens, batch 1)", prof, wall, card)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("presets", nargs="*", default=["mamba2-280m", "hybrid-280m"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA device")
+    card = _card()
+    for preset in args.presets:
+        profile_preset(preset, card)
     return 0
 
 

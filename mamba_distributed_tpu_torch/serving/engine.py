@@ -6,7 +6,15 @@ prompts up to ``cfg.effective_prefill_chunk_tokens`` prefill one-shot
 over their pow2 bucket right there; longer ones park a zero carry in
 their slot and prefill chunk by chunk, at most
 ``prefill_tokens_per_tick`` chunk tokens per step (at least one chunk),
-round-robin across concurrent long prompts.  Then one tick advances
+round-robin across concurrent long prompts.
+
+Hybrid stacks (attention layers over a paged KV cache) prefill EVERY
+prompt chunk by chunk, straight into the shared page pool.  Admission
+reserves the pages of the whole request (prompt + ``max_new_tokens``)
+up front; while the pool is short the request waits at the head of the
+queue, so nothing runs out of pages mid-flight.  The engine keeps each
+slot's page-table row and KV length on the host; eviction frees the
+slot's pages and points its row at the trash page.  Then one tick advances
 every decodable slot by ``tokens_per_tick`` tokens: a loop of sub-steps
 at the fixed slot count S (sample, then ``lm_step`` over all S rows).
 Slots mid-prefill are held out of the tick: they sample nothing and
@@ -23,9 +31,10 @@ depends on (seed, i) alone (inference/generate.step_uniform); and the
 decode step runs at the same row count S on both sides, where each
 row's arithmetic is independent of the other rows' values.
 
-Left out of the port for now: prefix cache, adapters, speculative
-decoding, preemption and priorities, migration, tick compaction,
-meshes, paged KV (hybrid stacks), metrics and the tracer.
+Left out of the port for now: prefix cache and copy-on-write pages,
+adapters, speculative decoding, preemption and priorities, migration,
+tick compaction, meshes and sharded page pools, int8 KV pages, metrics
+and the tracer.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from mamba_distributed_tpu_torch.inference.generate import (
     top_k_sample,
     vocab_pad_mask,
 )
+from mamba_distributed_tpu_torch.models.attention import attention_page_count
 from mamba_distributed_tpu_torch.models.lm import (
     init_lm_blocks_state,
     lm_prefill,
@@ -76,7 +86,7 @@ class ServingEngine:
     Args:
       params: fp32 master params (``models/lm.init_lm_params`` layout),
         moved to ``device`` and cast once to the decode layout here.
-      cfg: a pure Mamba-2 ``ModelConfig``.
+      cfg: a Mamba-2 or hybrid ``ModelConfig``.
       capacity: slot count S, the max concurrent requests.
       max_top_k: top-k width of the sampler; a request's ``top_k`` may
         be anything in [1, max_top_k] (rows mask past their own k).
@@ -113,6 +123,14 @@ class ServingEngine:
         self.prefill_tokens_per_tick = prefill_tokens_per_tick
         self._params = cast_decode_params(_to_device(params, device), cfg)
         self.pool = state_cache.init_pool(cfg, capacity, device)
+        self.hybrid = bool(cfg.attn_layer_idx)
+        if self.hybrid:
+            self.page_pool = state_cache.PagePool(
+                state_cache.hybrid_pool_pages(cfg, capacity))
+            # host-owned paged-KV metadata: each slot's page-table row
+            # (unreserved entries name the trash page 0) and KV length
+            self._page_tbl = np.zeros((capacity, cfg.kv_pages_per_slot), np.int32)
+            self._kv_len = np.zeros((capacity,), np.int32)
         self._pad_mask = vocab_pad_mask(cfg, device)
         self.scheduler = FCFSScheduler()
         self._free: list[int] = list(range(capacity))
@@ -129,6 +147,19 @@ class ServingEngine:
             raise ValueError(
                 f"request top_k={request.top_k} must be in "
                 f"[1, max_top_k={self.max_top_k}]")
+        if self.hybrid:
+            need = np.asarray(request.prompt_ids).size + request.max_new_tokens
+            if need > self.cfg.kv_slot_tokens:
+                raise ValueError(
+                    f"hybrid request needs {need} KV tokens (prompt + "
+                    f"max_new_tokens) > cfg.kv_slot_tokens="
+                    f"{self.cfg.kv_slot_tokens}")
+            need_pages = attention_page_count(self.cfg, need)
+            if need_pages > self.page_pool.num_pages:
+                raise ValueError(
+                    f"hybrid request needs {need_pages} KV pages but the page "
+                    f"pool holds {self.page_pool.num_pages} (cfg.kv_pool_pages): "
+                    f"it could never be admitted")
         return self.scheduler.submit(request).request_id
 
     def _slot_meta(self, r: GenerationRequest) -> dict:
@@ -136,12 +167,32 @@ class ServingEngine:
                     temperature=r.temperature,
                     eos_id=-1 if r.eos_id is None else r.eos_id)
 
-    def _admit(self, tracked: _Tracked) -> None:
-        """Grant the next queued request a slot: a short prompt prefills
-        one-shot here; a long one parks a zero carry and prefills in the
-        chunk budget (``_advance_prefill``)."""
+    def _release_pages(self, slot: int, tracked: _Tracked) -> None:
+        """Return a slot's KV pages to the pool and point its table row at
+        the trash page, so nothing it computes can touch a recycled page."""
+        if not (self.hybrid and tracked.pages):
+            return
+        self.page_pool.free(tracked.pages)
+        tracked.pages = None
+        self._page_tbl[slot] = 0
+        self._kv_len[slot] = 0
+
+    def _admit(self, tracked: _Tracked) -> bool:
+        """Grant the next queued request a slot: a short pure-SSM prompt
+        prefills one-shot here; a long one (and every hybrid one) parks a
+        zero carry and prefills in the chunk budget
+        (``_advance_prefill``).  Returns False, with the request back at
+        the head of the queue, when a hybrid request's pages do not fit
+        the free pool yet."""
         r = tracked.request
-        plan = plan_chunks(len(r.prompt_ids), self.cfg.effective_prefill_chunk_tokens)
+        plan = plan_chunks(len(r.prompt_ids), self.cfg.effective_prefill_chunk_tokens,
+                           force=self.hybrid)
+        n_pages = 0
+        if self.hybrid:
+            n_pages = attention_page_count(self.cfg, len(r.prompt_ids) + r.max_new_tokens)
+            if n_pages > self.page_pool.free_pages:
+                self.scheduler.requeue(tracked)
+                return False
         slot = self._free.pop(0)
         tracked.status = RequestStatus.PREFILL
         try:
@@ -154,12 +205,18 @@ class ServingEngine:
             else:
                 tracked.plan = plan
                 tracked.chunks_done = 0
+                if self.hybrid:
+                    tracked.pages = self.page_pool.alloc(n_pages)
+                    self._page_tbl[slot, :n_pages] = tracked.pages
+                    self._kv_len[slot] = 0
                 state_cache.stash_prefill(
                     self.pool, slot,
                     {"blocks": init_lm_blocks_state(self.cfg, 1, self.device)},
                     **self._slot_meta(r))
         except Exception:
-            # a failed prefill neither leaks the slot nor drops the request
+            # a failed prefill leaks neither the slot nor its pages, and
+            # does not drop the request
+            self._release_pages(slot, tracked)
             self._free.insert(0, slot)
             self.scheduler.requeue(tracked)
             raise
@@ -170,6 +227,7 @@ class ServingEngine:
             tracked.status = RequestStatus.DECODE
         else:
             self._prefill_queue.append(slot)
+        return True
 
     def _advance_prefill(self, slot: int, budget_left: float) -> float:
         """Run ONE chunk of ``slot``'s prefill; returns the budget left."""
@@ -177,9 +235,19 @@ class ServingEngine:
         plan, r = tracked.plan, tracked.request
         try:
             state = state_cache.read_state(self.pool, slot)
+            if self.hybrid:
+                # the chunk step writes this slot's pages of the shared
+                # pool in place, through its table row and length
+                state["attn_blocks"] = self.pool["state"]["attn_blocks"]
+                state["attn_meta"] = (
+                    torch.tensor(self._page_tbl[slot:slot + 1], device=self.device),
+                    torch.tensor(self._kv_len[slot:slot + 1], device=self.device))
             ids, mask = chunk_inputs(r.prompt_ids, plan, tracked.chunks_done,
                                      device=self.device)
             logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg)
+            if self.hybrid:
+                # the left pad of chunk 0 is never written
+                self._kv_len[slot] += plan.real_tokens(tracked.chunks_done)
             tracked.chunks_done += 1
             self._prefill_queue.remove(slot)
             if tracked.chunks_done == plan.n_chunks:
@@ -191,6 +259,7 @@ class ServingEngine:
                 self._prefill_queue.append(slot)
         except Exception:
             state_cache.evict(self.pool, slot)
+            self._release_pages(slot, tracked)
             if slot in self._prefill_queue:
                 self._prefill_queue.remove(slot)
             del self._slots[slot]
@@ -202,7 +271,8 @@ class ServingEngine:
 
     def _prefill_phase(self) -> None:
         while self._free and self.scheduler.depth:
-            self._admit(self.scheduler.pop())
+            if not self._admit(self.scheduler.pop()):
+                break  # the queue head waits for pages
         budget = self.prefill_tokens_per_tick
         left = float("inf") if budget == 0 else float(budget)
         chunks_run = 0
@@ -236,6 +306,15 @@ class ServingEngine:
         if held:
             idx = torch.tensor(held, device=dev)
             saved = [t.index_select(1, idx) for t in pool["state"]["blocks"]]
+        if self.hybrid:
+            # the full kv_pages_per_slot width, not a bucket of the live
+            # extent: the kernel walks only pages below each row's length,
+            # so a wide table costs nothing on the card, and a fixed width
+            # keeps the tick's shapes static.  generate() sizes its private
+            # table to the same width, so the plain version reduces over
+            # the same width on both sides and streams stay bit-identical.
+            tbl = torch.tensor(self._page_tbl, device=dev)
+            lengths = torch.tensor(self._kv_len, device=dev)
         logits = pool["logits"]
         has_eos = meta["eos_id"] >= 0
         step, done = meta["step"], meta["done"]
@@ -245,7 +324,15 @@ class ServingEngine:
             tok = top_k_sample(logits + self._pad_mask, u[j], self.max_top_k,
                                meta["temperature"], meta["top_k"])
             tok = torch.where(done & has_eos, meta["eos_id"], tok)
-            logits, _ = lm_step(self._params, self.cfg, pool["state"], tok)
+            if self.hybrid:
+                # rows that are not live (empty, done, prefilling) write
+                # the trash page only and keep their length
+                state = {**pool["state"], "attn_meta": (tbl, lengths)}
+                logits, state = lm_step(self._params, self.cfg, state, tok,
+                                        write_mask=live)
+                lengths = state["attn_meta"][1]
+            else:
+                logits, _ = lm_step(self._params, self.cfg, pool["state"], tok)
             step = step + live
             done = done | (live & ((has_eos & (tok == meta["eos_id"]))
                                    | (step >= meta["max_new"])))
@@ -258,8 +345,11 @@ class ServingEngine:
         pool["logits"] = logits
         meta["step"], meta["done"] = step, done
         # the one host sync of the tick
-        return (torch.stack(toks).cpu().numpy(), torch.stack(emitted).cpu().numpy(),
-                torch.stack(dones).cpu().numpy())
+        tokens, emitted = torch.stack(toks).cpu().numpy(), torch.stack(emitted).cpu().numpy()
+        if self.hybrid:
+            # mirror the device-side lengths: +1 per live sub-step
+            self._kv_len += emitted.sum(axis=0).astype(np.int32)
+        return tokens, emitted, torch.stack(dones).cpu().numpy()
 
     @torch.no_grad()
     def step(self) -> list[TokenEvent]:
@@ -296,6 +386,7 @@ class ServingEngine:
                      if t.status is RequestStatus.FINISHED]:
             tracked = self._slots.pop(slot)
             state_cache.evict(self.pool, slot)
+            self._release_pages(slot, tracked)
             self._free.append(slot)
             r = tracked.request
             self.results[tracked.request_id] = GenerationResult(

@@ -86,6 +86,8 @@ class _Tracked:
     # chunked-prefill progress: the plan (None => one-shot) and chunks run
     plan: object | None = None
     chunks_done: int = 0
+    # hybrid stacks: the KV pages reserved for the whole request
+    pages: list[int] | None = None
 
 
 class FCFSScheduler:

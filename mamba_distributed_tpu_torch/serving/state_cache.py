@@ -1,6 +1,6 @@
-"""Pooled recurrent-state cache: the slot pool under the serving engine
-(counterpart of the slot-pool half of
-``mamba_distributed_tpu/serving/state_cache.py``).
+"""Pooled recurrent-state cache: the slot pool under the serving engine,
+and the KV page allocator of hybrid stacks (counterpart of
+``mamba_distributed_tpu/serving/state_cache.py``, single shard).
 
 Mamba's decode state is O(1) per sequence, so the serving "KV cache" is
 a fixed-capacity pool of S slots whose tensors never change shape:
@@ -15,6 +15,12 @@ a fixed-capacity pool of S slots whose tensors never change shape:
     },
   }
 
+Hybrid stacks add ``"attn_blocks": (k_pages, v_pages)`` to the state,
+each (A, 1 + pool_pages, nkv, page, hd) with page 0 the trash page: one
+page pool shared by every slot, handed out page by page by ``PagePool``
+(host-side bookkeeping; the engine keeps each slot's page-table row and
+length on the host).
+
 Where the JAX package donates the pool to jitted writes, every function
 here writes the pool's tensors IN PLACE (one slot's rows) and returns the
 same pool.  A slot holding a partial chunked prefill is ``active`` and
@@ -27,11 +33,105 @@ from __future__ import annotations
 import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
+from mamba_distributed_tpu_torch.models.attention import init_attention_state
 from mamba_distributed_tpu_torch.models.lm import init_lm_blocks_state
 
 
+class PagePoolError(RuntimeError):
+    """A page-accounting violation: double free, freeing the trash page,
+    or a page id outside the pool.  Always a caller bug, so it raises
+    instead of corrupting the free list."""
+
+
+class PagePool:
+    """Host-side KV page allocator of a hybrid pool: a free list over the
+    physical pages [1, num_pages]; page 0 is the trash page and is never
+    handed out.  Pages are refcounted: ``alloc`` hands them out at one
+    holder, ``incref`` adds a holder, ``free`` drops one and returns a
+    page to the free list at zero.  One shard only: the JAX package's
+    mesh-sharded pools wait for the port of the serving meshes."""
+
+    def __init__(self, num_pages: int, num_shards: int = 1):
+        if num_pages < 1:
+            raise ValueError(f"need >= 1 usable page, got {num_pages}")
+        if num_shards != 1:
+            raise ValueError(
+                f"num_shards={num_shards}: sharded page pools wait for the "
+                f"port of the serving meshes; the port has one shard"
+            )
+        self.num_pages = num_pages
+        self._free = list(range(1, num_pages + 1))
+        self._refs: dict[int, int] = {}  # allocated page -> holder count
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - self.free_pages
+
+    def refcount(self, page: int) -> int:
+        """Current holder count (0 = free or never allocated)."""
+        return self._refs.get(page, 0)
+
+    def alloc(self, n: int) -> list[int]:
+        """Reserve ``n`` pages at refcount 1, lowest ids first, or raise
+        when the pool cannot cover them (callers check ``free_pages``
+        first: admission waits)."""
+        if n > len(self._free):
+            raise RuntimeError(
+                f"KV page pool exhausted: want {n}, have {len(self._free)}")
+        ids, self._free = self._free[:n], self._free[n:]
+        for page in ids:
+            self._refs[page] = 1
+        return ids
+
+    def incref(self, ids: list[int]) -> None:
+        """Add one holder to each page; only allocated pages can gain one."""
+        for page in ids:
+            if self._refs.get(page, 0) <= 0:
+                raise PagePoolError(
+                    f"incref of page {page}, which is not allocated: only a "
+                    f"live page can gain a holder")
+        for page in ids:
+            self._refs[page] += 1
+
+    def free(self, ids: list[int]) -> None:
+        """Drop one holder per page; a page returns to the free list at
+        refcount 0.  Raises ``PagePoolError`` on the trash page, on ids
+        outside the pool and on double frees."""
+        for page in ids:
+            if page == 0:
+                raise PagePoolError(
+                    "page 0 is the trash page: it is never allocated and must "
+                    "never be freed (masked writes land there)")
+            if not 1 <= page <= self.num_pages:
+                raise PagePoolError(
+                    f"page {page} is outside the pool's [1, {self.num_pages}] range")
+            rc = self._refs.get(page, 0)
+            if rc <= 0:
+                raise PagePoolError(
+                    f"double free of page {page}: it has no holders (already "
+                    f"free or never allocated)")
+            if rc == 1:
+                del self._refs[page]
+                self._free.append(page)
+            else:
+                self._refs[page] = rc - 1
+        self._free.sort()  # deterministic reuse order
+
+
+def hybrid_pool_pages(cfg: ModelConfig, capacity: int) -> int:
+    """Usable pages of a serving pool (the trash page excluded):
+    ``cfg.kv_pool_pages``, or every slot's full ``kv_slot_tokens``
+    budget at once."""
+    return cfg.kv_pool_pages or capacity * cfg.kv_pages_per_slot
+
+
 def init_pool(cfg: ModelConfig, capacity: int, device=None) -> dict:
-    """An empty slot pool for ``capacity`` concurrent requests."""
+    """An empty slot pool for ``capacity`` concurrent requests; hybrid
+    stacks add the KV page pool (``hybrid_pool_pages`` pages + trash)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     S = capacity
@@ -39,8 +139,16 @@ def init_pool(cfg: ModelConfig, capacity: int, device=None) -> dict:
     def full(v, dtype):
         return torch.full((S,), v, dtype=dtype, device=device)
 
+    state = {"blocks": init_lm_blocks_state(cfg, S, device)}
+    if cfg.attn_layer_idx:
+        n_attn = len(cfg.attn_layer_idx)
+        # one page per "row" of init_attention_state: 1 + n_pages pages
+        k, v = init_attention_state(cfg, hybrid_pool_pages(cfg, capacity),
+                                    cfg.kv_page_tokens, device)
+        state["attn_blocks"] = (k[None].repeat(n_attn, *([1] * k.ndim)),
+                                v[None].repeat(n_attn, *([1] * v.ndim)))
     return {
-        "state": {"blocks": init_lm_blocks_state(cfg, S, device)},
+        "state": state,
         "logits": torch.zeros((S, cfg.vocab_size_padded), dtype=torch.float32,
                               device=device),
         "meta": {

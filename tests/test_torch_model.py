@@ -6,7 +6,10 @@ numpy inputs: the mixer, ``lm_prefill`` (with a left-pad token mask),
 ``lm_prefill_chunk`` and ``lm_step`` agree in logits and states at
 1e-4.  JAX runs ``ssm_impl="xla"``, the plain reference that
 tests/test_pallas.py holds its kernel to, and ``ssm_impl="pallas"`` (in
-interpret mode) once at the smallest shape.
+interpret mode) once at the smallest shape.  Hybrid stacks (attention at
+``attn_layer_idx`` over a paged KV cache) hold ``lm_prefill_chunk`` with
+a left pad and ``lm_step`` with a partial ``write_mask`` to JAX in
+logits, conv and SSM states, pages and lengths.
 """
 
 import dataclasses
@@ -85,9 +88,24 @@ def test_port_init_matches_jax_shapes_and_scale(pair):
 
 def test_config_rejects_unserved_models():
     with pytest.raises(ValueError, match="attn_layer_idx"):
-        ModelConfig(**TINY, attn_layer_idx=(1,))
+        ModelConfig(**TINY, attn_layer_idx=(2,))
+    with pytest.raises(ValueError, match="chunked prefill"):
+        ModelConfig(**TINY, attn_layer_idx=(1,), prefill_chunk_tokens=0)
+    with pytest.raises(ValueError, match="attn_num_kv_heads"):
+        ModelConfig(**TINY, attn_layer_idx=(1,), attn_num_heads=4, attn_num_kv_heads=3)
+    with pytest.raises(ValueError, match="ops/quant.py"):
+        ModelConfig(**TINY, kv_page_dtype="int8")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ModelConfig(**TINY, kv_page_tokens=12)
     with pytest.raises(ValueError, match="mamba2"):
         ModelConfig(**TINY, ssm_layer="mamba1")
+    with pytest.raises(ValueError, match="d_intermediate"):
+        ModelConfig(**TINY, d_intermediate=64)
+    hyb = get_preset("hybrid-280m")
+    assert (hyb.attn_layer_idx, hyb.effective_attn_num_heads,
+            hyb.effective_attn_num_kv_heads, hyb.effective_attn_head_dim,
+            hyb.kv_pages_per_slot, hyb.effective_prefill_chunk_tokens) == (
+        tuple(range(3, 64, 8)), 12, 4, 64, 16, 256)
     cfg = get_preset("mamba2-280m")
     assert (cfg.d_model, cfg.n_layer, cfg.effective_d_state, cfg.nheads,
             cfg.vocab_size_padded) == (768, 64, 128, 24, 50304)
@@ -183,3 +201,88 @@ def test_pallas_impl_prefill_matches_jax_pallas(pair):
     _close(lt, lj)
     for a, b in zip(st["blocks"], sj["blocks"]):
         _close(a, b)
+
+
+# -------------------------------------------------------------- hybrid stacks
+
+# the hybrid config of tests/test_serving.py:426-434, and a periodic
+# 4-layer stack with attention at layers 1 and 3
+HYBRID = dict(TINY, attn_layer_idx=(1,), attn_num_heads=4, attn_num_kv_heads=2,
+              kv_page_tokens=8, kv_slot_tokens=64, prefill_chunk_tokens=16)
+HYBRID4 = dict(HYBRID, n_layer=4, attn_layer_idx=(1, 3))
+
+
+@pytest.fixture(scope="module", params=[HYBRID, HYBRID4], ids=["attn1of2", "attn13of4"])
+def hybrid_pair(request):
+    jcfg = JaxConfig(**request.param, remat=False)
+    jparams = jlm.init_lm_params(jax.random.PRNGKey(1), jcfg)
+    return (jcfg, jparams, ModelConfig(**request.param),
+            convert.params_from_jax(jax.tree.map(np.asarray, jparams)))
+
+
+def test_hybrid_params_round_trip(hybrid_pair):
+    jcfg, jparams, cfg, params = hybrid_pair
+    back = convert.params_to_numpy(params)
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat_j) == len(jax.tree.leaves(back))
+    for path, leaf in flat_j:
+        node = back
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+    n_attn = len(cfg.attn_layer_idx)
+    assert params["attn_blocks"]["mixer"]["wqkv"]["kernel"].shape == (n_attn, 32, 8 * 8)
+    assert params["blocks"]["norm"]["weight"].shape[0] == cfg.n_layer - n_attn
+    # the port's own init builds the same keys and shapes
+    mine = convert.params_to_numpy(lm.init_lm_params(cfg, torch.Generator().manual_seed(0)))
+    for (pth, a), b in zip(jax.tree_util.tree_flatten_with_path(back)[0],
+                           jax.tree.leaves(mine)):
+        assert a.shape == b.shape, pth
+
+
+def _close_state(got, ref):
+    for a, b in zip(got["blocks"], ref["blocks"]):
+        _close(a, b)
+    for a, b in zip(got["attn_blocks"], ref["attn_blocks"]):
+        # page 0 is the trash page: its content is garbage by contract
+        _close(a[:, 1:], np.asarray(b)[:, 1:])
+    for a, b in zip(got["attn_meta"], ref["attn_meta"]):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+
+
+def test_hybrid_chunk_and_steps_match_jax(hybrid_pair):
+    """Two prefill chunks (the first with a left pad, the rows at
+    different lengths), then three decode steps with a partial write
+    mask: logits, conv and SSM states, pages and lengths."""
+    jcfg, jparams, cfg, params = hybrid_pair
+    b, c = 2, 16
+    sj = jlm.init_lm_state(jcfg, b, max_len=48)
+    st = lm.init_lm_state(cfg, b, max_len=48)
+    assert st["attn_blocks"][0].shape == sj["attn_blocks"][0].shape
+    mask = np.ones((b, c), np.float32)
+    mask[1, :5] = 0.0
+    for i in range(2):
+        ids = _ids(40 + i, b, c)
+        m = mask if i == 0 else np.ones_like(mask)
+        lj, sj = jlm.lm_prefill_chunk(jparams, jcfg, jnp.asarray(ids), sj,
+                                      token_mask=jnp.asarray(m))
+        lt, st = lm.lm_prefill_chunk(params, cfg, torch.from_numpy(ids).long(), st,
+                                     token_mask=torch.from_numpy(m))
+        _close(lt, lj)
+        _close_state(st, sj)
+    assert st["attn_meta"][1].tolist() == [32, 27]
+    for i, wm in enumerate(([True, False], [True, True], [False, True])):
+        tok = _ids(50 + i, 1, b)[0]
+        lj, sj = jlm.lm_step(jparams, jcfg, sj, jnp.asarray(tok),
+                             write_mask=jnp.asarray(wm))
+        lt, st = lm.lm_step(params, cfg, st, torch.from_numpy(tok).long(),
+                            write_mask=torch.tensor(wm))
+        _close(lt, lj)
+        _close_state(st, sj)
+    assert st["attn_meta"][1].tolist() == [34, 29]
+
+
+def test_hybrid_one_shot_prefill_raises(hybrid_pair):
+    _, _, cfg, params = hybrid_pair
+    with pytest.raises(ValueError, match="lm_prefill_chunk"):
+        lm.lm_prefill(params, cfg, torch.zeros((1, 8), dtype=torch.long))

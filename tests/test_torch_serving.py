@@ -8,6 +8,12 @@
   weights (fp32), over one-shot and chunked prompts.
 * ``ServingEngine()`` without ``device="cpu"`` raises on a host with no
   card.
+* Hybrid stacks (paged KV): the page allocator's refcounts and named
+  errors; engine streams bit-identical to ``generate()`` with sampling
+  on through admission mid-flight, a chunked long prompt, eviction and
+  slot and page reuse, with no page leaked; admission waits while the
+  pool is short and an over-budget request raises at ``submit``; greedy
+  streams equal the JAX hybrid engine's.
 """
 
 import dataclasses
@@ -33,6 +39,7 @@ from mamba_distributed_tpu_torch.serving.prefill import (
     chunked_prefill,
     plan_chunks,
 )
+from mamba_distributed_tpu_torch.serving.state_cache import PagePool, PagePoolError
 
 pytestmark = pytest.mark.torch
 
@@ -65,6 +72,10 @@ def test_chunk_plan_and_inputs():
     assert mask[0].tolist() == [0.0] * 8 + [1.0] * 8
     ids2, _ = chunk_inputs(prompt, plan, 2)
     assert ids2[0].tolist() == list(range(25, 41))
+    forced = plan_chunks(9, 16, force=True)
+    assert (forced.n_chunks, forced.pad, forced.real_tokens(0)) == (1, 7, 9)
+    assert [plan.real_tokens(i) for i in range(3)] == [8, 16, 16]
+    assert plan_chunks(9, 0, force=True) is None
 
 
 def test_pool_insert_stash_evict(setup):
@@ -180,3 +191,140 @@ def test_submit_validation(setup):
         eng.submit(GenerationRequest(prompt_ids=np.array([], np.int64), top_k=1))
     with pytest.raises(ValueError, match="max_top_k"):
         ServingEngine(params, cfg, max_top_k=0, device="cpu")
+
+
+# ------------------------------------------------- hybrid paged-KV serving
+
+def hybrid_cfg(**kw):
+    """The hybrid config of tests/test_serving.py:426-434."""
+    kw.setdefault("prefill_chunk_tokens", 16)
+    kw.setdefault("prefill_tokens_per_tick", 16)
+    return dict(d_model=32, n_layer=2, vocab_size=64, headdim=8, chunk_size=16,
+                d_state=16, compute_dtype="float32", attn_layer_idx=(1,),
+                attn_num_heads=4, attn_num_kv_heads=2, kv_page_tokens=8,
+                kv_slot_tokens=64, **kw)
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    cfg = ModelConfig(**hybrid_cfg())
+    return cfg, init_lm_params(cfg, torch.Generator().manual_seed(1))
+
+
+def test_page_pool_refcounts_and_named_errors():
+    pool = PagePool(6)
+    a = pool.alloc(2)
+    b = pool.alloc(3)
+    assert (a, b, pool.pages_in_use, pool.free_pages) == ([1, 2], [3, 4, 5], 5, 1)
+    pool.incref([3])
+    pool.free(b)
+    assert pool.refcount(3) == 1 and pool.pages_in_use == 3
+    pool.free([3])
+    pool.free(a)
+    assert pool.pages_in_use == 0 and pool.alloc(2) == [1, 2]
+    with pytest.raises(PagePoolError, match="double free"):
+        pool.free([4])
+    with pytest.raises(PagePoolError, match="trash page"):
+        pool.free([0])
+    with pytest.raises(PagePoolError, match="outside"):
+        pool.free([7])
+    with pytest.raises(PagePoolError, match="not allocated"):
+        pool.incref([5])
+    with pytest.raises(RuntimeError, match="exhausted"):
+        pool.alloc(5)
+    with pytest.raises(ValueError, match="sharded"):
+        PagePool(6, num_shards=2)
+
+
+def test_hybrid_engine_matches_generate_with_sampling(hybrid):
+    """The A/L/C scenario of tests/test_serving.py:443-473, sampling on:
+    A decodes alone, L (53 tokens, 4 chunks) is admitted mid-flight, C
+    waits for a slot and reuses A's slot and pages."""
+    cfg, params = hybrid
+    prompts = {"A": _prompt(2, 9), "L": _prompt(3, 53), "C": _prompt(4, 7)}
+    budgets = {"A": 4, "L": 5, "C": 6}
+    seeds = {"A": 40, "L": 41, "C": 42}
+
+    def req(n):
+        return GenerationRequest(prompt_ids=prompts[n], max_new_tokens=budgets[n],
+                                 top_k=5, temperature=0.8, seed=seeds[n])
+
+    eng = ServingEngine(params, cfg, capacity=2, max_top_k=5, tokens_per_tick=1,
+                        device="cpu")
+    ids = {"A": eng.submit(req("A"))}
+    eng.step()
+    ids["L"] = eng.submit(req("L"))
+    eng.step()
+    assert eng.page_pool.pages_in_use == 2 + 8  # A: 13 tokens, L: 58 tokens
+    ids["C"] = eng.submit(req("C"))
+    while eng.pending:
+        eng.step()
+    for n in "ALC":
+        want = solo(params, cfg, prompts[n], 2, seed=seeds[n],
+                    max_new_tokens=budgets[n], top_k=5, temperature=0.8)
+        assert eng.results[ids[n]].new_tokens.tolist() == want, n
+    assert eng.page_pool.pages_in_use == 0
+    assert not eng._page_tbl.any() and not eng._kv_len.any()
+
+
+def test_hybrid_admission_waits_for_pages(hybrid):
+    """With a 5-page pool, requests needing 3 pages run one at a time
+    although two slots are free; over-budget requests raise at submit."""
+    _, params = hybrid
+    cfg = ModelConfig(**hybrid_cfg(kv_pool_pages=5))
+    eng = ServingEngine(params, cfg, capacity=2, max_top_k=1, tokens_per_tick=2,
+                        device="cpu")
+    reqs = [GenerationRequest(prompt_ids=_prompt(20 + i, 14), max_new_tokens=6, top_k=1)
+            for i in range(3)]
+    ids = [eng.submit(r) for r in reqs]
+    eng.step()
+    assert len(eng._slots) == 1 and eng.scheduler.depth == 2
+    assert eng.page_pool.pages_in_use == 3
+    while eng.pending:
+        eng.step()
+        assert eng.page_pool.pages_in_use <= 5
+    for r, i in zip(reqs, ids):
+        assert eng.results[i].new_tokens.tolist() == solo(
+            params, cfg, r.prompt_ids, 2, seed=0, max_new_tokens=6, top_k=1)
+    assert eng.page_pool.pages_in_use == 0
+    with pytest.raises(ValueError, match="kv_slot_tokens"):
+        eng.submit(GenerationRequest(prompt_ids=_prompt(1, 60), max_new_tokens=5, top_k=1))
+    with pytest.raises(ValueError, match="could never be admitted"):
+        eng.submit(GenerationRequest(prompt_ids=_prompt(1, 40), max_new_tokens=5, top_k=1))
+
+
+def test_hybrid_generate_requires_chunk_step(hybrid):
+    cfg, params = hybrid
+    with pytest.raises(ValueError, match="chunk step"):
+        generate(params, cfg, torch.zeros((1, 4), dtype=torch.long), length_bucketing=False)
+    with pytest.raises(ValueError, match="max_len"):
+        chunked_prefill(cast_decode_params(params, cfg), cfg, torch.zeros((1, 4)), max_len=2)
+
+
+def test_hybrid_greedy_streams_match_jax_engine():
+    """Same weights, greedy: the port's hybrid engine emits the JAX hybrid
+    engine's tokens for a one-chunk, a two-chunk and a four-chunk prompt."""
+    kw = hybrid_cfg()
+    jcfg = JaxConfig(**kw, remat=False)
+    jparams = jax_init(jax.random.PRNGKey(5), jcfg)
+    cfg = ModelConfig(**kw)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    prompts = [_prompt(30 + i, t) for i, t in enumerate((5, 20, 50))]
+    # with the CPU backend's asynchronous dispatch the JAX hybrid engine's
+    # own greedy streams vary from run to run; dispatched synchronously
+    # they are reproducible (and equal its solo generate())
+    async_dispatch = jax.config.read("jax_cpu_enable_async_dispatch")
+    jax.config.update("jax_cpu_enable_async_dispatch", False)
+    try:
+        jeng = JaxEngine(jparams, jcfg, capacity=2, max_top_k=1, tokens_per_tick=4)
+        jres = jeng.run([JaxRequest(prompt_ids=p.astype(np.int32), max_new_tokens=9,
+                                    top_k=1) for p in prompts])
+    finally:
+        jax.config.update("jax_cpu_enable_async_dispatch", async_dispatch)
+    eng = ServingEngine(params, cfg, capacity=2, max_top_k=1, tokens_per_tick=4,
+                        device="cpu")
+    res = eng.run([GenerationRequest(prompt_ids=p, max_new_tokens=9, top_k=1)
+                   for p in prompts])
+    for a, b in zip(res, jres):
+        assert a.new_tokens.tolist() == np.asarray(b.new_tokens).tolist()
+    assert eng.page_pool.pages_in_use == 0
