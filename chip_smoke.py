@@ -7,13 +7,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together);
-2. hold each kernel against its plain PyTorch version on the card at
-   the serving paths' shapes, in fp32 with TF32 off and in bf16, and
-   time both, beside a bound from the bytes and operations the work
-   needs and, for attention, a PyTorch SDPA call on the pre-gathered
-   cache view: ``ssd_fwd`` at mamba2-280m's (24 heads, headdim 64,
-   d_state 128); ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page
-   write + chunk prefill) at hybrid-280m's (12 query / 4 KV heads,
+2. hold each kernel against its plain PyTorch version on the card, in
+   fp32 with TF32 off and in bf16, and time both at its main path's
+   shapes, beside a bound from the bytes and operations the work needs
+   and, for attention, a PyTorch SDPA call on the pre-gathered cache
+   view: ``ssd_fwd`` at mamba2-280m's (24 heads, headdim 64, d_state
+   128); ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward) over g 1
+   and 2, seeded and not, with and without a final-state cotangent, then
+   the whole ``SSDFunction``'s gradients against torch autograd of the
+   plain forward, timed at one layer of the mamba2-280m train step (b 8,
+   t 1024, chunk 256); ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused
+   page write + chunk prefill) at hybrid-280m's (12 query / 4 KV heads,
    head dim 64, pages of 64 tokens, 16 pages per slot) over ragged
    length mixes, with the written pages compared bit for bit;
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
@@ -21,13 +25,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
    prefill, 300 and 700 the chunked prefill; then on a full-width
    hybrid-280m engine (64 layers, 8 of them attention over the paged
-   KV cache), where every prompt takes the chunked prefill.  Before
-   each run the kernels' launch counts are zeroed, and after it every
-   kernel of that path must have launched.  One greedy request's stream
-   must equal the port's solo ``generate()``, and a hybrid engine must
-   end with no KV page in use;
-4. print the serving numbers, the card's name and power limit, one
-   ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+   KV cache), where every prompt takes the chunked prefill.  One greedy
+   request's stream must equal the port's solo ``generate()``, and a
+   hybrid engine must end with no KV page in use;
+4. train a full-width, full-depth mamba2-280m (bf16, pallas, remat)
+   through the port's ``Trainer`` for 3 optimizer steps at seq 1024 on
+   synthetic shards (micro-batch 32, or 16 if 32 does not fit), with
+   validation; every loss and grad norm must be finite.  At 4 layers of
+   the same width, one train step's loss and gradients with "pallas"
+   must match "xla" (fp32 and bf16), and ten steps on one repeated batch
+   must lower the loss;
+5. print the serving and training numbers beside the card's name and
+   power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
+   "device": ...}``.
+
+Before each serving and training run the kernels' launch counts are
+zeroed, and after it every kernel of that path must have launched.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero when
 no card is visible or the port's package is not beside it.
@@ -37,9 +50,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +67,11 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 # rounds (the kernel at the TPU kernel's cast points, the plain version
 # at ops/ssd.py's), a few bf16 ulps (2^-8 relative each)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# a 4-layer train step, pallas against xla: in bf16 the two formulations
+# round at different points and the differences compound through four
+# layers and the backward (about 1e-2 on every gradient leaf in a CPU
+# rehearsal at width 128-256), so bf16 gets a wider bound; fp32 keeps 1e-4
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 
 
 def smi() -> str:
@@ -158,6 +179,135 @@ def check_ssd(gen):
                        launches=None, max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return row
+
+
+def ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfinal):
+    """(bytes, flops) of kernel 2 and of kernel 3, each input read once
+    and each output written once; kernel 3's multiply-adds are the
+    causal halves of G, dM, du, dB, dC plus the four l x p x n products
+    of the state terms (dy P, B dS, w dS, dy^T eC)."""
+    e = torch.finfo(dtype).bits // 8
+    nc = t // l
+    xs, bs, ts, ss = b * t * h * p * e, b * t * g * n * e, b * t * h * 4, b * nc * h * p * n * 4
+    st_bytes = b * h * p * n * 4
+    k2 = (xs + 2 * ts + bs + ss, 2 * b * h * nc * l * p * n)
+    k3_bytes = (3 * xs + 4 * ts + 2 * bs + ss + st_bytes * (2 if dfinal else 1)
+                + 2 * b * t * h * n * 4 + b * nc * h * 4)
+    macs = b * h * nc * (l * (l + 1) // 2 * (3 * n + 2 * p) + 4 * l * p * n)
+    return k2, (k3_bytes, 2 * macs)
+
+
+def check_ssd_bwd(gen):
+    """Kernels 2 and 3 against their plain versions (same inputs, the
+    plain entering states fed to both), then the whole SSDFunction's
+    gradients against torch autograd of the plain ``ssd_chunked``; the
+    last case, one layer of the mamba2-280m train step, is timed."""
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
+    from mamba_distributed_tpu_torch.ops.ssd import (
+        _divisor_chunk,
+        chunk_log_decay,
+        ssd_chunked,
+        state_passing,
+    )
+
+    cases = [  # (dtype, b, t, chunk, g, seeded, dfinal)
+        (torch.float32, 1, 64, 64, 1, False, False),
+        (torch.float32, 2, 512, 256, 2, True, True),
+        (torch.float32, 1, 300, 128, 2, False, True),  # l = 100: ragged row blocks
+        (torch.bfloat16, 1, 64, 64, 1, False, False),
+        (torch.bfloat16, 2, 512, 256, 2, True, True),
+        (torch.bfloat16, 1, 300, 128, 1, True, False),
+        (torch.bfloat16, 8, 1024, 256, 1, False, False),  # one train-step layer (timed)
+    ]
+    names = ("dx", "ddt_direct", "da", "dB_h", "dC_h", "dgamma", "dinit")
+    rows, failures = [None, None], []
+    for dtype, b, t, chunk, g, seeded, dfin in cases:
+        inp = ssd_inputs(gen, b, t, g, dtype, seeded)
+        x, dt, A, B, C, s0 = (inp[k] for k in ("x", "dt", "A", "B", "C", "initial_state"))
+        h, p, n = x.shape[2], x.shape[3], B.shape[3]
+        l = _divisor_chunk(t, chunk)
+        a4 = chunk_log_decay(dt, A, l)
+        a_cum = a4.reshape(b, t, h).contiguous()
+        st_k = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype)
+        st_p = sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype)
+        prev, _ = state_passing(st_p, torch.exp(a4[:, :, -1]), s0)
+        prev = prev.contiguous()
+        dy = torch.randn((b, t, h, p), generator=gen, device="cuda").to(dtype)
+        dfinal = torch.randn((b, h, p, n), generator=gen, device="cuda") if dfin else None
+        args = (x, dt, a_cum, B, C, prev, dy, dfinal, l, dtype)
+        got = sk.ssd_bwd_kernel(*args)
+        ref = sk.ssd_bwd_plain(*args)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype)[6:]} b={b} t={t} l={l} g={g} seeded={seeded} dfinal={dfin}"
+        err2, rel2 = rel_err(st_k, st_p)
+        errs = {nm: rel_err(a, r) for nm, a, r in zip(names, got, ref)}
+        worst = max([rel2] + [r for _, r in errs.values()])
+        finite = all(bool(torch.isfinite(v).all()) for v in (st_k, *got))
+        print(f"check ssd_chunk_states {tag}: max_abs_err={err2:.3e} (rel {rel2:.2e}); "
+              f"ssd_bwd rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+              + f"; tol rel {TOL[dtype]:.0e}", flush=True)
+        if not finite or worst > TOL[dtype]:
+            failures.append(f"ssd_chunk_states/ssd_bwd {tag}: finite={finite}, rel {worst:.3e}")
+
+        if b * t <= 1024:  # the whole Function against autograd of the plain forward
+            failures += function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag)
+        if b == 8:
+            ms2 = cuda_ms(lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype), 20)
+            plain2 = cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype), 5)
+            ms3 = cuda_ms(lambda: sk.ssd_bwd_kernel(*args), 5, 1)
+            plain3 = cuda_ms(lambda: sk.ssd_bwd_plain(*args), 3, 1)
+            (b2, f2), (b3, f3) = ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfin)
+            for i, (nm, ms, plain, nb, fl, err, line) in enumerate((
+                    ("ssd_chunk_states", ms2, plain2, b2, f2, err2, 61),
+                    ("ssd_bwd", ms3, plain3, b3, f3, max(e for e, _ in errs.values()), 299))):
+                bound_ms, bound_by = bound(nb, fl)
+                print(f"time {nm} bf16 b={b} t={t} l={l} h={h} (one layer of the "
+                      f"mamba2-280m train step): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP)", flush=True)
+                rows[i] = dict(name=nm, route="cuda",
+                               source="mamba_distributed_tpu_torch/ops/cuda/csrc/ssd_bwd.cu",
+                               replaces=f"mamba_distributed_tpu/ops/pallas/ssd_kernels.py:{line}",
+                               launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if failures:
+        raise SystemExit("SSD backward checks failed:\n" + "\n".join(failures))
+    return rows
+
+
+def function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag):
+    """Gradients of x, dt, A, B, C (and the initial state) through
+    ``ssd_chunked_kernel`` (SSDFunction: kernels 1-3) and through torch
+    autograd of the plain ``ssd_chunked``, same inputs, same cotangents.
+    x, B and C are slices of one leaf, as in the mixer."""
+    grads = []
+    for fn in (sk.ssd_chunked_kernel, ssd_chunked):
+        x, B, C = inp["x"], inp["B"], inp["C"]
+        xbc = torch.cat([x.flatten(2), B.flatten(2), C.flatten(2)], -1).detach().requires_grad_()
+        b, t, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        xs = xbc[..., :h * p].reshape(b, t, h, p)
+        Bs = xbc[..., h * p:h * p + g * n].reshape(b, t, g, n)
+        Cs = xbc[..., h * p + g * n:].reshape(b, t, g, n)
+        leaves = {"xBC": xbc, "dt": inp["dt"].detach().requires_grad_(),
+                  "A": inp["A"].detach().requires_grad_()}
+        s0 = inp["initial_state"]
+        if s0 is not None:
+            leaves["initial_state"] = s0.detach().requires_grad_()
+        y, final = fn(xs, leaves["dt"], leaves["A"], Bs, Cs, chunk_size=chunk, D=inp["D"],
+                      initial_state=leaves.get("initial_state"), return_final_state=True,
+                      compute_dtype=dtype)
+        loss = (y.float() * dy.float()).sum()
+        if dfinal is not None:
+            loss = loss + (final * dfinal).sum()
+        loss.backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    torch.cuda.synchronize()
+    errs = {k: rel_err(grads[0][k], grads[1][k]) for k in grads[1]}
+    worst = max(r for _, r in errs.values())
+    print(f"check SSDFunction grads vs plain autograd {tag}: rel "
+          + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items()), flush=True)
+    ok = worst <= TOL[dtype] and all(bool(torch.isfinite(v).all()) for v in grads[0].values())
+    return [] if ok else [f"SSDFunction grads {tag}: rel {worst:.3e}"]
 
 
 # ---------------------------------------------------- paged attention kernels
@@ -440,10 +590,131 @@ def serve(preset: str, path_kernels: tuple[str, ...]):
     return launches
 
 
+# ------------------------------------------------------------ training path
+
+
+def mm_out_dtype_has_grad() -> str:
+    """Whether autograd differentiates ``torch.mm(..., out_dtype=fp32)``
+    (the serving head's fp32-logit GEMM, models/common.mm_f32)."""
+    a = torch.randn((4, 8), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    b = torch.randn((8, 4), device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.mm(a, b, out_dtype=torch.float32).sum().backward()
+    except (RuntimeError, NotImplementedError) as e:
+        return f"no ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+    return "yes"
+
+
+def train_checks(card: str):
+    """At 4 layers of mamba2-280m's width: one step's loss and gradients
+    with ssm_impl="pallas" (the SSD Function, kernels 1-3) against "xla"
+    (autograd of the plain forward), in fp32 (TF32 off) and bf16, same
+    params and batch; then ten AdamW steps on one repeated bf16 batch
+    (warmup 1) must lower the loss."""
+    from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_leaves, tree_map
+    from mamba_distributed_tpu_torch.training.train_step import loss_and_grads, make_train_step
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 50257, (1, 8, 1024), generator=gen).cuda()
+    y = torch.randint(0, 50257, (1, 8, 1024), generator=gen).cuda()
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+        for impl in ("pallas", "xla"):
+            model = get_preset("mamba2-280m", n_layer=4, ssm_impl=impl, compute_dtype=dtype)
+            cfg = get_train_preset("mamba2-280m", model=model, micro_batch_size=8,
+                                   total_batch_size=8 * 1024)
+            params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
+                model, torch.Generator(device="cuda").manual_seed(11), device="cuda"))
+            loss, grads = loss_and_grads(params, cfg, x, y)
+            res[impl] = (float(loss), tree_leaves(grads))
+        tol = TRAIN_TOL[getattr(torch, dtype)]
+        loss_rel = abs(res["pallas"][0] - res["xla"][0]) / abs(res["xla"][0])
+        grad_rel = max(rel_err(a, b)[1] for a, b in zip(res["pallas"][1], res["xla"][1]))
+        finite = all(bool(torch.isfinite(g).all()) for g in res["pallas"][1])
+        print(f"train check 4-layer mamba2-280m {dtype} b=8 t=1024: loss pallas "
+              f"{res['pallas'][0]:.6f} xla {res['xla'][0]:.6f} (rel {loss_rel:.2e}), worst "
+              f"grad leaf rel {grad_rel:.2e}, tol rel {tol:.0e} [{card}]", flush=True)
+        if not finite or loss_rel > tol or grad_rel > tol:
+            raise SystemExit(f"pallas and xla train steps disagree ({dtype})")
+
+    model = get_preset("mamba2-280m", n_layer=4, ssm_impl="pallas", compute_dtype="bfloat16")
+    cfg = get_train_preset("mamba2-280m", model=model, micro_batch_size=8,
+                           total_batch_size=8 * 1024, warmup_steps=1)
+    params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
+        model, torch.Generator(device="cuda").manual_seed(12), device="cuda"))
+    step = make_train_step(cfg, AdamW(cfg, params))
+    losses = [float(step(params, x, y)[0]) for _ in range(10)]
+    print(f"train check 4-layer mamba2-280m bf16, one batch repeated, warmup 1: losses "
+          + " ".join(f"{v:.4f}" for v in losses), flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the repeated-batch loss did not fall: {losses}")
+
+
+def train_run(card: str) -> dict:
+    """Full-width, full-depth mamba2-280m (64 layers, bf16, pallas, remat)
+    through the port's Trainer: 3 optimizer steps at seq 1024 and
+    micro-batch 32 (16 if 32 does not fit), accum 1, with the validation
+    at steps 0 and 2, on synthetic shards under build/chip_smoke/.
+    Returns the launch counts of the run."""
+    import shutil
+
+    from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    shutil.rmtree(root / "log", ignore_errors=True)
+    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    for micro in (32, 16):
+        cfg = get_train_preset(
+            "mamba2-280m", model=model, micro_batch_size=micro, total_batch_size=micro * 1024,
+            val_steps=2, log_dir=str(root / "log"),
+            data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+        trainer = Trainer(cfg, device="cuda")
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.run(max_steps=3)
+        except torch.cuda.OutOfMemoryError:
+            print(f"train run: micro-batch {micro} does not fit in device memory; halving",
+                  flush=True)
+            trainer.finish()
+            del trainer
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise SystemExit("train run: micro-batch 16 does not fit either")
+    launches = dict(LAUNCHES)
+    trainer.finish()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hist = [trainer.history[s] for s in range(3)]
+    if not all(math.isfinite(v) for h in hist for v in h):
+        raise SystemExit(f"non-finite loss or grad norm: {hist}")
+    for k in ("ssd_fwd", "ssd_chunk_states", "ssd_bwd"):
+        if launches[k] < 1:
+            raise SystemExit(f"the mamba2-280m train path launched no {k} kernel")
+    recs = [json.loads(s) for s in (root / "log" / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if r["kind"] == "train"]
+    vals = [r["loss"] for r in recs if r["kind"] == "val"]
+    print(f"train mamba2-280m n_layer=64 bf16 pallas remat micro={micro} seq=1024 accum=1: "
+          f"losses {[round(h[0], 6) for h in hist]}, grad norms {[round(h[1], 4) for h in hist]}, "
+          f"val {vals}", flush=True)
+    for r in steps:
+        print(f"train step {r['step']}: {r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, "
+              f"MFU {r['mfu']} (model), {r.get('mfu_hw')} (hardware) [{card}]", flush=True)
+    print(f"train peak device memory (max_memory_allocated): {peak_gb:.2f} GiB [{card}]")
+    print(f"train launches during the run: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels, skip the serving run")
+                    help="build and check the kernels, skip the serving and training runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -458,17 +729,26 @@ def main() -> int:
     logs = build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
+              f"spill stores up to {max(spills)} bytes")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_ssd(gen), check_rpa(gen), check_rpp(gen)]
+    rows = [check_ssd(gen), *check_ssd_bwd(gen), check_rpa(gen), check_rpp(gen)]
     if not args.kernels_only:
+        card = smi()
         ssd_launches = serve("mamba2-280m", ("ssd_fwd",))
         launches = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
-        # each kernel's launches on its own path: the mamba2 run for
-        # ssd_fwd, the hybrid run for the attention kernels
-        for row, n in zip(rows, (ssd_launches["ssd_fwd"], launches["ragged_decode"],
+        torch.cuda.empty_cache()
+        print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
+              f"{mm_out_dtype_has_grad()}", flush=True)
+        train_launches = train_run(card)
+        train_checks(card)
+        # each kernel's launches on its own path: the mamba2 serving run
+        # for ssd_fwd, the training run for the backward kernels, the
+        # hybrid serving run for the attention kernels
+        for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
+                                 train_launches["ssd_bwd"], launches["ragged_decode"],
                                  launches["ragged_prefill"])):
             row["launches"] = n
     print(smi())

@@ -1,12 +1,14 @@
-"""Model configuration of the PyTorch port.
+"""Model and training configuration of the PyTorch port.
 
-An own copy of the ``ModelConfig`` fields the serving path reads, with
+An own copy of the ``ModelConfig`` fields the serving and training
+paths read, and of ``TrainConfig``/``DataConfig``/``MeshConfig``, with
 the same names, defaults and validation as
 ``mamba_distributed_tpu/config.py``, so a test can build both configs
 from one keyword dict.  Pure Mamba-2 stacks and hybrid stacks (attention
-layers at ``attn_layer_idx`` over a paged KV cache) are served; MoE,
-LoRA, quantization and mesh knobs are left out, and a config the port
-cannot serve raises at construction with the reason.
+layers at ``attn_layer_idx`` over a paged KV cache) are served, pure
+Mamba-2 stacks trained on one device; MoE, LoRA, quantization and mesh
+sizes above 1 are left out, and a config the port cannot run raises at
+construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -74,10 +76,19 @@ class ModelConfig:
     initializer_range: float = 0.02
     rescale_prenorm_residual: bool = True
 
-    # "pallas" -> the hand-written SSD kernel on a CUDA tensor (the plain
-    # version on a CPU tensor); "xla" -> the plain version everywhere
+    # --- memory (training) ---
+    remat: bool = True  # per-block activation checkpointing
+    # "all": recompute everything; "dots" and "mixer" wait for a later slice
+    remat_policy: str = "all"
+
+    # "pallas" -> the hand-written SSD kernels on a CUDA tensor (the plain
+    # versions on a CPU tensor); "xla" -> the plain version everywhere
     ssm_impl: str = "xla"
     conv_impl: str = "shift"
+
+    # LM-head + CE formulation: "dense" (one head matmul, logits in the
+    # compute dtype); "blocked" (ops/loss.py) waits for a later slice
+    loss_impl: str = "dense"
 
     # --- chunked prompt prefill (serving/prefill.py) ---
     prefill_chunk_tokens: int = 256
@@ -115,6 +126,16 @@ class ModelConfig:
         if self.ssm_impl not in ("xla", "pallas"):
             raise ValueError(
                 f"ssm_impl must be 'xla' or 'pallas', got {self.ssm_impl!r}"
+            )
+        if self.remat_policy != "all":
+            raise ValueError(
+                f"remat_policy={self.remat_policy!r}: the PyTorch port implements "
+                f"remat_policy='all' only ('dots' and 'mixer' are a later slice)"
+            )
+        if self.loss_impl != "dense":
+            raise ValueError(
+                f"loss_impl={self.loss_impl!r}: the PyTorch port implements "
+                f"loss_impl='dense' only ('blocked', ops/loss.py, is a later slice)"
             )
         if self.conv_impl != "shift":
             raise ValueError(
@@ -279,3 +300,101 @@ def get_preset(name: str, **overrides: Any) -> ModelConfig:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return ModelConfig(**{**PRESETS[name], **overrides})
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh axes of the JAX package's ``MeshConfig``.  The port trains
+    on one device: every axis must be 1 (``TrainConfig`` checks)."""
+
+    data: int = 1
+    fsdp: int = 1
+    seq: int = 1
+    tensor: int = 1
+    pipe: int = 1
+    expert: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Token-shard data pipeline (the JAX package's ``DataConfig``)."""
+
+    data_dir: str = "edu_fineweb10B"
+    # If True and data_dir holds no shards, generate deterministic
+    # synthetic shards (data/synthetic.py); nothing is downloaded
+    allow_synthetic: bool = True
+    synthetic_tokens_per_shard: int = 2_097_152
+    synthetic_num_shards: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop config (same field names, defaults and checks as
+    the JAX package's ``TrainConfig``, one device)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    total_batch_size: int = 524288  # tokens/step
+    micro_batch_size: int = 32
+    seq_len: int = 1024
+
+    max_lr: float = 6e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 715
+    max_steps: int = 19073
+    weight_decay: float = 0.1
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    grad_clip: float = 1.0
+
+    seed: int = 1337
+
+    val_every: int = 250
+    val_steps: int = 20
+    sample_every: int = 250
+    checkpoint_every: int = 1000
+    log_dir: str = "log"
+
+    def __post_init__(self):
+        multi = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v != 1}
+        if multi:
+            raise ValueError(
+                f"mesh axes {multi}: the PyTorch port trains on one device "
+                f"(every mesh axis 1); parallel training is a later slice"
+            )
+        if self.micro_batch_size < 1 or self.seq_len < 1:
+            raise ValueError(
+                f"micro_batch_size={self.micro_batch_size} and seq_len="
+                f"{self.seq_len} must be >= 1"
+            )
+        if self.total_batch_size % (self.micro_batch_size * self.seq_len):
+            raise ValueError(
+                f"total_batch_size={self.total_batch_size} must be divisible "
+                f"by micro_batch_size * seq_len = "
+                f"{self.micro_batch_size * self.seq_len}"
+            )
+
+    @property
+    def grad_accum_steps(self) -> int:
+        return self.total_batch_size // (self.micro_batch_size * self.seq_len)
+
+
+# The training halves of the presets the port trains (the JAX package's
+# PRESETS, config.py:1106-1159).
+TRAIN_PRESETS: dict[str, dict[str, Any]] = {
+    "mamba2-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
+                        max_steps=300, warmup_steps=20, val_every=25),
+    "mamba2-280m": dict(),
+}
+
+
+def get_train_preset(name: str, **overrides: Any) -> TrainConfig:
+    """``TrainConfig`` of preset ``name`` with field ``overrides`` (a
+    ``model`` override replaces the preset's model config)."""
+    if name not in TRAIN_PRESETS:
+        raise KeyError(f"unknown training preset {name!r}; have {sorted(TRAIN_PRESETS)}")
+    model = overrides.pop("model", None) or get_preset(name)
+    return TrainConfig(model=model, **{**TRAIN_PRESETS[name], **overrides})

@@ -26,11 +26,16 @@ conv_dim), ssm (L, b, h, p, n) fp32)}``, plus, for hybrids,
 ``"attn_blocks": (k_pages, v_pages)`` each (A, P, nkv, page, hd) and
 ``"attn_meta": (page_table (b, W) int32, lengths (b,) int32)``, shared by
 every attention layer.
+
+Training (pure Mamba-2 stacks): ``lm_forward``/``lm_loss`` carry one
+post-add fp32 stream through the layers, as the JAX ``_backbone`` does,
+each block checkpointed as a whole when ``cfg.remat`` is on.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.attention import (
@@ -47,7 +52,7 @@ from mamba_distributed_tpu_torch.models.mamba2 import (
     mamba2_mixer,
     mamba2_mixer_step,
 )
-from mamba_distributed_tpu_torch.ops.norm import add_rms_norm
+from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm
 
 
 def _unstack(tree, n: int) -> list:
@@ -136,6 +141,67 @@ def _final_logits(params: dict, cfg: ModelConfig, hidden, residual):
     )
     cd = cfg.torch_compute_dtype
     return mm_f32(normed.to(cd), params["embedding"].to(cd).t())
+
+
+def count_params(params: dict) -> int:
+    """Number of scalars in a parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
+def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tensor:
+    """One prenorm block in the single-carry form of the JAX
+    ``_backbone`` (lm.py:437-444): the post-add stream -> the next one."""
+    normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
+    return res + mamba2_mixer(bp["mixer"], cfg, normed).to(res.dtype)
+
+
+def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding -> layer stack -> the post-add stream, before the final
+    norm (the pure-SSM branch of lm.py:415-519).  With ``cfg.remat`` and
+    autograd on, each block is checkpointed as a whole (``remat_policy=
+    "all"``): the backward keeps only each block's input stream and
+    recomputes the rest, SSD forward included."""
+    if cfg.attn_layer_idx:
+        raise ValueError(
+            "training runs pure Mamba-2 stacks; hybrid training (the full-"
+            "sequence attention_mixer, kernels 7-9) is a later slice"
+        )
+    res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp in _unstack(params["blocks"], cfg.n_layer):
+        if remat:
+            res = checkpoint(_train_block, bp, cfg, res, use_reentrant=False)
+        else:
+            res = _train_block(bp, cfg, res)
+    return res
+
+
+def _final_norm(params: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tensor:
+    """Final norm of the post-add stream (lm.py:299-316, single-carry form)."""
+    return rms_norm(res.to(_residual_dtype(cfg)), params["norm_f"]["weight"], cfg.norm_eps)
+
+
+def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542).
+
+    The tied head is one compute-dtype GEMM: fp32 accumulation rounded
+    once to the compute dtype, the rounding the JAX package applies to
+    its fp32 logits (lm.py:538), and a product autograd differentiates."""
+    cd = cfg.torch_compute_dtype
+    normed = _final_norm(params, cfg, _backbone(params, cfg, input_ids))
+    return normed.to(cd) @ params["embedding"].to(cd).t()
+
+
+def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32 against the loader's pre-shifted
+    targets, as ``logsumexp - gathered logit`` (the dense loss of
+    lm.py:545-586: no (b, t, V) log-prob tensor)."""
+    lf = lm_forward(params, cfg, input_ids).float()
+    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - tgt).mean()
 
 
 def _stack_states(states: list) -> tuple:

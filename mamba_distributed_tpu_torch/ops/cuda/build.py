@@ -25,12 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # every kernel source of the port, by library name
 SOURCES = {
     "ssd_fwd": CSRC / "ssd_fwd.cu",
+    "ssd_bwd": CSRC / "ssd_bwd.cu",
     "ragged_paged_attention": CSRC / "ragged_paged_attention.cu",
 }
 # launches of every kernel of the port, by kernel: each wrapper adds one
 # where it launches its kernel, and nowhere else (a run reads these to
 # show that its main path went through the kernels)
-LAUNCHES = {"ssd_fwd": 0, "ragged_decode": 0, "ragged_prefill": 0}
+LAUNCHES = {"ssd_fwd": 0, "ssd_chunk_states": 0, "ssd_bwd": 0,
+            "ragged_decode": 0, "ragged_prefill": 0}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",

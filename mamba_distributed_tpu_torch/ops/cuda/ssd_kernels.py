@@ -1,15 +1,30 @@
-"""SSD forward through the hand-written Hopper kernel (``csrc/ssd_fwd.cu``).
+"""SSD forward and backward through the hand-written Hopper kernels.
 
-Counterpart of ``ssd_chunked_pallas`` (mamba_distributed_tpu/ops/pallas/
-ssd_kernels.py:598), forward only: the kernel replaces
-``_ssd_fused_fwd_kernel`` (ssd_kernels.py:164).  The source's header
-states what bounds it on the card and what its design does about that.
+Counterpart of ``ssd_chunked_pallas`` and its ``custom_vjp``
+(mamba_distributed_tpu/ops/pallas/ssd_kernels.py:560-630).  Three
+kernels, each beside its plain PyTorch version:
 
-``ssd_chunked_kernel`` on a CPU tensor runs the plain ``ops/ssd.py``
-formulation (the CPU tests); on a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` (shared by every kernel of the port, ``build.py``)
-counts the kernel launches, so a run can show that its main path went
-through the kernel.
+* ``ssd_fwd`` (``csrc/ssd_fwd.cu``) replaces ``_ssd_fused_fwd_kernel``
+  (ssd_kernels.py:164): the forward, state carried on chip;
+* ``ssd_chunk_states`` (``csrc/ssd_bwd.cu``) replaces
+  ``_chunk_states_kernel`` (:61): the per-chunk state summaries the
+  backward recomputes;
+* ``ssd_bwd`` (``csrc/ssd_bwd.cu``) replaces ``_ssd_fused_bwd_kernel``
+  (:299): the reverse chunk walk carrying the state cotangent on chip.
+
+``SSDFunction`` is the ``torch.autograd.Function`` around them: its
+forward runs ``ssd_fwd`` and saves ``(x, dt, A, B, C, initial_state)``;
+its backward runs ``ssd_chunk_states``, ``ops/ssd.state_passing`` to
+recompute the entering states, ``ssd_bwd``, and the plain epilogue of
+ssd_kernels.py:521-538 (``da`` through the cumsum chain into dt and A,
+the group sums of dB and dC).  The D skip stays outside the Function,
+as ``_add_D`` does in the JAX package.
+
+Every wrapper runs its plain version on a CPU tensor (the CPU tests go
+through the Function's glue that way) and, on a CUDA tensor, launches
+its kernel or raises.  ``LAUNCHES`` (shared by every kernel of the
+port, ``build.py``) counts the launches.  The sources' headers state
+what bounds each kernel on the card and what its design does about it.
 """
 
 from __future__ import annotations
@@ -22,15 +37,23 @@ import torch
 from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
-from mamba_distributed_tpu_torch.ops.ssd import _add_D, _divisor_chunk, ssd_chunked
+from mamba_distributed_tpu_torch.ops.ssd import (
+    _add_D,
+    _divisor_chunk,
+    chunk_log_decay,
+    heads_of_groups,
+    reverse_cumsum,
+    ssd_chunked,
+    state_passing,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (built at first use)."""
+def _fwd_lib() -> ctypes.CDLL:
+    """The forward library with its C signatures declared (built at first use)."""
     lib = build.load("ssd_fwd")
     lib.mdt_ssd_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P]
     lib.mdt_ssd_fwd.restype = _I
@@ -39,63 +62,77 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward library (kernels 2 and 3) with its C signatures."""
+    lib = build.load("ssd_bwd")
+    lib.mdt_ssd_chunk_states.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 9 + [_I, _P]
+    lib.mdt_ssd_chunk_states.restype = _I
+    lib.mdt_ssd_bwd.argtypes = [_P] * 15 + [_I] * 7 + [_L] * 12 + [_I, _P]
+    lib.mdt_ssd_bwd.restype = _I
+    lib.mdt_ssd_bwd_supports.argtypes = [_I, _I]
+    lib.mdt_ssd_bwd_supports.restype = _I
+    return lib
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"ssd_chunked_kernel: {msg}")
+        raise ValueError(f"ssd kernels: {msg}")
 
 
-def ssd_chunked_kernel(x, dt, A, B, C, chunk_size: int = 256, D=None,
-                       initial_state=None, return_final_state: bool = False,
-                       compute_dtype=torch.bfloat16):
-    """Drop-in for ``ops/ssd.ssd_chunked`` (same arguments, same
-    contract as the JAX package's ``ssd_chunked_pallas``).
-
-    x (b, t, h, p) float32/bfloat16, last axis contiguous (batch, time
-    and head strides are read as given, so slices of the conv output go
-    in uncopied); dt (b, t, h) fp32; A (h,) fp32; B, C (b, t, g, n) in
-    x's dtype, last axis contiguous; initial_state (b, h, p, n) fp32
-    contiguous or None (zeros).  The kernel computes in x's dtype, so
-    ``compute_dtype`` must equal it.  Returns y in x's dtype (D added
-    afterwards in fp32, as ``_add_D`` in the JAX package) [and the final
-    state (b, h, p, n) fp32].
-    """
-    if not use_kernel("pallas", x):
-        return ssd_chunked(x, dt, A, B, C, chunk_size=chunk_size, D=D,
-                           initial_state=initial_state,
-                           return_final_state=return_final_state,
-                           compute_dtype=compute_dtype)
+def _check_inputs(x, dt, B, C, compute_dtype, supports) -> tuple:
+    """Device, dtype, shape and stride checks shared by the three
+    kernels; returns (b, t, h, p, g, n)."""
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     _check(x.dtype in _DTYPE_CODE, f"x dtype {x.dtype} not float32/bfloat16")
     _check(compute_dtype == x.dtype,
            f"compute_dtype {compute_dtype} must equal x dtype {x.dtype}")
-    _check(B.dtype == x.dtype and C.dtype == x.dtype, "B and C must share x's dtype")
-    _check(tuple(B.shape) == (b, t, g, n) and tuple(C.shape) == (b, t, g, n),
-           f"B/C shapes {tuple(B.shape)} {tuple(C.shape)}")
+    _check(B.dtype == x.dtype and (C is None or C.dtype == x.dtype),
+           "B and C must share x's dtype")
+    _check(tuple(B.shape) == (b, t, g, n) and (C is None or tuple(C.shape) == (b, t, g, n)),
+           f"B/C shapes {tuple(B.shape)} {None if C is None else tuple(C.shape)}")
     _check(h % g == 0, f"{h} heads do not split into {g} groups")
     _check(dt.dtype == torch.float32 and tuple(dt.shape) == (b, t, h),
            f"dt must be fp32 (b, t, h), got {dt.dtype} {tuple(dt.shape)}")
-    _check(A.dtype == torch.float32 and tuple(A.shape) == (h,) and A.is_contiguous(),
-           "A must be a contiguous fp32 (h,)")
     for name, v in (("x", x), ("B", B), ("C", C)):
+        if v is None:
+            continue
         _check(v.is_cuda and v.device == x.device, f"{name} not on {x.device}")
         _check(v.stride(-1) == 1, f"{name}'s last axis must be contiguous")
-    _check(dt.device == x.device and A.device == x.device, "dt/A device")
-    if initial_state is not None:
-        _check(initial_state.dtype == torch.float32
-               and tuple(initial_state.shape) == (b, h, p, n)
-               and initial_state.is_contiguous()
-               and initial_state.device == x.device,
-               "initial_state must be a contiguous fp32 (b, h, p, n) on x's device")
-    lib = _lib()
-    _check(bool(lib.mdt_ssd_fwd_supports(p, n)),
-           f"no kernel instance for headdim={p}, d_state={n}")
-    l = _divisor_chunk(t, chunk_size)
-    _check(l <= 256, f"chunk {l} > 256")
+    _check(dt.device == x.device, "dt device")
+    _check(bool(supports(p, n)), f"no kernel instance for headdim={p}, d_state={n}")
+    return b, t, h, p, g, n
 
+
+def _f32_on(v, shape, device, name):
+    _check(v.dtype == torch.float32 and tuple(v.shape) == shape and v.is_contiguous()
+           and v.device == device,
+           f"{name} must be a contiguous fp32 {shape} on {device}")
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ------------------------------------------------------------------- forward
+
+
+def _ssd_fwd(x, dt, A, B, C, l: int, initial_state, compute_dtype):
+    """Forward without D: (y in x's dtype, final state fp32).  Kernel 1
+    on a CUDA tensor, the plain ``ssd_chunked`` on a CPU tensor."""
+    if not use_kernel("pallas", x):
+        return ssd_chunked(x, dt, A, B, C, chunk_size=l, initial_state=initial_state,
+                           return_final_state=True, compute_dtype=compute_dtype)
+    lib = _fwd_lib()
+    b, t, h, p, g, n = _check_inputs(x, dt, B, C, compute_dtype, lib.mdt_ssd_fwd_supports)
+    _check(A.dtype == torch.float32 and tuple(A.shape) == (h,) and A.is_contiguous()
+           and A.device == x.device, "A must be a contiguous fp32 (h,) on x's device")
+    if initial_state is not None:
+        _f32_on(initial_state, (b, h, p, n), x.device, "initial_state")
+    _check(l <= 256, f"chunk {l} > 256")
     y = torch.empty((b, t, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.mdt_ssd_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
@@ -105,11 +142,249 @@ def ssd_chunked_kernel(x, dt, A, B, C, chunk_size: int = 256, D=None,
         dt.stride(0), dt.stride(1), dt.stride(2),
         B.stride(0), B.stride(1), B.stride(2),
         C.stride(0), C.stride(1), C.stride(2),
-        _DTYPE_CODE[x.dtype], stream,
+        _DTYPE_CODE[x.dtype], _stream(x),
     )
     if err != 0:
         raise RuntimeError(f"ssd_fwd launch failed: cudaError {err}")
     LAUNCHES["ssd_fwd"] += 1
+    return y, final
+
+
+# ------------------------------------------------- kernel 2: chunk states
+
+
+def _cd(v, cd):
+    """Round to the compute dtype and back to fp32 (a kernel cast point)."""
+    return v.to(cd).float()
+
+
+def ssd_chunk_states_plain(x, dt, a_cum, B, l: int, compute_dtype):
+    """Per-chunk state summaries ``out[b, c, h] = round(x)^T round(B * w)``,
+    ``w = dt * exp(a_last - a)`` (ssd_kernels.py:61-73): x (b, t, h, p),
+    dt (b, t, h) fp32, a_cum (b, t, h) fp32 (``chunk_log_decay``), B
+    (b, t, g, n) -> (b, nc, h, p, n) fp32."""
+    b, t, h, p = x.shape
+    nc, n = t // l, B.shape[-1]
+    a = a_cum.reshape(b, nc, l, h)
+    w = dt.float().reshape(b, nc, l, h) * torch.exp(a[:, :, -1:] - a)
+    Bh = heads_of_groups(B.reshape(b, nc, l, -1, n), h).float()
+    Bd = _cd(Bh * w[..., None], compute_dtype)
+    return torch.einsum("bcjhp,bcjhn->bchpn", _cd(x.reshape(b, nc, l, h, p), compute_dtype), Bd)
+
+
+def ssd_chunk_states_kernel(x, dt, a_cum, B, l: int, compute_dtype):
+    """``ssd_chunk_states_plain`` through kernel 2 on a CUDA tensor (x, B
+    read through their strides; a_cum contiguous (b, t, h) fp32)."""
+    if not use_kernel("pallas", x):
+        return ssd_chunk_states_plain(x, dt, a_cum, B, l, compute_dtype)
+    lib = _bwd_lib()
+    b, t, h, p, g, n = _check_inputs(x, dt, B, None, compute_dtype, lib.mdt_ssd_bwd_supports)
+    _f32_on(a_cum, (b, t, h), x.device, "a_cum")
+    _check(l <= 256 and t % l == 0, f"chunk {l} must divide {t} and be <= 256")
+    out = torch.empty((b, t // l, h, p, n), dtype=torch.float32, device=x.device)
+    err = lib.mdt_ssd_chunk_states(
+        x.data_ptr(), dt.data_ptr(), a_cum.data_ptr(), B.data_ptr(), out.data_ptr(),
+        b, t, h, p, g, n, l,
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        B.stride(0), B.stride(1), B.stride(2),
+        _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_states launch failed: cudaError {err}")
+    LAUNCHES["ssd_chunk_states"] += 1
+    return out
+
+
+# ------------------------------------------------ kernel 3: fused backward
+
+
+def ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_dtype):
+    """Every per-cell gradient of the SSD forward (ssd_kernels.py:299-431),
+    rounding at the TPU kernel's cast points, with the state cotangent
+    gP walked over the chunks in reverse from ``dfinal`` (zeros if None).
+
+    x (b, t, h, p); dt, a_cum (b, t, h) fp32; B, C (b, t, g, n);
+    prev_states (b, nc, h, p, n) fp32 (the state entering each chunk);
+    dy (b, t, h, p).  Returns dx (b, t, h, p) in x's dtype, ddt_direct
+    and da (b, t, h) fp32, dB and dC per head (b, t, h, n) fp32, dgamma
+    (b, nc, h) fp32 and dinit (b, h, p, n) fp32 (gP after chunk 0)."""
+    cd = compute_dtype
+    b, t, h, p = x.shape
+    nc, n = t // l, B.shape[-1]
+    xc = x.float().reshape(b, nc, l, h, p)
+    dtc = dt.float().reshape(b, nc, l, h)
+    a = a_cum.reshape(b, nc, l, h)
+    Bh = heads_of_groups(B.reshape(b, nc, l, -1, n), h).float()
+    Ch = heads_of_groups(C.reshape(b, nc, l, -1, n), h).float()
+    dyc = _cd(dy.reshape(b, nc, l, h, p), cd)
+    P = prev_states
+    e = torch.exp(a)
+    d = torch.exp(a[:, :, -1:] - a)
+    gamma = torch.exp(a[:, :, -1])  # (b, nc, h)
+    u = xc * dtc[..., None]
+
+    # intra-chunk: y_diag = (G .* L) @ u
+    G = torch.einsum("bcihn,bcjhn->bchij", _cd(Ch, cd), _cd(Bh, cd))
+    seg = a.movedim(2, -1)  # (b, nc, h, l)
+    diff = seg[..., :, None] - seg[..., None, :]
+    tril = torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    Lm = torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)  # mask before exp
+    M = G * Lm
+    dM = torch.einsum("bcihp,bcjhp->bchij", dyc, _cd(u, cd))
+    du = torch.einsum("bchij,bcihp->bcjhp", _cd(M, cd), dyc)
+    dMM = dM * M
+    da = (dMM.sum(-1) - dMM.sum(-2)).movedim(-1, 2)  # (b, nc, l, h)
+    dG = _cd(dM * Lm, cd)
+    dB = torch.einsum("bchij,bcihn->bcjhn", dG, _cd(Ch, cd))
+    dC = torch.einsum("bchij,bcjhn->bcihn", dG, _cd(Bh, cd))
+
+    # off-diagonal: y_off = diag(e) C @ P^T
+    T = torch.einsum("bcihp,bchpn->bcihn", dyc, _cd(P, cd))
+    dC = dC + e[..., None] * T
+    da = da + (T * Ch).sum(-1) * e
+
+    # the state cotangent, walked in reverse: dS_c = gP_{c+1}
+    dP = torch.einsum("bcihp,bcihn->bchpn", dyc, _cd(e[..., None] * Ch, cd))
+    gP = (torch.zeros_like(P[:, 0]) if dfinal is None else dfinal.float())
+    dS = torch.empty_like(P)
+    for c in reversed(range(nc)):
+        dS[:, c] = gP
+        gP = dP[:, c] + gamma[:, c, :, None, None] * gP
+
+    # state summary: S = sum_j d_j u_j (x) B_j
+    dw = torch.einsum("bcjhn,bchpn->bcjhp", _cd(Bh, cd), _cd(dS, cd))
+    dB = dB + torch.einsum("bcjhp,bchpn->bcjhn", _cd(u * d[..., None], cd), _cd(dS, cd))
+    du = du + d[..., None] * dw
+    ddd = (u * dw).sum(-1) * d
+    da = da - ddd
+    da[:, :, -1] += ddd.sum(2)
+
+    dx = (dtc[..., None] * du).to(x.dtype).reshape(b, t, h, p)
+    ddt_dir = (xc * du).sum(-1).reshape(b, t, h)
+    dgamma = (dS * P).sum((-2, -1))
+    return (dx, ddt_dir, da.reshape(b, t, h), dB.reshape(b, t, h, n),
+            dC.reshape(b, t, h, n), dgamma, gP)
+
+
+def ssd_bwd_kernel(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_dtype):
+    """``ssd_bwd_plain`` through kernel 3 on a CUDA tensor: one CTA per
+    (batch, head) walks the chunks in reverse with gP in shared memory.
+    dy must be contiguous (b, t, h, p) in x's dtype; prev_states and
+    dfinal contiguous fp32."""
+    if not use_kernel("pallas", x):
+        return ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l, compute_dtype)
+    lib = _bwd_lib()
+    b, t, h, p, g, n = _check_inputs(x, dt, B, C, compute_dtype, lib.mdt_ssd_bwd_supports)
+    _check(l <= 256 and t % l == 0, f"chunk {l} must divide {t} and be <= 256")
+    nc = t // l
+    _f32_on(a_cum, (b, t, h), x.device, "a_cum")
+    _f32_on(prev_states, (b, nc, h, p, n), x.device, "prev_states")
+    _check(dy.dtype == x.dtype and tuple(dy.shape) == (b, t, h, p) and dy.is_contiguous()
+           and dy.device == x.device, "dy must be a contiguous (b, t, h, p) in x's dtype")
+    if dfinal is not None:
+        _f32_on(dfinal, (b, h, p, n), x.device, "dfinal")
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, t, h), dtype=f32, device=dev)
+    da = torch.empty((b, t, h), dtype=f32, device=dev)
+    dB = torch.empty((b, t, h, n), dtype=f32, device=dev)
+    dC = torch.empty((b, t, h, n), dtype=f32, device=dev)
+    dgamma = torch.empty((b, nc, h), dtype=f32, device=dev)
+    dinit = torch.empty((b, h, p, n), dtype=f32, device=dev)
+    err = lib.mdt_ssd_bwd(
+        x.data_ptr(), dt.data_ptr(), a_cum.data_ptr(), B.data_ptr(), C.data_ptr(),
+        prev_states.data_ptr(), dy.data_ptr(),
+        None if dfinal is None else dfinal.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dgamma.data_ptr(), dinit.data_ptr(),
+        b, t, h, p, g, n, l,
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        B.stride(0), B.stride(1), B.stride(2),
+        C.stride(0), C.stride(1), C.stride(2),
+        _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd launch failed: cudaError {err}")
+    LAUNCHES["ssd_bwd"] += 1
+    return dx, ddt, da, dB, dC, dgamma, dinit
+
+
+# ------------------------------------------------------- the autograd core
+
+
+def ssd_backward(x, dt, A, B, C, dy, l: int, compute_dtype,
+                 initial_state=None, dfinal=None):
+    """Gradients of the SSD forward without D (``_ssd_pallas_bwd_impl``,
+    ssd_kernels.py:434-547): kernel 2, ``state_passing``, kernel 3,
+    then the plain epilogue.  Returns (dx, ddt, dA, dB, dC, dinit), dinit
+    None without an ``initial_state``."""
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = t // l
+    a4 = chunk_log_decay(dt, A, l)  # (b, nc, l, h)
+    a_cum = a4.reshape(b, t, h)
+    chunk_decay = torch.exp(a4[:, :, -1])  # (b, nc, h)
+    states = ssd_chunk_states_kernel(x, dt, a_cum, B, l, compute_dtype)
+    prev_states, _ = state_passing(states, chunk_decay, initial_state)
+    dx, ddt_dir, da, dB_h, dC_h, dgamma, dinit = ssd_bwd_kernel(
+        x, dt, a_cum, B, C, prev_states.contiguous(), dy.contiguous(),
+        None if dfinal is None else dfinal.contiguous(), l, compute_dtype)
+
+    # epilogue: the chunk decay's gradient lands on the last row's a,
+    # then `da` goes through the in-chunk cumsum into dt and A
+    da = da.reshape(b, nc, l, h)
+    da = torch.cat([da[:, :, :-1], (da[:, :, -1] + dgamma * chunk_decay)[:, :, None]], 2)
+    ddA = reverse_cumsum(da, dim=2)
+    ddt = ddt_dir + (ddA * A.float()).reshape(b, t, h)
+    dA = (ddA * dt.float().reshape(b, nc, l, h)).sum((0, 1, 2))
+    # a group's h/g heads are consecutive
+    dB = dB_h.reshape(b, t, g, h // g, n).sum(3)
+    dC = dC_h.reshape(b, t, g, h // g, n).sum(3)
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype),
+            dinit if initial_state is not None else None)
+
+
+class SSDFunction(torch.autograd.Function):
+    """``_ssd_pallas_core`` with its ``custom_vjp`` (ssd_kernels.py:560-595):
+    (x, dt, A, B, C, initial_state) -> (y without D, final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state, l, compute_dtype):
+        y, final = _ssd_fwd(x, dt, A, B, C, l, initial_state, compute_dtype)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.l, ctx.compute_dtype = l, compute_dtype
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        grads = ssd_backward(x, dt, A, B, C, dy, ctx.l, ctx.compute_dtype,
+                             initial_state, dfinal)
+        return (*grads, None, None)
+
+
+def ssd_chunked_kernel(x, dt, A, B, C, chunk_size: int = 256, D=None,
+                       initial_state=None, return_final_state: bool = False,
+                       compute_dtype=torch.bfloat16):
+    """Drop-in for ``ops/ssd.ssd_chunked`` (same arguments, same
+    contract as the JAX package's ``ssd_chunked_pallas``), differentiable
+    through ``SSDFunction`` on every call.
+
+    On a CUDA tensor: x (b, t, h, p) float32/bfloat16, last axis
+    contiguous (batch, time and head strides are read as given, so slices
+    of the conv output go in uncopied); dt (b, t, h) fp32; A (h,) fp32;
+    B, C (b, t, g, n) in x's dtype, last axis contiguous; initial_state
+    (b, h, p, n) fp32 contiguous or None (zeros).  The kernels compute in
+    x's dtype, so ``compute_dtype`` must equal it.  Returns y in x's
+    dtype (D added afterwards in fp32, as ``_add_D`` in the JAX package)
+    [and the final state (b, h, p, n) fp32]."""
+    l = _divisor_chunk(x.shape[1], chunk_size)
+    y, final = SSDFunction.apply(x, dt, A, B, C, initial_state, l, compute_dtype)
     if D is not None:
         y = _add_D(y, x, D).to(x.dtype)
     if return_final_state:

@@ -58,6 +58,30 @@ def cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumsum(x.float(), dim=dim).to(x.dtype)
 
 
+def reverse_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """out[..., i] = sum_{k >= i} x[..., k] along ``dim``, in fp32."""
+    return cumsum(x.float().flip(dim), dim=dim).flip(dim)
+
+
+def chunk_log_decay(dt: torch.Tensor, A: torch.Tensor, l: int) -> torch.Tensor:
+    """In-chunk cumulative log-decay a = cumsum(dt * A) over each chunk
+    of length l: dt (b, t, h), A (h,) -> (b, nc, l, h) fp32 (the ``a``
+    of ``_chunked_inputs`` in the JAX package's Pallas SSD)."""
+    b, t, h = dt.shape
+    return cumsum(dt.float().reshape(b, t // l, l, h) * A.float(), dim=2)
+
+
+def heads_of_groups(v: torch.Tensor, h: int) -> torch.Tensor:
+    """(..., g, n) grouped B or C -> (..., h, n): head j reads group
+    j * g // h, as the kernels index them (no copy where g == h)."""
+    g = v.shape[-2]
+    if g == h:
+        return v
+    lead = v.shape[:-2]
+    return (v.unsqueeze(-2).expand(*lead, g, h // g, v.shape[-1])
+            .reshape(*lead, h, v.shape[-1]))
+
+
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """out[..., i, j] = sum_{k in (j, i]} x[..., k] for i >= j, -inf above."""
     l = x.shape[-1]

@@ -36,14 +36,14 @@ from mamba_distributed_tpu_torch.serving.prefill import (
 )
 
 
-def _card() -> str:
+def card_name() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
-def _report(label: str, prof, wall_s: float, card: str, top: int = 8) -> None:
+def report_kernels(label: str, prof, wall_s: float, card: str, top: int = 8) -> None:
     # kernel events only (CPU-side ops would count their kernels twice)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -79,7 +79,7 @@ def profile_preset(preset: str, card: str) -> None:
         eng.step()  # decode only: every slot is decoding
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{preset} decode tick ({eng.tokens_per_tick} sub-steps x 8 slots)", prof,
+    report_kernels(f"{preset} decode tick ({eng.tokens_per_tick} sub-steps x 8 slots)", prof,
             wall, card)
 
     dparams = cast_decode_params(params, cfg)
@@ -99,7 +99,7 @@ def profile_preset(preset: str, card: str) -> None:
             prefill_chunk(dparams, ids, mask, state, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _report(f"{preset} chunked-prefill step (256 tokens, batch 1)", prof, wall, card)
+    report_kernels(f"{preset} chunked-prefill step (256 tokens, batch 1)", prof, wall, card)
 
 
 def main() -> int:
@@ -108,7 +108,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
-    card = _card()
+    card = card_name()
     for preset in args.presets:
         profile_preset(preset, card)
     return 0

@@ -13,17 +13,19 @@
   on through admission mid-flight, a chunked long prompt, eviction and
   slot and page reuse, with no page leaked; admission waits while the
   pool is short and an over-budget request raises at ``submit``; greedy
-  streams equal the JAX hybrid engine's.
+  streams equal the JAX package's solo ``generate()``.
 """
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from mamba_distributed_tpu.config import ModelConfig as JaxConfig
+from mamba_distributed_tpu.inference import generate as jax_generate
 from mamba_distributed_tpu.models import init_lm_params as jax_init
 from mamba_distributed_tpu.serving import GenerationRequest as JaxRequest
 from mamba_distributed_tpu.serving import ServingEngine as JaxEngine
@@ -302,29 +304,25 @@ def test_hybrid_generate_requires_chunk_step(hybrid):
 
 
 def test_hybrid_greedy_streams_match_jax_engine():
-    """Same weights, greedy: the port's hybrid engine emits the JAX hybrid
-    engine's tokens for a one-chunk, a two-chunk and a four-chunk prompt."""
+    """Same weights, greedy: the port's hybrid engine emits, for a
+    one-chunk, a two-chunk and a four-chunk prompt sharing its slots, the
+    tokens of the JAX package's solo ``generate()`` on each prompt (its
+    chunked prefill and decode scan are the JAX hybrid engine's own
+    computation, and reproducible from run to run, where the JAX
+    engine's greedy streams are not under the CPU backend's
+    asynchronous dispatch)."""
     kw = hybrid_cfg()
     jcfg = JaxConfig(**kw, remat=False)
     jparams = jax_init(jax.random.PRNGKey(5), jcfg)
     cfg = ModelConfig(**kw)
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
     prompts = [_prompt(30 + i, t) for i, t in enumerate((5, 20, 50))]
-    # with the CPU backend's asynchronous dispatch the JAX hybrid engine's
-    # own greedy streams vary from run to run; dispatched synchronously
-    # they are reproducible (and equal its solo generate())
-    async_dispatch = jax.config.read("jax_cpu_enable_async_dispatch")
-    jax.config.update("jax_cpu_enable_async_dispatch", False)
-    try:
-        jeng = JaxEngine(jparams, jcfg, capacity=2, max_top_k=1, tokens_per_tick=4)
-        jres = jeng.run([JaxRequest(prompt_ids=p.astype(np.int32), max_new_tokens=9,
-                                    top_k=1) for p in prompts])
-    finally:
-        jax.config.update("jax_cpu_enable_async_dispatch", async_dispatch)
     eng = ServingEngine(params, cfg, capacity=2, max_top_k=1, tokens_per_tick=4,
                         device="cpu")
     res = eng.run([GenerationRequest(prompt_ids=p, max_new_tokens=9, top_k=1)
                    for p in prompts])
-    for a, b in zip(res, jres):
-        assert a.new_tokens.tolist() == np.asarray(b.new_tokens).tolist()
+    for p, r in zip(prompts, res):
+        want = jax_generate(jparams, jcfg, jnp.asarray(p[None].astype(np.int32)),
+                            jax.random.PRNGKey(0), max_new_tokens=9, top_k=1)
+        assert r.new_tokens.tolist() == np.asarray(want)[0, len(p):].tolist()
     assert eng.page_pool.pages_in_use == 0
