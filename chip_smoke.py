@@ -10,16 +10,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
    shapes, beside a bound from the bytes and operations the work needs
-   and, for attention, a PyTorch SDPA call on the pre-gathered cache
-   view: ``ssd_fwd`` at mamba2-280m's (24 heads, headdim 64, d_state
-   128); ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward) over g 1
-   and 2, seeded and not, with and without a final-state cotangent, then
-   the whole ``SSDFunction``'s gradients against torch autograd of the
-   plain forward, timed at one layer of the mamba2-280m train step (b 8,
-   t 1024, chunk 256); ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused
-   page write + chunk prefill) at hybrid-280m's (12 query / 4 KV heads,
-   head dim 64, pages of 64 tokens, 16 pages per slot) over ragged
-   length mixes, with the written pages compared bit for bit;
+   and, for attention, a PyTorch SDPA call: ``ssd_fwd`` at mamba2-280m's
+   (24 heads, headdim 64, d_state 128); ``ssd_chunk_states`` and
+   ``ssd_bwd`` (the SSD backward) over g 1 and 2, seeded and not, with
+   and without a final-state cotangent, then the whole ``SSDFunction``'s
+   gradients against torch autograd of the plain forward, timed at one
+   layer of the mamba2-280m train step (b 8, t 1024, chunk 256);
+   ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page write + chunk
+   prefill) at hybrid-280m's (12 query / 4 KV heads, head dim 64, pages
+   of 64 tokens, 16 pages per slot) over ragged length mixes, with the
+   written pages compared bit for bit; ``flash_fwd``, ``flash_bwd_dq``
+   and ``flash_bwd_dkv`` (flash attention) over t 1024 and 1000, GQA rep
+   1 and 3, offsets 0, positive and negative, head dims 32, 64 and 128,
+   then the whole ``FlashAttentionFunction``'s gradients against torch
+   autograd of the plain blockwise attention, timed at one attention
+   layer of the hybrid-280m train step (b 32, t 1024);
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
@@ -27,14 +32,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    hybrid-280m engine (64 layers, 8 of them attention over the paged
    KV cache), where every prompt takes the chunked prefill.  One greedy
    request's stream must equal the port's solo ``generate()``, and a
-   hybrid engine must end with no KV page in use;
-4. train a full-width, full-depth mamba2-280m (bf16, pallas, remat)
-   through the port's ``Trainer`` for 3 optimizer steps at seq 1024 on
-   synthetic shards (micro-batch 32, or 16 if 32 does not fit), with
-   validation; every loss and grad norm must be finite.  At 4 layers of
-   the same width, one train step's loss and gradients with "pallas"
-   must match "xla" (fp32 and bf16), and ten steps on one repeated batch
-   must lower the loss;
+   hybrid engine must end with no KV page in use.  On the hybrid
+   engine's weights the one-shot prefill (full-sequence attention
+   through ``flash_fwd``) must agree with the chunked one, and a greedy
+   ``generate(length_bucketing=False)`` runs through it;
+4. train a full-width, full-depth mamba2-280m, then hybrid-280m (bf16,
+   pallas, remat) through the port's ``Trainer`` for 3 optimizer steps
+   at seq 1024 on synthetic shards (micro-batch 32, or 16 if 32 does not
+   fit), with validation; every loss and grad norm must be finite.  At 4
+   layers of the same width (attention at layers 1 and 3 for the
+   hybrid), one train step's loss and gradients with "pallas" must
+   match "xla" (fp32 and bf16), and ten steps on one repeated batch must
+   lower the loss;
 5. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
@@ -483,6 +492,150 @@ def check_rpp(gen):
     return row
 
 
+# ------------------------------------------------------ flash attention kernels
+
+
+def flash_inputs(gen, b, tq, tk, nh, nkv, hd, dtype):
+    """Head-major q, k, v as transposed views of qkv-projection-like
+    (b, t, heads * hd) tensors (so the kernels read them through strides,
+    as in the mixer), and a dO of q's shape."""
+    dev = "cuda"
+    qx = torch.randn((b, tq, nh * hd), generator=gen, device=dev).to(dtype)
+    kvx = torch.randn((b, tk, 2 * nkv * hd), generator=gen, device=dev).to(dtype)
+    qt = qx.reshape(b, tq, nh, hd).transpose(1, 2)
+    kt = kvx[..., :nkv * hd].reshape(b, tk, nkv, hd).transpose(1, 2)
+    vt = kvx[..., nkv * hd:].reshape(b, tk, nkv, hd).transpose(1, 2)
+    do = torch.randn((b, nh, tq, hd), generator=gen, device=dev).to(dtype)
+    return qt, kt, vt, do
+
+
+def flash_work(b, tq, tk, nh, nkv, hd, offset, dtype):
+    """(bytes, flops) of kernels 7, 8 and 9 on these shapes: each input
+    read once and each output written once; the multiply-adds of the
+    (query, key) pairs the causal mask keeps (2, 3 and 4 hd-long products
+    per pair)."""
+    e = torch.finfo(dtype).bits // 8
+    qs, kvs, rows = b * tq * nh * hd, b * tk * nkv * hd, b * nh * tq
+    pairs = b * nh * sum(min(max(i + offset + 1, 0), tk) for i in range(tq))
+    fwd = (2 * qs * e + 2 * kvs * e + rows * 4, 4 * hd * pairs)
+    dq = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + qs * 4, 6 * hd * pairs)
+    dkv = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + 2 * kvs * 4, 8 * hd * pairs)
+    return fwd, dq, dkv
+
+
+def check_flash(gen, micro: int):
+    """Kernels 7-9 against their plain versions (the backward fed the
+    plain lse and delta), in fp32 (TF32 off) and bf16, over t 1024 and a
+    ragged 1000, GQA rep 1 and 3, offset 0 and a later query slice
+    (tq < tk), head dims 64, 32 (hybrid-tiny) and 128; then the whole
+    FlashAttentionFunction's gradients against torch autograd of the
+    plain ``blockwise_sdpa_causal``; then one attention layer of the
+    hybrid-280m train step (b ``micro``, t 1024, 12/4 heads, hd 64,
+    bf16), checked and timed beside PyTorch's SDPA forward and backward."""
+    from mamba_distributed_tpu_torch.ops.blockwise_attention import blockwise_sdpa_causal
+    from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+
+    cases = [  # (b, tq, tk, nh, nkv, hd, offset)
+        (1, 1024, 1024, 12, 4, 64, 0),
+        (2, 1000, 1000, 4, 4, 64, 0),
+        (1, 256, 1024, 12, 4, 64, 768),
+        (2, 1000, 1000, 4, 2, 32, 0),
+        (1, 200, 300, 8, 4, 128, 100),
+        (1, 64, 128, 4, 2, 64, -16),  # rows that see no key: o 0, lse +inf
+    ]
+    failures = []
+
+    def check_one(dtype, b, tq, tk, nh, nkv, hd, off, quiet=False):
+        qt, kt, vt, do = flash_inputs(gen, b, tq, tk, nh, nkv, hd, dtype)
+        o_k, lse_k = fk.flash_fwd(qt, kt, vt, off, tk)
+        o_p, lse_p = fk.flash_fwd_plain(qt, kt, vt, off, tk)
+        delta = (do.float() * o_p.float()).sum(-1).contiguous()
+        dq_k = fk.flash_bwd_dq(qt, kt, vt, do, lse_p, delta, off, tk)
+        dq_p = fk.flash_bwd_dq_plain(qt, kt, vt, do, lse_p, delta, off, tk)
+        dk_k, dv_k = fk.flash_bwd_dkv(qt, kt, vt, do, lse_p, delta, off, tk)
+        dk_p, dv_p = fk.flash_bwd_dkv_plain(qt, kt, vt, do, lse_p, delta, off, tk)
+        torch.cuda.synchronize()
+        seen = torch.isfinite(lse_p)
+        same_inf = bool(torch.equal(torch.isfinite(lse_k), seen))
+        errs = {"o": rel_err(o_k, o_p), "lse": rel_err(lse_k[seen], lse_p[seen]),
+                "dq": rel_err(dq_k, dq_p), "dk": rel_err(dk_k, dk_p), "dv": rel_err(dv_k, dv_p)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (o_k, dq_k, dk_k, dv_k))
+        worst = max(r for _, r in errs.values())
+        tag = f"{str(dtype)[6:]} b={b} tq={tq} tk={tk} nh={nh} nkv={nkv} hd={hd} offset={off}"
+        print(f"check flash {tag}: rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+              + f" (no-key rows alike: {same_inf}); tol rel {TOL[dtype]:.0e}", flush=True)
+        if not (finite and same_inf) or worst > TOL[dtype]:
+            failures.append(f"flash kernels {tag}: finite={finite}, inf rows alike={same_inf}, "
+                            f"rel {worst:.3e}")
+        return (qt, kt, vt, do, o_p, lse_p, delta), errs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            check_one(dtype, *case)
+        # the whole Function against autograd of the plain blockwise path
+        for b, tq, tk, nh, nkv, hd, off in ((1, 1000, 1000, 12, 4, 64, 0),
+                                            (2, 256, 512, 4, 2, 32, 256)):
+            qt, kt, vt, do = flash_inputs(gen, b, tq, tk, nh, nkv, hd, dtype)
+            grads = []
+            for fn in (fk.flash_sdpa_causal, blockwise_sdpa_causal):
+                q, k, v = (t.transpose(1, 2).detach().requires_grad_() for t in (qt, kt, vt))
+                o = fn(q, k, v, off)
+                grads.append(torch.autograd.grad(
+                    (o.float() * do.transpose(1, 2).float()).sum(), (q, k, v)))
+            torch.cuda.synchronize()
+            errs = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), *grads)}
+            worst = max(r for _, r in errs.values())
+            tag = f"{str(dtype)[6:]} b={b} tq={tq} tk={tk} nh={nh} nkv={nkv} hd={hd} offset={off}"
+            print(f"check FlashAttentionFunction grads vs blockwise autograd {tag}: rel "
+                  + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items()), flush=True)
+            if worst > TOL[dtype] or not all(bool(torch.isfinite(g).all()) for g in grads[0]):
+                failures.append(f"FlashAttentionFunction grads {tag}: rel {worst:.3e}")
+    if failures:
+        raise SystemExit("flash attention checks failed:\n" + "\n".join(failures))
+
+    # one attention layer of the hybrid-280m train step, checked and timed
+    b, t, nh, nkv, hd = micro, 1024, 12, 4, 64
+    dtype = torch.bfloat16
+    (qt, kt, vt, do, o_p, lse_p, delta), errs = check_one(dtype, b, t, t, nh, nkv, hd, 0)
+    if failures:
+        raise SystemExit("flash attention checks failed:\n" + "\n".join(failures))
+    bwd = (qt, kt, vt, do, lse_p, delta, 0, t)
+    timed = (
+        ("flash_fwd", lambda: fk.flash_fwd(qt, kt, vt, 0, t),
+         lambda: fk.flash_fwd_plain(qt, kt, vt, 0, t), errs["o"][0], 65),
+        ("flash_bwd_dq", lambda: fk.flash_bwd_dq(*bwd), lambda: fk.flash_bwd_dq_plain(*bwd),
+         errs["dq"][0], 127),
+        ("flash_bwd_dkv", lambda: fk.flash_bwd_dkv(*bwd), lambda: fk.flash_bwd_dkv_plain(*bwd),
+         max(errs["dk"][0], errs["dv"][0]), 171),
+    )
+    # library yardstick: SDPA on contiguous head-major copies; the
+    # backward row is autograd of that call (dq, dk and dv together)
+    qc, kc, vc = (x.contiguous().requires_grad_() for x in (qt, kt, vt))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), 10)
+    out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), do, retain_graph=True), 10)
+    rows = []
+    for (nm, kern, plain, err, line), (nb, fl), lib in zip(
+            timed, flash_work(b, t, t, nh, nkv, hd, 0, dtype), (sdpa_fwd, sdpa_bwd, sdpa_bwd)):
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 3, 1)
+        bound_ms, bound_by = bound(nb, fl)
+        print(f"time {nm} bf16 b={b} t={t} nh={nh} nkv={nkv} hd={hd} (one attention layer of "
+              f"the hybrid-280m train step): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {'forward' if nm == 'flash_fwd' else 'backward (dq, dk, dv together)'} "
+              f"{lib:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP)",
+              flush=True)
+        rows.append(dict(name=nm, route="cuda",
+                         source="mamba_distributed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+                         replaces=f"mamba_distributed_tpu/ops/pallas/attention_kernels.py:{line}",
+                         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib))
+    del qc, kc, vc, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ serving path
 
 
@@ -587,7 +740,38 @@ def serve(preset: str, path_kernels: tuple[str, ...]):
               f"{capacity} slots) [{card}]")
     print(f"serve {preset} launches during the run: {launches}; greedy stream == "
           f"generate(): True" + ("; KV pages in use at the end: 0" if hybrid else ""))
+    if hybrid:
+        hybrid_one_shot(params, cfg, dparams, prompts[3][:512], new, card)
     return launches
+
+
+def hybrid_one_shot(params, cfg, dparams, prompt, new: int, card: str) -> None:
+    """The hybrid one-shot prefill (the full-sequence attention through
+    kernel 7, K/V packed into pages): its last-position logits against
+    the chunked prefill's (two 256-token chunks through kernel 11) within
+    the bf16 tolerance, then one greedy ``generate(length_bucketing=False)``."""
+    from mamba_distributed_tpu_torch.inference.generate import generate
+    from mamba_distributed_tpu_torch.models.lm import lm_prefill
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
+
+    ids = torch.from_numpy(prompt)[None]
+    t = ids.shape[1]
+    before = LAUNCHES["flash_fwd"]
+    with torch.no_grad():
+        one, _ = lm_prefill(dparams, cfg, ids.cuda(), max_len=t + new)
+        chunked, _ = chunked_prefill(dparams, cfg, ids, max_len=t + new)
+    err, rel = rel_err(one, chunked)
+    out = generate(params, cfg, ids, seed=0, max_new_tokens=new, top_k=1,
+                   length_bucketing=False)[0, t:]
+    ran = LAUNCHES["flash_fwd"] - before
+    print(f"serve {cfg.n_layer}-layer hybrid one-shot prefill ({t} tokens) vs chunked: last "
+          f"logits max_abs_err={err:.3e} (rel {rel:.2e}), tol rel {TOL[torch.bfloat16]:.0e}; "
+          f"greedy generate(length_bucketing=False) {out.tolist()[:8]}...; flash_fwd "
+          f"launches {ran} [{card}]", flush=True)
+    if rel > TOL[torch.bfloat16] or ran < 1 or not (0 <= int(out.min()) and
+                                                    int(out.max()) < cfg.vocab_size):
+        raise SystemExit("the hybrid one-shot prefill disagrees with the chunked one")
 
 
 # ------------------------------------------------------------ training path
@@ -605,10 +789,12 @@ def mm_out_dtype_has_grad() -> str:
     return "yes"
 
 
-def train_checks(card: str):
-    """At 4 layers of mamba2-280m's width: one step's loss and gradients
-    with ssm_impl="pallas" (the SSD Function, kernels 1-3) against "xla"
-    (autograd of the plain forward), in fp32 (TF32 off) and bf16, same
+def train_checks(card: str, preset: str = "mamba2-280m", **layers):
+    """At 4 layers of ``preset``'s width (``layers`` overrides the layer
+    fields, e.g. a hybrid's attention layers): one step's loss and
+    gradients with ssm_impl and attn_impl "pallas" (the SSD Function,
+    kernels 1-3, and the flash Function, kernels 7-9) against "xla"
+    (autograd of the plain forwards), in fp32 (TF32 off) and bf16, same
     params and batch; then ten AdamW steps on one repeated bf16 batch
     (warmup 1) must lower the loss."""
     from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
@@ -622,8 +808,9 @@ def train_checks(card: str):
     for dtype in ("float32", "bfloat16"):
         res = {}
         for impl in ("pallas", "xla"):
-            model = get_preset("mamba2-280m", n_layer=4, ssm_impl=impl, compute_dtype=dtype)
-            cfg = get_train_preset("mamba2-280m", model=model, micro_batch_size=8,
+            model = get_preset(preset, n_layer=4, ssm_impl=impl, attn_impl=impl,
+                               compute_dtype=dtype, **layers)
+            cfg = get_train_preset(preset, model=model, micro_batch_size=8,
                                    total_batch_size=8 * 1024)
             params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
                 model, torch.Generator(device="cuda").manual_seed(11), device="cuda"))
@@ -633,31 +820,32 @@ def train_checks(card: str):
         loss_rel = abs(res["pallas"][0] - res["xla"][0]) / abs(res["xla"][0])
         grad_rel = max(rel_err(a, b)[1] for a, b in zip(res["pallas"][1], res["xla"][1]))
         finite = all(bool(torch.isfinite(g).all()) for g in res["pallas"][1])
-        print(f"train check 4-layer mamba2-280m {dtype} b=8 t=1024: loss pallas "
+        print(f"train check 4-layer {preset} {dtype} b=8 t=1024 {layers}: loss pallas "
               f"{res['pallas'][0]:.6f} xla {res['xla'][0]:.6f} (rel {loss_rel:.2e}), worst "
               f"grad leaf rel {grad_rel:.2e}, tol rel {tol:.0e} [{card}]", flush=True)
         if not finite or loss_rel > tol or grad_rel > tol:
             raise SystemExit(f"pallas and xla train steps disagree ({dtype})")
 
-    model = get_preset("mamba2-280m", n_layer=4, ssm_impl="pallas", compute_dtype="bfloat16")
-    cfg = get_train_preset("mamba2-280m", model=model, micro_batch_size=8,
+    model = get_preset(preset, n_layer=4, ssm_impl="pallas", compute_dtype="bfloat16", **layers)
+    cfg = get_train_preset(preset, model=model, micro_batch_size=8,
                            total_batch_size=8 * 1024, warmup_steps=1)
     params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
         model, torch.Generator(device="cuda").manual_seed(12), device="cuda"))
     step = make_train_step(cfg, AdamW(cfg, params))
     losses = [float(step(params, x, y)[0]) for _ in range(10)]
-    print(f"train check 4-layer mamba2-280m bf16, one batch repeated, warmup 1: losses "
+    print(f"train check 4-layer {preset} bf16, one batch repeated, warmup 1: losses "
           + " ".join(f"{v:.4f}" for v in losses), flush=True)
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"the repeated-batch loss did not fall: {losses}")
 
 
-def train_run(card: str) -> dict:
-    """Full-width, full-depth mamba2-280m (64 layers, bf16, pallas, remat)
+def train_run(card: str, preset: str, path_kernels: tuple[str, ...]) -> tuple[dict, int]:
+    """Full-width, full-depth ``preset`` (64 layers, bf16, pallas, remat)
     through the port's Trainer: 3 optimizer steps at seq 1024 and
     micro-batch 32 (16 if 32 does not fit), accum 1, with the validation
-    at steps 0 and 2, on synthetic shards under build/chip_smoke/.
-    Returns the launch counts of the run."""
+    at steps 0 and 2, on synthetic shards under build/chip_smoke/.  Every
+    kernel in ``path_kernels`` must have launched.  Returns the launch
+    counts of the run and its micro-batch."""
     import shutil
 
     from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
@@ -666,10 +854,10 @@ def train_run(card: str) -> dict:
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(root / "log", ignore_errors=True)
-    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    model = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
     for micro in (32, 16):
         cfg = get_train_preset(
-            "mamba2-280m", model=model, micro_batch_size=micro, total_batch_size=micro * 1024,
+            preset, model=model, micro_batch_size=micro, total_batch_size=micro * 1024,
             val_steps=2, log_dir=str(root / "log"),
             data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
         trainer = Trainer(cfg, device="cuda")
@@ -694,21 +882,22 @@ def train_run(card: str) -> dict:
     hist = [trainer.history[s] for s in range(3)]
     if not all(math.isfinite(v) for h in hist for v in h):
         raise SystemExit(f"non-finite loss or grad norm: {hist}")
-    for k in ("ssd_fwd", "ssd_chunk_states", "ssd_bwd"):
+    for k in path_kernels:
         if launches[k] < 1:
-            raise SystemExit(f"the mamba2-280m train path launched no {k} kernel")
+            raise SystemExit(f"the {preset} train path launched no {k} kernel")
     recs = [json.loads(s) for s in (root / "log" / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in recs if r["kind"] == "train"]
     vals = [r["loss"] for r in recs if r["kind"] == "val"]
-    print(f"train mamba2-280m n_layer=64 bf16 pallas remat micro={micro} seq=1024 accum=1: "
+    print(f"train {preset} n_layer=64 bf16 pallas remat micro={micro} seq=1024 accum=1: "
           f"losses {[round(h[0], 6) for h in hist]}, grad norms {[round(h[1], 4) for h in hist]}, "
           f"val {vals}", flush=True)
     for r in steps:
-        print(f"train step {r['step']}: {r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, "
+        print(f"train {preset} step {r['step']}: {r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, "
               f"MFU {r['mfu']} (model), {r.get('mfu_hw')} (hardware) [{card}]", flush=True)
-    print(f"train peak device memory (max_memory_allocated): {peak_gb:.2f} GiB [{card}]")
-    print(f"train launches during the run: {launches}")
-    return launches
+    print(f"train {preset} peak device memory (max_memory_allocated): {peak_gb:.2f} GiB "
+          f"[{card}]")
+    print(f"train {preset} launches during the run: {launches}")
+    return launches, micro
 
 
 def main() -> int:
@@ -734,7 +923,8 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(spills)} bytes")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_ssd(gen), *check_ssd_bwd(gen), check_rpa(gen), check_rpp(gen)]
+    rows = [check_ssd(gen), *check_ssd_bwd(gen), check_rpa(gen), check_rpp(gen),
+            *check_flash(gen, micro=32)]
     if not args.kernels_only:
         card = smi()
         ssd_launches = serve("mamba2-280m", ("ssd_fwd",))
@@ -742,15 +932,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
               f"{mm_out_dtype_has_grad()}", flush=True)
-        train_launches = train_run(card)
+        ssd_train = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd")
+        train_launches, _ = train_run(card, "mamba2-280m", ssd_train)
         train_checks(card)
+        flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        hyb_launches, micro = train_run(card, "hybrid-280m", ssd_train + flash)
+        if micro != 32:
+            print(f"note: the flash kernels were timed at micro-batch 32, the hybrid train "
+                  f"run took {micro}")
+        train_checks(card, "hybrid-280m", attn_layer_idx=(1, 3))
         # each kernel's launches on its own path: the mamba2 serving run
-        # for ssd_fwd, the training run for the backward kernels, the
-        # hybrid serving run for the attention kernels
+        # for ssd_fwd, the mamba2 training run for the SSD backward
+        # kernels, the hybrid serving run for the paged attention kernels,
+        # the hybrid training run for the flash kernels
         for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
                                  train_launches["ssd_bwd"], launches["ragged_decode"],
-                                 launches["ragged_prefill"])):
+                                 launches["ragged_prefill"], *(hyb_launches[k] for k in flash))):
             row["launches"] = n
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build to here", flush=True)
     print(smi())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

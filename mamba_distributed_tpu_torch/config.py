@@ -5,10 +5,11 @@ paths read, and of ``TrainConfig``/``DataConfig``/``MeshConfig``, with
 the same names, defaults and validation as
 ``mamba_distributed_tpu/config.py``, so a test can build both configs
 from one keyword dict.  Pure Mamba-2 stacks and hybrid stacks (attention
-layers at ``attn_layer_idx`` over a paged KV cache) are served, pure
-Mamba-2 stacks trained on one device; MoE, LoRA, quantization and mesh
-sizes above 1 are left out, and a config the port cannot run raises at
-construction with the reason.
+layers at ``attn_layer_idx``: full-sequence attention in training and
+one-shot prefill, a paged KV cache in decode) are served and trained on
+one device; MLPs, MoE, LoRA, quantization and mesh sizes above 1 are
+left out, and a config the port cannot run raises at construction with
+the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -64,9 +65,9 @@ class ModelConfig:
     # -1 => full head dim; 0 => no rotary
     attn_rotary_dim: int = -1
     rope_theta: float = 10000.0
-    # "auto"/"pallas" -> the hand-written ragged paged attention kernels
-    # on a CUDA tensor (the plain versions on a CPU tensor); "xla" -> the
-    # plain versions everywhere
+    # "auto"/"pallas" -> the hand-written flash and ragged paged attention
+    # kernels on a CUDA tensor (their plain versions on a CPU tensor);
+    # "xla" -> the plain formulations everywhere
     attn_impl: str = "auto"
 
     # --- precision policy ---
@@ -204,13 +205,6 @@ class ModelConfig:
             raise ValueError(
                 f"attn_layer_idx={idx} must name distinct layers in "
                 f"[0, n_layer={self.n_layer})"
-            )
-        if self.effective_prefill_chunk_tokens == 0:
-            raise ValueError(
-                "hybrid serving needs chunked prefill: every hybrid prompt "
-                "runs through the chunk step, the one prefill that writes "
-                "into the paged KV cache (the full-sequence attention path "
-                "is not ported); set prefill_chunk_tokens > 0"
             )
         nh, nkv = self.effective_attn_num_heads, self.effective_attn_num_kv_heads
         if nh < 1 or nkv < 1 or nh % nkv:
@@ -383,11 +377,14 @@ class TrainConfig:
 
 
 # The training halves of the presets the port trains (the JAX package's
-# PRESETS, config.py:1106-1159).
+# PRESETS, config.py:1106-1172).
 TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "mamba2-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
                         max_steps=300, warmup_steps=20, val_every=25),
     "mamba2-280m": dict(),
+    "hybrid-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
+                        max_steps=300, warmup_steps=20, val_every=25),
+    "hybrid-280m": dict(),
 }
 
 

@@ -2,8 +2,10 @@
 ``mamba_distributed_tpu/inference/generate.py``).
 
 Prefill builds the O(1) decode state (one-shot over the pow2 bucket, or
-chunk by chunk for long prompts through the same chunk step the serving
-engine runs); the decode loop then samples one token per ``lm_step``.
+chunk by chunk for long prompts and for every hybrid prompt through the
+same chunk step the serving engine runs; ``length_bucketing=False``
+prefills one-shot, unpadded, hybrids included); the decode loop then
+samples one token per ``lm_step``.
 
 Sampling.  ``jax.random`` bits cannot be reproduced in PyTorch, so the
 port draws its own: the uniform that picks step i's token of a request
@@ -158,10 +160,11 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     than ``cfg.effective_prefill_chunk_tokens`` prefill chunk by chunk
     through the serving chunk step; shorter ones prefill one-shot over
     their pow2 bucket (``length_bucketing=False`` prefills unpadded).
-    Hybrid prompts of any length take the chunk step
-    (``length_bucketing=False`` raises for them: the full-sequence
-    attention it would need is not ported; the config already refuses a
-    hybrid without chunked prefill).
+    Hybrid prompts of any length take the chunk step when chunked
+    prefill is on; with ``length_bucketing=False`` or chunking off they
+    prefill one-shot and unpadded through the full-sequence attention,
+    their K/V packed into a private paged cache of capacity ``t +
+    max_new_tokens``, as the JAX ``_generate_impl`` does.
     ``decode_rows`` pads the decode batch (see the module docstring)."""
     dev = params["embedding"].device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
@@ -175,24 +178,19 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     dparams = _decode_params(params, cfg)
     chunk = cfg.effective_prefill_chunk_tokens
     hybrid = bool(cfg.attn_layer_idx)
-    if hybrid and not length_bucketing:
-        raise ValueError(
-            "a hybrid prompt prefills through the chunk step only, which needs "
-            "length_bucketing=True (the one-shot full-sequence attention is not "
-            "ported)"
-        )
-    if length_bucketing and (hybrid or use_chunked_prefill(t, chunk)):
+    if length_bucketing and ((chunk > 0) if hybrid else use_chunked_prefill(t, chunk)):
         # deferred import: serving imports this module
         from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
 
         logits, state = chunked_prefill(dparams, cfg, prompt.cpu(),
                                         max_len=t + max_new_tokens if hybrid else 0)
     else:
-        if length_bucketing:
+        if length_bucketing and not hybrid:
             ids, mask = pad_to_bucket(prompt, next_pow2_bucket(t))
         else:
             ids, mask = prompt, None
-        logits, state = lm_prefill(dparams, cfg, ids, token_mask=mask)
+        logits, state = lm_prefill(dparams, cfg, ids, max_len=t + max_new_tokens,
+                                   token_mask=mask)
     new = decode_loop(dparams, cfg, state, logits, [seed + r for r in range(b)],
                       max_new_tokens, top_k, temperature, eos_id,
                       rows=decode_rows or b)

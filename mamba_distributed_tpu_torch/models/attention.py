@@ -1,6 +1,7 @@
-"""Causal GQA self-attention with RoPE over a paged KV cache: the paged
-half of ``mamba_distributed_tpu/models/attention.py`` (the hybrid stack's
-decode step and prefill chunk).
+"""Causal GQA self-attention with RoPE (counterpart of
+``mamba_distributed_tpu/models/attention.py``): the full-sequence mixer
+of training and one-shot prefill, and the hybrid stack's decode step and
+prefill chunk over a paged KV cache.
 
 GQA layout: one packed ``wqkv`` projection, ``nh`` query heads sharing
 ``nkv`` KV heads; rotary embedding (rotate-half) on the leading
@@ -20,11 +21,15 @@ Rows at different positions share one batch (per-row RoPE angles, masks
 and writes).  Where the JAX package returns new page arrays, the port
 writes the pages IN PLACE: the caller's tensors are updated and returned.
 
-``cfg.attn_impl`` picks the attention (ops/dispatch.py): the hand-written
-ragged paged kernels on a CUDA tensor, or the plain versions
-(ops/cuda/attention_kernels.py).  The one-shot full-sequence attention
-of the JAX package is not ported: hybrid prompts prefill through the
-chunk step.
+``cfg.attn_impl`` picks the attention (ops/dispatch.py).  The
+full-sequence ``attention_mixer`` runs the flash kernels behind their
+autograd Function (ops/cuda/flash_kernels.py) under "pallas"/"auto",
+whose plain versions serve a CPU tensor, and the blockwise online
+softmax that autograd differentiates (ops/blockwise_attention.py) under
+"xla".  The paged mixers run the hand-written ragged paged kernels on a
+CUDA tensor, or their plain versions (ops/cuda/attention_kernels.py).
+The sequence-parallel branches of the JAX mixer (ring and Ulysses) are
+not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.common import init_linear, linear
+from mamba_distributed_tpu_torch.ops.blockwise_attention import blockwise_sdpa_causal
 from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
     _sdpa_positions,
     gather_kv_pages,
@@ -43,11 +49,13 @@ from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
     ragged_paged_prefill_attention,
     ragged_paged_prefill_attention_plain,
 )
+from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_sdpa_causal
 
 __all__ = [
-    "_sdpa_positions", "apply_rope", "attention_mixer_chunk", "attention_mixer_step",
-    "attention_page_count", "attention_page_meta", "gather_kv_pages",
-    "init_attention_params", "init_attention_state", "rope_angles",
+    "_sdpa_positions", "apply_rope", "attention_mixer", "attention_mixer_chunk",
+    "attention_mixer_step", "attention_page_count", "attention_page_meta",
+    "gather_kv_pages", "init_attention_params", "init_attention_state",
+    "pack_attention_pages", "rope_angles",
 ]
 
 
@@ -115,6 +123,30 @@ def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
+                    return_final_state: bool = False):
+    """Full-sequence causal attention (models/attention.py:120-182 of the
+    JAX package, without its sequence-parallel branches): u (b, t, d) ->
+    y (b, t, d).  RoPE at positions 0..t-1, then the flash kernels
+    ("pallas"/"auto") or the blockwise online softmax ("xla").  With
+    ``return_final_state`` the raw (k, v) (b, t, nkv, hd) of the whole
+    sequence come back too, for ``pack_attention_pages``."""
+    nh, _, hd, rot = _attn_dims(cfg)
+    b, t, _ = u.shape
+    cd = cfg.torch_compute_dtype
+    q, k, v = _split_qkv(linear(params["wqkv"], u, cd), cfg)
+    if rot > 0:
+        angles = rope_angles(torch.arange(t, device=u.device), rot, cfg.rope_theta)
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    attend = blockwise_sdpa_causal if cfg.attn_impl == "xla" else flash_sdpa_causal
+    out = attend(q, k, v)
+    y = linear(params["out_proj"], out.reshape(b, t, nh * hd), cd)
+    if return_final_state:
+        return y, (k, v)
+    return y
+
+
 def attention_page_count(cfg: ModelConfig, max_len: int) -> int:
     """Pages needed per row for ``max_len`` tokens (at least one)."""
     return max(1, -(-max_len // cfg.kv_page_tokens))
@@ -138,6 +170,25 @@ def attention_page_meta(cfg: ModelConfig, batch: int, max_len: int, device=None)
     W = attention_page_count(cfg, max_len)
     tbl = 1 + torch.arange(batch * W, dtype=torch.int32, device=device).reshape(batch, W)
     return tbl, torch.zeros((batch,), dtype=torch.int32, device=device)
+
+
+def pack_attention_pages(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                         max_len: int):
+    """(b, t, nkv, hd) full-sequence K/V -> identity-paged head-major
+    (k_pages, v_pages) of capacity ``max_len`` (the one-shot prefill's
+    state packing, models/attention.py:295-328, bf16/fp32 pages): row r's
+    tokens fill pages [1 + r W, 1 + (r + 1) W), page 0 the trash page."""
+    b, t, nkv, hd = k.shape
+    pg = cfg.kv_page_tokens
+    W = attention_page_count(cfg, max_len)
+
+    def pack(x):
+        pages = x.new_zeros((1 + b * W, nkv, pg, hd))
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, W * pg - t))
+        pages[1:] = x.reshape(b, W, pg, nkv, hd).transpose(2, 3).reshape(b * W, nkv, pg, hd)
+        return pages
+
+    return pack(k), pack(v)
 
 
 def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,

@@ -27,9 +27,10 @@ conv_dim), ssm (L, b, h, p, n) fp32)}``, plus, for hybrids,
 ``"attn_meta": (page_table (b, W) int32, lengths (b,) int32)``, shared by
 every attention layer.
 
-Training (pure Mamba-2 stacks): ``lm_forward``/``lm_loss`` carry one
-post-add fp32 stream through the layers, as the JAX ``_backbone`` does,
-each block checkpointed as a whole when ``cfg.remat`` is on.
+Training (pure Mamba-2 and hybrid stacks): ``lm_forward``/``lm_loss``
+carry one post-add fp32 stream through the layers in global order, as
+the JAX ``_backbone`` does, each block (Mamba or attention) checkpointed
+as a whole when ``cfg.remat`` is on.
 """
 
 from __future__ import annotations
@@ -39,11 +40,13 @@ from torch.utils.checkpoint import checkpoint
 
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.attention import (
+    attention_mixer,
     attention_mixer_chunk,
     attention_mixer_step,
     attention_page_meta,
     init_attention_params,
     init_attention_state,
+    pack_attention_pages,
 )
 from mamba_distributed_tpu_torch.models.common import mm_f32
 from mamba_distributed_tpu_torch.models.mamba2 import (
@@ -112,14 +115,18 @@ def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
                initial_state=None, attn: bool = False):
     """One prenorm block with its mixer's decode state:
     (hidden, residual) -> (hidden, residual, state).  A Mamba block's
-    ``initial_state``/state is ``(conv_state, ssm_state)``; an attention
-    block (``attn=True``, chunked prefill only) takes ``((k_pages,
+    ``initial_state``/state is ``(conv_state, ssm_state)``.  An attention
+    block (``attn=True``) in a chunked prefill takes ``((k_pages,
     v_pages), page_table, lengths)`` and returns the pages, written in
-    place."""
+    place; with no ``initial_state`` (one-shot prefill) it returns the
+    raw full-sequence ``(k, v)``."""
     normed, residual = add_rms_norm(
         hidden, residual, bp["norm"]["weight"], cfg.norm_eps,
         residual_dtype=_residual_dtype(cfg),
     )
+    if attn and initial_state is None:
+        hidden, state = attention_mixer(bp["mixer"], cfg, normed, return_final_state=True)
+        return hidden, residual, state
     if attn:
         kv, page_table, lengths = initial_state
         hidden, state = attention_mixer_chunk(bp["mixer"], cfg, normed, kv, page_table,
@@ -150,31 +157,34 @@ def count_params(params: dict) -> int:
     return params.numel()
 
 
-def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tensor:
+def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool) -> torch.Tensor:
     """One prenorm block in the single-carry form of the JAX
-    ``_backbone`` (lm.py:437-444): the post-add stream -> the next one."""
+    ``_backbone`` (lm.py:437-444): the post-add stream -> the next one,
+    through the attention mixer at an attention layer."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
-    return res + mamba2_mixer(bp["mixer"], cfg, normed).to(res.dtype)
+    mixer = attention_mixer if attn else mamba2_mixer
+    return res + mixer(bp["mixer"], cfg, normed).to(res.dtype)
 
 
 def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    """Embedding -> layer stack -> the post-add stream, before the final
-    norm (the pure-SSM branch of lm.py:415-519).  With ``cfg.remat`` and
-    autograd on, each block is checkpointed as a whole (``remat_policy=
-    "all"``): the backward keeps only each block's input stream and
-    recomputes the rest, SSD forward included."""
-    if cfg.attn_layer_idx:
-        raise ValueError(
-            "training runs pure Mamba-2 stacks; hybrid training (the full-"
-            "sequence attention_mixer, kernels 7-9) is a later slice"
-        )
+    """Embedding -> layer stack in global order -> the post-add stream,
+    before the final norm (lm.py:415-519; the JAX periodic-hybrid scan
+    over supersteps and its unrolled aperiodic loop are this one loop).
+    With ``cfg.remat`` and autograd on, each block is checkpointed as a
+    whole (``remat_policy="all"``, as the JAX ``mbody``/``abody``): the
+    backward keeps only each block's input stream and recomputes the
+    rest, the SSD and flash forwards included."""
     res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
-    for bp in _unstack(params["blocks"], cfg.n_layer):
+    mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
+    ablocks = (_unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
+               if cfg.attn_layer_idx else [])
+    for attn, j in _layer_plan(cfg):
+        bp = ablocks[j] if attn else mblocks[j]
         if remat:
-            res = checkpoint(_train_block, bp, cfg, res, use_reentrant=False)
+            res = checkpoint(_train_block, bp, cfg, res, attn, use_reentrant=False)
         else:
-            res = _train_block(bp, cfg, res)
+            res = _train_block(bp, cfg, res, attn)
     return res
 
 
@@ -210,30 +220,49 @@ def _stack_states(states: list) -> tuple:
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-               token_mask: torch.Tensor | None = None):
+               max_len: int = 0, token_mask: torch.Tensor | None = None):
     """Parallel prefill: one full-sequence forward that also returns
-    every layer's decode state.  ``token_mask`` (b, t) marks left-padded
-    bucketed prompts (inference/bucketing.py).
+    every layer's decode state (lm.py:672-801).  ``token_mask`` (b, t)
+    marks left-padded bucketed prompts (inference/bucketing.py; pure-SSM
+    stacks only).
 
-    Returns (last_logits (b, V) fp32, {"blocks": (conv, ssm)}).  Pure
-    Mamba-2 stacks only: a hybrid prompt prefills through the chunk step
-    (``lm_prefill_chunk``), since the full-sequence attention is not
-    ported."""
-    if cfg.attn_layer_idx:
+    Returns (last_logits (b, V) fp32, state): ``{"blocks": (conv, ssm)}``,
+    and for a hybrid stack each attention layer's K/V packed into an
+    identity-paged cache of capacity ``max_len`` (> the prompt length)
+    with every row's length at t."""
+    b, t = input_ids.shape
+    hybrid = bool(cfg.attn_layer_idx)
+    if hybrid and max_len <= t:
         raise ValueError(
-            "lm_prefill is the pure-SSM one-shot prefill; hybrid prompts "
-            "prefill through lm_prefill_chunk (serving/prefill.py)"
+            f"hybrid prefill needs KV capacity beyond the prompt: "
+            f"max_len={max_len} <= prompt length {t}"
+        )
+    if hybrid and token_mask is not None:
+        raise ValueError(
+            "token_mask prefill is SSM-only (full-sequence attention would "
+            "attend the pad keys); hybrid bucketed prompts go through the "
+            "chunk step (serving/prefill.py) instead"
         )
     cd = cfg.torch_compute_dtype
     hidden = _embed(params, input_ids, cd)
     residual = torch.zeros_like(hidden, dtype=_residual_dtype(cfg))
-    states = []
-    for bp in _unstack(params["blocks"], cfg.n_layer):
-        hidden, residual, st = _block_fwd(bp, cfg, hidden, residual,
-                                          token_mask=token_mask)
-        states.append(st)
+    mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
+    ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx)) if hybrid else []
+    states, pages = [], []
+    for attn, j in _layer_plan(cfg):
+        hidden, residual, st = _block_fwd(ablocks[j] if attn else mblocks[j], cfg, hidden,
+                                          residual, token_mask=token_mask, attn=attn)
+        if attn:
+            pages.append(pack_attention_pages(cfg, *st, max_len))
+        else:
+            states.append(st)
     logits = _final_logits(params, cfg, hidden[:, -1:], residual[:, -1:])
-    return logits[:, 0].float(), {"blocks": _stack_states(states)}
+    state = {"blocks": _stack_states(states)}
+    if hybrid:
+        state["attn_blocks"] = _stack_states(pages)
+        state["attn_meta"] = (attention_page_meta(cfg, b, max_len, input_ids.device)[0],
+                              torch.full((b,), t, dtype=torch.int32, device=input_ids.device))
+    return logits[:, 0].float(), state
 
 
 def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,

@@ -1,16 +1,18 @@
 """Where the training path's time goes on the card.
 
-    python3 -m mamba_distributed_tpu_torch.profile_training [--micro-batch-size 32]
+    python3 -m mamba_distributed_tpu_torch.profile_training [--preset hybrid-280m]
+        [--micro-batch-size 32]
 
-Builds the full-width, full-depth mamba2-280m (64 layers, bf16,
-``ssm_impl="pallas"``, remat, random weights from a seeded generator),
-runs one warm-up train step (AdamW, accum 1, seq 1024) on random token
-ids, times one step without the profiler, and traces one with
-``torch.profiler``: the host wall time, the device busy time (sum of
-kernel times on the one stream), the busy share, the launch count, the
-device time of the hand-written SSD kernels, of the GEMMs and of every
-other kernel, and the kernels that take the most device time, beside the
-card's name and power limit.
+Builds the full-width, full-depth preset (mamba2-280m by default, or
+hybrid-280m: 64 layers, bf16, ``ssm_impl="pallas"``, ``attn_impl=
+"auto"``, remat, random weights from a seeded generator), runs one
+warm-up train step (AdamW, accum 1, seq 1024) on random token ids, times
+one step without the profiler, and traces one with ``torch.profiler``:
+the host wall time, the device busy time (sum of kernel times on the one
+stream), the busy share, the launch count, the device time of the
+hand-written SSD kernels, of the hand-written flash attention kernels,
+of the GEMMs and of every other kernel, and the kernels that take the
+most device time, beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,14 +32,17 @@ from mamba_distributed_tpu_torch.training.train_step import make_train_step
 
 
 def _groups(prof) -> dict[str, float]:
-    """Device ms of the hand-written SSD kernels, the GEMMs, the rest."""
-    out = {"hand SSD kernels": 0.0, "GEMMs": 0.0, "other kernels": 0.0}
+    """Device ms of the hand-written SSD and flash kernels, the GEMMs, the rest."""
+    out = {"hand SSD kernels": 0.0, "hand flash kernels": 0.0, "GEMMs": 0.0,
+           "other kernels": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         name = e.key.lower()
         if "ssd_" in name.split("<")[0]:
             key = "hand SSD kernels"
+        elif "flash_" in name.split("<")[0]:
+            key = "hand flash kernels"
         elif any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
             key = "GEMMs"
         else:
@@ -48,15 +53,16 @@ def _groups(prof) -> dict[str, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--preset", default="mamba2-280m", choices=["mamba2-280m", "hybrid-280m"])
     ap.add_argument("--micro-batch-size", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
     card = card_name()
     b, t = args.micro_batch_size, 1024
-    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
-    cfg = get_train_preset("mamba2-280m", model=model, micro_batch_size=b,
-                           total_batch_size=b * t)
+    name = args.preset
+    model = get_preset(name, ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    cfg = get_train_preset(name, model=model, micro_batch_size=b, total_batch_size=b * t)
     params = tree_map(lambda p: p.requires_grad_(), init_lm_params(
         model, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
     step = make_train_step(cfg, AdamW(cfg, params))
@@ -68,14 +74,14 @@ def main() -> int:
     t0 = time.perf_counter()
     step(params, x, y)
     torch.cuda.synchronize()
-    print(f"mamba2-280m train step (micro {b}, seq {t}) without the profiler: wall "
+    print(f"{name} train step (micro {b}, seq {t}) without the profiler: wall "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms [{card}]")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_kernels(f"mamba2-280m train step (micro {b}, seq {t})", prof, wall, card, top=12)
+    report_kernels(f"{name} train step (micro {b}, seq {t})", prof, wall, card, top=12)
     print("  by group: " + ", ".join(f"{k} {v:.2f} ms" for k, v in _groups(prof).items()))
     return 0
 

@@ -109,6 +109,12 @@ class ServingEngine:
             prefill_tokens_per_tick = cfg.prefill_tokens_per_tick
         if prefill_tokens_per_tick < 0:
             raise ValueError("prefill_tokens_per_tick must be >= 0 (0 => unbounded)")
+        if cfg.attn_layer_idx and cfg.effective_prefill_chunk_tokens == 0:
+            raise ValueError(
+                "hybrid serving needs chunked prefill: the engine admits every "
+                "hybrid prompt through the chunk step, the one prefill that "
+                "writes into the shared page pool; set prefill_chunk_tokens > 0"
+            )
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

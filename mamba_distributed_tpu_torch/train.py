@@ -1,11 +1,14 @@
-"""Train a Mamba-2 LM with the PyTorch port, on the card by default.
+"""Train a Mamba-2 or hybrid LM with the PyTorch port, on the card by default.
 
     python -m mamba_distributed_tpu_torch.train --preset mamba2-280m --max-steps 3
-    python -m mamba_distributed_tpu_torch.train --preset mamba2-tiny --device cpu --max-steps 5
+    python -m mamba_distributed_tpu_torch.train --preset hybrid-280m --max-steps 3
+    python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
 
 The SSD runs through the hand-written kernels (``--ssm-impl pallas``,
-the default here) on the card.  Without ``edu_fineweb10B/`` (or ``--data-dir``) the run trains on
-synthetic shards written there; nothing is downloaded.
+the default here) on the card, and a hybrid's attention layers through
+the hand-written flash kernels (``attn_impl="auto"``).  Without
+``edu_fineweb10B/`` (or ``--data-dir``) the run trains on synthetic
+shards written there; nothing is downloaded.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ numpy inputs: the mixer, ``lm_prefill`` (with a left-pad token mask),
 tests/test_pallas.py holds its kernel to, and ``ssm_impl="pallas"`` (in
 interpret mode) once at the smallest shape.  Hybrid stacks (attention at
 ``attn_layer_idx`` over a paged KV cache) hold ``lm_prefill_chunk`` with
-a left pad and ``lm_step`` with a partial ``write_mask`` to JAX in
-logits, conv and SSM states, pages and lengths.
+a left pad, ``lm_step`` with a partial ``write_mask`` and the one-shot
+``lm_prefill(max_len=)`` (full-sequence attention, K/V packed into
+pages) to JAX in logits, conv and SSM states, pages and lengths.
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ from mamba_distributed_tpu_torch.config import ModelConfig, get_preset
 from mamba_distributed_tpu_torch.inference.bucketing import pad_to_bucket
 from mamba_distributed_tpu_torch.models import lm
 from mamba_distributed_tpu_torch.models.mamba2 import mamba2_mixer
+from mamba_distributed_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.torch
 
@@ -90,7 +92,8 @@ def test_config_rejects_unserved_models():
     with pytest.raises(ValueError, match="attn_layer_idx"):
         ModelConfig(**TINY, attn_layer_idx=(2,))
     with pytest.raises(ValueError, match="chunked prefill"):
-        ModelConfig(**TINY, attn_layer_idx=(1,), prefill_chunk_tokens=0)
+        ServingEngine({}, ModelConfig(**TINY, attn_layer_idx=(1,), attn_num_heads=4,
+                                      prefill_chunk_tokens=0), device="cpu")
     with pytest.raises(ValueError, match="attn_num_kv_heads"):
         ModelConfig(**TINY, attn_layer_idx=(1,), attn_num_heads=4, attn_num_kv_heads=3)
     with pytest.raises(ValueError, match="ops/quant.py"):
@@ -283,6 +286,34 @@ def test_hybrid_chunk_and_steps_match_jax(hybrid_pair):
 
 
 def test_hybrid_one_shot_prefill_raises(hybrid_pair):
+    """As in JAX: no KV capacity beyond the prompt, or a pad mask (the
+    full-sequence attention would attend the pad keys), raises."""
     _, _, cfg, params = hybrid_pair
-    with pytest.raises(ValueError, match="lm_prefill_chunk"):
-        lm.lm_prefill(params, cfg, torch.zeros((1, 8), dtype=torch.long))
+    ids = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(ValueError, match="max_len"):
+        lm.lm_prefill(params, cfg, ids)
+    with pytest.raises(ValueError, match="max_len"):
+        lm.lm_prefill(params, cfg, ids, max_len=8)
+    with pytest.raises(ValueError, match="chunk step"):
+        lm.lm_prefill(params, cfg, ids, max_len=16, token_mask=torch.ones((1, 8)))
+
+
+@pytest.mark.parametrize("t,max_len", [(13, 30), (16, 17)])
+def test_hybrid_one_shot_prefill_matches_jax(hybrid_pair, t, max_len):
+    """One-shot hybrid prefill: last logits, conv and SSM states, every
+    attention layer's packed pages (trash page included) and the meta;
+    then decode steps from that state still agree."""
+    jcfg, jparams, cfg, params = hybrid_pair
+    ids = _ids(60 + t, 2, t)
+    lj, sj = jlm.lm_prefill(jparams, jcfg, jnp.asarray(ids), max_len=max_len)
+    lt, st = lm.lm_prefill(params, cfg, torch.from_numpy(ids).long(), max_len=max_len)
+    _close(lt, lj)
+    _close_state(st, sj)
+    for a, b in zip(st["attn_blocks"], sj["attn_blocks"]):
+        _close(a[:, 0], np.asarray(b)[:, 0])
+    for i in range(2):
+        tok = _ids(70 + i, 1, 2)[0]
+        lj, sj = jlm.lm_step(jparams, jcfg, sj, jnp.asarray(tok))
+        lt, st = lm.lm_step(params, cfg, st, torch.from_numpy(tok).long())
+        _close(lt, lj)
+        _close_state(st, sj)

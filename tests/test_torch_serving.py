@@ -296,9 +296,12 @@ def test_hybrid_admission_waits_for_pages(hybrid):
 
 
 def test_hybrid_generate_requires_chunk_step(hybrid):
+    """The hybrid engine admits every prompt through the chunk step, so
+    it refuses a config without chunked prefill; the chunked prefill
+    needs KV capacity for the whole prompt."""
     cfg, params = hybrid
     with pytest.raises(ValueError, match="chunk step"):
-        generate(params, cfg, torch.zeros((1, 4), dtype=torch.long), length_bucketing=False)
+        ServingEngine(params, dataclasses.replace(cfg, prefill_chunk_tokens=0), device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         chunked_prefill(cast_decode_params(params, cfg), cfg, torch.zeros((1, 4)), max_len=2)
 
@@ -326,3 +329,25 @@ def test_hybrid_greedy_streams_match_jax_engine():
                             jax.random.PRNGKey(0), max_new_tokens=9, top_k=1)
         assert r.new_tokens.tolist() == np.asarray(want)[0, len(p):].tolist()
     assert eng.page_pool.pages_in_use == 0
+
+
+def test_hybrid_one_shot_generate_matches_jax():
+    """``generate(length_bucketing=False)`` on a hybrid prefills one-shot
+    (full-sequence attention, K/V packed into pages) and decodes the JAX
+    package's greedy tokens, as does a config without chunked prefill."""
+    kw = hybrid_cfg()
+    jcfg = JaxConfig(**kw, remat=False)
+    jparams = jax_init(jax.random.PRNGKey(6), jcfg)
+    cfg = ModelConfig(**kw)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    for i, t in enumerate((7, 30)):
+        p = _prompt(40 + i, t)
+        want = jax_generate(jparams, jcfg, jnp.asarray(p[None].astype(np.int32)),
+                            jax.random.PRNGKey(0), max_new_tokens=8, top_k=1,
+                            length_bucketing=False)
+        got = generate(params, cfg, torch.from_numpy(p)[None], max_new_tokens=8, top_k=1,
+                       length_bucketing=False)
+        assert got[0].tolist() == np.asarray(want)[0].tolist()
+    unchunked = dataclasses.replace(cfg, prefill_chunk_tokens=0)
+    got = generate(params, unchunked, torch.from_numpy(p)[None], max_new_tokens=8, top_k=1)
+    assert got[0].tolist() == np.asarray(want)[0].tolist()

@@ -17,7 +17,13 @@
   loss is finite and falls, and a checkpoint resume reproduces the
   uninterrupted run's losses exactly;
 * without ``device="cpu"`` the trainer and the CLI raise on a host with
-  no card.
+  no card;
+* hybrid stacks (``hybrid-tiny``, attention at layers 1 and 3): the loss
+  and every gradient equal JAX's with remat on and off and with
+  ``attn_impl``/``ssm_impl`` "xla" and "pallas" (the flash Function
+  through its plain kernel versions), one accum-2 train step and the
+  optimizer equal JAX's, the training presets, FLOPs accounting and
+  decay mask equal JAX's, and the CLI trains ``hybrid-tiny`` on the CPU.
 """
 
 import dataclasses
@@ -234,9 +240,8 @@ def test_config_rejects_later_slices():
         TrainConfig(mesh=MeshConfig(fsdp=2))
     with pytest.raises(ValueError, match="divisible"):
         TrainConfig(total_batch_size=1000)
-    with pytest.raises(ValueError, match="hybrid training"):
-        lm.lm_loss({}, get_preset("hybrid-tiny"), torch.zeros((1, 4), dtype=torch.long),
-                   torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(ValueError, match="mixer"):
+        get_preset("hybrid-tiny", remat_policy="mixer")
 
 
 def test_loader_matches_jax_loader(tmp_path):
@@ -310,3 +315,118 @@ def test_trainer_and_cli_need_a_card_unless_cpu(tmp_path):
     built = cli.build_config(args)
     assert (built.model.ssm_impl, built.model.chunk_size, built.grad_accum_steps) == (
         "pallas", 32, 2)
+
+
+# -------------------------------------------------------------- hybrid stacks
+
+# hybrid-tiny (attention at layers 1 and 3, 4 query / 2 KV heads, head
+# dim 32) in fp32
+HYBRID_TINY = dict(compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def hybrid_pair():
+    jcfg = dataclasses.replace(jax_get_preset("hybrid-tiny").model, compute_dtype="float32",
+                               remat=False, attn_impl="xla", ssm_impl="xla")
+    jparams = jlm.init_lm_params(jax.random.PRNGKey(3), jcfg)
+    return jcfg, jparams, convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+
+
+def _hyb_ids(seed, shape):
+    return np.random.default_rng(seed).integers(0, 4096, shape).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def hybrid_jax_loss_grads(hybrid_pair):
+    jcfg, jparams, _ = hybrid_pair
+    x, y = _hyb_ids(5, (2, 64)), _hyb_ids(6, (2, 64))
+    loss, grads = jax.value_and_grad(jlm.lm_loss)(jparams, jcfg, jnp.asarray(x), jnp.asarray(y))
+    return x, y, float(loss), _leaves_np(grads)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_hybrid_lm_loss_and_grads_match_jax(hybrid_pair, hybrid_jax_loss_grads, remat, impl):
+    _, _, params = hybrid_pair
+    x, y, jloss, jgrads = hybrid_jax_loss_grads
+    cfg = get_preset("hybrid-tiny", **HYBRID_TINY, remat=remat, attn_impl=impl, ssm_impl=impl)
+    p = _trainable(params)
+    loss = lm.lm_loss(p, cfg, torch.from_numpy(x).long(), torch.from_numpy(y).long())
+    loss.backward()
+    assert abs(loss.item() - jloss) <= 1e-4 * abs(jloss)
+    grads = _leaves_np(tree_map(lambda t: t.grad, p))
+    assert set(grads) == set(jgrads)
+    assert any(k.startswith("attn_blocks.") for k in grads)
+    for k in jgrads:
+        assert _rel(grads[k], jgrads[k]) <= 1e-4, k
+
+
+def test_hybrid_train_step_accum2_and_optimizer_match_jax(hybrid_pair, tmp_path):
+    _, jparams, params = hybrid_pair
+    kw = dict(micro_batch_size=2, seq_len=64, total_batch_size=256, warmup_steps=2,
+              max_steps=10)
+    jcfg = jax_get_preset("hybrid-tiny", **kw)
+    jcfg = dataclasses.replace(jcfg, model=dataclasses.replace(
+        jcfg.model, compute_dtype="float32", remat=False, attn_impl="xla"))
+    cfg = get_train_preset("hybrid-tiny", model=get_preset("hybrid-tiny", **HYBRID_TINY,
+                                                           ssm_impl="pallas"), **kw)
+    assert cfg.grad_accum_steps == jcfg.grad_accum_steps == 2
+    x, y = _hyb_ids(7, (2, 2, 64)), _hyb_ids(8, (2, 2, 64))
+    g = [jax.value_and_grad(jlm.lm_loss)(jparams, jcfg.model, jnp.asarray(x[i]),
+                                         jnp.asarray(y[i])) for i in range(2)]
+    jloss = (float(g[0][0]) + float(g[1][0])) / 2
+    jg = jax.tree.map(lambda a, b: (a + b) / 2, g[0][1], g[1][1])
+    jgrads = _leaves_np(jg)
+
+    p = _trainable(params)
+    tx, ty = torch.from_numpy(x).long(), torch.from_numpy(y).long()
+    loss, grads = loss_and_grads(p, cfg, tx, ty)
+    assert abs(float(loss) - jloss) <= 1e-4 * abs(jloss)
+    for k, v in _leaves_np(grads).items():
+        assert _rel(v, jgrads[k]) <= 1e-4, k
+    # the step: the same loss and the pre-clip norm of optax
+    loss2, norm = make_train_step(cfg, AdamW(cfg, p))(p, tx, ty)
+    assert float(loss2) == float(loss)
+    assert abs(float(norm) - float(optax.global_norm(jg))) <= 1e-4 * float(norm)
+    # AdamW against optax on the SAME gradients (the attention leaves
+    # included): Adam's first update is about lr * sign(g), so gradients
+    # that agree to 1e-4 can still move a near-zero entry differently
+    optimizer = jopt.make_optimizer(jcfg)
+    upd, _ = optimizer.update(jg, optimizer.init(jparams), jparams)
+    ref = _leaves_np(optax.apply_updates(jparams, upd))
+    tp = _trainable(params)
+    AdamW(cfg, tp).step(tp, convert.params_from_jax(jax.tree.map(np.asarray, jg)))
+    got = _leaves_np(tp)
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-6, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["hybrid-tiny", "hybrid-280m"])
+def test_hybrid_train_presets_flops_and_decay_mask_match_jax(name, hybrid_pair):
+    j, t = jax_get_preset(name), get_train_preset(name)
+    assert (t.seq_len, t.micro_batch_size, t.total_batch_size, t.max_steps,
+            t.warmup_steps, t.val_every, t.grad_accum_steps) == (
+        j.seq_len, j.micro_batch_size, j.total_batch_size, j.max_steps,
+        j.warmup_steps, j.val_every, j.grad_accum_steps)
+    for f in ("d_model", "n_layer", "remat", "attn_layer_idx", "effective_attn_num_heads",
+              "effective_attn_num_kv_heads", "effective_attn_head_dim", "attn_impl"):
+        assert getattr(t.model, f) == getattr(j.model, f), f
+    for conv in ("hardware", "model"):
+        assert flops.flops_per_token(t.model, t.seq_len, convention=conv) == \
+            jflops.flops_per_token(j.model, j.seq_len, convention=conv)
+    _, jparams, params = hybrid_pair
+    jm = {k: bool(v) for k, v in _flat(jopt.decay_mask(jparams)).items()}
+    assert _flat(decay_mask(params)) == jm
+    assert jm["attn_blocks.mixer.wqkv.kernel"] and not jm["attn_blocks.norm.weight"]
+
+
+def test_cli_trains_hybrid_tiny_on_cpu(tmp_path):
+    """``--preset hybrid-tiny --device cpu`` (cut to seq 64, micro 2): the
+    loss is finite at every step and the log has a validation line."""
+    cli.main(["--preset", "hybrid-tiny", "--device", "cpu", "--max-steps", "2",
+              "--seq-len", "64", "--micro-batch-size", "2", "--total-batch-size", "128",
+              "--data-dir", str(tmp_path / "data"), "--log-dir", str(tmp_path / "log")])
+    log = (tmp_path / "log" / "log.txt").read_text().splitlines()
+    train = [ln for ln in log if " train " in ln]
+    assert log[0].startswith("0 val ") and len(train) == 2
+    assert all(np.isfinite(float(ln.split()[2])) for ln in train)
