@@ -24,7 +24,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1 and 3, offsets 0, positive and negative, head dims 32, 64 and 128,
    then the whole ``FlashAttentionFunction``'s gradients against torch
    autograd of the plain blockwise attention, timed at one attention
-   layer of the hybrid-280m train step (b 32, t 1024);
+   layer of the hybrid-280m train step (b 32, t 1024); ``m1_scan``,
+   ``m1_entry_states`` and ``m1_bwd`` (the Mamba-1 selective scan, fp32
+   only) over d 1536, 1000 and a ragged 70, t 1024, 1000, 256 and 37,
+   seeded and not, with and without a final-state cotangent, then the
+   whole ``SelectiveScanFunction``'s gradients against torch autograd of
+   the plain ``selective_scan_seq``, ``m1_scan`` timed at the serving
+   chunk (b 1, t 256) and all three at one layer of the mamba1-280m
+   train step (b 32, t 1024);
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
@@ -35,15 +42,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    hybrid engine must end with no KV page in use.  On the hybrid
    engine's weights the one-shot prefill (full-sequence attention
    through ``flash_fwd``) must agree with the chunked one, and a greedy
-   ``generate(length_bucketing=False)`` runs through it;
-4. train a full-width, full-depth mamba2-280m, then hybrid-280m (bf16,
-   pallas, remat) through the port's ``Trainer`` for 3 optimizer steps
-   at seq 1024 on synthetic shards (micro-batch 32, or 16 if 32 does not
-   fit), with validation; every loss and grad norm must be finite.  At 4
-   layers of the same width (attention at layers 1 and 3 for the
-   hybrid), one train step's loss and gradients with "pallas" must
-   match "xla" (fp32 and bf16), and ten steps on one repeated batch must
-   lower the loss;
+   ``generate(length_bucketing=False)`` runs through it; then on a
+   full-width mamba1-280m engine (d_inner 1536, d_state 16), whose
+   one-shot and chunked (seeded) prefills go through ``m1_scan``;
+4. train a full-width, full-depth mamba2-280m, hybrid-280m, then
+   mamba1-280m (bf16, pallas, remat) through the port's ``Trainer`` for
+   3 optimizer steps at seq 1024 on synthetic shards (micro-batch 32, or
+   16 if 32 does not fit), with validation; every loss and grad norm
+   must be finite.  At 4 layers of the same width (attention at layers 1
+   and 3 for the hybrid), for each of the three, one train step's loss
+   and gradients with "pallas" must match "xla" (fp32 and bf16), and ten
+   steps on one repeated batch must lower the loss;
 5. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
@@ -636,6 +645,226 @@ def check_flash(gen, micro: int):
     return rows
 
 
+# ------------------------------------------------ selective scan (Mamba-1)
+
+# the H100's fp32 peak from the table (67 TFLOP/s, 128 FMA lanes per SM)
+# and its exp rate: the SFU evaluates 16 exp2 per SM and clock, 1/8 of
+# the FMA lanes' 33.5 T FMA/s
+H100_FP32_FLOPS = 67e12
+H100_EXP_PER_S = H100_FP32_FLOPS / 2 / 8
+
+
+def m1_inputs(gen, b, t, d, seeded, n=16):
+    """The fp32 core inputs of the scan at init-like scales: dt =
+    softplus(N(-3, 1)), A = -(1..16), B, C ~ N(0, 1)."""
+    dev = "cuda"
+    u = torch.randn((b, t, d), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((b, t, d), generator=gen, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((d, n), generator=gen, device=dev) * 2.77)
+    B = torch.randn((b, t, n), generator=gen, device=dev)
+    C = torch.randn((b, t, n), generator=gen, device=dev)
+    h0 = 0.5 * torch.randn((b, d, n), generator=gen, device=dev) if seeded else None
+    return u, dt, A, B, C, h0
+
+
+# the TPU kernel's t-tile at the train layer's shapes (t 1024, d 1536:
+# 512-channel blocks from _pick_blocks, then the 4 MB cap on its rebuilt
+# states, scan_kernels.py:296-302); the bounds count the entry states
+# passed from kernel 5 to kernel 6 at this tile, not at the port's T_BLK
+TPU_M1_T_TILE = 128
+
+
+def m1_work(b, t, d, n, seeded, dfinal):
+    """(bytes, exps, flops) of kernels 4, 5 and 6 on these shapes: each of
+    the scan's inputs read once and each of its outputs written once
+    (kernel 6's as the backward defines them: du, ddt (b, t, d), dA (d,
+    n), dB and dC (b, t, n), dh0 when seeded), the entry states written by
+    kernel 5 and read by kernel 6 at the TPU kernel's tile; one exp per
+    (b, t, d, n) cell each, what the recurrence needs (kernel 6 evaluates
+    it twice); the fp32 operations of the recurrence per cell (6 forward:
+    the exp's argument, the update's multiply and multiply-add, the
+    readout's multiply-add; 4 without the readout; 20 backward).  None of
+    it depends on the port's T_BLK or D_BLK."""
+    io, bc, st, a = b * t * d * 4, b * t * n * 4, b * d * n * 4, d * n * 4
+    entry = b * -(-t // TPU_M1_T_TILE) * d * n * 4
+    cells = b * t * d * n
+    h0 = st if seeded else 0
+    k4 = (3 * io + a + 2 * bc + h0 + st, cells, 6 * cells)
+    k5 = (2 * io + a + bc + h0 + entry, cells, 4 * cells)
+    k6 = (5 * io + 2 * a + 4 * bc + entry + (st if dfinal else 0) + h0, cells, 20 * cells)
+    return k4, k5, k6
+
+
+def m1_layout_extra(b, t, d, n):
+    """Bytes the port's layout moves beyond ``m1_work``'s count: the entry
+    states at T_BLK steps in place of the TPU tile (written by kernel 5,
+    read by kernel 6), and kernel 6's per-batch dA and per-CTA dB/dC
+    partials in place of the summed dA, dB, dC."""
+    from mamba_distributed_tpu_torch.ops.cuda.scan_kernels import D_BLK, T_BLK
+
+    entry = b * (-(-t // T_BLK) - -(-t // TPU_M1_T_TILE)) * d * n * 4
+    parts = (b - 1) * d * n * 4 + 2 * b * (-(-d // D_BLK) - 1) * t * n * 4
+    return entry, parts
+
+
+def m1_bound(nbytes, exps, flops):
+    """(bound ms, "bytes" or "operations"): the operations' time is the
+    larger of the exps over the SFU rate and the rest over the fp32 peak
+    (the two pipes run side by side)."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(exps / H100_EXP_PER_S, flops / H100_FP32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_m1(gen):
+    """Kernels 4-6 against their plain versions in fp32 (the core is
+    fp32-only, as on the TPU) over ragged tiles and channel blocks, d 1536
+    and 1000, t 1024, 1000 and 256, seeded or not, with and without a
+    final-state cotangent (kernel 6 fed the plain entry states), then the
+    whole ``selective_scan_kernel`` (SelectiveScanFunction, D, z, softplus)
+    against torch autograd of the plain ``selective_scan_seq``.  Timed:
+    kernel 4 at the serving chunk (b 1, t 256, seeded, final state) and
+    kernels 4-6 at one layer of the mamba1-280m train step (b 32, t 1024);
+    the rows' errors are at the timed inputs."""
+    from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as sk
+    from mamba_distributed_tpu_torch.ops.scan import selective_scan_seq
+
+    tol = TOL[torch.float32]
+    cases = [  # (b, t, d, seeded, dfinal)
+        (3, 37, 70, True, True),  # ragged tile and channel block
+        (2, 1024, 1536, False, False),
+        (2, 1000, 1000, True, True),
+        (1, 256, 1536, True, False),  # the serving chunk step
+        (8, 1024, 1536, False, True),  # train-step widths at b 8
+    ]
+    names = ("du", "ddt", "dA", "dB", "dC", "dh0")
+    failures = []
+    for b, t, d, seeded, dfin in cases:
+        u, dt, A, B, C, h0 = m1_inputs(gen, b, t, d, seeded)
+        dy = torch.randn((b, t, d), generator=gen, device="cuda")
+        dfinal = torch.randn((b, d, 16), generator=gen, device="cuda") if dfin else None
+        got = [*sk.m1_scan(u, dt, A, B, C, h0), sk.m1_entry_states(u, dt, A, B, h0)]
+        ref = [*sk.m1_scan_plain(u, dt, A, B, C, h0), sk.m1_entry_states_plain(u, dt, A, B, h0)]
+        got += sk.m1_bwd(u, dt, A, B, C, ref[2], dy, dfinal)
+        ref += sk.m1_bwd_plain(u, dt, A, B, C, ref[2], dy, dfinal)
+        torch.cuda.synchronize()
+        errs = {nm: rel_err(a, r) for nm, a, r in zip(("y", "hT", "states", *names), got, ref)}
+        worst = max(r for _, r in errs.values())
+        finite = all(bool(torch.isfinite(v).all()) for v in got)
+        tag = f"fp32 b={b} t={t} d={d} seeded={seeded} dfinal={dfin}"
+        print(f"check m1_scan/m1_entry_states/m1_bwd {tag}: rel "
+              + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+              + f"; tol rel {tol:.0e}", flush=True)
+        if not finite or worst > tol:
+            failures.append(f"m1 kernels {tag}: finite={finite}, rel {worst:.3e}")
+        if b * t <= 2048:
+            failures += m1_function_grads(sk.selective_scan_kernel, selective_scan_seq,
+                                          gen, b, t, d, seeded, dfin, tag)
+    if failures:
+        raise SystemExit("selective scan checks failed:\n" + "\n".join(failures))
+
+    # kernel 4 at the serving chunk step
+    u, dt, A, B, C, h0 = m1_inputs(gen, 1, 256, 1536, True)
+    errs = [rel_err(a, r) for a, r in zip(sk.m1_scan(u, dt, A, B, C, h0),
+                                          sk.m1_scan_plain(u, dt, A, B, C, h0))]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    if rel > tol:
+        raise SystemExit(f"m1_scan at the serving chunk: rel {rel:.3e} > {tol:.0e}")
+    ms = cuda_ms(lambda: sk.m1_scan(u, dt, A, B, C, h0), 50)
+    plain_ms = cuda_ms(lambda: sk.m1_scan_plain(u, dt, A, B, C, h0), 3, 1)
+    (nb, ne, nf), _, _ = m1_work(1, 256, 1536, 16, True, False)
+    bound_ms, bound_by = m1_bound(nb, ne, nf)
+    print(f"time m1_scan fp32 b=1 t=256 d=1536 seeded (the serving chunk step, "
+          f"{-(-1536 // 32)} CTAs): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {nb} B, {ne} exp, {nf} FLOP)", flush=True)
+    rows = [dict(name="m1_scan", route="cuda",
+                 source="mamba_distributed_tpu_torch/ops/cuda/csrc/selective_scan.cu",
+                 replaces="mamba_distributed_tpu/ops/pallas/scan_kernels.py:64",
+                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+
+    # kernels 4-6 at one layer of the train step
+    b, t, d = 32, 1024, 1536
+    u, dt, A, B, C, _ = m1_inputs(gen, b, t, d, False)
+    dy = torch.randn((b, t, d), generator=gen, device="cuda")
+    states = sk.m1_entry_states_plain(u, dt, A, B)
+    timed = (
+        ("m1_scan", lambda: sk.m1_scan(u, dt, A, B, C),
+         lambda: sk.m1_scan_plain(u, dt, A, B, C), None),
+        ("m1_entry_states", lambda: sk.m1_entry_states(u, dt, A, B),
+         lambda: sk.m1_entry_states_plain(u, dt, A, B), 178),
+        ("m1_bwd", lambda: sk.m1_bwd(u, dt, A, B, C, states, dy),
+         lambda: sk.m1_bwd_plain(u, dt, A, B, C, states, dy), 201),
+    )
+    for (nm, kern, plain, line), (nb, ne, nf) in zip(timed, m1_work(b, t, d, 16, False, False)):
+        ref, out = plain(), kern()
+        if not isinstance(ref, tuple):
+            ref, out = (ref,), (out,)
+        errs = [rel_err(a, r) for a, r in zip(out, ref)]
+        err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+        del ref, out
+        if rel > tol:
+            raise SystemExit(f"{nm} at the train layer: rel {rel:.3e} > {tol:.0e}")
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 2, 1)
+        bound_ms, bound_by = m1_bound(nb, ne, nf)
+        print(f"time {nm} fp32 b={b} t={t} d={d} (one layer of the mamba1-280m train step): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}: {nb} B, {ne} exp, {nf} FLOP), max_abs_err {err:.3e} "
+              f"(rel {rel:.2e})", flush=True)
+        if line is not None:
+            rows.append(dict(name=nm, route="cuda",
+                             source="mamba_distributed_tpu_torch/ops/cuda/csrc/selective_scan.cu",
+                             replaces=f"mamba_distributed_tpu/ops/pallas/scan_kernels.py:{line}",
+                             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    entry, parts = m1_layout_extra(b, t, d, 16)
+    print(f"m1 layout at b={b} t={t} d={d}: beyond the bounds' bytes, the entry states at "
+          f"{sk.T_BLK}-step tiles add {entry} B (written by m1_entry_states, read by "
+          f"m1_bwd) and the per-batch dA and per-{sk.D_BLK}-channel dB/dC partials add "
+          f"{parts} B (m1_bwd)", flush=True)
+    del u, dt, dy, states
+    torch.cuda.empty_cache()
+    return rows
+
+
+def m1_function_grads(kernel_fn, seq_fn, gen, b, t, d, seeded, dfin, tag):
+    """Gradients of u, delta, A, B, C, D, z, delta_bias (and h0) through
+    ``selective_scan_kernel`` (the Function: kernels 4-6) and through torch
+    autograd of the plain ``selective_scan_seq``, same inputs, same
+    cotangents."""
+    dev, n = "cuda", 16
+    inp = dict(u=torch.randn((b, t, d), generator=gen, device=dev),
+               delta=torch.randn((b, t, d), generator=gen, device=dev) - 3.0,
+               A=-torch.exp(torch.rand((d, n), generator=gen, device=dev) * 2.77),
+               B=torch.randn((b, t, n), generator=gen, device=dev),
+               C=torch.randn((b, t, n), generator=gen, device=dev),
+               D=torch.randn((d,), generator=gen, device=dev),
+               z=torch.randn((b, t, d), generator=gen, device=dev),
+               delta_bias=0.1 * torch.randn((d,), generator=gen, device=dev))
+    if seeded:
+        inp["initial_state"] = 0.5 * torch.randn((b, d, n), generator=gen, device=dev)
+    dy = torch.randn((b, t, d), generator=gen, device=dev)
+    dfinal = torch.randn((b, d, n), generator=gen, device=dev) if dfin else None
+    grads = []
+    for fn in (kernel_fn, seq_fn):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in inp.items()}
+        y, final = fn(**leaves, delta_softplus=True, return_final_state=True)
+        loss = (y * dy).sum()
+        if dfinal is not None:
+            loss = loss + (final * dfinal).sum()
+        loss.backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    torch.cuda.synchronize()
+    errs = {k: rel_err(grads[0][k], grads[1][k]) for k in grads[1]}
+    worst = max(r for _, r in errs.values())
+    print(f"check SelectiveScanFunction grads vs plain autograd {tag}: rel "
+          + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items()), flush=True)
+    ok = worst <= TOL[torch.float32] and all(
+        bool(torch.isfinite(v).all()) for v in grads[0].values())
+    return [] if ok else [f"SelectiveScanFunction grads {tag}: rel {worst:.3e}"]
+
+
 # ------------------------------------------------------------ serving path
 
 
@@ -924,11 +1153,12 @@ def main() -> int:
               f"spill stores up to {max(spills)} bytes")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_ssd(gen), *check_ssd_bwd(gen), check_rpa(gen), check_rpp(gen),
-            *check_flash(gen, micro=32)]
+            *check_flash(gen, micro=32), *check_m1(gen)]
     if not args.kernels_only:
         card = smi()
         ssd_launches = serve("mamba2-280m", ("ssd_fwd",))
         launches = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
+        m1_launches = serve("mamba1-280m", ("m1_scan",))
         torch.cuda.empty_cache()
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
               f"{mm_out_dtype_has_grad()}", flush=True)
@@ -941,13 +1171,20 @@ def main() -> int:
             print(f"note: the flash kernels were timed at micro-batch 32, the hybrid train "
                   f"run took {micro}")
         train_checks(card, "hybrid-280m", attn_layer_idx=(1, 3))
+        m1_train = ("m1_scan", "m1_entry_states", "m1_bwd")
+        m1_train_launches, _ = train_run(card, "mamba1-280m", m1_train)
+        train_checks(card, "mamba1-280m")
         # each kernel's launches on its own path: the mamba2 serving run
         # for ssd_fwd, the mamba2 training run for the SSD backward
         # kernels, the hybrid serving run for the paged attention kernels,
-        # the hybrid training run for the flash kernels
+        # the hybrid training run for the flash kernels, the mamba1
+        # serving run for m1_scan, the mamba1 training run for the scan
+        # backward kernels
         for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
                                  train_launches["ssd_bwd"], launches["ragged_decode"],
-                                 launches["ragged_prefill"], *(hyb_launches[k] for k in flash))):
+                                 launches["ragged_prefill"], *(hyb_launches[k] for k in flash),
+                                 m1_launches["m1_scan"], m1_train_launches["m1_entry_states"],
+                                 m1_train_launches["m1_bwd"])):
             row["launches"] = n
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build to here", flush=True)
     print(smi())

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of ``mamba_distributed_tpu`` (serving of Mamba-2 and
-hybrid stacks, training of Mamba-2 stacks).
+"""PyTorch/CUDA port of ``mamba_distributed_tpu`` (serving and training
+of Mamba-2, Mamba-1 and hybrid stacks).
 
 A second package beside the JAX one: it imports ``torch`` and never
 ``jax``, and nothing of ``mamba_distributed_tpu``.  Module names mirror

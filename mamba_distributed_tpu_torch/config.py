@@ -4,12 +4,12 @@ An own copy of the ``ModelConfig`` fields the serving and training
 paths read, and of ``TrainConfig``/``DataConfig``/``MeshConfig``, with
 the same names, defaults and validation as
 ``mamba_distributed_tpu/config.py``, so a test can build both configs
-from one keyword dict.  Pure Mamba-2 stacks and hybrid stacks (attention
-layers at ``attn_layer_idx``: full-sequence attention in training and
-one-shot prefill, a paged KV cache in decode) are served and trained on
-one device; MLPs, MoE, LoRA, quantization and mesh sizes above 1 are
-left out, and a config the port cannot run raises at construction with
-the reason.
+from one keyword dict.  Pure Mamba-2 and Mamba-1 stacks and hybrid
+stacks (attention layers at ``attn_layer_idx``: full-sequence attention
+in training and one-shot prefill, a paged KV cache in decode) are served
+and trained on one device; MLPs, MoE, LoRA, quantization and mesh sizes
+above 1 are left out, and a config the port cannot run raises at
+construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -20,6 +20,7 @@ formulation".
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -27,13 +28,14 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Mamba-2 or hybrid LM config (same field names as the JAX package)."""
+    """Mamba-2, Mamba-1 or hybrid LM config (same field names as the JAX
+    package)."""
 
     d_model: int = 768
     n_layer: int = 64
     vocab_size: int = 50304
     pad_vocab_size_multiple: int = 8
-    # only "mamba2" is served by the port; "mamba1" raises
+    # "mamba2" -> SSD mixer; "mamba1" -> selective-scan mixer
     ssm_layer: str = "mamba2"
     # 0 => no MLP between mixers (the pure mixer stack)
     d_intermediate: int = 0
@@ -41,8 +43,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
 
-    # --- mixer knobs (mamba2.py defaults) ---
-    d_state: int = 0  # 0 => auto: 128 for mamba2
+    # --- shared mixer knobs (mamba_simple.py / mamba2.py defaults) ---
+    d_state: int = 0  # 0 => auto: 16 for mamba1, 128 for mamba2
     d_conv: int = 4
     expand: int = 2
     conv_bias: bool = True
@@ -50,6 +52,13 @@ class ModelConfig:
     dt_min: float = 0.001
     dt_max: float = 0.1
     dt_init_floor: float = 1e-4
+
+    # --- mamba1-only ---
+    dt_rank: int = 0  # 0 => auto: ceil(d_model / 16)
+    dt_init: str = "random"  # "random" | "constant"
+    dt_scale: float = 1.0
+
+    # --- mamba2-only ---
     headdim: int = 64
     ngroups: int = 1
     chunk_size: int = 256
@@ -82,8 +91,9 @@ class ModelConfig:
     # "all": recompute everything; "dots" and "mixer" wait for a later slice
     remat_policy: str = "all"
 
-    # "pallas" -> the hand-written SSD kernels on a CUDA tensor (the plain
-    # versions on a CPU tensor); "xla" -> the plain version everywhere
+    # "pallas" -> the hand-written SSD (mamba2) or selective-scan (mamba1)
+    # kernels on a CUDA tensor (the plain versions on a CPU tensor);
+    # "xla" -> the plain formulation everywhere
     ssm_impl: str = "xla"
     conv_impl: str = "shift"
 
@@ -110,10 +120,13 @@ class ModelConfig:
     kv_page_dtype: str = "bf16"
 
     def __post_init__(self):
-        if self.ssm_layer != "mamba2":
+        if self.ssm_layer not in ("mamba1", "mamba2"):
             raise ValueError(
-                f"the PyTorch port serves ssm_layer='mamba2' only, got "
-                f"{self.ssm_layer!r} (Mamba-1 is a later slice)"
+                f"ssm_layer must be 'mamba1' or 'mamba2', got {self.ssm_layer!r}"
+            )
+        if self.dt_init not in ("random", "constant"):
+            raise ValueError(
+                f"dt_init must be 'random' or 'constant', got {self.dt_init!r}"
             )
         if self.attn_layer_idx:
             self._check_hybrid()
@@ -188,6 +201,10 @@ class ModelConfig:
                 f"kv_page_dtype must be 'bf16' or 'int8', got "
                 f"{self.kv_page_dtype!r}"
             )
+        if self.ssm_layer == "mamba2":
+            self._check_mamba2()
+
+    def _check_mamba2(self) -> None:
         if self.d_inner % self.headdim:
             raise ValueError(
                 f"d_inner={self.d_inner} must be a multiple of "
@@ -234,7 +251,13 @@ class ModelConfig:
 
     @property
     def effective_d_state(self) -> int:
-        return self.d_state or 128
+        if self.d_state:
+            return self.d_state
+        return 128 if self.ssm_layer == "mamba2" else 16
+
+    @property
+    def effective_dt_rank(self) -> int:
+        return self.dt_rank or math.ceil(self.d_model / 16)
 
     @property
     def nheads(self) -> int:
@@ -243,13 +266,14 @@ class ModelConfig:
     @property
     def effective_prefill_chunk_tokens(self) -> int:
         """Chunked-prefill width actually used (0 => disabled): the
-        configured width rounded UP to a multiple of ``chunk_size`` so
-        prefill-chunk boundaries land on SSD chunk boundaries.  The
-        engine and ``generate()`` both read this, never the raw field."""
+        configured width, for mamba2 rounded UP to a multiple of
+        ``chunk_size`` so prefill-chunk boundaries land on SSD chunk
+        boundaries.  The engine and ``generate()`` both read this, never
+        the raw field."""
         c = self.prefill_chunk_tokens
         if c <= 0:
             return 0
-        if c % self.chunk_size:
+        if self.ssm_layer == "mamba2" and c % self.chunk_size:
             return ((c + self.chunk_size - 1) // self.chunk_size) * self.chunk_size
         return c
 
@@ -286,6 +310,9 @@ PRESETS: dict[str, dict[str, Any]] = {
     "hybrid-280m": dict(d_model=768, n_layer=64,
                         attn_layer_idx=tuple(range(3, 64, 8)),
                         attn_num_heads=12, attn_num_kv_heads=4),
+    # what the reference's train.py:75 builds (Mamba-1 mixers): d_inner
+    # 1536, d_state 16, dt_rank 48, d_conv 4
+    "mamba1-280m": dict(d_model=768, n_layer=64, ssm_layer="mamba1"),
 }
 
 
@@ -385,6 +412,7 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "hybrid-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
                         max_steps=300, warmup_steps=20, val_every=25),
     "hybrid-280m": dict(),
+    "mamba1-280m": dict(),
 }
 
 

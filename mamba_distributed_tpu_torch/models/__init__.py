@@ -1,4 +1,4 @@
-"""Model stack of the port (Mamba-2 and hybrid LMs)."""
+"""Model stack of the port (Mamba-2, Mamba-1 and hybrid LMs)."""
 
 from mamba_distributed_tpu_torch.models.lm import (
     count_params,

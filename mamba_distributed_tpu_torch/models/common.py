@@ -67,6 +67,19 @@ def init_dt_bias(shape, dt_min: float, dt_max: float, dt_init_floor: float,
     return dt + torch.log(-torch.expm1(-dt))
 
 
+def init_dt_proj(dt_rank: int, d_inner: int, dt_init: str, dt_scale: float,
+                 generator: torch.Generator, lead=(), device=None) -> torch.Tensor:
+    """Mamba-1 ``dt_proj`` kernel (*lead, dt_rank, d_inner): U(+-s) for
+    "random", the constant s for "constant", s = dt_rank^-0.5 * dt_scale
+    (mamba1.py:39-49)."""
+    std = dt_rank ** -0.5 * dt_scale
+    shape = (*lead, dt_rank, d_inner)
+    if dt_init == "constant":
+        return torch.full(shape, std, device=device)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return u * (2 * std) - std
+
+
 def init_conv(channels: int, width: int, bias: bool,
               generator: torch.Generator, lead=(), device=None) -> dict:
     p = {"kernel": uniform_fan_in((*lead, channels, width), width, generator, device)}

@@ -1,6 +1,7 @@
 """Language model (counterpart of ``mamba_distributed_tpu/models/lm.py``):
 embedding -> N prenorm blocks -> final norm -> tied head.  Every block is
-a Mamba-2 mixer, or, in a hybrid stack, an attention mixer at the layers
+a Mamba mixer of ``cfg.ssm_layer`` (Mamba-2 SSD or Mamba-1 selective
+scan), or, in a hybrid stack, an attention mixer at the layers
 ``cfg.attn_layer_idx`` over a paged KV cache (models/attention.py).
 
 Parameters are a plain dict that mirrors the JAX ``init_lm_params`` tree
@@ -8,11 +9,19 @@ key for key, with the blocks stacked on a leading layer axis:
 
     {"embedding": (V, d), "norm_f": {"weight": (d,)},
      "blocks": {"norm": {"weight": (L, d)},
+                # Mamba-2
                 "mixer": {"in_proj": {"kernel": (L, d, d_in_proj)},
                           "conv": {"kernel": (L, conv_dim, w), "bias": (L, conv_dim)},
                           "dt_bias": (L, h), "A_log": (L, h), "D": (L, h),
                           "norm": {"weight": (L, d_inner)},
                           "out_proj": {"kernel": (L, d_inner, d)}}},
+                # Mamba-1 (di = d_inner, r = dt_rank)
+                "mixer": {"in_proj": {"kernel": (L, d, 2 di)},
+                          "conv": {"kernel": (L, di, w), "bias": (L, di)},
+                          "x_proj": {"kernel": (L, di, r + 2 n)},
+                          "dt_proj": {"kernel": (L, r, di), "bias": (L, di)},
+                          "A_log": (L, di, n), "D": (L, di),
+                          "out_proj": {"kernel": (L, di, d)}}},
      # hybrid stacks only; "blocks" then stacks the Mamba layers alone
      "attn_blocks": {"norm": {"weight": (A, d)},
                      "mixer": {"wqkv": {"kernel": (A, d, (nh + 2 nkv) hd)},
@@ -21,19 +30,22 @@ key for key, with the blocks stacked on a leading layer axis:
 The JAX ``lax.scan`` over stacked layers (and, for periodic hybrids, its
 scan over supersteps) becomes one Python loop over the layers in global
 order, with a Mamba and an attention counter; it computes the same thing
-in the same order.  Decode state is ``{"blocks": (conv (L, b, d_conv-1,
-conv_dim), ssm (L, b, h, p, n) fp32)}``, plus, for hybrids,
-``"attn_blocks": (k_pages, v_pages)`` each (A, P, nkv, page, hd) and
-``"attn_meta": (page_table (b, W) int32, lengths (b,) int32)``, shared by
-every attention layer.
+in the same order.  Decode state is ``{"blocks": (conv, ssm)}``, stacked
+on the layer axis: for Mamba-2 conv (L, b, d_conv-1, conv_dim) and ssm
+(L, b, h, p, n) fp32, for Mamba-1 conv (L, b, d_conv-1, d_inner) and ssm
+(L, b, d_inner, n) fp32; for hybrids also ``"attn_blocks": (k_pages,
+v_pages)`` each (A, P, nkv, page, hd) and ``"attn_meta": (page_table
+(b, W) int32, lengths (b,) int32)``, shared by every attention layer.
 
-Training (pure Mamba-2 and hybrid stacks): ``lm_forward``/``lm_loss``
-carry one post-add fp32 stream through the layers in global order, as
-the JAX ``_backbone`` does, each block (Mamba or attention) checkpointed
-as a whole when ``cfg.remat`` is on.
+Training (pure and hybrid stacks): ``lm_forward``/``lm_loss`` carry one
+post-add fp32 stream through the layers in global order, as the JAX
+``_backbone`` does, each block (Mamba or attention) checkpointed as a
+whole when ``cfg.remat`` is on.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -49,6 +61,12 @@ from mamba_distributed_tpu_torch.models.attention import (
     pack_attention_pages,
 )
 from mamba_distributed_tpu_torch.models.common import mm_f32
+from mamba_distributed_tpu_torch.models.mamba1 import (
+    init_mamba1_params,
+    init_mamba1_state,
+    mamba1_mixer,
+    mamba1_mixer_step,
+)
 from mamba_distributed_tpu_torch.models.mamba2 import (
     init_mamba2_params,
     init_mamba2_state,
@@ -56,6 +74,21 @@ from mamba_distributed_tpu_torch.models.mamba2 import (
     mamba2_mixer_step,
 )
 from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm
+
+
+class _Mixer(NamedTuple):
+    init: Callable
+    init_state: Callable
+    forward: Callable
+    step: Callable
+
+
+# the Mamba mixer of each ssm_layer, as the JAX _init_mixer, _mixer_fwd
+# and init_lm_blocks_state dispatch (lm.py:53-63, :990-1000)
+_MIXERS = {
+    "mamba1": _Mixer(init_mamba1_params, init_mamba1_state, mamba1_mixer, mamba1_mixer_step),
+    "mamba2": _Mixer(init_mamba2_params, init_mamba2_state, mamba2_mixer, mamba2_mixer_step),
+}
 
 
 def _unstack(tree, n: int) -> list:
@@ -92,7 +125,7 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
         "norm_f": {"weight": torch.ones((cfg.d_model,), device=device)},
         "blocks": {
             "norm": {"weight": torch.ones((n, cfg.d_model), device=device)},
-            "mixer": init_mamba2_params(cfg, generator, n, device),
+            "mixer": _MIXERS[cfg.ssm_layer].init(cfg, generator, n, device),
         },
     }
     if n_attn:
@@ -133,7 +166,7 @@ def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
                                               lengths, token_mask=token_mask)
         return hidden, residual, state
     ics, iss = (None, None) if initial_state is None else initial_state
-    hidden, state = mamba2_mixer(
+    hidden, state = _MIXERS[cfg.ssm_layer].forward(
         bp["mixer"], cfg, normed, initial_conv_state=ics,
         initial_ssm_state=iss, return_final_state=True, token_mask=token_mask,
     )
@@ -162,7 +195,7 @@ def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool) -> t
     ``_backbone`` (lm.py:437-444): the post-add stream -> the next one,
     through the attention mixer at an attention layer."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
-    mixer = attention_mixer if attn else mamba2_mixer
+    mixer = attention_mixer if attn else _MIXERS[cfg.ssm_layer].forward
     return res + mixer(bp["mixer"], cfg, normed).to(res.dtype)
 
 
@@ -320,7 +353,7 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 def init_lm_blocks_state(cfg: ModelConfig, batch: int, device=None):
     """Layer-stacked zero conv+SSM decode states of the Mamba layers (in a
     hybrid stack the attention layers' KV lives in the paged cache)."""
-    cs, ss = init_mamba2_state(cfg, batch, device)
+    cs, ss = _MIXERS[cfg.ssm_layer].init_state(cfg, batch, device)
     n = cfg.n_layer - len(cfg.attn_layer_idx)
     return (cs[None].repeat(n, *([1] * cs.ndim)),
             ss[None].repeat(n, *([1] * ss.ndim)))
@@ -351,7 +384,7 @@ def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None)
     if attn_ctx is not None:
         hidden, _ = attention_mixer_step(bp["mixer"], cfg, normed, st, *attn_ctx)
     else:
-        hidden, _ = mamba2_mixer_step(bp["mixer"], cfg, normed, *st)
+        hidden, _ = _MIXERS[cfg.ssm_layer].step(bp["mixer"], cfg, normed, *st)
     return hidden, residual
 
 

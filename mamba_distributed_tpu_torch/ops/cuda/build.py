@@ -28,13 +28,15 @@ SOURCES = {
     "ssd_bwd": CSRC / "ssd_bwd.cu",
     "ragged_paged_attention": CSRC / "ragged_paged_attention.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "selective_scan": CSRC / "selective_scan.cu",
 }
 # launches of every kernel of the port, by kernel: each wrapper adds one
 # where it launches its kernel, and nowhere else (a run reads these to
 # show that its main path went through the kernels)
 LAUNCHES = {"ssd_fwd": 0, "ssd_chunk_states": 0, "ssd_bwd": 0,
             "ragged_decode": 0, "ragged_prefill": 0,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "m1_scan": 0, "m1_entry_states": 0, "m1_bwd": 0}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",

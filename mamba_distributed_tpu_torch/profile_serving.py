@@ -2,7 +2,8 @@
 
     python3 -m mamba_distributed_tpu_torch.profile_serving [PRESET ...]
 
-For each preset (default: mamba2-280m and hybrid-280m), builds the
+For each preset (default: mamba2-280m, hybrid-280m and mamba1-280m),
+builds the
 full-width ``ServingEngine`` (bf16, ``ssm_impl="pallas"``, random weights
 from a seeded generator, capacity 8), fills every slot, and traces with
 ``torch.profiler`` (a) one decode-only engine step (``tokens_per_tick``
@@ -25,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mamba_distributed_tpu_torch.config import get_preset
+from mamba_distributed_tpu_torch.config import PRESETS, get_preset
 from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
 from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
 from mamba_distributed_tpu_torch.serving.prefill import (
@@ -104,7 +105,9 @@ def profile_preset(preset: str, card: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("presets", nargs="*", default=["mamba2-280m", "hybrid-280m"])
+    ap.add_argument("presets", nargs="*", metavar="PRESET",
+                    default=["mamba2-280m", "hybrid-280m", "mamba1-280m"],
+                    help=f"any of {sorted(PRESETS)}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")

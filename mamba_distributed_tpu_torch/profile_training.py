@@ -1,11 +1,12 @@
 """Where the training path's time goes on the card.
 
-    python3 -m mamba_distributed_tpu_torch.profile_training [--preset hybrid-280m]
+    python3 -m mamba_distributed_tpu_torch.profile_training [--preset mamba1-280m]
         [--micro-batch-size 32]
 
 Builds the full-width, full-depth preset (mamba2-280m by default, or
-hybrid-280m: 64 layers, bf16, ``ssm_impl="pallas"``, ``attn_impl=
-"auto"``, remat, random weights from a seeded generator), runs one
+any training preset, e.g. hybrid-280m or mamba1-280m: 64 layers, bf16,
+``ssm_impl="pallas"``, ``attn_impl="auto"``, remat, random weights from
+a seeded generator), runs one
 warm-up train step (AdamW, accum 1, seq 1024) on random token ids, times
 one step without the profiler, and traces one with ``torch.profiler``:
 the host wall time, the device busy time (sum of kernel times on the one
@@ -24,7 +25,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
+from mamba_distributed_tpu_torch.config import TRAIN_PRESETS, get_preset, get_train_preset
 from mamba_distributed_tpu_torch.models.lm import init_lm_params
 from mamba_distributed_tpu_torch.profile_serving import card_name, report_kernels
 from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
@@ -32,15 +33,18 @@ from mamba_distributed_tpu_torch.training.train_step import make_train_step
 
 
 def _groups(prof) -> dict[str, float]:
-    """Device ms of the hand-written SSD and flash kernels, the GEMMs, the rest."""
-    out = {"hand SSD kernels": 0.0, "hand flash kernels": 0.0, "GEMMs": 0.0,
-           "other kernels": 0.0}
+    """Device ms of the hand-written SSD, selective-scan and flash kernels,
+    the GEMMs, the rest."""
+    out = {"hand SSD kernels": 0.0, "hand scan kernels": 0.0, "hand flash kernels": 0.0,
+           "GEMMs": 0.0, "other kernels": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         name = e.key.lower()
         if "ssd_" in name.split("<")[0]:
             key = "hand SSD kernels"
+        elif "m1_" in name.split("<")[0]:
+            key = "hand scan kernels"
         elif "flash_" in name.split("<")[0]:
             key = "hand flash kernels"
         elif any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
@@ -53,7 +57,7 @@ def _groups(prof) -> dict[str, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--preset", default="mamba2-280m", choices=["mamba2-280m", "hybrid-280m"])
+    ap.add_argument("--preset", default="mamba2-280m", choices=sorted(TRAIN_PRESETS))
     ap.add_argument("--micro-batch-size", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -7,6 +7,7 @@ a fixed-capacity pool of S slots whose tensors never change shape:
 
   pool = {
     "state": {"blocks": (conv (L, S, d_conv-1, conv_dim), ssm (L, S, h, p, n) fp32)},
+              # Mamba-1: conv (L, S, d_conv-1, d_inner), ssm (L, S, d_inner, n) fp32
     "logits": (S, V_padded) fp32        # last logits per slot
     "meta": {                           # (S,) tensors on the pool's device
       "active", "done", "prefilling": bool,

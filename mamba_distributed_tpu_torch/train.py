@@ -1,12 +1,14 @@
-"""Train a Mamba-2 or hybrid LM with the PyTorch port, on the card by default.
+"""Train a Mamba-2, Mamba-1 or hybrid LM with the PyTorch port, on the card by default.
 
     python -m mamba_distributed_tpu_torch.train --preset mamba2-280m --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-280m --max-steps 3
+    python -m mamba_distributed_tpu_torch.train --preset mamba1-280m --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
 
-The SSD runs through the hand-written kernels (``--ssm-impl pallas``,
-the default here) on the card, and a hybrid's attention layers through
-the hand-written flash kernels (``attn_impl="auto"``).  Without
+The SSD (Mamba-2) or selective scan (Mamba-1) runs through the
+hand-written kernels (``--ssm-impl pallas``, the default here) on the
+card, and a hybrid's attention layers through the hand-written flash
+kernels (``attn_impl="auto"``).  Without
 ``edu_fineweb10B/`` (or ``--data-dir``) the run trains on synthetic
 shards written there; nothing is downloaded.
 """
@@ -35,7 +37,7 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--ssm-impl", choices=["xla", "pallas"], default="pallas",
-                   help="pallas (default): the hand-written SSD kernels on the card "
+                   help="pallas (default): the hand-written SSD or scan kernels on the card "
                         "(their plain versions on the CPU); xla: plain PyTorch autograd")
     p.add_argument("--chunk-size", type=int, default=None, help="SSD chunk length")
     p.add_argument("--device", default="cuda",

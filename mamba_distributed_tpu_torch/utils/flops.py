@@ -1,5 +1,5 @@
 """Analytic FLOPs accounting for MFU (counterpart of the JAX package's
-``utils/flops.py``, the Mamba-2 and attention layers).
+``utils/flops.py``, the Mamba-2, Mamba-1 and attention layers).
 
 Matmul FLOPs: 2*m*n per (m x n) matvec per token, 3x the forward for a
 training step (forward + 2x backward), attention causally halved.  Two
@@ -10,6 +10,9 @@ conventions:
 - ``model``: the math the model defines, parameter matmuls plus the
   recurrent state update/readout (no chunk-size term), the 6ND-style
   number MFU is judged on.
+
+The two differ only for Mamba-2 layers: Mamba-1's accounting is already
+the recurrence.
 
 The peak is the card's, from its name: only cards with a published
 dense bf16 rate in this table are known, and any other raises.
@@ -60,6 +63,18 @@ def _mamba2_layer_flops(cfg: ModelConfig, seq_len: int, convention: str) -> floa
     return f
 
 
+def _mamba1_layer_flops(cfg: ModelConfig) -> float:
+    d, di = cfg.d_model, cfg.d_inner
+    n, dtr = cfg.effective_d_state, cfg.effective_dt_rank
+    f = 2 * d * 2 * di  # in_proj
+    f += 2 * di * cfg.d_conv  # depthwise conv
+    f += 2 * di * (dtr + 2 * n)  # x_proj
+    f += 2 * dtr * di  # dt_proj
+    f += 8 * di * n  # recurrence (dA, dBu, state update, C reduction)
+    f += 2 * di * d  # out_proj
+    return f
+
+
 def _attn_layer_flops(cfg: ModelConfig, seq_len: int) -> float:
     nh = cfg.effective_attn_num_heads
     nkv = cfg.effective_attn_num_kv_heads
@@ -80,7 +95,9 @@ def flops_per_token(cfg: ModelConfig, seq_len: int, training: bool = True,
     for i in range(cfg.n_layer):
         if i in attn_idx:
             total += _attn_layer_flops(cfg, seq_len)
-        else:
+        elif cfg.ssm_layer == "mamba2":
             total += _mamba2_layer_flops(cfg, seq_len, convention)
+        else:
+            total += _mamba1_layer_flops(cfg)
     total += 2 * cfg.d_model * cfg.vocab_size_padded  # LM head
     return total * (3.0 if training else 1.0)

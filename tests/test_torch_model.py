@@ -100,8 +100,8 @@ def test_config_rejects_unserved_models():
         ModelConfig(**TINY, kv_page_dtype="int8")
     with pytest.raises(ValueError, match="multiple of 8"):
         ModelConfig(**TINY, kv_page_tokens=12)
-    with pytest.raises(ValueError, match="mamba2"):
-        ModelConfig(**TINY, ssm_layer="mamba1")
+    with pytest.raises(ValueError, match="mamba1"):
+        ModelConfig(**TINY, ssm_layer="mamba3")
     with pytest.raises(ValueError, match="d_intermediate"):
         ModelConfig(**TINY, d_intermediate=64)
     hyb = get_preset("hybrid-280m")
