@@ -6,7 +6,9 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build every CUDA kernel of the port from the sources in the checkout
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), and hold the Python
+   tables of built shapes (``ops/dispatch.check_kernel_shapes``) against
+   each library's own answers;
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
    shapes, beside a bound from the bytes and operations the work needs
@@ -19,7 +21,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page write + chunk
    prefill) at hybrid-280m's (12 query / 4 KV heads, head dim 64, pages
    of 64 tokens, 16 pages per slot) over ragged length mixes, with the
-   written pages compared bit for bit; ``flash_fwd``, ``flash_bwd_dq``
+   written pages compared bit for bit, each with bf16/fp32 pages and
+   with int8 pages and scales (``rpa_fwd_int8``, ``rpp_fwd_int8``: the
+   int8 branches, stale scales on recycled pages included); ``flash_fwd``, ``flash_bwd_dq``
    and ``flash_bwd_dkv`` (flash attention) over t 1024 and 1000, GQA rep
    1 and 3, offsets 0, positive and negative, head dims 32, 64 and 128,
    then the whole ``FlashAttentionFunction``'s gradients against torch
@@ -44,7 +48,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    through ``flash_fwd``) must agree with the chunked one, and a greedy
    ``generate(length_bucketing=False)`` runs through it; then on a
    full-width mamba1-280m engine (d_inner 1536, d_state 16), whose
-   one-shot and chunked (seeded) prefills go through ``m1_scan``;
+   one-shot and chunked (seeded) prefills go through ``m1_scan``; and
+   between them a second hybrid-280m engine with int8 weights and int8
+   KV pages, whose paged attention runs the int8 branches (its greedy
+   stream equal to ``generate()``'s, no page leaked), printed beside
+   the bf16 hybrid run: resident weight and KV bytes, greedy agreement
+   (not gated), tokens/s, TTFT, chunk step and decode tick;
 4. train a full-width, full-depth mamba2-280m, hybrid-280m, then
    mamba1-280m (bf16, pallas, remat) through the port's ``Trainer`` for
    3 optimizer steps at seq 1024 on synthetic shards (micro-batch 32, or
@@ -353,10 +362,22 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def int8_pool(gen, P, nkv, pg, hd):
+    """Random int8 K/V pages in [-127, 127] and positive (P, nkv) fp32
+    scales, as an int8 pool holds them."""
+    shape = (P, nkv, pg, hd)
+    pages = [torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand((P, nkv), generator=gen, device="cuda") * 0.05 + 0.001
+              for _ in range(2)]
+    return pages, scales
+
+
 def check_rpa(gen):
     """Paged decode: kernel vs plain over ragged kv_len mixes (0, mid-page,
-    an exact page multiple, a full table); the bf16 hybrid-280m case at
-    8 slots is timed."""
+    an exact page multiple, a full table), with bf16/fp32 pages and with
+    int8 pages and scales; the bf16 hybrid-280m case at 8 slots is timed
+    for each (rows ``rpa_fwd`` and ``rpa_fwd_int8``)."""
     from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
 
     cases = [  # (dtype, nh, nkv, pg, W, kv_len of the 8 slots)
@@ -365,111 +386,146 @@ def check_rpa(gen):
         (torch.float32, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
         (torch.bfloat16, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
     ]
-    hd, S, row = 64, 8, None
-    for dtype, nh, nkv, pg, W, lens in cases:
-        P = 1 + S * W
-        kp, vp = paged_pool(gen, P, nkv, pg, hd, dtype)
-        q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
-        tbl = disjoint_table(gen, S, W, P)
-        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        args = (q, kp, vp, tbl, kv_len)
-        got = ak.ragged_paged_decode_attention(*args)
-        ref = ak.ragged_paged_decode_attention_plain(*args)
-        torch.cuda.synchronize()
-        empty = kv_len == 0
-        if not torch.isfinite(got).all() or got[empty].abs().max() != 0:
-            raise SystemExit(f"rpa_fwd: non-finite output or a nonzero empty row ({dtype})")
-        err, rel = rel_err(got[~empty], ref[~empty])
-        print(f"check rpa_fwd {str(dtype)[6:]} S={S} nh={nh} nkv={nkv} pg={pg} W={W} "
-              f"kv_len={lens}: max_abs_err={err:.3e} (rel {rel:.2e}), "
-              f"tol rel {TOL[dtype]:.0e}", flush=True)
-        if rel > TOL[dtype]:
-            raise SystemExit(f"rpa_fwd disagrees with the plain version: rel {rel:.3e}")
-        if dtype is torch.bfloat16 and pg == 64:
-            ms = cuda_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
-            plain_ms = cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10)
-            # yardstick: SDPA over the pre-gathered contiguous view (the
-            # page gather is not timed), heads expanded to nh
-            kk, vv = ak.gather_kv_pages(kp, vp, tbl)
-            kk = kk.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
-            vv = vv.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
-            mask = (torch.arange(W * pg, device="cuda") < kv_len.clamp(min=1)[:, None])
-            qq = q[:, :, None]
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask[:, None, None]), 50)
-            e = torch.finfo(dtype).bits // 8
-            tokens = int(kv_len.sum())
-            nbytes = (2 * tokens * nkv * hd * e + 2 * S * nh * hd * e
-                      + tbl.numel() * 4 + S * 4)
-            bound_ms, bound_by = bound(nbytes, 4 * tokens * nh * hd)
-            print(f"time rpa_fwd bf16 S={S} kv_len={lens}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, SDPA on the pre-gathered view (no page gather) "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
-                  f"{4 * tokens * nh * hd} FLOP)", flush=True)
-            row = dict(name="rpa_fwd", route="cuda",
-                       source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
-                       replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:525",
-                       launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    return row
+    hd, S, rows = 64, 8, {}
+    for quant in (False, True):
+        name = "rpa_fwd_int8" if quant else "rpa_fwd"
+        for dtype, nh, nkv, pg, W, lens in cases:
+            P = 1 + S * W
+            if quant:
+                (kp, vp), scales = int8_pool(gen, P, nkv, pg, hd)
+            else:
+                (kp, vp), scales = paged_pool(gen, P, nkv, pg, hd, dtype), []
+            q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
+            tbl = disjoint_table(gen, S, W, P)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            args = (q, kp, vp, tbl, kv_len, *scales)
+            got = ak.ragged_paged_decode_attention(*args)
+            ref = ak.ragged_paged_decode_attention_plain(*args)
+            torch.cuda.synchronize()
+            empty = kv_len == 0
+            if not torch.isfinite(got).all() or got[empty].abs().max() != 0:
+                raise SystemExit(f"{name}: non-finite output or a nonzero empty row ({dtype})")
+            err, rel = rel_err(got[~empty], ref[~empty])
+            print(f"check {name} {str(dtype)[6:]} S={S} nh={nh} nkv={nkv} pg={pg} W={W} "
+                  f"kv_len={lens}: max_abs_err={err:.3e} (rel {rel:.2e}), "
+                  f"tol rel {TOL[dtype]:.0e}", flush=True)
+            if rel > TOL[dtype]:
+                raise SystemExit(f"{name} disagrees with the plain version: rel {rel:.3e}")
+            if dtype is torch.bfloat16 and pg == 64:
+                ms = cuda_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
+                plain_ms = cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10)
+                # yardstick: SDPA over the pre-gathered contiguous view
+                # (int8 pages: dequantized; the gather is not timed),
+                # heads expanded to nh
+                kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, *scales, dtype=dtype)
+                kk = kk.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+                vv = vv.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+                mask = (torch.arange(W * pg, device="cuda") < kv_len.clamp(min=1)[:, None])
+                qq = q[:, :, None]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask[:, None, None]), 50)
+                e = kp.element_size()
+                tokens = int(kv_len.sum())
+                live_pages = int(((kv_len + pg - 1) // pg).sum())
+                nbytes = (2 * tokens * nkv * hd * e + 2 * S * nh * hd * q.element_size()
+                          + tbl.numel() * 4 + S * 4 + (2 * live_pages * nkv * 4 if quant else 0))
+                bound_ms, bound_by = bound(nbytes, 4 * tokens * nh * hd)
+                pages = "int8 pages" if quant else "bf16 pages"
+                print(f"time {name} bf16 q, {pages}, S={S} kv_len={lens}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, SDPA on the pre-gathered view (no page gather"
+                      f"{' or dequant' if quant else ''}) {library_ms:.4f} ms, bound "
+                      f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {4 * tokens * nh * hd} FLOP)",
+                      flush=True)
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
+                    replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:525",
+                    launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return rows["rpa_fwd"], rows["rpa_fwd_int8"]
 
 
 def check_rpp(gen):
     """Fused page write + chunk prefill: kernel vs plain over the ragged
     mixes of tests/test_paged_attention.py (positions scaled by 8 to
     pages of 64) and the second 256-token chunk of a 700-token prompt
-    (ln = 188, the timed case).  Output rows at real query positions
-    agree within the tolerance; every page but the trash page 0 is
-    bit-identical."""
+    (ln = 188, the timed case), with bf16/fp32 pages and with int8 pages
+    (plus, for int8, a mix whose pages with no prior token of their row
+    carry stale scales 1000x too large, as recycled pages do; the new
+    scales come from ``models/attention._chunk_page_scales``).  Output rows at real query
+    positions agree within the tolerance; every page but the trash page
+    0 is bit-identical, and the kernel leaves the four scale arrays as
+    it found them.  Rows ``rpp_fwd`` and ``rpp_fwd_int8``."""
+    from mamba_distributed_tpu_torch.models.attention import _chunk_page_scales
     from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
 
     hd = 64
-    mixes = [  # (b, c, nh, nkv, pg, W, lengths, chunk_real)
-        (3, 128, 12, 4, 64, 8, [0, 40, 136], [128, 88, 128]),
-        (3, 128, 12, 4, 64, 8, [0, 72, 0], [0, 128, 56]),
-        (2, 128, 12, 4, 64, 8, [96, 96], [128, 128]),
-        (2, 128, 12, 4, 64, 8, [384, 384], [128, 128]),
-        (2, 128, 4, 1, 128, 4, [24, 160], [128, 128]),
-        (2, 128, 12, 4, 64, 8, [96, 32], [0, 128]),
-        (1, 256, 12, 4, 64, 16, [188], [256]),
+    mixes = [  # (b, c, nh, nkv, pg, W, lengths, chunk_real, stale old scales)
+        (3, 128, 12, 4, 64, 8, [0, 40, 136], [128, 88, 128], False),
+        (3, 128, 12, 4, 64, 8, [0, 72, 0], [0, 128, 56], False),
+        (2, 128, 12, 4, 64, 8, [96, 96], [128, 128], False),
+        (2, 128, 12, 4, 64, 8, [384, 384], [128, 128], False),
+        (2, 128, 4, 1, 128, 4, [24, 160], [128, 128], False),
+        (2, 128, 12, 4, 64, 8, [96, 32], [0, 128], False),
+        (1, 256, 12, 4, 64, 16, [188], [256], False),
     ]
-    row = None
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, c, nh, nkv, pg, W, lens, reals in mixes:
+    int8_mixes = mixes + [(3, 128, 12, 4, 64, 8, [0, 64, 100], [128, 100, 60], True)]
+    rows = {}
+    for quant, dtype in ((False, torch.float32), (False, torch.bfloat16),
+                         (True, torch.float32), (True, torch.bfloat16)):
+        name = "rpp_fwd_int8" if quant else "rpp_fwd"
+        for b, c, nh, nkv, pg, W, lens, reals, stale in (int8_mixes if quant else mixes):
             P = 1 + b * W
-            kp, vp = paged_pool(gen, P, nkv, pg, hd, dtype)
             q = torch.randn((b, c, nh, hd), generator=gen, device="cuda").to(dtype)
             kc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
             vc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
             tbl = disjoint_table(gen, b, W, P)
             ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
             cr = torch.tensor(reals, dtype=torch.int32, device="cuda")
+            real = torch.arange(c, device="cuda")[None, :] >= (c - cr)[:, None]
+            if quant:
+                (kp, vp), (kso, vso) = int8_pool(gen, P, nkv, pg, hd)
+                if stale:
+                    # recycled pages: those holding no token of their row
+                    # before this chunk carry a stale scale 1000x too large
+                    col = torch.arange(W, device="cuda")[None, :] * pg
+                    fresh = tbl[col >= ln[:, None]].long()
+                    kso[fresh] *= 1000
+                    vso[fresh] *= 1000
+                scales = [kso, vso, *_chunk_page_scales(kc, vc, real, tbl, ln, cr, kso, vso,
+                                                        pg)]
+            else:
+                (kp, vp), scales = paged_pool(gen, P, nkv, pg, hd, dtype), []
+            kept = [t.clone() for t in scales]
             kp2, vp2 = kp.clone(), vp.clone()
-            got, gk, gv = ak.ragged_paged_prefill_attention(q, kc, vc, kp, vp, tbl, ln, cr)
+            got, gk, gv = ak.ragged_paged_prefill_attention(q, kc, vc, kp, vp, tbl, ln, cr,
+                                                            *scales)
             ref, rk, rv = ak.ragged_paged_prefill_attention_plain(
-                q, kc, vc, kp2, vp2, tbl, ln, cr)
+                q, kc, vc, kp2, vp2, tbl, ln, cr, *scales)
             torch.cuda.synchronize()
             if not (torch.equal(gk[1:], rk[1:]) and torch.equal(gv[1:], rv[1:])):
-                raise SystemExit(f"rpp_fwd wrote pages unlike the plain version "
+                raise SystemExit(f"{name} wrote pages unlike the plain version "
                                  f"({dtype}, lengths {lens}, chunk_real {reals})")
-            real = torch.arange(c, device="cuda")[None, :] >= (c - cr)[:, None]
+            if not all(torch.equal(a, k) for a, k in zip(scales, kept)):
+                raise SystemExit(f"{name} changed a scale array it only reads")
             if not torch.isfinite(got[real]).all():
-                raise SystemExit(f"rpp_fwd: non-finite output ({dtype}, lengths {lens})")
+                raise SystemExit(f"{name}: non-finite output ({dtype}, lengths {lens})")
             err, rel = rel_err(got[real], ref[real]) if bool(real.any()) else (0.0, 0.0)
-            print(f"check rpp_fwd {str(dtype)[6:]} b={b} c={c} nh={nh} nkv={nkv} pg={pg} "
-                  f"W={W} lengths={lens} chunk_real={reals}: max_abs_err={err:.3e} "
-                  f"(rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; pages bit-identical",
-                  flush=True)
+            print(f"check {name} {str(dtype)[6:]} b={b} c={c} nh={nh} nkv={nkv} pg={pg} "
+                  f"W={W} lengths={lens} chunk_real={reals}{' stale scales' if stale else ''}: "
+                  f"max_abs_err={err:.3e} (rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; pages "
+                  f"bit-identical{', scales read only' if quant else ''}", flush=True)
             if rel > TOL[dtype]:
-                raise SystemExit(f"rpp_fwd disagrees with the plain version: rel {rel:.3e}")
+                raise SystemExit(f"{name} disagrees with the plain version: rel {rel:.3e}")
             if dtype is torch.bfloat16 and c == 256:
-                args = (q, kc, vc, kp, vp, tbl, ln, cr)
+                args = (q, kc, vc, kp, vp, tbl, ln, cr, *scales)
                 ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50)
                 plain_ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 10)
                 # yardstick: causal SDPA over the pre-gathered view of
-                # prefix + chunk (no page gather, no page write)
+                # prefix + chunk (int8: dequantized; no page gather,
+                # dequant or write)
                 total = lens[0] + reals[0]
-                kk, vv = ak.gather_kv_pages(kp, vp, tbl)
+                kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, *scales[2:], dtype=dtype)
                 kk = kk[:, :total].transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
                 vv = vv[:, :total].transpose(1, 2).repeat_interleave(nh // nkv, dim=1)
                 kk, vv = kk.contiguous(), vv.contiguous()
@@ -478,27 +534,69 @@ def check_rpp(gen):
                 mask = torch.arange(total, device="cuda")[None, :] <= qpos[:, None]
                 library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     qq, kk, vv, attn_mask=mask), 50)
-                e = torch.finfo(dtype).bits // 8
+                e, qe = kp.element_size(), q.element_size()
                 kv_row = nkv * hd * e
+                # int8: the old and new scales of the write window's pages,
+                # the new ones of the prefix pages before it
+                window = (total - 1) // pg - lens[0] // pg + 1
+                live_pages = -(-total // pg)
                 nbytes = (lens[0] * 2 * kv_row      # prefix pages read
                           + reals[0] * 2 * kv_row   # pages written
-                          + c * 2 * kv_row          # chunk K/V
-                          + 2 * c * nh * hd * e     # q, o
-                          + tbl.numel() * 4 + 8)
+                          + c * 2 * nkv * hd * qe   # chunk K/V
+                          + 2 * c * nh * hd * qe    # q, o
+                          + tbl.numel() * 4 + 8
+                          + ((4 * window + 2 * (live_pages - window)) * nkv * 4
+                             if quant else 0))
                 flops = 4 * nh * hd * sum(p + 1 for p in range(lens[0], total))
                 bound_ms, bound_by = bound(nbytes, flops)
-                print(f"time rpp_fwd bf16 b=1 c=256 lengths={lens} chunk_real={reals}: "
-                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-                      f"pre-gathered view (no page gather or write) {library_ms:.4f} ms, "
-                      f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP)",
+                pages = "int8 pages" if quant else "bf16 pages"
+                print(f"time {name} bf16 q, {pages}, b=1 c=256 lengths={lens} chunk_real="
+                      f"{reals}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+                      f"pre-gathered view (no page gather, dequant or write) {library_ms:.4f} "
+                      f"ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP)",
                       flush=True)
-                row = dict(name="rpp_fwd", route="cuda",
-                           source="mamba_distributed_tpu_torch/ops/cuda/csrc/"
-                                  "ragged_paged_attention.cu",
-                           replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:722",
-                           launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    return row
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
+                    replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:722",
+                    launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return rows["rpp_fwd"], rows["rpp_fwd_int8"]
+
+
+def check_kernel_tables() -> None:
+    """The Python tables of built shapes (what ``ops/dispatch.
+    check_kernel_shapes`` refuses by) against each library's own answers."""
+    from mamba_distributed_tpu_torch.ops.cuda import (
+        attention_kernels,
+        flash_kernels,
+        scan_kernels,
+        ssd_kernels,
+    )
+
+    dims = (8, 16, 32, 48, 64, 96, 128, 192, 256)
+    for name, fn in (("ssd_fwd", ssd_kernels._fwd_lib().mdt_ssd_fwd_supports),
+                     ("ssd_bwd", ssd_kernels._bwd_lib().mdt_ssd_bwd_supports)):
+        built = {(p, n) for p in dims for n in dims if fn(p, n)}
+        if built != ssd_kernels.BUILT_SHAPES:
+            raise SystemExit(f"{name} is built for {sorted(built)}, the table says "
+                             f"{sorted(ssd_kernels.BUILT_SHAPES)}")
+    fl = flash_kernels._lib()
+    built = tuple(hd for hd in range(8, 257, 8) if fl.mdt_flash_supports(hd))
+    if built != flash_kernels.HEAD_DIMS:
+        raise SystemExit(f"flash is built for head dims {built}, the table says "
+                         f"{flash_kernels.HEAD_DIMS}")
+    ak = attention_kernels._lib()
+    got = (ak.mdt_rpa_max_rep(), ak.mdt_rpa_max_head_dim())
+    if got != (attention_kernels.MAX_REP, attention_kernels.MAX_HEAD_DIM):
+        raise SystemExit(f"ragged paged limits {got} != the table's "
+                         f"{(attention_kernels.MAX_REP, attention_kernels.MAX_HEAD_DIM)}")
+    n_state = scan_kernels._lib().mdt_m1_state_size()
+    if n_state != scan_kernels.N_STATE:
+        raise SystemExit(f"selective scan d_state {n_state} != {scan_kernels.N_STATE}")
+    print(f"check kernel shape tables: SSD (headdim, d_state) {sorted(ssd_kernels.BUILT_SHAPES)}, "
+          f"flash head dims {flash_kernels.HEAD_DIMS}, paged rep <= {got[0]} and head dim <= "
+          f"{got[1]}, scan d_state {n_state}: each equals its library's answers", flush=True)
 
 
 # ------------------------------------------------------ flash attention kernels
@@ -868,14 +966,17 @@ def m1_function_grads(kernel_fn, seq_fn, gen, b, t, d, seeded, dfin, tag):
 # ------------------------------------------------------------ serving path
 
 
-def serve(preset: str, path_kernels: tuple[str, ...]):
-    """Serve 8 requests on a full-width engine of ``preset``; returns the
-    launch counts of the run.  Every kernel in ``path_kernels`` (keys of
-    ``build.LAUNCHES``) must have launched in it."""
+def serve(preset: str, path_kernels: tuple[str, ...], **overrides) -> dict:
+    """Serve 8 requests on a full-width engine of ``preset`` (config
+    fields ``overrides``, e.g. the int8 knobs); returns the run's launch
+    counts, the greedy stream and the serving numbers.  Every kernel in
+    ``path_kernels`` (keys of ``build.LAUNCHES``) must have launched in
+    it."""
     from mamba_distributed_tpu_torch.config import get_preset
     from mamba_distributed_tpu_torch.inference.generate import generate
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
     from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.ops.quant import param_bytes
     from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
     from mamba_distributed_tpu_torch.serving.prefill import (
         cast_decode_params,
@@ -884,8 +985,9 @@ def serve(preset: str, path_kernels: tuple[str, ...]):
         prefill_chunk,
     )
 
-    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16")
+    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", **overrides)
     hybrid = bool(cfg.attn_layer_idx)
+    tag = f"{preset}{' int8' if overrides else ''}"
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
     capacity, new = 8, 32
@@ -955,23 +1057,55 @@ def serve(preset: str, path_kernels: tuple[str, ...]):
     with torch.no_grad():
         chunk_ms = cuda_ms(lambda: prefill_chunk(dparams, cids, cmask, st, cfg), 3, 1)
     card = smi()
-    print(f"serve {preset} n_layer={cfg.n_layer} bf16 capacity={capacity}: "
+    dtypes = (f"weights {cfg.serving_weight_dtype}, KV pages {cfg.kv_page_dtype}"
+              if overrides else "bf16")
+    print(f"serve {tag} n_layer={cfg.n_layer} {dtypes} capacity={capacity}: "
           f"{len(reqs)} requests, prompts {lens}, {n_tokens} new tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s [{card}]")
-    print(f"serve {preset} TTFT ms: min {ttft[0]:.1f} median {ttft[len(ttft) // 2]:.1f} "
+    print(f"serve {tag} TTFT ms: min {ttft[0]:.1f} median {ttft[len(ttft) // 2]:.1f} "
           f"max {ttft[-1]:.1f} [{card}]")
-    print(f"serve {preset} prefill: {chunk_ms / 256:.4f} ms per token "
+    print(f"serve {tag} prefill: {chunk_ms / 256:.4f} ms per token "
           f"(one 256-token chunk step, batch 1: {chunk_ms:.2f} ms) [{card}]")
+    tick_ms = None
     if decode_ticks:
         dt = sorted(decode_ticks)
-        print(f"serve {preset} decode: {dt[len(dt) // 2] * 1e3:.2f} ms per tick (median of "
+        tick_ms = dt[len(dt) // 2] * 1e3
+        print(f"serve {tag} decode: {tick_ms:.2f} ms per tick (median of "
               f"{len(dt)} decode-only ticks, {eng.tokens_per_tick} sub-steps x "
               f"{capacity} slots) [{card}]")
-    print(f"serve {preset} launches during the run: {launches}; greedy stream == "
+    print(f"serve {tag} launches during the run: {launches}; greedy stream == "
           f"generate(): True" + ("; KV pages in use at the end: 0" if hybrid else ""))
-    if hybrid:
+    if hybrid and not overrides:
         hybrid_one_shot(params, cfg, dparams, prompts[3][:512], new, card)
-    return launches
+    kv = eng.pool["state"].get("attn_blocks", ())
+    return dict(launches=launches, greedy=results[0].new_tokens.tolist(),
+                tokens_per_s=n_tokens / wall, ttft_ms=ttft[len(ttft) // 2],
+                chunk_ms=chunk_ms, tick_ms=tick_ms, weight_bytes=param_bytes(dparams),
+                kv_bytes=sum(t.numel() * t.element_size() for t in kv))
+
+
+def serve_int8(bf16: dict) -> dict:
+    """The int8 hybrid serving run (int8 weights and int8 KV pages, the
+    same requests), against the bf16 hybrid run ``bf16`` of this call:
+    the int8 branches of both paged kernels must launch; resident weight
+    and KV pool bytes, the greedy agreement with bf16 (printed, not
+    gated) and the serving numbers side by side."""
+    card = smi()
+    q8 = serve("hybrid-280m", ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"),
+               kv_page_dtype="int8", serving_weight_dtype="int8")
+    if q8["launches"]["ragged_decode"] or q8["launches"]["ragged_prefill"]:
+        raise SystemExit("the int8 hybrid run launched a bf16 paged kernel")
+    a, b = q8["greedy"], bf16["greedy"]
+    agree = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+    print(f"serve hybrid-280m int8 vs bf16: resident decode weights {q8['weight_bytes']} B vs "
+          f"{bf16['weight_bytes']} B ({q8['weight_bytes'] / bf16['weight_bytes']:.3f}x), KV "
+          f"pool {q8['kv_bytes']} B vs {bf16['kv_bytes']} B "
+          f"({q8['kv_bytes'] / bf16['kv_bytes']:.3f}x) [{card}]")
+    print(f"serve hybrid-280m int8 vs bf16 greedy stream: first {agree} of {len(a)} tokens "
+          f"agree (information, not gated)")
+    for key in ("tokens_per_s", "ttft_ms", "chunk_ms", "tick_ms"):
+        print(f"serve hybrid-280m {key}: int8 {q8[key]}, bf16 {bf16[key]} [{card}]")
+    return q8
 
 
 def hybrid_one_shot(params, cfg, dparams, prompt, new: int, card: str) -> None:
@@ -1152,13 +1286,18 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(spills)} bytes")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_ssd(gen), *check_ssd_bwd(gen), check_rpa(gen), check_rpp(gen),
-            *check_flash(gen, micro=32), *check_m1(gen)]
+    check_kernel_tables()
+    rpa, rpa_int8 = check_rpa(gen)
+    rpp, rpp_int8 = check_rpp(gen)
+    rows = [check_ssd(gen), *check_ssd_bwd(gen), rpa, rpp, *check_flash(gen, micro=32),
+            *check_m1(gen), rpa_int8, rpp_int8]
     if not args.kernels_only:
         card = smi()
-        ssd_launches = serve("mamba2-280m", ("ssd_fwd",))
-        launches = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
-        m1_launches = serve("mamba1-280m", ("m1_scan",))
+        ssd_launches = serve("mamba2-280m", ("ssd_fwd",))["launches"]
+        hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
+        launches = hybrid["launches"]
+        q8_launches = serve_int8(hybrid)["launches"]
+        m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
         torch.cuda.empty_cache()
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
               f"{mm_out_dtype_has_grad()}", flush=True)
@@ -1179,12 +1318,14 @@ def main() -> int:
         # kernels, the hybrid serving run for the paged attention kernels,
         # the hybrid training run for the flash kernels, the mamba1
         # serving run for m1_scan, the mamba1 training run for the scan
-        # backward kernels
+        # backward kernels, the int8 hybrid serving run for the int8
+        # branches of the paged attention kernels
         for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
                                  train_launches["ssd_bwd"], launches["ragged_decode"],
                                  launches["ragged_prefill"], *(hyb_launches[k] for k in flash),
                                  m1_launches["m1_scan"], m1_train_launches["m1_entry_states"],
-                                 m1_train_launches["m1_bwd"])):
+                                 m1_train_launches["m1_bwd"], q8_launches["ragged_decode_int8"],
+                                 q8_launches["ragged_prefill_int8"]), strict=True):
             row["launches"] = n
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build to here", flush=True)
     print(smi())

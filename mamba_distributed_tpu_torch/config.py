@@ -115,9 +115,16 @@ class ModelConfig:
     kv_slot_tokens: int = 1024
     # pages in the serving pool; 0 => capacity * kv_pages_per_slot
     kv_pool_pages: int = 0
-    # "bf16" stores pages in the compute dtype; "int8" raises (it waits
-    # for the port of ops/quant.py)
+    # "bf16" stores pages in the compute dtype; "int8" stores int8 pages
+    # with one fp32 scale per (physical page, KV head) (ops/quant.py,
+    # models/attention.py), read and written by the int8 branches of the
+    # ragged paged kernels
     kv_page_dtype: str = "bf16"
+    # serving weights: "bf16" casts the matmul kernels and the embedding
+    # to the compute dtype (inference/generate._decode_params); "int8"
+    # quantizes them per channel from the fp32 masters (ops/quant.py) and
+    # the matmul sites dequantize at use
+    serving_weight_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.ssm_layer not in ("mamba1", "mamba2"):
@@ -191,15 +198,16 @@ class ModelConfig:
                 f"kv_pool_pages must be >= 0 (0 => auto-size from "
                 f"capacity), got {self.kv_pool_pages}"
             )
-        if self.kv_page_dtype == "int8":
+        if self.serving_weight_dtype not in ("bf16", "int8"):
             raise ValueError(
-                "kv_page_dtype='int8' is not served by the PyTorch port yet: "
-                "int8 KV pages wait for the port of ops/quant.py"
+                f"serving_weight_dtype must be 'bf16' (the compute-dtype "
+                f"decode cast, the status quo) or 'int8', got "
+                f"{self.serving_weight_dtype!r}"
             )
-        if self.kv_page_dtype != "bf16":
+        if self.kv_page_dtype not in ("bf16", "int8"):
             raise ValueError(
-                f"kv_page_dtype must be 'bf16' or 'int8', got "
-                f"{self.kv_page_dtype!r}"
+                f"kv_page_dtype must be 'bf16' (compute-dtype pages, the "
+                f"status quo) or 'int8', got {self.kv_page_dtype!r}"
             )
         if self.ssm_layer == "mamba2":
             self._check_mamba2()
@@ -288,6 +296,12 @@ class ModelConfig:
     @property
     def effective_attn_head_dim(self) -> int:
         return self.attn_head_dim or self.d_model // self.effective_attn_num_heads
+
+    @property
+    def kv_quantized(self) -> bool:
+        """True when the paged KV pools store int8 pages with
+        per-(page, KV head) fp32 scales (``kv_page_dtype="int8"``)."""
+        return self.kv_page_dtype == "int8"
 
     @property
     def kv_pages_per_slot(self) -> int:

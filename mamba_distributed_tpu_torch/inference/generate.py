@@ -33,6 +33,8 @@ from mamba_distributed_tpu_torch.inference.bucketing import (
     use_chunked_prefill,
 )
 from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step
+from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
+from mamba_distributed_tpu_torch.ops.quant import quantize_serving_params
 
 _MASK64 = (1 << 64) - 1
 
@@ -76,14 +78,24 @@ def top_k_sample(logits: torch.Tensor, u: torch.Tensor, k: int,
 def _decode_params(params: dict, cfg: ModelConfig) -> dict:
     """Pre-cast matmul kernels + embedding to the compute dtype (decode
     reads every weight per token, so it reads them once in bf16).  Conv
-    kernels, biases, norm weights and SSM scalars stay fp32."""
+    kernels, biases, norm weights and SSM scalars stay fp32.
+
+    ``cfg.serving_weight_dtype="int8"`` first quantizes the ``linear``
+    kernels and the embedding from the fp32 masters (ops/quant.py); the
+    cast then leaves the int8 codes and their fp32 scales alone.
+    mamba1's ``dt_proj`` does not quantize and takes the compute-dtype
+    cast.  The engine and ``generate()`` share this one cast."""
     cd = cfg.torch_compute_dtype
+    if cfg.serving_weight_dtype == "int8":
+        params = quantize_serving_params(params)
 
     def cast(tree, parent=None):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = cast(v, k)
+            elif k == "scale" or not v.is_floating_point():
+                out[k] = v
             elif k == "embedding" or (k == "kernel" and parent != "conv"):
                 out[k] = v.to(cd)
             else:
@@ -175,6 +187,8 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
         raise ValueError("max_new_tokens must be >= 1")
     if not 1 <= top_k <= cfg.vocab_size_padded:
         raise ValueError(f"top_k={top_k} out of range")
+    if dev.type == "cuda":
+        check_kernel_shapes(cfg)
     dparams = _decode_params(params, cfg)
     chunk = cfg.effective_prefill_chunk_tokens
     hybrid = bool(cfg.attn_layer_idx)

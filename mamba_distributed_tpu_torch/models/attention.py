@@ -21,6 +21,23 @@ Rows at different positions share one batch (per-row RoPE angles, masks
 and writes).  Where the JAX package returns new page arrays, the port
 writes the pages IN PLACE: the caller's tensors are updated and returned.
 
+Int8 pages (``cfg.kv_page_dtype="int8"``, models/attention.py:228-724 of
+the JAX package): a layer's cache is the 4-tuple ``(k_pages int8,
+v_pages int8, k_scale (P, nkv) fp32, v_scale (P, nkv) fp32)``, one
+symmetric scale per (physical page, KV head).  A write needs no read of
+old page content to plan its scale:
+
+  new_scale = max(old_scale if the page holds PRIOR tokens of this
+                  sequence (write offset inside the page > 0),
+                  absmax(fresh rows) / 127, 1e-12)
+
+because the old scale bounds the stored values; old rows re-express
+under the new scale (``kv_requant(q, old / new)``, ratio 0 on a page
+with no prior content, so a recycled page's stale rows and scale are
+wiped), fresh rows quantize under it (``kv_quantize``).  The plain
+versions and the int8 kernel branches share this rule and its
+arithmetic, so the pages they write are bit-identical.
+
 ``cfg.attn_impl`` picks the attention (ops/dispatch.py).  The
 full-sequence ``attention_mixer`` runs the flash kernels behind their
 autograd Function (ops/cuda/flash_kernels.py) under "pallas"/"auto",
@@ -34,12 +51,10 @@ not ported.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
-from mamba_distributed_tpu_torch.models.common import init_linear, linear
+from mamba_distributed_tpu_torch.models.common import init_linear, linear, out_proj_rescale
 from mamba_distributed_tpu_torch.ops.blockwise_attention import blockwise_sdpa_causal
 from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
     _sdpa_positions,
@@ -50,6 +65,7 @@ from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
     ragged_paged_prefill_attention_plain,
 )
 from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_sdpa_causal
+from mamba_distributed_tpu_torch.ops.quant import Q_MAX, SCALE_EPS, kv_quantize, kv_requant
 
 __all__ = [
     "_sdpa_positions", "apply_rope", "attention_mixer", "attention_mixer_chunk",
@@ -71,8 +87,8 @@ def _attn_dims(cfg: ModelConfig):
 def init_attention_params(cfg: ModelConfig, generator: torch.Generator,
                           n_layers: int, device=None) -> dict:
     """Layer-stacked (n_layers, ...) attention params, fp32: ``wqkv``
-    (d, (nh + 2 nkv) hd) and ``out_proj`` (nh hd, d), the latter scaled
-    by 1/sqrt(n_layer) (one residual per block: no MLP)."""
+    (d, (nh + 2 nkv) hd) and ``out_proj`` (nh hd, d), the latter divided
+    by ``out_proj_rescale``."""
     nh, nkv, hd, _ = _attn_dims(cfg)
     lead = (n_layers,)
     params = {
@@ -82,7 +98,7 @@ def init_attention_params(cfg: ModelConfig, generator: torch.Generator,
                                 lead, device),
     }
     if cfg.rescale_prenorm_residual:
-        params["out_proj"]["kernel"] /= math.sqrt(cfg.n_layer)
+        params["out_proj"]["kernel"] /= out_proj_rescale(cfg.n_layer, cfg.d_intermediate)
     return params
 
 
@@ -152,16 +168,27 @@ def attention_page_count(cfg: ModelConfig, max_len: int) -> int:
     return max(1, -(-max_len // cfg.kv_page_tokens))
 
 
+def _kv_page_scale_init(n_pages: int, nkv: int, device=None) -> torch.Tensor:
+    """Fresh (P, nkv) scales: ones, never read before a page's first
+    write sets them, and finite so a trash page dequantizes finitely."""
+    return torch.ones((n_pages, nkv), dtype=torch.float32, device=device)
+
+
 def init_attention_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Empty paged KV cache of one attention layer: (k_pages, v_pages) of
     shape (1 + batch * W, nkv, page, hd) in the compute dtype, page 0 the
-    trash page (W = ``attention_page_count(cfg, max_len)``)."""
+    trash page (W = ``attention_page_count(cfg, max_len)``); int8 pools
+    return the 4-tuple with int8 pages and (P, nkv) scales."""
     _, nkv, hd, _ = _attn_dims(cfg)
     P = 1 + batch * attention_page_count(cfg, max_len)
     shape = (P, nkv, cfg.kv_page_tokens, hd)
-    dtype = cfg.torch_compute_dtype
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    dtype = torch.int8 if cfg.kv_quantized else cfg.torch_compute_dtype
+    pages = (torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+    if cfg.kv_quantized:
+        return (*pages, _kv_page_scale_init(P, nkv, device),
+                _kv_page_scale_init(P, nkv, device))
+    return pages
 
 
 def attention_page_meta(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -176,8 +203,10 @@ def pack_attention_pages(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
                          max_len: int):
     """(b, t, nkv, hd) full-sequence K/V -> identity-paged head-major
     (k_pages, v_pages) of capacity ``max_len`` (the one-shot prefill's
-    state packing, models/attention.py:295-328, bf16/fp32 pages): row r's
-    tokens fill pages [1 + r W, 1 + (r + 1) W), page 0 the trash page."""
+    state packing, models/attention.py:295-328): row r's tokens fill
+    pages [1 + r W, 1 + (r + 1) W), page 0 the trash page.  Int8 pools
+    quantize each (page, KV head) tile under its own absmax and return
+    the 4-tuple."""
     b, t, nkv, hd = k.shape
     pg = cfg.kv_page_tokens
     W = attention_page_count(cfg, max_len)
@@ -188,7 +217,16 @@ def pack_attention_pages(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
         pages[1:] = x.reshape(b, W, pg, nkv, hd).transpose(2, 3).reshape(b * W, nkv, pg, hd)
         return pages
 
-    return pack(k), pack(v)
+    if not cfg.kv_quantized:
+        return pack(k), pack(v)
+
+    def pack_q(x):
+        pages = pack(x.float())
+        scale = torch.clamp(pages.abs().amax(dim=(2, 3)) / Q_MAX, min=SCALE_EPS)
+        return kv_quantize(pages, scale[:, :, None, None]).to(torch.int8), scale
+
+    (kq, ks), (vq, vs) = pack_q(k), pack_q(v)
+    return kq, vq, ks, vs
 
 
 def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
@@ -196,16 +234,18 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
                          write_mask: torch.Tensor | None = None):
     """Single-token decode against the paged KV cache: write, then attend.
 
-    u_t (b, d); kv = (k_pages, v_pages); page_table (b, W); lengths (b,)
-    the row's token count BEFORE this step (the new token lands at cache
-    position ``lengths[r]``).  ``write_mask`` (b,) bool sends masked
-    rows' writes to the trash page (how the serving tick keeps dead,
-    done and prefilling slots off live pages).  The pages are written IN
-    PLACE.  Returns (y (b, d), kv)."""
+    u_t (b, d); kv = (k_pages, v_pages), or the int8 4-tuple with the
+    scales; page_table (b, W); lengths (b,) the row's token count BEFORE
+    this step (the new token lands at cache position ``lengths[r]``).
+    ``write_mask`` (b,) bool sends masked rows' writes to the trash page
+    (how the serving tick keeps dead, done and prefilling slots off live
+    pages).  An int8 write is page-granular (``_qwrite``).  The pages
+    (and scales) are written IN PLACE.  Returns (y (b, d), kv)."""
     nh, nkv, hd, rot = _attn_dims(cfg)
     b = u_t.shape[0]
     cd = cfg.torch_compute_dtype
-    k_pages, v_pages = kv
+    k_pages, v_pages = kv[:2]
+    scales = tuple(kv[2:])
     pg = cfg.kv_page_tokens
     W = page_table.shape[1]
 
@@ -222,17 +262,82 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
         phys = torch.where(write_mask, phys, 0)
         off = torch.where(write_mask, off, 0)
     phys, off = phys.long(), off.long()
-    # head-major pages: the token offset sits one axis past the heads
-    k_pages[phys, :, off] = k[:, 0].to(k_pages.dtype)
-    v_pages[phys, :, off] = v[:, 0].to(v_pages.dtype)
+    if scales:
+        _qwrite(k_pages, scales[0], k[:, 0], phys, off)
+        _qwrite(v_pages, scales[1], v[:, 0], phys, off)
+    else:
+        # head-major pages: the token offset sits one axis past the heads
+        k_pages[phys, :, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[phys, :, off] = v[:, 0].to(v_pages.dtype)
 
     # tokens readable after the write
     kv_len = (lengths + 1).clamp(max=W * pg).to(torch.int32)
     attend = (ragged_paged_decode_attention_plain if cfg.attn_impl == "xla"
               else ragged_paged_decode_attention)
-    out = attend(q[:, 0], k_pages, v_pages, page_table, kv_len)
+    out = attend(q[:, 0], k_pages, v_pages, page_table, kv_len, *scales)
     y = linear(params["out_proj"], out.reshape(b, nh * hd), cd)
-    return y, (k_pages, v_pages)
+    return y, kv
+
+
+def _qwrite(pages: torch.Tensor, scales: torch.Tensor, row: torch.Tensor,
+            phys: torch.Tensor, off: torch.Tensor) -> None:
+    """The int8 decode write (models/attention.py:456-472), in place: row
+    (b, nkv, hd) lands at offset ``off`` of page ``phys``; the page's
+    scale grows to cover it (the rule of the module docstring), its old
+    rows requantize under the new scale, the row quantizes in.  Masked
+    rows (``phys`` 0, ``off`` 0) write page 0 and its scale."""
+    pg = pages.shape[2]
+    old_q, old_s = pages[phys], scales[phys]       # (b, nkv, pg, hd), (b, nkv)
+    has_prior = (off > 0)[:, None]
+    amax = row.float().abs().amax(dim=-1)
+    new_s = torch.clamp(torch.maximum(torch.where(has_prior, old_s, 0.0), amax / Q_MAX),
+                        min=SCALE_EPS)
+    ratio = torch.where(has_prior, old_s / new_s, 0.0)
+    req = kv_requant(old_q, ratio[..., None, None])
+    q_row = kv_quantize(row, new_s[..., None])
+    onehot = torch.arange(pg, device=pages.device)[None, :] == off[:, None]   # (b, pg)
+    pages[phys] = torch.where(onehot[:, None, :, None], q_row[:, :, None, :],
+                              req).to(pages.dtype)
+    scales[phys] = new_s
+
+
+def _chunk_page_scales(k: torch.Tensor, v: torch.Tensor, real: torch.Tensor,
+                       page_table: torch.Tensor, lengths: torch.Tensor,
+                       n_real: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, pg: int):
+    """The per-(page, KV head) scales after one chunk's write (int8
+    pools; models/attention.py:520-564): the module docstring's rule
+    applied to every page of each row's write window ``[lengths, lengths
+    + n_real)``, from the fresh rows' absmax alone.  Returns NEW (P, nkv)
+    tensors (the old ones are left as they are: the chunk write reads
+    both); pages outside the window keep their scales, the trash page's
+    is garbage."""
+    b, c = real.shape
+    W = page_table.shape[1]
+    total = lengths + n_real
+    pad = c - n_real
+    pos = lengths[:, None] + torch.arange(c, device=k.device)[None, :] - pad[:, None]
+    pageidx = (pos.clamp(min=0) // pg).clamp(0, W - 1)
+    wcol = torch.arange(W, device=k.device)[None, :]
+    takes = ((wcol * pg < total[:, None]) & ((wcol + 1) * pg > lengths[:, None])
+             & (n_real > 0)[:, None])                              # (b, W)
+    has_prior = lengths[:, None] > wcol * pg                       # (b, W)
+    # which real chunk rows land in which page: (b, c, W)
+    oh = (pageidx[:, :, None] == wcol[:, None, :]) & real[:, :, None]
+    tbl = page_table.long()
+    dst = torch.where(takes, tbl, 0)
+
+    def update(x, scales):
+        absmax = x.float().abs().amax(dim=-1)                      # (b, c, nkv)
+        amax = torch.where(oh[..., None], absmax[:, :, None, :], 0.0).amax(dim=1)
+        old = scales[tbl]                                          # (b, W, nkv)
+        new = torch.clamp(torch.maximum(torch.where(has_prior[..., None], old, 0.0),
+                                        amax / Q_MAX), min=SCALE_EPS)
+        out = scales.clone()
+        out[dst] = torch.where(takes[..., None], new, old)
+        return out
+
+    return update(k, k_scale), update(v, v_scale)
 
 
 def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
@@ -246,12 +351,17 @@ def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
     prefix, so real token j sits at absolute position ``lengths[r] + j``
     whatever the pad; pad queries clamp to position 0 and produce
     garbage that dies with their discarded positions.  The pages are
-    written IN PLACE (through the fused kernel on the card).  Returns
-    (y (b, c, d), kv)."""
+    written IN PLACE (through the fused kernel on the card).
+
+    Int8 pools (``kv`` the 4-tuple): ``_chunk_page_scales`` plans the new
+    scales into fresh tensors; the chunk write reads the old and the new
+    (old rows requantize, fresh rows quantize, the attend runs on the
+    dequantized pages), then the new scales are copied into the layer's
+    scale tensors.  Returns (y (b, c, d), kv)."""
     nh, nkv, hd, rot = _attn_dims(cfg)
     b, c, _ = u.shape
     cd = cfg.torch_compute_dtype
-    k_pages, v_pages = kv
+    k_pages, v_pages = kv[:2]
 
     q, k, v = _split_qkv(linear(params["wqkv"], u, cd), cfg)
     if token_mask is None:
@@ -267,7 +377,15 @@ def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
 
     attend = (ragged_paged_prefill_attention_plain if cfg.attn_impl == "xla"
               else ragged_paged_prefill_attention)
-    out, k_pages, v_pages = attend(q, k, v, k_pages, v_pages, page_table, lengths,
-                                   n_real)
+    scales = ()
+    if len(kv) == 4:
+        real = torch.arange(c, device=u.device)[None, :] >= (c - n_real)[:, None]
+        new = _chunk_page_scales(k, v, real, page_table, lengths, n_real, kv[2], kv[3],
+                                 cfg.kv_page_tokens)
+        scales = (kv[2], kv[3], *new)
+    out, _, _ = attend(q, k, v, k_pages, v_pages, page_table, lengths, n_real, *scales)
+    if scales:
+        kv[2].copy_(scales[2])
+        kv[3].copy_(scales[3])
     y = linear(params["out_proj"], out.reshape(b, c, nh * hd), cd)
-    return y, (k_pages, v_pages)
+    return y, kv

@@ -1,5 +1,5 @@
 """Linear layer and init helpers (counterpart of
-``mamba_distributed_tpu/models/common.py``, without int8 and LoRA).
+``mamba_distributed_tpu/models/common.py``, without LoRA).
 
 Weights are stored (in_features, out_features), as in the JAX package,
 so the forward pass is ``x @ W`` and the two packages' trees map key for
@@ -31,14 +31,40 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def linear(params: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x @ kernel (+ bias)`` with compute-dtype inputs, fp32
-    accumulation and a compute-dtype output (common.py:44-102)."""
+    accumulation and a compute-dtype output (common.py:44-102).
+
+    An int8 kernel (ops/quant.py: ``{"kernel": int8, "scale": fp32}``)
+    dequantizes at use.  Row scales (trailing axis 1) fold into the
+    activation in fp32 before its cast: ``(x * scale) @ q``; column
+    scales multiply the fp32 accumulator: ``(x @ q) * scale``.  The
+    int8 codes are exact in the compute dtype, so the cast that feeds
+    the product is lossless."""
+    scale = params.get("scale")
+    if scale is not None and scale.shape[-1] == 1:
+        x = x.float() * scale[..., 0]
+        scale = None
     w = params["kernel"].to(compute_dtype)
     xc = x.to(compute_dtype)
+    if scale is None and "bias" not in params:
+        # one GEMM: fp32 accumulation, rounded once to the compute dtype
+        return xc @ w
+    y = mm_f32(xc, w)
+    if scale is not None:
+        y = y * scale
     if "bias" in params:
         # the bias lands on the fp32 accumulator before the one rounding
-        return (mm_f32(xc, w) + params["bias"].float()).to(compute_dtype)
-    # one GEMM: fp32 accumulation, rounded once to the compute dtype
-    return xc @ w
+        y = y + params["bias"].float()
+    return y.to(compute_dtype)
+
+
+def out_proj_rescale(n_layer: int, d_intermediate: int) -> float:
+    """The divisor of the residual out-projections' init when
+    ``rescale_prenorm_residual`` is on: ``sqrt(n_residuals * n_layer)``,
+    with two residual branches per block when it has an MLP
+    (models/mamba2.py:64-67, mamba1.py:68-72, attention.py:46-50 of the
+    JAX package)."""
+    n_residuals = 2 if d_intermediate > 0 else 1
+    return math.sqrt(n_residuals * n_layer)
 
 
 def uniform_fan_in(shape, fan_in: int, generator: torch.Generator,

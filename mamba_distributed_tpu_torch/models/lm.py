@@ -34,8 +34,15 @@ in the same order.  Decode state is ``{"blocks": (conv, ssm)}``, stacked
 on the layer axis: for Mamba-2 conv (L, b, d_conv-1, conv_dim) and ssm
 (L, b, h, p, n) fp32, for Mamba-1 conv (L, b, d_conv-1, d_inner) and ssm
 (L, b, d_inner, n) fp32; for hybrids also ``"attn_blocks": (k_pages,
-v_pages)`` each (A, P, nkv, page, hd) and ``"attn_meta": (page_table
-(b, W) int32, lengths (b,) int32)``, shared by every attention layer.
+v_pages)`` each (A, P, nkv, page, hd), or with int8 pages the 4-tuple
+``(k_pages, v_pages, k_scale, v_scale)`` with scales (A, P, nkv) fp32,
+and ``"attn_meta": (page_table (b, W) int32, lengths (b,) int32)``,
+shared by every attention layer.
+
+Serving params may be int8 (``cfg.serving_weight_dtype="int8"``, cast by
+inference/generate._decode_params): the embedding is then ``{"kernel":
+int8 (V, d), "scale": (V, 1)}``, dequantized row by row in the lookup
+and folded into the tied head's fp32 output.
 
 Training (pure and hybrid stacks): ``lm_forward``/``lm_loss`` carry one
 post-add fp32 stream through the layers in global order, as the JAX
@@ -137,7 +144,23 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _embed(params: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return params["embedding"][ids].to(compute_dtype)
+    """Embedding lookup; an int8 embedding dequantizes the gathered rows
+    in fp32, then casts once (lm.py:110-121)."""
+    emb = params["embedding"]
+    if isinstance(emb, dict):
+        return (emb["kernel"][ids].float() * emb["scale"][ids]).to(compute_dtype)
+    return emb[ids].to(compute_dtype)
+
+
+def _tied_logits(params: dict, normed: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Tied head: ``normed @ embedding.T`` with fp32 accumulation and fp32
+    logits; an int8 embedding's per-vocab-row scales multiply the fp32
+    output (lm.py:124-141)."""
+    emb = params["embedding"]
+    if isinstance(emb, dict):
+        y = mm_f32(normed.to(compute_dtype), emb["kernel"].to(compute_dtype).t())
+        return y * emb["scale"][:, 0]
+    return mm_f32(normed.to(compute_dtype), emb.to(compute_dtype).t())
 
 
 def _residual_dtype(cfg: ModelConfig):
@@ -149,9 +172,9 @@ def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
     """One prenorm block with its mixer's decode state:
     (hidden, residual) -> (hidden, residual, state).  A Mamba block's
     ``initial_state``/state is ``(conv_state, ssm_state)``.  An attention
-    block (``attn=True``) in a chunked prefill takes ``((k_pages,
-    v_pages), page_table, lengths)`` and returns the pages, written in
-    place; with no ``initial_state`` (one-shot prefill) it returns the
+    block (``attn=True``) in a chunked prefill takes ``(kv, page_table,
+    lengths)``, ``kv`` the layer's 2- or 4-tuple of pages, and returns
+    them, written in place; with no ``initial_state`` (one-shot prefill) it returns the
     raw full-sequence ``(k, v)``."""
     normed, residual = add_rms_norm(
         hidden, residual, bp["norm"]["weight"], cfg.norm_eps,
@@ -179,8 +202,7 @@ def _final_logits(params: dict, cfg: ModelConfig, hidden, residual):
         hidden, residual, params["norm_f"]["weight"], cfg.norm_eps,
         residual_dtype=_residual_dtype(cfg),
     )
-    cd = cfg.torch_compute_dtype
-    return mm_f32(normed.to(cd), params["embedding"].to(cd).t())
+    return _tied_logits(params, normed, cfg.torch_compute_dtype)
 
 
 def count_params(params: dict) -> int:
@@ -248,8 +270,9 @@ def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def _stack_states(states: list) -> tuple:
-    return (torch.stack([s[0] for s in states]),
-            torch.stack([s[1] for s in states]))
+    """Per-layer state tuples -> one tuple of layer-stacked tensors (a
+    Mamba (conv, ssm), or an attention layer's 2- or 4-tuple of pages)."""
+    return tuple(torch.stack(parts) for parts in zip(*states))
 
 
 def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -311,13 +334,13 @@ def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,
     states = []
     if cfg.attn_layer_idx:
         ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
-        k_all, v_all = state["attn_blocks"]
+        kv_all = state["attn_blocks"]
         tbl, lengths = state["attn_meta"]
     for attn, j in _layer_plan(cfg):
         if attn:
             hidden, residual, _ = _block_fwd(
                 ablocks[j], cfg, hidden, residual, token_mask=token_mask,
-                initial_state=((k_all[j], v_all[j]), tbl, lengths), attn=True,
+                initial_state=(tuple(x[j] for x in kv_all), tbl, lengths), attn=True,
             )
         else:
             hidden, residual, st = _block_fwd(
@@ -331,7 +354,7 @@ def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,
         n_real = (torch.full((b,), c, dtype=torch.int32, device=lengths.device)
                   if token_mask is None
                   else (token_mask > 0.5).sum(dim=1).to(torch.int32))
-        new_state["attn_blocks"] = (k_all, v_all)
+        new_state["attn_blocks"] = kv_all
         new_state["attn_meta"] = (tbl, lengths + n_real)
     return hidden, residual, new_state
 
@@ -367,9 +390,9 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int = 0,
     state = {"blocks": init_lm_blocks_state(cfg, batch, device)}
     if cfg.attn_layer_idx:
         n_attn = len(cfg.attn_layer_idx)
-        k, v = init_attention_state(cfg, batch, max_len, device)
-        state["attn_blocks"] = (k[None].repeat(n_attn, *([1] * k.ndim)),
-                                v[None].repeat(n_attn, *([1] * v.ndim)))
+        state["attn_blocks"] = tuple(
+            x[None].repeat(n_attn, *([1] * x.ndim))
+            for x in init_attention_state(cfg, batch, max_len, device))
         state["attn_meta"] = attention_page_meta(cfg, batch, max_len, device)
     return state
 
@@ -377,8 +400,8 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int = 0,
 def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None):
     """One decode-step block; its state ``st`` is updated in place.  A
     Mamba block's ``st`` is ``(conv, ssm)``; an attention block's is
-    ``(k_pages, v_pages)`` with ``attn_ctx = (page_table, lengths,
-    write_mask)``."""
+    ``(k_pages, v_pages)`` (int8: with ``k_scale, v_scale``) and
+    ``attn_ctx = (page_table, lengths, write_mask)``."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm"]["weight"],
                                     cfg.norm_eps)
     if attn_ctx is not None:
@@ -406,19 +429,19 @@ def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
     mblocks = _unstack(params["blocks"], conv.shape[0])
     if cfg.attn_layer_idx:
         ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
-        k_all, v_all = state["attn_blocks"]
+        kv_all = state["attn_blocks"]
         tbl, lengths = state["attn_meta"]
         attn_ctx = (tbl, lengths, write_mask)
     for attn, j in _layer_plan(cfg):
         if attn:
             hidden, residual = _block_step(ablocks[j], cfg, hidden, residual,
-                                           (k_all[j], v_all[j]), attn_ctx)
+                                           tuple(x[j] for x in kv_all), attn_ctx)
         else:
             hidden, residual = _block_step(mblocks[j], cfg, hidden, residual,
                                            (conv[j], ssm[j]))
     normed, _ = add_rms_norm(hidden, residual, params["norm_f"]["weight"],
                              cfg.norm_eps)
-    logits = mm_f32(normed.to(cd), params["embedding"].to(cd).t())
+    logits = _tied_logits(params, normed, cd)
     if cfg.attn_layer_idx:
         adv = 1 if write_mask is None else write_mask.to(lengths.dtype)
         state = {**state, "attn_meta": (tbl, lengths + adv)}

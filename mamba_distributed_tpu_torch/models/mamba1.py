@@ -20,8 +20,6 @@ exact in fp32) and one that autograd differentiates on the card, where
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
@@ -31,6 +29,7 @@ from mamba_distributed_tpu_torch.models.common import (
     init_dt_proj,
     init_linear,
     linear,
+    out_proj_rescale,
 )
 from mamba_distributed_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update
 from mamba_distributed_tpu_torch.ops.cuda.scan_kernels import selective_scan_kernel
@@ -59,7 +58,7 @@ def init_mamba1_params(cfg: ModelConfig, generator: torch.Generator,
         "out_proj": init_linear(di, cfg.d_model, generator, cfg.proj_bias, lead, device),
     }
     if cfg.rescale_prenorm_residual:
-        params["out_proj"]["kernel"] /= math.sqrt(cfg.n_layer)
+        params["out_proj"]["kernel"] /= out_proj_rescale(cfg.n_layer, cfg.d_intermediate)
     return params
 
 

@@ -11,8 +11,6 @@ plain formulation on a CPU tensor (ops/dispatch.py).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
@@ -22,6 +20,7 @@ from mamba_distributed_tpu_torch.models.common import (
     init_dt_bias,
     init_linear,
     linear,
+    out_proj_rescale,
 )
 from mamba_distributed_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update
 from mamba_distributed_tpu_torch.ops.cuda.ssd_kernels import ssd_chunked_kernel
@@ -60,7 +59,7 @@ def init_mamba2_params(cfg: ModelConfig, generator: torch.Generator,
                                 lead, device),
     }
     if cfg.rescale_prenorm_residual:
-        params["out_proj"]["kernel"] /= math.sqrt(cfg.n_layer)
+        params["out_proj"]["kernel"] /= out_proj_rescale(cfg.n_layer, cfg.d_intermediate)
     return params
 
 

@@ -35,6 +35,7 @@ SOURCES = {
 # show that its main path went through the kernels)
 LAUNCHES = {"ssd_fwd": 0, "ssd_chunk_states": 0, "ssd_bwd": 0,
             "ragged_decode": 0, "ragged_prefill": 0,
+            "ragged_decode_int8": 0, "ragged_prefill_int8": 0,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "m1_scan": 0, "m1_entry_states": 0, "m1_bwd": 0}
 NVCC_FLAGS = (

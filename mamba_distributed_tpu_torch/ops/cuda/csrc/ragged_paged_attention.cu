@@ -6,7 +6,9 @@
 // (mamba_distributed_tpu/ops/pallas/attention_kernels.py:525, launched by
 // ragged_paged_decode_attention at :675); rpp_fwd replaces _rpp_kernel
 // (:722, launched by ragged_paged_prefill_attention at :969).  Both take
-// bf16 or fp32 pages; the int8 branches of the TPU kernels are not here.
+// bf16 or fp32 pages in q's dtype, or int8 pages with one fp32 scale per
+// (physical page, KV head): the int8 branches of the TPU kernels (:538-541,
+// :561-575, :587-598 and :738-741, :782-808, :826-827).
 //
 // Layouts (the JAX package's): pages (P, nkv, pg, hd), page 0 the trash
 // page; page_table (b, W) int32; per-row lengths int32.  Query head
@@ -31,6 +33,26 @@
 // Products of two bf16 values are exact in fp32, so a bf16 result differs
 // from the plain PyTorch version only by summation order.
 //
+// Int8 pages (q, the chunk K/V and the output stay bf16 or fp32):
+//   decode   score = dot(q, k_int8) * (ks[phys, g] * sm_scale), the scalar
+//            product first (:565-570); each block's PV product is
+//            multiplied by vs[phys, g] before it joins the rescaled
+//            accumulator (:588-593); p is NOT rounded (fp32 throughout).
+//   prefill  the write rewrites EVERY row of each write-window page (a page
+//            j with j*pg + pg > ln, j*pg < total, chunk_real > 0): a row at
+//            ln <= kpos < total gets kv_quantize(fresh row, ksn) =
+//            clip(rint(x / ksn), +-127); any other row gets kv_requant(old,
+//            r) = clip(rint(old * r), +-127), r = (ln > j*pg) ? kso / ksn :
+//            0, which wipes a recycled page's stale rows.  One CTA owns a
+//            page and a thread reads each element before it writes it.  The
+//            attend reads the written pages dequantized as q8 * ksn (and *
+//            vsn), with q in fp32 and p NOT rounded.  The new scales (ksn,
+//            vsn) are planned outside (models/attention._chunk_page_scales);
+//            the kernels only read the four scale arrays.
+//   Rounding is rintf (half to even, as torch.round and jnp.round), division
+//   is IEEE `/` (this file is built without fast math), so the written pages
+//   and scales are bit-identical to the plain version's.
+//
 // Design.  One CTA of 256 threads per (slot, KV head) for decode, and per
 // (row, KV head, tile of 64 query rows) for prefill (query rows are the
 // (chunk position, GQA rep) pairs in the TPU kernel's order i * rep + e).
@@ -44,7 +66,9 @@
 // Bound on the H100.  Decode reads each live K/V token once (2 * nkv * hd
 // elements) for 4 * nh * hd operations: about 3 operations per byte in
 // bf16, far below the card's ~295, so the least time is the live pages'
-// bytes over 3.35 TB/s.  A 256-token prefill chunk at hybrid-280m does
+// bytes over 3.35 TB/s.  An int8 decode reads 2 * live_tokens * nkv * hd
+// bytes of pages, half the bf16 bytes, plus 2 * live_pages * nkv * 4 bytes
+// of scales: about 6 operations per byte, still bytes-bound.  A 256-token prefill chunk at hybrid-280m does
 // about 4 * nh * hd * sum(qpos + 1) operations against the pages it reads:
 // a few hundred operations per byte, near the ridge.  This first version
 // is far from either bound: it uses no tensor cores, one CTA per (slot,
@@ -54,6 +78,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -68,6 +95,9 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -78,6 +108,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round an fp32 value to T and back (p is rounded to V's dtype for PV)
 template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// ops/quant.py's kv_quantize and kv_requant: rint (half to even), IEEE
+// division, clip to +-127
+__device__ __forceinline__ float clip_q8(float v) { return fminf(fmaxf(v, -127.f), 127.f); }
+__device__ __forceinline__ int8_t kv_quantize(float x, float scale) {
+  return static_cast<int8_t>(clip_q8(rintf(x / scale)));
+}
+__device__ __forceinline__ int8_t kv_requant(int8_t q, float ratio) {
+  return static_cast<int8_t>(clip_q8(rintf(static_cast<float>(q) * ratio)));
 }
 
 // bytes of dynamic shared memory for `rows` query rows of head dim hd
@@ -114,12 +154,18 @@ __device__ inline Smem carve(char* base, int rows, int hd) {
 
 // The shared body: `nrows` query rows (offsets and positions already in
 // sm) of KV head `g` attend keys [0, walk_end) of one row's pages,
-// masked to kpos <= qpos and kpos < n_keys.
-template <typename T>
+// masked to kpos <= qpos and kpos < n_keys.  PT is the page type: T, or
+// int8_t with the (P, nkv) scales k_scale and v_scale.  kFold (decode)
+// folds the K scale into the score scale and applies the V scale to
+// each block's PV product; otherwise (prefill) an int8 block is
+// dequantized as it is loaded.
+template <typename T, typename PT, bool kFold>
 __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __restrict__ out,
-                       const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+                       const PT* __restrict__ k_pages, const PT* __restrict__ v_pages,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                        const int* __restrict__ tbl_row, int nkv, int g, int pg, int hd,
                        int n_keys, int walk_end, float sm_scale) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hp = hd + 1;
   for (int e = tid; e < nrows * hd; e += kThreads) {
@@ -137,11 +183,28 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
     // one block of keys inside one page
     const int j = k0 / pg, t0 = k0 % pg;
     const int nk = min(kKeys, min(pg - t0, walk_end - k0));
-    const long long base = ((long long)tbl_row[j] * nkv + g) * pg * hd + (long long)t0 * hd;
+    const long long cell = (long long)tbl_row[j] * nkv + g;
+    const long long base = cell * pg * hd + (long long)t0 * hd;
+    // the block's score scale and V scale (1 where no scale applies)
+    [[maybe_unused]] float kmul = sm_scale, vmul = 1.f, kdq = 1.f, vdq = 1.f;
+    if constexpr (kQuant) {
+      if constexpr (kFold) {
+        kmul = k_scale[cell] * sm_scale;
+        vmul = v_scale[cell];
+      } else {
+        kdq = k_scale[cell];
+        vdq = v_scale[cell];
+      }
+    }
     for (int e = tid; e < nk * hd; e += kThreads) {
       const int t = e / hd, d = e % hd;
-      sm.K[t * hp + d] = to_f<T>(k_pages[base + e]);
-      sm.V[t * hp + d] = to_f<T>(v_pages[base + e]);
+      if constexpr (kQuant && !kFold) {
+        sm.K[t * hp + d] = to_f<PT>(k_pages[base + e]) * kdq;
+        sm.V[t * hp + d] = to_f<PT>(v_pages[base + e]) * vdq;
+      } else {
+        sm.K[t * hp + d] = to_f<PT>(k_pages[base + e]);
+        sm.V[t * hp + d] = to_f<PT>(v_pages[base + e]);
+      }
     }
     __syncthreads();
 
@@ -154,7 +217,7 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
         const float* kt = sm.K + t * hp;
         float dot = 0.f;
         for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kt[d], dot);
-        s = dot * sm_scale;
+        s = dot * kmul;
       }
       sm.S[r * kKeys + t] = s;
     }
@@ -188,9 +251,19 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
     for (int e = tid; e < nrows * hd; e += kThreads) {
       const int r = e / hd, d = e % hd;
       const float* prow = sm.S + r * kKeys;
-      float a = sm.acc[e] * sm.scale[r];
-      for (int t = 0; t < nk; ++t) a = fmaf(rnd<T>(prow[t]), sm.V[t * hp + d], a);
-      sm.acc[e] = a;
+      if constexpr (!kQuant) {
+        float a = sm.acc[e] * sm.scale[r];
+        for (int t = 0; t < nk; ++t) a = fmaf(rnd<T>(prow[t]), sm.V[t * hp + d], a);
+        sm.acc[e] = a;
+      } else if constexpr (kFold) {
+        float pv = 0.f;
+        for (int t = 0; t < nk; ++t) pv = fmaf(prow[t], sm.V[t * hp + d], pv);
+        sm.acc[e] = sm.acc[e] * sm.scale[r] + pv * vmul;
+      } else {
+        float a = sm.acc[e] * sm.scale[r];
+        for (int t = 0; t < nk; ++t) a = fmaf(prow[t], sm.V[t * hp + d], a);
+        sm.acc[e] = a;
+      }
     }
     __syncthreads();
     k0 += nk;
@@ -212,9 +285,11 @@ struct DecodeParams {
   int nh, nkv, hd, pg, W;
   long long q_ss, q_sh;
   float sm_scale;
+  const float* k_scale;  // int8 pages: (P, nkv) scales; null otherwise
+  const float* v_scale;
 };
 
-template <typename T>
+template <typename T, typename PT>
 __global__ void __launch_bounds__(kThreads) rpa_fwd_kernel(DecodeParams p) {
   extern __shared__ __align__(16) char smem_raw[];
   const int g = blockIdx.x, s = blockIdx.y;
@@ -228,10 +303,10 @@ __global__ void __launch_bounds__(kThreads) rpa_fwd_kernel(DecodeParams p) {
     sm.qpos[e] = kv_len - 1;
   }
   __syncthreads();
-  attend<T>(sm, rep, static_cast<const T*>(p.q), static_cast<T*>(p.out),
-            static_cast<const T*>(p.k_pages), static_cast<const T*>(p.v_pages),
-            p.table + (long long)s * p.W, p.nkv, g, p.pg, p.hd, kv_len, max(kv_len, 0),
-            p.sm_scale);
+  attend<T, PT, true>(sm, rep, static_cast<const T*>(p.q), static_cast<T*>(p.out),
+                      static_cast<const PT*>(p.k_pages), static_cast<const PT*>(p.v_pages),
+                      p.k_scale, p.v_scale, p.table + (long long)s * p.W, p.nkv, g, p.pg,
+                      p.hd, kv_len, max(kv_len, 0), p.sm_scale);
 }
 
 struct PrefillParams {
@@ -247,6 +322,11 @@ struct PrefillParams {
   int c, nh, nkv, hd, pg, W, P;
   long long q_sb, q_st, q_sh, kc_sb, kc_st, kc_sh, vc_sb, vc_st, vc_sh;
   float sm_scale;
+  // int8 pages: the (P, nkv) scales before and after this chunk; null otherwise
+  const float* k_scale_old;
+  const float* k_scale_new;
+  const float* v_scale_old;
+  const float* v_scale_new;
 };
 
 // the fused write: chunk row i of row r (grid (c, b)) into its page cell
@@ -272,8 +352,42 @@ __global__ void __launch_bounds__(kThreads) rpp_write_kernel(PrefillParams p) {
   }
 }
 
-// the attend: grid (query tiles, nkv, b)
+// the int8 write: grid (window pages, nkv, b); block x is logical page
+// lengths[r] / pg + x of row r, rewritten whole (see the header)
 template <typename T>
+__global__ void __launch_bounds__(kThreads) rpp_write_q8_kernel(PrefillParams p) {
+  const int g = blockIdx.y, r = blockIdx.z;
+  const int ln = p.lengths[r], creal = p.chunk_real[r];
+  const int total = ln + creal, pad = p.c - creal;
+  const int j = ln / p.pg + blockIdx.x;
+  // a window page: j*pg + pg > ln holds by construction of j
+  if (creal <= 0 || j >= p.W || j * p.pg >= total) return;
+  const int phys = p.table[(long long)r * p.W + j];
+  if (phys <= 0 || phys >= p.P) return;  // trash or outside the pool
+  const long long cell = (long long)phys * p.nkv + g;
+  const float ksn = p.k_scale_new[cell], vsn = p.v_scale_new[cell];
+  const bool has_prior = ln > j * p.pg;
+  const float rk = has_prior ? p.k_scale_old[cell] / ksn : 0.f;
+  const float rv = has_prior ? p.v_scale_old[cell] / vsn : 0.f;
+  int8_t* kp = static_cast<int8_t*>(p.k_pages) + cell * p.pg * p.hd;
+  int8_t* vp = static_cast<int8_t*>(p.v_pages) + cell * p.pg * p.hd;
+  const T* kc = static_cast<const T*>(p.k_chunk) + r * p.kc_sb + g * p.kc_sh;
+  const T* vc = static_cast<const T*>(p.v_chunk) + r * p.vc_sb + g * p.vc_sh;
+  for (int e = threadIdx.x; e < p.pg * p.hd; e += kThreads) {
+    const int kpos = j * p.pg + e / p.hd, d = e % p.hd;
+    if (kpos >= ln && kpos < total) {
+      const int i = kpos - ln + pad;
+      kp[e] = kv_quantize(to_f<T>(kc[i * p.kc_st + d]), ksn);
+      vp[e] = kv_quantize(to_f<T>(vc[i * p.vc_st + d]), vsn);
+    } else {
+      kp[e] = kv_requant(kp[e], rk);
+      vp[e] = kv_requant(vp[e], rv);
+    }
+  }
+}
+
+// the attend: grid (query tiles, nkv, b); int8 pages read with the new scales
+template <typename T, typename PT>
 __global__ void __launch_bounds__(kThreads) rpp_attend_kernel(PrefillParams p) {
   extern __shared__ __align__(16) char smem_raw[];
   const int tile = blockIdx.x, g = blockIdx.y, r = blockIdx.z;
@@ -294,36 +408,69 @@ __global__ void __launch_bounds__(kThreads) rpp_attend_kernel(PrefillParams p) {
   // this tile's page walk stops at its own largest query position
   const int qpos_max = max(ln + (s0 + nrows - 1) / rep - pad, 0);
   const int walk_end = min(total, qpos_max + 1);
-  attend<T>(sm, nrows, static_cast<const T*>(p.q), static_cast<T*>(p.out),
-            static_cast<const T*>(p.k_pages), static_cast<const T*>(p.v_pages),
-            p.table + (long long)r * p.W, p.nkv, g, p.pg, p.hd, total, walk_end, p.sm_scale);
+  attend<T, PT, false>(sm, nrows, static_cast<const T*>(p.q), static_cast<T*>(p.out),
+                       static_cast<const PT*>(p.k_pages), static_cast<const PT*>(p.v_pages),
+                       p.k_scale_new, p.v_scale_new, p.table + (long long)r * p.W, p.nkv, g,
+                       p.pg, p.hd, total, walk_end, p.sm_scale);
 }
 
-template <typename T>
+template <typename T, typename PT>
 cudaError_t launch_decode(const DecodeParams& p, int S, cudaStream_t stream) {
   const int rep = p.nh / p.nkv;
   const size_t smem = smem_bytes(rep, p.hd);
   cudaError_t err = cudaFuncSetAttribute(
-      rpa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      rpa_fwd_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  rpa_fwd_kernel<T><<<dim3(p.nkv, S), kThreads, smem, stream>>>(p);
+  rpa_fwd_kernel<T, PT><<<dim3(p.nkv, S), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename PT>
 cudaError_t launch_prefill(const PrefillParams& p, int b, cudaStream_t stream) {
   const int rep = p.nh / p.nkv;
-  rpp_write_kernel<T><<<dim3(p.c, b), kThreads, 0, stream>>>(p);
+  if constexpr (std::is_same<PT, int8_t>::value) {
+    // a row's write window spans at most ceil(c / pg) + 1 pages
+    const int window = min(p.W, (p.c + p.pg - 1) / p.pg + 1);
+    rpp_write_q8_kernel<T><<<dim3(window, p.nkv, b), kThreads, 0, stream>>>(p);
+  } else {
+    rpp_write_kernel<T><<<dim3(p.c, b), kThreads, 0, stream>>>(p);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(kRows, p.hd);
-  err = cudaFuncSetAttribute(rpp_attend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
+  err = cudaFuncSetAttribute(rpp_attend_kernel<T, PT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int tiles = (p.c * rep + kRows - 1) / kRows;
-  rpp_attend_kernel<T><<<dim3(tiles, p.nkv, b), kThreads, smem, stream>>>(p);
+  rpp_attend_kernel<T, PT><<<dim3(tiles, p.nkv, b), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q, chunk K/V, output); the pages
+// are q's dtype, or 2 = int8 with scales.  Dispatches launch_decode or
+// launch_prefill on (T, PT).
+template <template <typename, typename> class Launch, typename Params>
+cudaError_t dispatch(const Params& p, int n, int dtype, int page_dtype, bool scales,
+                     cudaStream_t s) {
+  if (page_dtype == 2 && scales)
+    return dtype == 1 ? Launch<__nv_bfloat16, int8_t>::run(p, n, s)
+                      : Launch<float, int8_t>::run(p, n, s);
+  if (page_dtype == dtype && !scales)
+    return dtype == 1 ? Launch<__nv_bfloat16, __nv_bfloat16>::run(p, n, s)
+                      : Launch<float, float>::run(p, n, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename PT> struct Decode {
+  static cudaError_t run(const DecodeParams& p, int S, cudaStream_t s) {
+    return launch_decode<T, PT>(p, S, s);
+  }
+};
+template <typename T, typename PT> struct Prefill {
+  static cudaError_t run(const PrefillParams& p, int b, cudaStream_t s) {
+    return launch_prefill<T, PT>(p, b, s);
+  }
+};
 
 bool shape_ok(int nh, int nkv, int hd, int pg) {
   return nkv > 0 && nh % nkv == 0 && nh / nkv <= kMaxRep && hd > 0 && hd <= kMaxHeadDim &&
@@ -333,36 +480,46 @@ bool shape_ok(int nh, int nkv, int hd, int pg) {
 }  // namespace
 
 // Limits the library is built for; the Python wrapper checks the same
-// ones first and names the shape it refuses.
+// ones (attention_kernels.MAX_REP, MAX_HEAD_DIM) first and names the shape
+// it refuses.
 extern "C" int mdt_rpa_max_rep() { return kMaxRep; }
 extern "C" int mdt_rpa_max_head_dim() { return kMaxHeadDim; }
 
-// Returns a cudaError_t (0 on success).  dtype: 0 = float32, 1 = bfloat16.
+// Both return a cudaError_t (0 on success).  dtype: 0 = float32, 1 =
+// bfloat16 (q, chunk K/V, output); page_dtype: the same code as dtype, or
+// 2 = int8, which takes the scale pointers (null for the other pages).
 extern "C" int mdt_rpa_fwd(const void* q, const void* k_pages, const void* v_pages,
-                           const int* table, const int* kv_len, void* out, int S, int nh,
-                           int nkv, int hd, int pg, int W, long long q_ss, long long q_sh,
-                           float sm_scale, int dtype, void* stream) {
-  if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  DecodeParams p{q, k_pages, v_pages, table, kv_len, out, nh, nkv, hd, pg, W, q_ss, q_sh,
-                 sm_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? launch_decode<__nv_bfloat16>(p, S, s) : launch_decode<float>(p, S, s));
+                           const int* table, const int* kv_len, const float* k_scale,
+                           const float* v_scale, void* out, int S, int nh, int nkv, int hd,
+                           int pg, int W, long long q_ss, long long q_sh, float sm_scale,
+                           int dtype, int page_dtype, void* stream) {
+  if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1 || (k_scale == nullptr) != (v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  DecodeParams p{q,  k_pages, v_pages, table, kv_len,   out,     nh,     nkv, hd,
+                 pg, W,       q_ss,    q_sh,  sm_scale, k_scale, v_scale};
+  return (int)dispatch<Decode>(p, S, dtype, page_dtype, k_scale != nullptr,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mdt_rpp_fwd(const void* q, const void* k_chunk, const void* v_chunk,
                            void* k_pages, void* v_pages, const int* table, const int* lengths,
-                           const int* chunk_real, void* out, int b, int c, int nh, int nkv,
+                           const int* chunk_real, const float* k_scale_old,
+                           const float* k_scale_new, const float* v_scale_old,
+                           const float* v_scale_new, void* out, int b, int c, int nh, int nkv,
                            int hd, int pg, int W, int P, long long q_sb, long long q_st,
                            long long q_sh, long long kc_sb, long long kc_st, long long kc_sh,
                            long long vc_sb, long long vc_st, long long vc_sh, float sm_scale,
-                           int dtype, void* stream) {
-  if (!shape_ok(nh, nkv, hd, pg) || b < 1 || c < 1 || W < 1 || P < 1)
+                           int dtype, int page_dtype, void* stream) {
+  const int n_scales = (k_scale_old != nullptr) + (k_scale_new != nullptr) +
+                       (v_scale_old != nullptr) + (v_scale_new != nullptr);
+  if (!shape_ok(nh, nkv, hd, pg) || b < 1 || c < 1 || W < 1 || P < 1 ||
+      (n_scales != 0 && n_scales != 4))
     return (int)cudaErrorInvalidValue;
-  PrefillParams p{q,     k_chunk, v_chunk, k_pages, v_pages, table, lengths, chunk_real,
-                  out,   c,       nh,      nkv,     hd,      pg,    W,       P,
-                  q_sb,  q_st,    q_sh,    kc_sb,   kc_st,   kc_sh, vc_sb,   vc_st,
-                  vc_sh, sm_scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? launch_prefill<__nv_bfloat16>(p, b, s)
-                          : launch_prefill<float>(p, b, s));
+  PrefillParams p{q,           k_chunk,     v_chunk,     k_pages,    v_pages, table, lengths,
+                  chunk_real,  out,         c,           nh,         nkv,     hd,    pg,
+                  W,           P,           q_sb,        q_st,       q_sh,    kc_sb, kc_st,
+                  kc_sh,       vc_sb,       vc_st,       vc_sh,      sm_scale, k_scale_old,
+                  k_scale_new, v_scale_old, v_scale_new};
+  return (int)dispatch<Prefill>(p, b, dtype, page_dtype, n_scales == 4,
+                                static_cast<cudaStream_t>(stream));
 }

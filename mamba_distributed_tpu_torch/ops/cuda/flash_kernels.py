@@ -44,6 +44,8 @@ from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# head dims the kernels are built for (``mdt_flash_supports``)
+HEAD_DIMS = (32, 64, 128)
 _STRIDES = ctypes.c_longlong * 3
 
 
@@ -157,7 +159,7 @@ def _check_common(name, qt, kt, vt, tk_valid, do=None, lse=None, delta=None):
                    and t.is_contiguous() and t.device == qt.device, name,
                    f"{t_name} must be a contiguous fp32 {(b, nh, tq)} on {qt.device}")
     lib = _lib()
-    _check(bool(lib.mdt_flash_supports(hd)), name, f"head dim {hd} is not built (32, 64, 128)")
+    _check(bool(lib.mdt_flash_supports(hd)), name, f"head dim {hd} is not built {HEAD_DIMS}")
     return lib, b, nh, nkv, tq, tk, hd
 
 

@@ -48,6 +48,10 @@ from mamba_distributed_tpu_torch.ops.ssd import (
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (headdim, d_state) pairs the kernels are built for (ssd_fwd.cu's and
+# ssd_bwd.cu's ``mdt_*_supports``; ``chip_smoke.py`` holds the two to
+# agree); ``ops/dispatch.check_kernel_shapes`` refuses any other
+BUILT_SHAPES = frozenset({(32, 64), (32, 128), (64, 64), (64, 128), (128, 128)})
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 

@@ -1,6 +1,8 @@
 """Where the serving path's time goes on the card.
 
     python3 -m mamba_distributed_tpu_torch.profile_serving [PRESET ...]
+    python3 -m mamba_distributed_tpu_torch.profile_serving hybrid-280m \
+        --kv-dtype int8 --weight-dtype int8
 
 For each preset (default: mamba2-280m, hybrid-280m and mamba1-280m),
 builds the
@@ -13,6 +15,8 @@ cached tokens).  For each it prints
 the host wall time, the device busy time (sum of kernel times on the one
 stream), the busy share, the kernel launch count and the kernels that
 take the most device time, beside the card's name and power limit.
+``--weight-dtype`` and ``--kv-dtype`` set the serving dtype knobs
+(``ops/quant.apply_dtype_overrides``): int8 weights, int8 KV pages.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mamba_distributed_tpu_torch.config import PRESETS, get_preset
 from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
+from mamba_distributed_tpu_torch.ops.quant import apply_dtype_overrides
 from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
@@ -57,8 +62,12 @@ def report_kernels(label: str, prof, wall_s: float, card: str, top: int = 8) -> 
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def profile_preset(preset: str, card: str) -> None:
-    cfg = get_preset(preset, ssm_impl="pallas")
+def profile_preset(preset: str, card: str, weight_dtype: str | None = None,
+                   kv_dtype: str | None = None) -> None:
+    cfg = apply_dtype_overrides(get_preset(preset, ssm_impl="pallas"), weight_dtype, kv_dtype)
+    if weight_dtype or kv_dtype:
+        preset = (f"{preset} (weights {cfg.serving_weight_dtype}, KV pages "
+                  f"{cfg.kv_page_dtype})")
     hybrid = bool(cfg.attn_layer_idx)
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
@@ -108,12 +117,16 @@ def main() -> int:
     ap.add_argument("presets", nargs="*", metavar="PRESET",
                     default=["mamba2-280m", "hybrid-280m", "mamba1-280m"],
                     help=f"any of {sorted(PRESETS)}")
+    ap.add_argument("--weight-dtype", choices=("bf16", "int8"), default=None,
+                    help="serving weight dtype (default: the preset's, bf16)")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                    help="KV page dtype of hybrid presets (default: the preset's, bf16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
     card = card_name()
     for preset in args.presets:
-        profile_preset(preset, card)
+        profile_preset(preset, card, args.weight_dtype, args.kv_dtype)
     return 0
 
 

@@ -31,10 +31,15 @@ depends on (seed, i) alone (inference/generate.step_uniform); and the
 decode step runs at the same row count S on both sides, where each
 row's arithmetic is independent of the other rows' values.
 
+Int8 serving (``cfg.serving_weight_dtype`` and ``cfg.kv_page_dtype``
+"int8") runs through the same loop: the shared decode cast quantizes the
+weights, the pool's pages are int8 with their scales, and the chunk step
+and the tick write both in place.
+
 Left out of the port for now: prefix cache and copy-on-write pages,
 adapters, speculative decoding, preemption and priorities, migration,
-tick compaction, meshes and sharded page pools, int8 KV pages, metrics
-and the tracer.
+tick compaction, meshes and sharded page pools, the int8 telemetry,
+metrics and the tracer.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from mamba_distributed_tpu_torch.models.lm import (
     lm_prefill,
     lm_step,
 )
+from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.serving import state_cache
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
@@ -116,6 +122,8 @@ class ServingEngine:
                 "writes into the shared page pool; set prefill_chunk_tokens > 0"
             )
         device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda":
+            check_kernel_shapes(cfg)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ServingEngine runs on the card by default and this host has "

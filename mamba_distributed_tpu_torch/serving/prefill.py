@@ -116,7 +116,7 @@ def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
     ``params`` must already be decode-cast.  For hybrid stacks
     ``max_len`` (prompt + decode budget) sizes the private paged KV
     cache.  Returns (last_logits (b, V) fp32, state)."""
-    dev = params["embedding"].device
+    dev = params["norm_f"]["weight"].device  # the embedding may be int8 codes + scales
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64)
     if prompt.ndim == 1:
         prompt = prompt[None, :]

@@ -17,10 +17,12 @@ a fixed-capacity pool of S slots whose tensors never change shape:
   }
 
 Hybrid stacks add ``"attn_blocks": (k_pages, v_pages)`` to the state,
-each (A, 1 + pool_pages, nkv, page, hd) with page 0 the trash page: one
-page pool shared by every slot, handed out page by page by ``PagePool``
-(host-side bookkeeping; the engine keeps each slot's page-table row and
-length on the host).
+each (A, 1 + pool_pages, nkv, page, hd) with page 0 the trash page (int8
+pools: the 4-tuple with ``k_scale, v_scale`` (A, 1 + pool_pages, nkv)
+fp32, a scale per page and KV head that travels with its page index):
+one page pool shared by every slot, handed out page by page by
+``PagePool`` (host-side bookkeeping; the engine keeps each slot's
+page-table row and length on the host).
 
 Where the JAX package donates the pool to jitted writes, every function
 here writes the pool's tensors IN PLACE (one slot's rows) and returns the
@@ -144,10 +146,10 @@ def init_pool(cfg: ModelConfig, capacity: int, device=None) -> dict:
     if cfg.attn_layer_idx:
         n_attn = len(cfg.attn_layer_idx)
         # one page per "row" of init_attention_state: 1 + n_pages pages
-        k, v = init_attention_state(cfg, hybrid_pool_pages(cfg, capacity),
-                                    cfg.kv_page_tokens, device)
-        state["attn_blocks"] = (k[None].repeat(n_attn, *([1] * k.ndim)),
-                                v[None].repeat(n_attn, *([1] * v.ndim)))
+        layer = init_attention_state(cfg, hybrid_pool_pages(cfg, capacity),
+                                     cfg.kv_page_tokens, device)
+        state["attn_blocks"] = tuple(x[None].repeat(n_attn, *([1] * x.ndim))
+                                     for x in layer)
     return {
         "state": state,
         "logits": torch.zeros((S, cfg.vocab_size_padded), dtype=torch.float32,

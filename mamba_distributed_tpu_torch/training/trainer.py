@@ -20,6 +20,7 @@ import torch
 from mamba_distributed_tpu_torch.config import TrainConfig
 from mamba_distributed_tpu_torch.data import ShardedTokenLoader, ensure_synthetic_shards
 from mamba_distributed_tpu_torch.models.lm import count_params, init_lm_params
+from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
 from mamba_distributed_tpu_torch.training.train_step import make_eval_step, make_train_step
@@ -42,6 +43,8 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, device="cuda", verbose: bool = True,
                  sample_prompt_ids=None, decode_fn=None):
         self.cfg = cfg
+        if torch.device(device).type == "cuda":
+            check_kernel_shapes(cfg.model)
         self.device = resolve_device(device)
         self.verbose = verbose
 

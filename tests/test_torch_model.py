@@ -96,8 +96,10 @@ def test_config_rejects_unserved_models():
                                       prefill_chunk_tokens=0), device="cpu")
     with pytest.raises(ValueError, match="attn_num_kv_heads"):
         ModelConfig(**TINY, attn_layer_idx=(1,), attn_num_heads=4, attn_num_kv_heads=3)
-    with pytest.raises(ValueError, match="ops/quant.py"):
-        ModelConfig(**TINY, kv_page_dtype="int8")
+    with pytest.raises(ValueError, match="kv_page_dtype"):
+        ModelConfig(**TINY, kv_page_dtype="int4")
+    with pytest.raises(ValueError, match="serving_weight_dtype"):
+        ModelConfig(**TINY, serving_weight_dtype="fp8")
     with pytest.raises(ValueError, match="multiple of 8"):
         ModelConfig(**TINY, kv_page_tokens=12)
     with pytest.raises(ValueError, match="mamba1"):
