@@ -6,7 +6,8 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build every CUDA kernel of the port from the sources in the checkout
-   (one nvcc per source, all started together), and hold the Python
+   (one nvcc per source, all started together), fail if a tensor-core
+   flash instance spills registers (``-Xptxas -v``), and hold the Python
    tables of built shapes (``ops/dispatch.check_kernel_shapes``) against
    each library's own answers;
 2. hold each kernel against its plain PyTorch version on the card, in
@@ -26,6 +27,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    int8 branches, stale scales on recycled pages included); ``flash_fwd``, ``flash_bwd_dq``
    and ``flash_bwd_dkv`` (flash attention) over t 1024 and 1000, GQA rep
    1 and 3, offsets 0, positive and negative, head dims 32, 64 and 128,
+   ragged edges of the tensor-core kernels' TMA boxes (tk 133, tq 1,
+   tk_valid < tk), strided views and contiguous copies, two launches of
+   the bf16 forward and dk/dv bit for bit,
    then the whole ``FlashAttentionFunction``'s gradients against torch
    autograd of the plain blockwise attention, timed at one attention
    layer of the hybrid-280m train step (b 32, t 1024); ``m1_scan``,
@@ -78,7 +82,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -87,8 +90,14 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
+from mamba_distributed_tpu_torch.ops.cuda.timing import (
+    H100_BF16_FLOPS,
+    H100_BYTES_PER_S,
+    bound,
+    cuda_ms,
+    rel_err,
+)
+
 # kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
 # fp32 differs only by summation order; bf16 also by where each side
 # rounds (the kernel at the TPU kernel's cast points, the plain version
@@ -106,18 +115,6 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ----------------------------------------------------------------- SSD kernel
@@ -340,11 +337,6 @@ def function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag):
 # ---------------------------------------------------- paged attention kernels
 
 
-def rel_err(got, ref):
-    err = float((got.float() - ref.float()).abs().max())
-    return err, err / max(float(ref.float().abs().max()), 1e-6)
-
-
 def paged_pool(gen, P, nkv, pg, hd, dtype):
     shape = (P, nkv, pg, hd)
     return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
@@ -355,11 +347,6 @@ def disjoint_table(gen, rows, W, P):
     """Disjoint per-row pages of [1, P) (the allocator's invariant)."""
     perm = 1 + torch.randperm(P - 1, generator=gen, device="cuda")[:rows * W]
     return perm.reshape(rows, W).to(torch.int32)
-
-
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def int8_pool(gen, P, nkv, pg, hd):
@@ -616,31 +603,23 @@ def flash_inputs(gen, b, tq, tk, nh, nkv, hd, dtype):
     return qt, kt, vt, do
 
 
-def flash_work(b, tq, tk, nh, nkv, hd, offset, dtype):
-    """(bytes, flops) of kernels 7, 8 and 9 on these shapes: each input
-    read once and each output written once; the multiply-adds of the
-    (query, key) pairs the causal mask keeps (2, 3 and 4 hd-long products
-    per pair)."""
-    e = torch.finfo(dtype).bits // 8
-    qs, kvs, rows = b * tq * nh * hd, b * tk * nkv * hd, b * nh * tq
-    pairs = b * nh * sum(min(max(i + offset + 1, 0), tk) for i in range(tq))
-    fwd = (2 * qs * e + 2 * kvs * e + rows * 4, 4 * hd * pairs)
-    dq = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + qs * 4, 6 * hd * pairs)
-    dkv = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + 2 * kvs * 4, 8 * hd * pairs)
-    return fwd, dq, dkv
-
-
 def check_flash(gen, micro: int):
     """Kernels 7-9 against their plain versions (the backward fed the
     plain lse and delta), in fp32 (TF32 off) and bf16, over t 1024 and a
     ragged 1000, GQA rep 1 and 3, offset 0 and a later query slice
-    (tq < tk), head dims 64, 32 (hybrid-tiny) and 128; then the whole
+    (tq < tk), head dims 64, 32 (hybrid-tiny) and 128; ragged cases for
+    the tensor-core kernels' TMA zero fill and partial-tile masks (tk not
+    a multiple of 8, tq 1, hd 32 and 128 at tq != tk, tk_valid < tk); the
+    mixer's strided views and contiguous head-major copies; two launches
+    of the bf16 forward and dk/dv bit-identical; then the whole
     FlashAttentionFunction's gradients against torch autograd of the
     plain ``blockwise_sdpa_causal``; then one attention layer of the
     hybrid-280m train step (b ``micro``, t 1024, 12/4 heads, hd 64,
-    bf16), checked and timed beside PyTorch's SDPA forward and backward."""
+    bf16), checked and timed beside PyTorch's SDPA forward and backward,
+    and dq + dk/dv timed together beside SDPA's backward."""
     from mamba_distributed_tpu_torch.ops.blockwise_attention import blockwise_sdpa_causal
     from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+    from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_work
 
     cases = [  # (b, tq, tk, nh, nkv, hd, offset)
         (1, 1024, 1024, 12, 4, 64, 0),
@@ -649,36 +628,57 @@ def check_flash(gen, micro: int):
         (2, 1000, 1000, 4, 2, 32, 0),
         (1, 200, 300, 8, 4, 128, 100),
         (1, 64, 128, 4, 2, 64, -16),  # rows that see no key: o 0, lse +inf
+        # ragged edges of the tensor-core kernels' TMA boxes and masks
+        (1, 77, 133, 4, 2, 64, 56),  # tk not a multiple of 8
+        (2, 1, 300, 4, 2, 64, 299),  # one query row
+        (1, 100, 250, 4, 2, 32, 150),
+        (2, 65, 190, 6, 3, 128, 125),
+        (1, 130, 200, 4, 2, 64, 70, 163),  # tk_valid < tk
     ]
     failures = []
 
-    def check_one(dtype, b, tq, tk, nh, nkv, hd, off, quiet=False):
+    def check_one(dtype, b, tq, tk, nh, nkv, hd, off, tk_valid=None, contiguous=False):
+        tk_valid = tk if tk_valid is None else tk_valid
         qt, kt, vt, do = flash_inputs(gen, b, tq, tk, nh, nkv, hd, dtype)
-        o_k, lse_k = fk.flash_fwd(qt, kt, vt, off, tk)
-        o_p, lse_p = fk.flash_fwd_plain(qt, kt, vt, off, tk)
+        if contiguous:
+            qt, kt, vt = (x.contiguous() for x in (qt, kt, vt))
+        o_k, lse_k = fk.flash_fwd(qt, kt, vt, off, tk_valid)
+        o_p, lse_p = fk.flash_fwd_plain(qt, kt, vt, off, tk_valid)
         delta = (do.float() * o_p.float()).sum(-1).contiguous()
-        dq_k = fk.flash_bwd_dq(qt, kt, vt, do, lse_p, delta, off, tk)
-        dq_p = fk.flash_bwd_dq_plain(qt, kt, vt, do, lse_p, delta, off, tk)
-        dk_k, dv_k = fk.flash_bwd_dkv(qt, kt, vt, do, lse_p, delta, off, tk)
-        dk_p, dv_p = fk.flash_bwd_dkv_plain(qt, kt, vt, do, lse_p, delta, off, tk)
+        bwd = (qt, kt, vt, do, lse_p, delta, off, tk_valid)
+        dq_k = fk.flash_bwd_dq(*bwd)
+        dq_p = fk.flash_bwd_dq_plain(*bwd)
+        dk_k, dv_k = fk.flash_bwd_dkv(*bwd)
+        dk_p, dv_p = fk.flash_bwd_dkv_plain(*bwd)
+        # the redesigned kernels sum in a fixed order: a second launch
+        # gives the same bits
+        o_2, lse_2 = fk.flash_fwd(qt, kt, vt, off, tk_valid)
+        dk_2, dv_2 = fk.flash_bwd_dkv(*bwd)
         torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, c)) for a, c in
+                   ((o_k, o_2), (lse_k, lse_2), (dk_k, dk_2), (dv_k, dv_2)))
         seen = torch.isfinite(lse_p)
         same_inf = bool(torch.equal(torch.isfinite(lse_k), seen))
         errs = {"o": rel_err(o_k, o_p), "lse": rel_err(lse_k[seen], lse_p[seen]),
                 "dq": rel_err(dq_k, dq_p), "dk": rel_err(dk_k, dk_p), "dv": rel_err(dv_k, dv_p)}
         finite = all(bool(torch.isfinite(t).all()) for t in (o_k, dq_k, dk_k, dv_k))
         worst = max(r for _, r in errs.values())
-        tag = f"{str(dtype)[6:]} b={b} tq={tq} tk={tk} nh={nh} nkv={nkv} hd={hd} offset={off}"
+        tag = (f"{str(dtype)[6:]} b={b} tq={tq} tk={tk} nh={nh} nkv={nkv} hd={hd} offset={off}"
+               + (f" tk_valid={tk_valid}" if tk_valid != tk else "")
+               + (" contiguous" if contiguous else " strided views"))
         print(f"check flash {tag}: rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
-              + f" (no-key rows alike: {same_inf}); tol rel {TOL[dtype]:.0e}", flush=True)
-        if not (finite and same_inf) or worst > TOL[dtype]:
+              + f" (no-key rows alike: {same_inf}; fwd, dkv bit-identical over 2 launches: "
+              f"{same}); tol rel {TOL[dtype]:.0e}", flush=True)
+        if not (finite and same_inf and same) or worst > TOL[dtype]:
             failures.append(f"flash kernels {tag}: finite={finite}, inf rows alike={same_inf}, "
-                            f"rel {worst:.3e}")
+                            f"deterministic={same}, rel {worst:.3e}")
         return (qt, kt, vt, do, o_p, lse_p, delta), errs
 
     for dtype in (torch.float32, torch.bfloat16):
         for case in cases:
             check_one(dtype, *case)
+        for case in (cases[0], cases[6], cases[9]):
+            check_one(dtype, *case, contiguous=True)
         # the whole Function against autograd of the plain blockwise path
         for b, tq, tk, nh, nkv, hd, off in ((1, 1000, 1000, 12, 4, 64, 0),
                                             (2, 256, 512, 4, 2, 32, 256)):
@@ -733,6 +733,11 @@ def check_flash(gen, micro: int):
               f"SDPA {'forward' if nm == 'flash_fwd' else 'backward (dq, dk, dv together)'} "
               f"{lib:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP)",
               flush=True)
+        if nm == "flash_bwd_dkv":
+            both = cuda_ms(lambda: (fk.flash_bwd_dq(*bwd), fk.flash_bwd_dkv(*bwd)), 10)
+            print(f"time flash_bwd_dq + flash_bwd_dkv bf16 b={b} t={t} nh={nh} nkv={nkv} "
+                  f"hd={hd} (the port's whole backward kernel work): {both:.4f} ms, SDPA "
+                  f"backward (dq, dk, dv together) {lib:.4f} ms", flush=True)
         rows.append(dict(name=nm, route="cuda",
                          source="mamba_distributed_tpu_torch/ops/cuda/csrc/flash_attention.cu",
                          replaces=f"mamba_distributed_tpu/ops/pallas/attention_kernels.py:{line}",
@@ -1281,10 +1286,19 @@ def main() -> int:
     logs = build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+        inst = build.ptxas_instances(log)
+        regs, spills = [r for _, r, _ in inst], [sp for _, _, sp in inst]
         print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(spills)} bytes")
+    # the tensor-core flash forward and dk/dv instances must not spill
+    # (the fp32 CUDA-core ones are printed beside them)
+    flash = build.ptxas_instances(logs["flash_attention"])
+    for kname, regs, sp in flash:
+        if "flash_fwd" in kname or "flash_bwd_dkv" in kname:
+            print(f"ptxas flash_attention {kname}: {regs} registers, {sp} bytes spill stores")
+    tc = [(k, sp) for k, _, sp in flash if "_tc_kernel" in k]
+    if len(tc) != 6 or any(sp for _, sp in tc):
+        raise SystemExit(f"tensor-core flash instances (6 expected) spill registers: {tc}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_kernel_tables()
     rpa, rpa_int8 = check_rpa(gen)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -67,16 +68,21 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def start_nvcc(src: Path, out: Path) -> subprocess.Popen:
+    """Start ``nvcc`` compiling ``src`` into the library ``out`` with
+    ``NVCC_FLAGS``; its log is the process's stdout."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
 def _start(name: str) -> subprocess.Popen | None:
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    return start_nvcc(SOURCES[name], out.with_suffix(f".{os.getpid()}.tmp"))
 
 
 def _finish(name: str, proc: subprocess.Popen) -> str:
@@ -103,6 +109,19 @@ def build_all(names=None) -> dict[str, str]:
         else:
             logs[n] = _finish(n, proc)
     return logs
+
+
+def ptxas_instances(log: str) -> list[tuple[str, int, int]]:
+    """(mangled kernel name, registers, spill-store bytes) of every kernel
+    instance in an ``nvcc -Xptxas=-v`` log."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((name, int(regs.group(1)) if regs else 0,
+                    int(spills.group(1)) if spills else 0))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,6 +21,14 @@ transposed views of (b, t, h, hd) tensors, and write o, dq, dk and dv in
 (b, t, h, hd) memory order (returned as head-major views).  A ragged
 length is bounds-checked in the kernels, never padded.
 
+The bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor cores
+(``wgmma`` on bf16 tiles that TMA copies into shared memory, 64-row
+tiles, a two-stage ring); TMA reads each tensor at a 16-byte-aligned
+address through strides that are multiples of 16 bytes, which
+``tma_layout_problem`` checks and both wrappers enforce (they raise
+rather than copy).  fp32 inputs, and ``flash_bwd_dq`` in both dtypes,
+run the CUDA-core kernels, which take any strides.
+
 Each wrapper runs its plain version on a CPU tensor and, on a CUDA
 tensor, launches its kernel or raises; ``build.LAUNCHES`` counts the
 launches (``"flash_fwd"``, ``"flash_bwd_dq"``, ``"flash_bwd_dkv"``).
@@ -122,7 +130,12 @@ def flash_bwd_dkv_plain(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built at first use)."""
-    lib = build.load("flash_attention")
+    return declare(build.load("flash_attention"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``flash_attention.cu``) with its C signatures
+    declared."""
     lib.mdt_flash_fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P] * 4 + [_F, _I, _P]
     lib.mdt_flash_bwd_dq.argtypes = [_P] * 7 + [_I] * 8 + [_P] * 5 + [_F, _I, _P]
     lib.mdt_flash_bwd_dkv.argtypes = [_P] * 8 + [_I] * 8 + [_P] * 6 + [_F, _I, _P]
@@ -138,8 +151,9 @@ def _check(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_common(name, qt, kt, vt, tk_valid, do=None, lse=None, delta=None):
-    """Checks shared by the three wrappers; returns (lib, b, nh, nkv, tq, tk, hd)."""
+def _check_common(name, qt, kt, vt, tk_valid, do=None, lse=None, delta=None, lib=None):
+    """Checks shared by the three wrappers; returns (lib, b, nh, nkv, tq,
+    tk, hd), ``lib`` the package's build unless the caller gave another."""
     b, nh, tq, hd = qt.shape
     nkv, tk = kt.shape[1], kt.shape[2]
     _check(qt.dtype in _DTYPE_CODE, name, f"dtype {qt.dtype} not float32/bfloat16")
@@ -158,9 +172,37 @@ def _check_common(name, qt, kt, vt, tk_valid, do=None, lse=None, delta=None):
             _check(t.dtype == torch.float32 and tuple(t.shape) == (b, nh, tq)
                    and t.is_contiguous() and t.device == qt.device, name,
                    f"{t_name} must be a contiguous fp32 {(b, nh, tq)} on {qt.device}")
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     _check(bool(lib.mdt_flash_supports(hd)), name, f"head dim {hd} is not built {HEAD_DIMS}")
     return lib, b, nh, nkv, tq, tk, hd
+
+
+def tma_layout_problem(shape, strides, elem_size: int, addr: int) -> str | None:
+    """Why the tensor-core kernels' TMA copies cannot read a head-major
+    (b, h, t, hd) tensor of this ``shape``, element ``strides`` and
+    ``elem_size``, starting at byte address ``addr``; None when they can.
+    TMA needs a 16-byte-aligned start, a contiguous head dim, and the
+    (batch, head, time) strides of every dimension longer than 1 a
+    positive multiple of 16 bytes below 2**40 bytes."""
+    if addr % 16:
+        return f"its data starts at byte {addr % 16} past a 16-byte boundary"
+    if strides[-1] != 1:
+        return f"its head dim has stride {strides[-1]}, not 1"
+    for dim, n, st in zip(("batch", "head", "time"), shape[:3], strides[:3]):
+        nbytes = st * elem_size
+        if n > 1 and (nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40):
+            return (f"its {dim} stride is {st} elements ({nbytes} bytes), not a positive "
+                    f"multiple of 16 bytes")
+    return None
+
+
+def check_tma_layout(name: str, **tensors) -> None:
+    """Raise a ValueError naming the first tensor the TMA copies cannot
+    read (``tma_layout_problem``)."""
+    for t_name, t in tensors.items():
+        why = tma_layout_problem(t.shape, t.stride(), t.element_size(), t.data_ptr())
+        if why is not None:
+            raise ValueError(f"{name}: {t_name} cannot be read by TMA: {why}")
 
 
 def _s(t) -> _STRIDES:
@@ -178,13 +220,17 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def flash_fwd(qt, kt, vt, offset: int, tk_valid: int):
+def flash_fwd(qt, kt, vt, offset: int, tk_valid: int, *, lib=None):
     """Causal GQA flash forward: (o (b, nh, tq, hd) in q's dtype, lse
-    (b, nh, tq) fp32); the contract of ``flash_fwd_plain``."""
+    (b, nh, tq) fp32); the contract of ``flash_fwd_plain``.  ``lib``, in
+    all three wrappers: another build of ``flash_attention.cu`` (through
+    ``declare``) to launch instead of the package's."""
     if not use_kernel("pallas", qt):
         return flash_fwd_plain(qt, kt, vt, offset, tk_valid)
     name = "flash_fwd"
-    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid)
+    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, lib=lib)
+    if qt.dtype == torch.bfloat16:
+        check_tma_layout(name, q=qt, k=kt, v=vt)
     o = _head_major((b, nh, tq, hd), qt.dtype, qt.device)
     lse = torch.empty((b, nh, tq), dtype=torch.float32, device=qt.device)
     err = lib.mdt_flash_fwd(
@@ -198,13 +244,14 @@ def flash_fwd(qt, kt, vt, offset: int, tk_valid: int):
     return o, lse
 
 
-def flash_bwd_dq(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int):
+def flash_bwd_dq(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int, *, lib=None):
     """dq (b, nh, tq, hd) fp32 from the row ``lse`` and ``delta``; the
     contract of ``flash_bwd_dq_plain``."""
     if not use_kernel("pallas", qt):
         return flash_bwd_dq_plain(qt, kt, vt, do, lse, delta, offset, tk_valid)
     name = "flash_bwd_dq"
-    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, do, lse, delta)
+    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, do, lse, delta,
+                                                lib)
     dq = _head_major((b, nh, tq, hd), torch.float32, qt.device)
     err = lib.mdt_flash_bwd_dq(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -217,13 +264,16 @@ def flash_bwd_dq(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int):
     return dq
 
 
-def flash_bwd_dkv(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int):
+def flash_bwd_dkv(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int, *, lib=None):
     """(dk, dv) (b, nkv, tk, hd) fp32, GQA group-summed; the contract of
     ``flash_bwd_dkv_plain``."""
     if not use_kernel("pallas", qt):
         return flash_bwd_dkv_plain(qt, kt, vt, do, lse, delta, offset, tk_valid)
     name = "flash_bwd_dkv"
-    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, do, lse, delta)
+    lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, do, lse, delta,
+                                                lib)
+    if qt.dtype == torch.bfloat16:
+        check_tma_layout(name, q=qt, k=kt, v=vt, dO=do)
     dk = _head_major((b, nkv, tk, hd), torch.float32, qt.device)
     dv = _head_major((b, nkv, tk, hd), torch.float32, qt.device)
     err = lib.mdt_flash_bwd_dkv(
@@ -235,6 +285,20 @@ def flash_bwd_dkv(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int):
         raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError {err}")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def flash_work(b, tq, tk, nh, nkv, hd, offset, dtype):
+    """(bytes, flops) of ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` on these shapes: each input read once and each
+    output written once; the multiply-adds of the (query, key) pairs the
+    causal mask keeps (2, 3 and 4 hd-long products per pair)."""
+    e = torch.finfo(dtype).bits // 8
+    qs, kvs, rows = b * tq * nh * hd, b * tk * nkv * hd, b * nh * tq
+    pairs = b * nh * sum(min(max(i + offset + 1, 0), tk) for i in range(tq))
+    fwd = (2 * qs * e + 2 * kvs * e + rows * 4, 4 * hd * pairs)
+    dq = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + qs * 4, 6 * hd * pairs)
+    dkv = (2 * qs * e + 2 * kvs * e + 2 * rows * 4 + 2 * kvs * 4, 8 * hd * pairs)
+    return fwd, dq, dkv
 
 
 # ------------------------------------------------- the pair API (ring hops)
@@ -277,8 +341,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qt, kt, vt, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        tc = do.is_cuda and do.dtype == torch.bfloat16  # read by TMA in flash_bwd_dkv
+        if do.stride(-1) != 1 or (tc and tma_layout_problem(
+                do.shape, do.stride(), do.element_size(), do.data_ptr()) is not None):
+            # an incoming gradient may be expanded or offset: a fresh copy
+            do = do.clone(memory_format=torch.contiguous_format)
         # D_i = rowsum(dO * O) in fp32 (attention_kernels.py:353-355)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         tk = kt.shape[2]
