@@ -7,9 +7,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together), fail if a tensor-core
-   flash instance spills registers (``-Xptxas -v``), and hold the Python
-   tables of built shapes (``ops/dispatch.check_kernel_shapes``) against
-   each library's own answers;
+   instance (flash forward, dq, dk/dv; the paged prefill attend) is
+   missing or spills registers (``-Xptxas -v``), hold the Python tables
+   of built shapes (``ops/dispatch.check_kernel_shapes``) against each
+   library's own answers, and the paged prefill's dispatch rule against
+   the library's, with hybrid-280m's shapes on the tensor cores;
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
    shapes, beside a bound from the bytes and operations the work needs
@@ -22,14 +24,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page write + chunk
    prefill) at hybrid-280m's (12 query / 4 KV heads, head dim 64, pages
    of 64 tokens, 16 pages per slot) over ragged length mixes, with the
-   written pages compared bit for bit, each with bf16/fp32 pages and
-   with int8 pages and scales (``rpa_fwd_int8``, ``rpp_fwd_int8``: the
-   int8 branches, stale scales on recycled pages included); ``flash_fwd``, ``flash_bwd_dq``
+   written pages compared bit for bit and two prefill launches
+   bit-identical, each with bf16/fp32 pages and with int8 pages and
+   scales (``rpa_fwd_int8``, ``rpp_fwd_int8``: the int8 branches, stale
+   scales on recycled pages included); ``flash_fwd``, ``flash_bwd_dq``
    and ``flash_bwd_dkv`` (flash attention) over t 1024 and 1000, GQA rep
    1 and 3, offsets 0, positive and negative, head dims 32, 64 and 128,
    ragged edges of the tensor-core kernels' TMA boxes (tk 133, tq 1,
    tk_valid < tk), strided views and contiguous copies, two launches of
-   the bf16 forward and dk/dv bit for bit,
+   each kernel bit for bit,
    then the whole ``FlashAttentionFunction``'s gradients against torch
    autograd of the plain blockwise attention, timed at one attention
    layer of the hybrid-280m train step (b 32, t 1024); ``m1_scan``,
@@ -93,9 +96,16 @@ import torch.nn.functional as F
 from mamba_distributed_tpu_torch.ops.cuda.timing import (
     H100_BF16_FLOPS,
     H100_BYTES_PER_S,
+    RPP_TIMED,
     bound,
     cuda_ms,
+    device_ms,
+    disjoint_table,
+    int8_pool,
+    paged_pool,
     rel_err,
+    rpp_case,
+    rpp_work,
 )
 
 # kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
@@ -337,29 +347,6 @@ def function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag):
 # ---------------------------------------------------- paged attention kernels
 
 
-def paged_pool(gen, P, nkv, pg, hd, dtype):
-    shape = (P, nkv, pg, hd)
-    return (torch.randn(shape, generator=gen, device="cuda").to(dtype),
-            torch.randn(shape, generator=gen, device="cuda").to(dtype))
-
-
-def disjoint_table(gen, rows, W, P):
-    """Disjoint per-row pages of [1, P) (the allocator's invariant)."""
-    perm = 1 + torch.randperm(P - 1, generator=gen, device="cuda")[:rows * W]
-    return perm.reshape(rows, W).to(torch.int32)
-
-
-def int8_pool(gen, P, nkv, pg, hd):
-    """Random int8 K/V pages in [-127, 127] and positive (P, nkv) fp32
-    scales, as an int8 pool holds them."""
-    shape = (P, nkv, pg, hd)
-    pages = [torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
-             for _ in range(2)]
-    scales = [torch.rand((P, nkv), generator=gen, device="cuda") * 0.05 + 0.001
-              for _ in range(2)]
-    return pages, scales
-
-
 def check_rpa(gen):
     """Paged decode: kernel vs plain over ragged kv_len mixes (0, mid-page,
     an exact page multiple, a full table), with bf16/fp32 pages and with
@@ -436,17 +423,19 @@ def check_rpp(gen):
     """Fused page write + chunk prefill: kernel vs plain over the ragged
     mixes of tests/test_paged_attention.py (positions scaled by 8 to
     pages of 64) and the second 256-token chunk of a 700-token prompt
-    (ln = 188, the timed case), with bf16/fp32 pages and with int8 pages
-    (plus, for int8, a mix whose pages with no prior token of their row
-    carry stale scales 1000x too large, as recycled pages do; the new
-    scales come from ``models/attention._chunk_page_scales``).  Output rows at real query
-    positions agree within the tolerance; every page but the trash page
-    0 is bit-identical, and the kernel leaves the four scale arrays as
-    it found them.  Rows ``rpp_fwd`` and ``rpp_fwd_int8``."""
-    from mamba_distributed_tpu_torch.models.attention import _chunk_page_scales
+    (ln = 188, the timed case ``timing.RPP_TIMED``), with bf16/fp32 pages
+    and with int8 pages (plus, for int8, a mix whose pages with no prior
+    token of their row carry stale scales 1000x too large, as recycled
+    pages do; the new scales come from ``models/attention.
+    _chunk_page_scales``).  bf16 q with pages of 64 or 128 tokens runs the
+    tensor-core attend, fp32 q the CUDA-core one.  Output rows at real
+    query positions agree within the tolerance; every page but the trash
+    page 0 is bit-identical, the kernel leaves the four scale arrays as it
+    found them, and a second launch on a copy of the same pages gives the
+    same output and pages bit for bit.  Rows ``rpp_fwd`` and
+    ``rpp_fwd_int8``."""
     from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
 
-    hd = 64
     mixes = [  # (b, c, nh, nkv, pg, W, lengths, chunk_real, stale old scales)
         (3, 128, 12, 4, 64, 8, [0, 40, 136], [128, 88, 128], False),
         (3, 128, 12, 4, 64, 8, [0, 72, 0], [0, 128, 56], False),
@@ -454,7 +443,7 @@ def check_rpp(gen):
         (2, 128, 12, 4, 64, 8, [384, 384], [128, 128], False),
         (2, 128, 4, 1, 128, 4, [24, 160], [128, 128], False),
         (2, 128, 12, 4, 64, 8, [96, 32], [0, 128], False),
-        (1, 256, 12, 4, 64, 16, [188], [256], False),
+        (*RPP_TIMED, False),
     ]
     int8_mixes = mixes + [(3, 128, 12, 4, 64, 8, [0, 64, 100], [128, 100, 60], True)]
     rows = {}
@@ -462,51 +451,45 @@ def check_rpp(gen):
                          (True, torch.float32), (True, torch.bfloat16)):
         name = "rpp_fwd_int8" if quant else "rpp_fwd"
         for b, c, nh, nkv, pg, W, lens, reals, stale in (int8_mixes if quant else mixes):
-            P = 1 + b * W
-            q = torch.randn((b, c, nh, hd), generator=gen, device="cuda").to(dtype)
-            kc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
-            vc = torch.randn((b, c, nkv, hd), generator=gen, device="cuda").to(dtype)
-            tbl = disjoint_table(gen, b, W, P)
-            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            cr = torch.tensor(reals, dtype=torch.int32, device="cuda")
-            real = torch.arange(c, device="cuda")[None, :] >= (c - cr)[:, None]
-            if quant:
-                (kp, vp), (kso, vso) = int8_pool(gen, P, nkv, pg, hd)
-                if stale:
-                    # recycled pages: those holding no token of their row
-                    # before this chunk carry a stale scale 1000x too large
-                    col = torch.arange(W, device="cuda")[None, :] * pg
-                    fresh = tbl[col >= ln[:, None]].long()
-                    kso[fresh] *= 1000
-                    vso[fresh] *= 1000
-                scales = [kso, vso, *_chunk_page_scales(kc, vc, real, tbl, ln, cr, kso, vso,
-                                                        pg)]
-            else:
-                (kp, vp), scales = paged_pool(gen, P, nkv, pg, hd, dtype), []
+            args, real = rpp_case(gen, b, c, nh, nkv, pg, W, lens, reals, dtype, quant, stale)
+            q, kc, vc, kp, vp, tbl, ln, cr, *scales = args
             kept = [t.clone() for t in scales]
-            kp2, vp2 = kp.clone(), vp.clone()
-            got, gk, gv = ak.ragged_paged_prefill_attention(q, kc, vc, kp, vp, tbl, ln, cr,
-                                                            *scales)
+            kp2, vp2, kp3, vp3 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+            got, gk, gv = ak.ragged_paged_prefill_attention(*args)
             ref, rk, rv = ak.ragged_paged_prefill_attention_plain(
                 q, kc, vc, kp2, vp2, tbl, ln, cr, *scales)
+            # the attend sums in a fixed order: a second launch from the
+            # same pages gives the same bits
+            got3, _, _ = ak.ragged_paged_prefill_attention(q, kc, vc, kp3, vp3, tbl, ln, cr,
+                                                           *scales)
             torch.cuda.synchronize()
             if not (torch.equal(gk[1:], rk[1:]) and torch.equal(gv[1:], rv[1:])):
                 raise SystemExit(f"{name} wrote pages unlike the plain version "
                                  f"({dtype}, lengths {lens}, chunk_real {reals})")
             if not all(torch.equal(a, k) for a, k in zip(scales, kept)):
                 raise SystemExit(f"{name} changed a scale array it only reads")
+            if not (torch.equal(got3[real], got[real]) and torch.equal(kp3, gk)
+                    and torch.equal(vp3, gv)):
+                raise SystemExit(f"{name}: two launches differ ({dtype}, lengths {lens})")
             if not torch.isfinite(got[real]).all():
                 raise SystemExit(f"{name}: non-finite output ({dtype}, lengths {lens})")
             err, rel = rel_err(got[real], ref[real]) if bool(real.any()) else (0.0, 0.0)
+            route = ("tensor cores" if ak.rpp_uses_tensor_cores(dtype, q.shape[-1], pg)
+                     else "CUDA cores")
             print(f"check {name} {str(dtype)[6:]} b={b} c={c} nh={nh} nkv={nkv} pg={pg} "
-                  f"W={W} lengths={lens} chunk_real={reals}{' stale scales' if stale else ''}: "
-                  f"max_abs_err={err:.3e} (rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; pages "
-                  f"bit-identical{', scales read only' if quant else ''}", flush=True)
+                  f"W={W} lengths={lens} chunk_real={reals}{' stale scales' if stale else ''} "
+                  f"({route}): max_abs_err={err:.3e} (rel {rel:.2e}), tol rel "
+                  f"{TOL[dtype]:.0e}; pages bit-identical{', scales read only' if quant else ''}"
+                  f", 2 launches bit-identical", flush=True)
             if rel > TOL[dtype]:
                 raise SystemExit(f"{name} disagrees with the plain version: rel {rel:.3e}")
-            if dtype is torch.bfloat16 and c == 256:
-                args = (q, kc, vc, kp, vp, tbl, ln, cr, *scales)
-                ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50)
+            if dtype is torch.bfloat16 and (b, c, nh, nkv, pg, W, lens, reals) == RPP_TIMED:
+                # the kernels' device time (write + attend): a loop of
+                # wrapper calls is host-bound at this size, so the event
+                # timer's loop time is printed beside it
+                per = device_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50)
+                ms = sum(per.values())
+                loop_ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50)
                 plain_ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 10)
                 # yardstick: causal SDPA over the pre-gathered view of
                 # prefix + chunk (int8: dequantized; no page gather,
@@ -519,29 +502,18 @@ def check_rpp(gen):
                 qq = q.transpose(1, 2).contiguous()
                 qpos = lens[0] + torch.arange(c, device="cuda")
                 mask = torch.arange(total, device="cuda")[None, :] <= qpos[:, None]
-                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qq, kk, vv, attn_mask=mask), 50)
-                e, qe = kp.element_size(), q.element_size()
-                kv_row = nkv * hd * e
-                # int8: the old and new scales of the write window's pages,
-                # the new ones of the prefix pages before it
-                window = (total - 1) // pg - lens[0] // pg + 1
-                live_pages = -(-total // pg)
-                nbytes = (lens[0] * 2 * kv_row      # prefix pages read
-                          + reals[0] * 2 * kv_row   # pages written
-                          + c * 2 * nkv * hd * qe   # chunk K/V
-                          + 2 * c * nh * hd * qe    # q, o
-                          + tbl.numel() * 4 + 8
-                          + ((4 * window + 2 * (live_pages - window)) * nkv * 4
-                             if quant else 0))
-                flops = 4 * nh * hd * sum(p + 1 for p in range(lens[0], total))
+                library_ms = sum(device_ms(lambda: F.scaled_dot_product_attention(
+                    qq, kk, vv, attn_mask=mask), 50).values())
+                nbytes, flops = rpp_work(args)
                 bound_ms, bound_by = bound(nbytes, flops)
                 pages = "int8 pages" if quant else "bf16 pages"
                 print(f"time {name} bf16 q, {pages}, b=1 c=256 lengths={lens} chunk_real="
-                      f"{reals}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-                      f"pre-gathered view (no page gather, dequant or write) {library_ms:.4f} "
-                      f"ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP)",
-                      flush=True)
+                      f"{reals}: kernels {ms:.4f} ms of device time ("
+                      + ", ".join(f"{k.removeprefix('void (anonymous namespace)::')[:48]} {v:.4f}" for k, v in per.items())
+                      + f"; {loop_ms:.4f} ms a call by the event timer), plain {plain_ms:.4f} "
+                      f"ms, SDPA on the pre-gathered view (no page gather, dequant or write) "
+                      f"{library_ms:.4f} ms of device time, bound {bound_ms:.6f} ms "
+                      f"({bound_by}: {nbytes} B, {flops} FLOP)", flush=True)
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
@@ -553,7 +525,10 @@ def check_rpp(gen):
 
 def check_kernel_tables() -> None:
     """The Python tables of built shapes (what ``ops/dispatch.
-    check_kernel_shapes`` refuses by) against each library's own answers."""
+    check_kernel_shapes`` refuses by) against each library's own answers,
+    and the paged prefill's dispatch rule against the library's."""
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.attention import _attn_dims
     from mamba_distributed_tpu_torch.ops.cuda import (
         attention_kernels,
         flash_kernels,
@@ -584,6 +559,27 @@ def check_kernel_tables() -> None:
     print(f"check kernel shape tables: SSD (headdim, d_state) {sorted(ssd_kernels.BUILT_SHAPES)}, "
           f"flash head dims {flash_kernels.HEAD_DIMS}, paged rep <= {got[0]} and head dim <= "
           f"{got[1]}, scan d_state {n_state}: each equals its library's answers", flush=True)
+    # the paged prefill's one dispatch rule: the wrapper's predicate is the
+    # C dispatch's, and hybrid-280m's serving shapes (bf16 compute, with
+    # bf16 or int8 pages) take the tensor-core attend
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    for dtype, code in codes.items():
+        for hd in range(8, attention_kernels.MAX_HEAD_DIM + 1, 8):
+            for pg in (8, 16, 32, 48, 64, 96, 128, 192, 256):
+                py = attention_kernels.rpp_uses_tensor_cores(dtype, hd, pg)
+                if py != bool(ak.mdt_rpp_uses_tc(code, hd, pg)):
+                    raise SystemExit(f"paged prefill dispatch differs at {dtype} hd {hd} pg "
+                                     f"{pg}: the wrapper says {py}")
+    cfg = get_preset("hybrid-280m", compute_dtype="bfloat16")
+    _, _, hd, _ = _attn_dims(cfg)
+    if not attention_kernels.rpp_uses_tensor_cores(cfg.torch_compute_dtype, hd,
+                                                   cfg.kv_page_tokens):
+        raise SystemExit(f"hybrid-280m's paged prefill (head dim {hd}, pages of "
+                         f"{cfg.kv_page_tokens}) would run the CUDA-core attend")
+    print(f"check paged prefill dispatch: the wrapper's rule equals the library's over "
+          f"{len(codes) * 16 * 9} (dtype, head dim, page) shapes; hybrid-280m (head dim {hd}, "
+          f"pages of {cfg.kv_page_tokens}, bf16 and int8 pages) takes the tensor-core attend",
+          flush=True)
 
 
 # ------------------------------------------------------ flash attention kernels
@@ -611,7 +607,7 @@ def check_flash(gen, micro: int):
     the tensor-core kernels' TMA zero fill and partial-tile masks (tk not
     a multiple of 8, tq 1, hd 32 and 128 at tq != tk, tk_valid < tk); the
     mixer's strided views and contiguous head-major copies; two launches
-    of the bf16 forward and dk/dv bit-identical; then the whole
+    of each kernel bit-identical; then the whole
     FlashAttentionFunction's gradients against torch autograd of the
     plain ``blockwise_sdpa_causal``; then one attention layer of the
     hybrid-280m train step (b ``micro``, t 1024, 12/4 heads, hd 64,
@@ -653,10 +649,11 @@ def check_flash(gen, micro: int):
         # the redesigned kernels sum in a fixed order: a second launch
         # gives the same bits
         o_2, lse_2 = fk.flash_fwd(qt, kt, vt, off, tk_valid)
+        dq_2 = fk.flash_bwd_dq(*bwd)
         dk_2, dv_2 = fk.flash_bwd_dkv(*bwd)
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, c)) for a, c in
-                   ((o_k, o_2), (lse_k, lse_2), (dk_k, dk_2), (dv_k, dv_2)))
+                   ((o_k, o_2), (lse_k, lse_2), (dq_k, dq_2), (dk_k, dk_2), (dv_k, dv_2)))
         seen = torch.isfinite(lse_p)
         same_inf = bool(torch.equal(torch.isfinite(lse_k), seen))
         errs = {"o": rel_err(o_k, o_p), "lse": rel_err(lse_k[seen], lse_p[seen]),
@@ -667,7 +664,7 @@ def check_flash(gen, micro: int):
                + (f" tk_valid={tk_valid}" if tk_valid != tk else "")
                + (" contiguous" if contiguous else " strided views"))
         print(f"check flash {tag}: rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
-              + f" (no-key rows alike: {same_inf}; fwd, dkv bit-identical over 2 launches: "
+              + f" (no-key rows alike: {same_inf}; fwd, dq, dkv bit-identical over 2 launches: "
               f"{same}); tol rel {TOL[dtype]:.0e}", flush=True)
         if not (finite and same_inf and same) or worst > TOL[dtype]:
             failures.append(f"flash kernels {tag}: finite={finite}, inf rows alike={same_inf}, "
@@ -1290,15 +1287,18 @@ def main() -> int:
         regs, spills = [r for _, r, _ in inst], [sp for _, _, sp in inst]
         print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(spills)} bytes")
-    # the tensor-core flash forward and dk/dv instances must not spill
-    # (the fp32 CUDA-core ones are printed beside them)
-    flash = build.ptxas_instances(logs["flash_attention"])
-    for kname, regs, sp in flash:
-        if "flash_fwd" in kname or "flash_bwd_dkv" in kname:
-            print(f"ptxas flash_attention {kname}: {regs} registers, {sp} bytes spill stores")
-    tc = [(k, sp) for k, _, sp in flash if "_tc_kernel" in k]
-    if len(tc) != 6 or any(sp for _, sp in tc):
-        raise SystemExit(f"tensor-core flash instances (6 expected) spill registers: {tc}")
+    # no tensor-core instance may spill: the flash forward, dq and dk/dv
+    # (3 head dims each) and the paged prefill attend (3 head dims x bf16
+    # and int8 pages); the fp32 CUDA-core ones are printed beside them
+    for src, expected in (("flash_attention", 9), ("ragged_paged_attention", 6)):
+        inst = build.ptxas_instances(logs[src])
+        for kname, regs, sp in inst:
+            if "flash_" in kname or "rpp_attend" in kname:
+                print(f"ptxas {src} {kname}: {regs} registers, {sp} bytes spill stores")
+        tc = [(k, sp) for k, _, sp in inst if "_tc_kernel" in k]
+        if len(tc) != expected or any(sp for _, sp in tc):
+            raise SystemExit(f"tensor-core instances of {src} ({expected} expected) missing or "
+                             f"spilling registers: {tc}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_kernel_tables()
     rpa, rpa_int8 = check_rpa(gen)

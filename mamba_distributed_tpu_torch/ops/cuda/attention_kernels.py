@@ -26,6 +26,15 @@ raises.  ``build.LAUNCHES`` counts the launches (``"ragged_decode"``,
 ``"ragged_prefill_int8"``).  Both kernels read q and the chunk K/V
 through their strides (slices of the qkv projection go in uncopied);
 pages, scales, tables and lengths must be contiguous.
+
+The prefill's attend runs on the tensor cores (``wgmma`` on bf16 tiles,
+the K/V tiles copied out of the pool by TMA) when
+``rpp_uses_tensor_cores`` says so: bf16 q, head dim 32, 64 or 128, pages
+a multiple of 64 tokens, bf16 or int8 pages.  That one rule, by dtype
+and shape, is also the C dispatch's (``mdt_rpp_uses_tc``); every other
+shape runs the CUDA-core attend.  TMA needs the (contiguous) pools to
+start at a 16-byte boundary, which the wrapper checks and raises on
+rather than copying.
 """
 
 from __future__ import annotations
@@ -47,6 +56,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # ``mdt_rpa_max_head_dim``; ``chip_smoke.py`` holds them to agree)
 MAX_REP = 64
 MAX_HEAD_DIM = 128
+# the tensor-core prefill attend: head dims, and the page multiple of its
+# 64-key tiles (``mdt_rpp_uses_tc``)
+TC_HEAD_DIMS = (32, 64, 128)
+TC_KEYS = 64
+
+
+def rpp_uses_tensor_cores(dtype: torch.dtype, hd: int, pg: int) -> bool:
+    """Whether a prefill with q of ``dtype``, head dim ``hd`` and pages of
+    ``pg`` tokens runs the tensor-core attend (the C dispatch's rule)."""
+    return dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and pg % TC_KEYS == 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -194,7 +213,15 @@ def ragged_paged_prefill_attention_plain(q, k_chunk, v_chunk, k_pages, v_pages,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built at first use)."""
-    lib = build.load("ragged_paged_attention")
+    lib = declare(build.load("ragged_paged_attention"))
+    lib.mdt_rpp_uses_tc.argtypes = [_I, _I, _I]
+    lib.mdt_rpp_uses_tc.restype = _I
+    return lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``ragged_paged_attention.cu``) with the C
+    signatures of its two kernels and its limits declared."""
     lib.mdt_rpa_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 2 + [_F, _I, _I, _P]
     lib.mdt_rpa_fwd.restype = _I
     lib.mdt_rpp_fwd.argtypes = [_P] * 13 + [_I] * 8 + [_L] * 9 + [_F, _I, _I, _P]
@@ -210,8 +237,9 @@ def _check(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_common(name, q, k_pages, v_pages, page_table, lens, nh, scales):
-    """Checks shared by both wrappers; returns (lib, nkv, pg, hd, W).
+def _check_common(name, q, k_pages, v_pages, page_table, lens, nh, scales, lib=None):
+    """Checks shared by both wrappers; returns (lib, nkv, pg, hd, W),
+    ``lib`` the package's build unless the caller gave another.
     ``scales`` are the (name, tensor) scale arguments: all given for
     int8 pages, none for bf16/fp32 pages."""
     P, nkv, pg, hd = k_pages.shape
@@ -241,7 +269,7 @@ def _check_common(name, q, k_pages, v_pages, page_table, lens, nh, scales):
     _check(nh % nkv == 0, name, f"{nh} query heads do not split over {nkv} KV heads")
     _check(nh // nkv <= MAX_REP, name, f"GQA rep {nh // nkv} > {MAX_REP} is not built")
     _check(hd <= MAX_HEAD_DIM, name, f"head dim {hd} > {MAX_HEAD_DIM} is not built")
-    return _lib(), nkv, pg, hd, W
+    return _lib() if lib is None else lib, nkv, pg, hd, W
 
 
 def _ptr(t) -> int | None:
@@ -281,7 +309,7 @@ def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
 def ragged_paged_prefill_attention(q, k_chunk, v_chunk, k_pages, v_pages,
                                    page_table, lengths, chunk_real,
                                    k_scale_old=None, v_scale_old=None,
-                                   k_scale_new=None, v_scale_new=None):
+                                   k_scale_new=None, v_scale_new=None, *, lib=None):
     """Fused paged prefill (the JAX contract): write one chunk's K/V into
     each row's pages, then attend every chunk query over the page view.
 
@@ -294,7 +322,9 @@ def ragged_paged_prefill_attention(q, k_chunk, v_chunk, k_pages, v_pages,
     _chunk_page_scales``); the kernel only reads them, and every page of
     each row's write window is rewritten.  The pages are written IN
     PLACE.  Returns (o (b, c, nh, hd), k_pages, v_pages); output rows of
-    pad queries are garbage on both versions."""
+    pad queries are garbage on both versions.  ``lib``: another build of
+    ``ragged_paged_attention.cu`` (through ``declare``) to launch instead
+    of the package's."""
     scales = [("k_scale_old", k_scale_old), ("v_scale_old", v_scale_old),
               ("k_scale_new", k_scale_new), ("v_scale_new", v_scale_new)]
     if not use_kernel("pallas", q):
@@ -305,7 +335,11 @@ def ragged_paged_prefill_attention(q, k_chunk, v_chunk, k_pages, v_pages,
     b, c, nh, hd = q.shape
     lib, nkv, pg, hd, W = _check_common(
         name, q, k_pages, v_pages, page_table,
-        [("lengths", lengths), ("chunk_real", chunk_real)], nh, scales)
+        [("lengths", lengths), ("chunk_real", chunk_real)], nh, scales, lib)
+    if rpp_uses_tensor_cores(q.dtype, hd, pg):  # TMA reads the pools from 16-byte boundaries
+        for t_name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+            _check(t.data_ptr() % 16 == 0, name, f"{t_name} cannot be read by TMA: its data "
+                   f"starts at byte {t.data_ptr() % 16} past a 16-byte boundary")
     for t_name, t in (("k_chunk", k_chunk), ("v_chunk", v_chunk)):
         _check(tuple(t.shape) == (b, c, nkv, hd), name,
                f"{t_name} shape {tuple(t.shape)} != {(b, c, nkv, hd)}")

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles, at first use, into a shared
 library with a plain C interface under ``build/torch_kernels/`` at the
 root of the checkout (listed in ``.gitignore``).  The library name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  ``build_all`` starts one
+carries a hash of the source, the ``csrc/*.cuh`` headers it includes
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  ``build_all`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -62,10 +63,25 @@ def nvcc_path() -> str:
     return found
 
 
+def source_digest(src: Path) -> str:
+    """Hash of a source, the headers it includes from its own directory
+    (``#include "x.cuh"``, followed into what they include) and the
+    flags: an edited header rebuilds every library that includes it."""
+    seen, todo, h = set(), [src], hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        todo += [path.parent / m.decode()
+                 for m in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M)]
+    return h.hexdigest()[:12]
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{source_digest(SOURCES[name])}.so"
 
 
 def start_nvcc(src: Path, out: Path) -> subprocess.Popen:

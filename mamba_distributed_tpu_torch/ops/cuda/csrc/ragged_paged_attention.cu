@@ -1,6 +1,7 @@
 // Ragged paged attention over the head-major KV page pool, hand-written for
 // Hopper (sm_90a): the decode step (rpa_fwd) and the fused chunk write +
-// chunk prefill (rpp_fwd).
+// chunk prefill (rpp_fwd), whose attend runs on the tensor cores for bf16
+// q (rpp_attend_tc_kernel) and on CUDA cores otherwise.
 //
 // rpa_fwd replaces the TPU kernel _rpa_kernel
 // (mamba_distributed_tpu/ops/pallas/attention_kernels.py:525, launched by
@@ -45,35 +46,65 @@
 //            r) = clip(rint(old * r), +-127), r = (ln > j*pg) ? kso / ksn :
 //            0, which wipes a recycled page's stale rows.  One CTA owns a
 //            page and a thread reads each element before it writes it.  The
-//            attend reads the written pages dequantized as q8 * ksn (and *
-//            vsn), with q in fp32 and p NOT rounded.  The new scales (ksn,
-//            vsn) are planned outside (models/attention._chunk_page_scales);
-//            the kernels only read the four scale arrays.
+//            CUDA-core attend reads the written pages dequantized as q8 *
+//            ksn (and * vsn), with q in fp32 and p NOT rounded; the
+//            tensor-core attend scales the tile instead (see Design).  The
+//            new scales (ksn, vsn) are planned outside
+//            (models/attention._chunk_page_scales); the kernels only read
+//            the four scale arrays.
 //   Rounding is rintf (half to even, as torch.round and jnp.round), division
 //   is IEEE `/` (this file is built without fast math), so the written pages
 //   and scales are bit-identical to the plain version's.
 //
-// Design.  One CTA of 256 threads per (slot, KV head) for decode, and per
-// (row, KV head, tile of 64 query rows) for prefill (query rows are the
-// (chunk position, GQA rep) pairs in the TPU kernel's order i * rep + e).
-// The page walk reads keys in blocks of at most 64 tokens that never cross
-// a page; each block's K and V land in shared memory as fp32 (rows padded
-// to hd + 1 floats, so neither the score nor the PV loop has bank
-// conflicts), and the walk stops at the tile's own largest query position.
-// Scores, row statistics and the accumulator stay in shared memory.  The
-// products are CUDA-core fp32 FMAs.
+// Design.  The decode, the write kernels and the CUDA-core attend: one CTA
+// of 256 threads per (slot, KV head) for decode, per (row, KV head, tile of
+// 64 query rows) for the prefill attend (query rows are the (chunk
+// position, GQA rep) pairs in the TPU kernel's order i * rep + e).  The
+// page walk reads keys in blocks of at most 64 tokens that never cross a
+// page; each block's K and V land in shared memory as fp32 (rows padded to
+// hd + 1 floats, so neither the score nor the PV loop has bank conflicts),
+// and the walk stops at the tile's own largest query position.  Scores,
+// row statistics and the accumulator stay in shared memory; the products
+// are CUDA-core fp32 FMAs.
+//
+// The tensor-core attend (rpp_attend_tc_kernel, bf16 q with bf16 or int8
+// pages) keeps that grid and walk and takes the design of
+// flash_attention.cu's bf16 forward (hopper.cuh): one consumer warpgroup
+// of 64 query rows and one producer warp per CTA.  The consumers gather
+// the Q tile once through q's strides into the swizzled bf16 layout (with
+// rep = 3 a 64-row tile is no TMA box).  The producer's lane 0 reads the
+// row's page table and copies each 64-key tile by TMA over a 4-D map of
+// the pool (hd, pg, nkv, P) at (0, t0, g, page_table[r, j]): the
+// indirection becomes the copy's coordinate, and pages a multiple of 64
+// tokens keep every tile inside one page.  Tiles stream through a
+// two-stage mbarrier ring; S = Q K^T from shared memory, the online
+// softmax in registers, O += round(P) V with P the register A-operand.
+// Int8 pages land as rows of codes that the consumer warpgroup converts
+// into a bf16 tile of the ring before it releases the stage (codes of
+// magnitude <= 127 are exact in bf16); the consumers do it because they
+// would otherwise wait for the tile, and the producer stays one lane that
+// only issues copies.  A tile never crosses a page, so one k_scale_new *
+// sm_scale multiplies the tile's fp32 scores and one v_scale_new is
+// folded into P before P is rounded to bf16.  The plain version and the
+// CUDA-core int8 attend keep that p in fp32; rounding p * v_scale to bf16
+// moves each PV term by at most 2^-9 relative, inside the bf16 tolerance
+// of 3e-2.  The rule between the two attends is the one of uses_tc().
 //
 // Bound on the H100.  Decode reads each live K/V token once (2 * nkv * hd
 // elements) for 4 * nh * hd operations: about 3 operations per byte in
 // bf16, far below the card's ~295, so the least time is the live pages'
 // bytes over 3.35 TB/s.  An int8 decode reads 2 * live_tokens * nkv * hd
-// bytes of pages, half the bf16 bytes, plus 2 * live_pages * nkv * 4 bytes
-// of scales: about 6 operations per byte, still bytes-bound.  A 256-token prefill chunk at hybrid-280m does
-// about 4 * nh * hd * sum(qpos + 1) operations against the pages it reads:
-// a few hundred operations per byte, near the ridge.  This first version
-// is far from either bound: it uses no tensor cores, one CTA per (slot,
-// KV head) walks every page of a decode row alone, and a batch-1 chunk
-// launches 48 attend CTAs on 132 SMs.
+// bytes of pages, half the bf16 bytes, plus 2 * live_pages * nkv * 4
+// bytes of scales: about 6 operations per byte, still bytes-bound.  A
+// 256-token prefill chunk at hybrid-280m does about 4 * nh * hd *
+// sum(qpos + 1) operations (0.25 GFLOP after 188 tokens) against the
+// pages it reads: a few hundred operations per byte, near the ridge, and
+// under a microsecond either way.  What is left is latency: a batch-1
+// chunk is 48 attend CTAs on 132 SMs, each a walk of at most 7 tiles, and
+// the write kernel before it (PERF.md: about 0.02 ms of device time a
+// call in bf16, 0.04 in int8, against 0.21-0.23 on CUDA cores).  The
+// decode uses no tensor cores, and one CTA per (slot, KV head) walks
+// every page of a decode row alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +112,8 @@
 
 #include <cstdint>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -414,6 +447,268 @@ __global__ void __launch_bounds__(kThreads) rpp_attend_kernel(PrefillParams p) {
                        p.pg, p.hd, total, walk_end, p.sm_scale);
 }
 
+// ------------------------------------------- the attend on tensor cores
+// The one dispatch rule, here and in the Python wrapper
+// (attention_kernels.rpp_uses_tensor_cores): bf16 q with a head dim of 32,
+// 64 or 128 and pages a multiple of 64 tokens take rpp_attend_tc_kernel;
+// every other shape the limits accept (fp32 q, other head dims, other
+// page sizes) takes rpp_attend_kernel on CUDA cores.
+bool uses_tc(int dtype, int hd, int pg) {
+  return dtype == 1 && (hd == 32 || hd == 64 || hd == 128) && pg % kWgRows == 0;
+}
+
+struct PoolMaps {
+  CUtensorMap k, v;
+};
+
+template <typename PT, int HD> struct RppLayout {
+  static constexpr bool Q8 = std::is_same<PT, int8_t>::value;
+  using T = Tile<HD, kWgRows>;
+  static constexpr int KV = T::BYTES;                      // Q, then stage s: K, then V (bf16)
+  static constexpr int RAW = KV + kStages * 2 * T::BYTES;  // int8: stage s: K, then V codes
+  static constexpr int RAW_B = kWgRows * HD;               // bytes of one tile of codes
+  static constexpr int BARS = RAW + (Q8 ? kStages * 2 * RAW_B : 0);  // full[], empty[]
+  static constexpr int BYTES = BARS + 8 * 2 * kStages + 1024;
+};
+
+// grid (tiles of 64 query rows, nkv, b), query rows in the order i * rep
+// + e.  The consumer warpgroup gathers the Q tile once through q's strides
+// into the swizzled layout (rows past nrows are zeros); the producer warp's
+// lane 0 reads the row's page table and copies each 64-key tile of the
+// walk, inside one page, by TMA at (0, t0, g, page_table[r, j]) through a
+// two-stage ring.  bf16 pages land as swizzled bf16 tiles; int8 pages land
+// as rows of codes that the consumers convert to bf16 tiles (exact, |code|
+// <= 127) before releasing the stage.  Per tile: S = Q K^T (shared-memory
+// operands, K-major) times sm_scale (int8: k_scale_new[page, g] *
+// sm_scale), masked only on tiles that straddle a query position or the
+// row's total, the online softmax in registers, then O += round(P) V
+// (int8: round(P * v_scale_new[page, g]) V), P the register A-operand and
+// V MN-major.
+template <typename PT, int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    rpp_attend_tc_kernel(const __grid_constant__ PoolMaps maps, const PrefillParams p) {
+  using L = RppLayout<PT, HD>;
+  using KT = typename L::T;
+  constexpr bool kQuant = L::Q8;
+  extern __shared__ __align__(16) char smem_raw[];  // as the CUDA-core kernels declare it
+  uint8_t* smem = align1024(reinterpret_cast<uint8_t*>(smem_raw));
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + L::KV;
+  uint8_t* raw = smem + L::RAW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + kStages;
+
+  const int g = blockIdx.y, r = blockIdx.z;
+  const int rep = p.nh / p.nkv;
+  const int ln = p.lengths[r], creal = p.chunk_real[r];
+  const int pad = p.c - creal;
+  const int total = min(ln + creal, p.W * p.pg);
+  const int s0 = blockIdx.x * kWgRows;
+  const int nrows = min(kWgRows, p.c * rep - s0);
+  // query positions never fall along the row order: the walk stops at the
+  // last row's position, and the first row's decides which tiles are full
+  const int qpos_min = max(ln + s0 / rep - pad, 0);
+  const int walk_end = min(total, max(ln + (s0 + nrows - 1) / rep - pad, 0) + 1);
+  const int ntiles = walk_end > 0 ? (walk_end + kWgRows - 1) / kWgRows : 0;
+  const int* tbl = p.table + (long long)r * p.W;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n % kStages, k0 = n * kWgRows;
+        if (n >= kStages) mbar_wait(empty + s, (n / kStages - 1) & 1);
+        const int phys = tbl[k0 / p.pg], t0 = k0 % p.pg;
+        if constexpr (kQuant) {
+          uint8_t* dst = raw + s * 2 * L::RAW_B;
+          mbar_expect_tx(full + s, 2 * L::RAW_B);
+          tma_load(dst, &maps.k, full + s, 0, t0, g, phys);
+          tma_load(dst + L::RAW_B, &maps.v, full + s, 0, t0, g, phys);
+        } else {
+          uint8_t* dst = KVs + s * 2 * KT::BYTES;
+          mbar_expect_tx(full + s, 2 * KT::BYTES);
+          for (int c = 0; c < KT::NP; ++c) {
+            tma_load(dst + c * KT::PANEL_B, &maps.k, full + s, c * KT::PW, t0, g, phys);
+            tma_load(dst + KT::BYTES + c * KT::PANEL_B, &maps.v, full + s, c * KT::PW, t0, g,
+                     phys);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread holds rows r0 and r0 + 8 of the tile,
+  // columns 8 j + 2 (lane % 4) + {0, 1} of each 8-column block j
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
+  const unsigned short* q = static_cast<const unsigned short*>(p.q);
+  for (int e = tid; e < kWgRows * HD / 8; e += 128) {
+    const int row = e / (HD / 8), col = 8 * (e % (HD / 8));
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row < nrows) {
+      const int srow = s0 + row, head = g * rep + srow % rep;
+      const unsigned short* src = q + r * p.q_sb + (srow / rep) * p.q_st + head * p.q_sh + col;
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        w[x] = uint32_t(__ldg(src + 2 * x)) | uint32_t(__ldg(src + 2 * x + 1)) << 16;
+    }
+    *reinterpret_cast<uint4*>(Qs + KT::chunk_offset(row, col)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  fence_async_smem();  // the gathered Q is read by wgmma
+  wg_bar();
+
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = max(ln + (s0 + r0 + 8 * i) / rep - pad, 0);
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, den[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(Qs);
+  for (int n = 0; n < ntiles; ++n) {
+    const int s = n % kStages, k0 = n * kWgRows;
+    uint8_t* kv = KVs + s * 2 * KT::BYTES;
+    mbar_wait(full + s, (n / kStages) & 1);
+    [[maybe_unused]] float kmul = p.sm_scale, vmul = 1.f;
+    if constexpr (kQuant) {
+      const long long cell = (long long)tbl[k0 / p.pg] * p.nkv + g;
+      kmul = p.k_scale_new[cell] * p.sm_scale;
+      vmul = p.v_scale_new[cell];
+      // codes -> bf16 tiles: slot s was last read by tile n - 2's products,
+      // which every warp finished before tile n - 1's barrier
+      const uint8_t* src = raw + s * 2 * L::RAW_B;
+      for (int e = tid; e < 2 * kWgRows * HD / 8; e += 128) {
+        const int half = e / (kWgRows * HD / 8), rem = e % (kWgRows * HD / 8);
+        const int row = rem / (HD / 8), col = 8 * (rem % (HD / 8));
+        const uint2 w = *reinterpret_cast<const uint2*>(src + half * L::RAW_B + row * HD + col);
+        const int8_t* c8 = reinterpret_cast<const int8_t*>(&w);
+        *reinterpret_cast<uint4*>(kv + half * KT::BYTES + KT::chunk_offset(row, col)) =
+            make_uint4(pack_bf16(c8[0], c8[1]), pack_bf16(c8[2], c8[3]),
+                       pack_bf16(c8[4], c8[5]), pack_bf16(c8[6], c8[7]));
+      }
+      fence_async_smem();
+      wg_bar();
+      mbar_arrive(empty + s);  // the codes are no longer read
+    } else {
+      __syncwarp();
+    }
+    const uint32_t k_addr = smem_u32(kv), v_addr = k_addr + KT::BYTES;
+    float sc[kWgRows / 2];
+#pragma unroll
+    for (int i = 0; i < kWgRows / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<kWgRows>(sc, KT::kmajor(q_addr, kk), KT::kmajor(k_addr, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+
+    const bool full_tile = k0 + kWgRows - 1 <= qpos_min && k0 + kWgRows <= total;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int x = 0; x < kWgRows / 2; ++x) {
+      const int i = (x / 2) % 2;
+      float v = sc[x] * kmul;
+      if (!full_tile) {
+        const int kpos = k0 + 8 * (x / 4) + c0 + x % 2;
+        if (!(kpos <= qpos[i] && kpos < total)) v = -CUDART_INF_F;
+      }
+      sc[x] = v;
+      mx[i] = fmaxf(mx[i], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = m[i] > -CUDART_INF_F ? expf(m[i] - m_new) : 0.f;
+      m[i] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < kWgRows / 2; ++x) {
+      const int i = (x / 2) % 2;
+      const float pij = sc[x] > -CUDART_INF_F ? expf(sc[x] - m[i]) : 0.f;
+      sum[i] += pij;  // den sums the unrounded p
+      if constexpr (kQuant) {
+        sc[x] = pij * vmul;  // the page's V scale, folded in before the rounding
+      } else {
+        sc[x] = pij;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) den[i] = den[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
+    uint32_t pa[kWgRows / 16][4];
+    to_a_frags<kWgRows>(pa, sc);
+
+    fence_regs(acc);
+    fence_regs(pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk) wgmma_rs<HD>(acc, pa[kk], KT::mnmajor(v_addr, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(acc);
+    fence_regs(pa);
+    if constexpr (!kQuant) mbar_arrive(empty + s);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= nrows) continue;
+    const int srow = s0 + row, head = g * rep + srow % rep;
+    __nv_bfloat16* o = out + (((long long)r * p.c + srow / rep) * p.nh + head) * HD;
+    const float inv = 1.f / fmaxf(den[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+  }
+}
+
+// the attend on tensor cores: TMA maps over the (P, nkv, pg, hd) pools
+template <typename PT, int HD>
+cudaError_t launch_attend_tc(const PrefillParams& p, int b, cudaStream_t stream) {
+  using L = RppLayout<PT, HD>;
+  const long long st[3] = {(long long)p.nkv * p.pg * HD, (long long)p.pg * HD, HD};
+  const int pw = L::Q8 ? HD : L::T::PW;
+  PoolMaps maps{};
+  if (!make_map(&maps.k, p.k_pages, HD, p.pg, p.nkv, p.P, st, pw, kWgRows, L::Q8) ||
+      !make_map(&maps.v, p.v_pages, HD, p.pg, p.nkv, p.P, st, pw, kWgRows, L::Q8))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(rpp_attend_tc_kernel<PT, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.c * (p.nh / p.nkv) + kWgRows - 1) / kWgRows;
+  rpp_attend_tc_kernel<PT, HD><<<dim3(tiles, p.nkv, b), kTcThreads, L::BYTES, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+template <typename PT>
+cudaError_t attend_tc(const PrefillParams& p, int b, cudaStream_t stream) {
+  switch (p.hd) {
+    case 32: return launch_attend_tc<PT, 32>(p, b, stream);
+    case 64: return launch_attend_tc<PT, 64>(p, b, stream);
+    case 128: return launch_attend_tc<PT, 128>(p, b, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, typename PT>
 cudaError_t launch_decode(const DecodeParams& p, int S, cudaStream_t stream) {
   const int rep = p.nh / p.nkv;
@@ -437,6 +732,9 @@ cudaError_t launch_prefill(const PrefillParams& p, int b, cudaStream_t stream) {
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (uses_tc(1, p.hd, p.pg)) return attend_tc<PT>(p, b, stream);
+  }
   const size_t smem = smem_bytes(kRows, p.hd);
   err = cudaFuncSetAttribute(rpp_attend_kernel<T, PT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -484,6 +782,9 @@ bool shape_ok(int nh, int nkv, int hd, int pg) {
 // it refuses.
 extern "C" int mdt_rpa_max_rep() { return kMaxRep; }
 extern "C" int mdt_rpa_max_head_dim() { return kMaxHeadDim; }
+// 1 when a prefill of q's dtype code, head dim and page size runs the
+// tensor-core attend (the wrapper's rpp_uses_tensor_cores is held to it)
+extern "C" int mdt_rpp_uses_tc(int dtype, int hd, int pg) { return uses_tc(dtype, hd, pg); }
 
 // Both return a cudaError_t (0 on success).  dtype: 0 = float32, 1 =
 // bfloat16 (q, chunk K/V, output); page_dtype: the same code as dtype, or

@@ -21,13 +21,13 @@ transposed views of (b, t, h, hd) tensors, and write o, dq, dk and dv in
 (b, t, h, hd) memory order (returned as head-major views).  A ragged
 length is bounds-checked in the kernels, never padded.
 
-The bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor cores
-(``wgmma`` on bf16 tiles that TMA copies into shared memory, 64-row
-tiles, a two-stage ring); TMA reads each tensor at a 16-byte-aligned
-address through strides that are multiples of 16 bytes, which
-``tma_layout_problem`` checks and both wrappers enforce (they raise
-rather than copy).  fp32 inputs, and ``flash_bwd_dq`` in both dtypes,
-run the CUDA-core kernels, which take any strides.
+In bf16 all three kernels run on the tensor cores (``wgmma`` on bf16
+tiles that TMA copies into shared memory, 64-row tiles, a two-stage
+ring); TMA reads each tensor at a 16-byte-aligned address through
+strides that are multiples of 16 bytes, which ``tma_layout_problem``
+checks and the three wrappers enforce (they raise rather than copy).
+fp32 inputs run the CUDA-core kernels, which take any strides: the
+dtype alone picks the kernel.
 
 Each wrapper runs its plain version on a CPU tensor and, on a CUDA
 tensor, launches its kernel or raises; ``build.LAUNCHES`` counts the
@@ -252,6 +252,8 @@ def flash_bwd_dq(qt, kt, vt, do, lse, delta, offset: int, tk_valid: int, *, lib=
     name = "flash_bwd_dq"
     lib, b, nh, nkv, tq, tk, hd = _check_common(name, qt, kt, vt, tk_valid, do, lse, delta,
                                                 lib)
+    if qt.dtype == torch.bfloat16:
+        check_tma_layout(name, q=qt, k=kt, v=vt, dO=do)
     dq = _head_major((b, nh, tq, hd), torch.float32, qt.device)
     err = lib.mdt_flash_bwd_dq(
         qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -341,7 +343,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qt, kt, vt, o, lse = ctx.saved_tensors
-        tc = do.is_cuda and do.dtype == torch.bfloat16  # read by TMA in flash_bwd_dkv
+        tc = do.is_cuda and do.dtype == torch.bfloat16  # read by TMA in both kernels
         if do.stride(-1) != 1 or (tc and tma_layout_problem(
                 do.shape, do.stride(), do.element_size(), do.data_ptr()) is not None):
             # an incoming gradient may be expanded or offset: a fresh copy

@@ -12,8 +12,9 @@ one step without the profiler, and traces one with ``torch.profiler``:
 the host wall time, the device busy time (sum of kernel times on the one
 stream), the busy share, the launch count, the device time of the
 hand-written SSD kernels, of the hand-written flash attention kernels,
-of the GEMMs and of every other kernel, and the kernels that take the
-most device time, beside the card's name and power limit.
+of the GEMMs and of every other kernel, each hand-written kernel's own
+device time and launches, and the kernels that take the most device
+time, beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,27 +33,29 @@ from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
 from mamba_distributed_tpu_torch.training.train_step import make_train_step
 
 
-def _groups(prof) -> dict[str, float]:
+def _kernels(prof) -> tuple[dict[str, float], list[tuple[str, float, int]]]:
     """Device ms of the hand-written SSD, selective-scan and flash kernels,
-    the GEMMs, the rest."""
-    out = {"hand SSD kernels": 0.0, "hand scan kernels": 0.0, "hand flash kernels": 0.0,
-           "GEMMs": 0.0, "other kernels": 0.0}
+    the GEMMs, the rest; and (name, device ms, launches) of every
+    hand-written kernel instance."""
+    groups = {"hand SSD kernels": 0.0, "hand scan kernels": 0.0, "hand flash kernels": 0.0,
+              "GEMMs": 0.0, "other kernels": 0.0}
+    hand = {"ssd": "hand SSD kernels", "m1": "hand scan kernels", "flash": "hand flash kernels"}
+    instances = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
-        name = e.key.lower()
-        if "ssd_" in name.split("<")[0]:
-            key = "hand SSD kernels"
-        elif "m1_" in name.split("<")[0]:
-            key = "hand scan kernels"
-        elif "flash_" in name.split("<")[0]:
-            key = "hand flash kernels"
-        elif any(s in name for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")):
+        ms = e.self_device_time_total / 1e3
+        name = e.key.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
+        if name.split("_")[0] in hand:
+            key = hand[name.split("_")[0]]
+            instances.append((name, ms, e.count))
+        elif any(s in e.key.lower() for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                                              "sm90_")):
             key = "GEMMs"
         else:
             key = "other kernels"
-        out[key] += e.self_device_time_total / 1e3
-    return out
+        groups[key] += ms
+    return groups, sorted(instances, key=lambda x: -x[1])
 
 
 def main() -> int:
@@ -86,7 +89,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report_kernels(f"{name} train step (micro {b}, seq {t})", prof, wall, card, top=12)
-    print("  by group: " + ", ".join(f"{k} {v:.2f} ms" for k, v in _groups(prof).items()))
+    groups, instances = _kernels(prof)
+    print("  by group: " + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
+    print("  hand kernels: " + ", ".join(f"{k} {ms:.2f} ms ({n}x)" for k, ms, n in instances))
     return 0
 
 

@@ -1,9 +1,11 @@
 """The flash wrappers' TMA layout check (``flash_kernels.tma_layout_problem``
-and ``check_tma_layout``): the bf16 tensor-core kernels read q, k, v and
-dO with TMA, which needs a 16-byte-aligned start and (batch, head, time)
-strides that are multiples of 16 bytes.  On the CPU the check is plain
-Python over shapes, strides and addresses; the wrappers themselves run
-their plain versions on a CPU tensor and launch nothing."""
+and ``check_tma_layout``): the bf16 tensor-core kernels (forward, dq and
+dk/dv) read q, k, v and dO with TMA, which needs a 16-byte-aligned start
+and (batch, head, time) strides that are multiples of 16 bytes.  On the
+CPU the check is plain Python over shapes, strides and addresses; the
+wrappers themselves run their plain versions on a CPU tensor and launch
+nothing, unless a test forces the kernel route with a stand-in library
+that must not be called."""
 
 from __future__ import annotations
 
@@ -102,3 +104,60 @@ def test_wrappers_run_the_plain_versions_on_cpu_whatever_the_layout():
     assert LAUNCHES == before
     for a, r in ((o, o_p), (lse, lse_p), (dk, dk_p), (dv, dv_p)):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
+
+
+class _ShapesOnly:
+    """A stand-in library: answers the wrappers' head-dim query and fails
+    the test if a kernel would be launched."""
+
+    def mdt_flash_supports(self, hd):
+        return hd in fk.HEAD_DIMS
+
+    def __getattr__(self, name):
+        raise AssertionError(f"{name} was called")
+
+
+def _bwd_args(dtype, bad: str, fault: str):
+    """Backward arguments of the mixer's layout with one tensor, ``bad``,
+    replaced by a copy that TMA cannot read: its start 2 bytes past a
+    16-byte boundary, or its time stride 1 element off."""
+    b, t, nh, nkv, hd = 1, 16, 4, 2, 32
+    qt, kt, vt = _qkv_views(b, t, nh, nkv, hd, dtype)
+    do = torch.zeros((b, nh, t, hd), dtype=dtype)
+    named = {"q": qt, "k": kt, "v": vt, "dO": do}
+    x = named[bad]
+    shape = (x.shape[0], x.shape[2], x.shape[1], x.shape[3])  # (b, t, h, hd)
+    if fault == "unaligned start":
+        y = torch.zeros(1 + x.numel(), dtype=dtype)[1:].reshape(shape)
+    else:
+        y = torch.zeros(shape[:2] + (shape[2] * hd + 1,), dtype=dtype)[..., :-1]
+        y = y.reshape(shape)
+    named[bad] = y.transpose(1, 2)
+    lse = torch.zeros((b, nh, t))
+    return (named["q"], named["k"], named["v"], named["dO"], lse, lse.clone(), 0, t)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("bad,fault", [("q", "unaligned start"), ("k", "unaligned start"),
+                                       ("v", "time stride"), ("dO", "unaligned start"),
+                                       ("dO", "time stride")])
+def test_backward_wrappers_refuse_layouts_tma_cannot_read(monkeypatch, wrapper, bad, fault):
+    """Forced onto the kernel route, both bf16 backward wrappers refuse a
+    tensor TMA cannot read, by name, before any launch."""
+    monkeypatch.setattr(fk, "use_kernel", lambda impl, x: True)
+    args = _bwd_args(torch.bfloat16, bad, fault)
+    assert _problem(args[("q", "k", "v", "dO").index(bad)]) is not None
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match=rf"{wrapper}: {bad} cannot be read by TMA"):
+        getattr(fk, wrapper)(*args, lib=_ShapesOnly())
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("wrapper", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_fp32_backward_takes_any_strides(monkeypatch, wrapper):
+    """fp32 runs the CUDA-core kernels: the same layout passes the checks
+    and reaches the launch (the stand-in library's kernel symbol)."""
+    monkeypatch.setattr(fk, "use_kernel", lambda impl, x: True)
+    args = _bwd_args(torch.float32, "dO", "time stride")
+    with pytest.raises(AssertionError, match=rf"mdt_{wrapper} was called"):
+        getattr(fk, wrapper)(*args, lib=_ShapesOnly())
