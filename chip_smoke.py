@@ -7,25 +7,34 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together), fail if a tensor-core
-   instance (flash forward, dq, dk/dv; the paged prefill attend) is
-   missing or spills registers (``-Xptxas -v``), hold the Python tables
-   of built shapes (``ops/dispatch.check_kernel_shapes``) against each
-   library's own answers, and the paged prefill's dispatch rule against
-   the library's, with hybrid-280m's shapes on the tensor cores;
+   instance (flash forward, dq, dk/dv; the paged prefill attend; the SSD
+   forward) or a split-decode instance is missing or spills registers
+   (``-Xptxas -v``) or the tensor-core SSD forward has no HGMMA
+   instruction in its SASS, hold the Python tables of built shapes
+   (``ops/dispatch.check_kernel_shapes``) against each library's own
+   answers, and the paged prefill's and the SSD forward's dispatch rules
+   and the decode's split rule against the libraries', with hybrid-280m's
+   and mamba2-280m's shapes on the tensor cores;
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
    shapes, beside a bound from the bytes and operations the work needs
    and, for attention, a PyTorch SDPA call: ``ssd_fwd`` at mamba2-280m's
-   (24 heads, headdim 64, d_state 128); ``ssd_chunk_states`` and
-   ``ssd_bwd`` (the SSD backward) over g 1 and 2, seeded and not, with
-   and without a final-state cotangent, then the whole ``SSDFunction``'s
-   gradients against torch autograd of the plain forward, timed at one
-   layer of the mamba2-280m train step (b 8, t 1024, chunk 256);
-   ``rpa_fwd`` (paged decode) and ``rpp_fwd`` (fused page write + chunk
-   prefill) at hybrid-280m's (12 query / 4 KV heads, head dim 64, pages
-   of 64 tokens, 16 pages per slot) over ragged length mixes, with the
-   written pages compared bit for bit and two prefill launches
-   bit-identical, each with bf16/fp32 pages and with int8 pages and
+   (24 heads, headdim 64, d_state 128; also d_state 64, and headdim 32 on
+   CUDA cores) over l 64, 100 and 256, g 1 and 2, seeded and not, t
+   shorter than l, two launches bit-identical, timed at the serving chunk
+   (b 1, t 256) and the trainer's micro-batch (b 32, t 1024);
+   ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward) over g 1 and 2,
+   seeded and not, with and without a final-state cotangent, then the
+   whole ``SSDFunction``'s gradients against torch autograd of the plain
+   forward, timed at a quarter of the trainer's micro-batch (b 8) and at
+   one layer of the mamba2-280m train step (b 32, t 1024, chunk 256);
+   ``rpa_fwd`` (the split-K paged decode) over split counts 1 to 40, GQA
+   rep 3, 4 and 8 and head dims 32 to 128, two launches bit-identical, and
+   ``rpp_fwd`` (fused page write + chunk prefill) at hybrid-280m's (12
+   query / 4 KV heads, head dim 64, pages of 64 tokens, 16 pages per slot)
+   over ragged length mixes, with the written pages compared bit for bit
+   and two prefill launches bit-identical, each with bf16/fp32 pages and
+   with int8 pages and
    scales (``rpa_fwd_int8``, ``rpp_fwd_int8``: the int8 branches, stale
    scales on recycled pages included); ``flash_fwd``, ``flash_bwd_dq``
    and ``flash_bwd_dkv`` (flash attention) over t 1024 and 1000, GQA rep
@@ -94,18 +103,20 @@ import torch
 import torch.nn.functional as F
 
 from mamba_distributed_tpu_torch.ops.cuda.timing import (
-    H100_BF16_FLOPS,
     H100_BYTES_PER_S,
+    RPA_TIMED,
     RPP_TIMED,
+    SSD_TIMED,
     bound,
     cuda_ms,
     device_ms,
-    disjoint_table,
-    int8_pool,
-    paged_pool,
     rel_err,
+    rpa_case,
+    rpa_work,
     rpp_case,
     rpp_work,
+    ssd_inputs,
+    ssd_work,
 )
 
 # kernel-vs-plain tolerances, as max|kernel - plain| / max|plain|:
@@ -130,88 +141,88 @@ def smi() -> str:
 # ----------------------------------------------------------------- SSD kernel
 
 
-def ssd_inputs(gen, b, t, g, dtype, seeded, h=24, p=64, n=128):
-    """x, B, C as slices of one (b, t, h*p + 2*g*n) conv-output-like
-    tensor (so the kernel reads them through strides, as in the mixer)."""
-    dev = "cuda"
-    di = h * p
-    xbc = torch.randn((b, t, di + 2 * g * n), generator=gen, device=dev).to(dtype)
-    x = xbc[..., :di].reshape(b, t, h, p)
-    B = xbc[..., di:di + g * n].reshape(b, t, g, n)
-    C = xbc[..., di + g * n:].reshape(b, t, g, n)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, t, h), generator=gen, device=dev) - 3.0)
-    A = -torch.exp(torch.rand((h,), generator=gen, device=dev) * 2.77)  # -(1..16)
-    s0 = (0.5 * torch.randn((b, h, p, n), generator=gen, device=dev)) if seeded else None
-    D = torch.ones((h,), device=dev)
-    return dict(x=x, dt=dt, A=A, B=B, C=C, D=D, initial_state=s0)
-
-
-def ssd_work(b, t, h, g, p, n, l, dtype, seeded):
-    """(bytes, flops) the SSD forward needs: each input read once, each
-    output written once; multiply-adds of the causal (lower-triangle)
-    intra-chunk products, the carried-state product and the state update."""
-    e = torch.finfo(dtype).bits // 8
-    nbytes = (b * t * h * p * e * 2  # x, y
-              + b * t * h * 4 + h * 4  # dt, A
-              + 2 * b * t * g * n * e  # B, C
-              + b * h * p * n * 4 * (2 if seeded else 1))  # initial, final state
-    nc = t // l
-    macs = b * h * nc * ((n + p) * l * (l + 1) // 2 + 2 * l * p * n)
-    return nbytes, 2 * macs
-
-
 def check_ssd(gen):
+    """Kernel 1 against the plain ``ssd_chunked`` (y and the final state),
+    bf16 (the tensor-core kernel at the presets' headdim 64 and d_state
+    128 or 64, the CUDA-core one at headdim 32) and fp32 (CUDA cores), over
+    l 64 and 256, g 1 and 2, seeded and not, a t shorter than l, a ragged l
+    (t 300, l 100); two launches of each case bit-identical.  Timed at the
+    serving chunk (b 1, t 256, seeded) and at the trainer's micro-batch (b
+    32, t 1024, unseeded), each beside its bound from ``ssd_work``."""
     from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels
-    from mamba_distributed_tpu_torch.ops.ssd import ssd_chunked
+    from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk, ssd_chunked
 
-    cases = [  # (dtype, b, t, chunk, g, seeded)
-        (torch.float32, 1, 8, 256, 1, False),
-        (torch.float32, 2, 128, 64, 2, True),
-        (torch.float32, 1, 512, 256, 1, True),
-        (torch.bfloat16, 1, 8, 256, 1, False),
-        (torch.bfloat16, 2, 128, 64, 2, True),
-        (torch.bfloat16, 1, 512, 256, 2, True),
-        # the chunked-prefill step of the serving path (timed below)
-        (torch.bfloat16, 1, 256, 256, 1, True),
+    cases = [  # (dtype, b, t, chunk, g, seeded, p, n)
+        (torch.float32, 1, 8, 256, 1, False, 64, 128),
+        (torch.float32, 2, 128, 64, 2, True, 64, 128),
+        (torch.float32, 1, 512, 256, 1, True, 64, 128),
+        (torch.bfloat16, 1, 8, 256, 1, False, 64, 128),  # t shorter than l
+        (torch.bfloat16, 2, 128, 64, 2, True, 64, 128),
+        (torch.bfloat16, 2, 512, 64, 1, False, 64, 128),
+        (torch.bfloat16, 1, 512, 256, 2, True, 64, 128),
+        (torch.bfloat16, 2, 768, 256, 1, False, 64, 128),
+        (torch.bfloat16, 1, 300, 128, 1, True, 64, 128),  # l = 100: a ragged row block
+        (torch.bfloat16, 2, 512, 256, 2, True, 64, 64),
+        (torch.bfloat16, 1, 200, 64, 1, False, 64, 64),  # l = 50
+        (torch.bfloat16, 1, 256, 256, 1, True, 32, 64),  # CUDA cores in bf16
+        # the chunked-prefill step of the serving path, then the trainer's
+        # micro-batch (both timed below)
+        (torch.bfloat16, 1, 256, 256, 1, True, 64, 128),
+        (torch.bfloat16, 32, 1024, 256, 1, False, 64, 128),
     ]
-    row = None
-    for dtype, b, t, chunk, g, seeded in cases:
-        inp = ssd_inputs(gen, b, t, g, dtype, seeded)
+    row, at = None, []
+    for dtype, b, t, chunk, g, seeded, p, n in cases:
+        inp = ssd_inputs(gen, b, t, g, dtype, seeded, p=p, n=n)
         kw = dict(chunk_size=chunk, return_final_state=True, compute_dtype=dtype)
         yk, sk = ssd_kernels.ssd_chunked_kernel(**inp, **kw)
+        yk2, sk2 = ssd_kernels.ssd_chunked_kernel(**inp, **kw)
         yp, sp = ssd_chunked(**inp, **kw)
         torch.cuda.synchronize()
+        same = bool(torch.equal(yk, yk2) and torch.equal(sk, sk2))
         errs = []
         for got, ref in ((yk, yp), (sk, sp)):
             if not torch.isfinite(got).all():
                 raise SystemExit(f"ssd_fwd: non-finite output ({dtype}, t={t})")
-            err = float((got.float() - ref.float()).abs().max())
-            scale = max(float(ref.float().abs().max()), 1e-6)
-            errs.append((err, err / scale))
+            errs.append(rel_err(got, ref))
         worst = max(r for _, r in errs)
-        l = min(chunk, t)
-        print(f"check ssd_fwd {str(dtype)[6:]} b={b} t={t} l={l} g={g} "
-              f"seeded={seeded}: y max_abs_err={errs[0][0]:.3e} (rel {errs[0][1]:.2e}), "
-              f"state max_abs_err={errs[1][0]:.3e} (rel {errs[1][1]:.2e}), "
-              f"tol rel {TOL[dtype]:.0e}", flush=True)
-        if worst > TOL[dtype]:
-            raise SystemExit(f"ssd_fwd disagrees with the plain version: rel {worst:.3e}")
-        if dtype is torch.bfloat16 and t == 256 and chunk == 256:
-            ms = cuda_ms(lambda: ssd_kernels.ssd_chunked_kernel(**inp, **kw), 20)
-            plain_ms = cuda_ms(lambda: ssd_chunked(**inp, **kw), 5)
-            nbytes, flops = ssd_work(b, t, 24, g, 64, 128, l, dtype, seeded)
-            bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
-            bound_by = ("bytes" if nbytes / H100_BYTES_PER_S > flops / H100_BF16_FLOPS
-                        else "operations")
-            print(f"time ssd_fwd bf16 b=1 t=256 l=256 h=24 seeded: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-                  f"{nbytes} B, {flops} FLOP)", flush=True)
-            row = dict(name="ssd_fwd", route="cuda",
-                       source="mamba_distributed_tpu_torch/ops/cuda/csrc/ssd_fwd.cu",
-                       replaces="mamba_distributed_tpu/ops/pallas/ssd_kernels.py:164",
-                       launches=None, max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        l = _divisor_chunk(t, chunk)
+        route = ("tensor cores" if ssd_kernels.ssd_uses_tensor_cores(dtype, p, n)
+                 else "CUDA cores")
+        tag = f"{str(dtype)[6:]} b={b} t={t} l={l} g={g} p={p} n={n} seeded={seeded}"
+        print(f"check ssd_fwd {tag} ({route}): y max_abs_err={errs[0][0]:.3e} (rel "
+              f"{errs[0][1]:.2e}), state max_abs_err={errs[1][0]:.3e} (rel {errs[1][1]:.2e}), "
+              f"tol rel {TOL[dtype]:.0e}; 2 launches bit-identical: {same}", flush=True)
+        if worst > TOL[dtype] or not same:
+            raise SystemExit(f"ssd_fwd disagrees with the plain version (rel {worst:.3e}) or "
+                             f"differs between launches ({same}): {tag}")
+        timed = (b, t, chunk, g, seeded) in SSD_TIMED
+        if dtype is torch.bfloat16 and p == 64 and n == 128 and timed:
+            # the kernel's device time (one kernel a call: a loop of calls
+            # at the serving chunk is host-bound), the event time beside it
+            args = (inp["x"], inp["dt"], inp["A"], inp["B"], inp["C"], l,
+                    inp["initial_state"], dtype)
+            ms = sum(device_ms(lambda: ssd_kernels._ssd_fwd(*args), 20).values())
+            loop_ms = cuda_ms(lambda: ssd_kernels._ssd_fwd(*args), 20)
+            plain_ms = cuda_ms(lambda: ssd_chunked(**inp, **kw), 5, 1)
+            nbytes, flops = ssd_work(b, t, 24, g, p, n, l, dtype, seeded)
+            bound_ms, bound_by = bound(nbytes, flops)
+            ctas = -(-l // 64) * 24 * b
+            shape = f"bf16 b={b} t={t} l={l} h=24 {'seeded' if seeded else 'unseeded'}"
+            print(f"time ssd_fwd {shape} ({ctas} CTAs): kernel {ms:.4f} ms of device time "
+                  f"({loop_ms:.4f} ms a call by the event timer), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+            at.append(dict(shape=shape, ctas=ctas, ms=ms, event_ms=loop_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, max_abs_err=errs[0][0]))
+    # the row: the serving chunk, whose launches it counts (the mamba2
+    # serving run); the trainer's shape beside it
+    serve = at[0]
+    row = dict(name="ssd_fwd", route="cuda",
+               source="mamba_distributed_tpu_torch/ops/cuda/csrc/ssd_fwd.cu",
+               replaces="mamba_distributed_tpu/ops/pallas/ssd_kernels.py:164",
+               launches=None, max_abs_err=serve["max_abs_err"], ms=serve["ms"],
+               plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+               bound_by=serve["bound_by"], library_ms=None, shapes=at)
     return row
 
 
@@ -235,7 +246,9 @@ def check_ssd_bwd(gen):
     """Kernels 2 and 3 against their plain versions (same inputs, the
     plain entering states fed to both), then the whole SSDFunction's
     gradients against torch autograd of the plain ``ssd_chunked``; the
-    last case, one layer of the mamba2-280m train step, is timed."""
+    last two cases, a quarter of the trainer's micro-batch (b 8) and one
+    layer of the mamba2-280m train step (b 32, the shape of the training
+    run's launches and of the row), are timed."""
     from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
     from mamba_distributed_tpu_torch.ops.ssd import (
         _divisor_chunk,
@@ -251,10 +264,11 @@ def check_ssd_bwd(gen):
         (torch.bfloat16, 1, 64, 64, 1, False, False),
         (torch.bfloat16, 2, 512, 256, 2, True, True),
         (torch.bfloat16, 1, 300, 128, 1, True, False),
-        (torch.bfloat16, 8, 1024, 256, 1, False, False),  # one train-step layer (timed)
+        (torch.bfloat16, 8, 1024, 256, 1, False, False),  # a quarter micro-batch (timed)
+        (torch.bfloat16, 32, 1024, 256, 1, False, False),  # one train-step layer (timed)
     ]
     names = ("dx", "ddt_direct", "da", "dB_h", "dC_h", "dgamma", "dinit")
-    rows, failures = [None, None], []
+    rows, failures, shapes = [None, None], [], {"ssd_chunk_states": [], "ssd_bwd": []}
     for dtype, b, t, chunk, g, seeded, dfin in cases:
         inp = ssd_inputs(gen, b, t, g, dtype, seeded)
         x, dt, A, B, C, s0 = (inp[k] for k in ("x", "dt", "A", "B", "C", "initial_state"))
@@ -285,24 +299,31 @@ def check_ssd_bwd(gen):
 
         if b * t <= 1024:  # the whole Function against autograd of the plain forward
             failures += function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag)
-        if b == 8:
+        if b in (8, 32):
             ms2 = cuda_ms(lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype), 20)
             plain2 = cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype), 5)
             ms3 = cuda_ms(lambda: sk.ssd_bwd_kernel(*args), 5, 1)
             plain3 = cuda_ms(lambda: sk.ssd_bwd_plain(*args), 3, 1)
             (b2, f2), (b3, f3) = ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfin)
+            what = ("one layer of the mamba2-280m train step" if b == 32 else
+                    "a quarter of the trainer's micro-batch of 32")
             for i, (nm, ms, plain, nb, fl, err, line) in enumerate((
                     ("ssd_chunk_states", ms2, plain2, b2, f2, err2, 61),
                     ("ssd_bwd", ms3, plain3, b3, f3, max(e for e, _ in errs.values()), 299))):
                 bound_ms, bound_by = bound(nb, fl)
-                print(f"time {nm} bf16 b={b} t={t} l={l} h={h} (one layer of the "
-                      f"mamba2-280m train step): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                shape = f"bf16 b={b} t={t} l={l} h={h}"
+                print(f"time {nm} {shape} ({what}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                       f"bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP)", flush=True)
-                rows[i] = dict(name=nm, route="cuda",
-                               source="mamba_distributed_tpu_torch/ops/cuda/csrc/ssd_bwd.cu",
-                               replaces=f"mamba_distributed_tpu/ops/pallas/ssd_kernels.py:{line}",
-                               launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                shapes[nm].append(dict(shape=shape, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                                       bound_by=bound_by, max_abs_err=err))
+                if b == 32:  # the row: the shape the training run launches at
+                    rows[i] = dict(
+                        name=nm, route="cuda",
+                        source="mamba_distributed_tpu_torch/ops/cuda/csrc/ssd_bwd.cu",
+                        replaces=f"mamba_distributed_tpu/ops/pallas/ssd_kernels.py:{line}",
+                        launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        shapes=shapes[nm])
     if failures:
         raise SystemExit("SSD backward checks failed:\n" + "\n".join(failures))
     return rows
@@ -348,45 +369,66 @@ def function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag):
 
 
 def check_rpa(gen):
-    """Paged decode: kernel vs plain over ragged kv_len mixes (0, mid-page,
-    an exact page multiple, a full table), with bf16/fp32 pages and with
-    int8 pages and scales; the bf16 hybrid-280m case at 8 slots is timed
-    for each (rows ``rpa_fwd`` and ``rpa_fwd_int8``)."""
+    """Paged decode (the split-K kernel): kernel vs plain over ragged
+    kv_len mixes (0, 1, mid-page, an exact page multiple, a full table),
+    with bf16 and fp32 pages and with int8 pages and scales, over split
+    counts from 1 to 40 (``attention_kernels.rpa_splits``) that leave
+    ranges empty, GQA rep 3 (hybrid-280m), 4 and 8, head dims 64, 32, 128
+    and 36 (no vector loads in bf16); zeros where kv_len is 0, two launches
+    bit-identical.  The bf16 hybrid-280m case at 8 slots is timed for each
+    page type (rows ``rpa_fwd`` and ``rpa_fwd_int8``): the kernel's device
+    time beside SDPA's on the pre-gathered view, the event time printed."""
     from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
 
-    cases = [  # (dtype, nh, nkv, pg, W, kv_len of the 8 slots)
-        (torch.float32, 12, 4, 64, 16, [0, 37, 128, 1024, 1, 500, 64, 999]),
-        (torch.bfloat16, 12, 4, 64, 16, [0, 37, 128, 1024, 1, 500, 64, 999]),
-        (torch.float32, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
-        (torch.bfloat16, 16, 4, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
+    timed = RPA_TIMED[-1]
+    cases = [  # (dtype, S, nh, nkv, hd, pg, W, kv_len of the S slots)
+        (torch.float32, 8, 12, 4, 64, 64, 16, timed),
+        (torch.bfloat16, 8, 12, 4, 64, 64, 16, timed),
+        (torch.float32, 8, 16, 4, 64, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
+        (torch.bfloat16, 8, 16, 4, 64, 8, 16, [0, 5, 16, 128, 77, 8, 1, 100]),
+        # 64 slots: two ranges of 8 pages; 2 slots: 16 ranges of a page
+        (torch.bfloat16, 64, 12, 4, 64, 64, 16, [0, 1, 63, 64, 65, 384, 385, 1024] * 8),
+        (torch.bfloat16, 2, 12, 4, 64, 64, 16, [37, 1024]),
+        (torch.float32, 2, 12, 4, 64, 64, 16, [37, 1024]),
+        (torch.float32, 2, 16, 2, 128, 16, 5, [80, 33]),
+        (torch.bfloat16, 4, 8, 2, 32, 64, 7, [448, 0, 200, 64]),
+        (torch.bfloat16, 3, 8, 2, 36, 16, 6, [96, 17, 50]),
+        (torch.float32, 3, 8, 2, 36, 16, 6, [96, 17, 50]),
+        # 40 ranges of a page (more than the combine holds in registers);
+        # 3 ranges of 34 pages (more than a page per lane); one range (the
+        # walk writes the output)
+        (torch.bfloat16, 1, 12, 4, 64, 16, 40, [600]),
+        (torch.bfloat16, 64, 8, 2, 64, 8, 100, [0, 1, 300, 800, 799, 272, 273, 8] * 8),
+        (torch.bfloat16, 132, 4, 2, 32, 16, 4, [0, 1, 17, 64, 33, 16] * 22),
     ]
-    hd, S, rows = 64, 8, {}
+    rows = {}
     for quant in (False, True):
         name = "rpa_fwd_int8" if quant else "rpa_fwd"
-        for dtype, nh, nkv, pg, W, lens in cases:
-            P = 1 + S * W
-            if quant:
-                (kp, vp), scales = int8_pool(gen, P, nkv, pg, hd)
-            else:
-                (kp, vp), scales = paged_pool(gen, P, nkv, pg, hd, dtype), []
-            q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
-            tbl = disjoint_table(gen, S, W, P)
-            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            args = (q, kp, vp, tbl, kv_len, *scales)
+        for dtype, S, nh, nkv, hd, pg, W, lens in cases:
+            args = rpa_case(gen, S, nh, nkv, hd, pg, W, lens, dtype, quant)
+            q, kp, vp, tbl, kv_len, *scales = args
             got = ak.ragged_paged_decode_attention(*args)
+            got2 = ak.ragged_paged_decode_attention(*args)
             ref = ak.ragged_paged_decode_attention_plain(*args)
             torch.cuda.synchronize()
             empty = kv_len == 0
-            if not torch.isfinite(got).all() or got[empty].abs().max() != 0:
+            same = bool(torch.equal(got, got2))
+            if not torch.isfinite(got).all() or (bool(empty.any())
+                                                 and got[empty].abs().max() != 0):
                 raise SystemExit(f"{name}: non-finite output or a nonzero empty row ({dtype})")
             err, rel = rel_err(got[~empty], ref[~empty])
-            print(f"check {name} {str(dtype)[6:]} S={S} nh={nh} nkv={nkv} pg={pg} W={W} "
-                  f"kv_len={lens}: max_abs_err={err:.3e} (rel {rel:.2e}), "
-                  f"tol rel {TOL[dtype]:.0e}", flush=True)
-            if rel > TOL[dtype]:
-                raise SystemExit(f"{name} disagrees with the plain version: rel {rel:.3e}")
-            if dtype is torch.bfloat16 and pg == 64:
-                ms = cuda_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
+            shown = lens if S <= 8 else f"{lens[:8]}... ({S} slots)"
+            print(f"check {name} {str(dtype)[6:]} S={S} nh={nh} nkv={nkv} hd={hd} pg={pg} "
+                  f"W={W} kv_len={shown} ({ak.rpa_splits(S, nkv, W)} splits): "
+                  f"max_abs_err={err:.3e} (rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; 2 launches "
+                  f"bit-identical: {same}", flush=True)
+            if rel > TOL[dtype] or not same:
+                raise SystemExit(f"{name} disagrees with the plain version (rel {rel:.3e}) or "
+                                 f"differs between launches ({same})")
+            if dtype is torch.bfloat16 and lens == timed:
+                per = device_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
+                ms = sum(per.values())
+                loop_ms = cuda_ms(lambda: ak.ragged_paged_decode_attention(*args), 50)
                 plain_ms = cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10)
                 # yardstick: SDPA over the pre-gathered contiguous view
                 # (int8 pages: dequantized; the gather is not timed),
@@ -396,26 +438,32 @@ def check_rpa(gen):
                 vv = vv.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
                 mask = (torch.arange(W * pg, device="cuda") < kv_len.clamp(min=1)[:, None])
                 qq = q[:, :, None]
-                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qq, kk, vv, attn_mask=mask[:, None, None]), 50)
-                e = kp.element_size()
-                tokens = int(kv_len.sum())
-                live_pages = int(((kv_len + pg - 1) // pg).sum())
-                nbytes = (2 * tokens * nkv * hd * e + 2 * S * nh * hd * q.element_size()
-                          + tbl.numel() * 4 + S * 4 + (2 * live_pages * nkv * 4 if quant else 0))
-                bound_ms, bound_by = bound(nbytes, 4 * tokens * nh * hd)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qq, kk, vv,
+                                                          attn_mask=mask[:, None, None])
+
+                library_ms = sum(device_ms(sdpa, 50).values())
+                library_loop = cuda_ms(sdpa, 50)
+                nbytes, flops = rpa_work(args)
+                bound_ms, bound_by = bound(nbytes, flops)
                 pages = "int8 pages" if quant else "bf16 pages"
-                print(f"time {name} bf16 q, {pages}, S={S} kv_len={lens}: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, SDPA on the pre-gathered view (no page gather"
-                      f"{' or dequant' if quant else ''}) {library_ms:.4f} ms, bound "
-                      f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {4 * tokens * nh * hd} FLOP)",
-                      flush=True)
+                print(f"time {name} bf16 q, {pages}, S={S} kv_len={lens} "
+                      f"({ak.rpa_splits(S, nkv, W)} splits): kernel {ms:.4f} ms of device time ("
+                      + ", ".join(f"{k.removeprefix('void (anonymous namespace)::')[:40]} "
+                                  f"{v:.4f}" for k, v in per.items())
+                      + f"; {loop_ms:.4f} ms a call by the event timer), plain {plain_ms:.4f} "
+                      f"ms, SDPA on the pre-gathered view (no page gather"
+                      f"{' or dequant' if quant else ''}) {library_ms:.4f} ms of device time "
+                      f"({library_loop:.4f} by the event timer), bound {bound_ms:.6f} ms "
+                      f"({bound_by}: {nbytes} B, {flops} FLOP)", flush=True)
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="mamba_distributed_tpu_torch/ops/cuda/csrc/ragged_paged_attention.cu",
                     replaces="mamba_distributed_tpu/ops/pallas/attention_kernels.py:525",
                     launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                    event_ms=loop_ms)
     return rows["rpa_fwd"], rows["rpa_fwd_int8"]
 
 
@@ -580,6 +628,37 @@ def check_kernel_tables() -> None:
           f"{len(codes) * 16 * 9} (dtype, head dim, page) shapes; hybrid-280m (head dim {hd}, "
           f"pages of {cfg.kv_page_tokens}, bf16 and int8 pages) takes the tensor-core attend",
           flush=True)
+    # the decode's split rule: the wrapper sizes the workspace by it, the
+    # library refuses a launch sized by another
+    grid = [(S, nkv, W) for S in (1, 2, 3, 8, 16, 64, 256) for nkv in (1, 2, 4, 8)
+            for W in (1, 2, 5, 16, 33, 64, 128)]
+    for S, nkv, W in grid:
+        if attention_kernels.rpa_splits(S, nkv, W) != ak.mdt_rpa_splits(S, nkv, W):
+            raise SystemExit(f"decode split count differs at S {S} nkv {nkv} W {W}: the "
+                             f"wrapper says {attention_kernels.rpa_splits(S, nkv, W)}")
+    S, nkv, W = 8, 4, 16
+    print(f"check decode split rule: the wrapper's equals the library's over {len(grid)} "
+          f"(slots, KV heads, pages) shapes; hybrid-280m's 8 slots of {W} pages take "
+          f"{attention_kernels.rpa_splits(S, nkv, W)} splits of "
+          f"{attention_kernels.rpa_split_pages(S, nkv, W)} pages", flush=True)
+    # the SSD forward's one dispatch rule, and the presets on the tensor cores
+    fwd = ssd_kernels._fwd_lib()
+    for dtype, code in codes.items():
+        for p in dims:
+            for n in dims:
+                py = ssd_kernels.ssd_uses_tensor_cores(dtype, p, n)
+                if py != bool(fwd.mdt_ssd_uses_tc(code, p, n)):
+                    raise SystemExit(f"ssd_fwd dispatch differs at {dtype} p {p} n {n}: the "
+                                     f"wrapper says {py}")
+    for preset in ("mamba2-280m", "hybrid-280m"):
+        m = get_preset(preset, compute_dtype="bfloat16")
+        p, n = m.headdim, m.effective_d_state
+        if not ssd_kernels.ssd_uses_tensor_cores(m.torch_compute_dtype, p, n):
+            raise SystemExit(f"{preset}'s SSD forward (headdim {p}, d_state {n}) would run the "
+                             f"CUDA-core kernel")
+    print(f"check ssd_fwd dispatch: the wrapper's rule equals the library's over "
+          f"{len(codes) * len(dims) ** 2} (dtype, headdim, d_state) shapes; mamba2-280m and "
+          f"hybrid-280m (headdim 64, d_state 128, bf16) take the tensor-core kernel", flush=True)
 
 
 # ------------------------------------------------------ flash attention kernels
@@ -1288,17 +1367,29 @@ def main() -> int:
         print(f"ptxas {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(spills)} bytes")
     # no tensor-core instance may spill: the flash forward, dq and dk/dv
-    # (3 head dims each) and the paged prefill attend (3 head dims x bf16
-    # and int8 pages); the fp32 CUDA-core ones are printed beside them
-    for src, expected in (("flash_attention", 9), ("ragged_paged_attention", 6)):
+    # (3 head dims each), the paged prefill attend (3 head dims x bf16 and
+    # int8 pages) and the SSD forward (d_state 64 and 128); nor may the
+    # split decode (its walk: 2 dtypes x 2 page types x 4 row counts; its
+    # combine: 2 dtypes); the fp32 CUDA-core ones are printed beside them
+    for src, tag, expected in (("flash_attention", "_tc_kernel", 9),
+                               ("ragged_paged_attention", "_tc_kernel", 6),
+                               ("ragged_paged_attention", "rpa_", 18),
+                               ("ssd_fwd", "_tc_kernel", 2)):
         inst = build.ptxas_instances(logs[src])
         for kname, regs, sp in inst:
-            if "flash_" in kname or "rpp_attend" in kname:
+            if tag in kname or (tag == "_tc_kernel" and ("flash_" in kname
+                                                         or "rpp_attend" in kname)):
                 print(f"ptxas {src} {kname}: {regs} registers, {sp} bytes spill stores")
-        tc = [(k, sp) for k, _, sp in inst if "_tc_kernel" in k]
+        tc = [(k, sp) for k, _, sp in inst if tag in k]
         if len(tc) != expected or any(sp for _, sp in tc):
-            raise SystemExit(f"tensor-core instances of {src} ({expected} expected) missing or "
+            raise SystemExit(f"{tag} instances of {src} ({expected} expected) missing or "
                              f"spilling registers: {tc}")
+    # the tensor-core SSD forward runs wgmma
+    hgmma = {k: v for k, v in build.hgmma_counts(build.library_path("ssd_fwd")).items()
+             if "ssd_fwd_tc_kernel" in k}
+    print(f"SASS HGMMA instructions, ssd_fwd: {hgmma}")
+    if len(hgmma) != 2 or not all(hgmma.values()):
+        raise SystemExit(f"the tensor-core SSD forward has no HGMMA instruction: {hgmma}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_kernel_tables()
     rpa, rpa_int8 = check_rpa(gen)

@@ -35,6 +35,14 @@ and shape, is also the C dispatch's (``mdt_rpp_uses_tc``); every other
 shape runs the CUDA-core attend.  TMA needs the (contiguous) pools to
 start at a 16-byte boundary, which the wrapper checks and raises on
 rather than copying.
+
+The decode is split-K: each row's pages are cut into ``rpa_splits``
+ranges of whole pages (the C side's ``mdt_rpa_splits`` is the same
+rule), one CTA of four warps each, and a second small kernel combines
+the ranges' fp32 partials from a workspace (one range: the walk writes
+the output).
+The wrapper allocates the workspace from PyTorch's caching allocator (no
+launch, no host synchronisation); the call counts one launch.
 """
 
 from __future__ import annotations
@@ -60,6 +68,21 @@ MAX_HEAD_DIM = 128
 # 64-key tiles (``mdt_rpp_uses_tc``)
 TC_HEAD_DIMS = (32, 64, 128)
 TC_KEYS = 64
+# the split decode: about two CTAs (of four warps) on each of the H100's
+# 132 SMs, what their registers let run at once (``kSplitTargetCtas``)
+SPLIT_TARGET_CTAS = 2 * 132
+
+
+def rpa_split_pages(S: int, nkv: int, W: int) -> int:
+    """Pages in each of a decode row's split ranges, for S slots, nkv KV
+    heads and W pages a slot (the C dispatch's ``rpa_split_pages``)."""
+    splits = max(1, min(W, -(-SPLIT_TARGET_CTAS // (S * nkv))))
+    return -(-W // splits)
+
+
+def rpa_splits(S: int, nkv: int, W: int) -> int:
+    """How many page ranges the decode cuts each row into (``mdt_rpa_splits``)."""
+    return -(-W // rpa_split_pages(S, nkv, W))
 
 
 def rpp_uses_tensor_cores(dtype: torch.dtype, hd: int, pg: int) -> bool:
@@ -214,15 +237,16 @@ def ragged_paged_prefill_attention_plain(q, k_chunk, v_chunk, k_pages, v_pages,
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built at first use)."""
     lib = declare(build.load("ragged_paged_attention"))
-    lib.mdt_rpp_uses_tc.argtypes = [_I, _I, _I]
-    lib.mdt_rpp_uses_tc.restype = _I
+    for fn in (lib.mdt_rpp_uses_tc, lib.mdt_rpa_splits):
+        fn.argtypes = [_I, _I, _I]
+        fn.restype = _I
     return lib
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``ragged_paged_attention.cu``) with the C
     signatures of its two kernels and its limits declared."""
-    lib.mdt_rpa_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_L] * 2 + [_F, _I, _I, _P]
+    lib.mdt_rpa_fwd.argtypes = [_P] * 9 + [_I] * 7 + [_L] * 2 + [_F, _I, _I, _P]
     lib.mdt_rpa_fwd.restype = _I
     lib.mdt_rpp_fwd.argtypes = [_P] * 13 + [_I] * 8 + [_L] * 9 + [_F, _I, _I, _P]
     lib.mdt_rpp_fwd.restype = _I
@@ -277,14 +301,16 @@ def _ptr(t) -> int | None:
 
 
 def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
-                                  k_scale=None, v_scale=None):
+                                  k_scale=None, v_scale=None, *, lib=None):
     """Paged decode attention with per-row lengths (the JAX contract).
 
     q (S, nh, hd) one query token per slot; k_pages/v_pages (P, nkv, pg,
     hd); page_table (S, W) int32; kv_len (S,) int32 tokens readable per
     row, including any written this step; int8 pages take ``k_scale``
     and ``v_scale`` (P, nkv) fp32.  Returns (S, nh, hd) in q's dtype;
-    rows with ``kv_len == 0`` are zeros."""
+    rows with ``kv_len == 0`` are zeros.  ``lib``: another build of
+    ``ragged_paged_attention.cu`` (through ``declare``) to launch instead
+    of the package's."""
     if not use_kernel("pallas", q):
         return ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len,
                                                    k_scale, v_scale)
@@ -292,12 +318,15 @@ def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
     S, nh, hd = q.shape
     lib, nkv, pg, hd, W = _check_common(
         name, q, k_pages, v_pages, page_table, [("kv_len", kv_len)], nh,
-        [("k_scale", k_scale), ("v_scale", v_scale)])
+        [("k_scale", k_scale), ("v_scale", v_scale)], lib)
     out = torch.empty((S, nh, hd), dtype=q.dtype, device=q.device)
+    splits = rpa_splits(S, nkv, W)
+    part = torch.empty(splits * S * nh * (hd + 2), dtype=torch.float32, device=q.device)
     err = lib.mdt_rpa_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        kv_len.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(), S, nh, nkv, hd,
-        pg, W, q.stride(0), q.stride(1), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+        kv_len.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(), part.data_ptr(),
+        S, nh, nkv, hd, pg, W, splits,
+        q.stride(0), q.stride(1), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
         _DTYPE_CODE[k_pages.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

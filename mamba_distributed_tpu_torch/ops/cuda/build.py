@@ -140,6 +140,15 @@ def ptxas_instances(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
+def hgmma_counts(lib: Path) -> dict[str, int]:
+    """HGMMA instructions per kernel in a built library's SASS
+    (``cuobjdump -sass``, beside ``nvcc``)."""
+    sass = subprocess.run([str(Path(nvcc_path()).with_name("cuobjdump")), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return {chunk.split("\n", 1)[0].strip(): len(re.findall(r"\bHGMMA\.", chunk))
+            for chunk in sass.split("Function : ")[1:]}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name`` (building it first if needed)."""
     lib = _LOADED.get(name)

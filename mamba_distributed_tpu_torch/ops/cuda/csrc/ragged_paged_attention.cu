@@ -32,13 +32,24 @@
 // guarded where m = -inf; p rounded to V's dtype before the PV product;
 // out = acc / max(den, 1e-30), so a row with nothing to read emits zeros.
 // Products of two bf16 values are exact in fp32, so a bf16 result differs
-// from the plain PyTorch version only by summation order.
+// from the plain PyTorch version only by summation order and, in the
+// decode, by where p is rounded: the TPU kernel rounds exp(s - m) with m
+// the running maximum over whole pages of the row; the split decode
+// rounds it with m the running maximum of the steps its warp has walked
+// in its page range (see Design), and the merges rescale each warp's and
+// each range's fp32 sums by exp(m_part - m_all).  That moves each PV term by at most a
+// bf16 rounding (2^-9 relative), inside the bf16 tolerance of 3e-2
+// (tests/test_torch_decode_split.py holds a plain model of it against the
+// JAX kernel).
 //
 // Int8 pages (q, the chunk K/V and the output stay bf16 or fp32):
 //   decode   score = dot(q, k_int8) * (ks[phys, g] * sm_scale), the scalar
-//            product first (:565-570); each block's PV product is
-//            multiplied by vs[phys, g] before it joins the rescaled
-//            accumulator (:588-593); p is NOT rounded (fp32 throughout).
+//            product first (:565-570); p (NOT rounded, fp32 throughout)
+//            times vs[phys, g] multiplies each V code before it joins the
+//            rescaled accumulator, where the TPU kernel multiplies each
+//            page's PV sum by vs (:588-593): the same sum, rounded in fp32
+//            at other places.  Splits and steps never cross a page, so one
+//            (ks, vs) pair holds for every key of a step.
 //   prefill  the write rewrites EVERY row of each write-window page (a page
 //            j with j*pg + pg > ln, j*pg < total, chunk_real > 0): a row at
 //            ln <= kpos < total gets kv_quantize(fresh row, ksn) =
@@ -56,12 +67,36 @@
 //   is IEEE `/` (this file is built without fast math), so the written pages
 //   and scales are bit-identical to the plain version's.
 //
-// Design.  The decode, the write kernels and the CUDA-core attend: one CTA
-// of 256 threads per (slot, KV head) for decode, per (row, KV head, tile of
-// 64 query rows) for the prefill attend (query rows are the (chunk
-// position, GQA rep) pairs in the TPU kernel's order i * rep + e).  The
-// page walk reads keys in blocks of at most 64 tokens that never cross a
-// page; each block's K and V land in shared memory as fp32 (rows padded to
+// Design.  The decode (rpa_split_kernel) is split-K over each row's pages:
+// the grid covers (split, KV head, slot), a split being a range of whole
+// pages (rpa_splits: enough ranges for about two CTAs per SM, never more
+// than W), one CTA of four warps each.  The warps take the range's steps
+// in turn; a step is 4 G keys that never cross a page: G = 32 / Lk groups
+// of Lk lanes, each group one key, each lane a 16-byte vector of it (8
+// bytes of int8 codes; at hd 64 in bf16 a key is 8 lanes x 16 B).  A warp
+// keeps its rep query rows (up to four at a time) in registers; the scores
+// are dot products reduced by shuffles over the Lk lanes, the step's
+// maximum over the groups by shuffles too, so every group of a warp
+// rescales alike; each warp's next step's K and V loads are in flight
+// during this step's math; the range's page entries are read once, a page
+// per lane, before the walk.  The CTA merges its warps' (m, den, acc) in
+// warp order in shared memory and writes the range's partial in fp32 to a
+// workspace; a range with no key writes m = -inf (and zeros) and adds
+// nothing.  A second small kernel (rpa_combine_kernel, one CTA per (slot,
+// KV head)) combines the ranges in their order, so two launches give the
+// same bits; with one range the walk writes the output itself.  Tried
+// first and measured slower (PERF.md, Findings): a warp per range, whose
+// walk waited on the table at every step, and a ticketed combine in the
+// last warp to finish, which waited on a fence, an atomic and dependent
+// reads of the other SMs' partials.  This stays on the CUDA cores: with rep = 3
+// query rows per KV head (hybrid-280m: 12/4 heads) a 64-row wgmma tile
+// would sit about 95% idle.
+//
+// The write kernels and the CUDA-core attend: one CTA of 256 threads per
+// (row, KV head, tile of 64 query rows) for the prefill attend (query rows
+// are the (chunk position, GQA rep) pairs in the TPU kernel's order i * rep
+// + e).  The page walk reads keys in blocks of at most 64 tokens that
+// never cross a page; each block's K and V land in shared memory as fp32 (rows padded to
 // hd + 1 floats, so neither the score nor the PV loop has bank conflicts),
 // and the walk stops at the tile's own largest query position.  Scores,
 // row statistics and the accumulator stay in shared memory; the products
@@ -103,14 +138,16 @@
 // chunk is 48 attend CTAs on 132 SMs, each a walk of at most 7 tiles, and
 // the write kernel before it (PERF.md: about 0.02 ms of device time a
 // call in bf16, 0.04 in int8, against 0.21-0.23 on CUDA cores).  The
-// decode uses no tensor cores, and one CTA per (slot, KV head) walks
-// every page of a decode row alone.
+// decode is latency-bound too: eight slots of a few thousand live tokens
+// are about 3 MB, under a microsecond of bytes, so the split count and the
+// loads in flight per warp decide its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -185,14 +222,12 @@ __device__ inline Smem carve(char* base, int rows, int hd) {
   return sm;
 }
 
-// The shared body: `nrows` query rows (offsets and positions already in
-// sm) of KV head `g` attend keys [0, walk_end) of one row's pages,
-// masked to kpos <= qpos and kpos < n_keys.  PT is the page type: T, or
-// int8_t with the (P, nkv) scales k_scale and v_scale.  kFold (decode)
-// folds the K scale into the score scale and applies the V scale to
-// each block's PV product; otherwise (prefill) an int8 block is
-// dequantized as it is loaded.
-template <typename T, typename PT, bool kFold>
+// The CUDA-core prefill attend's body: `nrows` query rows (offsets and
+// positions already in sm) of KV head `g` attend keys [0, walk_end) of one
+// row's pages, masked to kpos <= qpos and kpos < n_keys.  PT is the page
+// type: T, or int8_t with the (P, nkv) scales k_scale and v_scale, by
+// which an int8 block is dequantized as it is loaded.
+template <typename T, typename PT>
 __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __restrict__ out,
                        const PT* __restrict__ k_pages, const PT* __restrict__ v_pages,
                        const float* __restrict__ k_scale, const float* __restrict__ v_scale,
@@ -218,20 +253,15 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
     const int nk = min(kKeys, min(pg - t0, walk_end - k0));
     const long long cell = (long long)tbl_row[j] * nkv + g;
     const long long base = cell * pg * hd + (long long)t0 * hd;
-    // the block's score scale and V scale (1 where no scale applies)
-    [[maybe_unused]] float kmul = sm_scale, vmul = 1.f, kdq = 1.f, vdq = 1.f;
+    // the block's dequantization scales (1 where no scale applies)
+    [[maybe_unused]] float kdq = 1.f, vdq = 1.f;
     if constexpr (kQuant) {
-      if constexpr (kFold) {
-        kmul = k_scale[cell] * sm_scale;
-        vmul = v_scale[cell];
-      } else {
-        kdq = k_scale[cell];
-        vdq = v_scale[cell];
-      }
+      kdq = k_scale[cell];
+      vdq = v_scale[cell];
     }
     for (int e = tid; e < nk * hd; e += kThreads) {
       const int t = e / hd, d = e % hd;
-      if constexpr (kQuant && !kFold) {
+      if constexpr (kQuant) {
         sm.K[t * hp + d] = to_f<PT>(k_pages[base + e]) * kdq;
         sm.V[t * hp + d] = to_f<PT>(v_pages[base + e]) * vdq;
       } else {
@@ -250,7 +280,7 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
         const float* kt = sm.K + t * hp;
         float dot = 0.f;
         for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kt[d], dot);
-        s = dot * kmul;
+        s = dot * sm_scale;
       }
       sm.S[r * kKeys + t] = s;
     }
@@ -288,10 +318,6 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
         float a = sm.acc[e] * sm.scale[r];
         for (int t = 0; t < nk; ++t) a = fmaf(rnd<T>(prow[t]), sm.V[t * hp + d], a);
         sm.acc[e] = a;
-      } else if constexpr (kFold) {
-        float pv = 0.f;
-        for (int t = 0; t < nk; ++t) pv = fmaf(prow[t], sm.V[t * hp + d], pv);
-        sm.acc[e] = sm.acc[e] * sm.scale[r] + pv * vmul;
       } else {
         float a = sm.acc[e] * sm.scale[r];
         for (int t = 0; t < nk; ++t) a = fmaf(prow[t], sm.V[t * hp + d], a);
@@ -308,6 +334,68 @@ __device__ void attend(const Smem& sm, int nrows, const T* __restrict__ q, T* __
   }
 }
 
+// ------------------------------------------------- the split-K decode
+// The one split rule, here and in the Python wrapper
+// (attention_kernels.rpa_splits): a row's W pages are cut into ranges of
+// `pps` whole pages, enough ranges that S * nkv * splits reaches about two
+// CTAs on each of the H100's 132 SMs (what their registers let run at
+// once), and never more ranges than pages.
+constexpr int kSplitTargetCtas = 2 * 132;
+__host__ __device__ inline int rpa_split_pages(int S, int nkv, int W) {
+  const int items = S * nkv;
+  const int splits = max(1, min(W, (kSplitTargetCtas + items - 1) / items));
+  return (W + splits - 1) / splits;
+}
+__host__ __device__ inline int rpa_splits(int S, int nkv, int W) {
+  const int pps = rpa_split_pages(S, nkv, W);
+  return (W + pps - 1) / pps;
+}
+
+constexpr int kDecWarps = 4;  // warps per split (a CTA)
+constexpr int kKeysPerLane = 4;  // keys a lane group takes per step
+
+// a lane's share of a K or V row: Vec<PT>::N elements read as one vector
+// (16 bytes; 8 for int8 codes)
+template <typename PT> struct Vec;
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+};
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  using Raw = uint4;
+};
+template <> struct Vec<int8_t> {
+  static constexpr int N = 8;
+  using Raw = uint2;
+};
+
+// elements [d0, d0 + N) of a row (zeros past hd), as one vector load when
+// the rows are vector-aligned
+template <typename PT>
+__device__ __forceinline__ typename Vec<PT>::Raw load_vec(const PT* __restrict__ row, int d0,
+                                                         int hd, bool vec_ok) {
+  using Raw = typename Vec<PT>::Raw;
+  Raw r{};
+  if (d0 >= hd) return r;
+  if (vec_ok) return __ldg(reinterpret_cast<const Raw*>(row + d0));
+  PT tmp[Vec<PT>::N];
+  memset(tmp, 0, sizeof(tmp));
+#pragma unroll
+  for (int i = 0; i < Vec<PT>::N; ++i)
+    if (d0 + i < hd) tmp[i] = row[d0 + i];
+  memcpy(&r, tmp, sizeof(r));
+  return r;
+}
+
+template <typename PT>
+__device__ __forceinline__ void unpack(float (&f)[Vec<PT>::N], const typename Vec<PT>::Raw& r) {
+  PT tmp[Vec<PT>::N];
+  memcpy(tmp, &r, sizeof(r));
+#pragma unroll
+  for (int i = 0; i < Vec<PT>::N; ++i) f[i] = to_f<PT>(tmp[i]);
+}
+
 struct DecodeParams {
   const void* q;
   const void* k_pages;
@@ -315,31 +403,273 @@ struct DecodeParams {
   const int* table;
   const int* kv_len;
   void* out;
-  int nh, nkv, hd, pg, W;
+  int S, nh, nkv, hd, pg, W;
   long long q_ss, q_sh;
   float sm_scale;
   const float* k_scale;  // int8 pages: (P, nkv) scales; null otherwise
   const float* v_scale;
+  float* part;  // per split: m[rep], den[rep], acc[rep][hd]
+  int pps, splits;
 };
 
-template <typename T, typename PT>
-__global__ void __launch_bounds__(kThreads) rpa_fwd_kernel(DecodeParams p) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const int g = blockIdx.x, s = blockIdx.y;
-  const int rep = p.nh / p.nkv;
-  const Smem sm = carve(smem_raw, rep, p.hd);
-  const int kv_len = min(p.kv_len[s], p.W * p.pg);
-  for (int e = threadIdx.x; e < rep; e += kThreads) {
-    const int head = g * rep + e;
-    sm.q_off[e] = s * p.q_ss + head * p.q_sh;
-    sm.o_off[e] = ((long long)s * p.nh + head) * p.hd;
-    sm.qpos[e] = kv_len - 1;
+// One CTA of kDecWarps warps per (split, KV head g, slot s): RG of the rep
+// query rows at a time, in registers, walk the split's pages in steps of
+// kKeysPerLane * G keys inside one page (G = 32 / Lk lane groups of Lk
+// lanes, each group one key, each lane Vec::N elements of it), warp w
+// taking steps w, w + kDecWarps, ..., each warp's next step's K and V
+// loads in flight during this step's math.  Scores: the Lk-lane dot
+// product reduced by shuffles; each warp's running max m is taken over
+// each of its steps' keys (shuffles across the groups), so every group
+// rescales alike and den and acc stay per group until the walk ends.  The
+// split's page entries (and int8 scales) are read once, a page per lane,
+// and handed out by shuffles, so no step waits on a table read.  The CTA
+// merges its warps' (m, den, acc) in warp order in shared memory and
+// writes the split's partial to the workspace for rpa_combine_kernel; with
+// one split it writes the output itself.
+template <typename T, typename PT, int RG>
+__global__ void __launch_bounds__(32 * kDecWarps, 1) rpa_split_kernel(DecodeParams p) {
+  constexpr bool kQuant = std::is_same<PT, int8_t>::value;
+  constexpr int VN = Vec<PT>::N;
+  using Raw = typename Vec<PT>::Raw;
+  __shared__ float sh_m[kDecWarps][RG], sh_den[kDecWarps][RG];
+  __shared__ float sh_acc[kDecWarps][RG][kMaxHeadDim];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int split = blockIdx.x, g = blockIdx.y, s = blockIdx.z;
+  const int item = (s * p.nkv + g) * p.splits + split;
+  const int rep = p.nh / p.nkv, hd = p.hd, pg = p.pg;
+
+  int Lk = 1;  // lanes per key: a power of two covering hd
+  while (Lk * VN < hd) Lk *= 2;
+  const int G = 32 / Lk, grp = lane / Lk, d0 = (lane % Lk) * VN;
+  const int kstep = kKeysPerLane * G, spp = (pg + kstep - 1) / kstep;
+  const int j0 = split * p.pps;  // the split's first page
+  const int key_lo = j0 * pg;
+  // the split's pages, one a lane (a split of more than 32 pages reads the
+  // table at each step), read before the row's length is known: a table's
+  // entries always name pages of the pool
+  const int np = min(p.pps, p.W - j0);
+  const bool pre = np <= 32;
+  const int* tbl = p.table + (long long)s * p.W;
+  int my_phys = 0;
+  [[maybe_unused]] float my_km = 0.f, my_vm = 0.f;
+  if (pre && lane < np) {
+    my_phys = tbl[j0 + lane];
+    if constexpr (kQuant) {
+      const long long cell = (long long)my_phys * p.nkv + g;
+      my_km = p.k_scale[cell] * p.sm_scale;
+      my_vm = p.v_scale[cell];
+    }
   }
-  __syncthreads();
-  attend<T, PT, true>(sm, rep, static_cast<const T*>(p.q), static_cast<T*>(p.out),
-                      static_cast<const PT*>(p.k_pages), static_cast<const PT*>(p.v_pages),
-                      p.k_scale, p.v_scale, p.table + (long long)s * p.W, p.nkv, g, p.pg,
-                      p.hd, kv_len, max(kv_len, 0), p.sm_scale);
+  const int kv_len = min(p.kv_len[s], p.W * pg);
+  const int key_hi = min(key_lo + p.pps * pg, kv_len);
+  int n_steps = 0;
+  if (key_hi > key_lo) {
+    const int jl = (key_hi - 1) / pg;
+    n_steps = (jl - j0) * spp + (key_hi - 1 - jl * pg) / kstep + 1;
+  }
+  const PT* kp = static_cast<const PT*>(p.k_pages);
+  const PT* vp = static_cast<const PT*>(p.v_pages);
+  const bool vec_ok = hd % VN == 0 &&
+                      (reinterpret_cast<uintptr_t>(kp) | reinterpret_cast<uintptr_t>(vp)) %
+                              sizeof(Raw) == 0;
+  const int stride = rep * (hd + 2);
+  float* wm = p.part + (long long)item * stride;
+  float* wden = wm + rep;
+  float* wacc = wden + rep;
+
+  for (int r0 = 0; r0 < rep; r0 += RG) {
+    float q[RG][VN], acc[RG][VN], m[RG], den[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      const T* qr = static_cast<const T*>(p.q) + s * p.q_ss + (g * rep + r0 + r) * p.q_sh;
+#pragma unroll
+      for (int i = 0; i < VN; ++i) {
+        q[r][i] = r0 + r < rep && d0 + i < hd ? to_f<T>(qr[d0 + i]) : 0.f;
+        acc[r][i] = 0.f;
+      }
+      m[r] = -CUDART_INF_F;
+      den[r] = 0.f;
+    }
+
+    // step t: page j0 + t / spp, keys off + u G + grp of it (u < kKeysPerLane)
+    Raw kr[kKeysPerLane], vr[kKeysPerLane];
+    float kmul = p.sm_scale, vmul = 1.f;
+    auto issue = [&](int t, Raw (&kn)[kKeysPerLane], Raw (&vn)[kKeysPerLane], float& km,
+                     float& vm) {
+      const int jj = t / spp, off = (t % spp) * kstep;
+      const int phys = pre ? __shfl_sync(0xffffffffu, my_phys, jj) : tbl[j0 + jj];
+      const long long cell = (long long)phys * p.nkv + g;
+      if constexpr (kQuant) {
+        km = pre ? __shfl_sync(0xffffffffu, my_km, jj) : p.k_scale[cell] * p.sm_scale;
+        vm = pre ? __shfl_sync(0xffffffffu, my_vm, jj) : p.v_scale[cell];
+      }
+#pragma unroll
+      for (int u = 0; u < kKeysPerLane; ++u) {
+        const int kin = off + u * G + grp;  // key index inside the page
+        const long long row = (cell * pg + kin) * hd;
+        // any key of the page (past the row's length too: the math masks it)
+        kn[u] = kin < pg ? load_vec<PT>(kp + row, d0, hd, vec_ok) : Raw{};
+        vn[u] = kin < pg ? load_vec<PT>(vp + row, d0, hd, vec_ok) : Raw{};
+      }
+    };
+    // the first step is read before the row's length is known
+    if (warp < np * spp) issue(warp, kr, vr, kmul, vmul);
+    for (int t = warp; t < n_steps; t += kDecWarps) {
+      Raw kn[kKeysPerLane], vn[kKeysPerLane];
+      float kmn = p.sm_scale, vmn = 1.f;
+      if (t + kDecWarps < n_steps) issue(t + kDecWarps, kn, vn, kmn, vmn);
+      const int j = j0 + t / spp, off = (t % spp) * kstep;
+      float sc[kKeysPerLane][RG];
+#pragma unroll
+      for (int u = 0; u < kKeysPerLane; ++u) {
+        float kf[VN];
+        unpack<PT>(kf, kr[u]);
+        const int kin = off + u * G + grp;
+        const bool ok = kin < pg && j * pg + kin < key_hi;
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int i = 0; i < VN; ++i) dot = fmaf(q[r][i], kf[i], dot);
+          for (int o = 1; o < Lk; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          sc[u][r] = ok ? dot * kmul : -CUDART_INF_F;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        float mx = sc[0][r];
+#pragma unroll
+        for (int u = 1; u < kKeysPerLane; ++u) mx = fmaxf(mx, sc[u][r]);
+        for (int o = Lk; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = m[r] > -CUDART_INF_F ? expf(m[r] - m_new) : 0.f;
+        m[r] = m_new;
+        den[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < VN; ++i) acc[r][i] *= alpha;
+#pragma unroll
+        for (int u = 0; u < kKeysPerLane; ++u) {
+          const float pu = sc[u][r] > -CUDART_INF_F ? expf(sc[u][r] - m_new) : 0.f;
+          den[r] += pu;  // den sums the unrounded p
+          // bf16 pages: p rounded to V's dtype; int8: p unrounded, times
+          // the page's V scale
+          float pv = pu * vmul;
+          if constexpr (!kQuant) pv = rnd<PT>(pu);
+          float vf[VN];
+          unpack<PT>(vf, vr[u]);
+#pragma unroll
+          for (int i = 0; i < VN; ++i) acc[r][i] = fmaf(pv, vf[i], acc[r][i]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kKeysPerLane; ++u) {
+        kr[u] = kn[u];
+        vr[u] = vn[u];
+      }
+      kmul = kmn;
+      vmul = vmn;
+    }
+
+    // the warp's partial: den and acc summed over the lane groups
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      for (int o = Lk; o < 32; o <<= 1) {
+        den[r] += __shfl_xor_sync(0xffffffffu, den[r], o);
+#pragma unroll
+        for (int i = 0; i < VN; ++i) acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+      }
+      if (lane == 0) {
+        sh_m[warp][r] = m[r];
+        sh_den[warp][r] = den[r];
+      }
+      if (grp == 0) {
+#pragma unroll
+        for (int i = 0; i < VN; ++i)
+          if (d0 + i < hd) sh_acc[warp][r][d0 + i] = acc[r][i];
+      }
+    }
+    __syncthreads();
+    // the split's partial: the warps merged in order (a warp with no key
+    // has m = -inf and adds nothing); with one split, the output
+    for (int e = threadIdx.x; e < RG * hd; e += 32 * kDecWarps) {
+      const int r = e / hd, d = e % hd;
+      if (r0 + r >= rep) continue;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sh_m[w][r]);
+      float dsum = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) {
+        const float f = sh_m[w][r] > -CUDART_INF_F ? expf(sh_m[w][r] - mx) : 0.f;
+        dsum = fmaf(sh_den[w][r], f, dsum);
+        a = fmaf(sh_acc[w][r][d], f, a);
+      }
+      if (p.splits == 1) {
+        static_cast<T*>(p.out)[((long long)s * p.nh + g * rep + r0 + r) * hd + d] =
+            from_f<T>(a / fmaxf(dsum, 1e-30f));
+        continue;
+      }
+      if (d == 0) {
+        wm[r0 + r] = mx;
+        wden[r0 + r] = dsum;
+      }
+      wacc[(r0 + r) * hd + d] = a;  // zeros for a split with no key
+    }
+    __syncthreads();  // the shared partials are read before the next rows overwrite them
+  }
+}
+
+// The combine: one CTA per (slot s, KV head g), a thread per (query row,
+// hd element) at a time.  The row's maximum over the splits, then den and
+// acc summed over the splits in order with weights exp(m_split - m_row)
+// (a split with no key has m = -inf and weight 0); out = acc / max(den,
+// 1e-30).  Every load of a split is independent of the others.
+constexpr int kCombineRegs = 16;  // splits the combine holds in registers at once
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rpa_combine_kernel(DecodeParams p) {
+  const int g = blockIdx.x, s = blockIdx.y;
+  const int rep = p.nh / p.nkv, hd = p.hd;
+  const int stride = rep * (hd + 2);
+  const float* part0 = p.part + ((long long)s * p.nkv + g) * p.splits * stride;
+  T* out = static_cast<T*>(p.out) + ((long long)s * p.nh + g * rep) * hd;
+  for (int e = threadIdx.x; e < rep * hd; e += kThreads) {
+    const int r = e / hd;
+    if (p.splits <= kCombineRegs) {  // every split's (m, den, acc) read in one round
+      float mv[kCombineRegs], dv[kCombineRegs], av[kCombineRegs];
+#pragma unroll
+      for (int sp = 0; sp < kCombineRegs; ++sp) {
+        const float* w = part0 + sp * stride;
+        mv[sp] = sp < p.splits ? __ldg(w + r) : -CUDART_INF_F;
+        dv[sp] = sp < p.splits ? __ldg(w + rep + r) : 0.f;
+        av[sp] = sp < p.splits ? __ldg(w + 2 * rep + e) : 0.f;
+      }
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int sp = 0; sp < kCombineRegs; ++sp) mx = fmaxf(mx, mv[sp]);
+      float dsum = 0.f, a = 0.f;
+#pragma unroll
+      for (int sp = 0; sp < kCombineRegs; ++sp) {
+        const float f = mv[sp] > -CUDART_INF_F ? expf(mv[sp] - mx) : 0.f;
+        dsum = fmaf(dv[sp], f, dsum);
+        a = fmaf(av[sp], f, a);
+      }
+      out[e] = from_f<T>(a / fmaxf(dsum, 1e-30f));
+      continue;
+    }
+    float mx = -CUDART_INF_F;
+#pragma unroll 8
+    for (int sp = 0; sp < p.splits; ++sp) mx = fmaxf(mx, __ldg(part0 + sp * stride + r));
+    float dsum = 0.f, a = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < p.splits; ++sp) {
+      const float* w = part0 + sp * stride;
+      const float ms = __ldg(w + r);
+      const float f = ms > -CUDART_INF_F ? expf(ms - mx) : 0.f;
+      dsum = fmaf(__ldg(w + rep + r), f, dsum);
+      a = fmaf(__ldg(w + 2 * rep + e), f, a);
+    }
+    out[e] = from_f<T>(a / fmaxf(dsum, 1e-30f));
+  }
 }
 
 struct PrefillParams {
@@ -441,7 +771,7 @@ __global__ void __launch_bounds__(kThreads) rpp_attend_kernel(PrefillParams p) {
   // this tile's page walk stops at its own largest query position
   const int qpos_max = max(ln + (s0 + nrows - 1) / rep - pad, 0);
   const int walk_end = min(total, qpos_max + 1);
-  attend<T, PT, false>(sm, nrows, static_cast<const T*>(p.q), static_cast<T*>(p.out),
+  attend<T, PT>(sm, nrows, static_cast<const T*>(p.q), static_cast<T*>(p.out),
                        static_cast<const PT*>(p.k_pages), static_cast<const PT*>(p.v_pages),
                        p.k_scale_new, p.v_scale_new, p.table + (long long)r * p.W, p.nkv, g,
                        p.pg, p.hd, total, walk_end, p.sm_scale);
@@ -712,11 +1042,16 @@ cudaError_t attend_tc(const PrefillParams& p, int b, cudaStream_t stream) {
 template <typename T, typename PT>
 cudaError_t launch_decode(const DecodeParams& p, int S, cudaStream_t stream) {
   const int rep = p.nh / p.nkv;
-  const size_t smem = smem_bytes(rep, p.hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      rpa_fwd_kernel<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  rpa_fwd_kernel<T, PT><<<dim3(p.nkv, S), kThreads, smem, stream>>>(p);
+  const dim3 grid(p.splits, p.nkv, S);
+  switch (min(rep, 4)) {  // query rows held in registers at a time
+    case 1: rpa_split_kernel<T, PT, 1><<<grid, 32 * kDecWarps, 0, stream>>>(p); break;
+    case 2: rpa_split_kernel<T, PT, 2><<<grid, 32 * kDecWarps, 0, stream>>>(p); break;
+    case 3: rpa_split_kernel<T, PT, 3><<<grid, 32 * kDecWarps, 0, stream>>>(p); break;
+    default: rpa_split_kernel<T, PT, 4><<<grid, 32 * kDecWarps, 0, stream>>>(p); break;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  rpa_combine_kernel<T><<<dim3(p.nkv, S), kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -785,19 +1120,29 @@ extern "C" int mdt_rpa_max_head_dim() { return kMaxHeadDim; }
 // 1 when a prefill of q's dtype code, head dim and page size runs the
 // tensor-core attend (the wrapper's rpp_uses_tensor_cores is held to it)
 extern "C" int mdt_rpp_uses_tc(int dtype, int hd, int pg) { return uses_tc(dtype, hd, pg); }
+// the decode's split count for S slots, nkv KV heads and W pages a slot
+// (the wrapper's rpa_splits is held to it)
+extern "C" int mdt_rpa_splits(int S, int nkv, int W) { return rpa_splits(S, nkv, W); }
 
 // Both return a cudaError_t (0 on success).  dtype: 0 = float32, 1 =
 // bfloat16 (q, chunk K/V, output); page_dtype: the same code as dtype, or
 // 2 = int8, which takes the scale pointers (null for the other pages).
+// The decode also takes its fp32 workspace, splits * S * nh * (hd + 2)
+// floats (unused with one split), and the split count it was sized for
+// (refused unless it is mdt_rpa_splits').  It launches the walk, then,
+// with more than one split, the combine.
 extern "C" int mdt_rpa_fwd(const void* q, const void* k_pages, const void* v_pages,
                            const int* table, const int* kv_len, const float* k_scale,
-                           const float* v_scale, void* out, int S, int nh, int nkv, int hd,
-                           int pg, int W, long long q_ss, long long q_sh, float sm_scale,
-                           int dtype, int page_dtype, void* stream) {
-  if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1 || (k_scale == nullptr) != (v_scale == nullptr))
+                           const float* v_scale, void* out, float* part, int S,
+                           int nh, int nkv, int hd, int pg, int W, int splits, long long q_ss,
+                           long long q_sh, float sm_scale, int dtype, int page_dtype,
+                           void* stream) {
+  if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1 ||
+      (k_scale == nullptr) != (v_scale == nullptr) || splits != rpa_splits(S, nkv, W))
     return (int)cudaErrorInvalidValue;
-  DecodeParams p{q,  k_pages, v_pages, table, kv_len,   out,     nh,     nkv, hd,
-                 pg, W,       q_ss,    q_sh,  sm_scale, k_scale, v_scale};
+  DecodeParams p{q,        k_pages, v_pages, table, kv_len,  out,   S,    nh,
+                 nkv,      hd,      pg,      W,     q_ss,    q_sh,  sm_scale,
+                 k_scale,  v_scale, part,    rpa_split_pages(S, nkv, W), splits};
   return (int)dispatch<Decode>(p, S, dtype, page_dtype, k_scale != nullptr,
                                static_cast<cudaStream_t>(stream));
 }

@@ -177,18 +177,20 @@ def _check_common(name, qt, kt, vt, tk_valid, do=None, lse=None, delta=None, lib
     return lib, b, nh, nkv, tq, tk, hd
 
 
-def tma_layout_problem(shape, strides, elem_size: int, addr: int) -> str | None:
+def tma_layout_problem(shape, strides, elem_size: int, addr: int,
+                       dims=("batch", "head", "time")) -> str | None:
     """Why the tensor-core kernels' TMA copies cannot read a head-major
     (b, h, t, hd) tensor of this ``shape``, element ``strides`` and
     ``elem_size``, starting at byte address ``addr``; None when they can.
     TMA needs a 16-byte-aligned start, a contiguous head dim, and the
     (batch, head, time) strides of every dimension longer than 1 a
-    positive multiple of 16 bytes below 2**40 bytes."""
+    positive multiple of 16 bytes below 2**40 bytes.  ``dims`` names the
+    three outer dimensions in the message."""
     if addr % 16:
         return f"its data starts at byte {addr % 16} past a 16-byte boundary"
     if strides[-1] != 1:
         return f"its head dim has stride {strides[-1]}, not 1"
-    for dim, n, st in zip(("batch", "head", "time"), shape[:3], strides[:3]):
+    for dim, n, st in zip(dims, shape[:3], strides[:3]):
         nbytes = st * elem_size
         if n > 1 and (nbytes <= 0 or nbytes % 16 or nbytes >= 1 << 40):
             return (f"its {dim} stride is {st} elements ({nbytes} bytes), not a positive "

@@ -5,7 +5,10 @@ Counterpart of ``ssd_chunked_pallas`` and its ``custom_vjp``
 kernels, each beside its plain PyTorch version:
 
 * ``ssd_fwd`` (``csrc/ssd_fwd.cu``) replaces ``_ssd_fused_fwd_kernel``
-  (ssd_kernels.py:164): the forward, state carried on chip;
+  (ssd_kernels.py:164): the forward, state carried on chip; in bf16 at
+  headdim 64 and d_state 64 or 128 (``ssd_uses_tensor_cores``, the C
+  dispatch's rule too) a ``wgmma`` kernel that reads x, B and C by TMA,
+  else a CUDA-core kernel;
 * ``ssd_chunk_states`` (``csrc/ssd_bwd.cu``) replaces
   ``_chunk_states_kernel`` (:61): the per-chunk state summaries the
   backward recomputes;
@@ -36,6 +39,7 @@ import torch
 
 from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import tma_layout_problem
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
 from mamba_distributed_tpu_torch.ops.ssd import (
     _add_D,
@@ -52,13 +56,29 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # ssd_bwd.cu's ``mdt_*_supports``; ``chip_smoke.py`` holds the two to
 # agree); ``ops/dispatch.check_kernel_shapes`` refuses any other
 BUILT_SHAPES = frozenset({(32, 64), (32, 128), (64, 64), (64, 128), (128, 128)})
+# the (headdim, d_state) pairs of the tensor-core forward (``mdt_ssd_uses_tc``)
+TC_SHAPES = frozenset({(64, 64), (64, 128)})
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def ssd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int) -> bool:
+    """Whether a forward with x of ``dtype``, headdim ``p`` and d_state
+    ``n`` runs the tensor-core kernel (the C dispatch's rule)."""
+    return dtype == torch.bfloat16 and (p, n) in TC_SHAPES
 
 
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     """The forward library with its C signatures declared (built at first use)."""
-    lib = build.load("ssd_fwd")
+    lib = declare_fwd(build.load("ssd_fwd"))
+    lib.mdt_ssd_uses_tc.argtypes = [_I, _I, _I]
+    lib.mdt_ssd_uses_tc.restype = _I
+    return lib
+
+
+def declare_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``ssd_fwd.cu``) with the C signatures of its
+    forward and its shape table declared."""
     lib.mdt_ssd_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 12 + [_I, _P]
     lib.mdt_ssd_fwd.restype = _I
     lib.mdt_ssd_fwd_supports.argtypes = [_I, _I]
@@ -86,7 +106,8 @@ def _check(cond: bool, msg: str) -> None:
 
 def _check_inputs(x, dt, B, C, compute_dtype, supports) -> tuple:
     """Device, dtype, shape and stride checks shared by the three
-    kernels; returns (b, t, h, p, g, n)."""
+    kernels (x is on the card: the dispatch rule took the kernel); returns
+    (b, t, h, p, g, n)."""
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     _check(x.dtype in _DTYPE_CODE, f"x dtype {x.dtype} not float32/bfloat16")
@@ -102,7 +123,7 @@ def _check_inputs(x, dt, B, C, compute_dtype, supports) -> tuple:
     for name, v in (("x", x), ("B", B), ("C", C)):
         if v is None:
             continue
-        _check(v.is_cuda and v.device == x.device, f"{name} not on {x.device}")
+        _check(v.device == x.device, f"{name} not on {x.device}")
         _check(v.stride(-1) == 1, f"{name}'s last axis must be contiguous")
     _check(dt.device == x.device, "dt device")
     _check(bool(supports(p, n)), f"no kernel instance for headdim={p}, d_state={n}")
@@ -122,14 +143,29 @@ def _stream(x) -> int:
 # ------------------------------------------------------------------- forward
 
 
-def _ssd_fwd(x, dt, A, B, C, l: int, initial_state, compute_dtype):
+def _ssd_fwd(x, dt, A, B, C, l: int, initial_state, compute_dtype, lib=None):
     """Forward without D: (y in x's dtype, final state fp32).  Kernel 1
-    on a CUDA tensor, the plain ``ssd_chunked`` on a CPU tensor."""
+    on a CUDA tensor, the plain ``ssd_chunked`` on a CPU tensor.  On the
+    tensor-core route x, B and C are read by TMA: a view it cannot read
+    raises a ValueError that names it (never a copy).  ``lib``: another
+    build of ``ssd_fwd.cu`` (through ``declare_fwd``) to launch instead of
+    the package's."""
     if not use_kernel("pallas", x):
         return ssd_chunked(x, dt, A, B, C, chunk_size=l, initial_state=initial_state,
                            return_final_state=True, compute_dtype=compute_dtype)
-    lib = _fwd_lib()
+    lib = _fwd_lib() if lib is None else lib
     b, t, h, p, g, n = _check_inputs(x, dt, B, C, compute_dtype, lib.mdt_ssd_fwd_supports)
+    if ssd_uses_tensor_cores(x.dtype, p, n):
+        for name, v in (("x", x), ("B", B), ("C", C)):
+            # (batch, time, head or group, hd) as the (batch, head, time, hd)
+            # of the flash kernels' check
+            why = tma_layout_problem(
+                (v.shape[0], v.shape[2], v.shape[1], v.shape[3]),
+                (v.stride(0), v.stride(2), v.stride(1), v.stride(3)),
+                v.element_size(), v.data_ptr(),
+                dims=("batch", "group" if name != "x" else "head", "time"))
+            if why is not None:
+                raise ValueError(f"ssd_fwd: {name} cannot be read by TMA: {why}")
     _check(A.dtype == torch.float32 and tuple(A.shape) == (h,) and A.is_contiguous()
            and A.device == x.device, "A must be a contiguous fp32 (h,) on x's device")
     if initial_state is not None:

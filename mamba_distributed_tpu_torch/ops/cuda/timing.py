@@ -60,6 +60,86 @@ def rel_err(got, ref) -> tuple[float, float]:
     return err, err / max(float(ref.float().abs().max()), 1e-6)
 
 
+# ------------------------------------------------------------ SSD forward
+
+# the timed SSD forward: the serving chunk step (b 1, one 256-token chunk,
+# seeded) and one layer of the trainer's micro-batch (b 32, t 1024), at
+# mamba2-280m's widths: (b, t, chunk, g, seeded)
+SSD_TIMED = ((1, 256, 256, 1, True), (32, 1024, 256, 1, False))
+
+
+def ssd_inputs(gen, b, t, g, dtype, seeded, h=24, p=64, n=128):
+    """The SSD forward's inputs on the card at mamba2-280m's widths (24
+    heads of 64, d_state 128) unless given: x, B, C as slices of one (b,
+    t, h*p + 2*g*n) conv-output-like tensor (so the kernel reads them
+    through strides, as in the mixer), dt after softplus, A in -(1..16),
+    D ones, an initial state when ``seeded``."""
+    dev = "cuda"
+    di = h * p
+    xbc = torch.randn((b, t, di + 2 * g * n), generator=gen, device=dev).to(dtype)
+    x = xbc[..., :di].reshape(b, t, h, p)
+    B = xbc[..., di:di + g * n].reshape(b, t, g, n)
+    C = xbc[..., di + g * n:].reshape(b, t, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=gen, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((h,), generator=gen, device=dev) * 2.77)  # -(1..16)
+    s0 = (0.5 * torch.randn((b, h, p, n), generator=gen, device=dev)) if seeded else None
+    D = torch.ones((h,), device=dev)
+    return dict(x=x, dt=dt, A=A, B=B, C=C, D=D, initial_state=s0)
+
+
+def ssd_work(b, t, h, g, p, n, l, dtype, seeded):
+    """(bytes, flops) the SSD forward needs: each input read once, each
+    output written once; multiply-adds of the causal (lower-triangle)
+    intra-chunk products, the carried-state product and the state update."""
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (b * t * h * p * e * 2  # x, y
+              + b * t * h * 4 + h * 4  # dt, A
+              + 2 * b * t * g * n * e  # B, C
+              + b * h * p * n * 4 * (2 if seeded else 1))  # initial, final state
+    nc = t // l
+    macs = b * h * nc * ((n + p) * l * (l + 1) // 2 + 2 * l * p * n)
+    return nbytes, 2 * macs
+
+
+
+# ------------------------------------------------------------ paged decode
+
+# the timed paged decode: 8 slots of hybrid-280m's attention (12 query / 4
+# KV heads of 64, pages of 64, 16 pages a slot) at ragged lengths:
+# (S, nh, nkv, hd, pg, W, kv_len)
+RPA_TIMED = (8, 12, 4, 64, 64, 16, [0, 37, 128, 1024, 1, 500, 64, 999])
+
+
+def rpa_case(gen, S, nh, nkv, hd, pg, W, lens, dtype, quant):
+    """The arguments of ``ragged_paged_decode_attention`` for one mix: q,
+    a bf16/fp32 pool (or int8 pages and scales), disjoint tables."""
+    P = 1 + S * W
+    if quant:
+        (kp, vp), scales = int8_pool(gen, P, nkv, pg, hd)
+    else:
+        (kp, vp), scales = paged_pool(gen, P, nkv, pg, hd, dtype), []
+    q = torch.randn((S, nh, hd), generator=gen, device="cuda").to(dtype)
+    tbl = disjoint_table(gen, S, W, P)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return (q, kp, vp, tbl, kv_len, *scales)
+
+
+def rpa_work(args) -> tuple[int, int]:
+    """(bytes, flops) of one paged decode on ``rpa_case``'s arguments: the
+    live tokens' K and V, q and o, the table and lengths, and for int8
+    pages the live pages' two scales; 2 hd-long products per (query head,
+    live key)."""
+    q, kp, _, tbl, kv_len, *scales = args
+    S, nh, hd = q.shape
+    nkv, pg = kp.shape[1], kp.shape[2]
+    tokens = int(kv_len.sum())
+    live_pages = int(((kv_len + pg - 1) // pg).sum())
+    nbytes = (2 * tokens * nkv * hd * kp.element_size() + 2 * S * nh * hd * q.element_size()
+              + tbl.numel() * 4 + S * 4 + (2 * live_pages * nkv * 4 if scales else 0))
+    return nbytes, 4 * tokens * nh * hd
+
+
 # ----------------------------------------------------- paged prefill cases
 
 # the timed paged prefill: the second 256-token chunk of a 700-token

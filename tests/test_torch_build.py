@@ -6,6 +6,7 @@ a temporary copy of ``csrc/``; no ``nvcc`` is needed."""
 
 from __future__ import annotations
 
+import re
 import shutil
 
 import pytest
@@ -15,7 +16,7 @@ from mamba_distributed_tpu_torch.ops.cuda import build
 pytestmark = pytest.mark.torch
 
 HEADER = "hopper.cuh"
-INCLUDERS = ("flash_attention", "ragged_paged_attention")
+INCLUDERS = ("flash_attention", "ragged_paged_attention", "ssd_fwd")
 
 
 @pytest.fixture
@@ -67,3 +68,26 @@ def test_an_edited_source_changes_only_its_library(csrc_copy):
     src.write_text(src.read_text() + "\n// an edit\n")
     after = {n: build.library_path(n) for n in build.SOURCES}
     assert [n for n in build.SOURCES if after[n] != before[n]] == ["ssd_fwd"]
+
+
+def test_every_source_and_header_is_hashed_into_a_library():
+    """Each ``.cu`` under ``csrc/`` is a library's source and each ``.cuh``
+    is included by one, so that no edited kernel file can leave a stale
+    library in place."""
+    sources = {src.name for src in build.SOURCES.values()}
+    headers = set()
+    for src in build.SOURCES.values():
+        headers |= set(re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M))
+    for path in build.CSRC.iterdir():
+        if path.suffix == ".cu":
+            assert path.name in sources, f"{path.name} is not built"
+        elif path.suffix == ".cuh":
+            assert path.name in headers, f"{path.name} is included by no source"
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_an_edit_of_any_source_changes_its_library(csrc_copy, name):
+    before = build.library_path(name)
+    src = build.SOURCES[name]
+    src.write_text(src.read_text() + "\n// an edit\n")
+    assert build.library_path(name) != before
