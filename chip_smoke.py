@@ -8,13 +8,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together), fail if a tensor-core
    instance (flash forward, dq, dk/dv; the paged prefill attend; the SSD
-   forward) or a split-decode instance is missing or spills registers
-   (``-Xptxas -v``) or the tensor-core SSD forward has no HGMMA
-   instruction in its SASS, hold the Python tables of built shapes
-   (``ops/dispatch.check_kernel_shapes``) against each library's own
-   answers, and the paged prefill's and the SSD forward's dispatch rules
-   and the decode's split rule against the libraries', with hybrid-280m's
-   and mamba2-280m's shapes on the tensor cores;
+   forward; the SSD backward's two kernels), a split-decode instance or
+   the Mamba-1 backward is missing or spills registers (``-Xptxas -v``)
+   or a tensor-core SSD kernel has no HGMMA instruction in its SASS, hold
+   the Python tables of built shapes (``ops/dispatch.check_kernel_shapes``)
+   against each library's own answers, and the paged prefill's, the SSD
+   forward's and the SSD backward's dispatch rules and the decode's split
+   rule against the libraries', with hybrid-280m's and mamba2-280m's
+   shapes on the tensor cores;
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
    shapes, beside a bound from the bytes and operations the work needs
@@ -23,8 +24,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    CUDA cores) over l 64, 100 and 256, g 1 and 2, seeded and not, t
    shorter than l, two launches bit-identical, timed at the serving chunk
    (b 1, t 256) and the trainer's micro-batch (b 32, t 1024);
-   ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward) over g 1 and 2,
-   seeded and not, with and without a final-state cotangent, then the
+   ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward: bf16 at d_state
+   128 and 64 with chunks of 64-256 on the tensor cores, fp32 and a
+   ragged l 100 on CUDA cores) over g 1 and 2, seeded and not, with and
+   without a final-state cotangent, two launches bit-identical, then the
    whole ``SSDFunction``'s gradients against torch autograd of the plain
    forward, timed at a quarter of the trainer's micro-batch (b 8) and at
    one layer of the mamba2-280m train step (b 32, t 1024, chunk 256);
@@ -47,7 +50,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    layer of the hybrid-280m train step (b 32, t 1024); ``m1_scan``,
    ``m1_entry_states`` and ``m1_bwd`` (the Mamba-1 selective scan, fp32
    only) over d 1536, 1000 and a ragged 70, t 1024, 1000, 256 and 37,
-   seeded and not, with and without a final-state cotangent, then the
+   seeded and not, with and without a final-state cotangent, two launches
+   bit-identical, then the
    whole ``SelectiveScanFunction``'s gradients against torch autograd of
    the plain ``selective_scan_seq``, ``m1_scan`` timed at the serving
    chunk (b 1, t 256) and all three at one layer of the mamba1-280m
@@ -103,18 +107,22 @@ import torch
 import torch.nn.functional as F
 
 from mamba_distributed_tpu_torch.ops.cuda.timing import (
-    H100_BYTES_PER_S,
     RPA_TIMED,
     RPP_TIMED,
     SSD_TIMED,
+    TPU_M1_T_TILE,
     bound,
     cuda_ms,
     device_ms,
+    m1_bound,
+    m1_inputs,
+    m1_work,
     rel_err,
     rpa_case,
     rpa_work,
     rpp_case,
     rpp_work,
+    ssd_bwd_work,
     ssd_inputs,
     ssd_work,
 )
@@ -226,29 +234,16 @@ def check_ssd(gen):
     return row
 
 
-def ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfinal):
-    """(bytes, flops) of kernel 2 and of kernel 3, each input read once
-    and each output written once; kernel 3's multiply-adds are the
-    causal halves of G, dM, du, dB, dC plus the four l x p x n products
-    of the state terms (dy P, B dS, w dS, dy^T eC)."""
-    e = torch.finfo(dtype).bits // 8
-    nc = t // l
-    xs, bs, ts, ss = b * t * h * p * e, b * t * g * n * e, b * t * h * 4, b * nc * h * p * n * 4
-    st_bytes = b * h * p * n * 4
-    k2 = (xs + 2 * ts + bs + ss, 2 * b * h * nc * l * p * n)
-    k3_bytes = (3 * xs + 4 * ts + 2 * bs + ss + st_bytes * (2 if dfinal else 1)
-                + 2 * b * t * h * n * 4 + b * nc * h * 4)
-    macs = b * h * nc * (l * (l + 1) // 2 * (3 * n + 2 * p) + 4 * l * p * n)
-    return k2, (k3_bytes, 2 * macs)
-
-
 def check_ssd_bwd(gen):
     """Kernels 2 and 3 against their plain versions (same inputs, the
-    plain entering states fed to both), then the whole SSDFunction's
-    gradients against torch autograd of the plain ``ssd_chunked``; the
-    last two cases, a quarter of the trainer's micro-batch (b 8) and one
-    layer of the mamba2-280m train step (b 32, the shape of the training
-    run's launches and of the row), are timed."""
+    plain entering states fed to both), two launches of each bit-identical,
+    then the whole SSDFunction's gradients against torch autograd of the
+    plain ``ssd_chunked``.  Both routes of kernel 3's dispatch rule: bf16
+    at (headdim, d_state) (64, 128) and (64, 64) with chunks of 64, 128
+    and 256 on the tensor cores; fp32, and the ragged l 100, on the
+    CUDA-core kernel.  The last two cases, a quarter of the trainer's
+    micro-batch (b 8) and one layer of the mamba2-280m train step (b 32,
+    the shape of the training run's launches and of the row), are timed."""
     from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
     from mamba_distributed_tpu_torch.ops.ssd import (
         _divisor_chunk,
@@ -257,26 +252,29 @@ def check_ssd_bwd(gen):
         state_passing,
     )
 
-    cases = [  # (dtype, b, t, chunk, g, seeded, dfinal)
-        (torch.float32, 1, 64, 64, 1, False, False),
-        (torch.float32, 2, 512, 256, 2, True, True),
-        (torch.float32, 1, 300, 128, 2, False, True),  # l = 100: ragged row blocks
-        (torch.bfloat16, 1, 64, 64, 1, False, False),
-        (torch.bfloat16, 2, 512, 256, 2, True, True),
-        (torch.bfloat16, 1, 300, 128, 1, True, False),
-        (torch.bfloat16, 8, 1024, 256, 1, False, False),  # a quarter micro-batch (timed)
-        (torch.bfloat16, 32, 1024, 256, 1, False, False),  # one train-step layer (timed)
+    cases = [  # (dtype, b, t, chunk, g, seeded, dfinal, d_state)
+        (torch.float32, 1, 64, 64, 1, False, False, 128),
+        (torch.float32, 2, 512, 256, 2, True, True, 128),
+        (torch.float32, 1, 300, 128, 2, False, True, 128),  # l = 100: ragged row blocks
+        (torch.bfloat16, 1, 64, 64, 1, False, False, 128),  # one row block
+        (torch.bfloat16, 2, 512, 256, 2, True, True, 128),
+        (torch.bfloat16, 1, 300, 128, 1, True, False, 128),  # l = 100: CUDA cores in bf16
+        (torch.bfloat16, 2, 512, 128, 1, True, True, 64),
+        (torch.bfloat16, 1, 256, 256, 2, False, True, 64),
+        (torch.bfloat16, 8, 1024, 256, 1, False, False, 128),  # a quarter micro-batch (timed)
+        (torch.bfloat16, 32, 1024, 256, 1, False, False, 128),  # one train-step layer (timed)
     ]
     names = ("dx", "ddt_direct", "da", "dB_h", "dC_h", "dgamma", "dinit")
     rows, failures, shapes = [None, None], [], {"ssd_chunk_states": [], "ssd_bwd": []}
-    for dtype, b, t, chunk, g, seeded, dfin in cases:
-        inp = ssd_inputs(gen, b, t, g, dtype, seeded)
+    for dtype, b, t, chunk, g, seeded, dfin, n in cases:
+        inp = ssd_inputs(gen, b, t, g, dtype, seeded, n=n)
         x, dt, A, B, C, s0 = (inp[k] for k in ("x", "dt", "A", "B", "C", "initial_state"))
-        h, p, n = x.shape[2], x.shape[3], B.shape[3]
+        h, p = x.shape[2], x.shape[3]
         l = _divisor_chunk(t, chunk)
         a4 = chunk_log_decay(dt, A, l)
         a_cum = a4.reshape(b, t, h).contiguous()
         st_k = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype)
+        st_k2 = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype)
         st_p = sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype)
         prev, _ = state_passing(st_p, torch.exp(a4[:, :, -1]), s0)
         prev = prev.contiguous()
@@ -284,25 +282,31 @@ def check_ssd_bwd(gen):
         dfinal = torch.randn((b, h, p, n), generator=gen, device="cuda") if dfin else None
         args = (x, dt, a_cum, B, C, prev, dy, dfinal, l, dtype)
         got = sk.ssd_bwd_kernel(*args)
+        got2 = sk.ssd_bwd_kernel(*args)
         ref = sk.ssd_bwd_plain(*args)
         torch.cuda.synchronize()
-        tag = f"{str(dtype)[6:]} b={b} t={t} l={l} g={g} seeded={seeded} dfinal={dfin}"
+        same = bool(torch.equal(st_k, st_k2)) and all(
+            torch.equal(u, v) for u, v in zip(got, got2, strict=True))
+        route = ("tensor cores" if sk.ssd_bwd_uses_tensor_cores(dtype, p, n, l)
+                 else "CUDA cores")
+        tag = f"{str(dtype)[6:]} b={b} t={t} l={l} g={g} n={n} seeded={seeded} dfinal={dfin}"
         err2, rel2 = rel_err(st_k, st_p)
         errs = {nm: rel_err(a, r) for nm, a, r in zip(names, got, ref)}
         worst = max([rel2] + [r for _, r in errs.values()])
         finite = all(bool(torch.isfinite(v).all()) for v in (st_k, *got))
         print(f"check ssd_chunk_states {tag}: max_abs_err={err2:.3e} (rel {rel2:.2e}); "
-              f"ssd_bwd rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
-              + f"; tol rel {TOL[dtype]:.0e}", flush=True)
-        if not finite or worst > TOL[dtype]:
-            failures.append(f"ssd_chunk_states/ssd_bwd {tag}: finite={finite}, rel {worst:.3e}")
+              f"ssd_bwd ({route}) rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+              + f"; tol rel {TOL[dtype]:.0e}; 2 launches bit-identical: {same}", flush=True)
+        if not finite or worst > TOL[dtype] or not same:
+            failures.append(f"ssd_chunk_states/ssd_bwd {tag}: finite={finite}, rel {worst:.3e}, "
+                            f"2 launches bit-identical {same}")
 
         if b * t <= 1024:  # the whole Function against autograd of the plain forward
             failures += function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag)
         if b in (8, 32):
             ms2 = cuda_ms(lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype), 20)
             plain2 = cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype), 5)
-            ms3 = cuda_ms(lambda: sk.ssd_bwd_kernel(*args), 5, 1)
+            ms3 = cuda_ms(lambda: sk.ssd_bwd_kernel(*args), 20)
             plain3 = cuda_ms(lambda: sk.ssd_bwd_plain(*args), 3, 1)
             (b2, f2), (b3, f3) = ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfin)
             what = ("one layer of the mamba2-280m train step" if b == 32 else
@@ -313,7 +317,8 @@ def check_ssd_bwd(gen):
                 bound_ms, bound_by = bound(nb, fl)
                 shape = f"bf16 b={b} t={t} l={l} h={h}"
                 print(f"time {nm} {shape} ({what}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP)", flush=True)
+                      f"bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP), "
+                      f"{fl / ms / 1e9:.1f} TFLOP/s", flush=True)
                 shapes[nm].append(dict(shape=shape, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                                        bound_by=bound_by, max_abs_err=err))
                 if b == 32:  # the row: the shape the training run launches at
@@ -324,6 +329,8 @@ def check_ssd_bwd(gen):
                         launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                         shapes=shapes[nm])
+        del inp, x, dt, A, B, C, s0, prev, dy, dfinal, args, got, got2, ref
+    torch.cuda.empty_cache()
     if failures:
         raise SystemExit("SSD backward checks failed:\n" + "\n".join(failures))
     return rows
@@ -659,6 +666,28 @@ def check_kernel_tables() -> None:
     print(f"check ssd_fwd dispatch: the wrapper's rule equals the library's over "
           f"{len(codes) * len(dims) ** 2} (dtype, headdim, d_state) shapes; mamba2-280m and "
           f"hybrid-280m (headdim 64, d_state 128, bf16) take the tensor-core kernel", flush=True)
+    # the SSD backward's one dispatch rule, and the presets' training shapes
+    # on the tensor cores
+    bwd = ssd_kernels._bwd_lib()
+    chunks = (8, 50, 64, 100, 128, 192, 200, 256)
+    for dtype, code in codes.items():
+        for p in dims:
+            for n in dims:
+                for l in chunks:
+                    py = ssd_kernels.ssd_bwd_uses_tensor_cores(dtype, p, n, l)
+                    if py != bool(bwd.mdt_ssd_bwd_uses_tc(code, p, n, l)):
+                        raise SystemExit(f"ssd_bwd dispatch differs at {dtype} p {p} n {n} l {l}: "
+                                         f"the wrapper says {py}")
+    for preset in ("mamba2-280m", "hybrid-280m"):
+        m = get_preset(preset, compute_dtype="bfloat16")
+        p, n = m.headdim, m.effective_d_state
+        if not ssd_kernels.ssd_bwd_uses_tensor_cores(m.torch_compute_dtype, p, n, m.chunk_size):
+            raise SystemExit(f"{preset}'s SSD backward (headdim {p}, d_state {n}, chunk "
+                             f"{m.chunk_size}) would run the CUDA-core kernel")
+    print(f"check ssd_bwd dispatch: the wrapper's rule equals the library's over "
+          f"{len(codes) * len(dims) ** 2 * len(chunks)} (dtype, headdim, d_state, chunk) shapes; "
+          f"mamba2-280m and hybrid-280m (headdim 64, d_state 128, chunk 256, bf16) take the "
+          f"tensor-core kernels", flush=True)
 
 
 # ------------------------------------------------------ flash attention kernels
@@ -826,54 +855,6 @@ def check_flash(gen, micro: int):
 
 # ------------------------------------------------ selective scan (Mamba-1)
 
-# the H100's fp32 peak from the table (67 TFLOP/s, 128 FMA lanes per SM)
-# and its exp rate: the SFU evaluates 16 exp2 per SM and clock, 1/8 of
-# the FMA lanes' 33.5 T FMA/s
-H100_FP32_FLOPS = 67e12
-H100_EXP_PER_S = H100_FP32_FLOPS / 2 / 8
-
-
-def m1_inputs(gen, b, t, d, seeded, n=16):
-    """The fp32 core inputs of the scan at init-like scales: dt =
-    softplus(N(-3, 1)), A = -(1..16), B, C ~ N(0, 1)."""
-    dev = "cuda"
-    u = torch.randn((b, t, d), generator=gen, device=dev)
-    dt = F.softplus(torch.randn((b, t, d), generator=gen, device=dev) - 3.0)
-    A = -torch.exp(torch.rand((d, n), generator=gen, device=dev) * 2.77)
-    B = torch.randn((b, t, n), generator=gen, device=dev)
-    C = torch.randn((b, t, n), generator=gen, device=dev)
-    h0 = 0.5 * torch.randn((b, d, n), generator=gen, device=dev) if seeded else None
-    return u, dt, A, B, C, h0
-
-
-# the TPU kernel's t-tile at the train layer's shapes (t 1024, d 1536:
-# 512-channel blocks from _pick_blocks, then the 4 MB cap on its rebuilt
-# states, scan_kernels.py:296-302); the bounds count the entry states
-# passed from kernel 5 to kernel 6 at this tile, not at the port's T_BLK
-TPU_M1_T_TILE = 128
-
-
-def m1_work(b, t, d, n, seeded, dfinal):
-    """(bytes, exps, flops) of kernels 4, 5 and 6 on these shapes: each of
-    the scan's inputs read once and each of its outputs written once
-    (kernel 6's as the backward defines them: du, ddt (b, t, d), dA (d,
-    n), dB and dC (b, t, n), dh0 when seeded), the entry states written by
-    kernel 5 and read by kernel 6 at the TPU kernel's tile; one exp per
-    (b, t, d, n) cell each, what the recurrence needs (kernel 6 evaluates
-    it twice); the fp32 operations of the recurrence per cell (6 forward:
-    the exp's argument, the update's multiply and multiply-add, the
-    readout's multiply-add; 4 without the readout; 20 backward).  None of
-    it depends on the port's T_BLK or D_BLK."""
-    io, bc, st, a = b * t * d * 4, b * t * n * 4, b * d * n * 4, d * n * 4
-    entry = b * -(-t // TPU_M1_T_TILE) * d * n * 4
-    cells = b * t * d * n
-    h0 = st if seeded else 0
-    k4 = (3 * io + a + 2 * bc + h0 + st, cells, 6 * cells)
-    k5 = (2 * io + a + bc + h0 + entry, cells, 4 * cells)
-    k6 = (5 * io + 2 * a + 4 * bc + entry + (st if dfinal else 0) + h0, cells, 20 * cells)
-    return k4, k5, k6
-
-
 def m1_layout_extra(b, t, d, n):
     """Bytes the port's layout moves beyond ``m1_work``'s count: the entry
     states at T_BLK steps in place of the TPU tile (written by kernel 5,
@@ -886,21 +867,13 @@ def m1_layout_extra(b, t, d, n):
     return entry, parts
 
 
-def m1_bound(nbytes, exps, flops):
-    """(bound ms, "bytes" or "operations"): the operations' time is the
-    larger of the exps over the SFU rate and the rest over the fp32 peak
-    (the two pipes run side by side)."""
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = max(exps / H100_EXP_PER_S, flops / H100_FP32_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def check_m1(gen):
     """Kernels 4-6 against their plain versions in fp32 (the core is
     fp32-only, as on the TPU) over ragged tiles and channel blocks, d 1536
     and 1000, t 1024, 1000 and 256, seeded or not, with and without a
-    final-state cotangent (kernel 6 fed the plain entry states), then the
-    whole ``selective_scan_kernel`` (SelectiveScanFunction, D, z, softplus)
+    final-state cotangent (kernel 6 fed the plain entry states), two
+    launches of each bit-identical, then the whole ``selective_scan_kernel``
+    (SelectiveScanFunction, D, z, softplus)
     against torch autograd of the plain ``selective_scan_seq``.  Timed:
     kernel 4 at the serving chunk (b 1, t 256, seeded, final state) and
     kernels 4-6 at one layer of the mamba1-280m train step (b 32, t 1024);
@@ -923,19 +896,23 @@ def check_m1(gen):
         dy = torch.randn((b, t, d), generator=gen, device="cuda")
         dfinal = torch.randn((b, d, 16), generator=gen, device="cuda") if dfin else None
         got = [*sk.m1_scan(u, dt, A, B, C, h0), sk.m1_entry_states(u, dt, A, B, h0)]
+        got2 = [*sk.m1_scan(u, dt, A, B, C, h0), sk.m1_entry_states(u, dt, A, B, h0)]
         ref = [*sk.m1_scan_plain(u, dt, A, B, C, h0), sk.m1_entry_states_plain(u, dt, A, B, h0)]
         got += sk.m1_bwd(u, dt, A, B, C, ref[2], dy, dfinal)
+        got2 += sk.m1_bwd(u, dt, A, B, C, ref[2], dy, dfinal)
         ref += sk.m1_bwd_plain(u, dt, A, B, C, ref[2], dy, dfinal)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, got2, strict=True))
         errs = {nm: rel_err(a, r) for nm, a, r in zip(("y", "hT", "states", *names), got, ref)}
         worst = max(r for _, r in errs.values())
         finite = all(bool(torch.isfinite(v).all()) for v in got)
         tag = f"fp32 b={b} t={t} d={d} seeded={seeded} dfinal={dfin}"
         print(f"check m1_scan/m1_entry_states/m1_bwd {tag}: rel "
               + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
-              + f"; tol rel {tol:.0e}", flush=True)
-        if not finite or worst > tol:
-            failures.append(f"m1 kernels {tag}: finite={finite}, rel {worst:.3e}")
+              + f"; tol rel {tol:.0e}; 2 launches bit-identical: {same}", flush=True)
+        if not finite or worst > tol or not same:
+            failures.append(f"m1 kernels {tag}: finite={finite}, rel {worst:.3e}, "
+                            f"2 launches bit-identical {same}")
         if b * t <= 2048:
             failures += m1_function_grads(sk.selective_scan_kernel, selective_scan_seq,
                                           gen, b, t, d, seeded, dfin, tag)
@@ -1368,13 +1345,17 @@ def main() -> int:
               f"spill stores up to {max(spills)} bytes")
     # no tensor-core instance may spill: the flash forward, dq and dk/dv
     # (3 head dims each), the paged prefill attend (3 head dims x bf16 and
-    # int8 pages) and the SSD forward (d_state 64 and 128); nor may the
-    # split decode (its walk: 2 dtypes x 2 page types x 4 row counts; its
-    # combine: 2 dtypes); the fp32 CUDA-core ones are printed beside them
+    # int8 pages), the SSD forward (d_state 64 and 128) and the SSD
+    # backward's two kernels (d_state 64 and 128); nor may the split decode
+    # (its walk: 2 dtypes x 2 page types x 4 row counts; its combine: 2
+    # dtypes) or the Mamba-1 backward; the fp32 CUDA-core ones are printed
+    # beside them
     for src, tag, expected in (("flash_attention", "_tc_kernel", 9),
                                ("ragged_paged_attention", "_tc_kernel", 6),
                                ("ragged_paged_attention", "rpa_", 18),
-                               ("ssd_fwd", "_tc_kernel", 2)):
+                               ("ssd_fwd", "_tc_kernel", 2),
+                               ("ssd_bwd", "_tc_kernel", 4),
+                               ("selective_scan", "m1_bwd", 1)):
         inst = build.ptxas_instances(logs[src])
         for kname, regs, sp in inst:
             if tag in kname or (tag == "_tc_kernel" and ("flash_" in kname
@@ -1384,12 +1365,13 @@ def main() -> int:
         if len(tc) != expected or any(sp for _, sp in tc):
             raise SystemExit(f"{tag} instances of {src} ({expected} expected) missing or "
                              f"spilling registers: {tc}")
-    # the tensor-core SSD forward runs wgmma
-    hgmma = {k: v for k, v in build.hgmma_counts(build.library_path("ssd_fwd")).items()
-             if "ssd_fwd_tc_kernel" in k}
-    print(f"SASS HGMMA instructions, ssd_fwd: {hgmma}")
-    if len(hgmma) != 2 or not all(hgmma.values()):
-        raise SystemExit(f"the tensor-core SSD forward has no HGMMA instruction: {hgmma}")
+    # the tensor-core SSD forward and backward run wgmma
+    for src, tag, expected in (("ssd_fwd", "ssd_fwd_tc_kernel", 2),
+                               ("ssd_bwd", "_tc_kernel", 4)):
+        hgmma = {k: v for k, v in build.hgmma_counts(build.library_path(src)).items() if tag in k}
+        print(f"SASS HGMMA instructions, {src}: {hgmma}")
+        if len(hgmma) != expected or not all(hgmma.values()):
+            raise SystemExit(f"a tensor-core kernel of {src} has no HGMMA instruction: {hgmma}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_kernel_tables()
     rpa, rpa_int8 = check_rpa(gen)

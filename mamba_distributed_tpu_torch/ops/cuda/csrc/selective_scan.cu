@@ -12,8 +12,8 @@
 //                           writing the state ENTERING each time tile;
 //   m1_bwd_kernel           replaces _m1_bwd_kernel (:201, launched at
 //                           :348): per tile, in reverse, the tile's
-//                           states are rebuilt from its entry state into
-//                           shared memory, then a reverse sweep with the
+//                           states and decays are rebuilt from its entry
+//                           state into registers, then a reverse sweep with the
 //                           state cotangent gh (seeded by the final-state
 //                           cotangent, or zeros) gives
 //                             gh  += C_i dy_i,
@@ -27,7 +27,7 @@
 // Layouts: u, dt, y, du, ddt, dy (b, t, d); A (d, n); B, C (b, t, n);
 // h0, hT, dfinal, dh0 and the per-batch dA partial (b, d, n); entry states
 // (b, nt, d, n) with nt = ceil(t / kTB); dB and dC partials (b, nd, t, n),
-// one row per CTA of kernel 6 (nd = ceil(d / kBwdThreads)).  All fp32,
+// one row per CTA of kernel 6 (nd = ceil(d / kBwdChannels)).  All fp32,
 // contiguous, as the TPU kernels' state math.  The public (b, d, n) state
 // layout is used directly (the TPU kernel transposes to (n, d) for its
 // 128-lane vregs), and a ragged t or d is bounds-checked, never padded:
@@ -44,24 +44,27 @@
 // adds a relative error of about |A dt| * 2^-24 to e, under 1e-6 at
 // |A dt| <= 16, two orders below the 1e-4 the kernels are held to.
 //
-// Design.  One thread per channel, its n = 16 states in registers, so
-// the sums over n (y, du, ddt) need no communication.  The time loop runs
-// inside the thread, a tile of steps at a time, and B_i, C_i (n floats
-// per step, shared by every channel) are staged in shared memory per
-// tile.  Kernels 4 and 5: CTAs of one warp (32 channels) per (channel
-// block, batch row); kernel 4 loads a tile of kFwdTB = 16 steps of u and
-// dt into registers up front (coalesced along d), so the tile's loads are
-// in flight together.  Kernel 6: CTAs of two warps (64 channels), tiles of
-// kTB = 8 steps; the states h_{i-1} of the tile (kTB x 16 per channel, too
-// many for registers) and the tile's u, dt and dy live in shared memory
-// ([step][state][channel], so a warp's accesses fall in 32 banks), 41 KB
-// a CTA, five CTAs per SM.  Keeping them out of registers keeps the
-// thread under 255 registers with no spills: 16-step tiles of u, dt and
-// dy held in registers spill 1.5 KB a thread and run 4.4x slower.  dB_i
-// and dC_i (32 sums over channels per step) reduce within a warp by a
-// reduce-scatter of 31 shuffles (after it lane j holds the warp's sum of
-// value j), then over the two warps through shared memory at the end of
-// the tile.
+// Design.  The time loop runs inside the thread, a tile of steps at a
+// time, and B_i, C_i (n floats per step, shared by every channel) are
+// staged in shared memory per tile.  Kernels 4 and 5: one thread per
+// channel, its n = 16 states in registers, so the sums over n (y) need no
+// communication; CTAs of one warp (32 channels) per (channel block, batch
+// row); kernel 4 loads a tile of kFwdTB = 16 steps of u and dt into
+// registers up front (coalesced along d), so the tile's loads are in
+// flight together.  Kernel 6: CTAs of 256 threads, four a channel (kSQ = 4
+// states each), 64 channels, tiles of kTB = 8 steps.  A thread rebuilds
+// its tile's states h_{i-1} and decays e_i = exp(A dt_i) into registers
+// (2 x 8 x 4 floats), so each exp is evaluated once and no state passes
+// through shared memory; the sums over n (du, ddt) take two quad
+// shuffles.  The tile's u, dt, dy rows are staged in shared memory by the
+// whole CTA (coalesced along d), and each step's dB_i and dC_i terms go to
+// a shared stage [step][state][channel] (rows padded to 68 floats), which
+// at the end of the tile 256 threads sum, one (step, state) row each, over
+// the CTA's 64 channels in a fixed order: one partial per 64 channels.
+// The next tile's rows and entry states are copied by cp.async into a
+// second buffer while the current tile computes: the kernel waits on
+// latency more than it issues.  About 92 KB of shared memory and at most
+// 128 registers a thread (launch bound): two CTAs, 16 warps, an SM.
 //
 // Bound on the H100.  At one layer of the mamba1-280m train step (b 32,
 // t 1024, d 1536, n 16) kernel 4 moves about 0.61 GB (u, dt in, y out;
@@ -71,12 +74,11 @@
 // entry states at the TPU kernel's 128-step tile) are about 1.04 GB (0.31
 // ms), beside the same 805 M exponentials.  Both sit near the balance of
 // bytes and exps, so neither tensor cores nor fusion beyond this move the
-// bound; the kernels recompute e in kernels 5 and 6 (twice in 6), which
-// costs SFU time above the bound.  This layout moves more than the bound
-// counts: the entry states at kTB-step tiles add 0.38 GB (written by 5,
-// read by 6) and the per-CTA dB/dC partials 0.1 GB.  At the serving
-// chunk (b 1, t 256) kernel 4 runs d / 32 = 48 one-warp CTAs on 132 SMs:
-// latency-bound by the 256 sequential steps, not by bytes.
+// bound; kernel 5 recomputes the exps of the forward.  This layout moves
+// more than the bound counts: the entry states at kTB-step tiles add 0.38
+// GB (written by 5, read by 6) and the per-CTA dB/dC partials 0.1 GB.  At
+// the serving chunk (b 1, t 256) kernel 4 runs d / 32 = 48 one-warp CTAs
+// on 132 SMs: latency-bound by the 256 sequential steps, not by bytes.
 
 #include <cuda_runtime.h>
 
@@ -86,8 +88,11 @@ constexpr int kN = 16;                       // states per channel (Mamba-1 d_st
 constexpr int kFwdTB = 16;                   // time steps per tile, kernel 4
 constexpr int kTB = 8;                       // time steps per tile, kernels 5 and 6
 constexpr int kFwdThreads = 32;              // channels per CTA, kernels 4 and 5
-constexpr int kBwdWarps = 2;
-constexpr int kBwdThreads = 32 * kBwdWarps;  // channels per CTA, kernel 6
+constexpr int kBwdChannels = 64;             // channels per CTA, kernel 6
+constexpr int kQ = 4;                        // threads per channel, kernel 6
+constexpr int kSQ = kN / kQ;                 // states per thread, kernel 6
+constexpr int kBwdThreads = kQ * kBwdChannels;
+constexpr int kRowPad = kBwdChannels + 4;    // a dB/dC row of kernel 6's stage, padded
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x on the SFU: one MUFU.EX2, subnormal results flushed to zero
@@ -130,32 +135,6 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, float*
 __device__ __forceinline__ float load_at(const float* __restrict__ src, int s, int t, int d,
                                          int ch, bool live) {
   return live && s < t ? src[size_t(s) * d + ch] : 0.f;
-}
-
-// One halving step of a warp reduce-scatter: lanes with bit W set keep the
-// upper W of the 2W live values, the others the lower W, and add the
-// partner lane's (lane ^ W) copy of the kept half.
-template <int W>
-__device__ __forceinline__ void halve(float (&v)[2 * kN], int lane) {
-  const bool hi = lane & W;
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const float send = hi ? v[j] : v[j + W];
-    const float keep = hi ? v[j + W] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, W);
-  }
-}
-
-// Warp reduce-scatter of 32 values: afterwards lane j holds the sum over
-// the warp's 32 lanes of v[j] (31 shuffles where 32 all-reduces take 160).
-__device__ __forceinline__ float reduce_scatter32(float (&v)[2 * kN], int lane) {
-  static_assert(2 * kN == 32, "one value per lane");
-  halve<16>(v, lane);
-  halve<8>(v, lane);
-  halve<4>(v, lane);
-  halve<2>(v, lane);
-  halve<1>(v, lane);
-  return v[0];
 }
 
 struct ScanParams {
@@ -213,104 +192,183 @@ struct BwdParams {
   int t, d, nd;
 };
 
+// one tile's inputs in kernel 6's shared memory: its u, dt, dy rows
+// [step][channel], its B, C rows [step][state], and the CTA's entry states
+// [channel][state]
+constexpr int kRowFloats = kTB * kBwdChannels;
+constexpr int kTileFloats = 3 * kRowFloats + 2 * kTB * kN + kBwdChannels * kN;
+
 constexpr int bwd_smem_floats() {
-  return kTB * kN * kBwdThreads          // hbuf: h_{i-1} of the tile
-         + 3 * kTB * kBwdThreads         // u, dt, dy of the tile
-         + 2 * kTB * kN                  // B, C rows of the tile
-         + kTB * kBwdWarps * 2 * kN;     // per-warp dB/dC sums of the tile
+  return 2 * kTileFloats               // two tiles: the one in use, the next in flight
+         + kTB * 2 * kN * kRowPad;     // the stage: [step][dB n, dC n][channel]
 }
 
-// Kernel 6: grid (ceil(d / 64), b), 64 threads, bwd_smem_floats() of
-// dynamic shared memory.
-__global__ void __launch_bounds__(kBwdThreads) m1_bwd_kernel(BwdParams p) {
-  extern __shared__ float smem[];
-  float* hbuf = smem;                          // [kTB][kN][kBwdThreads]
-  float* us = hbuf + kTB * kN * kBwdThreads;   // [kTB][kBwdThreads]
-  float* dts = us + kTB * kBwdThreads;         // [kTB][kBwdThreads]
-  float* dys = dts + kTB * kBwdThreads;        // [kTB][kBwdThreads]
-  float* Bs = dys + kTB * kBwdThreads;         // [kTB][kN]
-  float* Cs = Bs + kTB * kN;                   // [kTB][kN]
-  float* red = Cs + kTB * kN;                  // [kTB][kBwdWarps][2 kN]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// kSQ consecutive floats of a per-channel state row; zeros for a dead
+// channel or a null source
+__device__ __forceinline__ void load_part(const float* __restrict__ src, bool live,
+                                          float (&h)[kSQ]) {
+  static_assert(kSQ == 4, "one float4 a thread");
+  const float4 v = live && src ? *reinterpret_cast<const float4*>(src)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
+}
+
+__device__ __forceinline__ void store_part(float* __restrict__ dst, const float (&h)[kSQ]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(h[0], h[1], h[2], h[3]);
+}
+
+// an asynchronous copy of `bytes` (4 or 16) from src to shared dst, or
+// zeros when !live (src is then not read)
+template <int bytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(live ? 16u : 0u) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(live ? 4u : 0u) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// start the copies of tile k's inputs into `buf` (zeros past t, past d)
+__device__ __forceinline__ void fetch_tile(const BwdParams& p, float* buf, int k, int cb, int bi,
+                                           int tid) {
+  const int t = p.t, d = p.d, t0 = k * kTB, nt = (t + kTB - 1) / kTB;
+  const size_t slab = size_t(bi) * t * d;
+  for (int e = tid; e < kRowFloats; e += kBwdThreads) {
+    const int s = t0 + e / kBwdChannels, c = cb * kBwdChannels + e % kBwdChannels;
+    const bool ok = s < t && c < d;
+    const size_t o = ok ? slab + size_t(s) * d + c : 0;
+    cp_async<4>(buf + e, p.u + o, ok);
+    cp_async<4>(buf + kRowFloats + e, p.dt + o, ok);
+    cp_async<4>(buf + 2 * kRowFloats + e, p.dy + o, ok);
+  }
+  for (int e = tid; e < 2 * kTB * kN; e += kBwdThreads) {  // B rows, then C rows
+    const int r = e % (kTB * kN), s = t0 + r / kN;
+    const float* src = e < kTB * kN ? p.B : p.C;
+    const bool ok = s < t;
+    cp_async<4>(buf + 3 * kRowFloats + e, src + (ok ? size_t(bi) * t * kN + size_t(s) * kN + r % kN : 0),
+                ok);
+  }
+  // the entry states, one float4 a thread: [channel][state]
+  const int cl = tid / kQ, q = tid % kQ, c = cb * kBwdChannels + cl;
+  const bool ok = c < d;
+  cp_async<16>(buf + 3 * kRowFloats + 2 * kTB * kN + cl * kN + q * kSQ,
+               p.states + (ok ? ((size_t(bi) * nt + k) * d + c) * kN + q * kSQ : 0), ok);
+  cp_async_commit();
+}
+
+// Kernel 6: grid (ceil(d / 64), b), 256 threads (4 a channel, kSQ states
+// each), bwd_smem_floats() of dynamic shared memory.
+__global__ void __launch_bounds__(kBwdThreads, 2) m1_bwd_kernel(BwdParams p) {
+  static_assert(kBwdThreads == kTB * 2 * kN, "one (step, dB/dC state) row a thread");
+  static_assert(kBwdThreads == kBwdChannels * kQ, "one float4 of entry state a thread");
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem + 2 * kTileFloats;       // [kTB][2 kN][kRowPad]
+  const int tid = threadIdx.x, q = tid % kQ, cl = tid / kQ;
   const int bi = blockIdx.y, cb = blockIdx.x;
-  const int ch = cb * kBwdThreads + tid;
+  const int ch = cb * kBwdChannels + cl;
   const bool live = ch < p.d;
   const int t = p.t, d = p.d, nt = (t + kTB - 1) / kTB;
-  float a[kN], gh[kN], dA[kN];
-  load_state(p.A + size_t(ch) * kN, live, a);
+  const int row = ch * kN + q * kSQ;  // this thread's states in a (d, n) row
+  float a[kSQ], gh[kSQ], dA[kSQ];
+  load_part(p.A + row, live, a);
+  load_part(p.dfinal ? p.dfinal + size_t(bi) * d * kN + row : nullptr, live, gh);
 #pragma unroll
-  for (int n = 0; n < kN; ++n) dA[n] = 0.f;
-  load_state(p.dfinal ? p.dfinal + (size_t(bi) * d + ch) * kN : nullptr, live, gh);
-  const size_t slab = size_t(bi) * t * d;
-  for (int k = nt - 1; k >= 0; --k) {
+  for (int s = 0; s < kSQ; ++s) dA[s] = 0.f;
+  fetch_tile(p, smem, nt - 1, cb, bi, tid);
+  for (int k = nt - 1, cur = 0; k >= 0; --k, cur ^= 1) {
     const int t0 = k * kTB;
-    __syncthreads();  // the previous tile's reads of Bs, Cs, red are done
-#pragma unroll
-    for (int i = 0; i < kTB; ++i) {
-      us[i * kBwdThreads + tid] = load_at(p.u + slab, t0 + i, t, d, ch, live);
-      dts[i * kBwdThreads + tid] = load_at(p.dt + slab, t0 + i, t, d, ch, live);
-      dys[i * kBwdThreads + tid] = load_at(p.dy + slab, t0 + i, t, d, ch, live);
+    const float* buf = smem + cur * kTileFloats;
+    const float* us = buf;                                  // [kTB][kBwdChannels]
+    const float* dts = us + kRowFloats;
+    const float* dys = dts + kRowFloats;
+    const float* Bs = dys + kRowFloats;                     // [kTB][kN]
+    const float* Cs = Bs + kTB * kN;
+    const float* hs = Cs + kTB * kN;                        // [kBwdChannels][kN]
+    cp_async_wait_all();
+    __syncthreads();  // tile k has landed; every read of the other buffer and the stage is done
+    if (k > 0) fetch_tile(p, smem + (cur ^ 1) * kTileFloats, k - 1, cb, bi, tid);
+    // rebuild the tile: the state entering each step and its decay, kept
+    // in registers (one exp per cell)
+    float h[kSQ], hp[kTB][kSQ], ev[kTB][kSQ];
+    {
+      const float4 hv = *reinterpret_cast<const float4*>(hs + cl * kN + q * kSQ);
+      h[0] = hv.x; h[1] = hv.y; h[2] = hv.z; h[3] = hv.w;
     }
-    stage_rows<kTB>(p.B + size_t(bi) * t * kN, Bs, t0, t, tid, kBwdThreads);
-    stage_rows<kTB>(p.C + size_t(bi) * t * kN, Cs, t0, t, tid, kBwdThreads);
-    float h[kN];
-    load_state(p.states + ((size_t(bi) * nt + k) * d + ch) * kN, live, h);
-    __syncthreads();
-    // forward recompute: hbuf[i] = the state entering step i
-#pragma unroll 1
-    for (int i = 0; i < kTB; ++i) {
-      const float dtv = dts[i * kBwdThreads + tid];
-      const float dtl = dtv * kLog2e, dtu = dtv * us[i * kBwdThreads + tid];
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        hbuf[(i * kN + n) * kBwdThreads + tid] = h[n];
-        h[n] = fmaf(h[n], ex2(a[n] * dtl), dtu * Bs[i * kN + n]);
+    for (int i = 0; i < kTB; ++i) {
+      const float dtv = dts[i * kBwdChannels + cl];
+      const float dtl = dtv * kLog2e, dtu = dtv * us[i * kBwdChannels + cl];
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + i * kN + q * kSQ);
+      const float b4[kSQ] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int s = 0; s < kSQ; ++s) {
+        hp[i][s] = h[s];
+        ev[i][s] = ex2(a[s] * dtl);
+        h[s] = fmaf(h[s], ev[i][s], dtu * b4[s]);
       }
     }
     // reverse sweep
-#pragma unroll 1
+#pragma unroll
     for (int i = kTB - 1; i >= 0; --i) {
-      const float dtv = dts[i * kBwdThreads + tid], uv = us[i * kBwdThreads + tid];
-      const float dyv = dys[i * kBwdThreads + tid];
-      const float dtl = dtv * kLog2e, dtu = dtv * uv;
-      float v[2 * kN];  // v[n]: this channel's dB_i[n] term, v[kN + n]: its dC_i[n] term
+      const float dtv = dts[i * kBwdChannels + cl], uv = us[i * kBwdChannels + cl];
+      const float dyv = dys[i * kBwdChannels + cl];
+      const float dtu = dtv * uv;
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + i * kN + q * kSQ);
+      const float4 cv = *reinterpret_cast<const float4*>(Cs + i * kN + q * kSQ);
+      const float b4[kSQ] = {bv.x, bv.y, bv.z, bv.w}, c4[kSQ] = {cv.x, cv.y, cv.z, cv.w};
+      float* st = stage + (i * 2 * kN + q * kSQ) * kRowPad + cl;
       float sdu = 0.f, sddt = 0.f;
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        const float hp = hbuf[(i * kN + n) * kBwdThreads + tid];
-        const float bn = Bs[i * kN + n];
-        const float e = ex2(a[n] * dtl);
-        gh[n] = fmaf(Cs[i * kN + n], dyv, gh[n]);
-        v[kN + n] = fmaf(hp, e, dtu * bn) * dyv;
-        v[n] = gh[n] * dtu;
-        sddt = fmaf(gh[n], fmaf(hp * a[n], e, uv * bn), sddt);
-        sdu = fmaf(gh[n], bn, sdu);
-        const float ghe = gh[n] * e;
-        dA[n] = fmaf(ghe * hp, dtv, dA[n]);
-        gh[n] = ghe;
+      for (int s = 0; s < kSQ; ++s) {
+        const float hps = hp[i][s], e = ev[i][s], bn = b4[s];
+        gh[s] = fmaf(c4[s], dyv, gh[s]);
+        st[s * kRowPad] = gh[s] * dtu;                                // dB_i term
+        st[(kN + s) * kRowPad] = fmaf(hps, e, dtu * bn) * dyv;        // dC_i term
+        sddt = fmaf(gh[s], fmaf(hps * a[s], e, uv * bn), sddt);
+        sdu = fmaf(gh[s], bn, sdu);
+        const float ghe = gh[s] * e;
+        dA[s] = fmaf(ghe * hps, dtv, dA[s]);
+        gh[s] = ghe;
       }
-      if (live && t0 + i < t) {
-        const size_t o = slab + size_t(t0 + i) * d + ch;
+      // the channel's sums over its 4 threads' states (the 4 lanes of a quad)
+      sdu += __shfl_xor_sync(0xffffffffu, sdu, 1);
+      sdu += __shfl_xor_sync(0xffffffffu, sdu, 2);
+      sddt += __shfl_xor_sync(0xffffffffu, sddt, 1);
+      sddt += __shfl_xor_sync(0xffffffffu, sddt, 2);
+      if (q == 0 && live && t0 + i < t) {
+        const size_t o = (size_t(bi) * t + t0 + i) * d + ch;
         p.du[o] = dtv * sdu;
         p.ddt[o] = sddt;
       }
-      red[(i * kBwdWarps + warp) * 2 * kN + lane] = reduce_scatter32(v, lane);
     }
     __syncthreads();
-    // the CTA's dB/dC rows of the tile: sum the warps' rows
-    for (int q = tid; q < kTB * 2 * kN; q += kBwdThreads) {
-      const int i = q / (2 * kN), j = q % (2 * kN);
-      if (t0 + i >= t) continue;
-      float s = 0.f;
+    // the CTA's dB/dC rows of the tile: thread (step i, value v) sums the
+    // stage row over the 64 channels in a fixed order
+    const int i = tid / (2 * kN), v = tid % (2 * kN);
+    if (t0 + i < t) {
+      const float4* r = reinterpret_cast<const float4*>(stage + (i * 2 * kN + v) * kRowPad);
+      float4 acc = r[0];
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w) s += red[(i * kBwdWarps + w) * 2 * kN + j];
-      float* dst = j < kN ? p.dB_part : p.dC_part;
-      dst[((size_t(bi) * p.nd + cb) * t + t0 + i) * kN + j % kN] = s;
+      for (int c = 1; c < kBwdChannels / 4; ++c) {
+        const float4 x = r[c];
+        acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+      }
+      float* dst = v < kN ? p.dB_part : p.dC_part;
+      dst[((size_t(bi) * p.nd + cb) * t + t0 + i) * kN + v % kN] = (acc.x + acc.y) + (acc.z + acc.w);
     }
   }
   if (live) {
-    store_state(p.dh0 + (size_t(bi) * d + ch) * kN, gh);
-    store_state(p.dA_part + (size_t(bi) * d + ch) * kN, dA);
+    store_part(p.dh0 + size_t(bi) * d * kN + row, gh);
+    store_part(p.dA_part + size_t(bi) * d * kN + row, dA);
   }
 }
 
@@ -325,7 +383,7 @@ bool bad_dims(int b, int t, int d, int n) {
 // dB/dC partials' block axis).
 extern "C" int mdt_m1_state_size() { return kN; }
 extern "C" int mdt_m1_tile() { return kTB; }
-extern "C" int mdt_m1_bwd_channels() { return kBwdThreads; }
+extern "C" int mdt_m1_bwd_channels() { return kBwdChannels; }
 
 // Each returns a cudaError_t (0 on success).  h0 and dfinal may be null
 // (zeros).
@@ -355,7 +413,7 @@ extern "C" int mdt_m1_bwd(const float* u, const float* dt, const float* A, const
                           float* dB_part, float* dC_part, float* dh0, int b, int t, int d, int n,
                           void* stream) {
   if (bad_dims(b, t, d, n)) return (int)cudaErrorInvalidValue;
-  const int nd = (d + kBwdThreads - 1) / kBwdThreads;
+  const int nd = (d + kBwdChannels - 1) / kBwdChannels;
   BwdParams p{u, dt, A, B, C, states, dy, dfinal, du, ddt, dA_part, dB_part, dC_part, dh0,
               t, d, nd};
   const int smem = bwd_smem_floats() * int(sizeof(float));

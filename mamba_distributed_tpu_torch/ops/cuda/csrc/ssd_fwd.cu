@@ -390,19 +390,6 @@ template <int N> struct TcLayout {
   static constexpr int BYTES = BARS + 8 * (2 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-// the 16-byte chunk of 8 bf16 at src, times s, rounded to bf16 at dst
-__device__ __forceinline__ void scale_chunk(uint8_t* dst, const uint8_t* src, float s) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-    o[k] = pack_bf16(f.x * s, f.y * s);
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-}
-
 // round(S) from the accumulator fragments (rows r0 + 8 i, columns 8 j + c0
 // + {0, 1}) into the swizzled tile at sb
 template <int N>

@@ -51,7 +51,7 @@ from mamba_distributed_tpu_torch.ops.scan import (
 # own; ``_lib`` checks that they agree)
 N_STATE = 16  # kN: the one d_state the kernels take
 T_BLK = 8  # kTB: time steps per tile of m1_entry_states and m1_bwd (the entry states' tile axis)
-D_BLK = 64  # kBwdThreads: channels per m1_bwd CTA (the dB/dC partials' block axis)
+D_BLK = 64  # kBwdChannels: channels per m1_bwd CTA (the dB/dC partials' block axis)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -59,7 +59,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The library with its C signatures declared (built at first use)."""
-    lib = build.load("selective_scan")
+    return declare(build.load("selective_scan"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``selective_scan.cu``) with its C signatures
+    declared, after checking that its layout constants are this module's."""
     for fn in (lib.mdt_m1_state_size, lib.mdt_m1_tile, lib.mdt_m1_bwd_channels):
         fn.argtypes, fn.restype = [], _I
     got = (lib.mdt_m1_state_size(), lib.mdt_m1_tile(), lib.mdt_m1_bwd_channels())
@@ -149,17 +154,20 @@ def m1_entry_states_plain(u, dt, A, B, h0=None):
     return torch.stack(states, dim=1)
 
 
-def m1_entry_states(u, dt, A, B, h0=None):
-    """``m1_entry_states_plain`` through kernel 5 on a CUDA tensor."""
+def m1_entry_states(u, dt, A, B, h0=None, lib=None):
+    """``m1_entry_states_plain`` through kernel 5 on a CUDA tensor.
+    ``lib``: another build of ``selective_scan.cu`` (through ``declare``)
+    to launch instead of the package's."""
     if not use_kernel("pallas", u):
         return m1_entry_states_plain(u, dt, A, B, h0)
     b, t, d = u.shape
     n = A.shape[-1]
     _check_inputs(u, dt, A, B, h0=(h0, (b, d, n)))
     states = torch.empty((b, -(-t // T_BLK), d, n), dtype=torch.float32, device=u.device)
-    _raise_on(_lib().mdt_m1_entry_states(u.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                                         B.data_ptr(), _ptr(h0), states.data_ptr(),
-                                         b, t, d, n, _stream(u)), "m1_entry_states")
+    lib = _lib() if lib is None else lib
+    _raise_on(lib.mdt_m1_entry_states(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                                      _ptr(h0), states.data_ptr(), b, t, d, n, _stream(u)),
+              "m1_entry_states")
     LAUNCHES["m1_entry_states"] += 1
     return states
 
@@ -206,8 +214,9 @@ def m1_bwd_plain(u, dt, A, B, C, states, dy, dfinal=None):
     return du, ddt, dA, dB, dC, gh
 
 
-def m1_bwd(u, dt, A, B, C, states, dy, dfinal=None):
-    """``m1_bwd_plain`` through kernel 6 on a CUDA tensor."""
+def m1_bwd(u, dt, A, B, C, states, dy, dfinal=None, lib=None):
+    """``m1_bwd_plain`` through kernel 6 on a CUDA tensor (``lib`` as for
+    ``m1_entry_states``)."""
     if not use_kernel("pallas", u):
         return m1_bwd_plain(u, dt, A, B, C, states, dy, dfinal)
     b, t, d = u.shape
@@ -222,7 +231,8 @@ def m1_bwd(u, dt, A, B, C, states, dy, dfinal=None):
     dB = torch.empty((b, nd, t, n), dtype=f32, device=dev)
     dC = torch.empty_like(dB)
     dh0 = torch.empty_like(dA)
-    _raise_on(_lib().mdt_m1_bwd(
+    lib = _lib() if lib is None else lib
+    _raise_on(lib.mdt_m1_bwd(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         states.data_ptr(), dy.data_ptr(), _ptr(dfinal), du.data_ptr(), ddt.data_ptr(),
         dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), b, t, d, n,

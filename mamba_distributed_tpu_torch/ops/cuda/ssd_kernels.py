@@ -13,7 +13,15 @@ kernels, each beside its plain PyTorch version:
   ``_chunk_states_kernel`` (:61): the per-chunk state summaries the
   backward recomputes;
 * ``ssd_bwd`` (``csrc/ssd_bwd.cu``) replaces ``_ssd_fused_bwd_kernel``
-  (:299): the reverse chunk walk carrying the state cotangent on chip.
+  (:299): every per-cell gradient of a chunk.  In bf16 at headdim 64,
+  d_state 64 or 128 and a chunk that is a multiple of 64
+  (``ssd_bwd_uses_tensor_cores``, the C dispatch's rule too) two
+  ``wgmma`` kernels that read their tiles by TMA: the state cotangent
+  walked over the chunks per (batch, head) (``ssd_state_cotangents_plain``
+  is its plain version), then the cell gradients on one warpgroup per
+  (64-row block, head, batch, chunk), in parallel over the chunks; else
+  one CUDA-core kernel per (batch, head) that walks the chunks in
+  reverse.
 
 ``SSDFunction`` is the ``torch.autograd.Function`` around them: its
 forward runs ``ssd_fwd`` and saves ``(x, dt, A, B, C, initial_state)``;
@@ -56,8 +64,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # ssd_bwd.cu's ``mdt_*_supports``; ``chip_smoke.py`` holds the two to
 # agree); ``ops/dispatch.check_kernel_shapes`` refuses any other
 BUILT_SHAPES = frozenset({(32, 64), (32, 128), (64, 64), (64, 128), (128, 128)})
-# the (headdim, d_state) pairs of the tensor-core forward (``mdt_ssd_uses_tc``)
+# the (headdim, d_state) pairs of the tensor-core forward and backward
+# (``mdt_ssd_uses_tc``, ``mdt_ssd_bwd_uses_tc``)
 TC_SHAPES = frozenset({(64, 64), (64, 128)})
+TC_ROWS = 64  # the tensor-core backward's row block: its chunk is a multiple of it
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -65,6 +75,12 @@ def ssd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int) -> bool:
     """Whether a forward with x of ``dtype``, headdim ``p`` and d_state
     ``n`` runs the tensor-core kernel (the C dispatch's rule)."""
     return dtype == torch.bfloat16 and (p, n) in TC_SHAPES
+
+
+def ssd_bwd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int, l: int) -> bool:
+    """Whether a backward with x of ``dtype``, headdim ``p``, d_state ``n``
+    and chunk ``l`` runs the tensor-core kernels (the C dispatch's rule)."""
+    return dtype == torch.bfloat16 and (p, n) in TC_SHAPES and l % TC_ROWS == 0
 
 
 @functools.cache
@@ -89,13 +105,20 @@ def declare_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     """The backward library (kernels 2 and 3) with its C signatures."""
-    lib = build.load("ssd_bwd")
+    return declare_bwd(build.load("ssd_bwd"))
+
+
+def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``ssd_bwd.cu``) with the C signatures of its
+    kernels, its shape table and its dispatch rule declared."""
     lib.mdt_ssd_chunk_states.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 9 + [_I, _P]
     lib.mdt_ssd_chunk_states.restype = _I
-    lib.mdt_ssd_bwd.argtypes = [_P] * 15 + [_I] * 7 + [_L] * 12 + [_I, _P]
+    lib.mdt_ssd_bwd.argtypes = [_P] * 15 + [_I] * 7 + [_L] * 12 + [_P] * 3 + [_I, _P]
     lib.mdt_ssd_bwd.restype = _I
     lib.mdt_ssd_bwd_supports.argtypes = [_I, _I]
     lib.mdt_ssd_bwd_supports.restype = _I
+    lib.mdt_ssd_bwd_uses_tc.argtypes = [_I] * 4
+    lib.mdt_ssd_bwd_uses_tc.restype = _I
     return lib
 
 
@@ -140,6 +163,25 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _tma_problem(v, grouped: bool = False) -> str | None:
+    """Why TMA cannot read the (b, t, head or group, hd) view ``v``, or None."""
+    # as the (batch, head, time, hd) of the flash kernels' check
+    return tma_layout_problem(
+        (v.shape[0], v.shape[2], v.shape[1], v.shape[3]),
+        (v.stride(0), v.stride(2), v.stride(1), v.stride(3)),
+        v.element_size(), v.data_ptr(),
+        dims=("batch", "group" if grouped else "head", "time"))
+
+
+def _check_tma(kernel: str, **views) -> None:
+    """Raise a ValueError naming the first view that TMA cannot read (the
+    tensor-core kernels copy x, B, C and dy by TMA; a view is never copied)."""
+    for name, v in views.items():
+        why = _tma_problem(v, grouped=name in ("B", "C"))
+        if why is not None:
+            raise ValueError(f"{kernel}: {name} cannot be read by TMA: {why}")
+
+
 # ------------------------------------------------------------------- forward
 
 
@@ -156,16 +198,7 @@ def _ssd_fwd(x, dt, A, B, C, l: int, initial_state, compute_dtype, lib=None):
     lib = _fwd_lib() if lib is None else lib
     b, t, h, p, g, n = _check_inputs(x, dt, B, C, compute_dtype, lib.mdt_ssd_fwd_supports)
     if ssd_uses_tensor_cores(x.dtype, p, n):
-        for name, v in (("x", x), ("B", B), ("C", C)):
-            # (batch, time, head or group, hd) as the (batch, head, time, hd)
-            # of the flash kernels' check
-            why = tma_layout_problem(
-                (v.shape[0], v.shape[2], v.shape[1], v.shape[3]),
-                (v.stride(0), v.stride(2), v.stride(1), v.stride(3)),
-                v.element_size(), v.data_ptr(),
-                dims=("batch", "group" if name != "x" else "head", "time"))
-            if why is not None:
-                raise ValueError(f"ssd_fwd: {name} cannot be read by TMA: {why}")
+        _check_tma("ssd_fwd", x=x, B=B, C=C)
     _check(A.dtype == torch.float32 and tuple(A.shape) == (h,) and A.is_contiguous()
            and A.device == x.device, "A must be a contiguous fp32 (h,) on x's device")
     if initial_state is not None:
@@ -239,6 +272,33 @@ def ssd_chunk_states_kernel(x, dt, a_cum, B, l: int, compute_dtype):
 # ------------------------------------------------ kernel 3: fused backward
 
 
+def ssd_state_cotangents_plain(dy, a_cum, C, prev_states, dfinal, l: int, compute_dtype):
+    """The state cotangent of every chunk (ssd_kernels.py:414-428), the
+    plain version of the tensor-core route's first kernel: with dP_c =
+    round(dy_c)^T round(e^a C_c), gP walks the chunks in reverse from
+    ``dfinal`` (zeros if None), dS_c = gP before chunk c's step, gP <- dP_c
+    + e^(a_L) gP.
+
+    dy (b, t, h, p); a_cum (b, t, h) fp32; C (b, t, g, n); prev_states
+    (b, nc, h, p, n) fp32.  Returns dS (b, nc, h, p, n) fp32 (the cotangent
+    of the state leaving each chunk), dgamma = <dS_c, P_c> (b, nc, h) fp32
+    and dinit (b, h, p, n) fp32 (gP after chunk 0)."""
+    cd = compute_dtype
+    b, t, h, p = dy.shape
+    nc, n = t // l, C.shape[-1]
+    a = a_cum.reshape(b, nc, l, h)
+    Ch = heads_of_groups(C.reshape(b, nc, l, -1, n), h).float()
+    dyc = _cd(dy.reshape(b, nc, l, h, p), cd)
+    gamma = torch.exp(a[:, :, -1])  # (b, nc, h)
+    dP = torch.einsum("bcihp,bcihn->bchpn", dyc, _cd(torch.exp(a)[..., None] * Ch, cd))
+    gP = (torch.zeros_like(prev_states[:, 0]) if dfinal is None else dfinal.float())
+    dS = torch.empty_like(prev_states)
+    for c in reversed(range(nc)):
+        dS[:, c] = gP
+        gP = dP[:, c] + gamma[:, c, :, None, None] * gP
+    return dS, (dS * prev_states).sum((-2, -1)), gP
+
+
 def ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_dtype):
     """Every per-cell gradient of the SSD forward (ssd_kernels.py:299-431),
     rounding at the TPU kernel's cast points, with the state cotangent
@@ -261,7 +321,6 @@ def ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_d
     P = prev_states
     e = torch.exp(a)
     d = torch.exp(a[:, :, -1:] - a)
-    gamma = torch.exp(a[:, :, -1])  # (b, nc, h)
     u = xc * dtc[..., None]
 
     # intra-chunk: y_diag = (G .* L) @ u
@@ -284,13 +343,7 @@ def ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_d
     dC = dC + e[..., None] * T
     da = da + (T * Ch).sum(-1) * e
 
-    # the state cotangent, walked in reverse: dS_c = gP_{c+1}
-    dP = torch.einsum("bcihp,bcihn->bchpn", dyc, _cd(e[..., None] * Ch, cd))
-    gP = (torch.zeros_like(P[:, 0]) if dfinal is None else dfinal.float())
-    dS = torch.empty_like(P)
-    for c in reversed(range(nc)):
-        dS[:, c] = gP
-        gP = dP[:, c] + gamma[:, c, :, None, None] * gP
+    dS, dgamma, dinit = ssd_state_cotangents_plain(dy, a_cum, C, P, dfinal, l, cd)
 
     # state summary: S = sum_j d_j u_j (x) B_j
     dw = torch.einsum("bcjhn,bchpn->bcjhp", _cd(Bh, cd), _cd(dS, cd))
@@ -302,19 +355,24 @@ def ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_d
 
     dx = (dtc[..., None] * du).to(x.dtype).reshape(b, t, h, p)
     ddt_dir = (xc * du).sum(-1).reshape(b, t, h)
-    dgamma = (dS * P).sum((-2, -1))
     return (dx, ddt_dir, da.reshape(b, t, h), dB.reshape(b, t, h, n),
-            dC.reshape(b, t, h, n), dgamma, gP)
+            dC.reshape(b, t, h, n), dgamma, dinit)
 
 
-def ssd_bwd_kernel(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_dtype):
-    """``ssd_bwd_plain`` through kernel 3 on a CUDA tensor: one CTA per
-    (batch, head) walks the chunks in reverse with gP in shared memory.
-    dy must be contiguous (b, t, h, p) in x's dtype; prev_states and
-    dfinal contiguous fp32."""
+def ssd_bwd_kernel(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_dtype,
+                   lib=None):
+    """``ssd_bwd_plain`` through kernel 3 on a CUDA tensor.  dy must be
+    contiguous (b, t, h, p) in x's dtype; prev_states and dfinal
+    contiguous fp32.  On the tensor-core route (``ssd_bwd_uses_tensor_cores``)
+    x, B, C and dy are read by TMA: a view it cannot read raises a
+    ValueError that names it (never a copy); the route's workspaces come
+    from the caching allocator, and the last row's total of each chunk's
+    da is added from the row blocks' partials here (``add_row_block_tails``).
+    ``lib``: another build of ``ssd_bwd.cu`` (through ``declare_bwd``) to
+    launch instead of the package's."""
     if not use_kernel("pallas", x):
         return ssd_bwd_plain(x, dt, a_cum, B, C, prev_states, dy, dfinal, l, compute_dtype)
-    lib = _bwd_lib()
+    lib = _bwd_lib() if lib is None else lib
     b, t, h, p, g, n = _check_inputs(x, dt, B, C, compute_dtype, lib.mdt_ssd_bwd_supports)
     _check(l <= 256 and t % l == 0, f"chunk {l} must divide {t} and be <= 256")
     nc = t // l
@@ -325,6 +383,13 @@ def ssd_bwd_kernel(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_
     if dfinal is not None:
         _f32_on(dfinal, (b, h, p, n), x.device, "dfinal")
     dev, f32 = x.device, torch.float32
+    tc = ssd_bwd_uses_tensor_cores(x.dtype, p, n, l)
+    ws = (None, None, None)
+    if tc:
+        _check_tma("ssd_bwd", x=x, B=B, C=C, dy=dy)
+        ws = (torch.empty((b, nc, h, p, n), dtype=x.dtype, device=dev),
+              torch.empty((b, nc, h, p, n), dtype=x.dtype, device=dev),
+              torch.empty((b, nc, h, l // TC_ROWS), dtype=f32, device=dev))
     dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, t, h), dtype=f32, device=dev)
     da = torch.empty((b, t, h), dtype=f32, device=dev)
@@ -343,12 +408,24 @@ def ssd_bwd_kernel(x, dt, a_cum, B, C, prev_states, dy, dfinal, l: int, compute_
         dt.stride(0), dt.stride(1), dt.stride(2),
         B.stride(0), B.stride(1), B.stride(2),
         C.stride(0), C.stride(1), C.stride(2),
+        *(None if w is None else w.data_ptr() for w in ws),
         _DTYPE_CODE[x.dtype], _stream(x),
     )
     if err != 0:
         raise RuntimeError(f"ssd_bwd launch failed: cudaError {err}")
+    if tc:
+        add_row_block_tails(da, ws[2], l)
     LAUNCHES["ssd_bwd"] += 1
     return dx, ddt, da, dB, dC, dgamma, dinit
+
+
+def add_row_block_tails(da, tails, l: int) -> None:
+    """Add, in place, each chunk's total of d .* rowsum(u .* dw) to its
+    last row's da: ``tails`` (b, nc, h, l / 64) holds the tensor-core
+    kernel's per-row-block sums, added in block order (the same bits at
+    every launch, no atomics)."""
+    b, t, h = da.shape
+    da.view(b, t // l, l, h)[:, :, l - 1] += tails.sum(-1)
 
 
 # ------------------------------------------------------- the autograd core
@@ -368,8 +445,12 @@ def ssd_backward(x, dt, A, B, C, dy, l: int, compute_dtype,
     chunk_decay = torch.exp(a4[:, :, -1])  # (b, nc, h)
     states = ssd_chunk_states_kernel(x, dt, a_cum, B, l, compute_dtype)
     prev_states, _ = state_passing(states, chunk_decay, initial_state)
+    dy = dy.contiguous()
+    if (use_kernel("pallas", x) and ssd_bwd_uses_tensor_cores(x.dtype, p, n, l)
+            and _tma_problem(dy) is not None):
+        dy = dy.clone()  # an incoming gradient may be offset: a fresh copy
     dx, ddt_dir, da, dB_h, dC_h, dgamma, dinit = ssd_bwd_kernel(
-        x, dt, a_cum, B, C, prev_states.contiguous(), dy.contiguous(),
+        x, dt, a_cum, B, C, prev_states.contiguous(), dy,
         None if dfinal is None else dfinal.contiguous(), l, compute_dtype)
 
     # epilogue: the chunk decay's gradient lands on the last row's a,

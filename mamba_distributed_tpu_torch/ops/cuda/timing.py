@@ -88,6 +88,22 @@ def ssd_inputs(gen, b, t, g, dtype, seeded, h=24, p=64, n=128):
     return dict(x=x, dt=dt, A=A, B=B, C=C, D=D, initial_state=s0)
 
 
+def ssd_bwd_work(b, t, h, g, p, n, l, dtype, seeded, dfinal):
+    """(bytes, flops) of kernel 2 and of kernel 3, each input read once
+    and each output written once; kernel 3's multiply-adds are the
+    causal halves of G, dM, du, dB, dC plus the four l x p x n products
+    of the state terms (dy P, B dS, w dS, dy^T eC)."""
+    e = torch.finfo(dtype).bits // 8
+    nc = t // l
+    xs, bs, ts, ss = b * t * h * p * e, b * t * g * n * e, b * t * h * 4, b * nc * h * p * n * 4
+    st_bytes = b * h * p * n * 4
+    k2 = (xs + 2 * ts + bs + ss, 2 * b * h * nc * l * p * n)
+    k3_bytes = (3 * xs + 4 * ts + 2 * bs + ss + st_bytes * (2 if dfinal else 1)
+                + 2 * b * t * h * n * 4 + b * nc * h * 4)
+    macs = b * h * nc * (l * (l + 1) // 2 * (3 * n + 2 * p) + 4 * l * p * n)
+    return k2, (k3_bytes, 2 * macs)
+
+
 def ssd_work(b, t, h, g, p, n, l, dtype, seeded):
     """(bytes, flops) the SSD forward needs: each input read once, each
     output written once; multiply-adds of the causal (lower-triangle)
@@ -101,6 +117,65 @@ def ssd_work(b, t, h, g, p, n, l, dtype, seeded):
     macs = b * h * nc * ((n + p) * l * (l + 1) // 2 + 2 * l * p * n)
     return nbytes, 2 * macs
 
+
+
+# ------------------------------------------------ selective scan (Mamba-1)
+
+# the H100's fp32 peak from the table (67 TFLOP/s, 128 FMA lanes per SM)
+# and its exp rate: the SFU evaluates 16 exp2 per SM and clock, 1/8 of
+# the FMA lanes' 33.5 T FMA/s
+H100_FP32_FLOPS = 67e12
+H100_EXP_PER_S = H100_FP32_FLOPS / 2 / 8
+
+
+def m1_inputs(gen, b, t, d, seeded, n=16):
+    """The fp32 core inputs of the scan at init-like scales: dt =
+    softplus(N(-3, 1)), A = -(1..16), B, C ~ N(0, 1)."""
+    dev = "cuda"
+    u = torch.randn((b, t, d), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, t, d), generator=gen, device=dev) - 3.0)
+    A = -torch.exp(torch.rand((d, n), generator=gen, device=dev) * 2.77)
+    B = torch.randn((b, t, n), generator=gen, device=dev)
+    C = torch.randn((b, t, n), generator=gen, device=dev)
+    h0 = 0.5 * torch.randn((b, d, n), generator=gen, device=dev) if seeded else None
+    return u, dt, A, B, C, h0
+
+
+# the TPU kernel's t-tile at the train layer's shapes (t 1024, d 1536:
+# 512-channel blocks from _pick_blocks, then the 4 MB cap on its rebuilt
+# states, scan_kernels.py:296-302); the bounds count the entry states
+# passed from kernel 5 to kernel 6 at this tile, not at the port's T_BLK
+TPU_M1_T_TILE = 128
+
+
+def m1_work(b, t, d, n, seeded, dfinal):
+    """(bytes, exps, flops) of kernels 4, 5 and 6 on these shapes: each of
+    the scan's inputs read once and each of its outputs written once
+    (kernel 6's as the backward defines them: du, ddt (b, t, d), dA (d,
+    n), dB and dC (b, t, n), dh0 when seeded), the entry states written by
+    kernel 5 and read by kernel 6 at the TPU kernel's tile; one exp per
+    (b, t, d, n) cell each, what the recurrence needs (kernel 6 evaluates
+    it twice); the fp32 operations of the recurrence per cell (6 forward:
+    the exp's argument, the update's multiply and multiply-add, the
+    readout's multiply-add; 4 without the readout; 20 backward).  None of
+    it depends on the port's T_BLK or D_BLK."""
+    io, bc, st, a = b * t * d * 4, b * t * n * 4, b * d * n * 4, d * n * 4
+    entry = b * -(-t // TPU_M1_T_TILE) * d * n * 4
+    cells = b * t * d * n
+    h0 = st if seeded else 0
+    k4 = (3 * io + a + 2 * bc + h0 + st, cells, 6 * cells)
+    k5 = (2 * io + a + bc + h0 + entry, cells, 4 * cells)
+    k6 = (5 * io + 2 * a + 4 * bc + entry + (st if dfinal else 0) + h0, cells, 20 * cells)
+    return k4, k5, k6
+
+
+def m1_bound(nbytes, exps, flops):
+    """(bound ms, "bytes" or "operations"): the operations' time is the
+    larger of the exps over the SFU rate and the rest over the fp32 peak
+    (the two pipes run side by side)."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = max(exps / H100_EXP_PER_S, flops / H100_FP32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ------------------------------------------------------------ paged decode

@@ -1,16 +1,17 @@
-"""The hand kernels redesigned for the tensor cores and the split decode,
-on the card, against another build of their sources.
+"""The redesigned hand kernels (tensor cores, the split decode, the
+Mamba-1 backward) on the card, against another build of their sources.
 
     python3 -m mamba_distributed_tpu_torch.profile_flash [--baseline DIR]
 
-Builds ``ops/cuda/csrc/flash_attention.cu``,
-``ops/cuda/csrc/ragged_paged_attention.cu`` and ``ops/cuda/csrc/ssd_fwd.cu``
-and, with ``--baseline``, the same three files of the checkout at DIR (e.g.
-the parent commit, unpacked with ``git archive`` under ``build/archive/``),
-all with ``build.NVCC_FLAGS``, and prints the count of ``HGMMA``
-instructions in each kernel of this tree's builds (``cuobjdump -sass``).
-Then checks that both builds agree with the plain versions and times
-them, in turns baseline, this tree, this tree, baseline:
+Builds the five sources ``ops/cuda/csrc/flash_attention.cu``,
+``ragged_paged_attention.cu``, ``ssd_fwd.cu``, ``ssd_bwd.cu`` and
+``selective_scan.cu`` and, with ``--baseline``, the same five files of the
+checkout at DIR (e.g. the parent commit, unpacked with ``git archive``
+under ``build/archive/``), all with ``build.NVCC_FLAGS``, and prints the
+count of ``HGMMA`` instructions in each kernel of this tree's builds
+(``cuobjdump -sass``).  Then checks that both builds agree with the plain
+versions and times them, in turns baseline, this tree, this tree,
+baseline, in six groups:
 
 * at one attention layer of the hybrid-280m train step (b 32,
   t 1024, 12 query / 4 KV heads, hd 64, bf16, q/k/v the mixer's strided
@@ -33,6 +34,14 @@ them, in turns baseline, this tree, this tree, baseline:
   serving chunk, b 1 t 256, and one layer of the trainer's micro-batch, b
   32 t 1024, at mamba2-280m's widths, bf16): device time per call beside
   the bound of ``timing.ssd_work``;
+* the SSD backward (``ssd_bwd``, the state cotangent and the cell
+  gradients) at one layer of the mamba2-280m train step (b 32, t 1024, l
+  256, bf16): device time per call beside the bound of
+  ``timing.ssd_bwd_work``; a baseline without the tensor-core route's C
+  API (``mdt_ssd_bwd_uses_tc``) is called through the CUDA-core route's;
+* the Mamba-1 backward kernels (``m1_entry_states``, ``m1_bwd``) at one
+  layer of the mamba1-280m train step (b 32, t 1024, d 1536, fp32): ms
+  beside the bound of ``timing.m1_work``;
 
 each beside the card's name and power limit.  ``chip_smoke.py`` times
 SDPA beside the attention kernels.  Exits nonzero without a card.
@@ -51,6 +60,7 @@ import torch
 from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
 from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as mk
 from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
 from mamba_distributed_tpu_torch.ops.cuda.timing import (
     RPA_TIMED,
@@ -59,21 +69,71 @@ from mamba_distributed_tpu_torch.ops.cuda.timing import (
     bound,
     cuda_ms,
     device_ms,
+    m1_bound,
+    m1_inputs,
+    m1_work,
     rel_err,
     rpa_case,
     rpa_work,
     rpp_case,
     rpp_work,
+    ssd_bwd_work,
     ssd_inputs,
     ssd_work,
 )
-from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk, ssd_chunked
+from mamba_distributed_tpu_torch.ops.ssd import (
+    _divisor_chunk,
+    chunk_log_decay,
+    ssd_chunked,
+    state_passing,
+)
 from mamba_distributed_tpu_torch.profile_serving import card_name
+
+_V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# the CUDA-core route's C API of ssd_bwd.cu (before the tensor-core route),
+# for a baseline build that lacks ``mdt_ssd_bwd_uses_tc``
+SINGLE_ROUTE_SSD_BWD = [_V] * 15 + [_I] * 7 + [_L] * 12 + [_I, _V]
+
+
+def declare_ssd_bwd(lib):
+    """A build of ``ssd_bwd.cu`` with its C API declared, either route's."""
+    if hasattr(lib, "mdt_ssd_bwd_uses_tc"):
+        return sk.declare_bwd(lib)
+    lib.mdt_ssd_bwd.argtypes = SINGLE_ROUTE_SSD_BWD
+    lib.mdt_ssd_bwd.restype = _I
+    return lib
+
+
+def ssd_bwd(lib, args):
+    """``ssd_bwd_kernel`` through the build ``lib`` (None: the package's),
+    by the CUDA-core route's C API where the build has no tensor-core
+    route."""
+    if lib is None or hasattr(lib, "mdt_ssd_bwd_uses_tc"):
+        return sk.ssd_bwd_kernel(*args, lib=lib)
+    x, dt, a_cum, B, C, prev, dy, dfinal, l, _ = args
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    outs = (torch.empty_like(x), torch.empty((b, t, h), **f32), torch.empty((b, t, h), **f32),
+            torch.empty((b, t, h, n), **f32), torch.empty((b, t, h, n), **f32),
+            torch.empty((b, t // l, h), **f32), torch.empty((b, h, p, n), **f32))
+    err = lib.mdt_ssd_bwd(
+        x.data_ptr(), dt.data_ptr(), a_cum.data_ptr(), B.data_ptr(), C.data_ptr(),
+        prev.data_ptr(), dy.data_ptr(), None if dfinal is None else dfinal.data_ptr(),
+        *(o.data_ptr() for o in outs), b, t, h, p, g, n, l,
+        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+        1 if x.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the baseline's ssd_bwd failed: cudaError {err}")
+    return outs
+
 
 CSRC = Path("mamba_distributed_tpu_torch/ops/cuda/csrc")
 # the sources, by library name, and how each build declares its C API
 SOURCES = {"flash_attention": fk.declare, "ragged_paged_attention": ak.declare,
-           "ssd_fwd": sk.declare_fwd}
+           "ssd_fwd": sk.declare_fwd, "ssd_bwd": declare_ssd_bwd,
+           "selective_scan": mk.declare}
 ITERS = 20
 # one attention layer of the hybrid-280m train step: micro-batch 32
 B, T, NH, NKV, HD = 32, 1024, 12, 4, 64
@@ -106,12 +166,14 @@ def device_call_ms(fn) -> float:
     return sum(device_ms(fn, ITERS).values())
 
 
-def time_turns(kernels, work, libs, order, shape, card, timer=None, what="") -> None:
+def time_turns(kernels, work, libs, order, shape, card, timer=None, what="",
+               bound_fn=bound) -> None:
     """Time each kernel with each build in the turns of ``order``, by CUDA
-    events around a loop of calls, or by ``timer`` (e.g. ``device_call_ms``)."""
+    events around a loop of calls, or by ``timer`` (e.g. ``device_call_ms``),
+    beside ``bound_fn(*work[name])``, whose last item is the FLOPs."""
     for name, fn in kernels.items():
-        nbytes, flops = work[name]
-        bound_ms, bound_by = bound(nbytes, flops)
+        flops = work[name][-1]
+        bound_ms, bound_by = bound_fn(*work[name])
         times: dict[str, list[float]] = {}
         for who in order:
             call = lambda: fn(libs[who])  # noqa: E731
@@ -126,7 +188,6 @@ def time_turns(kernels, work, libs, order, shape, card, timer=None, what="") -> 
 
 # the single-pass decode's C API (before the split decode), for a baseline
 # build that lacks ``mdt_rpa_splits``
-_V, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SINGLE_PASS_RPA = [_V] * 8 + [_I] * 6 + [_L] * 2 + [_F, _I, _I, _V]
 
 
@@ -155,7 +216,7 @@ def decode(lib, args):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--baseline", type=Path, help="checkout whose three sources to time too")
+    ap.add_argument("--baseline", type=Path, help="checkout whose five sources to time too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_flash: no CUDA device visible", file=sys.stderr)
@@ -168,7 +229,7 @@ def main() -> int:
                 print(f"SASS HGMMA instructions, this tree: {name}: {n}")
     order = ["baseline", "this tree", "this tree", "baseline"] if len(libs) > 1 else ["this tree"]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for group in (time_flash, time_rpp, time_rpa, time_ssd):
+    for group in (time_flash, time_rpp, time_rpa, time_ssd, time_ssd_bwd, time_m1):
         group(gen, libs, order, card)
         torch.cuda.empty_cache()
     return 0
@@ -287,6 +348,66 @@ def time_ssd(gen, libs, order, card) -> None:
                    {"ssd_fwd": ssd_work(b, t, 24, g, 64, 128, l, torch.bfloat16, seeded)},
                    libs, order, shape, card, device_call_ms, " of device time a call")
         del inp, fwd, yp, sp
+
+
+
+def time_ssd_bwd(gen, libs, order, card) -> None:
+    """The SSD backward at one layer of the mamba2-280m train step."""
+    b, t, l, g, bf16 = 32, 1024, 256, 1, torch.bfloat16
+    inp = ssd_inputs(gen, b, t, g, bf16, False)
+    x, dt, A, B, C = (inp[k] for k in ("x", "dt", "A", "B", "C"))
+    h, p, n = x.shape[2], x.shape[3], B.shape[3]
+    a4 = chunk_log_decay(dt, A, l)
+    a_cum = a4.reshape(b, t, h).contiguous()
+    prev, _ = state_passing(sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16),
+                            torch.exp(a4[:, :, -1]), None)
+    dy = torch.randn((b, t, h, p), generator=gen, device="cuda").to(bf16)
+    args = (x, dt, a_cum, B, C, prev.contiguous(), dy, None, l, bf16)
+    ref = sk.ssd_bwd_plain(*args)
+    for who, lib in libs.items():
+        got = ssd_bwd(lib["ssd_bwd"], args)
+        rel = max(rel_err(a, r)[1] for a, r in zip(got, ref, strict=True))
+        print(f"check ssd_bwd b={b} t={t} {who}: rel {rel:.2e} (tol 3e-02)", flush=True)
+        if rel > 3e-2:
+            raise SystemExit(f"{who}: ssd_bwd disagrees with the plain version")
+    del ref, got
+    torch.cuda.empty_cache()
+    shape = (f"bf16 b={b} t={t} l={l} h={h} p={p} n={n} ({l // 64 * h * b * t // l} CTAs of "
+             f"the cell kernel in this tree, {h * b} in the CUDA-core kernel)")
+    time_turns({"ssd_bwd": lambda lib: ssd_bwd(lib["ssd_bwd"], args)},
+               {"ssd_bwd": ssd_bwd_work(b, t, h, g, p, n, l, bf16, False, False)[1]},
+               libs, order, shape, card, device_call_ms, " of device time a call")
+    for who, lib in libs.items():
+        per = device_ms(lambda: ssd_bwd(lib["ssd_bwd"], args))
+        print(f"device ssd_bwd {who}: " + ", ".join(
+            f"{k.removeprefix('void (anonymous namespace)::')[:48]} {v:.4f}"
+            for k, v in per.items()) + f" [{card}]", flush=True)
+
+
+def time_m1(gen, libs, order, card) -> None:
+    """The Mamba-1 backward kernels at one layer of the mamba1-280m train step."""
+    b, t, d, n = 32, 1024, 1536, 16
+    u, dt, A, B, C, _ = m1_inputs(gen, b, t, d, False)
+    dy = torch.randn((b, t, d), generator=gen, device="cuda")
+    states = mk.m1_entry_states_plain(u, dt, A, B)
+    ref = mk.m1_bwd_plain(u, dt, A, B, C, states, dy)
+    for who, lib in libs.items():
+        scan = lib["selective_scan"]
+        got = (mk.m1_entry_states(u, dt, A, B, lib=scan),
+               *mk.m1_bwd(u, dt, A, B, C, states, dy, lib=scan))
+        rel = max(rel_err(a, r)[1] for a, r in zip(got, (states, *ref), strict=True))
+        print(f"check m1_entry_states, m1_bwd b={b} t={t} d={d} {who}: rel {rel:.2e} "
+              f"(tol 1e-04)", flush=True)
+        if rel > 1e-4:
+            raise SystemExit(f"{who}: the Mamba-1 backward disagrees with the plain version")
+    del ref, got
+    _, k5, k6 = m1_work(b, t, d, n, False, False)
+    time_turns({"m1_entry_states": lambda lib: mk.m1_entry_states(
+                    u, dt, A, B, lib=lib["selective_scan"]),
+                "m1_bwd": lambda lib: mk.m1_bwd(u, dt, A, B, C, states, dy,
+                                                lib=lib["selective_scan"])},
+               {"m1_entry_states": k5, "m1_bwd": k6}, libs, order,
+               f"fp32 b={b} t={t} d={d} n={n}", card, bound_fn=m1_bound)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ from mamba_distributed_tpu_torch.ops.cuda import build
 pytestmark = pytest.mark.torch
 
 HEADER = "hopper.cuh"
-INCLUDERS = ("flash_attention", "ragged_paged_attention", "ssd_fwd")
+INCLUDERS = ("flash_attention", "ragged_paged_attention", "ssd_fwd", "ssd_bwd")
 
 
 @pytest.fixture
