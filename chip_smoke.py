@@ -8,13 +8,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together), fail if a tensor-core
    instance (flash forward, dq, dk/dv; the paged prefill attend; the SSD
-   forward; the SSD backward's two kernels), a split-decode instance or
-   the Mamba-1 backward is missing or spills registers (``-Xptxas -v``)
-   or a tensor-core SSD kernel has no HGMMA instruction in its SASS, hold
-   the Python tables of built shapes (``ops/dispatch.check_kernel_shapes``)
+   forward; the SSD chunk states and the backward's two kernels), a
+   split-decode instance, the Mamba-1 forward scan or the Mamba-1
+   backward is missing or spills registers (``-Xptxas -v``) or a
+   tensor-core SSD kernel has no HGMMA instruction in its SASS, hold the
+   Python tables of built shapes (``ops/dispatch.check_kernel_shapes``)
    against each library's own answers, and the paged prefill's, the SSD
-   forward's and the SSD backward's dispatch rules and the decode's split
-   rule against the libraries', with hybrid-280m's and mamba2-280m's
+   forward's and the SSD backward's dispatch rules (the last also routes
+   the chunk states), the decode's split rule and ``m1_scan``'s launch
+   geometry against the libraries', with hybrid-280m's and mamba2-280m's
    shapes on the tensor cores;
 2. hold each kernel against its plain PyTorch version on the card, in
    fp32 with TF32 off and in bf16, and time both at its main path's
@@ -26,7 +28,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (b 1, t 256) and the trainer's micro-batch (b 32, t 1024);
    ``ssd_chunk_states`` and ``ssd_bwd`` (the SSD backward: bf16 at d_state
    128 and 64 with chunks of 64-256 on the tensor cores, fp32 and a
-   ragged l 100 on CUDA cores) over g 1 and 2, seeded and not, with and
+   ragged l 100 on CUDA cores, each case's route printed) over g 1 and 2,
+   seeded and not, with and
    without a final-state cotangent, two launches bit-identical, then the
    whole ``SSDFunction``'s gradients against torch autograd of the plain
    forward, timed at a quarter of the trainer's micro-batch (b 8) and at
@@ -54,8 +57,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bit-identical, then the
    whole ``SelectiveScanFunction``'s gradients against torch autograd of
    the plain ``selective_scan_seq``, ``m1_scan`` timed at the serving
-   chunk (b 1, t 256) and all three at one layer of the mamba1-280m
-   train step (b 32, t 1024);
+   chunk (b 1, t 256, device time) and all three at one layer of the
+   mamba1-280m train step (b 32, t 1024);
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
@@ -241,9 +244,10 @@ def check_ssd_bwd(gen):
     plain ``ssd_chunked``.  Both routes of kernel 3's dispatch rule: bf16
     at (headdim, d_state) (64, 128) and (64, 64) with chunks of 64, 128
     and 256 on the tensor cores; fp32, and the ragged l 100, on the
-    CUDA-core kernel.  The last two cases, a quarter of the trainer's
-    micro-batch (b 8) and one layer of the mamba2-280m train step (b 32,
-    the shape of the training run's launches and of the row), are timed."""
+    CUDA-core kernel (the chunk states take the same route).  The last
+    two cases, a quarter of the trainer's micro-batch (b 8) and one layer
+    of the mamba2-280m train step (b 32, the shape of the training run's
+    launches and of the row), are timed, the chunk states by device time."""
     from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
     from mamba_distributed_tpu_torch.ops.ssd import (
         _divisor_chunk,
@@ -287,6 +291,7 @@ def check_ssd_bwd(gen):
         torch.cuda.synchronize()
         same = bool(torch.equal(st_k, st_k2)) and all(
             torch.equal(u, v) for u, v in zip(got, got2, strict=True))
+        # one rule routes the chunk states and the backward alike
         route = ("tensor cores" if sk.ssd_bwd_uses_tensor_cores(dtype, p, n, l)
                  else "CUDA cores")
         tag = f"{str(dtype)[6:]} b={b} t={t} l={l} g={g} n={n} seeded={seeded} dfinal={dfin}"
@@ -294,8 +299,9 @@ def check_ssd_bwd(gen):
         errs = {nm: rel_err(a, r) for nm, a, r in zip(names, got, ref)}
         worst = max([rel2] + [r for _, r in errs.values()])
         finite = all(bool(torch.isfinite(v).all()) for v in (st_k, *got))
-        print(f"check ssd_chunk_states {tag}: max_abs_err={err2:.3e} (rel {rel2:.2e}); "
-              f"ssd_bwd ({route}) rel " + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
+        print(f"check ssd_chunk_states {tag} ({route}): max_abs_err={err2:.3e} (rel "
+              f"{rel2:.2e}); ssd_bwd ({route}) rel "
+              + " ".join(f"{k} {r:.2e}" for k, (_, r) in errs.items())
               + f"; tol rel {TOL[dtype]:.0e}; 2 launches bit-identical: {same}", flush=True)
         if not finite or worst > TOL[dtype] or not same:
             failures.append(f"ssd_chunk_states/ssd_bwd {tag}: finite={finite}, rel {worst:.3e}, "
@@ -304,7 +310,11 @@ def check_ssd_bwd(gen):
         if b * t <= 1024:  # the whole Function against autograd of the plain forward
             failures += function_grads(sk, ssd_chunked, inp, dy, dfinal, chunk, dtype, tag)
         if b in (8, 32):
-            ms2 = cuda_ms(lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype), 20)
+            # the chunk states by device time (a loop of calls at b 8 is
+            # host-bound), the event time beside it
+            states = lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, dtype)  # noqa: E731
+            ms2 = sum(device_ms(states, 20).values())
+            event2 = cuda_ms(states, 20)
             plain2 = cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, dtype), 5)
             ms3 = cuda_ms(lambda: sk.ssd_bwd_kernel(*args), 20)
             plain3 = cuda_ms(lambda: sk.ssd_bwd_plain(*args), 3, 1)
@@ -316,11 +326,15 @@ def check_ssd_bwd(gen):
                     ("ssd_bwd", ms3, plain3, b3, f3, max(e for e, _ in errs.values()), 299))):
                 bound_ms, bound_by = bound(nb, fl)
                 shape = f"bf16 b={b} t={t} l={l} h={h}"
-                print(f"time {nm} {shape} ({what}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP), "
+                device = (f" of device time ({event2:.4f} ms a call by the event timer)"
+                          if i == 0 else "")
+                print(f"time {nm} {shape} ({what}, {route}): kernel {ms:.4f} ms{device}, plain "
+                      f"{plain:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {fl} FLOP), "
                       f"{fl / ms / 1e9:.1f} TFLOP/s", flush=True)
                 shapes[nm].append(dict(shape=shape, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                                        bound_by=bound_by, max_abs_err=err))
+                if i == 0:
+                    shapes[nm][-1]["event_ms"] = event2
                 if b == 32:  # the row: the shape the training run launches at
                     rows[i] = dict(
                         name=nm, route="cuda",
@@ -875,13 +889,26 @@ def check_m1(gen):
     launches of each bit-identical, then the whole ``selective_scan_kernel``
     (SelectiveScanFunction, D, z, softplus)
     against torch autograd of the plain ``selective_scan_seq``.  Timed:
-    kernel 4 at the serving chunk (b 1, t 256, seeded, final state) and
-    kernels 4-6 at one layer of the mamba1-280m train step (b 32, t 1024);
-    the rows' errors are at the timed inputs."""
+    kernel 4 at the serving chunk (b 1, t 256, seeded, final state; device
+    time) and kernels 4-6 at one layer of the mamba1-280m train step (b 32,
+    t 1024); the rows' errors are at the timed inputs, kernel 4's row has
+    both shapes.  First, kernel 4's launch geometry (``m1_scan_ctas``)
+    against the library's."""
     from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as sk
     from mamba_distributed_tpu_torch.ops.scan import selective_scan_seq
 
     tol = TOL[torch.float32]
+    # m1_scan's geometry: the wrapper's rule is the library's launch grid
+    lib = sk._lib()
+    grid = [(b, d) for b in (1, 2, 8, 32) for d in (1, 16, 17, 70, 1000, 1536, 2048)]
+    for b, d in grid:
+        if sk.m1_scan_ctas(b, d) != lib.mdt_m1_scan_ctas(b, d):
+            raise SystemExit(f"m1_scan CTAs differ at b {b} d {d}: the wrapper says "
+                             f"{sk.m1_scan_ctas(b, d)}, the library {lib.mdt_m1_scan_ctas(b, d)}")
+    print(f"check m1_scan geometry: the wrapper's rule equals the library's over {len(grid)} "
+          f"(b, d) shapes; {sk.SCAN_Q} threads a channel, {sk.SCAN_CH} channels a CTA: "
+          f"{sk.m1_scan_ctas(1, 1536)} CTAs at b 1 and {sk.m1_scan_ctas(32, 1536)} at b 32, d 1536",
+          flush=True)
     cases = [  # (b, t, d, seeded, dfinal)
         (3, 37, 70, True, True),  # ragged tile and channel block
         (2, 1024, 1536, False, False),
@@ -926,18 +953,27 @@ def check_m1(gen):
     err, rel = max(e for e, _ in errs), max(r for _, r in errs)
     if rel > tol:
         raise SystemExit(f"m1_scan at the serving chunk: rel {rel:.3e} > {tol:.0e}")
-    ms = cuda_ms(lambda: sk.m1_scan(u, dt, A, B, C, h0), 50)
+    # the kernel's device time (a loop of calls at this size is host-bound),
+    # the event time beside it
+    ms = sum(device_ms(lambda: sk.m1_scan(u, dt, A, B, C, h0), 50).values())
+    event_ms = cuda_ms(lambda: sk.m1_scan(u, dt, A, B, C, h0), 50)
     plain_ms = cuda_ms(lambda: sk.m1_scan_plain(u, dt, A, B, C, h0), 3, 1)
     (nb, ne, nf), _, _ = m1_work(1, 256, 1536, 16, True, False)
     bound_ms, bound_by = m1_bound(nb, ne, nf)
-    print(f"time m1_scan fp32 b=1 t=256 d=1536 seeded (the serving chunk step, "
-          f"{-(-1536 // 32)} CTAs): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by}: {nb} B, {ne} exp, {nf} FLOP)", flush=True)
+    ctas = sk.m1_scan_ctas(1, 1536)
+    print(f"time m1_scan fp32 b=1 t=256 d=1536 seeded (the serving chunk step, {ctas} CTAs): "
+          f"kernel {ms:.4f} ms of device time ({event_ms:.4f} ms a call by the event timer), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nb} B, {ne} exp, "
+          f"{nf} FLOP)", flush=True)
+    shapes = [dict(shape="fp32 b=1 t=256 d=1536 seeded", ctas=ctas, ms=ms, event_ms=event_ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)]
+    # the row: the serving chunk, whose launches it counts (the mamba1
+    # serving run); the train layer beside it
     rows = [dict(name="m1_scan", route="cuda",
                  source="mamba_distributed_tpu_torch/ops/cuda/csrc/selective_scan.cu",
                  replaces="mamba_distributed_tpu/ops/pallas/scan_kernels.py:64",
                  launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shapes=shapes)]
 
     # kernels 4-6 at one layer of the train step
     b, t, d = 32, 1024, 1536
@@ -968,7 +1004,11 @@ def check_m1(gen):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
               f"({bound_by}: {nb} B, {ne} exp, {nf} FLOP), max_abs_err {err:.3e} "
               f"(rel {rel:.2e})", flush=True)
-        if line is not None:
+        if line is None:
+            shapes.append(dict(shape=f"fp32 b={b} t={t} d={d}", ctas=sk.m1_scan_ctas(b, d),
+                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               max_abs_err=err))
+        else:
             rows.append(dict(name=nm, route="cuda",
                              source="mamba_distributed_tpu_torch/ops/cuda/csrc/selective_scan.cu",
                              replaces=f"mamba_distributed_tpu/ops/pallas/scan_kernels.py:{line}",
@@ -1345,16 +1385,17 @@ def main() -> int:
               f"spill stores up to {max(spills)} bytes")
     # no tensor-core instance may spill: the flash forward, dq and dk/dv
     # (3 head dims each), the paged prefill attend (3 head dims x bf16 and
-    # int8 pages), the SSD forward (d_state 64 and 128) and the SSD
-    # backward's two kernels (d_state 64 and 128); nor may the split decode
-    # (its walk: 2 dtypes x 2 page types x 4 row counts; its combine: 2
-    # dtypes) or the Mamba-1 backward; the fp32 CUDA-core ones are printed
-    # beside them
+    # int8 pages), the SSD forward (d_state 64 and 128) and the SSD chunk
+    # states and backward's two kernels (d_state 64 and 128); nor may the
+    # split decode (its walk: 2 dtypes x 2 page types x 4 row counts; its
+    # combine: 2 dtypes), the Mamba-1 forward scan or the Mamba-1 backward;
+    # the fp32 CUDA-core ones are printed beside them
     for src, tag, expected in (("flash_attention", "_tc_kernel", 9),
                                ("ragged_paged_attention", "_tc_kernel", 6),
                                ("ragged_paged_attention", "rpa_", 18),
                                ("ssd_fwd", "_tc_kernel", 2),
-                               ("ssd_bwd", "_tc_kernel", 4),
+                               ("ssd_bwd", "_tc_kernel", 6),
+                               ("selective_scan", "m1_scan", 1),
                                ("selective_scan", "m1_bwd", 1)):
         inst = build.ptxas_instances(logs[src])
         for kname, regs, sp in inst:
@@ -1365,9 +1406,9 @@ def main() -> int:
         if len(tc) != expected or any(sp for _, sp in tc):
             raise SystemExit(f"{tag} instances of {src} ({expected} expected) missing or "
                              f"spilling registers: {tc}")
-    # the tensor-core SSD forward and backward run wgmma
+    # the tensor-core SSD forward, chunk states and backward run wgmma
     for src, tag, expected in (("ssd_fwd", "ssd_fwd_tc_kernel", 2),
-                               ("ssd_bwd", "_tc_kernel", 4)):
+                               ("ssd_bwd", "_tc_kernel", 6)):
         hgmma = {k: v for k, v in build.hgmma_counts(build.library_path(src)).items() if tag in k}
         print(f"SASS HGMMA instructions, {src}: {hgmma}")
         if len(hgmma) != expected or not all(hgmma.values()):

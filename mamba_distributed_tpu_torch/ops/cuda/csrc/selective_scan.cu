@@ -46,12 +46,25 @@
 //
 // Design.  The time loop runs inside the thread, a tile of steps at a
 // time, and B_i, C_i (n floats per step, shared by every channel) are
-// staged in shared memory per tile.  Kernels 4 and 5: one thread per
-// channel, its n = 16 states in registers, so the sums over n (y) need no
-// communication; CTAs of one warp (32 channels) per (channel block, batch
-// row); kernel 4 loads a tile of kFwdTB = 16 steps of u and dt into
-// registers up front (coalesced along d), so the tile's loads are in
-// flight together.  Kernel 6: CTAs of 256 threads, four a channel (kSQ = 4
+// staged in shared memory per tile.  Kernel 4: CTAs of kScanThreads = 64
+// threads, four a channel (kSQ = 4 states each, the decays evaluated once
+// per cell), 16 channels, so the serving chunk (b 1, d 1536) runs 96 CTAs
+// and the train layer (b 32) 3,072 of two warps.  Tiles of kScanTB = 16
+// steps of (u, dt) pairs, B and C are copied by cp.async into a second
+// buffer while the current tile computes (8 KB of shared memory a CTA),
+// so neither the loads nor a stage of B and C sit between the tiles'
+// arithmetic.  y_i is the quad's sum of the four lanes' partials <C_i,
+// h_i> over their states: every four steps a reduce-scatter (an xor-2,
+// then an xor-1 shuffle round) leaves each lane y of one of the four
+// steps, (p0 + p2) + (p1 + p3) in a fixed order, which it writes.  A is
+// scaled by log2(e) once, so a step's exponent is one multiply.  Per
+// step a warp issues about 34 instructions (SASS) beside its 4 MUFU.EX2,
+// which take 32 cycles of its quadrant's SFU: issue and the SFU are the
+// two limits.  Kernel 5: one thread per channel,
+// its n = 16 states in registers; CTAs of one warp (32 channels) per
+// (channel block, batch row), tiles of kTB steps whose u and dt are
+// loaded into registers up front (coalesced along d), B staged between
+// two barriers.  Kernel 6: CTAs of 256 threads, four a channel (kSQ = 4
 // states each), 64 channels, tiles of kTB = 8 steps.  A thread rebuilds
 // its tile's states h_{i-1} and decays e_i = exp(A dt_i) into registers
 // (2 x 8 x 4 floats), so each exp is evaluated once and no state passes
@@ -77,20 +90,25 @@
 // bound; kernel 5 recomputes the exps of the forward.  This layout moves
 // more than the bound counts: the entry states at kTB-step tiles add 0.38
 // GB (written by 5, read by 6) and the per-CTA dB/dC partials 0.1 GB.  At
-// the serving chunk (b 1, t 256) kernel 4 runs d / 32 = 48 one-warp CTAs
-// on 132 SMs: latency-bound by the 256 sequential steps, not by bytes.
+// the serving chunk (b 1, t 256) kernel 4 moves 3.1 MB (under a
+// microsecond) and runs 96 CTAs on 132 SMs: latency-bound by the 256
+// sequential steps, not by bytes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kN = 16;                       // states per channel (Mamba-1 d_state)
-constexpr int kFwdTB = 16;                   // time steps per tile, kernel 4
+constexpr int kScanTB = 16;                  // time steps per tile, kernel 4
 constexpr int kTB = 8;                       // time steps per tile, kernels 5 and 6
-constexpr int kFwdThreads = 32;              // channels per CTA, kernels 4 and 5
+constexpr int kEntryChannels = 32;           // channels per CTA (one thread each), kernel 5
+constexpr int kScanChannels = 16;            // channels per CTA, kernel 4
 constexpr int kBwdChannels = 64;             // channels per CTA, kernel 6
-constexpr int kQ = 4;                        // threads per channel, kernel 6
-constexpr int kSQ = kN / kQ;                 // states per thread, kernel 6
+constexpr int kQ = 4;                        // threads per channel, kernels 4 and 6
+constexpr int kSQ = kN / kQ;                 // states per thread, kernels 4 and 6
+constexpr int kScanThreads = kQ * kScanChannels;
+constexpr int kScanRowFloats = kScanTB * kScanChannels;  // a tile's (u, dt) pairs
+constexpr int kScanTileFloats = 2 * kScanRowFloats + 2 * kScanTB * kN;  // (u, dt), B, C
 constexpr int kBwdThreads = kQ * kBwdChannels;
 constexpr int kRowPad = kBwdChannels + 4;    // a dB/dC row of kernel 6's stage, padded
 constexpr float kLog2e = 1.4426950408889634f;
@@ -143,47 +161,38 @@ struct ScanParams {
   int t, d;
 };
 
-// Kernels 4 (kStates false, tiles of kFwdTB) and 5 (kStates true, tiles
-// of kTB, the entry states' tile): grid (ceil(d / 32), b).
-template <bool kStates>
-__global__ void __launch_bounds__(kFwdThreads) m1_fwd_kernel(ScanParams p) {
-  constexpr int TB = kStates ? kTB : kFwdTB;
-  __shared__ __align__(16) float Bs[TB * kN], Cs[TB * kN];
+// Kernel 5: grid (ceil(d / 32), b), one thread a channel with its n
+// states in registers, tiles of kTB steps (the entry states' tile).
+__global__ void __launch_bounds__(kEntryChannels) m1_entry_states_kernel(ScanParams p) {
+  __shared__ __align__(16) float Bs[kTB * kN];
   const int tid = threadIdx.x, bi = blockIdx.y;
-  const int ch = blockIdx.x * kFwdThreads + tid;
+  const int ch = blockIdx.x * kEntryChannels + tid;
   const bool live = ch < p.d;
-  const int t = p.t, d = p.d, nt = (t + TB - 1) / TB;
+  const int t = p.t, d = p.d, nt = (t + kTB - 1) / kTB;
   float a[kN], h[kN];
   load_state(p.A + size_t(ch) * kN, live, a);
   load_state(p.h0 ? p.h0 + (size_t(bi) * d + ch) * kN : nullptr, live, h);
   const float* u = p.u + size_t(bi) * t * d;
   const float* dt = p.dt + size_t(bi) * t * d;
   for (int k = 0; k < nt; ++k) {
-    const int t0 = k * TB;
-    if (kStates && live) store_state(p.states + ((size_t(bi) * nt + k) * d + ch) * kN, h);
-    float ur[TB], dr[TB];
+    const int t0 = k * kTB;
+    if (live) store_state(p.states + ((size_t(bi) * nt + k) * d + ch) * kN, h);
+    float ur[kTB], dr[kTB];
 #pragma unroll
-    for (int i = 0; i < TB; ++i) {
+    for (int i = 0; i < kTB; ++i) {
       ur[i] = load_at(u, t0 + i, t, d, ch, live);
       dr[i] = load_at(dt, t0 + i, t, d, ch, live);
     }
-    __syncthreads();  // the previous tile's reads of Bs, Cs are done
-    stage_rows<TB>(p.B + size_t(bi) * t * kN, Bs, t0, t, tid, kFwdThreads);
-    if (!kStates) stage_rows<TB>(p.C + size_t(bi) * t * kN, Cs, t0, t, tid, kFwdThreads);
+    __syncthreads();  // the previous tile's reads of Bs are done
+    stage_rows<kTB>(p.B + size_t(bi) * t * kN, Bs, t0, t, tid, kEntryChannels);
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < TB; ++i) {
+    for (int i = 0; i < kTB; ++i) {
       const float dtl = dr[i] * kLog2e, dtu = dr[i] * ur[i];
-      float acc = 0.f;
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        h[n] = fmaf(h[n], ex2(a[n] * dtl), dtu * Bs[i * kN + n]);
-        if (!kStates) acc = fmaf(h[n], Cs[i * kN + n], acc);
-      }
-      if (!kStates && live && t0 + i < t) p.y[(size_t(bi) * t + t0 + i) * d + ch] = acc;
+      for (int n = 0; n < kN; ++n) h[n] = fmaf(h[n], ex2(a[n] * dtl), dtu * Bs[i * kN + n]);
     }
   }
-  if (!kStates && live) store_state(p.hT + (size_t(bi) * d + ch) * kN, h);
 }
 
 struct BwdParams {
@@ -235,6 +244,95 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// start the copies of kernel 4's tile k into `buf`: (u, dt) pairs
+// [step][channel][2] (zeros past t, past d), then B and C rows
+// [step][state] (zeros past t), 16 bytes a copy
+__device__ __forceinline__ void fetch_scan_tile(const ScanParams& p, float* buf, int k, int cb,
+                                                int bi, int tid) {
+  const int t = p.t, d = p.d, t0 = k * kScanTB;
+  const size_t slab = size_t(bi) * t * d;
+  for (int e = tid; e < kScanRowFloats; e += kScanThreads) {
+    const int s = t0 + e / kScanChannels, c = cb * kScanChannels + e % kScanChannels;
+    const bool ok = s < t && c < d;
+    const size_t o = ok ? slab + size_t(s) * d + c : 0;
+    cp_async<4>(buf + 2 * e, p.u + o, ok);
+    cp_async<4>(buf + 2 * e + 1, p.dt + o, ok);
+  }
+  constexpr int kVecs = kScanTB * kN / 4;  // float4s of a tile's B (or C) rows
+  for (int e = tid; e < 2 * kVecs; e += kScanThreads) {  // B rows, then C rows
+    const int r = e % kVecs, s = t0 + r / (kN / 4);
+    const bool ok = s < t;
+    const float* src =
+        (e < kVecs ? p.B : p.C) + (ok ? (size_t(bi) * t + s) * kN + 4 * (r % (kN / 4)) : 0);
+    cp_async<16>(buf + 2 * kScanRowFloats + 4 * e, src, ok);
+  }
+  cp_async_commit();
+}
+
+// Kernel 4: grid (scan_ctas(d), b), kScanThreads threads, kQ a channel
+// with kSQ states each (its states, and A pre-scaled by log2(e), in
+// registers).  Tile k + 1 is copied by cp.async into the other buffer
+// while tile k computes.  Every kQ = 4 steps the quad turns its lanes'
+// partials <C_i, h_i> of the four steps into the four y_i by a
+// reduce-scatter, an xor-2 then an xor-1 shuffle round: lane q ends with
+// y of step q, (p0 + p2) + (p1 + p3) in every lane's order, and writes it.
+__global__ void __launch_bounds__(kScanThreads) m1_scan_kernel(ScanParams p) {
+  static_assert(kQ == 4 && kScanTB % kQ == 0, "a reduce-scatter of 4 steps over 4 lanes");
+  __shared__ __align__(16) float tiles[2][kScanTileFloats];
+  const int tid = threadIdx.x, q = tid % kQ, cl = tid / kQ;
+  const int bi = blockIdx.y, cb = blockIdx.x;
+  const int ch = cb * kScanChannels + cl;
+  const bool live = ch < p.d;
+  const int t = p.t, d = p.d, nt = (t + kScanTB - 1) / kScanTB;
+  const int row = ch * kN + q * kSQ;  // this thread's states in a (d, n) row
+  float a[kSQ], h[kSQ];
+  load_part(p.A + row, live, a);
+  load_part(p.h0 ? p.h0 + size_t(bi) * d * kN + row : nullptr, live, h);
+#pragma unroll
+  for (int s = 0; s < kSQ; ++s) a[s] *= kLog2e;  // e = 2^(a dt)
+  float* y = p.y + size_t(bi) * t * d + ch;
+  const bool hi = q >> 1, lo = q & 1;
+  fetch_scan_tile(p, tiles[0], 0, cb, bi, tid);
+  for (int k = 0, cur = 0; k < nt; ++k, cur ^= 1) {
+    const int t0 = k * kScanTB;
+    cp_async_wait_all();
+    __syncthreads();  // tile k has landed; every read of the other buffer is done
+    if (k + 1 < nt) fetch_scan_tile(p, tiles[cur ^ 1], k + 1, cb, bi, tid);
+    const float* ud = tiles[cur];                       // [kScanTB][kScanChannels][2]
+    const float* Bs = ud + 2 * kScanRowFloats;          // [kScanTB][kN]
+    const float* Cs = Bs + kScanTB * kN;
+#pragma unroll
+    for (int i0 = 0; i0 < kScanTB; i0 += kQ) {
+      float part[kQ];  // this lane's <C_i, h_i> over its states, steps i0 .. i0 + 3
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int i = i0 + j;
+        const float2 uv = *reinterpret_cast<const float2*>(ud + 2 * (i * kScanChannels + cl));
+        const float dtu = uv.y * uv.x;
+        const float4 bv = *reinterpret_cast<const float4*>(Bs + i * kN + q * kSQ);
+        const float4 cv = *reinterpret_cast<const float4*>(Cs + i * kN + q * kSQ);
+        const float b4[kSQ] = {bv.x, bv.y, bv.z, bv.w}, c4[kSQ] = {cv.x, cv.y, cv.z, cv.w};
+        float acc = 0.f;
+#pragma unroll
+        for (int s = 0; s < kSQ; ++s) {
+          h[s] = fmaf(h[s], ex2(a[s] * uv.y), dtu * b4[s]);
+          acc = fmaf(h[s], c4[s], acc);
+        }
+        part[j] = acc;
+      }
+      // lanes q and q ^ 2 sum steps 2 hi and 2 hi + 1; then lanes q and q ^ 1 step q
+      const float s0 = (hi ? part[2] : part[0]) +
+                       __shfl_xor_sync(0xffffffffu, hi ? part[0] : part[2], 2);
+      const float s1 = (hi ? part[3] : part[1]) +
+                       __shfl_xor_sync(0xffffffffu, hi ? part[1] : part[3], 2);
+      const float yv = (lo ? s1 : s0) + __shfl_xor_sync(0xffffffffu, lo ? s0 : s1, 1);
+      const int s = t0 + i0 + q;
+      if (live && s < t) y[size_t(s) * d] = yv;
+    }
+  }
+  if (live) store_part(p.hT + size_t(bi) * d * kN + row, h);
 }
 
 // start the copies of tile k's inputs into `buf` (zeros past t, past d)
@@ -376,14 +474,21 @@ bool bad_dims(int b, int t, int d, int n) {
   return b < 1 || b > 65535 || t < 1 || d < 1 || n != kN;
 }
 
+// kernel 4's CTAs along d (its grid is (scan_ctas(d), b))
+int scan_ctas(int d) { return (d + kScanChannels - 1) / kScanChannels; }
+
 }  // namespace
 
 // The layout constants the wrapper needs: states per channel, time steps
 // per tile (the entry states' tile axis), channels per kernel-6 CTA (the
-// dB/dC partials' block axis).
+// dB/dC partials' block axis); and kernel 4's geometry: channels per CTA,
+// threads per channel, and its CTAs at (b, d).
 extern "C" int mdt_m1_state_size() { return kN; }
 extern "C" int mdt_m1_tile() { return kTB; }
 extern "C" int mdt_m1_bwd_channels() { return kBwdChannels; }
+extern "C" int mdt_m1_scan_channels() { return kScanChannels; }
+extern "C" int mdt_m1_scan_lanes() { return kQ; }
+extern "C" int mdt_m1_scan_ctas(int b, int d) { return b * scan_ctas(d); }
 
 // Each returns a cudaError_t (0 on success).  h0 and dfinal may be null
 // (zeros).
@@ -392,8 +497,7 @@ extern "C" int mdt_m1_scan(const float* u, const float* dt, const float* A, cons
                            int d, int n, void* stream) {
   if (bad_dims(b, t, d, n)) return (int)cudaErrorInvalidValue;
   ScanParams p{u, dt, A, B, C, h0, y, hT, nullptr, t, d};
-  const dim3 grid((d + kFwdThreads - 1) / kFwdThreads, b);
-  m1_fwd_kernel<false><<<grid, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  m1_scan_kernel<<<dim3(scan_ctas(d), b), kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -402,8 +506,8 @@ extern "C" int mdt_m1_entry_states(const float* u, const float* dt, const float*
                                    int t, int d, int n, void* stream) {
   if (bad_dims(b, t, d, n)) return (int)cudaErrorInvalidValue;
   ScanParams p{u, dt, A, B, nullptr, h0, nullptr, nullptr, states, t, d};
-  const dim3 grid((d + kFwdThreads - 1) / kFwdThreads, b);
-  m1_fwd_kernel<true><<<grid, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const dim3 grid((d + kEntryChannels - 1) / kEntryChannels, b);
+  m1_entry_states_kernel<<<grid, kEntryChannels, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

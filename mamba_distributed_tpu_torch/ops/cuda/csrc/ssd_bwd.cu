@@ -3,7 +3,7 @@
 // The counterparts of the two TPU kernels of the SSD backward in
 // mamba_distributed_tpu/ops/pallas/ssd_kernels.py:
 //
-//   ssd_states_kernel  replaces _chunk_states_kernel (:61, launched at
+//   chunk states       replaces _chunk_states_kernel (:61, launched at
 //                      :456): per (batch, chunk, head) the state summary
 //                      S[p, n] = sum_j round(x_j)[p] round(B_j w_j)[n],
 //                      w_j = dt_j e^(a_L - a_j).  The backward recomputes
@@ -34,12 +34,30 @@
 // here) where the TPU kernel casts with .astype(compute_dtype), and sums
 // in fp32.
 //
-// Two designs of the backward; one rule picks between them (uses_tc here,
-// ssd_kernels.ssd_bwd_uses_tensor_cores in the wrapper): bf16 with p = 64,
-// n = 64 or 128 and a chunk that is a multiple of 64 (the presets' (64,
-// 128) at l 256 among them) runs the tensor-core kernels, every other call
-// (fp32, other shapes, a ragged chunk) the CUDA-core kernel.
+// Two designs of each; one rule picks between them for the chunk states
+// and the backward alike (uses_tc here, ssd_kernels.
+// ssd_bwd_uses_tensor_cores in the wrappers): bf16 with p = 64, n = 64 or
+// 128 and a chunk that is a multiple of 64 (the presets' (64, 128) at l
+// 256 among them) runs the tensor-core kernels, every other call (fp32,
+// other shapes, a ragged chunk) the CUDA-core kernels.
 //
+// Chunk states.  The work is small: at mamba2-280m's training layer (b
+// 32, t 1024, l 256, 24 heads) 12.9 GFLOP against 0.22 GB (x and the fp32
+// S, 0.1 GB each, plus B, dt and a), about 60 operations per byte, so the
+// bytes bound it (0.064 ms).
+// * Tensor cores (ssd_states_tc_kernel): one CTA per (head, chunk,
+//   batch), a consumer warpgroup and a producer warp; the (B_j, x_j)
+//   64-row tiles come by TMA through the two-stage ring, B_j is scaled in
+//   place into round(B_j w) and S += round(x_j)^T round(B_j w) runs as
+//   wgmma with both operands MN-major (the state product of
+//   ssd_fwd_tc_kernel); S is written from registers with 16-byte stores.
+//   Small shared memory (about 50 KB) puts four CTAs on an SM, so the
+//   copies of some overlap the products and stores of others.
+// * CUDA cores (ssd_states_kernel): one CTA of 256 threads per (head,
+//   chunk, batch), fp32 tiles of x and round(B w) in shared memory from
+//   plain loads, a 16 x 16 thread grid of fp32 FMAs.
+//
+// Backward:
 // * Tensor cores (hopper.cuh's building blocks), two launches.  The only
 //   value carried from one chunk to the next is the p x n state cotangent,
 //   so it is split out:
@@ -673,10 +691,11 @@ ssd_bwd_kernel(const BwdParams prm) {
 
 // ============================================= tensor-core kernels (bf16)
 
-// The one dispatch rule, here and in the Python wrapper
+// The one dispatch rule, here and in the Python wrappers
 // (ssd_kernels.ssd_bwd_uses_tensor_cores): bf16 with headdim 64, d_state 64
-// or 128 and a chunk that is a multiple of 64 runs the two tensor-core
-// kernels; every other call the CUDA-core ssd_bwd_kernel.
+// or 128 and a chunk that is a multiple of 64 runs the tensor-core chunk
+// states and the two tensor-core backward kernels; every other call the
+// CUDA-core ssd_states_kernel and ssd_bwd_kernel.
 bool uses_tc(int dtype, int p, int n, int chunk) {
   return dtype == 1 && p == 64 && (n == 64 || n == 128) && chunk % kWgRows == 0;
 }
@@ -693,6 +712,128 @@ struct TcWork {
   __nv_bfloat16* Sb;  // (b, nc, h, p, n): round(dS_c), the cotangent of the state leaving it
   float* tail;        // (b, nc, h, l / 64): each row block's sum of d .* rowsum(u .* dw)
 };
+
+// ------------------------------------------------ chunk states, tensor cores
+
+struct StatesMaps {
+  CUtensorMap x, B;
+};
+
+template <int N> struct StatesTcLayout {
+  using CT = Tile<N, kWgRows>;     // B_j rows, scaled in place into round(B_j w)
+  using XT = Tile<kTcP, kWgRows>;  // x_j rows
+  static constexpr int STAGE = CT::BYTES + XT::BYTES;
+  static constexpr int ARR = kStages * STAGE;               // w of the chunk
+  static constexpr int BARS = ARR + kMaxChunk * 4;          // full[], empty[]
+  static constexpr int BYTES = BARS + 8 * 2 * kStages + 1024;  // + alignment slack
+};
+
+// The chunk states on the tensor cores, one CTA per (head, chunk, batch):
+// the producer warp copies the chunk's (B_j, x_j) 64-row tiles by TMA
+// through the two-stage ring; the consumer warpgroup scales each B_j tile
+// in place into round(B_j w) (fp32 product, one round to bf16) and runs
+//   S += round(x_j)^T round(B_j w)     (wgmma, both operands MN-major)
+// with S (p x n, fp32) in its registers; then writes S with 16-byte
+// stores, each quad's lane pairs swapping halves so that a lane holds four
+// consecutive columns.  No scratch tile: about 50 KB of shared memory at
+// n 128, four CTAs an SM, so other CTAs' copies run during one's product.
+template <int N>
+__global__ void __launch_bounds__(kTcThreads)
+    ssd_states_tc_kernel(const __grid_constant__ StatesMaps maps, const StatesParams prm) {
+  using L = StatesTcLayout<N>;
+  using CT = typename L::CT;
+  using XT = typename L::XT;
+  constexpr int P = kTcP;
+  extern __shared__ float smem[];  // as the CUDA-core kernels declare it
+  uint8_t* base = align1024(reinterpret_cast<uint8_t*>(smem));
+  uint8_t* ring = base;
+  float* ws = reinterpret_cast<float*>(base + L::ARR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BARS);
+  uint64_t* empty = full + kStages;
+
+  const int h = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
+  const int l = prm.chunk, nc = prm.seqlen / l, nrb = l / kWgRows, H = prm.nheads;
+  const int grp = h * prm.ngroups / prm.nheads;
+  const int t0 = c * l;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp
+    if (threadIdx.x == 128) {
+      for (int j = 0; j < nrb; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + s, (j / kStages - 1) & 1);
+        uint8_t* st = ring + s * L::STAGE;
+        mbar_expect_tx(full + s, L::STAGE);
+        for (int q = 0; q < CT::NP; ++q)
+          tma_load(st + q * CT::PANEL_B, &maps.B, full + s, q * CT::PW, t0 + j * kWgRows, grp, bi);
+        tma_load(st + CT::BYTES, &maps.x, full + s, 0, t0 + j * kWgRows, h, bi);
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread holds rows r0 and r0 + 8 (p) of S, columns
+  // 8 j + c0 + {0, 1} (n)
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const float* AC = prm.acum + (long long)bi * prm.seqlen * H + h;
+  const float* DT = prm.dt + bi * prm.dt_sb + h * prm.dt_sh;
+  const float a_last = AC[(long long)(t0 + l - 1) * H];
+  for (int r = tid; r < l; r += 128)
+    ws[r] = DT[(long long)(t0 + r) * prm.dt_st] * expf(a_last - AC[(long long)(t0 + r) * H]);
+  wg_bar();
+
+  float S[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) S[i] = 0.f;
+  for (int j = 0; j < nrb; ++j) {
+    const int s = j % kStages;
+    uint8_t* st = ring + s * L::STAGE;
+    mbar_wait(full + s, (j / kStages) & 1);
+    for (int e = tid; e < kWgRows * N / 8; e += 128) {  // B_j -> round(B_j w), in place
+      const int row = e / (N / 8), col = 8 * (e % (N / 8));
+      const int off = CT::chunk_offset(row, col);
+      scale_chunk(st + off, st + off, ws[j * kWgRows + row]);
+    }
+    fence_async_smem();
+    wg_bar();  // every warp's share of round(B_j w) is written
+    fence_regs(S);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows / 16; ++kk)
+      wgmma_ss_mn<N>(S, XT::mnmajor(smem_u32(st + CT::BYTES), kk), CT::mnmajor(smem_u32(st), kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(S);
+    mbar_arrive(empty + s);  // the stage is read no more
+  }
+
+  // out (p rows x n) of this (b, c, h): lanes 2k and 2k + 1 of a quad swap
+  // halves, so the even lane holds columns [8 j + c0, + 4) of block j and
+  // the odd lane [8 (j + 1) + c0 - 2, + 4) of block j + 1
+  float* out = prm.out + (((long long)bi * nc + c) * H + h) * P * N;
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int j = 0; j < N / 8; j += 2)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int x0 = 4 * j + 2 * i, x1 = x0 + 4;  // block j's pair, block j + 1's pair
+      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? S[x0] : S[x1], 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? S[x0 + 1] : S[x1 + 1], 1);
+      const float4 v = odd ? make_float4(g0, g1, S[x1], S[x1 + 1])
+                           : make_float4(S[x0], S[x0 + 1], g0, g1);
+      const int col = odd ? 8 * (j + 1) + c0 - 2 : 8 * j + c0;
+      *reinterpret_cast<float4*>(out + (r0 + 8 * i) * N + col) = v;
+    }
+}
 
 template <int N> struct DsLayout {
   using CT = Tile<N, kWgRows>;     // C_j rows, round(e C_j)
@@ -1282,6 +1423,25 @@ cudaError_t launch_bwd_tc(const BwdParams& prm, const TcWork& ws, cudaStream_t s
 
 // ------------------------------------------------------------ launchers
 
+template <int N>
+cudaError_t launch_states_tc(const StatesParams& prm, cudaStream_t stream) {
+  using L = StatesTcLayout<N>;
+  // make_map takes (outer, head, row) element strides
+  const long long xs[3] = {prm.x_sb, prm.x_sh, prm.x_st};
+  const long long bs[3] = {prm.b_sb, prm.b_sg, prm.b_st};
+  StatesMaps maps{};
+  if (!make_map(&maps.x, prm.x, kTcP, prm.seqlen, prm.nheads, prm.batch, xs, L::XT::PW,
+                kWgRows) ||
+      !make_map(&maps.B, prm.B, N, prm.seqlen, prm.ngroups, prm.batch, bs, L::CT::PW, kWgRows))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ssd_states_tc_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(prm.nheads, prm.seqlen / prm.chunk, prm.batch);
+  ssd_states_tc_kernel<N><<<grid, kTcThreads, L::BYTES, stream>>>(maps, prm);
+  return cudaGetLastError();
+}
+
 template <typename T, int P, int N>
 cudaError_t launch_states(const StatesParams& prm, cudaStream_t stream) {
   const int smem = int(states_smem_floats<P, N>() * sizeof(float));
@@ -1337,8 +1497,9 @@ extern "C" int mdt_ssd_bwd_supports(int p, int n) {
          (p == 128 && n == 128);
 }
 
-// 1 when a backward of the dtype code, headdim, d_state and chunk runs the
-// tensor-core kernels (the wrapper's ssd_bwd_uses_tensor_cores is held to it)
+// 1 when the chunk states and the backward of the dtype code, headdim,
+// d_state and chunk run the tensor-core kernels (the wrappers'
+// ssd_bwd_uses_tensor_cores is held to it)
 extern "C" int mdt_ssd_bwd_uses_tc(int dtype, int p, int n, int chunk) {
   return uses_tc(dtype, p, n, chunk);
 }
@@ -1356,6 +1517,8 @@ extern "C" int mdt_ssd_chunk_states(const void* x, const float* dt, const float*
                    ngroups, chunk, x_sb, x_st, x_sh,  dt_sb, dt_st, dt_sh,
                    b_sb,  b_st,  b_sg};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uses_tc(dtype, headdim, dstate, chunk))
+    return (int)(dstate == 128 ? launch_states_tc<128>(prm, s) : launch_states_tc<64>(prm, s));
   return (int)(dtype == 1 ? states_pn<__nv_bfloat16>(prm, headdim, dstate, s)
                           : states_pn<float>(prm, headdim, dstate, s));
 }

@@ -6,7 +6,8 @@ Counterpart of mamba_distributed_tpu/ops/pallas/scan_kernels.py.  Three
 kernels, each beside its plain version of the same signature and layout:
 
 * ``m1_scan`` replaces ``_m1_scan_kernel`` (:64): the fp32 core
-  ``(u, dt, A, B, C, h0) -> (y, hT)``;
+  ``(u, dt, A, B, C, h0) -> (y, hT)``, ``SCAN_Q`` threads a channel and
+  ``SCAN_CH`` channels a CTA (``m1_scan_ctas``);
 * ``m1_entry_states`` replaces ``_m1_entry_states_kernel`` (:178): the
   state entering each tile of ``T_BLK`` steps, (b, nt, d, n);
 * ``m1_bwd`` replaces ``_m1_bwd_kernel`` (:201): the reverse sweep,
@@ -48,10 +49,14 @@ from mamba_distributed_tpu_torch.ops.scan import (
 )
 
 # layout constants of csrc/selective_scan.cu (the library reports its
-# own; ``_lib`` checks that they agree)
+# own; ``declare`` checks that they agree)
 N_STATE = 16  # kN: the one d_state the kernels take
 T_BLK = 8  # kTB: time steps per tile of m1_entry_states and m1_bwd (the entry states' tile axis)
 D_BLK = 64  # kBwdChannels: channels per m1_bwd CTA (the dB/dC partials' block axis)
+# m1_scan's geometry: SCAN_Q threads a channel (N_STATE / SCAN_Q states
+# each), SCAN_CH channels a CTA (kScanChannels, kQ)
+SCAN_CH = 16
+SCAN_Q = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -62,14 +67,24 @@ def _lib() -> ctypes.CDLL:
     return declare(build.load("selective_scan"))
 
 
+def m1_scan_ctas(b: int, d: int) -> int:
+    """CTAs of one ``m1_scan`` launch (the C library's ``mdt_m1_scan_ctas``)."""
+    return b * -(-d // SCAN_CH)
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``selective_scan.cu``) with its C signatures
-    declared, after checking that its layout constants are this module's."""
-    for fn in (lib.mdt_m1_state_size, lib.mdt_m1_tile, lib.mdt_m1_bwd_channels):
+    declared, after checking that its layout constants and m1_scan's
+    geometry are this module's."""
+    consts = (lib.mdt_m1_state_size, lib.mdt_m1_tile, lib.mdt_m1_bwd_channels,
+              lib.mdt_m1_scan_channels, lib.mdt_m1_scan_lanes)
+    for fn in consts:
         fn.argtypes, fn.restype = [], _I
-    got = (lib.mdt_m1_state_size(), lib.mdt_m1_tile(), lib.mdt_m1_bwd_channels())
-    if got != (N_STATE, T_BLK, D_BLK):
-        raise RuntimeError(f"selective_scan.cu layout {got} != {(N_STATE, T_BLK, D_BLK)}")
+    got = tuple(fn() for fn in consts)
+    want = (N_STATE, T_BLK, D_BLK, SCAN_CH, SCAN_Q)
+    if got != want:
+        raise RuntimeError(f"selective_scan.cu layout {got} != {want}")
+    lib.mdt_m1_scan_ctas.argtypes, lib.mdt_m1_scan_ctas.restype = [_I, _I], _I
     lib.mdt_m1_scan.argtypes = [_P] * 8 + [_I] * 4 + [_P]
     lib.mdt_m1_entry_states.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     lib.mdt_m1_bwd.argtypes = [_P] * 14 + [_I] * 4 + [_P]
@@ -122,8 +137,9 @@ def m1_scan_plain(u, dt, A, B, C, h0=None):
     return selective_scan_seq(u, dt, A, B, C, initial_state=h0, return_final_state=True)
 
 
-def m1_scan(u, dt, A, B, C, h0=None):
-    """``m1_scan_plain`` through kernel 4 on a CUDA tensor."""
+def m1_scan(u, dt, A, B, C, h0=None, lib=None):
+    """``m1_scan_plain`` through kernel 4 on a CUDA tensor (``lib`` as for
+    ``m1_entry_states``)."""
     if not use_kernel("pallas", u):
         return m1_scan_plain(u, dt, A, B, C, h0)
     b, t, d = u.shape
@@ -131,9 +147,10 @@ def m1_scan(u, dt, A, B, C, h0=None):
     _check_inputs(u, dt, A, B, C=(C, (b, t, n)), h0=(h0, (b, d, n)))
     y = torch.empty((b, t, d), dtype=torch.float32, device=u.device)
     hT = torch.empty((b, d, n), dtype=torch.float32, device=u.device)
-    _raise_on(_lib().mdt_m1_scan(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                                 C.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(),
-                                 b, t, d, n, _stream(u)), "m1_scan")
+    lib = _lib() if lib is None else lib
+    _raise_on(lib.mdt_m1_scan(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                              C.data_ptr(), _ptr(h0), y.data_ptr(), hT.data_ptr(),
+                              b, t, d, n, _stream(u)), "m1_scan")
     LAUNCHES["m1_scan"] += 1
     return y, hT
 

@@ -11,7 +11,9 @@ kernels, each beside its plain PyTorch version:
   else a CUDA-core kernel;
 * ``ssd_chunk_states`` (``csrc/ssd_bwd.cu``) replaces
   ``_chunk_states_kernel`` (:61): the per-chunk state summaries the
-  backward recomputes;
+  backward recomputes; on the backward's tensor-core rule
+  (``ssd_bwd_uses_tensor_cores``) a ``wgmma`` kernel that reads x and B
+  by TMA, else a CUDA-core kernel;
 * ``ssd_bwd`` (``csrc/ssd_bwd.cu``) replaces ``_ssd_fused_bwd_kernel``
   (:299): every per-cell gradient of a chunk.  In bf16 at headdim 64,
   d_state 64 or 128 and a chunk that is a multiple of 64
@@ -78,8 +80,9 @@ def ssd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int) -> bool:
 
 
 def ssd_bwd_uses_tensor_cores(dtype: torch.dtype, p: int, n: int, l: int) -> bool:
-    """Whether a backward with x of ``dtype``, headdim ``p``, d_state ``n``
-    and chunk ``l`` runs the tensor-core kernels (the C dispatch's rule)."""
+    """Whether the chunk states and the backward with x of ``dtype``,
+    headdim ``p``, d_state ``n`` and chunk ``l`` run the tensor-core kernels
+    (the C dispatch's rule)."""
     return dtype == torch.bfloat16 and (p, n) in TC_SHAPES and l % TC_ROWS == 0
 
 
@@ -245,15 +248,21 @@ def ssd_chunk_states_plain(x, dt, a_cum, B, l: int, compute_dtype):
     return torch.einsum("bcjhp,bcjhn->bchpn", _cd(x.reshape(b, nc, l, h, p), compute_dtype), Bd)
 
 
-def ssd_chunk_states_kernel(x, dt, a_cum, B, l: int, compute_dtype):
+def ssd_chunk_states_kernel(x, dt, a_cum, B, l: int, compute_dtype, lib=None):
     """``ssd_chunk_states_plain`` through kernel 2 on a CUDA tensor (x, B
-    read through their strides; a_cum contiguous (b, t, h) fp32)."""
+    read through their strides; a_cum contiguous (b, t, h) fp32).  On the
+    tensor-core route (``ssd_bwd_uses_tensor_cores``, the backward's rule)
+    x and B are read by TMA: a view it cannot read raises a ValueError that
+    names it (never a copy).  ``lib``: another build of ``ssd_bwd.cu``
+    (through ``declare_bwd``) to launch instead of the package's."""
     if not use_kernel("pallas", x):
         return ssd_chunk_states_plain(x, dt, a_cum, B, l, compute_dtype)
-    lib = _bwd_lib()
+    lib = _bwd_lib() if lib is None else lib
     b, t, h, p, g, n = _check_inputs(x, dt, B, None, compute_dtype, lib.mdt_ssd_bwd_supports)
     _f32_on(a_cum, (b, t, h), x.device, "a_cum")
     _check(l <= 256 and t % l == 0, f"chunk {l} must divide {t} and be <= 256")
+    if ssd_bwd_uses_tensor_cores(x.dtype, p, n, l):
+        _check_tma("ssd_chunk_states", x=x, B=B)
     out = torch.empty((b, t // l, h, p, n), dtype=torch.float32, device=x.device)
     err = lib.mdt_ssd_chunk_states(
         x.data_ptr(), dt.data_ptr(), a_cum.data_ptr(), B.data_ptr(), out.data_ptr(),

@@ -1,5 +1,5 @@
 """The redesigned hand kernels (tensor cores, the split decode, the
-Mamba-1 backward) on the card, against another build of their sources.
+Mamba-1 scans) on the card, against another build of their sources.
 
     python3 -m mamba_distributed_tpu_torch.profile_flash [--baseline DIR]
 
@@ -34,14 +34,19 @@ baseline, in six groups:
   serving chunk, b 1 t 256, and one layer of the trainer's micro-batch, b
   32 t 1024, at mamba2-280m's widths, bf16): device time per call beside
   the bound of ``timing.ssd_work``;
-* the SSD backward (``ssd_bwd``, the state cotangent and the cell
-  gradients) at one layer of the mamba2-280m train step (b 32, t 1024, l
-  256, bf16): device time per call beside the bound of
-  ``timing.ssd_bwd_work``; a baseline without the tensor-core route's C
-  API (``mdt_ssd_bwd_uses_tc``) is called through the CUDA-core route's;
-* the Mamba-1 backward kernels (``m1_entry_states``, ``m1_bwd``) at one
-  layer of the mamba1-280m train step (b 32, t 1024, d 1536, fp32): ms
-  beside the bound of ``timing.m1_work``;
+* the SSD chunk states (``ssd_chunk_states``) and the SSD backward
+  (``ssd_bwd``, the state cotangent and the cell gradients) at one layer
+  of the mamba2-280m train step (b 32, t 1024, l 256, bf16): device time
+  per call beside the bounds of ``timing.ssd_bwd_work``; a baseline
+  without the tensor-core route's C API (``mdt_ssd_bwd_uses_tc``) is
+  called through the CUDA-core route's;
+* the Mamba-1 scan kernels at fp32, d 1536: ``m1_scan`` at the serving
+  chunk (b 1, t 256, seeded) and at one layer of the mamba1-280m train
+  step (b 32, t 1024), ``m1_entry_states`` and ``m1_bwd`` at the train
+  layer: device time per call beside the bounds of ``timing.m1_work``;
+  the two builds' ``m1_entry_states`` must agree bit for bit; a baseline
+  without ``m1_scan``'s geometry entry points is declared through the
+  older C API;
 
 each beside the card's name and power limit.  ``chip_smoke.py`` times
 SDPA beside the attention kernels.  Exits nonzero without a card.
@@ -129,11 +134,32 @@ def ssd_bwd(lib, args):
     return outs
 
 
+def declare_scan(lib):
+    """A build of ``selective_scan.cu`` with its C API declared; a build
+    without ``m1_scan``'s geometry entry points (before the lane-split
+    scan: the same three calls) is declared without them, after checking
+    the layout constants it has."""
+    if hasattr(lib, "mdt_m1_scan_ctas"):
+        return mk.declare(lib)
+    consts = (lib.mdt_m1_state_size, lib.mdt_m1_tile, lib.mdt_m1_bwd_channels)
+    for fn in consts:
+        fn.argtypes, fn.restype = [], _I
+    got = tuple(fn() for fn in consts)
+    if got != (mk.N_STATE, mk.T_BLK, mk.D_BLK):
+        raise SystemExit(f"the baseline's selective_scan.cu layout {got} differs")
+    lib.mdt_m1_scan.argtypes = [_V] * 8 + [_I] * 4 + [_V]
+    lib.mdt_m1_entry_states.argtypes = [_V] * 6 + [_I] * 4 + [_V]
+    lib.mdt_m1_bwd.argtypes = [_V] * 14 + [_I] * 4 + [_V]
+    for fn in (lib.mdt_m1_scan, lib.mdt_m1_entry_states, lib.mdt_m1_bwd):
+        fn.restype = _I
+    return lib
+
+
 CSRC = Path("mamba_distributed_tpu_torch/ops/cuda/csrc")
 # the sources, by library name, and how each build declares its C API
 SOURCES = {"flash_attention": fk.declare, "ragged_paged_attention": ak.declare,
            "ssd_fwd": sk.declare_fwd, "ssd_bwd": declare_ssd_bwd,
-           "selective_scan": mk.declare}
+           "selective_scan": declare_scan}
 ITERS = 20
 # one attention layer of the hybrid-280m train step: micro-batch 32
 B, T, NH, NKV, HD = 32, 1024, 12, 4, 64
@@ -352,15 +378,30 @@ def time_ssd(gen, libs, order, card) -> None:
 
 
 def time_ssd_bwd(gen, libs, order, card) -> None:
-    """The SSD backward at one layer of the mamba2-280m train step."""
+    """The SSD chunk states and backward at one layer of the mamba2-280m
+    train step."""
     b, t, l, g, bf16 = 32, 1024, 256, 1, torch.bfloat16
     inp = ssd_inputs(gen, b, t, g, bf16, False)
     x, dt, A, B, C = (inp[k] for k in ("x", "dt", "A", "B", "C"))
     h, p, n = x.shape[2], x.shape[3], B.shape[3]
     a4 = chunk_log_decay(dt, A, l)
     a_cum = a4.reshape(b, t, h).contiguous()
-    prev, _ = state_passing(sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16),
-                            torch.exp(a4[:, :, -1]), None)
+    states = sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16)
+    for who, lib in libs.items():
+        got = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, bf16, lib=lib["ssd_bwd"])
+        rel = rel_err(got, states)[1]
+        print(f"check ssd_chunk_states b={b} t={t} {who}: rel {rel:.2e} (tol 3e-02)", flush=True)
+        if rel > 3e-2:
+            raise SystemExit(f"{who}: ssd_chunk_states disagrees with the plain version")
+    del got
+    k2, k3 = ssd_bwd_work(b, t, h, g, p, n, l, bf16, False, False)
+    states_fn = lambda lib: sk.ssd_chunk_states_kernel(  # noqa: E731
+        x, dt, a_cum, B, l, bf16, lib=lib["ssd_bwd"])
+    time_turns({"ssd_chunk_states": states_fn}, {"ssd_chunk_states": k2}, libs, order,
+               f"bf16 b={b} t={t} l={l} h={h} p={p} n={n} ({h * (t // l) * b} CTAs in both "
+               f"builds)", card, device_call_ms, " of device time a call")
+    prev, _ = state_passing(states, torch.exp(a4[:, :, -1]), None)
+    del states
     dy = torch.randn((b, t, h, p), generator=gen, device="cuda").to(bf16)
     args = (x, dt, a_cum, B, C, prev.contiguous(), dy, None, l, bf16)
     ref = sk.ssd_bwd_plain(*args)
@@ -374,8 +415,7 @@ def time_ssd_bwd(gen, libs, order, card) -> None:
     torch.cuda.empty_cache()
     shape = (f"bf16 b={b} t={t} l={l} h={h} p={p} n={n} ({l // 64 * h * b * t // l} CTAs of "
              f"the cell kernel in this tree, {h * b} in the CUDA-core kernel)")
-    time_turns({"ssd_bwd": lambda lib: ssd_bwd(lib["ssd_bwd"], args)},
-               {"ssd_bwd": ssd_bwd_work(b, t, h, g, p, n, l, bf16, False, False)[1]},
+    time_turns({"ssd_bwd": lambda lib: ssd_bwd(lib["ssd_bwd"], args)}, {"ssd_bwd": k3},
                libs, order, shape, card, device_call_ms, " of device time a call")
     for who, lib in libs.items():
         per = device_ms(lambda: ssd_bwd(lib["ssd_bwd"], args))
@@ -385,29 +425,59 @@ def time_ssd_bwd(gen, libs, order, card) -> None:
 
 
 def time_m1(gen, libs, order, card) -> None:
-    """The Mamba-1 backward kernels at one layer of the mamba1-280m train step."""
-    b, t, d, n = 32, 1024, 1536, 16
+    """The Mamba-1 scan kernels: ``m1_scan`` at the serving chunk and at
+    one layer of the mamba1-280m train step, the backward's two kernels at
+    the train layer."""
+    d, n, tol = 1536, 16, 1e-4
+    for b, t, seeded in ((1, 256, True), (32, 1024, False)):
+        u, dt, A, B, C, h0 = m1_inputs(gen, b, t, d, seeded)
+        ref = mk.m1_scan_plain(u, dt, A, B, C, h0)
+        for who, lib in libs.items():
+            got = mk.m1_scan(u, dt, A, B, C, h0, lib=lib["selective_scan"])
+            rel = max(rel_err(a, r)[1] for a, r in zip(got, ref, strict=True))
+            print(f"check m1_scan b={b} t={t} d={d} {who}: rel {rel:.2e} (tol {tol:.0e})",
+                  flush=True)
+            if rel > tol:
+                raise SystemExit(f"{who}: m1_scan disagrees with the plain version")
+        del ref, got
+        shape = (f"fp32 b={b} t={t} d={d} n={n} {'seeded' if seeded else 'unseeded'} "
+                 f"({mk.m1_scan_ctas(b, d)} CTAs in this tree, {b * -(-d // 32)} of one thread "
+                 f"a channel before)")
+        time_turns({"m1_scan": lambda lib: mk.m1_scan(u, dt, A, B, C, h0,
+                                                     lib=lib["selective_scan"])},
+                   {"m1_scan": m1_work(b, t, d, n, seeded, False)[0]}, libs, order, shape,
+                   card, device_call_ms, " of device time a call", bound_fn=m1_bound)
+    b, t = 32, 1024
     u, dt, A, B, C, _ = m1_inputs(gen, b, t, d, False)
     dy = torch.randn((b, t, d), generator=gen, device="cuda")
     states = mk.m1_entry_states_plain(u, dt, A, B)
     ref = mk.m1_bwd_plain(u, dt, A, B, C, states, dy)
+    built = {}
     for who, lib in libs.items():
         scan = lib["selective_scan"]
         got = (mk.m1_entry_states(u, dt, A, B, lib=scan),
                *mk.m1_bwd(u, dt, A, B, C, states, dy, lib=scan))
+        built[who] = got[0]
         rel = max(rel_err(a, r)[1] for a, r in zip(got, (states, *ref), strict=True))
         print(f"check m1_entry_states, m1_bwd b={b} t={t} d={d} {who}: rel {rel:.2e} "
-              f"(tol 1e-04)", flush=True)
-        if rel > 1e-4:
+              f"(tol {tol:.0e})", flush=True)
+        if rel > tol:
             raise SystemExit(f"{who}: the Mamba-1 backward disagrees with the plain version")
-    del ref, got
+    if "baseline" in built:
+        same = bool(torch.equal(built["baseline"], built["this tree"]))
+        print(f"check m1_entry_states b={b} t={t} d={d}: this tree's and the baseline's "
+              f"bit-identical: {same}", flush=True)
+        if not same:
+            raise SystemExit("m1_entry_states differs from the baseline's build")
+    del ref, got, built
     _, k5, k6 = m1_work(b, t, d, n, False, False)
     time_turns({"m1_entry_states": lambda lib: mk.m1_entry_states(
                     u, dt, A, B, lib=lib["selective_scan"]),
                 "m1_bwd": lambda lib: mk.m1_bwd(u, dt, A, B, C, states, dy,
                                                 lib=lib["selective_scan"])},
                {"m1_entry_states": k5, "m1_bwd": k6}, libs, order,
-               f"fp32 b={b} t={t} d={d} n={n}", card, bound_fn=m1_bound)
+               f"fp32 b={b} t={t} d={d} n={n}", card, device_call_ms,
+               " of device time a call", bound_fn=m1_bound)
 
 
 if __name__ == "__main__":
