@@ -58,7 +58,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    whole ``SelectiveScanFunction``'s gradients against torch autograd of
    the plain ``selective_scan_seq``, ``m1_scan`` timed at the serving
    chunk (b 1, t 256, device time) and all three at one layer of the
-   mamba1-280m train step (b 32, t 1024);
+   mamba1-280m train step (b 32, t 1024); then rows 1-3 and 7-11 again
+   at hybrid-7b's shapes (128 SSD heads of 64 at b 1, t 256 and b 4, t
+   4096; the paged kernels at 32 query / 8 KV heads of 128; flash at b 4,
+   t 4096), each against its plain version and timed beside its bound
+   and, for attention, SDPA (``check_7b_shapes``);
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
@@ -76,7 +80,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    KV pages, whose paged attention runs the int8 branches (its greedy
    stream equal to ``generate()``'s, no page leaked), printed beside
    the bf16 hybrid run: resident weight and KV bytes, greedy agreement
-   (not gated), tokens/s, TTFT, chunk step and decode tick;
+   (not gated), tokens/s, TTFT, chunk step and decode tick; then
+   hybrid-7b at full width and depth (32 layers, a gated MLP of 14336
+   after every mixer, 4 attention layers of 32/8 heads of 128), in bf16
+   and in int8 weights and KV pages, from one set of fp32 masters that is
+   quantized and cast once and freed: the same requests, greedy stream
+   equal to ``generate()``, no page leaked, the bf16 one-shot prefill
+   against the chunked one, and peak memory printed beside the rest;
 4. train a full-width, full-depth mamba2-280m, hybrid-280m, then
    mamba1-280m (bf16, pallas, remat) through the port's ``Trainer`` for
    3 optimizer steps at seq 1024 on synthetic shards (micro-batch 32, or
@@ -84,7 +94,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    must be finite.  At 4 layers of the same width (attention at layers 1
    and 3 for the hybrid), for each of the three, one train step's loss
    and gradients with "pallas" must match "xla" (fp32 and bf16), and ten
-   steps on one repeated batch must lower the loss;
+   steps on one repeated batch must lower the loss.  Then hybrid-7b at
+   full width cut to 8 layers (attention at layer 3), seq 4096,
+   micro-batch 4 (2 if 4 does not fit), 3 steps with the dense loss and
+   3 with the blocked one (step ms, MFU with the MLP FLOPs, peak memory),
+   and the peak of one ``loss_and_grads`` without the optimizer with
+   each loss (``loss_peaks``); mamba2-280m's 3-step run again with the
+   blocked loss and under the "dots" and "mixer" remat policies; one step of each 280m preset at full depth under "all",
+   "dots", "mixer" and "all" again, whose gradients must equal the first
+   "all"'s bit for bit (or be no further off than the second "all" is)
+   and whose mixer-core forward launches must be one per mixer layer
+   under "mixer" and two otherwise (``remat_checks``); and the pallas
+   against xla checks and the falling loss on a 4-layer hybrid-tiny with
+   a MoE (4 experts, top-2, d_intermediate 256), an untied head,
+   ``conv_impl="xla_conv"`` and ``loss_impl="blocked"``;
 5. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
@@ -1064,12 +1087,15 @@ def m1_function_grads(kernel_fn, seq_fn, gen, b, t, d, seeded, dfin, tag):
 # ------------------------------------------------------------ serving path
 
 
-def serve(preset: str, path_kernels: tuple[str, ...], **overrides) -> dict:
+def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) -> dict:
     """Serve 8 requests on a full-width engine of ``preset`` (config
     fields ``overrides``, e.g. the int8 knobs); returns the run's launch
     counts, the greedy stream and the serving numbers.  Every kernel in
     ``path_kernels`` (keys of ``build.LAUNCHES``) must have launched in
-    it."""
+    it.  ``params``: decode weights already cast for this config (the
+    engine, ``generate()`` and the chunk step then share them, since a
+    cast of cast weights returns the same tensors); by default fp32
+    masters are made here from a seeded generator."""
     from mamba_distributed_tpu_torch.config import get_preset
     from mamba_distributed_tpu_torch.inference.generate import generate
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
@@ -1086,8 +1112,10 @@ def serve(preset: str, path_kernels: tuple[str, ...], **overrides) -> dict:
     cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", **overrides)
     hybrid = bool(cfg.attn_layer_idx)
     tag = f"{preset}{' int8' if overrides else ''}"
-    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    if params is None:
+        params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda")
     capacity, new = 8, 32
     lens = [12, 100, 300, 700, 12, 100, 300, 700]
     prompt_gen = torch.Generator().manual_seed(1)
@@ -1176,34 +1204,74 @@ def serve(preset: str, path_kernels: tuple[str, ...], **overrides) -> dict:
     if hybrid and not overrides:
         hybrid_one_shot(params, cfg, dparams, prompts[3][:512], new, card)
     kv = eng.pool["state"].get("attn_blocks", ())
+    kv_bytes = sum(t.numel() * t.element_size() for t in kv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve {tag}: resident decode weights {param_bytes(dparams)} B, KV pool {kv_bytes} B, "
+          f"peak device memory (max_memory_allocated, the weights' cast included) "
+          f"{peak_gib:.2f} GiB [{card}]", flush=True)
     return dict(launches=launches, greedy=results[0].new_tokens.tolist(),
                 tokens_per_s=n_tokens / wall, ttft_ms=ttft[len(ttft) // 2],
                 chunk_ms=chunk_ms, tick_ms=tick_ms, weight_bytes=param_bytes(dparams),
-                kv_bytes=sum(t.numel() * t.element_size() for t in kv))
+                kv_bytes=kv_bytes, peak_gib=peak_gib)
 
 
-def serve_int8(bf16: dict) -> dict:
-    """The int8 hybrid serving run (int8 weights and int8 KV pages, the
-    same requests), against the bf16 hybrid run ``bf16`` of this call:
-    the int8 branches of both paged kernels must launch; resident weight
-    and KV pool bytes, the greedy agreement with bf16 (printed, not
-    gated) and the serving numbers side by side."""
+def serve_int8(bf16: dict, preset: str = "hybrid-280m", params=None) -> dict:
+    """The int8 hybrid serving run of ``preset`` (int8 weights and int8 KV
+    pages, the same requests; ``params`` as for ``serve``), against the
+    bf16 run ``bf16`` of this call: the int8 branches of both paged
+    kernels must launch; resident weight and KV pool bytes, the greedy
+    agreement with bf16 (printed, not gated) and the serving numbers side
+    by side."""
     card = smi()
-    q8 = serve("hybrid-280m", ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"),
+    q8 = serve(preset, ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"), params=params,
                kv_page_dtype="int8", serving_weight_dtype="int8")
     if q8["launches"]["ragged_decode"] or q8["launches"]["ragged_prefill"]:
-        raise SystemExit("the int8 hybrid run launched a bf16 paged kernel")
+        raise SystemExit(f"the int8 {preset} run launched a bf16 paged kernel")
     a, b = q8["greedy"], bf16["greedy"]
     agree = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
-    print(f"serve hybrid-280m int8 vs bf16: resident decode weights {q8['weight_bytes']} B vs "
+    print(f"serve {preset} int8 vs bf16: resident decode weights {q8['weight_bytes']} B vs "
           f"{bf16['weight_bytes']} B ({q8['weight_bytes'] / bf16['weight_bytes']:.3f}x), KV "
           f"pool {q8['kv_bytes']} B vs {bf16['kv_bytes']} B "
           f"({q8['kv_bytes'] / bf16['kv_bytes']:.3f}x) [{card}]")
-    print(f"serve hybrid-280m int8 vs bf16 greedy stream: first {agree} of {len(a)} tokens "
+    print(f"serve {preset} int8 vs bf16 greedy stream: first {agree} of {len(a)} tokens "
           f"agree (information, not gated)")
-    for key in ("tokens_per_s", "ttft_ms", "chunk_ms", "tick_ms"):
-        print(f"serve hybrid-280m {key}: int8 {q8[key]}, bf16 {bf16[key]} [{card}]")
+    for key in ("tokens_per_s", "ttft_ms", "chunk_ms", "tick_ms", "peak_gib"):
+        print(f"serve {preset} {key}: int8 {q8[key]}, bf16 {bf16[key]} [{card}]")
     return q8
+
+
+def serve_7b() -> tuple[dict, dict]:
+    """hybrid-7b at full width and depth (32 layers, 4 of them attention
+    with 32 query / 8 KV heads of 128, a gated MLP of 14336 after every
+    mixer), bf16 and then int8 weights and KV pages, through ``serve``.
+    The fp32 masters (35.5 GB) are made once on the card, quantized to
+    int8 and cast to bf16 from there, then freed, so each run's engine,
+    its ``generate()`` and its chunk step share one set of decode
+    weights.  Returns the two runs' results."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.lm import count_params, init_lm_params
+    from mamba_distributed_tpu_torch.serving.prefill import cast_decode_params
+
+    cfg = get_preset("hybrid-7b", ssm_impl="pallas", compute_dtype="bfloat16")
+    masters = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = count_params(masters)
+    q8 = cast_decode_params(masters, dataclasses.replace(
+        cfg, kv_page_dtype="int8", serving_weight_dtype="int8"))
+    bf = cast_decode_params(masters, cfg)
+    del masters
+    torch.cuda.empty_cache()
+    print(f"serve hybrid-7b: {n_params} parameters, fp32 masters freed after the int8 and bf16 "
+          f"casts", flush=True)
+    paged = ("ssd_fwd", "ragged_decode", "ragged_prefill")
+    bf16 = serve("hybrid-7b", paged, params=bf)
+    del bf
+    torch.cuda.empty_cache()
+    int8 = serve_int8(bf16, "hybrid-7b", params=q8)
+    del q8
+    torch.cuda.empty_cache()
+    return bf16, int8
 
 
 def hybrid_one_shot(params, cfg, dparams, prompt, new: int, card: str) -> None:
@@ -1250,22 +1318,29 @@ def mm_out_dtype_has_grad() -> str:
     return "yes"
 
 
-def train_checks(card: str, preset: str = "mamba2-280m", **layers):
+def train_checks(card: str, preset: str = "mamba2-280m", gate_bf16_grads: bool = True,
+                 **layers):
     """At 4 layers of ``preset``'s width (``layers`` overrides the layer
     fields, e.g. a hybrid's attention layers): one step's loss and
     gradients with ssm_impl and attn_impl "pallas" (the SSD Function,
     kernels 1-3, and the flash Function, kernels 7-9) against "xla"
     (autograd of the plain forwards), in fp32 (TF32 off) and bf16, same
-    params and batch; then ten AdamW steps on one repeated bf16 batch
-    (warmup 1) must lower the loss."""
+    params and batch, the worst gradient leaf named; then ten AdamW steps
+    on one repeated bf16 batch (warmup 1) must lower the loss.  With
+    ``gate_bf16_grads`` off the bf16 gradients are printed, not gated
+    (the loss still is): a MoE's top-k router is discontinuous, so where
+    the two formulations round a near-tie token's router logits apart it
+    takes another expert, and with a capacity the queue positions of the
+    tokens after it move too."""
     from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
     from mamba_distributed_tpu_torch.models.lm import init_lm_params
     from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_leaves, tree_map
     from mamba_distributed_tpu_torch.training.train_step import loss_and_grads, make_train_step
 
     gen = torch.Generator().manual_seed(5)
-    x = torch.randint(0, 50257, (1, 8, 1024), generator=gen).cuda()
-    y = torch.randint(0, 50257, (1, 8, 1024), generator=gen).cuda()
+    vocab = min(50257, get_preset(preset).vocab_size)
+    x = torch.randint(0, vocab, (1, 8, 1024), generator=gen).cuda()
+    y = torch.randint(0, vocab, (1, 8, 1024), generator=gen).cuda()
     for dtype in ("float32", "bfloat16"):
         res = {}
         for impl in ("pallas", "xla"):
@@ -1276,15 +1351,18 @@ def train_checks(card: str, preset: str = "mamba2-280m", **layers):
             params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
                 model, torch.Generator(device="cuda").manual_seed(11), device="cuda"))
             loss, grads = loss_and_grads(params, cfg, x, y)
-            res[impl] = (float(loss), tree_leaves(grads))
+            res[impl] = (float(loss), _named_leaves(grads))
         tol = TRAIN_TOL[getattr(torch, dtype)]
         loss_rel = abs(res["pallas"][0] - res["xla"][0]) / abs(res["xla"][0])
-        grad_rel = max(rel_err(a, b)[1] for a, b in zip(res["pallas"][1], res["xla"][1]))
-        finite = all(bool(torch.isfinite(g).all()) for g in res["pallas"][1])
+        grad_rel, leaf = max((rel_err(a, res["xla"][1][k])[1], k)
+                             for k, a in res["pallas"][1].items())
+        finite = all(bool(torch.isfinite(g).all()) for g in res["pallas"][1].values())
+        gated = gate_bf16_grads or dtype == "float32"
         print(f"train check 4-layer {preset} {dtype} b=8 t=1024 {layers}: loss pallas "
               f"{res['pallas'][0]:.6f} xla {res['xla'][0]:.6f} (rel {loss_rel:.2e}), worst "
-              f"grad leaf rel {grad_rel:.2e}, tol rel {tol:.0e} [{card}]", flush=True)
-        if not finite or loss_rel > tol or grad_rel > tol:
+              f"grad leaf rel {grad_rel:.2e} ({leaf}{'' if gated else ', not gated'}), tol rel "
+              f"{tol:.0e} [{card}]", flush=True)
+        if not finite or loss_rel > tol or (gated and grad_rel > tol):
             raise SystemExit(f"pallas and xla train steps disagree ({dtype})")
 
     model = get_preset(preset, n_layer=4, ssm_impl="pallas", compute_dtype="bfloat16", **layers)
@@ -1300,13 +1378,66 @@ def train_checks(card: str, preset: str = "mamba2-280m", **layers):
         raise SystemExit(f"the repeated-batch loss did not fall: {losses}")
 
 
-def train_run(card: str, preset: str, path_kernels: tuple[str, ...]) -> tuple[dict, int]:
-    """Full-width, full-depth ``preset`` (64 layers, bf16, pallas, remat)
-    through the port's Trainer: 3 optimizer steps at seq 1024 and
-    micro-batch 32 (16 if 32 does not fit), accum 1, with the validation
-    at steps 0 and 2, on synthetic shards under build/chip_smoke/.  Every
-    kernel in ``path_kernels`` must have launched.  Returns the launch
-    counts of the run and its micro-batch."""
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """{dotted key: leaf} of a parameter-like tree."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _named_leaves(sub, f"{prefix}{key}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def loss_peaks(card: str) -> None:
+    """Where the loss's memory goes at hybrid-7b's 8-layer cut (b 4, t
+    4096, bf16, pallas, remat): the peak device memory of one
+    ``loss_and_grads`` (the forward, the loss and the backward; no
+    optimizer) and of the loss's forward alone, with the dense and with
+    the blocked loss, above the parameters' own bytes."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params, lm_loss
+    from mamba_distributed_tpu_torch.training.optimizer import tree_map
+    from mamba_distributed_tpu_torch.training.train_step import loss_and_grads
+
+    model = get_preset("hybrid-7b", ssm_impl="pallas", compute_dtype="bfloat16", remat=True,
+                       n_layer=8, attn_layer_idx=(3,))
+    params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
+        model, torch.Generator(device="cuda").manual_seed(31), device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x, y = (torch.randint(0, model.vocab_size, (1, 4, 4096), generator=gen, device="cuda")
+            for _ in range(2))
+    for impl in ("dense", "blocked"):
+        m = dataclasses.replace(model, loss_impl=impl)
+        cfg = get_train_preset("hybrid-7b", model=m, micro_batch_size=4,
+                               total_batch_size=4 * 4096)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = lm_loss(params, m, x[0], y[0])
+        fwd = torch.cuda.max_memory_allocated() - base
+        del loss
+        torch.cuda.reset_peak_memory_stats()
+        grads = loss_and_grads(params, cfg, x, y)[1]
+        step = torch.cuda.max_memory_allocated() - base
+        del grads
+        print(f"train hybrid-7b 8 layers b=4 t=4096 {impl} loss: peak above the parameters "
+              f"{fwd / 2**30:.2f} GiB for the forward and loss, {step / 2**30:.2f} GiB for "
+              f"loss_and_grads (its gradients included; no optimizer); the parameters "
+              f"{base / 2**30:.2f} GiB [{card}]", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 1024,
+              micros: tuple[int, ...] = (32, 16), **model_fields) -> dict:
+    """Full-width ``preset`` (full depth unless ``model_fields`` cut it;
+    bf16, pallas, remat, and any other ``model_fields``, e.g. the remat
+    policy or the loss) through the port's Trainer: 3 optimizer steps at
+    ``seq`` and the first micro-batch of ``micros`` that fits, accum 1,
+    with the validation at steps 0 and 2, on synthetic shards under
+    build/chip_smoke/.  Every kernel in ``path_kernels`` must have
+    launched.  Returns the run's launch counts, micro-batch, step ms and
+    peak device memory."""
     import shutil
 
     from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
@@ -1315,11 +1446,12 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...]) -> tuple[di
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(root / "log", ignore_errors=True)
-    model = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
-    for micro in (32, 16):
+    model = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", remat=True,
+                       **model_fields)
+    for micro in micros:
         cfg = get_train_preset(
-            preset, model=model, micro_batch_size=micro, total_batch_size=micro * 1024,
-            val_steps=2, log_dir=str(root / "log"),
+            preset, model=model, micro_batch_size=micro, total_batch_size=micro * seq,
+            seq_len=seq, val_steps=2, log_dir=str(root / "log"),
             data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
         trainer = Trainer(cfg, device="cuda")
         for k in LAUNCHES:
@@ -1336,11 +1468,12 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...]) -> tuple[di
             continue
         break
     else:
-        raise SystemExit("train run: micro-batch 16 does not fit either")
+        raise SystemExit(f"train run: micro-batch {micros[-1]} does not fit either")
     launches = dict(LAUNCHES)
     trainer.finish()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     hist = [trainer.history[s] for s in range(3)]
+    del trainer
     if not all(math.isfinite(v) for h in hist for v in h):
         raise SystemExit(f"non-finite loss or grad norm: {hist}")
     for k in path_kernels:
@@ -1349,16 +1482,237 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...]) -> tuple[di
     recs = [json.loads(s) for s in (root / "log" / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in recs if r["kind"] == "train"]
     vals = [r["loss"] for r in recs if r["kind"] == "val"]
-    print(f"train {preset} n_layer=64 bf16 pallas remat micro={micro} seq=1024 accum=1: "
-          f"losses {[round(h[0], 6) for h in hist]}, grad norms {[round(h[1], 4) for h in hist]}, "
-          f"val {vals}", flush=True)
+    tag = (f"{preset} n_layer={model.n_layer}"
+           + "".join(f" {k}={v}" for k, v in model_fields.items() if k != "n_layer"))
+    print(f"train {tag} bf16 pallas remat {model.remat_policy} loss {model.loss_impl} "
+          f"micro={micro} seq={seq} accum=1: losses {[round(h[0], 6) for h in hist]}, grad "
+          f"norms {[round(h[1], 4) for h in hist]}, val {vals}", flush=True)
     for r in steps:
-        print(f"train {preset} step {r['step']}: {r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, "
+        print(f"train {tag} step {r['step']}: {r['step_ms']} ms, {r['tokens_per_sec']} tokens/s, "
               f"MFU {r['mfu']} (model), {r.get('mfu_hw')} (hardware) [{card}]", flush=True)
-    print(f"train {preset} peak device memory (max_memory_allocated): {peak_gb:.2f} GiB "
+    print(f"train {tag} peak device memory (max_memory_allocated): {peak_gb:.2f} GiB "
           f"[{card}]")
-    print(f"train {preset} launches during the run: {launches}")
-    return launches, micro
+    print(f"train {tag} launches during the run: {launches}")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, micro=micro, step_ms=[r["step_ms"] for r in steps],
+                peak_gib=peak_gb)
+
+
+def remat_checks(card: str) -> dict:
+    """The remat policies on each 280m preset at full width and depth (64
+    layers, bf16, pallas, micro-batch 4, seq 1024, one set of params):
+    one train step's loss and gradients under "all", "dots", "mixer" and
+    "all" again, each held to the first "all" (bit for bit, and otherwise
+    no further off than the second "all" is), and the step's launches of
+    the mixer cores' forward kernels: "mixer" must launch each once per
+    mixer layer, "all" twice.  Returns {preset: {policy: launches}}."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.training.optimizer import tree_leaves, tree_map
+    from mamba_distributed_tpu_torch.training.train_step import loss_and_grads
+
+    cores = {"mamba2-280m": ("ssd_fwd",), "mamba1-280m": ("m1_scan",),
+             "hybrid-280m": ("ssd_fwd", "flash_fwd")}
+    out = {}
+    for preset, kernels in cores.items():
+        model = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+        n_attn = len(model.attn_layer_idx)
+        layers = {"ssd_fwd": model.n_layer - n_attn, "m1_scan": model.n_layer,
+                  "flash_fwd": n_attn}
+        params = tree_map(lambda t: t.requires_grad_(), init_lm_params(
+            model, torch.Generator(device="cuda").manual_seed(21), device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        x, y = (torch.randint(0, model.vocab_size, (1, 4, 1024), generator=gen, device="cuda")
+                for _ in range(2))
+        runs = []
+        for policy in ("all", "dots", "mixer", "all"):
+            cfg = get_train_preset(preset, model=dataclasses.replace(model, remat_policy=policy),
+                                   micro_batch_size=4, total_batch_size=4 * 1024)
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = loss_and_grads(params, cfg, x, y)
+            torch.cuda.synchronize()
+            runs.append((policy, loss, tree_leaves(grads), {k: LAUNCHES[k] for k in kernels},
+                        torch.cuda.max_memory_allocated() / 2**30))
+        _, loss0, g0, _, _ = runs[0]
+        diffs = []
+        for policy, loss, g, launches, peak in runs[1:]:
+            same = bool(torch.equal(loss, loss0)) and all(
+                torch.equal(a, b) for a, b in zip(g, g0, strict=True))
+            worst = max(rel_err(a, b)[1] for a, b in zip(g, g0, strict=True))
+            diffs.append((policy, same, worst, abs(float(loss) - float(loss0))))
+            print(f"remat {preset} {policy} vs all (64 layers, b=4 t=1024 bf16): loss "
+                  f"{float(loss):.6f} vs {float(loss0):.6f}, bit-identical loss and gradients: "
+                  f"{same}, worst gradient leaf rel {worst:.2e}; launches {launches}; step peak "
+                  f"{peak:.2f} GiB [{card}]", flush=True)
+        repeat = diffs[-1][2]  # "all" against itself
+        for policy, same, worst, _ in diffs[:-1]:
+            if not same and worst > repeat:
+                raise SystemExit(f"remat {policy} gradients differ from all's (rel {worst:.3e}) "
+                                 f"more than a second all run does ({repeat:.3e})")
+        by_policy = {r[0]: r[3] for r in runs[:3]}
+        for k in kernels:
+            if (by_policy["mixer"][k] != layers[k] or by_policy["all"][k] != 2 * layers[k]
+                    or by_policy["dots"][k] != 2 * layers[k]):
+                raise SystemExit(f"remat {preset}: {k} launched {by_policy} in one step; "
+                                 f"want {layers[k]} under mixer, {2 * layers[k]} otherwise")
+        out[preset] = by_policy
+        del params, grads, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_7b_shapes(gen, rows: dict) -> None:
+    """Rows 1-3 and 7-11 at hybrid-7b's shapes (d_inner 8192: 128 SSD
+    heads of 64, d_state 128; attention 32 query / 8 KV heads of 128,
+    GQA rep 4): ``ssd_fwd`` at the serving chunk (b 1, t 256, seeded) and
+    the trainer's micro-batch (b 4, t 4096); ``ssd_chunk_states`` and
+    ``ssd_bwd`` at b 4, t 4096; ``rpa_fwd`` over 8 slots and ``rpp_fwd``
+    at the second chunk of a 700-token prompt (bf16 pages of 64); the
+    flash kernels at b 4, t 4096.  Each is held against its plain
+    version within the bf16 tolerance (flash at b 1 of the same inputs:
+    the plain scores of b 4 would take 35 GB) and timed beside its bound,
+    and the attention kernels beside SDPA; each result goes into its
+    row's ``shapes`` list (``rows`` keyed by name) with ``path`` "serve"
+    or "train", for the launches of the hybrid-7b runs."""
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+    from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
+    from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_work
+    from mamba_distributed_tpu_torch.ops.ssd import chunk_log_decay, ssd_chunked, state_passing
+
+    bf16, h, l = torch.bfloat16, 128, 256
+    failures = []
+
+    def add(name, path, shape, err, ms, plain_ms, nbytes, flops, library_ms=None, note=""):
+        bound_ms, bound_by = bound(nbytes, flops)
+        rel = err[1]
+        lib = "" if library_ms is None else f", SDPA {library_ms:.4f} ms"
+        print(f"time {name} hybrid-7b {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{note}{lib}, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {flops} FLOP); "
+              f"max_abs_err={err[0]:.3e} (rel {rel:.2e}), tol rel {TOL[bf16]:.0e}", flush=True)
+        if rel > TOL[bf16]:
+            failures.append(f"{name} hybrid-7b {shape}: rel {rel:.3e}")
+        rows[name].setdefault("shapes", []).append(dict(
+            shape=f"hybrid-7b {shape}", path=path, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, max_abs_err=err[0], launches=None))
+
+    # the SSD forward, the chunk states and the backward
+    for b, t, seeded in ((1, 256, True), (4, 4096, False)):
+        inp = ssd_inputs(gen, b, t, 1, bf16, seeded, h=h)
+        kw = dict(chunk_size=l, return_final_state=True, compute_dtype=bf16)
+        yk, fk_ = sk.ssd_chunked_kernel(**inp, **kw)
+        yp, fp = ssd_chunked(**inp, **kw)
+        err = max(rel_err(yk, yp), rel_err(fk_, fp), key=lambda e: e[1])
+        args = (inp["x"], inp["dt"], inp["A"], inp["B"], inp["C"], l, inp["initial_state"], bf16)
+        ms = sum(device_ms(lambda: sk._ssd_fwd(*args), 20).values())
+        plain_ms = cuda_ms(lambda: ssd_chunked(**inp, **kw), 3, 1)
+        add("ssd_fwd", "serve" if b == 1 else "train",
+            f"b={b} t={t} l={l} h={h} {'seeded' if seeded else 'unseeded'}", err, ms, plain_ms,
+            *ssd_work(b, t, h, 1, 64, 128, l, bf16, seeded), note=" (device time)")
+        del yk, fk_, yp, fp
+    x, dt, A, B, C = (inp[k] for k in ("x", "dt", "A", "B", "C"))
+    a4 = chunk_log_decay(dt, A, l)
+    a_cum = a4.reshape(4, 4096, h).contiguous()
+    st_k = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, bf16)
+    st_p = sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16)
+    prev = state_passing(st_p, torch.exp(a4[:, :, -1]), None)[0].contiguous()
+    dy = torch.randn((4, 4096, h, 64), generator=gen, device="cuda").to(bf16)
+    bargs = (x, dt, a_cum, B, C, prev, dy, None, l, bf16)
+    got, ref = sk.ssd_bwd_kernel(*bargs), sk.ssd_bwd_plain(*bargs)
+    (b2, f2), (b3, f3) = ssd_bwd_work(4, 4096, h, 1, 64, 128, l, bf16, False, False)
+    states = lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, bf16)  # noqa: E731
+    add("ssd_chunk_states", "train", f"b=4 t=4096 l={l} h={h}", rel_err(st_k, st_p),
+        sum(device_ms(states, 20).values()),
+        cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16), 3, 1), b2, f2,
+        note=" (device time)")
+    add("ssd_bwd", "train", f"b=4 t=4096 l={l} h={h}",
+        max((rel_err(a, r) for a, r in zip(got, ref)), key=lambda e: e[1]),
+        cuda_ms(lambda: sk.ssd_bwd_kernel(*bargs), 10),
+        cuda_ms(lambda: sk.ssd_bwd_plain(*bargs), 2, 1), b3, f3)
+    del inp, x, dt, A, B, C, a4, a_cum, st_k, st_p, prev, dy, bargs, got, ref
+    torch.cuda.empty_cache()
+
+    # the paged decode and chunk prefill: SDPA on the pre-gathered view
+    nh, nkv, hd = 32, 8, 128
+    lens = RPA_TIMED[-1]
+    args = rpa_case(gen, 8, nh, nkv, hd, 64, 16, lens, bf16, False)
+    q, kp, vp, tbl, kv_len = args
+    err = rel_err(ak.ragged_paged_decode_attention(*args),
+                  ak.ragged_paged_decode_attention_plain(*args))
+    kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, dtype=bf16)
+    kk, vv = (v.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+              for v in (kk, vv))
+    mask = torch.arange(16 * 64, device="cuda") < kv_len.clamp(min=1)[:, None]
+    sdpa = sum(device_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kk, vv, attn_mask=mask[:, None, None]), 50).values())
+    add("rpa_fwd", "serve", f"S=8 nh={nh} nkv={nkv} hd={hd} kv_len={lens} "
+        f"({ak.rpa_splits(8, nkv, 16)} splits)", err,
+        sum(device_ms(lambda: ak.ragged_paged_decode_attention(*args), 50).values()),
+        cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10), *rpa_work(args),
+        library_ms=sdpa, note=" (device time, SDPA too)")
+    args, real = rpp_case(gen, 1, 256, nh, nkv, 64, 16, [188], [256], bf16, False, hd=hd)
+    q, kc, vc, kp, vp, tbl, ln, cr = args
+    got = ak.ragged_paged_prefill_attention(q, kc, vc, kp.clone(), vp.clone(), tbl, ln, cr)[0]
+    ref = ak.ragged_paged_prefill_attention_plain(q, kc, vc, kp.clone(), vp.clone(), tbl, ln,
+                                                  cr)[0]
+    kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, dtype=bf16)
+    kk, vv = (v[:, :444].transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+              for v in (kk, vv))
+    qpos = 188 + torch.arange(256, device="cuda")
+    mask = torch.arange(444, device="cuda")[None, :] <= qpos[:, None]
+    sdpa = sum(device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2).contiguous(), kk, vv, attn_mask=mask), 50).values())
+    add("rpp_fwd", "serve", f"b=1 c=256 nh={nh} nkv={nkv} hd={hd} lengths=[188] "
+        f"chunk_real=[256]", rel_err(got[real], ref[real]),
+        sum(device_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50).values()),
+        cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 10), *rpp_work(args),
+        library_ms=sdpa, note=" (device time, SDPA too)")
+    del args, got, ref, kk, vv
+
+    # the flash kernels at the trainer's micro-batch; the plain versions
+    # and the error at b 1 of the same inputs
+    b, t = 4, 4096
+    qt, kt, vt, do = flash_inputs(gen, b, t, t, nh, nkv, hd, bf16)
+    o_k, lse_k = fk.flash_fwd(qt, kt, vt, 0, t)
+    one = (qt[:1], kt[:1], vt[:1])
+    o_p, lse_p = fk.flash_fwd_plain(*one, 0, t)
+    delta = (do.float() * o_k.float()).sum(-1).contiguous()
+    bwd = (qt, kt, vt, do, lse_k, delta, 0, t)
+    bwd1 = (*one, do[:1], lse_k[:1], delta[:1], 0, t)
+    dq_k = fk.flash_bwd_dq(*bwd)
+    dk_k, dv_k = fk.flash_bwd_dkv(*bwd)
+    errs = {"flash_fwd": rel_err(o_k[:1], o_p),
+            "flash_bwd_dq": rel_err(dq_k[:1], fk.flash_bwd_dq_plain(*bwd1)),
+            "flash_bwd_dkv": max((rel_err(a[:1], r) for a, r in zip(
+                (dk_k, dv_k), fk.flash_bwd_dkv_plain(*bwd1))), key=lambda e: e[1])}
+    del o_p, lse_p, dq_k, dk_k, dv_k
+    torch.cuda.empty_cache()
+    qc, kc, vc = (v.contiguous().requires_grad_() for v in (qt, kt, vt))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, enable_gqa=True), 10)
+    out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qc, kc, vc), do, retain_graph=True), 10)
+    del out, qc, kc, vc
+    timed = (("flash_fwd", lambda: fk.flash_fwd(qt, kt, vt, 0, t),
+              lambda: fk.flash_fwd_plain(*one, 0, t), sdpa_fwd),
+             ("flash_bwd_dq", lambda: fk.flash_bwd_dq(*bwd), lambda: fk.flash_bwd_dq_plain(*bwd1),
+              sdpa_bwd),
+             ("flash_bwd_dkv", lambda: fk.flash_bwd_dkv(*bwd),
+              lambda: fk.flash_bwd_dkv_plain(*bwd1), sdpa_bwd))
+    for (name, kern, plain, lib), work in zip(timed, flash_work(b, t, t, nh, nkv, hd, 0, bf16)):
+        add(name, "train", f"b={b} t={t} nh={nh} nkv={nkv} hd={hd}", errs[name],
+            cuda_ms(kern, 10), cuda_ms(plain, 2, 1), *work, library_ms=lib,
+            note=" (plain at b=1; SDPA backward is dq, dk, dv together)")
+    del qt, kt, vt, do, bwd, bwd1
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("hybrid-7b kernel shapes disagree with the plain versions:\n"
+                         + "\n".join(failures))
 
 
 def main() -> int:
@@ -1419,6 +1773,7 @@ def main() -> int:
     rpp, rpp_int8 = check_rpp(gen)
     rows = [check_ssd(gen), *check_ssd_bwd(gen), rpa, rpp, *check_flash(gen, micro=32),
             *check_m1(gen), rpa_int8, rpp_int8]
+    check_7b_shapes(gen, {r["name"]: r for r in rows})
     if not args.kernels_only:
         card = smi()
         ssd_launches = serve("mamba2-280m", ("ssd_fwd",))["launches"]
@@ -1427,20 +1782,58 @@ def main() -> int:
         q8_launches = serve_int8(hybrid)["launches"]
         m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
         torch.cuda.empty_cache()
+        big_serve, _ = serve_7b()
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
               f"{mm_out_dtype_has_grad()}", flush=True)
         ssd_train = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd")
-        train_launches, _ = train_run(card, "mamba2-280m", ssd_train)
+        train_launches = train_run(card, "mamba2-280m", ssd_train)["launches"]
         train_checks(card)
         flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-        hyb_launches, micro = train_run(card, "hybrid-280m", ssd_train + flash)
-        if micro != 32:
+        hyb = train_run(card, "hybrid-280m", ssd_train + flash)
+        hyb_launches = hyb["launches"]
+        if hyb["micro"] != 32:
             print(f"note: the flash kernels were timed at micro-batch 32, the hybrid train "
-                  f"run took {micro}")
+                  f"run took {hyb['micro']}")
         train_checks(card, "hybrid-280m", attn_layer_idx=(1, 3))
         m1_train = ("m1_scan", "m1_entry_states", "m1_bwd")
-        m1_train_launches, _ = train_run(card, "mamba1-280m", m1_train)
+        m1_train_launches = train_run(card, "mamba1-280m", m1_train)["launches"]
         train_checks(card, "mamba1-280m")
+        # hybrid-7b at full width, cut to one period of its attention
+        # pattern (8 layers, attention at layer 3), at the preset's seq
+        # 4096 and micro-batch 4 (2 if 4 does not fit): the dense loss,
+        # then the blocked one
+        cut = dict(n_layer=8, attn_layer_idx=(3,))
+        print("train hybrid-7b: depth cut from 32 to 8 layers (one period, attention at "
+              "layer 3), full width", flush=True)
+        big_train = {impl: train_run(card, "hybrid-7b", ssd_train + flash, seq=4096,
+                                     micros=(4, 2), loss_impl=impl, **cut)
+                     for impl in ("dense", "blocked")}
+        d, bl = big_train["dense"], big_train["blocked"]
+        print(f"train hybrid-7b 8 layers: peak device memory dense loss {d['peak_gib']:.2f} GiB, "
+              f"blocked loss {bl['peak_gib']:.2f} GiB; step ms dense {d['step_ms']}, blocked "
+              f"{bl['step_ms']} [{card}]", flush=True)
+        loss_peaks(card)
+        # the blocked loss and the remat policies on mamba2-280m's 3-step
+        # run, beside the dense loss and "all" above; then one step of
+        # each 280m preset under every policy
+        train_run(card, "mamba2-280m", ssd_train, loss_impl="blocked")
+        for policy in ("dots", "mixer"):
+            train_run(card, "mamba2-280m", ssd_train, remat_policy=policy)
+        remat_checks(card)
+        # the model options at a small size: an MoE, an untied head,
+        # xla_conv and the blocked loss on 4-layer hybrid-tiny
+        train_checks(card, "hybrid-tiny", gate_bf16_grads=False, d_intermediate=256,
+                     moe_num_experts=4, moe_top_k=2)
+        for opts in (dict(tie_embeddings=False), dict(conv_impl="xla_conv"),
+                     dict(loss_impl="blocked")):
+            train_checks(card, "hybrid-tiny", **opts)
+        # the hybrid-7b shapes' launches on their own paths
+        paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
+        keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}
+        for row in rows:
+            for entry in row.get("shapes", ()):
+                if "path" in entry:
+                    entry["launches"] = paths[entry["path"]][keys.get(row["name"], row["name"])]
         # each kernel's launches on its own path: the mamba2 serving run
         # for ssd_fwd, the mamba2 training run for the SSD backward
         # kernels, the hybrid serving run for the paged attention kernels,

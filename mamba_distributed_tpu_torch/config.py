@@ -6,10 +6,11 @@ the same names, defaults and validation as
 ``mamba_distributed_tpu/config.py``, so a test can build both configs
 from one keyword dict.  Pure Mamba-2 and Mamba-1 stacks and hybrid
 stacks (attention layers at ``attn_layer_idx``: full-sequence attention
-in training and one-shot prefill, a paged KV cache in decode) are served
-and trained on one device; MLPs, MoE, LoRA, quantization and mesh sizes
-above 1 are left out, and a config the port cannot run raises at
-construction with the reason.
+in training and one-shot prefill, a paged KV cache in decode), with or
+without a gated MLP or a token-choice MoE after each mixer
+(``d_intermediate``, ``moe_*``), are served and trained on one device;
+LoRA and mesh sizes above 1 are left out, and a config the port cannot
+run raises at construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -39,6 +40,14 @@ class ModelConfig:
     ssm_layer: str = "mamba2"
     # 0 => no MLP between mixers (the pure mixer stack)
     d_intermediate: int = 0
+    # --- MoE: 0 => dense gated MLP; > 1 => the MLP becomes a token-choice
+    # top-k mixture of experts (dense dispatch and combine, as in the JAX
+    # package; experts are not sharded: the port trains on one device) ---
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    # weight of the Switch load-balance aux loss that lm_loss adds
+    moe_aux_weight: float = 0.01
     residual_in_fp32: bool = True
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
@@ -88,18 +97,25 @@ class ModelConfig:
 
     # --- memory (training) ---
     remat: bool = True  # per-block activation checkpointing
-    # "all": recompute everything; "dots" and "mixer" wait for a later slice
+    # "all": recompute everything; "dots": save the outputs of the 2-D
+    # matrix products (aten.mm/addmm), recompute the rest; "mixer": save
+    # only each mixer core's output, so the backward never runs the SSD,
+    # scan or flash forward kernel again (models/remat.py)
     remat_policy: str = "all"
 
     # "pallas" -> the hand-written SSD (mamba2) or selective-scan (mamba1)
     # kernels on a CUDA tensor (the plain versions on a CPU tensor);
     # "xla" -> the plain formulation everywhere
     ssm_impl: str = "xla"
+    # causal conv: "shift" (width shifted multiply-adds) or "xla_conv" (one
+    # depthwise conv1d); the same function
     conv_impl: str = "shift"
 
     # LM-head + CE formulation: "dense" (one head matmul, logits in the
-    # compute dtype); "blocked" (ops/loss.py) waits for a later slice
+    # compute dtype) or "blocked" (vocab-blocked online logsumexp,
+    # ops/loss.py: no (b, t, V) tensor in the forward or the backward)
     loss_impl: str = "dense"
+    loss_vocab_blocks: int = 8
 
     # --- chunked prompt prefill (serving/prefill.py) ---
     prefill_chunk_tokens: int = 256
@@ -137,32 +153,46 @@ class ModelConfig:
             )
         if self.attn_layer_idx:
             self._check_hybrid()
-        if self.d_intermediate:
+        if self.remat_policy not in ("all", "dots", "mixer"):
             raise ValueError(
-                "the PyTorch port serves the pure mixer stack only "
-                f"(d_intermediate=0), got {self.d_intermediate}"
+                f"remat_policy must be 'all', 'dots' or 'mixer', got "
+                f"{self.remat_policy!r}"
             )
-        if not self.tie_embeddings:
-            raise ValueError("the PyTorch port serves tied heads only")
         if self.ssm_impl not in ("xla", "pallas"):
             raise ValueError(
                 f"ssm_impl must be 'xla' or 'pallas', got {self.ssm_impl!r}"
             )
-        if self.remat_policy != "all":
+        if self.conv_impl not in ("shift", "xla_conv"):
             raise ValueError(
-                f"remat_policy={self.remat_policy!r}: the PyTorch port implements "
-                f"remat_policy='all' only ('dots' and 'mixer' are a later slice)"
-            )
-        if self.loss_impl != "dense":
-            raise ValueError(
-                f"loss_impl={self.loss_impl!r}: the PyTorch port implements "
-                f"loss_impl='dense' only ('blocked', ops/loss.py, is a later slice)"
-            )
-        if self.conv_impl != "shift":
-            raise ValueError(
-                f"the PyTorch port implements conv_impl='shift' only, got "
+                f"conv_impl must be 'shift' or 'xla_conv', got "
                 f"{self.conv_impl!r}"
             )
+        if self.loss_impl not in ("dense", "blocked"):
+            raise ValueError(
+                f"loss_impl must be 'dense' or 'blocked', got "
+                f"{self.loss_impl!r}"
+            )
+        if self.loss_impl == "blocked" and (
+            self.loss_vocab_blocks < 1
+            or self.vocab_size_padded % self.loss_vocab_blocks != 0
+        ):
+            raise ValueError(
+                f"loss_vocab_blocks={self.loss_vocab_blocks} must be a "
+                f"positive divisor of padded vocab {self.vocab_size_padded}"
+            )
+        if self.moe_num_experts:
+            if self.moe_num_experts < 2:
+                raise ValueError("moe_num_experts must be 0 (dense) or >= 2")
+            if self.d_intermediate <= 0:
+                raise ValueError(
+                    "MoE replaces the gated MLP: moe_num_experts > 0 needs "
+                    "d_intermediate > 0"
+                )
+            if not 1 <= self.moe_top_k <= self.moe_num_experts:
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k} must be in "
+                    f"[1, {self.moe_num_experts}]"
+                )
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(
                 f"compute_dtype must be 'bfloat16' or 'float32', got "
@@ -327,6 +357,12 @@ PRESETS: dict[str, dict[str, Any]] = {
     # what the reference's train.py:75 builds (Mamba-1 mixers): d_inner
     # 1536, d_state 16, dt_rank 48, d_conv 4
     "mamba1-280m": dict(d_model=768, n_layer=64, ssm_layer="mamba1"),
+    # Jamba-style hybrid 7B: a gated MLP (d_intermediate 14336) after every
+    # mixer, attention every 8th layer from layer 3, GQA 32 query / 8 KV
+    # heads of 128 (JAX config.py:1200-1211)
+    "hybrid-7b": dict(d_model=4096, n_layer=32, d_intermediate=14336,
+                      attn_layer_idx=tuple(range(3, 32, 8)), attn_num_heads=32,
+                      attn_num_kv_heads=8),
 }
 
 
@@ -427,6 +463,10 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
                         max_steps=300, warmup_steps=20, val_every=25),
     "hybrid-280m": dict(),
     "mamba1-280m": dict(),
+    # the JAX preset's seq, micro-batch and total batch; its mesh (fsdp 16,
+    # seq 4) is left out, since the port trains on one device (every mesh
+    # axis 1), so the whole 7B model does not fit one card for training
+    "hybrid-7b": dict(seq_len=4096, micro_batch_size=4, total_batch_size=4194304),
 }
 
 

@@ -7,10 +7,12 @@ of tensors, key for key: ``embedding``, ``norm_f.weight``,
 dt_bias, A_log, D, norm, out_proj}`` or the Mamba-1 ones ``{in_proj,
 conv, x_proj, dt_proj.{kernel, bias}, A_log, D, out_proj}`` (the tree
 says which) and, for hybrid stacks, ``attn_blocks.{norm.weight,
-mixer.{wqkv, out_proj}.kernel}``, each stacked on the layer axis.  Both
-packages store linear kernels (d_in, d_out), so no leaf is transposed.
-``params_to_numpy`` goes the other way.  Keys the port does not serve
-(an untied head, MLPs) raise.
+mixer.{wqkv, out_proj}.kernel}``, each stacked on the layer axis; with
+an MLP, each block's ``norm2.weight`` and ``mlp.{fc1, fc2}.kernel`` or
+``moe.{router.kernel, w1, w2}``; with an untied head, ``lm_head.kernel``.
+Both packages store linear kernels (d_in, d_out), so no leaf is
+transposed.  ``params_to_numpy`` goes the other way.  Any other key
+raises.
 """
 
 from __future__ import annotations
@@ -21,26 +23,36 @@ import torch
 _MIXER_KEYS = {"in_proj", "conv", "dt_bias", "A_log", "D", "norm", "out_proj"}
 _MAMBA1_MIXER_KEYS = {"in_proj", "conv", "x_proj", "dt_proj", "A_log", "D", "out_proj"}
 _ATTN_MIXER_KEYS = {"wqkv", "out_proj"}
+# a block's second half, when the model has an MLP
+_FFN = {"mlp": {"fc1", "fc2"}, "moe": {"router", "w1", "w2"}}
+
+
+def _check_block(block: dict, mixers: tuple, where: str) -> None:
+    """A block holds norm and mixer (its keys one of ``mixers``), and
+    either nothing else or norm2 and one of mlp / moe with their keys."""
+    ffn = [k for k in _FFN if k in block]
+    want = {"norm", "mixer"} | ({"norm2", *ffn} if len(ffn) == 1 else set())
+    if set(block) != want or (len(ffn) == 1 and set(block[ffn[0]]) != _FFN[ffn[0]]):
+        raise ValueError(
+            f"{where} must hold norm and mixer[, norm2 and mlp.{{fc1, fc2}} or "
+            f"moe.{{router, w1, w2}}], got {sorted(block)}")
+    if set(block["mixer"]) not in mixers:
+        raise ValueError(f"{where} mixer keys {sorted(block['mixer'])} are none of "
+                         f"{[sorted(m) for m in mixers]}")
 
 
 def _check_keys(tree: dict) -> None:
-    if set(tree) - {"attn_blocks"} != {"embedding", "norm_f", "blocks"}:
+    if not {"embedding", "norm_f", "blocks"} <= set(tree) or (
+            set(tree) - {"embedding", "norm_f", "blocks", "attn_blocks", "lm_head"}):
         raise ValueError(
-            f"expected the tied-head tree of a pure Mamba-2 or Mamba-1 stack or "
-            f"a hybrid stack (embedding, norm_f, blocks[, attn_blocks]), got keys "
+            f"expected the tree of a pure Mamba-2 or Mamba-1 stack or a hybrid "
+            f"stack (embedding, norm_f, blocks[, attn_blocks][, lm_head]), got keys "
             f"{sorted(tree)}")
-    if set(tree["blocks"]) != {"norm", "mixer"}:
-        raise ValueError(f"blocks keys {sorted(tree['blocks'])} != [mixer, norm]")
-    if set(tree["blocks"]["mixer"]) not in (_MIXER_KEYS, _MAMBA1_MIXER_KEYS):
-        raise ValueError(f"mixer keys {sorted(tree['blocks']['mixer'])} are neither "
-                         f"Mamba-2's {sorted(_MIXER_KEYS)} nor Mamba-1's "
-                         f"{sorted(_MAMBA1_MIXER_KEYS)}")
+    _check_block(tree["blocks"], (_MIXER_KEYS, _MAMBA1_MIXER_KEYS), "blocks")
     if "attn_blocks" in tree:
-        attn = tree["attn_blocks"]
-        if set(attn) != {"norm", "mixer"} or set(attn["mixer"]) != _ATTN_MIXER_KEYS:
-            raise ValueError(
-                f"attn_blocks must hold norm and mixer.{{wqkv, out_proj}}, got "
-                f"{sorted(attn)} / {sorted(attn.get('mixer', {}))}")
+        _check_block(tree["attn_blocks"], (_ATTN_MIXER_KEYS,), "attn_blocks")
+    if "lm_head" in tree and set(tree["lm_head"]) != {"kernel"}:
+        raise ValueError(f"lm_head keys {sorted(tree['lm_head'])} != ['kernel']")
 
 
 def _map(tree, fn):

@@ -77,14 +77,20 @@ def top_k_sample(logits: torch.Tensor, u: torch.Tensor, k: int,
 
 def _decode_params(params: dict, cfg: ModelConfig) -> dict:
     """Pre-cast matmul kernels + embedding to the compute dtype (decode
-    reads every weight per token, so it reads them once in bf16).  Conv
-    kernels, biases, norm weights and SSM scalars stay fp32.
+    reads every weight per token, so it reads them once in bf16): the
+    mixers', the MLP's, an untied ``lm_head``'s and the MoE experts'
+    ``w1``/``w2`` (which ``_moe_mlp`` casts at use anyway, so their values
+    do not change).  Conv kernels, the MoE router (routed in fp32),
+    biases, norm weights and SSM scalars stay fp32.  Already-cast params
+    pass through unchanged (same tensors), so a caller may cast once and
+    hand the result to both the engine and ``generate()``.
 
     ``cfg.serving_weight_dtype="int8"`` first quantizes the ``linear``
-    kernels and the embedding from the fp32 masters (ops/quant.py); the
-    cast then leaves the int8 codes and their fp32 scales alone.
-    mamba1's ``dt_proj`` does not quantize and takes the compute-dtype
-    cast.  The engine and ``generate()`` share this one cast."""
+    kernels (the mixers', the MLP's and an untied head's) and the
+    embedding from the fp32 masters (ops/quant.py); the cast then leaves
+    the int8 codes and their fp32 scales alone.  mamba1's ``dt_proj`` and
+    the MoE experts do not quantize and take the compute-dtype cast, as
+    in the JAX package.  The engine and ``generate()`` share this one cast."""
     cd = cfg.torch_compute_dtype
     if cfg.serving_weight_dtype == "int8":
         params = quantize_serving_params(params)
@@ -96,7 +102,8 @@ def _decode_params(params: dict, cfg: ModelConfig) -> dict:
                 out[k] = cast(v, k)
             elif k == "scale" or not v.is_floating_point():
                 out[k] = v
-            elif k == "embedding" or (k == "kernel" and parent != "conv"):
+            elif (k == "embedding" or parent == "moe"
+                  or (k == "kernel" and parent not in ("conv", "router"))):
                 out[k] = v.to(cd)
             else:
                 out[k] = v
@@ -178,7 +185,8 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     their K/V packed into a private paged cache of capacity ``t +
     max_new_tokens``, as the JAX ``_generate_impl`` does.
     ``decode_rows`` pads the decode batch (see the module docstring)."""
-    dev = params["embedding"].device
+    emb = params["embedding"]
+    dev = (emb["kernel"] if isinstance(emb, dict) else emb).device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
     if prompt.ndim == 1:
         prompt = prompt[None]

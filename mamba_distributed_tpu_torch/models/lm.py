@@ -1,8 +1,11 @@
 """Language model (counterpart of ``mamba_distributed_tpu/models/lm.py``):
-embedding -> N prenorm blocks -> final norm -> tied head.  Every block is
-a Mamba mixer of ``cfg.ssm_layer`` (Mamba-2 SSD or Mamba-1 selective
-scan), or, in a hybrid stack, an attention mixer at the layers
-``cfg.attn_layer_idx`` over a paged KV cache (models/attention.py).
+embedding -> N prenorm blocks -> final norm -> tied or untied head.
+Every block is a Mamba mixer of ``cfg.ssm_layer`` (Mamba-2 SSD or
+Mamba-1 selective scan), or, in a hybrid stack, an attention mixer at
+the layers ``cfg.attn_layer_idx`` over a paged KV cache
+(models/attention.py); with ``cfg.d_intermediate > 0`` a second
+add+norm and a gated MLP (or, with ``cfg.moe_num_experts``, a top-k
+mixture of gated-MLP experts) follow the mixer.
 
 Parameters are a plain dict that mirrors the JAX ``init_lm_params`` tree
 key for key, with the blocks stacked on a leading layer axis:
@@ -25,7 +28,15 @@ key for key, with the blocks stacked on a leading layer axis:
      # hybrid stacks only; "blocks" then stacks the Mamba layers alone
      "attn_blocks": {"norm": {"weight": (A, d)},
                      "mixer": {"wqkv": {"kernel": (A, d, (nh + 2 nkv) hd)},
-                               "out_proj": {"kernel": (A, nh hd, d)}}}}
+                               "out_proj": {"kernel": (A, nh hd, d)}}},
+     # untied heads only
+     "lm_head": {"kernel": (d, V)}}
+
+With ``d_intermediate = di > 0`` every block of both stacks also holds
+``"norm2": {"weight": (L, d)}`` and either ``"mlp": {"fc1": {"kernel":
+(L, d, 2 di)}, "fc2": {"kernel": (L, di, d)}}`` or, with E experts,
+``"moe": {"router": {"kernel": (L, d, E)}, "w1": (L, E, d, 2 di), "w2":
+(L, E, di, d)}``.
 
 The JAX ``lax.scan`` over stacked layers (and, for periodic hybrids, its
 scan over supersteps) becomes one Python loop over the layers in global
@@ -47,7 +58,8 @@ and folded into the tied head's fp32 output.
 Training (pure and hybrid stacks): ``lm_forward``/``lm_loss`` carry one
 post-add fp32 stream through the layers in global order, as the JAX
 ``_backbone`` does, each block (Mamba or attention) checkpointed as a
-whole when ``cfg.remat`` is on.
+whole under ``cfg.remat_policy`` when ``cfg.remat`` is on
+(ops/remat.py); a MoE model's load-balance terms are summed on the way.
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.nn.functional as F
 
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.attention import (
@@ -67,7 +79,13 @@ from mamba_distributed_tpu_torch.models.attention import (
     init_attention_state,
     pack_attention_pages,
 )
-from mamba_distributed_tpu_torch.models.common import mm_f32
+from mamba_distributed_tpu_torch.models.common import (
+    init_linear,
+    linear,
+    mm_f32,
+    out_proj_rescale,
+    uniform_fan_in,
+)
 from mamba_distributed_tpu_torch.models.mamba1 import (
     init_mamba1_params,
     init_mamba1_state,
@@ -81,6 +99,7 @@ from mamba_distributed_tpu_torch.models.mamba2 import (
     mamba2_mixer_step,
 )
 from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm
+from mamba_distributed_tpu_torch.ops.remat import remat_block
 
 
 class _Mixer(NamedTuple):
@@ -120,6 +139,27 @@ def _layer_plan(cfg: ModelConfig) -> list[tuple[bool, int]]:
     return plan
 
 
+def _init_ffn(cfg: ModelConfig, generator: torch.Generator, n: int, device) -> dict:
+    """``norm2`` and the gated MLP or the MoE of ``n`` stacked blocks
+    (lm.py:72-106): fc2 and the experts' w2 divided by the residual
+    rescale, as the mixers' out_proj."""
+    d, di = cfg.d_model, cfg.d_intermediate
+    rescale = (out_proj_rescale(cfg.n_layer, di) if cfg.rescale_prenorm_residual else 1.0)
+    p = {"norm2": {"weight": torch.ones((n, d), device=device)}}
+    if cfg.moe_num_experts:
+        E = cfg.moe_num_experts
+        p["moe"] = {
+            "router": init_linear(d, E, generator, False, (n,), device),
+            "w1": uniform_fan_in((n, E, d, 2 * di), d, generator, device),
+            "w2": uniform_fan_in((n, E, di, d), di, generator, device) / rescale,
+        }
+    else:
+        p["mlp"] = {"fc1": init_linear(d, 2 * di, generator, False, (n,), device),
+                    "fc2": init_linear(di, d, generator, False, (n,), device)}
+        p["mlp"]["fc2"]["kernel"] /= rescale
+    return p
+
+
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
                    device=None) -> dict:
     """Full parameter tree (fp32 masters), random from ``generator``."""
@@ -140,6 +180,13 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
             "norm": {"weight": torch.ones((n_attn, cfg.d_model), device=device)},
             "mixer": init_attention_params(cfg, generator, n_attn, device),
         }
+    if cfg.d_intermediate > 0:
+        params["blocks"].update(_init_ffn(cfg, generator, n, device))
+        if n_attn:
+            params["attn_blocks"].update(_init_ffn(cfg, generator, n_attn, device))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(cfg.d_model, cfg.vocab_size_padded, generator,
+                                        device=device)
     return params
 
 
@@ -167,6 +214,72 @@ def _residual_dtype(cfg: ModelConfig):
     return torch.float32 if cfg.residual_in_fp32 else cfg.torch_compute_dtype
 
 
+def _gated_mlp(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """GatedMLP (lm.py:144-148): fc2(y * silu(gate)), the gate in fp32."""
+    y, gate = linear(params["fc1"], x, compute_dtype).chunk(2, dim=-1)
+    return linear(params["fc2"], y * F.silu(gate.float()).to(y.dtype), compute_dtype)
+
+
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``einsum`` of compute-dtype operands with an fp32 result (the JAX
+    ``preferred_element_type=float32``): the operands are rounded to the
+    compute dtype, then multiplied in fp32, where their products are exact."""
+    return torch.einsum(eq, a.to(compute_dtype).float(), b.to(compute_dtype).float())
+
+
+def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
+    """Token-choice top-k mixture of gated-MLP experts -> (out, aux), in
+    the JAX package's dense-dispatch formulation (lm.py:151-208):
+    every choice takes the next slot of its expert's queue, primary
+    choices of all tokens before any secondary one; a choice past the
+    capacity is dropped (its token rides the residual).  ``aux`` is the
+    Switch load-balance loss E * sum_e f_e P_e / k (1 at perfect balance)."""
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    b, t, d = x.shape
+    n = b * t
+    cap = max(1, -(-int(cfg.moe_capacity_factor * k * n) // E))
+    xt = x.reshape(n, d)
+    probs = torch.softmax(linear(params["router"], xt, torch.float32), dim=-1)  # (n, E)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (n, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    oh = F.one_hot(gate_idx, E).float()  # (n, k, E)
+    ohf = oh.transpose(0, 1).reshape(k * n, E)  # in priority order
+    pos = ((ohf.cumsum(0) - ohf) * ohf).sum(-1).reshape(k, n).t()  # (n, k)
+    keep = (pos < cap).float()
+    gate_vals = gate_vals * keep
+    # (n, k, E, C) one-hot over (expert, slot) -> dispatch / combine (n, E, C);
+    # a dropped choice's slot is clipped into range, then masked by keep
+    slot = F.one_hot(pos.long().clamp_max(cap - 1), cap).float()
+    sel = oh[..., None] * slot[:, :, None, :] * keep[..., None, None]
+    dispatch = sel.sum(1)
+    combine = (sel * gate_vals[..., None, None]).sum(1)
+
+    cd = compute_dtype
+    xe = _einsum_f32("nd,nec->ecd", xt, dispatch, cd).to(cd)
+    y, gate = _einsum_f32("ecd,edf->ecf", xe, params["w1"], cd).chunk(2, dim=-1)
+    h = (y * F.silu(gate)).to(cd)
+    ye = _einsum_f32("ecf,efd->ecd", h, params["w2"], cd)  # (E, C, d)
+    out = torch.einsum("nec,ecd->nd", combine, ye)
+
+    f = oh.sum(1).mean(0)  # share of choices routed to each expert
+    aux = E * (f * probs.mean(0)).sum() / k
+    return out.reshape(b, t, d).to(x.dtype), aux
+
+
+def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None):
+    """The block's second half (lm.py:281-297): add + ``norm2``, then the
+    gated MLP or the MoE -> (hidden, residual, aux or None).  The stream
+    is carried in ``residual_dtype`` (default: the config's)."""
+    normed, residual = add_rms_norm(hidden, residual, bp["norm2"]["weight"], cfg.norm_eps,
+                                    residual_dtype=residual_dtype or _residual_dtype(cfg))
+    cd = cfg.torch_compute_dtype
+    if cfg.moe_num_experts:
+        hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd)
+        return hidden, residual, aux
+    return _gated_mlp(bp["mlp"], normed, cd), residual, None
+
+
 def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
                initial_state=None, attn: bool = False):
     """One prenorm block with its mixer's decode state:
@@ -182,27 +295,37 @@ def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
     )
     if attn and initial_state is None:
         hidden, state = attention_mixer(bp["mixer"], cfg, normed, return_final_state=True)
-        return hidden, residual, state
-    if attn:
+    elif attn:
         kv, page_table, lengths = initial_state
         hidden, state = attention_mixer_chunk(bp["mixer"], cfg, normed, kv, page_table,
                                               lengths, token_mask=token_mask)
-        return hidden, residual, state
-    ics, iss = (None, None) if initial_state is None else initial_state
-    hidden, state = _MIXERS[cfg.ssm_layer].forward(
-        bp["mixer"], cfg, normed, initial_conv_state=ics,
-        initial_ssm_state=iss, return_final_state=True, token_mask=token_mask,
-    )
+    else:
+        ics, iss = (None, None) if initial_state is None else initial_state
+        hidden, state = _MIXERS[cfg.ssm_layer].forward(
+            bp["mixer"], cfg, normed, initial_conv_state=ics,
+            initial_ssm_state=iss, return_final_state=True, token_mask=token_mask,
+        )
+    if cfg.d_intermediate > 0:
+        hidden, residual, _ = _ffn(bp, cfg, hidden, residual)
     return hidden, residual, state
 
 
+def _head_logits(params: dict, cfg: ModelConfig, normed: torch.Tensor) -> torch.Tensor:
+    """LM head in serving: the tied head's fp32-accumulated fp32 logits,
+    or the untied ``lm_head`` through ``linear``, rounded to the compute
+    dtype and returned in fp32 (lm.py:331-340, :1191-1195)."""
+    if cfg.tie_embeddings:
+        return _tied_logits(params, normed, cfg.torch_compute_dtype)
+    return linear(params["lm_head"], normed, cfg.torch_compute_dtype).float()
+
+
 def _final_logits(params: dict, cfg: ModelConfig, hidden, residual):
-    """Final add+norm -> tied head, fp32-accumulated fp32 logits."""
+    """Final add+norm -> LM head, fp32 logits."""
     normed, _ = add_rms_norm(
         hidden, residual, params["norm_f"]["weight"], cfg.norm_eps,
         residual_dtype=_residual_dtype(cfg),
     )
-    return _tied_logits(params, normed, cfg.torch_compute_dtype)
+    return _head_logits(params, cfg, normed)
 
 
 def count_params(params: dict) -> int:
@@ -212,35 +335,41 @@ def count_params(params: dict) -> int:
     return params.numel()
 
 
-def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool) -> torch.Tensor:
+def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool):
     """One prenorm block in the single-carry form of the JAX
-    ``_backbone`` (lm.py:437-444): the post-add stream -> the next one,
-    through the attention mixer at an attention layer."""
+    ``_backbone`` (lm.py:437-444): the post-add stream -> (the next one,
+    the MoE aux term or None), through the attention mixer at an
+    attention layer."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
     mixer = attention_mixer if attn else _MIXERS[cfg.ssm_layer].forward
-    return res + mixer(bp["mixer"], cfg, normed).to(res.dtype)
+    hidden, aux = mixer(bp["mixer"], cfg, normed), None
+    if cfg.d_intermediate > 0:
+        hidden, res, aux = _ffn(bp, cfg, hidden, res)
+    return res + hidden.to(res.dtype), aux
 
 
-def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    """Embedding -> layer stack in global order -> the post-add stream,
-    before the final norm (lm.py:415-519; the JAX periodic-hybrid scan
-    over supersteps and its unrolled aperiodic loop are this one loop).
-    With ``cfg.remat`` and autograd on, each block is checkpointed as a
-    whole (``remat_policy="all"``, as the JAX ``mbody``/``abody``): the
-    backward keeps only each block's input stream and recomputes the
-    rest, the SSD and flash forwards included."""
+def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor):
+    """Embedding -> layer stack in global order -> (the post-add stream
+    before the final norm, the sum of the MoE aux terms or None)
+    (lm.py:415-519; the JAX periodic-hybrid scan over supersteps and its
+    unrolled aperiodic loop are this one loop).  With ``cfg.remat`` and
+    autograd on, each block is checkpointed as a whole under
+    ``cfg.remat_policy`` (ops/remat.py), as the JAX ``mbody``/``abody``."""
     res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
     mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
     ablocks = (_unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
                if cfg.attn_layer_idx else [])
+    aux_total = None
     for attn, j in _layer_plan(cfg):
         bp = ablocks[j] if attn else mblocks[j]
         if remat:
-            res = checkpoint(_train_block, bp, cfg, res, attn, use_reentrant=False)
+            res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn)
         else:
-            res = _train_block(bp, cfg, res, attn)
-    return res
+            res, aux = _train_block(bp, cfg, res, attn)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return res, aux_total
 
 
 def _final_norm(params: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tensor:
@@ -248,25 +377,68 @@ def _final_norm(params: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tens
     return rms_norm(res.to(_residual_dtype(cfg)), params["norm_f"]["weight"], cfg.norm_eps)
 
 
-def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542).
+def _head_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """(V, d) LM-head matrix of the blocked loss: the tied embedding, or
+    the ``lm_head`` kernel transposed (lm.py:319-328)."""
+    if cfg.tie_embeddings:
+        return params["embedding"]
+    if "bias" in params["lm_head"]:  # not an assert: must survive python -O
+        raise ValueError(
+            "blocked CE assumes a bias-free lm_head; a bias would be "
+            "silently ignored, training against a wrong loss"
+        )
+    return params["lm_head"]["kernel"].t()
 
-    The tied head is one compute-dtype GEMM: fp32 accumulation rounded
-    once to the compute dtype, the rounding the JAX package applies to
-    its fp32 logits (lm.py:538), and a product autograd differentiates."""
+
+def _mean_aux(cfg: ModelConfig, aux_total, like: torch.Tensor) -> torch.Tensor:
+    """The per-layer mean of the MoE aux terms, 0 without a MoE (lm.py:538-541)."""
+    if aux_total is None:
+        return like.new_zeros((), dtype=torch.float32)
+    return aux_total / cfg.n_layer
+
+
+def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+               return_aux: bool = False):
+    """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542)
+    [, the per-layer mean of the MoE aux terms, 0 for a dense model].
+
+    The head is one compute-dtype GEMM: fp32 accumulation rounded once to
+    the compute dtype, the rounding the JAX package applies to its fp32
+    logits (lm.py:538), and a product autograd differentiates."""
     cd = cfg.torch_compute_dtype
-    normed = _final_norm(params, cfg, _backbone(params, cfg, input_ids))
-    return normed.to(cd) @ params["embedding"].to(cd).t()
+    res, aux_total = _backbone(params, cfg, input_ids)
+    normed = _final_norm(params, cfg, res)
+    if cfg.tie_embeddings:
+        logits = normed.to(cd) @ params["embedding"].to(cd).t()
+    else:
+        logits = linear(params["lm_head"], normed, cd)
+    if return_aux:
+        return logits, _mean_aux(cfg, aux_total, res)
+    return logits
 
 
 def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
             targets: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy in fp32 against the loader's pre-shifted
-    targets, as ``logsumexp - gathered logit`` (the dense loss of
-    lm.py:545-586: no (b, t, V) log-prob tensor)."""
-    lf = lm_forward(params, cfg, input_ids).float()
-    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    return (torch.logsumexp(lf, dim=-1) - tgt).mean()
+    targets, plus ``moe_aux_weight`` times the mean MoE aux term for a
+    MoE model (lm.py:545-586).  ``loss_impl="dense"``: one head product,
+    then ``logsumexp - gathered logit`` (no (b, t, V) log-prob tensor);
+    ``"blocked"``: ops/loss.py, where no (b, t, V) tensor exists at all."""
+    if cfg.loss_impl == "blocked":
+        from mamba_distributed_tpu_torch.ops.loss import blocked_cross_entropy
+
+        res, aux_total = _backbone(params, cfg, input_ids)
+        ce = blocked_cross_entropy(_final_norm(params, cfg, res), _head_matrix(params, cfg),
+                                   targets, cfg.loss_vocab_blocks, cfg.torch_compute_dtype)
+        aux = _mean_aux(cfg, aux_total, res)
+    else:
+        logits, aux = lm_forward(params, cfg, input_ids, return_aux=True)
+        lf = logits.float()
+        tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+        ce = (torch.logsumexp(lf, dim=-1) - tgt).mean()
+    if cfg.moe_num_experts:
+        return ce + cfg.moe_aux_weight * aux
+    return ce
 
 
 def _stack_states(states: list) -> tuple:
@@ -408,6 +580,13 @@ def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None)
         hidden, _ = attention_mixer_step(bp["mixer"], cfg, normed, st, *attn_ctx)
     else:
         hidden, _ = _MIXERS[cfg.ssm_layer].step(bp["mixer"], cfg, normed, *st)
+    if cfg.d_intermediate > 0:
+        if cfg.moe_num_experts:
+            # the MoE routes a (b, 1) token block (lm.py:1047-1058)
+            hidden, residual, _ = _ffn(bp, cfg, hidden[:, None], residual[:, None],
+                                       torch.float32)
+            return hidden[:, 0], residual[:, 0]
+        hidden, residual, _ = _ffn(bp, cfg, hidden, residual, torch.float32)
     return hidden, residual
 
 
@@ -441,7 +620,7 @@ def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
                                            (conv[j], ssm[j]))
     normed, _ = add_rms_norm(hidden, residual, params["norm_f"]["weight"],
                              cfg.norm_eps)
-    logits = _tied_logits(params, normed, cd)
+    logits = _head_logits(params, cfg, normed)
     if cfg.attn_layer_idx:
         adv = 1 if write_mask is None else write_mask.to(lengths.dtype)
         state = {**state, "attn_meta": (tbl, lengths + adv)}

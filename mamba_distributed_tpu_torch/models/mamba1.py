@@ -94,7 +94,7 @@ def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
         x = x * token_mask[..., None].to(x.dtype)
     x, conv_state = causal_conv1d(
         x, params["conv"]["kernel"], params["conv"].get("bias"), activation="silu",
-        initial_state=initial_conv_state, return_final_state=True,
+        initial_state=initial_conv_state, return_final_state=True, impl=cfg.conv_impl,
     )
     if token_mask is not None:
         x = x * token_mask[..., None].to(x.dtype)

@@ -99,7 +99,7 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     xBC, conv_state = causal_conv1d(
         xBC, params["conv"]["kernel"], params["conv"].get("bias"),
         activation="silu", initial_state=initial_conv_state,
-        return_final_state=True,
+        return_final_state=True, impl=cfg.conv_impl,
     )
     if token_mask is not None:
         xBC = xBC * token_mask[..., None].to(xBC.dtype)
@@ -110,11 +110,14 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     dtf = F.softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
     ssd = ssd_chunked_kernel if cfg.ssm_impl == "pallas" else ssd_chunked
-    y, ssm_state = ssd(
-        x, dtf, A, B, C, chunk_size=cfg.chunk_size, D=_D(params, cfg),
-        initial_state=initial_ssm_state, return_final_state=True,
-        compute_dtype=cd,
-    )
+    kw = dict(chunk_size=cfg.chunk_size, D=_D(params, cfg), compute_dtype=cd)
+    if initial_ssm_state is None and not return_final_state:
+        # the training path: no final state, so under the "mixer" remat
+        # policy the SSD's y alone is kept (ops/remat.py)
+        y, ssm_state = ssd(x, dtf, A, B, C, **kw), None
+    else:
+        y, ssm_state = ssd(x, dtf, A, B, C, **kw, initial_state=initial_ssm_state,
+                           return_final_state=True)
     y = rms_norm_gated(y.reshape(b, t, di), z, params["norm"]["weight"],
                        cfg.norm_eps, group_size=di // g if g > 1 else None)
     out = linear(params["out_proj"], y, cd)

@@ -1,5 +1,7 @@
 """Causal depthwise 1-D convolution (counterpart of
-``mamba_distributed_tpu/ops/conv.py``, the ``"shift"`` formulation).
+``mamba_distributed_tpu/ops/conv.py``): the ``"shift"`` formulation
+(width shifted multiply-adds) and ``"xla_conv"`` (one depthwise
+``conv1d``, the JAX package's grouped ``conv_general_dilated``).
 
 Plain PyTorch: the JAX package wrote no kernel for the width-4 conv.
 Layouts follow the JAX package: x (b, t, d), weight (d, width), conv
@@ -16,9 +18,11 @@ def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None,
                   activation: str | None = "silu",
                   initial_state: torch.Tensor | None = None,
-                  return_final_state: bool = False):
-    """y (b, t, d) [, final_state (b, width-1, d)] as a sum of shifted
-    multiply-adds in fp32, output in ``x.dtype``."""
+                  return_final_state: bool = False, impl: str = "shift"):
+    """y (b, t, d) [, final_state (b, width-1, d)] in fp32, output in
+    ``x.dtype``: a sum of shifted multiply-adds (``impl="shift"``) or one
+    depthwise ``conv1d`` over the padded input (``"xla_conv"``; a
+    cross-correlation, so the taps keep their order)."""
     b, t, d = x.shape
     dim, width = weight.shape
     if dim != d:
@@ -32,10 +36,18 @@ def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
     xp = torch.cat([pad, x], dim=1)  # (b, t + width - 1, d)
     acc_dtype = torch.promote_types(x.dtype, torch.float32)
     wf = weight.to(acc_dtype)
-    y = torch.zeros((b, t, d), dtype=acc_dtype, device=x.device)
-    for i in range(width):
-        # tap i sees the input shifted (width - 1 - i) steps into the past
-        y = y + xp[:, i:i + t, :].to(acc_dtype) * wf[:, i]
+    if impl == "xla_conv":
+        # back to (b, t, d) with the channels contiguous, as the SSD and
+        # scan kernels read their inputs
+        y = F.conv1d(xp.to(acc_dtype).transpose(1, 2), wf[:, None, :],
+                     groups=d).transpose(1, 2).contiguous()
+    elif impl == "shift":
+        y = torch.zeros((b, t, d), dtype=acc_dtype, device=x.device)
+        for i in range(width):
+            # tap i sees the input shifted (width - 1 - i) steps into the past
+            y = y + xp[:, i:i + t, :].to(acc_dtype) * wf[:, i]
+    else:
+        raise ValueError(f"unsupported conv impl: {impl}")
     if bias is not None:
         y = y + bias.to(acc_dtype)
     if activation == "silu":

@@ -49,6 +49,7 @@ import torch
 from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
+from mamba_distributed_tpu_torch.ops.remat import core_output
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -333,11 +334,13 @@ def flash_pair_dkv(qt, kt, vt, do, lse, dlt, offset: int):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``_fa_core`` with its ``custom_vjp`` (attention_kernels.py:432-453):
-    head-major (qt, kt, vt) -> o, differentiable in q, k and v."""
+    head-major (qt, kt, vt) -> o, differentiable in q, k and v.  Under
+    the "mixer" remat policy the forward kernel's o and lse are kept
+    (ops/remat.py)."""
 
     @staticmethod
     def forward(ctx, qt, kt, vt, offset: int):
-        o, lse = flash_fwd(qt, kt, vt, offset, kt.shape[2])
+        o, lse = core_output(lambda: flash_fwd(qt, kt, vt, offset, kt.shape[2]))
         ctx.save_for_backward(qt, kt, vt, o, lse)
         ctx.offset = offset
         return o

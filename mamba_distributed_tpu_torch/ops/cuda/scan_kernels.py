@@ -40,6 +40,7 @@ import torch
 from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
+from mamba_distributed_tpu_torch.ops.remat import core_output
 from mamba_distributed_tpu_torch.ops.scan import (
     _epilogue,
     _h0,
@@ -263,11 +264,13 @@ def m1_bwd(u, dt, A, B, C, states, dy, dfinal=None, lib=None):
 
 class SelectiveScanFunction(torch.autograd.Function):
     """``_m1_core`` with its ``custom_vjp`` (scan_kernels.py:388-410):
-    (u, dt, A, B, C, h0) fp32 -> (y, hT), h0 None for zeros."""
+    (u, dt, A, B, C, h0) fp32 -> (y, hT), h0 None for zeros.  Under the
+    "mixer" remat policy the forward kernel's outputs are kept
+    (ops/remat.py)."""
 
     @staticmethod
     def forward(ctx, u, dt, A, B, C, h0):
-        y, hT = m1_scan(u, dt, A, B, C, h0)
+        y, hT = core_output(lambda: m1_scan(u, dt, A, B, C, h0))
         ctx.save_for_backward(u, dt, A, B, C, h0)
         ctx.set_materialize_grads(False)
         return y, hT

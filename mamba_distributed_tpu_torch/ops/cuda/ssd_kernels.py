@@ -51,6 +51,7 @@ from mamba_distributed_tpu_torch.ops.cuda import build
 from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
 from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import tma_layout_problem
 from mamba_distributed_tpu_torch.ops.dispatch import use_kernel
+from mamba_distributed_tpu_torch.ops.remat import core_output
 from mamba_distributed_tpu_torch.ops.ssd import (
     _add_D,
     _divisor_chunk,
@@ -478,11 +479,17 @@ def ssd_backward(x, dt, A, B, C, dy, l: int, compute_dtype,
 
 class SSDFunction(torch.autograd.Function):
     """``_ssd_pallas_core`` with its ``custom_vjp`` (ssd_kernels.py:560-595):
-    (x, dt, A, B, C, initial_state) -> (y without D, final state)."""
+    (x, dt, A, B, C, initial_state) -> (y without D, final state), the
+    final state None unless ``need_final``.  Under the "mixer" remat
+    policy the forward kernel's outputs are kept (ops/remat.py)."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, initial_state, l, compute_dtype):
-        y, final = _ssd_fwd(x, dt, A, B, C, l, initial_state, compute_dtype)
+    def forward(ctx, x, dt, A, B, C, initial_state, l, compute_dtype, need_final=True):
+        def fwd():
+            y, final = _ssd_fwd(x, dt, A, B, C, l, initial_state, compute_dtype)
+            return y, (final if need_final else None)
+
+        y, final = core_output(fwd)
         ctx.save_for_backward(x, dt, A, B, C, initial_state)
         ctx.l, ctx.compute_dtype = l, compute_dtype
         ctx.set_materialize_grads(False)
@@ -495,7 +502,7 @@ class SSDFunction(torch.autograd.Function):
             dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
         grads = ssd_backward(x, dt, A, B, C, dy, ctx.l, ctx.compute_dtype,
                              initial_state, dfinal)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def ssd_chunked_kernel(x, dt, A, B, C, chunk_size: int = 256, D=None,
@@ -514,7 +521,8 @@ def ssd_chunked_kernel(x, dt, A, B, C, chunk_size: int = 256, D=None,
     dtype (D added afterwards in fp32, as ``_add_D`` in the JAX package)
     [and the final state (b, h, p, n) fp32]."""
     l = _divisor_chunk(x.shape[1], chunk_size)
-    y, final = SSDFunction.apply(x, dt, A, B, C, initial_state, l, compute_dtype)
+    y, final = SSDFunction.apply(x, dt, A, B, C, initial_state, l, compute_dtype,
+                                 return_final_state)
     if D is not None:
         y = _add_D(y, x, D).to(x.dtype)
     if return_final_state:

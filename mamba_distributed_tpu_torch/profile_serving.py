@@ -3,6 +3,7 @@
     python3 -m mamba_distributed_tpu_torch.profile_serving [PRESET ...]
     python3 -m mamba_distributed_tpu_torch.profile_serving hybrid-280m \
         --kv-dtype int8 --weight-dtype int8
+    python3 -m mamba_distributed_tpu_torch.profile_serving hybrid-7b
 
 For each preset (default: mamba2-280m, hybrid-280m and mamba1-280m),
 builds the
@@ -17,6 +18,9 @@ stream), the busy share, the kernel launch count and the kernels that
 take the most device time, beside the card's name and power limit.
 ``--weight-dtype`` and ``--kv-dtype`` set the serving dtype knobs
 (``ops/quant.apply_dtype_overrides``): int8 weights, int8 KV pages.
+The fp32 masters are cast (or quantized) once and freed before the
+engine starts, so a large model's masters and decode weights are never
+held beside a second cast.
 """
 
 from __future__ import annotations
@@ -69,10 +73,13 @@ def profile_preset(preset: str, card: str, weight_dtype: str | None = None,
         preset = (f"{preset} (weights {cfg.serving_weight_dtype}, KV pages "
                   f"{cfg.kv_page_dtype})")
     hybrid = bool(cfg.attn_layer_idx)
-    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
+    # one decode-layout cast, shared by the engine and the chunk step (a
+    # cast of cast params returns the same tensors); the masters go
+    dparams = cast_decode_params(init_lm_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"), cfg)
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
-    eng = ServingEngine(params, cfg, capacity=8, tokens_per_tick=8)
+    eng = ServingEngine(dparams, cfg, capacity=8, tokens_per_tick=8)
     for i in range(8):
         eng.submit(GenerationRequest(prompt_ids=rng.integers(0, cfg.vocab_size, 12),
                                      max_new_tokens=64, seed=i))
@@ -92,7 +99,6 @@ def profile_preset(preset: str, card: str, weight_dtype: str | None = None,
     report_kernels(f"{preset} decode tick ({eng.tokens_per_tick} sub-steps x 8 slots)", prof,
             wall, card)
 
-    dparams = cast_decode_params(params, cfg)
     plan = plan_chunks(700, cfg.effective_prefill_chunk_tokens)
     ids, mask = chunk_inputs(rng.integers(0, cfg.vocab_size, 700), plan, 1, device="cuda")
     state = init_lm_state(cfg, 1, max_len=cfg.kv_slot_tokens if hybrid else 0,

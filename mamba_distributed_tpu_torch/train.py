@@ -3,7 +3,17 @@
     python -m mamba_distributed_tpu_torch.train --preset mamba2-280m --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-280m --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset mamba1-280m --max-steps 3
+    python -m mamba_distributed_tpu_torch.train --preset mamba2-280m --remat-policy mixer \
+        --loss-impl blocked --max-steps 3
+    python -m mamba_distributed_tpu_torch.train --preset hybrid-7b --n-layer 8 --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
+
+``--preset hybrid-7b`` (gated MLP after every mixer) is the JAX
+package's 64-chip recipe on one card: its fp32 masters, gradients and
+AdamW moments take 16 bytes for each of its 8.9 billion parameters at
+32 layers, more than one 80 GB card holds, so train it cut with
+``--n-layer`` (8 layers, one period of its attention pattern, keep
+attention at layer 3).
 
 The SSD (Mamba-2) or selective scan (Mamba-1) runs through the
 hand-written kernels (``--ssm-impl pallas``, the default here) on the
@@ -40,6 +50,17 @@ def parse_args(argv=None):
                    help="pallas (default): the hand-written SSD or scan kernels on the card "
                         "(their plain versions on the CPU); xla: plain PyTorch autograd")
     p.add_argument("--chunk-size", type=int, default=None, help="SSD chunk length")
+    p.add_argument("--remat-policy", choices=["all", "dots", "mixer"], default=None,
+                   help="what each checkpointed block saves: all (nothing but its "
+                        "input), dots (the 2-D matrix products) or mixer (each mixer "
+                        "core's output, so its forward kernel runs once)")
+    p.add_argument("--loss-impl", choices=["dense", "blocked"], default=None,
+                   help="LM-head+CE formulation; blocked never makes the (b, t, V) logits")
+    p.add_argument("--conv-impl", choices=["shift", "xla_conv"], default=None,
+                   help="causal-conv formulation (same function)")
+    p.add_argument("--n-layer", type=int, default=None,
+                   help="cut the preset's depth (a hybrid keeps its attention layers "
+                        "below it)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default: the card) or cpu")
     return p.parse_args(argv)
@@ -56,7 +77,14 @@ def build_config(args) -> TrainConfig:
     ) if val is not None}
     cfg = get_train_preset(args.preset, **overrides)
     model_over = {k: v for k, v in (("ssm_impl", args.ssm_impl),
-                                    ("chunk_size", args.chunk_size)) if v is not None}
+                                    ("chunk_size", args.chunk_size),
+                                    ("remat_policy", args.remat_policy),
+                                    ("loss_impl", args.loss_impl),
+                                    ("conv_impl", args.conv_impl)) if v is not None}
+    if args.n_layer is not None:
+        model_over["n_layer"] = args.n_layer
+        model_over["attn_layer_idx"] = tuple(
+            i for i in cfg.model.attn_layer_idx if i < args.n_layer)
     if model_over:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_over))
     if args.data_dir is not None:

@@ -1,5 +1,6 @@
 """Analytic FLOPs accounting for MFU (counterpart of the JAX package's
-``utils/flops.py``, the Mamba-2, Mamba-1 and attention layers).
+``utils/flops.py``, the Mamba-2, Mamba-1 and attention layers and the
+gated MLP or MoE after each mixer).
 
 Matmul FLOPs: 2*m*n per (m x n) matvec per token, 3x the forward for a
 training step (forward + 2x backward), attention causally halved.  Two
@@ -11,8 +12,9 @@ conventions:
   recurrent state update/readout (no chunk-size term), the 6ND-style
   number MFU is judged on.
 
-The two differ only for Mamba-2 layers: Mamba-1's accounting is already
-the recurrence.
+The two differ only for Mamba-2 layers and MoE MLPs: Mamba-1's
+accounting is already the recurrence, and a MoE's executed capacity
+slots (``moe_capacity_factor`` per choice) are hardware FLOPs.
 
 The peak is the card's, from its name: only cards with a published
 dense bf16 rate in this table are known, and any other raises.
@@ -99,5 +101,16 @@ def flops_per_token(cfg: ModelConfig, seq_len: int, training: bool = True,
             total += _mamba2_layer_flops(cfg, seq_len, convention)
         else:
             total += _mamba1_layer_flops(cfg)
+        if cfg.d_intermediate > 0:
+            mlp = 6 * cfg.d_model * cfg.d_intermediate  # fc1 (d x 2 di) + fc2 (di x d)
+            if cfg.moe_num_experts:
+                # each token runs top_k experts ("model"); the executed
+                # capacity slots include the capacity factor ("hardware")
+                mult = (cfg.moe_top_k * cfg.moe_capacity_factor
+                        if convention == "hardware" else cfg.moe_top_k)
+                total += mlp * mult
+                total += 2 * cfg.d_model * cfg.moe_num_experts  # router
+            else:
+                total += mlp
     total += 2 * cfg.d_model * cfg.vocab_size_padded  # LM head
     return total * (3.0 if training else 1.0)

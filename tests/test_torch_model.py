@@ -73,7 +73,7 @@ def test_params_round_trip(pair):
     assert params["blocks"]["mixer"]["in_proj"]["kernel"].shape == (
         2, 32, jnp.shape(jparams["blocks"]["mixer"]["in_proj"]["kernel"])[2])
     with pytest.raises(ValueError, match="pure Mamba-2"):
-        convert.params_from_jax({**jax.tree.map(np.asarray, jparams), "lm_head": {}})
+        convert.params_from_jax({**jax.tree.map(np.asarray, jparams), "bogus": {}})
 
 
 def test_port_init_matches_jax_shapes_and_scale(pair):
@@ -105,7 +105,7 @@ def test_config_rejects_unserved_models():
     with pytest.raises(ValueError, match="mamba1"):
         ModelConfig(**TINY, ssm_layer="mamba3")
     with pytest.raises(ValueError, match="d_intermediate"):
-        ModelConfig(**TINY, d_intermediate=64)
+        ModelConfig(**TINY, moe_num_experts=4)  # a MoE replaces an MLP, so needs one
     hyb = get_preset("hybrid-280m")
     assert (hyb.attn_layer_idx, hyb.effective_attn_num_heads,
             hyb.effective_attn_num_kv_heads, hyb.effective_attn_head_dim,

@@ -232,16 +232,16 @@ def test_configs_flops_and_logger_match_jax(tmp_path):
 
 
 def test_config_rejects_later_slices():
-    with pytest.raises(ValueError, match="dots"):
-        ModelConfig(**TINY, remat_policy="dots")
-    with pytest.raises(ValueError, match="blocked"):
-        ModelConfig(**TINY, loss_impl="blocked")
+    with pytest.raises(ValueError, match="remat_policy"):
+        ModelConfig(**TINY, remat_policy="none")
+    with pytest.raises(ValueError, match="loss_vocab_blocks"):
+        ModelConfig(**TINY, loss_impl="blocked", loss_vocab_blocks=7)
     with pytest.raises(ValueError, match="fsdp"):
         TrainConfig(mesh=MeshConfig(fsdp=2))
     with pytest.raises(ValueError, match="divisible"):
         TrainConfig(total_batch_size=1000)
-    with pytest.raises(ValueError, match="mixer"):
-        get_preset("hybrid-tiny", remat_policy="mixer")
+    with pytest.raises(ValueError, match="moe_num_experts"):
+        get_preset("hybrid-tiny", d_intermediate=64, moe_num_experts=1)
 
 
 def test_loader_matches_jax_loader(tmp_path):
