@@ -87,7 +87,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    quantized and cast once and freed: the same requests, greedy stream
    equal to ``generate()``, no page leaked, the bf16 one-shot prefill
    against the chunked one, and peak memory printed beside the rest;
-4. train a full-width, full-depth mamba2-280m, hybrid-280m, then
+4. eval and import (after serving, about a minute and a half): the
+   HellaSwag scorer (``evaluate_hellaswag``) over
+   ``tests/data/hellaswag_tiny.jsonl`` (16 examples, ``example_batch`` 8,
+   so 32 rows) with a word-level tokenizer of 1, 6 and 18 ids a word
+   (rows padded to 32, 96 and 288 tokens: SSD chunks of 32, 96 and 144)
+   on full-width, full-depth mamba2-280m, hybrid-280m and mamba1-280m
+   (bf16, seeded weights), once with "pallas"/"auto" and once with "xla":
+   the logits (RMS error over RMS) and the per-row summed and mean losses
+   agree at the bf16 tolerance, the pallas
+   runs launch ``ssd_fwd``, ``flash_fwd`` and ``m1_scan`` (the xla runs
+   none), and the three kernels are held against their plain versions at
+   those lengths (b 32); seeded mamba2-280m and hybrid-280m params
+   written as a ``MambaLMHeadModel``-named config.json +
+   pytorch_model.bin (``hf_state_dict``) and read back by
+   ``models/hf.load_hf_checkpoint``, every tensor and the logits
+   bit-identical; the eval CLI (``-m hugging_face``, a toy GPT-2 BPE on
+   the native merge loop) and the generation CLI as subprocesses, equal
+   to in-process runs that launch ``ssd_fwd`` and ``flash_fwd`` (eval) and
+   ``ssd_fwd``, ``rpp_fwd`` and ``rpa_fwd`` (generation: the hybrid's
+   chunked prefill and paged decode); ``mamba2-mini`` trained 251 steps on the JAX
+   package's synthetic shards through the native shard reader, held to
+   ``log_parity_cpu/log.txt`` by the fingerprint and the 30-step strict
+   comparisons (the 251-step strict one printed), and the eval CLI with
+   ``-m custom`` on its checkpoint;
+5. train a full-width, full-depth mamba2-280m, hybrid-280m, then
    mamba1-280m (bf16, pallas, remat) through the port's ``Trainer`` for
    3 optimizer steps at seq 1024 on synthetic shards (micro-batch 32, or
    16 if 32 does not fit), with validation; every loss and grad norm
@@ -108,12 +132,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    against xla checks and the falling loss on a 4-layer hybrid-tiny with
    a MoE (4 experts, top-2, d_intermediate 256), an untied head,
    ``conv_impl="xla_conv"`` and ``loss_impl="blocked"``;
-5. print the serving and training numbers beside the card's name and
+6. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
-Before each serving and training run the kernels' launch counts are
-zeroed, and after it every kernel of that path must have launched.
+Before each serving, eval and training run the kernels' launch counts
+are zeroed, and after it every kernel of that path must have launched.
 
 It imports nothing of JAX or of the JAX package, and exits nonzero when
 no card is visible or the port's package is not beside it.
@@ -122,6 +146,7 @@ no card is visible or the port's package is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -170,6 +195,80 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------- a checkpoint in the reference's names
+
+
+def hf_state_dict(params: dict, cfg) -> dict:
+    """The port's param tree -> a ``MambaLMHeadModel``-named state dict
+    (torch Linear (out, in), Conv1d (ch, 1, width), one key per layer),
+    the inverse of ``models/hf.import_state_dict``; the tests import it
+    from here."""
+    def linear(pre: str, leaf: dict, i: int) -> dict:
+        out = {pre + ".weight": leaf["kernel"][i].t().contiguous()}
+        if "bias" in leaf:
+            out[pre + ".bias"] = leaf["bias"][i].clone()
+        return out
+
+    sd = {"backbone.embedding.weight": params["embedding"].clone(),
+          "backbone.norm_f.weight": params["norm_f"]["weight"].clone()}
+    counters = {False: 0, True: 0}
+    for layer in range(cfg.n_layer):
+        attn = layer in cfg.attn_layer_idx
+        i = counters[attn]
+        counters[attn] += 1
+        bp = params["attn_blocks" if attn else "blocks"]
+        m, pre = bp["mixer"], f"backbone.layers.{layer}."
+        sd[pre + "norm.weight"] = bp["norm"]["weight"][i].clone()
+        if attn:
+            sd.update(linear(pre + "mixer.Wqkv", m["wqkv"], i))
+        else:
+            sd.update(linear(pre + "mixer.in_proj", m["in_proj"], i))
+            sd[pre + "mixer.conv1d.weight"] = m["conv"]["kernel"][i][:, None, :].clone()
+            if "bias" in m["conv"]:
+                sd[pre + "mixer.conv1d.bias"] = m["conv"]["bias"][i].clone()
+            for k in ("A_log", "D", "dt_bias"):
+                if k in m:
+                    sd[pre + "mixer." + k] = m[k][i].clone()
+            if "norm" in m:
+                sd[pre + "mixer.norm.weight"] = m["norm"]["weight"][i].clone()
+            if "x_proj" in m:
+                sd.update(linear(pre + "mixer.x_proj", m["x_proj"], i))
+                sd.update(linear(pre + "mixer.dt_proj", m["dt_proj"], i))
+        sd.update(linear(pre + "mixer.out_proj", m["out_proj"], i))
+        if "mlp" in bp:
+            sd[pre + "norm2.weight"] = bp["norm2"]["weight"][i].clone()
+            sd.update(linear(pre + "mlp.fc1", bp["mlp"]["fc1"], i))
+            sd.update(linear(pre + "mlp.fc2", bp["mlp"]["fc2"], i))
+    sd["lm_head.weight"] = (sd["backbone.embedding.weight"] if cfg.tie_embeddings
+                            else params["lm_head"]["kernel"].t().contiguous())
+    return sd
+
+
+def hf_config_json(cfg) -> dict:
+    """The mamba_ssm ``config.json`` of ``cfg`` (what
+    ``models/hf.config_from_hf_json`` reads back into the same model)."""
+    out = {"d_model": cfg.d_model, "n_layer": cfg.n_layer, "vocab_size": cfg.vocab_size,
+           "d_intermediate": cfg.d_intermediate,
+           "ssm_cfg": {"layer": "Mamba2" if cfg.ssm_layer == "mamba2" else "Mamba1",
+                       "d_state": cfg.effective_d_state, "d_conv": cfg.d_conv,
+                       "expand": cfg.expand},
+           "rms_norm": True, "residual_in_fp32": cfg.residual_in_fp32,
+           "tie_embeddings": cfg.tie_embeddings,
+           "pad_vocab_size_multiple": cfg.pad_vocab_size_multiple}
+    if cfg.ssm_layer == "mamba2":
+        out["ssm_cfg"].update(headdim=cfg.headdim, ngroups=cfg.ngroups,
+                              chunk_size=cfg.chunk_size)
+    if cfg.attn_layer_idx:
+        hd = cfg.effective_attn_head_dim
+        out["attn_layer_idx"] = list(cfg.attn_layer_idx)
+        out["attn_cfg"] = {"num_heads": cfg.effective_attn_num_heads,
+                           "num_heads_kv": cfg.effective_attn_num_kv_heads,
+                           "head_dim": hd,
+                           "rotary_emb_dim": hd if cfg.attn_rotary_dim < 0
+                           else cfg.attn_rotary_dim}
+    return out
 
 
 # ----------------------------------------------------------------- SSD kernel
@@ -1715,6 +1814,416 @@ def check_7b_shapes(gen, rows: dict) -> None:
                          + "\n".join(failures))
 
 
+# ------------------------------------------------------------ eval and import
+
+REPO = Path(__file__).resolve().parent
+HELLASWAG_TINY = REPO / "tests" / "data" / "hellaswag_tiny.jsonl"
+# the eval's word-level tokenizer emits this many ids a word: 1 keeps the
+# rows at one 32-token bucket, 6 and 18 stretch them to 96-288 tokens,
+# where the SSD chunk (the largest divisor <= 256) is not a multiple of 64
+EVAL_WORD_WIDTHS = (1, 6, 18)
+# the toy GPT-2 merge table the CLIs read (the 256 byte symbols first)
+TOY_MERGES = (("t", "h"), ("th", "e"), ("Ġ", "t"), ("Ġ", "a"), ("e", "r"), ("i", "n"),
+              ("o", "n"), ("a", "n"), ("r", "e"), ("Ġ", "s"), ("e", "d"), ("Ġ", "w"))
+EVAL_LINE = r"^(\d+) (\d+)/(\d+) (\d\.\d{4})$"
+
+
+def word_encoder(width: int):
+    """A word-level ``encode``: each space-separated word -> ``width``
+    ids from its crc32, all below the GPT-2 vocab."""
+    import zlib
+
+    def encode(text: str) -> list[int]:
+        out = []
+        for word in text.split(" "):
+            h = zlib.crc32(word.encode())
+            out += [(h + 7919 * j) % 50000 + 1 for j in range(width)]
+        return out
+    return encode
+
+
+def write_toy_bpe(directory: Path) -> str:
+    """A GPT-2 BPE directory (encoder.json + vocab.bpe) of the 256 byte
+    symbols and ``TOY_MERGES``, as the tokenizer tests build one."""
+    from mamba_distributed_tpu_torch.data.gpt2_bpe import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[i]: i for i in range(256)}
+    for a, b in TOY_MERGES:
+        vocab.setdefault(a + b, len(vocab))
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "encoder.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (directory / "vocab.bpe").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in TOY_MERGES), encoding="utf-8")
+    return str(directory)
+
+
+def eval_forward(params, cfg):
+    from mamba_distributed_tpu_torch.models.lm import lm_forward
+
+    return lambda tokens: lm_forward(params, cfg, tokens)
+
+
+def eval_preset(card: str, preset: str, path_kernels: tuple[str, ...]) -> set[int]:
+    """``evaluate_hellaswag`` over the tiny HellaSwag file (16 examples,
+    ``example_batch`` 8: R 32) on a seeded full-width, full-depth
+    ``preset`` (bf16) with "pallas"/"auto" and with "xla", at each word
+    width; the logits (RMS error over RMS) and the per-row summed and
+    mean losses of the two must agree at the bf16 tolerance, and the pallas run must launch every kernel of
+    ``path_kernels`` (the xla run none).  Returns the padded lengths."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.eval import evaluate_hellaswag, iterate_examples
+    from mamba_distributed_tpu_torch.eval.hellaswag import pack_batch, render_example, score_rows
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
+    from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk
+
+    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16")
+    check_kernel_shapes(cfg)
+    xla = dataclasses.replace(cfg, ssm_impl="xla", attn_impl="xla")
+    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    examples = list(iterate_examples(str(HELLASWAG_TINY)))
+    fwd = {"pallas": eval_forward(params, cfg), "xla": eval_forward(params, xla)}
+    tol = TOL[torch.bfloat16]
+    lengths = set()
+    for width in EVAL_WORD_WIDTHS:
+        encode = word_encoder(width)
+        batches = [[render_example(ex, encode) for ex in examples[i:i + 8]] for i in (0, 8)]
+        packed = [pack_batch(b, 8) for b in batches]
+        lens = [pt.shape[1] for pt, _ in packed]
+        lengths.update(lens)
+        chunks = [_divisor_chunk(n, cfg.chunk_size) for n in lens]
+        results, launches, secs = {}, {}, {}
+        for impl in ("pallas", "xla"):
+            evaluate_hellaswag(fwd[impl], examples[:8], encode, example_batch=8,
+                               device="cuda")  # warm-up
+            torch.cuda.synchronize()
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            results[impl] = evaluate_hellaswag(fwd[impl], examples, encode, limit=16,
+                                               example_batch=8, device="cuda")
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+            launches[impl] = {k: v for k, v in LAUNCHES.items() if v}
+        for k in path_kernels:
+            if launches["pallas"].get(k, 0) < 1:
+                raise SystemExit(f"the {preset} eval path launched no {k} kernel")
+        if launches["xla"]:
+            raise SystemExit(f"the {preset} xla eval launched hand kernels: {launches['xla']}")
+        # the logits and per-row losses of the two implementations on the
+        # same batches: the losses sit near ln V with random weights, the
+        # logits show what the mixers computed.  The logits are gated by
+        # their RMS error over their RMS, a statistic of every element; the
+        # largest element's error over the largest logit, one element of
+        # up to 46M, is printed beside it
+        worst, worst_rms, worst_max, agree = 0.0, 0.0, 0.0, [0, 0]
+        for pt, pm in packed:
+            t, m = torch.from_numpy(pt).cuda().long(), torch.from_numpy(pm).cuda()
+            with torch.inference_mode():
+                lp, lx = fwd["pallas"](t), fwd["xla"](t)
+                worst_rms = max(worst_rms, float((lp.float() - lx.float()).norm()
+                                                 / lx.float().norm()))
+            worst_max = max(worst_max, rel_err(lp, lx)[1])
+            sp, ap = score_rows(lambda _: lp, t, m)
+            sx, ax = score_rows(lambda _: lx, t, m)
+            del lp, lx
+            for i, (p_, x_) in enumerate(((sp, sx), (ap, ax))):
+                if not (torch.isfinite(p_).all() and torch.isfinite(x_).all()):
+                    raise SystemExit(f"{preset} eval: non-finite row losses")
+                worst = max(worst, float(((p_ - x_).abs() / x_.abs()).max()))
+                agree[i] += int((p_.view(8, 4).argmin(1) == x_.view(8, 4).argmin(1)).sum())
+        tokens = sum(32 * n for n in lens)
+        print(f"eval {preset} n_layer={cfg.n_layer} bf16 words x{width}: padded lengths {lens}, "
+              f"SSD chunks {chunks}, R=32; pallas {results['pallas']['num_correct_norm']}/16 "
+              f"acc_norm, xla {results['xla']['num_correct_norm']}/16; pallas vs xla: logits "
+              f"RMS rel err {worst_rms:.3e}, per-row losses rel err {worst:.3e} (tol {tol:.0e} "
+              f"each), logits max rel err {worst_max:.3e} (printed); "
+              f"argmin agreement sum {agree[0]}/16, "
+              f"mean {agree[1]}/16 (not gated: random weights make near-ties); pallas "
+              f"{16 / secs['pallas']:.2f} examples/s, {tokens / secs['pallas']:.0f} tokens/s "
+              f"({secs['pallas'] * 1e3:.1f} ms), xla {16 / secs['xla']:.2f} examples/s "
+              f"[{card}]; launches {launches['pallas']}", flush=True)
+        if not (worst <= tol and worst_rms <= tol):
+            raise SystemExit(f"{preset} eval: pallas vs xla, logits RMS rel err {worst_rms:.3e}, "
+                             f"per-row losses rel err {worst:.3e} > {tol:.0e} at words x{width}")
+    del params, fwd
+    torch.cuda.empty_cache()
+    return lengths
+
+
+def check_eval_shapes(gen, lengths: set[int]) -> None:
+    """The eval path's kernels at its own padded lengths, each against its
+    plain version: ``ssd_fwd`` at mamba2-280m's widths (b 32, the chunk the
+    largest divisor <= 256), ``flash_fwd`` at hybrid-280m's (b 32, tq = tk,
+    12/4 heads of 64, bf16), ``m1_scan`` at mamba1-280m's (b 32, d 1536,
+    fp32)."""
+    from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+    from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as sk
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels
+    from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk, ssd_chunked
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for t in sorted(lengths):
+        inp = ssd_inputs(gen, 32, t, 1, bf16, False)
+        kw = dict(chunk_size=256, return_final_state=True, compute_dtype=bf16)
+        (yk, sk_), (yp, sp) = ssd_kernels.ssd_chunked_kernel(**inp, **kw), ssd_chunked(**inp, **kw)
+        qt, kt, vt, _ = flash_inputs(gen, 32, t, t, 12, 4, 64, bf16)
+        (ok_, lk), (op, lp) = fk.flash_fwd(qt, kt, vt, 0, t), fk.flash_fwd_plain(qt, kt, vt, 0, t)
+        u, dt, A, B, C, h0 = m1_inputs(gen, 32, t, 1536, False)
+        mk, mp = sk.m1_scan(u, dt, A, B, C, h0), sk.m1_scan_plain(u, dt, A, B, C, h0)
+        torch.cuda.synchronize()
+        errs = {"ssd_fwd y": (rel_err(yk, yp), TOL[bf16]), "ssd_fwd state": (rel_err(sk_, sp), TOL[bf16]),
+                "flash_fwd o": (rel_err(ok_, op), TOL[bf16]), "flash_fwd lse": (rel_err(lk, lp), TOL[bf16]),
+                "m1_scan y": (rel_err(mk[0], mp[0]), TOL[f32]),
+                "m1_scan state": (rel_err(mk[1], mp[1]), TOL[f32])}
+        route = "tensor cores" if ssd_kernels.ssd_uses_tensor_cores(bf16, 64, 128) else "CUDA cores"
+        print(f"check eval shape t={t} b=32: ssd_fwd l={_divisor_chunk(t, 256)} ({route}), "
+              f"flash_fwd tq=tk={t}, m1_scan fp32: rel "
+              + ", ".join(f"{k} {e[1]:.2e} (tol {tl:.0e})" for k, (e, tl) in errs.items()),
+              flush=True)
+        bad = {k: e[1] for k, (e, tl) in errs.items() if not e[1] <= tl}
+        if bad:
+            raise SystemExit(f"eval shape t={t}: kernels disagree with their plain versions: {bad}")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def path_launches(what: str, *kernels: str):
+    """Zero the launch counts, run the body, then fail unless each of
+    ``kernels`` launched; yields the dict of nonzero counts, filled on
+    exit."""
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    ran = {}
+    yield ran
+    ran.update({k: v for k, v in LAUNCHES.items() if v})
+    missing = [k for k in kernels if not ran.get(k)]
+    if missing:
+        raise SystemExit(f"{what} launched no {missing} kernel: {ran}")
+
+
+def run_cli(module: str, *args: str, timeout: int = 600) -> str:
+    """``python -m module args`` from the checkout; its stdout, or the
+    run fails."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, capture_output=True,
+                       text=True, timeout=timeout)
+    if p.returncode != 0:
+        raise SystemExit(f"{module} {' '.join(args)} exited {p.returncode}:\n"
+                         f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    print(f"cli {module}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return p.stdout
+
+
+def import_checks(card: str, root: Path) -> dict:
+    """A ``MambaLMHeadModel``-named state dict of seeded mamba2-280m and
+    hybrid-280m params (``hf_state_dict``), written as config.json +
+    pytorch_model.bin and read back by ``models/hf.load_hf_checkpoint``
+    onto the card: every tensor and the logits of a fixed batch
+    bit-identical.  Returns the hybrid's directory, params and config."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.hf import load_hf_checkpoint
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params, lm_forward
+
+    out = {}
+    for preset in ("mamba2-280m", "hybrid-280m"):
+        cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16")
+        params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                                device="cuda")
+        directory = root / preset
+        directory.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        sd = {k: v.cpu() for k, v in hf_state_dict(params, cfg).items()}
+        (directory / "config.json").write_text(json.dumps(hf_config_json(cfg)))
+        torch.save(sd, str(directory / "pytorch_model.bin"))
+        write_s = time.perf_counter() - t0
+        nbytes = sum(v.numel() * v.element_size() for v in sd.values())
+        del sd
+        t0 = time.perf_counter()
+        back, bcfg = load_hf_checkpoint(str(directory), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        src, got = _named_leaves(params), _named_leaves(back)
+        if sorted(src) != sorted(got):
+            raise SystemExit(f"{preset} import: keys differ: {sorted(set(src) ^ set(got))}")
+        differ = [k for k in src if not torch.equal(src[k], got[k])]
+        if differ:
+            raise SystemExit(f"{preset} import: tensors not bit-identical: {differ}")
+        bcfg = dataclasses.replace(bcfg, ssm_impl="pallas", compute_dtype="bfloat16")
+        ids = torch.randint(0, cfg.vocab_size, (4, 256),
+                            generator=torch.Generator().manual_seed(4)).cuda()
+        with torch.inference_mode():
+            same = bool(torch.equal(lm_forward(params, cfg, ids), lm_forward(back, bcfg, ids)))
+        print(f"import {preset}: {len(src)} tensors, {nbytes} B state dict; write "
+              f"{write_s:.2f} s, load_hf_checkpoint onto the card {load_s:.2f} s; every tensor "
+              f"bit-identical: True; logits (4, 256) bit-identical: {same} [{card}]", flush=True)
+        if not same:
+            raise SystemExit(f"{preset} import: logits differ from the source params'")
+        out[preset] = dict(dir=str(directory), params=back, cfg=bcfg)
+        del params
+    torch.cuda.empty_cache()
+    return out["hybrid-280m"]
+
+
+def cli_checks(card: str, hybrid: dict, bpe: str, root: Path) -> None:
+    """The eval and generation CLIs on the card, as subprocesses, against
+    in-process runs on the same imported weights: the eval's counts and
+    log line, the generated tokens."""
+    import re
+
+    import numpy as np
+
+    from mamba_distributed_tpu_torch.data import native_bpe
+    from mamba_distributed_tpu_torch.data.gpt2_bpe import GPT2BPE
+    from mamba_distributed_tpu_torch.eval import evaluate_hellaswag, iterate_examples
+    from mamba_distributed_tpu_torch.inference.generate import generate
+
+    params, cfg = hybrid["params"], hybrid["cfg"]
+    log = root / "cli_eval.txt"
+    out = run_cli("mamba_distributed_tpu_torch.eval", "-m", "hugging_face", "--hf-path",
+                  hybrid["dir"], "--data-file", str(HELLASWAG_TINY), "--bpe-dir", bpe,
+                  "--log-file", str(log), "--device", "cuda")
+    if f"tokenizer: GPT-2 BPE from {bpe}, merge loop native" not in out:
+        raise SystemExit(f"the eval CLI did not tokenize with the native merge loop:\n{out}")
+    if not native_bpe.available():
+        raise SystemExit(f"native BPE unavailable: {native_bpe.unavailable_reason()}")
+    bpe_tok = GPT2BPE.from_dir(bpe)
+    with path_launches("the in-process eval", "ssd_fwd", "flash_fwd") as eval_launches:
+        want = evaluate_hellaswag(eval_forward(params, cfg),
+                                  iterate_examples(str(HELLASWAG_TINY)), bpe_tok.encode,
+                                  log_path=str(root / "inproc_eval.txt"), device="cuda")
+    line = log.read_text()
+    if (not re.match(EVAL_LINE, line) or line != (root / "inproc_eval.txt").read_text()
+            or out.strip().splitlines()[-1] != str(want)):
+        raise SystemExit(f"eval CLI: log line {line!r} / result {out.strip().splitlines()[-1]} "
+                         f"!= in-process {want}")
+    lens = sorted({max(len(bpe_tok.encode(ex["ctx"])) + len(bpe_tok.encode(" " + e))
+                       for e in ex["endings"]) for ex in iterate_examples(str(HELLASWAG_TINY))})
+    print(f"cli eval hybrid-280m (toy GPT-2 BPE, merge loop native: {bpe_tok.uses_native}; "
+          f"rows of {lens[0]}-{lens[-1]} tokens): log line {line!r} == the in-process run's "
+          f"{want}; in-process launches {eval_launches} [{card}]", flush=True)
+
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, 40).tolist()
+    out = run_cli("mamba_distributed_tpu_torch.generate", "--hf-path", hybrid["dir"],
+                  "--prompt-ids", ",".join(map(str, prompt)), "--seed", "42",
+                  "--num-return", "2", "--max-new-tokens", "16", "--device", "cuda")
+    with path_launches("the in-process generate()", "ssd_fwd", "ragged_prefill",
+                       "ragged_decode") as gen_launches:
+        rows = generate(params, cfg, torch.tensor([prompt] * 2), seed=42, max_new_tokens=16)
+    want = [f"> tokens {row}" for row in rows.tolist()]
+    if out.strip().splitlines() != want:
+        raise SystemExit(f"generate CLI printed {out.strip().splitlines()}, in-process {want}")
+    print(f"cli generate hybrid-280m --seed 42: 2 x 16 new tokens == the in-process "
+          f"generate(); in-process launches {gen_launches} [{card}]", flush=True)
+
+
+def parity_run(card: str, bpe: str, root: Path) -> None:
+    """mamba2-mini through the Trainer (bf16, pallas) for 251 steps on the
+    JAX package's synthetic shards (its generator, seed and layout), the
+    loaders on the native reader, validation at 0 and 250; the
+    fingerprint and 30-step strict comparisons against
+    log_parity_cpu/log.txt gate, the 251-step strict one is printed; then
+    the eval CLI with ``-m custom`` on the run's checkpoint."""
+    import re
+    import tempfile
+
+    from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.training import Trainer
+    from mamba_distributed_tpu_torch.utils.parity import compare, compare_strict, parse_log_file
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = Path(tmp)
+        cfg = get_train_preset("mamba2-mini",
+                               model=get_preset("mamba2-mini", ssm_impl="pallas"),
+                               log_dir=str(tmp / "log"),
+                               data=DataConfig(data_dir=str(tmp / "data")))
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda", loader_backend="native")
+        setup_s = time.perf_counter() - t0
+        backends = (trainer.train_loader.backend, trainer.val_loader.backend)
+        print(f"parity mamba2-mini: loaders settled on {backends[0]} (train), {backends[1]} "
+              f"(val); set-up with the synthetic shards {setup_s:.1f} s", flush=True)
+        if backends != ("native", "native"):
+            raise SystemExit(f"parity run: loaders not on the native reader: {backends}")
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        # the 251 step lines go to a file, not into the run's output
+        with open(tmp / "train_stdout.txt", "w") as out, contextlib.redirect_stdout(out):
+            try:
+                trainer.run(max_steps=251)
+                trainer.save_checkpoint(str(tmp / "ckpt"))
+            finally:
+                trainer.finish()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        for k in ("ssd_fwd", "ssd_chunk_states", "ssd_bwd"):
+            if launches.get(k, 0) < 1:
+                raise SystemExit(f"the parity run launched no {k} kernel")
+        recs = [json.loads(s) for s in (tmp / "log" / "metrics.jsonl").read_text().splitlines()]
+        step_ms = sorted(r["step_ms"] for r in recs if r["kind"] == "train")
+        ours = parse_log_file(str(tmp / "log" / "log.txt"))
+        ref = parse_log_file(str(REPO / "log_parity_cpu" / "log.txt"))
+        fp = compare(ours, ref, mode="fingerprint", steps=251)
+        s30 = compare_strict(ours, ref, steps=30)
+        s251 = compare_strict(ours, ref, steps=251)
+        print(f"parity mamba2-mini bf16 pallas, 251 steps of {cfg.total_batch_size} tokens in "
+              f"{run_s:.1f} s "
+              f"(validation at 0 and 250 included): step ms median {step_ms[len(step_ms) // 2]}, "
+              f"min {step_ms[0]}, max {step_ms[-1]}; val {ours['val']}; launches {launches} "
+              f"[{card}]", flush=True)
+        for res in (fp, s30, s251):
+            print(res.report(), flush=True)
+        print(f"parity gates: fingerprint(251) {fp.ok}, strict(30) {s30.ok}; strict(251) "
+              f"{s251.ok} (printed, not gated)", flush=True)
+        if not (fp.ok and s30.ok):
+            raise SystemExit("parity run: the fingerprint or the 30-step strict comparison failed")
+        log = tmp / "custom_eval.txt"
+        run_cli("mamba_distributed_tpu_torch.eval", "-m", "custom", "--checkpoint",
+                str(tmp / "ckpt"), "--preset", "mamba2-mini", "--data-file",
+                str(HELLASWAG_TINY), "--bpe-dir", bpe, "--log-file", str(log),
+                "--device", "cuda")
+        line = log.read_text()
+        if not re.match(EVAL_LINE, line) or not line.startswith("16 "):
+            raise SystemExit(f"eval CLI -m custom: log line {line!r}")
+        print(f"cli eval -m custom on the parity run's checkpoint: {line!r} [{card}]",
+              flush=True)
+
+
+def eval_and_import(card: str) -> None:
+    """The phase after serving: eval at full width on the three 280m
+    presets, the eval shapes' kernels, import, the CLIs, parity."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = REPO / "build" / "chip_smoke" / "eval"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    lengths = set()
+    for preset, kernels in (("mamba2-280m", ("ssd_fwd",)),
+                            ("hybrid-280m", ("ssd_fwd", "flash_fwd")),
+                            ("mamba1-280m", ("m1_scan",))):
+        lengths |= eval_preset(card, preset, kernels)
+    check_eval_shapes(torch.Generator(device="cuda").manual_seed(6), lengths)
+    hybrid = import_checks(card, root)
+    bpe = write_toy_bpe(root / "bpe")
+    cli_checks(card, hybrid, bpe, root)
+    del hybrid
+    torch.cuda.empty_cache()
+    parity_run(card, bpe, root)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"eval and import phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1732,6 +2241,15 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the host C++ of the data path (g++): the shard reader and the BPE merge loop
+    from mamba_distributed_tpu_torch.data import native, native_bpe
+
+    t1 = time.perf_counter()
+    for mod in (native, native_bpe):
+        if not mod.available():
+            raise SystemExit(f"{mod.__name__} did not build: {mod.unavailable_reason()}")
+    print(f"built the native shard reader and BPE merge loop in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     for name, log in logs.items():
         inst = build.ptxas_instances(log)
         regs, spills = [r for _, r, _ in inst], [sp for _, _, sp in inst]
@@ -1783,6 +2301,8 @@ def main() -> int:
         m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()
+        torch.cuda.empty_cache()
+        eval_and_import(card)
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
               f"{mm_out_dtype_has_grad()}", flush=True)
         ssd_train = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd")

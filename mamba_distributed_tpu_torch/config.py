@@ -344,6 +344,9 @@ class ModelConfig:
 PRESETS: dict[str, dict[str, Any]] = {
     "mamba2-tiny": dict(d_model=128, n_layer=4, headdim=32, d_state=64,
                         chunk_size=64, vocab_size=4096),
+    # the JAX package's CPU parity-artifact scale: the reference recipe's
+    # seq 1024 and padded GPT-2 vocab on a small model
+    "mamba2-mini": dict(d_model=256, n_layer=8),
     "mamba2-280m": dict(d_model=768, n_layer=64),
     "hybrid-tiny": dict(d_model=128, n_layer=4, headdim=32, d_state=64,
                         chunk_size=64, vocab_size=4096, attn_layer_idx=(1, 3),
@@ -458,6 +461,9 @@ class TrainConfig:
 TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "mamba2-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
                         max_steps=300, warmup_steps=20, val_every=25),
+    # the recipe of the JAX package's committed log_parity_cpu/ run: 4,096
+    # tokens a step, validation every 250 steps
+    "mamba2-mini": dict(micro_batch_size=4, total_batch_size=4096, val_every=250),
     "mamba2-280m": dict(),
     "hybrid-tiny": dict(seq_len=256, micro_batch_size=8, total_batch_size=4096,
                         max_steps=300, warmup_steps=20, val_every=25),

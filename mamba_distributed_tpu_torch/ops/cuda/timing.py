@@ -36,15 +36,21 @@ def device_ms(fn, iters: int = 20) -> dict[str, float]:
     """Device ms per call of each kernel ``fn`` launches, by ``torch.profiler``
     over ``iters`` calls after one warm-up call: the kernels' own time,
     where ``cuda_ms`` also counts the gaps of a loop whose host side is
-    slower than its kernels."""
+    slower than its kernels.  A profile that now and then records no
+    kernel is taken again; after three such, the CUDA events' time is
+    returned under a key that says so."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        if per:
+            return per
+    return {"event timer (the profiler recorded no kernel)": cuda_ms(fn, iters)}
 
 
 def bound(nbytes, flops) -> tuple[float, str]:

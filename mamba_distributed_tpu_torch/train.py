@@ -63,7 +63,29 @@ def parse_args(argv=None):
                         "below it)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default: the card) or cpu")
+    p.add_argument("--sample-prompt", default=None, metavar="TEXT",
+                   help="sample 4x32-token continuations of TEXT every sample_every "
+                        "steps, as the reference samples in its loop (tokenized by the "
+                        "port's GPT-2 BPE from $GPT2_BPE_DIR / ./gpt2_bpe)")
+    p.add_argument("--sample-prompt-ids", default=None, metavar="IDS",
+                   help="same, with the prompt as comma-separated token ids (no "
+                        "tokenizer needed)")
     return p.parse_args(argv)
+
+
+def resolve_sampling(args):
+    """-> (prompt ids | None, decode_fn | None)."""
+    if args.sample_prompt_ids is not None:
+        return [int(t) for t in args.sample_prompt_ids.split(",")], None
+    if args.sample_prompt is None:
+        return None, None
+    from mamba_distributed_tpu_torch.data.gpt2_bpe import load_encoder
+
+    try:
+        encode, decode = load_encoder()
+    except FileNotFoundError as e:
+        raise SystemExit(f"--sample-prompt: {e}\nOr pass --sample-prompt-ids instead.")
+    return encode(args.sample_prompt), decode
 
 
 def build_config(args) -> TrainConfig:
@@ -95,9 +117,11 @@ def build_config(args) -> TrainConfig:
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = build_config(args)
+    sample_ids, decode_fn = resolve_sampling(args)
     from mamba_distributed_tpu_torch.training import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device, sample_prompt_ids=sample_ids,
+                      decode_fn=decode_fn)
     try:
         if args.resume and args.checkpoint_dir:
             try:

@@ -41,7 +41,7 @@ def resolve_device(device) -> torch.device:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device="cuda", verbose: bool = True,
-                 sample_prompt_ids=None, decode_fn=None):
+                 sample_prompt_ids=None, decode_fn=None, loader_backend: str = "auto"):
         self.cfg = cfg
         if torch.device(device).type == "cuda":
             check_kernel_shapes(cfg.model)
@@ -56,8 +56,9 @@ class Trainer:
                 tokens_per_shard=cfg.data.synthetic_tokens_per_shard,
                 num_shards=cfg.data.synthetic_num_shards, seed=cfg.seed,
             )
+        # loader_backend: "auto", "native" or "numpy" (data/loader.py)
         loader_args = dict(B=cfg.micro_batch_size, T=cfg.seq_len, data_dir=data_dir,
-                           master_process=verbose)
+                           master_process=verbose, backend=loader_backend)
         self.train_loader = ShardedTokenLoader(split="train", **loader_args)
         self.val_loader = ShardedTokenLoader(split="val", **loader_args)
 
