@@ -132,7 +132,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    against xla checks and the falling loss on a 4-layer hybrid-tiny with
    a MoE (4 experts, top-2, d_intermediate 256), an untied head,
    ``conv_impl="xla_conv"`` and ``loss_impl="blocked"``;
-6. print the serving and training numbers beside the card's name and
+6. telemetry and recovery (``telemetry_phase``): mamba2-280m at full
+   width and depth (seq 1024, micro-batch 32) for 3 steps with spans,
+   the sentinel and the overflow flag on, between two runs with them
+   off: the losses and grad norms bit for bit, the kernel launches and
+   the synchronizing calls (``torch.cuda.set_sync_debug_mode("warn")``)
+   equal, each span's median printed beside the step time; a NaN weight
+   must raise ``DivergenceError`` at step 0 with a flight record, and
+   ``train.main`` with ``--auto-restart 1`` over it must not restart;
+   ``train.main`` on mamba2-280m cut to 8 layers with ``--checkpoint-
+   every 2 --auto-restart 1`` and one step raising at step 3 must print
+   "restart 1/1" and "resumed from step 2", match an uninterrupted run's
+   step-4 loss bit for bit, and hold device memory before the rebuild and
+   after the teardown within 64 MiB of before the first build; the
+   serving runs of phase 3 again on mamba2-280m and bf16 and int8
+   hybrid-280m with a ``ServingMetrics`` jsonl stream, a ``SpanTracer``
+   and an ``SLOMonitor``: streams equal to the untraced runs', tick
+   records' tokens summing to the events, request records carrying their
+   trace ids, no page leaked, the int8 stamp equal to
+   ``ops/quant.param_bytes`` and the pool's bytes, every ``serving_tick``
+   slice of the Chrome trace inside the run's wall-clock window; the
+   summary's latency percentiles, goodput and ``serving_mfu``, and the
+   report's numbers (``obs/report.py``) printed;
+7. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -146,6 +168,7 @@ no card is visible or the port's package is not beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -1186,6 +1209,27 @@ def m1_function_grads(kernel_fn, seq_fn, gen, b, t, d, seeded, dfin, tag):
 # ------------------------------------------------------------ serving path
 
 
+def serving_mix(cfg, new: int):
+    """The serving mix: prompts of 12, 100, 300 and 700 tokens, twice
+    each, from a seeded generator, ``new`` tokens each; request 0 is
+    greedy (its stream is held to ``generate()``'s), the others sample
+    top-50 with their own seeds.  Returns (lengths, prompts, a function
+    making fresh requests)."""
+    from mamba_distributed_tpu_torch.serving import GenerationRequest
+
+    lens = [12, 100, 300, 700, 12, 100, 300, 700]
+    prompt_gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (t,), generator=prompt_gen).numpy()
+               for t in lens]
+
+    def requests():
+        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=new,
+                                  top_k=1 if i == 0 else 50, seed=i)
+                for i, p in enumerate(prompts)]
+
+    return lens, prompts, requests
+
+
 def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) -> dict:
     """Serve 8 requests on a full-width engine of ``preset`` (config
     fields ``overrides``, e.g. the int8 knobs); returns the run's launch
@@ -1200,7 +1244,7 @@ def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) 
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
     from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
     from mamba_distributed_tpu_torch.ops.quant import param_bytes
-    from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
+    from mamba_distributed_tpu_torch.serving import ServingEngine
     from mamba_distributed_tpu_torch.serving.prefill import (
         cast_decode_params,
         chunk_inputs,
@@ -1216,16 +1260,7 @@ def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) 
         params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda")
     capacity, new = 8, 32
-    lens = [12, 100, 300, 700, 12, 100, 300, 700]
-    prompt_gen = torch.Generator().manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab_size, (t,), generator=prompt_gen).numpy()
-               for t in lens]
-
-    def requests():
-        # request 0 is greedy: its stream is checked against generate()
-        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=new,
-                                  top_k=1 if i == 0 else 50, seed=i)
-                for i, p in enumerate(prompts)]
+    lens, prompts, requests = serving_mix(cfg, new)
 
     # warm-up run (cuBLAS handles, allocator), not counted
     ServingEngine(params, cfg, capacity=capacity).run(requests()[:2])
@@ -1309,6 +1344,7 @@ def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) 
           f"peak device memory (max_memory_allocated, the weights' cast included) "
           f"{peak_gib:.2f} GiB [{card}]", flush=True)
     return dict(launches=launches, greedy=results[0].new_tokens.tolist(),
+                streams=[r.new_tokens.tolist() for r in results],
                 tokens_per_s=n_tokens / wall, ttft_ms=ttft[len(ttft) // 2],
                 chunk_ms=chunk_ms, tick_ms=tick_ms, weight_bytes=param_bytes(dparams),
                 kv_bytes=kv_bytes, peak_gib=peak_gib)
@@ -2223,6 +2259,362 @@ def eval_and_import(card: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
     print(f"eval and import phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+# ------------------------------------------------------------------ telemetry
+
+def tele_train(card: str, tag: str, tele) -> dict:
+    """Full-width, full-depth mamba2-280m (bf16, pallas, remat, seq 1024,
+    micro-batch 32, accum 1, validation at steps 0 and 2) through the
+    Trainer for 3 steps from seed 1337 with telemetry ``tele``, under
+    ``torch.cuda.set_sync_debug_mode("warn")``.  Returns the history,
+    the kernel launches, the count of synchronizing calls, the step ms
+    and the span records."""
+    import warnings
+
+    from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.obs import load_jsonl
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    cfg = get_train_preset(
+        "mamba2-280m", model=model, micro_batch_size=32, total_batch_size=32 * 1024,
+        seq_len=1024, val_steps=2, log_dir=str(root / "tele" / tag), telemetry=tele,
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+    trainer = Trainer(cfg, device="cuda")
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.run(max_steps=3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            trainer.finish()
+    # each synchronizing call by the Python line that made it
+    sites = collections.Counter(
+        f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message))
+    out = dict(history=dict(trainer.history), launches={k: v for k, v in LAUNCHES.items() if v},
+               syncs=sum(sites.values()), sites=sites,
+               overflow=trainer.sentinel.overflow_count if trainer.sentinel else None)
+    del trainer
+    torch.cuda.empty_cache()
+    log = Path(cfg.log_dir)
+    out["step_ms"] = [r["step_ms"] for r in load_jsonl(str(log / "metrics.jsonl"))
+                      if r["kind"] == "train"]
+    events = log / "events.jsonl"
+    out["spans"] = ([r for r in load_jsonl(str(events)) if r["kind"] == "span"]
+                    if events.exists() else [])
+    return out
+
+
+def tele_training(card: str) -> dict:
+    """Telemetry on the mamba2-280m step: 3 steps with spans, the sentinel
+    and the overflow flag on, between two runs with all of them off from
+    the same seed.  The losses and grad norms must equal the off run's bit
+    for bit (or, if the two off runs differ, be no further from the first
+    than the second is); the kernel launches and the synchronizing calls
+    must be equal."""
+    from mamba_distributed_tpu_torch.config import TelemetryConfig
+
+    off = TelemetryConfig(spans=False, sentinel=False)
+    on = TelemetryConfig(spans=True, sentinel=True, overflow_threshold=1.0)
+    a = tele_train(card, "off_a", off)
+    t = tele_train(card, "on", on)
+    b = tele_train(card, "off_b", off)
+    steps = sorted(a["history"])
+    diff = lambda x, y: max(abs(u - v) for s in steps for u, v in zip(x[s], y[s]))
+    noise = diff(a["history"], b["history"])
+    moved = diff(a["history"], t["history"])
+    print(f"telemetry train mamba2-280m: losses, grad norms off "
+          f"{[a['history'][s] for s in steps]}, on {[t['history'][s] for s in steps]}; "
+          f"max |on - off| {moved}, max |off - off| {noise} [{card}]", flush=True)
+    if (noise == 0 and t["history"] != a["history"]) or moved > noise:
+        raise SystemExit(f"telemetry moved the losses or grad norms by {moved} "
+                         f"(two runs without it differ by {noise})")
+    if not a["launches"] == t["launches"] == b["launches"]:
+        raise SystemExit(f"telemetry changed the kernel launches: off {a['launches']}, "
+                         f"on {t['launches']}, off {b['launches']}")
+    print(f"telemetry train: kernel launches equal on and off {t['launches']}; "
+          f"synchronizing calls over the 3 steps (set_sync_debug_mode warn): off "
+          f"{a['syncs']}, on {t['syncs']}, off {b['syncs']}; by line: on "
+          f"{dict(t['sites'])}; off runs beyond it {dict(a['sites'] - t['sites'])}, "
+          f"{dict(b['sites'] - t['sites'])} [{card}]", flush=True)
+    # the same rule as the losses': when the two runs without telemetry
+    # differ (on the card the first of the three makes one more call),
+    # the run with it may differ from neither by more
+    spread = abs(a["syncs"] - b["syncs"])
+    if max(abs(t["syncs"] - a["syncs"]), abs(t["syncs"] - b["syncs"])) > spread:
+        raise SystemExit("telemetry changed the number of synchronizing calls")
+    names = {r["name"] for r in t["spans"]}
+    if not {"data_load", "train_step", "eval"} <= names:
+        raise SystemExit(f"telemetry train: spans {sorted(names)}")
+    for name in sorted(names):
+        durs = sorted(r["dur_ms"] for r in t["spans"] if r["name"] == name)
+        print(f"telemetry train span {name}: median {durs[len(durs) // 2]} ms of "
+              f"{len(durs)} [{card}]")
+    print(f"telemetry train step ms: on {t['step_ms']}, off {a['step_ms']} and "
+          f"{b['step_ms']}; overflow flags (pre-clip norm > 1.0) {t['overflow']} of 3 "
+          f"[{card}]", flush=True)
+    return t
+
+
+def _cut_cli_args(tmp: Path, tag: str) -> list[str]:
+    """The CLI's flags for mamba2-280m at full width cut to 8 layers
+    (seq 1024, micro-batch 8, accum 1) on the synthetic shards."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    return ["--preset", "mamba2-280m", "--n-layer", "8", "--seq-len", "1024",
+            "--micro-batch-size", "8", "--total-batch-size", "8192",
+            "--data-dir", str(root / "data"), "--log-dir", str(tmp / tag / "log"),
+            "--checkpoint-dir", str(tmp / tag / "ckpt")]
+
+
+def tele_divergence(card: str, tmp: Path) -> None:
+    """A NaN on the card: the final norm's weight poisoned, the Trainer
+    must raise ``DivergenceError`` at step 0 and leave a flight record
+    whose reason starts "non-finite" and whose events hold ``train_step``
+    and ``val``; then the CLI with ``--auto-restart 1`` over the same
+    poisoning must re-raise it without a restart."""
+    import io
+
+    from mamba_distributed_tpu_torch import train as cli
+    from mamba_distributed_tpu_torch.obs import DivergenceError
+    from mamba_distributed_tpu_torch.training import trainer as trainer_mod
+
+    args = cli.parse_args(_cut_cli_args(tmp, "div") + ["--max-steps", "2"])
+    trainer = trainer_mod.Trainer(cli.build_config(args), device="cuda", verbose=False)
+    with torch.no_grad():
+        trainer.params["norm_f"]["weight"].fill_(float("nan"))
+    try:
+        trainer.run(max_steps=2)
+        raise SystemExit("a NaN weight did not raise DivergenceError")
+    except DivergenceError as e:
+        err = str(e)
+    finally:
+        trainer.finish()
+    del trainer
+    doc = json.loads((tmp / "div" / "log" / "flight_record.json").read_text())
+    kinds = {e["kind"] for e in doc["events"]}
+    print(f"telemetry divergence: DivergenceError '{err}'; flight record reason "
+          f"'{doc['reason']}', events {[e['kind'] for e in doc['events']]} [{card}]",
+          flush=True)
+    if "at step 0" not in err or not doc["reason"].startswith("non-finite") or not (
+            {"train_step", "val"} <= kinds):
+        raise SystemExit("telemetry divergence: wrong error or flight record")
+
+    real = trainer_mod.init_lm_params
+
+    def poisoned(*a, **k):
+        params = real(*a, **k)
+        params["norm_f"]["weight"].fill_(float("nan"))
+        return params
+
+    buf = io.StringIO()
+    trainer_mod.init_lm_params = poisoned
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(_cut_cli_args(tmp, "div_cli") + ["--max-steps", "3", "--auto-restart", "1"])
+        raise SystemExit("--auto-restart over a NaN weight did not raise")
+    except DivergenceError as e:
+        err = str(e)
+    finally:
+        trainer_mod.init_lm_params = real
+    if "restart 1/1" in buf.getvalue() or "at step 0" not in err:
+        raise SystemExit(f"--auto-restart retried a divergence:\n{buf.getvalue()}")
+    print(f"telemetry divergence: --auto-restart 1 re-raised without a restart: '{err}'",
+          flush=True)
+
+
+def tele_recovery(card: str, tmp: Path) -> None:
+    """``train.main`` with ``--checkpoint-every 2 --auto-restart 1`` over
+    mamba2-280m cut to 8 layers, 5 steps, one step raising once at step
+    3: it must restart once, resume from step 2, and give the step-4 loss
+    of an uninterrupted run bit for bit, with the crashed trainer's device
+    memory released before the rebuild and after the teardown."""
+    import gc
+    import io
+    import re
+
+    from mamba_distributed_tpu_torch import train as cli
+    from mamba_distributed_tpu_torch.training import trainer as trainer_mod
+
+    real = trainer_mod.make_train_step
+    calls = [0]
+
+    def faulty(*a, **k):
+        step = real(*a, **k)
+
+        def run_step(*xs):
+            out = step(*xs)
+            calls[0] += 1
+            if calls[0] == 4:  # steps 0, 1, 2, then step 3 raises, once
+                raise RuntimeError("injected fault at step 3")
+            return out
+
+        return run_step
+
+    extra = ["--max-steps", "5", "--checkpoint-every", "2", "--auto-restart", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    buf = io.StringIO()
+    trainer_mod.make_train_step = faulty
+    try:
+        with contextlib.redirect_stdout(buf):
+            hist = cli.main(_cut_cli_args(tmp, "crash") + extra)
+    finally:
+        trainer_mod.make_train_step = real
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    out = buf.getvalue()
+    m = re.search(r"restart 1/1: device memory allocated before the rebuild (\d+) B", out)
+    rebuild = int(m.group(1)) if m else None
+    for line in out.splitlines():
+        if "restart" in line or "resumed" in line or "crashed" in line:
+            print(f"telemetry recovery: {line} [{card}]")
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist0 = cli.main(_cut_cli_args(tmp, "whole") + extra)
+    print(f"telemetry recovery: step-4 loss, grad norm {hist[4]} after the restart, "
+          f"{hist0[4]} uninterrupted; device memory allocated before the first build "
+          f"{before} B, before the rebuild {rebuild} B, after the teardown {after} B "
+          f"[{card}]", flush=True)
+    slack = 64 << 20
+    if ("restart 1/1" not in out or "resumed from step 2" not in out or hist[4] != hist0[4]
+            or rebuild is None or rebuild > before + slack or after > before + slack):
+        raise SystemExit("telemetry recovery failed:\n" + out)
+
+
+def tele_serve(card: str, preset: str, served: dict, tmp: Path, path_kernels, **overrides):
+    """The serving run of ``serve(preset, **overrides)`` again (the same
+    seeded weights and requests), with a ``ServingMetrics`` jsonl stream,
+    a ``SpanTracer`` and an ``SLOMonitor``: every stream must equal the
+    untraced run's (``served["streams"]``, whose greedy one equals
+    ``generate()``'s); the tick records' ``tokens_emitted`` must sum to
+    the events, each request record must carry its request's trace id,
+    no page may leak, the int8 records must carry the dtype stamp and the
+    resident bytes; the Chrome trace of the two streams must put every
+    ``serving_tick`` slice inside the run's wall-clock window.  Prints
+    the summary and the report's numbers."""
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.obs import (
+        SLOMonitor,
+        SpanTracer,
+        export_chrome_trace,
+        load_jsonl,
+    )
+    from mamba_distributed_tpu_torch.obs.report import build_report
+    from mamba_distributed_tpu_torch.ops.quant import param_bytes
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+    from mamba_distributed_tpu_torch.utils.metrics import ServingMetrics
+
+    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", **overrides)
+    tag = f"{preset}{' int8' if overrides else ''}"
+    d = tmp / tag.replace(" ", "_")
+    d.mkdir(parents=True, exist_ok=True)
+    params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    _, _, requests = serving_mix(cfg, 32)
+    wall0 = time.time()
+    metrics = ServingMetrics(8, jsonl_path=str(d / "serving.jsonl"))
+    tracer = SpanTracer(str(d / "events.jsonl"))
+    slo = SLOMonitor(ttft_p95_ms=5000.0, itl_p95_ms=100.0, queue_wait_p95_ms=5000.0,
+                     window=8, tracer=tracer)
+    eng = ServingEngine(params, cfg, capacity=8, metrics=metrics, tracer=tracer, slo=slo)
+    with path_launches(f"the traced {tag} serving run", *path_kernels) as ran:
+        ids = [eng.submit(r) for r in requests()]
+        traces = {t.request_id: t.trace_id for t in eng.scheduler}
+        n_events = 0
+        while eng.pending:
+            n_events += len(eng.step())
+    wall1 = time.time()
+    streams = [eng.results[i].new_tokens.tolist() for i in ids]
+    ticks = load_jsonl(str(d / "serving.jsonl"))
+    reqs = [r for r in ticks if r["kind"] == "request"]
+    ticks = [r for r in ticks if r["kind"] == "serving_tick"]
+    fails = []
+    if streams != served["streams"]:
+        fails.append("streams differ from the untraced engine's")
+    if sum(r["tokens_emitted"] for r in ticks) != n_events or n_events != 8 * 32:
+        fails.append(f"tick records emit {sum(r['tokens_emitted'] for r in ticks)} tokens, "
+                     f"events {n_events}")
+    if sorted((r["request_id"], r["trace_id"]) for r in reqs) != sorted(traces.items()):
+        fails.append("request records' trace ids")
+    if eng.hybrid:
+        if eng.page_pool.pages_in_use or (sum(r["kv_page_allocs"] for r in ticks)
+                                          != sum(r["kv_page_frees"] for r in ticks)):
+            fails.append("KV pages leaked")
+    quant = [r for r in ticks if "quantized" in r]
+    if overrides:
+        pool = sum(t.numel() * t.element_size() for t in eng.pool["state"]["attn_blocks"])
+        want = ({"weights": "int8", "kv": "int8"}, param_bytes(eng._params), pool)
+        got = {(json.dumps(r["quantized"], sort_keys=True), r["weight_bytes"],
+                r["page_pool_bytes"]) for r in quant}
+        if len(quant) != len(ticks) or got != {(json.dumps(want[0], sort_keys=True),
+                                                *want[1:])}:
+            fails.append(f"int8 stamps {got}, want {want}")
+        print(f"telemetry serve {tag}: every tick record stamps quantized {want[0]}, "
+              f"weight_bytes {want[1]} (= ops/quant.param_bytes), page_pool_bytes {want[2]} "
+              f"[{card}]")
+    elif quant:
+        fails.append("a bf16 engine stamped int8 fields")
+    meta = export_chrome_trace([str(d / "events.jsonl"), str(d / "serving.jsonl")],
+                               str(d / "trace.json"))
+    doc = json.loads((d / "trace.json").read_text())
+    slices = [e for e in doc["traceEvents"] if e.get("ph") == "X" and e["name"] == "serving_tick"]
+    # 2 us: the header's and the records' rounding to the microsecond
+    lo, hi = tracer.wall_t0 * 1e6 - 2, wall1 * 1e6 + 2
+    outside = [e for e in slices if not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi)]
+    if len(slices) != len(ticks) or outside:
+        fails.append(f"{len(outside)} of {len(slices)} serving_tick slices outside the run")
+    s = metrics.summary()
+    lat, good = s["latency"], s["goodput"]
+    pct = lambda h: f"p50 {h['p50']} p95 {h['p95']} p99 {h['p99']}"
+    print(f"telemetry serve {tag}: {s['ticks']} ticks, {s['finished_requests']} requests; "
+          f"TTFT ms {pct(lat['ttft_ms'])}; ITL ms {pct(lat['itl_ms'])}; queue wait ms "
+          f"{pct(lat['queue_wait_ms'])}; goodput {good['goodput_tokens_per_sec']} tokens/s, "
+          f"useful fraction {good['useful_fraction']}, serving_mfu {good['serving_mfu']}; "
+          f"SLO {slo.summary()['metrics']} [{card}]")
+    rep = build_report(load_jsonl(str(d / "events.jsonl")) + ticks + reqs)
+    sv, rq = rep["serving"], rep["requests"]
+    spans = {k: (v["count"], v["mean_ms"]) for k, v in rep["spans"].items()}
+    print(f"telemetry serve {tag} report: spans (count, mean ms) {spans}; decode "
+          f"{sv['decode_tokens_per_sec']} tokens/s, tick ms {pct(sv['tick_ms'])}, kv pages "
+          f"{sv['kv_pages']}, memory {sv['memory']}; requests {rq['count']}, queue wait ms "
+          f"{pct(rq['queue_wait_ms'])}, TTFT ms {pct(rq['ttft_ms'])}, e2e ms "
+          f"{pct(rq['e2e_ms'])}, ITL ms (merged) {pct(rq['itl_ms'])}; Chrome trace "
+          f"{meta} [{card}]", flush=True)
+    print(f"telemetry serve {tag}: launches {ran}; wall {wall1 - wall0:.3f} s [{card}]",
+          flush=True)
+    if fails:
+        raise SystemExit(f"telemetry serve {tag}: {fails}")
+
+
+def telemetry_phase(card: str, served: dict) -> None:
+    """Telemetry and recovery on the card: the trainer's spans, sentinel
+    and overflow flag on the mamba2-280m step; a NaN halting with a flight
+    record and not restarted; ``--auto-restart`` resuming exactly with the
+    memory released; the engines' metrics, spans and SLO monitor on
+    mamba2-280m and bf16 and int8 hybrid-280m."""
+    import shutil
+
+    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tele"
+    shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    tele_training(card)
+    tele_divergence(card, tmp)
+    tele_recovery(card, tmp)
+    torch.cuda.empty_cache()
+    paged = ("ssd_fwd", "ragged_decode", "ragged_prefill")
+    tele_serve(card, "mamba2-280m", served["mamba2-280m"], tmp, ("ssd_fwd",))
+    tele_serve(card, "hybrid-280m", served["hybrid-280m"], tmp, paged)
+    tele_serve(card, "hybrid-280m", served["hybrid-280m int8"], tmp,
+               ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"),
+               kv_page_dtype="int8", serving_weight_dtype="int8")
+    print(f"telemetry phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2294,10 +2686,12 @@ def main() -> int:
     check_7b_shapes(gen, {r["name"]: r for r in rows})
     if not args.kernels_only:
         card = smi()
-        ssd_launches = serve("mamba2-280m", ("ssd_fwd",))["launches"]
+        ssd_serve = serve("mamba2-280m", ("ssd_fwd",))
+        ssd_launches = ssd_serve["launches"]
         hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
         launches = hybrid["launches"]
-        q8_launches = serve_int8(hybrid)["launches"]
+        q8 = serve_int8(hybrid)
+        q8_launches = q8["launches"]
         m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()
@@ -2347,6 +2741,9 @@ def main() -> int:
         for opts in (dict(tie_embeddings=False), dict(conv_impl="xla_conv"),
                      dict(loss_impl="blocked")):
             train_checks(card, "hybrid-tiny", **opts)
+        torch.cuda.empty_cache()
+        telemetry_phase(card, {"mamba2-280m": ssd_serve, "hybrid-280m": hybrid,
+                               "hybrid-280m int8": q8})
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

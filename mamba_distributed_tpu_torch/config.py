@@ -402,6 +402,127 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Host-side telemetry (``obs/``): spans, the divergence sentinel, the
+    flight recorder, SLO targets (the JAX package's ``TelemetryConfig``:
+    same field names, defaults and validation).  Everything here is
+    host-side and free of device syncs; ``overflow_threshold`` is the one
+    knob that changes the train step (one more on-card comparison, read
+    back in the step's one host fetch).  The XLA compile watchdog has no
+    counterpart in the port: ``compile_watchdog=True`` and its thrash
+    knobs raise."""
+
+    # span tracer -> {log_dir}/events.jsonl (trainer, eval, checkpointing)
+    spans: bool = False
+    # non-finite loss/grad-norm watchdog on already-fetched host scalars,
+    # feeding the flight-recorder ring that dumps on crash/divergence
+    sentinel: bool = True
+    # raise DivergenceError on a non-finite step (after dumping) — a NaN
+    # run only burns compute; opt out for loss-spike research
+    halt_on_divergence: bool = True
+    flight_recorder_len: int = 64
+    # > 0: the train step also returns a flag for grad_norm > threshold
+    # (or non-finite), computed on the card and accumulated on the host.
+    # 0 disables.
+    overflow_threshold: float = 0.0
+    # --- serving SLO targets (obs/slo.py): rolling-window p95 targets
+    # in milliseconds over the last `slo_window_requests` finished
+    # requests; 0 leaves a metric untargeted.  Crossing a target emits
+    # one `slo_breach` event record (and `slo_recovered` on the way
+    # back).  All host-side, no device syncs. ---
+    slo_ttft_p95_ms: float = 0.0
+    slo_itl_p95_ms: float = 0.0
+    slo_queue_wait_p95_ms: float = 0.0
+    slo_window_requests: int = 64
+    # byte cap on a SpanTracer's jsonl file: exceeding it rolls the
+    # file to `<name>.1` (one generation kept; obs/export.load_jsonl
+    # reads the pair oldest-first).  0 = never rotate.
+    span_rotate_bytes: int = 0
+    # the JAX package's XLA compile watchdog: the port has no XLA
+    # compiles to count, so True (and a thrash knob off its default)
+    # raises
+    compile_watchdog: bool = False
+    compile_thrash_threshold: int = 0
+    compile_thrash_window_s: float = 60.0
+    # --- tick-latency regression sentinel (obs/slo.py
+    # TickRegressionDetector): breach when the EWMA-smoothed tick
+    # latency exceeds `tick_regression_factor` x the learned baseline.
+    # factor 0 (default) = off. ---
+    tick_regression_factor: float = 0.0
+    tick_ewma_alpha: float = 0.1
+    tick_regression_warmup: int = 32
+
+    def __post_init__(self):
+        if self.flight_recorder_len < 1:
+            raise ValueError(
+                f"flight_recorder_len must be >= 1, got "
+                f"{self.flight_recorder_len}"
+            )
+        if self.overflow_threshold < 0:
+            raise ValueError(
+                f"overflow_threshold must be >= 0 (0 disables), got "
+                f"{self.overflow_threshold}"
+            )
+        if self.overflow_threshold > 0 and not self.sentinel:
+            raise ValueError(
+                "overflow_threshold > 0 needs sentinel=True — the host-"
+                "side accumulator and flight record that consume the "
+                "on-device flag live on the sentinel"
+            )
+        for name in ("slo_ttft_p95_ms", "slo_itl_p95_ms",
+                     "slo_queue_wait_p95_ms"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0 (0 disables), got "
+                    f"{getattr(self, name)}"
+                )
+        if self.slo_window_requests < 1:
+            raise ValueError(
+                f"slo_window_requests must be >= 1, got "
+                f"{self.slo_window_requests}"
+            )
+        if self.span_rotate_bytes < 0:
+            raise ValueError(
+                f"span_rotate_bytes must be >= 0 (0 = never rotate), "
+                f"got {self.span_rotate_bytes}"
+            )
+        if self.compile_thrash_threshold < 0:
+            raise ValueError(
+                f"compile_thrash_threshold must be >= 0 (0 = count "
+                f"only), got {self.compile_thrash_threshold}"
+            )
+        if self.compile_thrash_window_s <= 0:
+            raise ValueError(
+                f"compile_thrash_window_s must be > 0, got "
+                f"{self.compile_thrash_window_s}"
+            )
+        if self.tick_regression_factor and self.tick_regression_factor <= 1:
+            raise ValueError(
+                f"tick_regression_factor must be > 1 (breach = factor "
+                f"x baseline; 0 disables), got "
+                f"{self.tick_regression_factor}"
+            )
+        if not 0.0 < self.tick_ewma_alpha <= 1.0:
+            raise ValueError(
+                f"tick_ewma_alpha must be in (0, 1], got "
+                f"{self.tick_ewma_alpha}"
+            )
+        if self.tick_regression_warmup < 1:
+            raise ValueError(
+                f"tick_regression_warmup must be >= 1, got "
+                f"{self.tick_regression_warmup}"
+            )
+        if (self.compile_watchdog or self.compile_thrash_threshold
+                or self.compile_thrash_window_s != 60.0):
+            raise ValueError(
+                "compile_watchdog and its thrash knobs: the XLA compile "
+                "watchdog (obs/watchdog.py of the JAX package) has no "
+                "counterpart in the PyTorch port; leave them at their "
+                "defaults"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
     the JAX package's ``TrainConfig``, one device)."""
@@ -409,6 +530,7 @@ class TrainConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
 
     total_batch_size: int = 524288  # tokens/step
     micro_batch_size: int = 32

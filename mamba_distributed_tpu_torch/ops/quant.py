@@ -177,10 +177,10 @@ def assert_stream_close(
     are conditioned on different contexts, so agreement is the matched
     prefix over the compared length.  ``min_token_agreement=1.0`` asks
     for exact greedy agreement.  A disagreement is reported to the
-    optional ``sentinel`` (one ``quant_token_disagreement`` event
-    through its ``record_event``) and ``metrics`` (its
-    ``record_greedy_disagreement``); the port has neither yet, so both
-    stay None there.  ``got_logits``/``want_logits`` are compared with
+    optional ``sentinel`` (an ``obs.DivergenceSentinel``: one
+    ``quant_token_disagreement`` event through its ``record_event``) and
+    ``metrics`` (a ``utils/metrics.ServingMetrics``: its
+    ``record_greedy_disagreement``).  ``got_logits``/``want_logits`` are compared with
     ``np.allclose(rtol, atol)`` over the matched prefix.  Returns the
     number of disagreeing tail tokens."""
     got = np.asarray(got_tokens).reshape(-1)

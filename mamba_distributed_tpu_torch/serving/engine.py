@@ -36,10 +36,22 @@ Int8 serving (``cfg.serving_weight_dtype`` and ``cfg.kv_page_dtype``
 weights, the pool's pages are int8 with their scales, and the chunk step
 and the tick write both in place.
 
+Telemetry (as the JAX engine wires it): ``metrics`` (a
+``utils/metrics.ServingMetrics``; with a ``jsonl_path`` it writes one
+``serving_tick`` record a tick and one ``request`` record a finished
+request, with goodput, ``serving_mfu`` against the card's peak, the
+hybrid page gauges and the int8 stamp), ``tracer`` (spans
+``serving_admit``, ``serving_prefill``, ``serving_prefill_chunk``,
+``serving_tick``, stamped with the request's trace id), ``slo`` (an
+``obs/slo.SLOMonitor`` fed each request record) and ``tick_regression``
+(an ``obs/slo.TickRegressionDetector`` fed each tick's ms).  All of it
+reads host clocks and host arrays the loop already has: the
+``serving_tick`` span encloses the tick's one host fetch, so it covers
+the device work, and no telemetry adds a launch or a sync.
+
 Left out of the port for now: prefix cache and copy-on-write pages,
 adapters, speculative decoding, preemption and priorities, migration,
-tick compaction, meshes and sharded page pools, the int8 telemetry,
-metrics and the tracer.
+tick compaction, meshes and sharded page pools.
 """
 
 from __future__ import annotations
@@ -62,7 +74,9 @@ from mamba_distributed_tpu_torch.models.lm import (
     lm_prefill,
     lm_step,
 )
+from mamba_distributed_tpu_torch.obs import NULL_TRACER, StreamingHistogram
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
+from mamba_distributed_tpu_torch.ops.quant import param_bytes
 from mamba_distributed_tpu_torch.serving import state_cache
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
@@ -78,6 +92,8 @@ from mamba_distributed_tpu_torch.serving.scheduler import (
     TokenEvent,
     _Tracked,
 )
+from mamba_distributed_tpu_torch.utils.flops import flops_per_token, peak_flops
+from mamba_distributed_tpu_torch.utils.metrics import ServingMetrics
 
 
 def _to_device(tree, device):
@@ -101,11 +117,18 @@ class ServingEngine:
         (None => ``cfg.prefill_tokens_per_tick``; 0 => unbounded).
       device: where the engine runs; None means "cuda", which raises
         on a host without a card (pass ``device="cpu"`` there).
+      metrics: a ``ServingMetrics`` (default: one with no jsonl stream).
+      tracer: an ``obs.SpanTracer`` (default ``NULL_TRACER``: off).
+      slo: an ``obs.SLOMonitor`` fed every finished request, or None.
+      tick_regression: an ``obs.TickRegressionDetector`` fed every
+        tick's wall ms, or None.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig, capacity: int = 8,
                  max_top_k: int = 50, tokens_per_tick: int = 8,
-                 prefill_tokens_per_tick: int | None = None, device=None):
+                 prefill_tokens_per_tick: int | None = None, device=None,
+                 metrics: ServingMetrics | None = None, tracer=NULL_TRACER,
+                 slo=None, tick_regression=None):
         if not 1 <= max_top_k <= cfg.vocab_size_padded:
             raise ValueError(
                 f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
@@ -145,6 +168,8 @@ class ServingEngine:
             # (unreserved entries name the trash page 0) and KV length
             self._page_tbl = np.zeros((capacity, cfg.kv_pages_per_slot), np.int32)
             self._kv_len = np.zeros((capacity,), np.int32)
+            self._page_allocs = 0  # per-window gauges -> serving_tick
+            self._page_frees = 0
         self._pad_mask = vocab_pad_mask(cfg, device)
         self.scheduler = FCFSScheduler()
         self._free: list[int] = list(range(capacity))
@@ -152,6 +177,48 @@ class ServingEngine:
         # slots holding a partial chunked prefill, in grant rotation order
         self._prefill_queue: list[int] = []
         self.results: dict[int, GenerationResult] = {}
+
+        self.metrics = metrics or ServingMetrics(capacity)
+        self.tracer = tracer
+        self.slo = slo
+        self.tick_regression = tick_regression
+        # goodput: analytic FLOPs rates ("model" convention) against the
+        # card's dense bf16 peak, so each tick record carries a
+        # host-computed serving_mfu (None on the CPU).  Decode is priced
+        # per sampled token, prefill per real prompt token at the chunk's
+        # length (the default 256 when chunking is off)
+        prefill_seq = cfg.effective_prefill_chunk_tokens or 256
+        self.metrics.configure_goodput(
+            flops_per_decode_token=flops_per_token(cfg, 1, training=False,
+                                                   convention="model"),
+            flops_per_prefill_token=flops_per_token(cfg, prefill_seq, training=False,
+                                                    convention="model"),
+            peak_flops=peak_flops(device) if device.type == "cuda" else None)
+        # int8 serving: the resident-bytes gauges and the dtype stamp, only
+        # when weights or KV pages are int8 (other records carry neither)
+        self.quantized_weights = cfg.serving_weight_dtype == "int8"
+        self.quantized_kv = self.hybrid and cfg.kv_quantized
+        if self.quantized_weights or self.quantized_kv:
+            self._weight_bytes = param_bytes(self._params)
+            self._pool_bytes = (
+                sum(t.numel() * t.element_size() for t in self.pool["state"]["attn_blocks"])
+                if self.hybrid else None)
+            self._quant_stamp = {"weights": cfg.serving_weight_dtype,
+                                 "kv": cfg.kv_page_dtype}
+            self.metrics.configure_memory(
+                weight_bytes=self._weight_bytes, page_pool_bytes=self._pool_bytes or 0,
+                weight_dtype=cfg.serving_weight_dtype, kv_dtype=cfg.kv_page_dtype)
+        # prefill accounting awaiting a tick record: steps that run no
+        # tick (every resident slot still mid-prefill) roll their stall
+        # and chunk counters into the next tick's record
+        self._pending_stall_ms = 0.0
+        self._pending_chunk_tokens = 0
+        self._pending_chunk_real_tokens = 0  # non-pad (goodput useful)
+        self._pending_chunk_ms = 0.0
+        # one-shot admissions in the window: real prompt tokens vs the
+        # padded bucket lanes they computed
+        self._pending_oneshot_real_tokens = 0
+        self._pending_oneshot_lanes = 0
 
     # ------------------------------------------------------------ admission
 
@@ -187,6 +254,7 @@ class ServingEngine:
         if not (self.hybrid and tracked.pages):
             return
         self.page_pool.free(tracked.pages)
+        self._page_frees += len(tracked.pages)
         tracked.pages = None
         self._page_tbl[slot] = 0
         self._kv_len[slot] = 0
@@ -209,18 +277,27 @@ class ServingEngine:
                 return False
         slot = self._free.pop(0)
         tracked.status = RequestStatus.PREFILL
+        t0 = time.perf_counter()
         try:
             if plan is None:
-                prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
-                                         device=self.device)[None]
-                ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
-                logits, state = lm_prefill(self._params, self.cfg, ids, token_mask=mask)
-                state_cache.insert(self.pool, slot, state, logits, **self._slot_meta(r))
+                # one span per one-shot prefill, trace-stamped, so even a
+                # short prompt's journey has an anchor in the stream
+                with self.tracer.span("serving_prefill", slot=slot,
+                                      request=tracked.request_id, trace=tracked.trace_id):
+                    prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
+                                             device=self.device)[None]
+                    ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
+                    logits, state = lm_prefill(self._params, self.cfg, ids,
+                                               token_mask=mask)
+                    state_cache.insert(self.pool, slot, state, logits,
+                                       **self._slot_meta(r))
             else:
                 tracked.plan = plan
                 tracked.chunks_done = 0
+                tracked.prefill_dt = 0.0
                 if self.hybrid:
                     tracked.pages = self.page_pool.alloc(n_pages)
+                    self._page_allocs += n_pages
                     self._page_tbl[slot, :n_pages] = tracked.pages
                     self._kv_len[slot] = 0
                 state_cache.stash_prefill(
@@ -234,7 +311,18 @@ class ServingEngine:
             self._free.insert(0, slot)
             self.scheduler.requeue(tracked)
             raise
-        tracked.t_admit = time.perf_counter()
+        # dt is host dispatch time (the next tick's fetch absorbs the
+        # device work)
+        t_admit = time.perf_counter()
+        if plan is None:
+            self.metrics.record_prefill(len(r.prompt_ids), t_admit - t0)
+            # goodput: the one-shot prefill's real tokens vs the padded
+            # bucket lanes it computed, in the next tick's window
+            self._pending_oneshot_real_tokens += len(r.prompt_ids)
+            self._pending_oneshot_lanes += next_pow2_bucket(len(r.prompt_ids))
+        tracked.t_admit = t_admit
+        tracked.itl_hist = StreamingHistogram()
+        self.metrics.record_queue_wait(t_admit - tracked.t_submit)
         tracked.slot = slot
         self._slots[slot] = tracked
         if plan is None:
@@ -256,17 +344,27 @@ class ServingEngine:
                 state["attn_meta"] = (
                     torch.tensor(self._page_tbl[slot:slot + 1], device=self.device),
                     torch.tensor(self._kv_len[slot:slot + 1], device=self.device))
-            ids, mask = chunk_inputs(r.prompt_ids, plan, tracked.chunks_done,
-                                     device=self.device)
-            logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg)
+            i = tracked.chunks_done
+            ids, mask = chunk_inputs(r.prompt_ids, plan, i, device=self.device)
+            t0 = time.perf_counter()
+            with self.tracer.span("serving_prefill_chunk", slot=slot, chunk=i,
+                                  of=plan.n_chunks, trace=tracked.trace_id):
+                logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg)
+            dt = time.perf_counter() - t0  # host dispatch time
             if self.hybrid:
                 # the left pad of chunk 0 is never written
-                self._kv_len[slot] += plan.real_tokens(tracked.chunks_done)
+                self._kv_len[slot] += plan.real_tokens(i)
             tracked.chunks_done += 1
+            tracked.prefill_dt += dt
+            self.metrics.record_prefill_chunk(plan.chunk, dt)
+            # goodput: the real (non-pad) chunk tokens are the useful
+            # share of this window's prefill lanes
+            self._pending_chunk_real_tokens += plan.real_tokens(i)
             self._prefill_queue.remove(slot)
             if tracked.chunks_done == plan.n_chunks:
                 state_cache.finish_prefill(self.pool, slot, state, logits)
                 tracked.status = RequestStatus.DECODE
+                self.metrics.record_prefill(plan.prompt_len, tracked.prefill_dt)
             else:
                 state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(r))
                 # rotate to the back: the next grant goes to the others first
@@ -283,16 +381,28 @@ class ServingEngine:
             raise
         return budget_left - plan.chunk
 
-    def _prefill_phase(self) -> None:
-        while self._free and self.scheduler.depth:
-            if not self._admit(self.scheduler.pop()):
-                break  # the queue head waits for pages
+    def _prefill_phase(self) -> tuple[float, int]:
+        """Admissions, then the chunk budget.  Returns the host seconds
+        spent (the tick's ``prefill_stall``) and the chunk tokens run."""
+        if not ((self._free and self.scheduler.depth) or self._prefill_queue):
+            return 0.0, 0
+        t0 = time.perf_counter()
+        chunk_tokens0 = self.metrics.prefill_chunk_tokens
+        chunk_s0 = self.metrics.prefill_chunk_time_s
+        if self._free and self.scheduler.depth:
+            with self.tracer.span("serving_admit", queued=self.scheduler.depth):
+                while self._free and self.scheduler.depth:
+                    if not self._admit(self.scheduler.pop()):
+                        break  # the queue head waits for pages
         budget = self.prefill_tokens_per_tick
         left = float("inf") if budget == 0 else float(budget)
         chunks_run = 0
         while self._prefill_queue and (left > 0 or chunks_run == 0):
             left = self._advance_prefill(self._prefill_queue[0], left)
             chunks_run += 1
+        self._pending_chunk_ms += (self.metrics.prefill_chunk_time_s - chunk_s0) * 1000
+        return (time.perf_counter() - t0,
+                self.metrics.prefill_chunk_tokens - chunk_tokens0)
 
     # ------------------------------------------------------------- decoding
 
@@ -371,11 +481,25 @@ class ServingEngine:
         tick's TokenEvents in emission order (none while only partial
         prefills are resident); finished requests are evicted and their
         results kept in ``self.results``."""
-        self._prefill_phase()
+        stall_s, chunk_tokens = self._prefill_phase()
+        if stall_s:
+            self.metrics.record_prefill_stall(stall_s)
+        self._pending_stall_ms += stall_s * 1000
+        self._pending_chunk_tokens += chunk_tokens
         if not any(t.status is RequestStatus.DECODE for t in self._slots.values()):
             return []
-        tokens, emitted, done = self._tick()
+        occupied = len(self._slots)
+        # the requests this tick advances (mid-prefill residents sample
+        # nothing), stamped on the span and the tick record
+        live_traces = sorted(t.trace_id for t in self._slots.values()
+                             if t.status is RequestStatus.DECODE)
+        t0 = time.perf_counter()
+        # the span encloses the tick's one host fetch, so it covers the
+        # tick's device work
+        with self.tracer.span("serving_tick", occupied=occupied, traces=live_traces):
+            tokens, emitted, done = self._tick()
         t_now = time.perf_counter()
+        dt = t_now - t0
         events: list[TokenEvent] = []
         for j in range(tokens.shape[0]):
             for slot, tracked in self._slots.items():
@@ -391,11 +515,25 @@ class ServingEngine:
                 events.append(TokenEvent(tracked.request_id, tok,
                                          len(tracked.new_tokens) - 1,
                                          bool(done[j, slot]), tracked.finish_reason))
+        # per-request latency stamps (before eviction).  A tick's m tokens
+        # reach the host at its one fetch and share one time stamp: each
+        # inter-token gap is the span since the request's previous
+        # arrival (the tick's start for its first tick) over m
         for slot, tracked in self._slots.items():
-            if emitted[:, slot].any():
-                if tracked.t_first_token is None:
-                    tracked.t_first_token = t_now
-                tracked.t_last_token = t_now
+            m = int(emitted[:, slot].sum())
+            if not m:
+                continue
+            if tracked.t_first_token is None:
+                tracked.t_first_token = t_now
+                self.metrics.record_ttft(t_now - tracked.t_submit)
+                gaps, t_prev = m - 1, t0
+            else:
+                gaps, t_prev = m, tracked.t_last_token
+            if gaps:
+                per_token_s = (t_now - t_prev) / m
+                self.metrics.record_itl(per_token_s, gaps)
+                tracked.itl_hist.record(per_token_s * 1000, gaps)
+            tracked.t_last_token = t_now
         for slot in [s for s, t in self._slots.items()
                      if t.status is RequestStatus.FINISHED]:
             tracked = self._slots.pop(slot)
@@ -403,11 +541,57 @@ class ServingEngine:
             self._release_pages(slot, tracked)
             self._free.append(slot)
             r = tracked.request
+            request_record = {
+                "request_id": tracked.request_id,
+                "trace_id": tracked.trace_id,
+                "prompt_tokens": int(len(r.prompt_ids)),
+                "new_tokens": len(tracked.new_tokens),
+                "finish_reason": tracked.finish_reason,
+                "queue_wait_ms": round((tracked.t_admit - tracked.t_submit) * 1000, 3),
+                "ttft_ms": round((tracked.t_first_token - tracked.t_submit) * 1000, 3),
+                "e2e_ms": round((t_now - tracked.t_submit) * 1000, 3),
+                "itl_hist": tracked.itl_hist.to_dict(),
+            }
+            self.metrics.record_request(request_record)
+            if self.slo is not None:
+                self.slo.observe_request(request_record)
             self.results[tracked.request_id] = GenerationResult(
                 request_id=tracked.request_id, prompt_ids=r.prompt_ids,
                 new_tokens=np.asarray(tracked.new_tokens, np.int64),
                 finish_reason=tracked.finish_reason)
         self._free.sort()
+        gauges = {}
+        if self.hybrid:
+            # page-pool occupancy at this tick + the window's allocator churn
+            gauges.update(kv_pages_used=self.page_pool.pages_in_use,
+                          kv_pages_capacity=self.page_pool.num_pages,
+                          kv_page_allocs=self._page_allocs,
+                          kv_page_frees=self._page_frees)
+            self._page_allocs = 0
+            self._page_frees = 0
+        if self.quantized_weights or self.quantized_kv:
+            gauges.update(quantized=self._quant_stamp, weight_bytes=self._weight_bytes,
+                          page_pool_bytes=self._pool_bytes)
+        if self.tick_regression is not None:
+            self.tick_regression.observe_tick(dt * 1000)
+        self.metrics.record_tick(
+            occupied=occupied, queue_depth=self.scheduler.depth,
+            tokens_emitted=len(events), dt_s=dt,
+            prefill_stall_ms=self._pending_stall_ms,
+            prefill_chunk_tokens=self._pending_chunk_tokens,
+            prefill_chunk_ms=self._pending_chunk_ms,
+            prefill_real_tokens=self._pending_chunk_real_tokens,
+            prefill_oneshot_tokens=self._pending_oneshot_real_tokens,
+            prefill_oneshot_lanes=self._pending_oneshot_lanes,
+            # the tick computes every slot's lanes, live or not
+            slot_lanes=self.capacity * self.tokens_per_tick,
+            traces=live_traces, **gauges)
+        self._pending_stall_ms = 0.0
+        self._pending_chunk_tokens = 0
+        self._pending_chunk_real_tokens = 0
+        self._pending_chunk_ms = 0.0
+        self._pending_oneshot_real_tokens = 0
+        self._pending_oneshot_lanes = 0
         return events
 
     # ------------------------------------------------------------ frontends

@@ -1,6 +1,6 @@
 """Request lifecycle + FCFS admission for the serving engine (counterpart
 of ``mamba_distributed_tpu/serving/scheduler.py``, without adapters,
-tenant quotas, priorities and trace ids).
+tenant quotas and priorities).
 
 A request moves QUEUED -> PREFILL -> DECODE -> FINISHED:
 
@@ -19,6 +19,8 @@ from collections import deque
 from typing import Iterator
 
 import numpy as np
+
+from mamba_distributed_tpu_torch.obs.context import mint_trace_id
 
 
 class RequestStatus(enum.Enum):
@@ -42,6 +44,9 @@ class GenerationRequest:
     seed: int = 0
     # echo of the id the scheduler assigned at the last submit
     request_id: int | None = None
+    # the trace id of this request's journey (obs/context.py); None =>
+    # the scheduler mints a fresh one at each submit
+    trace_id: str | None = None
 
 
 @dataclasses.dataclass
@@ -74,6 +79,9 @@ class _Tracked:
 
     request: GenerationRequest
     request_id: int = -1
+    # the trace id every span and record of this request carries
+    # (request.trace_id when it came with one, else minted at submit)
+    trace_id: str = ""
     status: RequestStatus = RequestStatus.QUEUED
     slot: int | None = None
     new_tokens: list[int] = dataclasses.field(default_factory=list)
@@ -83,9 +91,13 @@ class _Tracked:
     t_admit: float | None = None
     t_first_token: float | None = None
     t_last_token: float | None = None
+    # per-request inter-token latency histogram (obs/histogram.py), made
+    # at admission; it rides in the request's finish record
+    itl_hist: object | None = None
     # chunked-prefill progress: the plan (None => one-shot) and chunks run
     plan: object | None = None
     chunks_done: int = 0
+    prefill_dt: float = 0.0  # host dispatch seconds of the chunk steps run
     # hybrid stacks: the KV pages reserved for the whole request
     pages: list[int] | None = None
 
@@ -109,6 +121,7 @@ class FCFSScheduler:
             raise ValueError("temperature must be > 0")
         request.prompt_ids = prompt
         tracked = _Tracked(request=request, request_id=self._next_id,
+                           trace_id=request.trace_id or mint_trace_id(),
                            t_submit=time.perf_counter())
         self._next_id += 1
         request.request_id = tracked.request_id

@@ -8,6 +8,15 @@
     python -m mamba_distributed_tpu_torch.train --preset hybrid-7b --n-layer 8 --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
 
+Telemetry (the JAX CLI's flags): ``--spans`` writes host spans to
+``{log_dir}/events.jsonl``; the divergence sentinel is on by default and
+dumps ``{log_dir}/flight_record.json`` on a non-finite step, then stops
+(``--no-halt-on-divergence`` trains on); ``--overflow-threshold NORM``
+counts steps whose pre-clip grad norm exceeds NORM.  ``--auto-restart
+N`` (with ``--checkpoint-dir``) rebuilds the trainer from the newest
+checkpoint after a crash, up to N times, with the crashed trainer's
+device memory released first; a divergence is never retried.
+
 ``--preset hybrid-7b`` (gated MLP after every mixer) is the JAX
 package's 64-chip recipe on one card: its fp32 masters, gradients and
 AdamW moments take 16 bytes for each of its 8.9 billion parameters at
@@ -27,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 
 from mamba_distributed_tpu_torch.config import TRAIN_PRESETS, TrainConfig, get_train_preset
 
@@ -70,6 +80,21 @@ def parse_args(argv=None):
     p.add_argument("--sample-prompt-ids", default=None, metavar="IDS",
                    help="same, with the prompt as comma-separated token ids (no "
                         "tokenizer needed)")
+    p.add_argument("--spans", action="store_true",
+                   help="host-side span tracing (obs/): data_load/train_step/eval/"
+                        "checkpoint phase timings to {log_dir}/events.jsonl, readable by "
+                        "scripts/obs_report.py; no device work")
+    p.add_argument("--overflow-threshold", type=float, default=None, metavar="NORM",
+                   help="on-device divergence sentinel: the train step also reports "
+                        "pre-clip global grad norm > NORM (counted into the flight "
+                        "record); 0 disables")
+    p.add_argument("--no-halt-on-divergence", action="store_true",
+                   help="keep training through a non-finite loss instead of dumping the "
+                        "flight record and stopping")
+    p.add_argument("--auto-restart", type=int, default=0, metavar="N",
+                   help="on a crash, rebuild the trainer from the latest checkpoint in "
+                        "--checkpoint-dir and continue, up to N times (restart-based "
+                        "failure recovery)")
     return p.parse_args(argv)
 
 
@@ -111,27 +136,90 @@ def build_config(args) -> TrainConfig:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_over))
     if args.data_dir is not None:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_dir=args.data_dir))
+    tele = {}
+    if args.spans:
+        tele["spans"] = True
+    if args.overflow_threshold is not None:
+        tele["overflow_threshold"] = args.overflow_threshold
+    if args.no_halt_on_divergence:
+        tele["halt_on_divergence"] = False
+    if tele:
+        cfg = dataclasses.replace(cfg, telemetry=dataclasses.replace(cfg.telemetry, **tele))
     return cfg
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Train as the flags say.  Returns the history of the run's last
+    trainer (step -> (loss, pre-clip grad norm)) for in-process callers."""
     args = parse_args(argv)
+    if args.auto_restart < 0:
+        raise SystemExit(f"--auto-restart must be >= 0, got {args.auto_restart}")
+    if args.auto_restart and not args.checkpoint_dir:
+        raise SystemExit("--auto-restart needs --checkpoint-dir to recover from")
     cfg = build_config(args)
     sample_ids, decode_fn = resolve_sampling(args)
+    import torch
+
+    from mamba_distributed_tpu_torch.obs import DivergenceError
     from mamba_distributed_tpu_torch.training import Trainer
 
-    trainer = Trainer(cfg, device=args.device, sample_prompt_ids=sample_ids,
-                      decode_fn=decode_fn)
-    try:
-        if args.resume and args.checkpoint_dir:
+    def make_trainer(resume: bool, after_crash: bool = False):
+        trainer = Trainer(cfg, device=args.device, sample_prompt_ids=sample_ids,
+                          decode_fn=decode_fn)
+        if resume and args.checkpoint_dir:
             try:
                 trainer.restore_checkpoint(args.checkpoint_dir)
                 print(f"resumed from step {trainer.step}")
             except FileNotFoundError:
+                if after_crash:
+                    trainer.finish()
+                    # a restart from step 0 would only replay the same
+                    # data and burn the restart budget
+                    raise SystemExit(
+                        "auto-restart: crashed before any checkpoint was written; "
+                        "refusing to silently restart from step 0 (lower "
+                        "--checkpoint-every or rerun manually)")
                 print("no checkpoint found; starting fresh")
-        trainer.run(max_steps=args.max_steps, checkpoint_dir=args.checkpoint_dir)
+        return trainer
+
+    # restart-based failure recovery: rebuild from the newest full-state
+    # checkpoint and continue, up to --auto-restart times
+    trainer = None
+    try:
+        for attempt in range(args.auto_restart + 1):
+            if attempt:
+                # the crashed trainer (params, AdamW moments, the failed
+                # step's activations held by the traceback's frames) is
+                # unreachable now: collect it and hand its cached blocks
+                # back, so the card never holds two parameter sets
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+                    print(f"restart {attempt}/{args.auto_restart}: device memory "
+                          f"allocated before the rebuild {torch.cuda.memory_allocated()} B")
+            try:
+                trainer = make_trainer(resume=args.resume if attempt == 0 else True,
+                                       after_crash=attempt > 0)
+                trainer.run(max_steps=args.max_steps, checkpoint_dir=args.checkpoint_dir)
+                break
+            except Exception as e:
+                # a divergence is deterministic from the restored state: a
+                # restart would replay the same data back to the same NaN,
+                # so the flight record is the artifact; stop here
+                if isinstance(e, DivergenceError) or attempt == args.auto_restart:
+                    raise
+                print(f"run crashed ({type(e).__name__}: {e}); "
+                      f"restart {attempt + 1}/{args.auto_restart} from the latest checkpoint")
+                if trainer is not None:
+                    try:
+                        trainer.finish()
+                    except Exception:
+                        pass
+                trainer = None
+        return trainer.history
     finally:
-        trainer.finish()
+        if trainer is not None:
+            trainer.finish()
 
 
 if __name__ == "__main__":

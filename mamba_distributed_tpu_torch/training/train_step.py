@@ -46,14 +46,26 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def make_train_step(cfg: TrainConfig, optimizer: AdamW):
+def make_train_step(cfg: TrainConfig, optimizer: AdamW,
+                    overflow_threshold: float | None = None):
     """``step(params, x, y) -> (loss, grad_norm)`` with x/y (accum, B, T);
-    ``params`` is updated in place.  The norm is the pre-clip global norm."""
+    ``params`` is updated in place.  The norm is the pre-clip global norm.
+    All outputs are 0-d fp32 tensors on the params' device: the caller
+    fetches them in one transfer.
+
+    ``overflow_threshold`` (``TelemetryConfig``) appends a third output,
+    the overflow flag: 1.0 when the pre-clip global norm exceeds the
+    threshold or is non-finite, else 0.0, computed on the device from
+    the norm the step already has, so it rides the caller's one fetch
+    (the host accumulates the flags, obs/sentinel.py)."""
 
     def step(params: dict, x: torch.Tensor, y: torch.Tensor):
         loss, grads = loss_and_grads(params, cfg, x, y)
         grad_norm = global_norm(grads)
         optimizer.step(params, grads, grad_norm)
+        if overflow_threshold is not None:
+            overflow = ~torch.isfinite(grad_norm) | (grad_norm > overflow_threshold)
+            return loss, grad_norm, overflow.to(grad_norm.dtype)
         return loss, grad_norm
 
     return step

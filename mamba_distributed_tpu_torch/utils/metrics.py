@@ -1,4 +1,5 @@
-"""Training metrics log (the JAX package's ``MetricsLogger``).
+"""Training metrics log (the JAX package's ``MetricsLogger``) and the
+serving engine's counters (its ``ServingMetrics``).
 
 ``log.txt`` carries the reference's 3-field lines (``"{step} train
 {loss:.6f}"`` / ``"{step} val {loss:.4f}"``), so its plot tooling
@@ -11,6 +12,9 @@ from __future__ import annotations
 
 import json
 import os
+
+from mamba_distributed_tpu_torch.obs.histogram import StreamingHistogram
+from mamba_distributed_tpu_torch.obs.tracer import append_jsonl
 
 
 class MetricsLogger:
@@ -68,3 +72,355 @@ class MetricsLogger:
         print(f"validation loss: {loss:.4f}")
         self._append(f"{step} val {loss:.4f}",
                      {"step": step, "kind": "val", "loss": round(loss, 4)})
+
+
+def emit_bench_record(record: dict, json_path: str | None = None) -> None:
+    """Print a bench record as one JSON line and, when ``json_path`` is
+    given, write the same line there (the JAX package's
+    ``emit_bench_record``)."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    if json_path:
+        with open(json_path, "w") as f:
+            f.write(line + "\n")
+
+
+# summary() sections of engine features the port does not have yet
+# (prefix cache, compaction, pipeline stages, speculation, adapters,
+# tuning, admission, sessions, the compile watchdog): the JAX package's
+# summary() holds them as None while the feature is off, so the port's
+# holds the same keys at None
+_OFF_SECTIONS = ("prefix_cache", "compaction", "pipeline", "speculation", "adapters",
+                 "tuning", "admission", "sessions")
+
+
+class ServingMetrics:
+    """Serving-engine counters (the JAX package's ``ServingMetrics``, the
+    part the port's engine feeds): queue depth, slot occupancy,
+    throughput, goodput, per-request latency histograms.
+
+    The engine calls ``record_prefill`` once per finished prefill,
+    ``record_prefill_chunk`` per chunk step, ``record_prefill_stall`` per
+    engine step with prefill work, ``record_queue_wait``/``record_ttft``/
+    ``record_itl`` from each request's host clock stamps,
+    ``record_request`` once per finished request and ``record_tick`` once
+    per decode tick.  With ``jsonl_path`` set, every tick appends one
+    ``"kind": "serving_tick"`` record and every finished request one
+    ``"kind": "request"`` record, key for key the JAX package's.  A field
+    of a feature that is off is absent from the record, not null (the
+    hybrid page gauges, the int8 stamp).
+
+    Latency percentiles come from three streaming histograms
+    (``obs/histogram.py``: p50/p95/p99 in fixed memory), rolled up under
+    ``summary()["latency"]``.  Goodput: each tick record carries
+    ``useful_tokens``/``wasted_token_lanes``/``goodput_tokens_per_sec``/
+    ``serving_mfu``, the last from the analytic FLOPs rates and the card's
+    peak that the engine installs through ``configure_goodput``
+    (``serving_mfu`` stays None where no peak applies, a CPU run).
+
+    Left out until the port has the features that feed them: the prefix
+    cache, preemption, migration, speculation, compaction, pipeline,
+    adapter, tuning, session, admission and compile-watchdog methods.
+    """
+
+    def __init__(self, capacity: int, jsonl_path: str | None = None):
+        self.capacity = capacity
+        self.jsonl_path = jsonl_path
+        self.ticks = 0
+        self.decode_tokens = 0
+        self.decode_time_s = 0.0
+        self.prefills = 0
+        self.prefill_tokens = 0
+        self.prefill_time_s = 0.0
+        # chunked prefill: per-chunk dispatch counters + the per-step
+        # prefill stall (host time spent on prefill work between ticks)
+        self.prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
+        self.prefill_chunk_time_s = 0.0
+        self.prefill_stall_s = 0.0
+        self.prefill_stall_ms = StreamingHistogram()
+        self._occupied_sum = 0
+        self._queue_depth_sum = 0
+        self.peak_queue_depth = 0
+        # hybrid paged-KV gauges: last-seen pool occupancy + cumulative
+        # allocator churn; None/0 until a hybrid engine reports them
+        self.kv_pages_used: int | None = None
+        self.kv_pages_capacity: int | None = None
+        self.kv_page_allocs = 0
+        self.kv_page_frees = 0
+        self.peak_kv_pages_used = 0
+        self.finished_requests = 0
+        # goodput: useful tokens vs token lanes computed (padded slots +
+        # chunk padding), and the FLOPs rates configure_goodput installs
+        self.useful_tokens = 0
+        self.computed_token_lanes = 0
+        self._goodput_window_s = 0.0
+        self._goodput_flops = 0.0
+        self._fpt_decode: float | None = None
+        self._fpt_prefill: float | None = None
+        self._peak_flops: float | None = None
+        self.queue_wait_ms = StreamingHistogram()
+        self.ttft_ms = StreamingHistogram()
+        self.itl_ms = StreamingHistogram()
+        # int8 serving: configure_memory() (engine construction, only
+        # when weights or KV pages are int8) unlocks summary()["memory"]
+        self._memory_on = False
+        self.weight_bytes: int | None = None
+        self.page_pool_bytes: int | None = None
+        self.weight_dtype: str | None = None
+        self.kv_dtype: str | None = None
+        self.greedy_token_disagreements = 0
+        # deferred truncation (the MetricsLogger/SpanTracer contract): a
+        # reused path starts fresh on the first write unless
+        # preserve_history() ran
+        self._truncate_pending = True
+
+    def preserve_history(self) -> None:
+        """Keep an existing jsonl stream (append instead of truncating)."""
+        self._truncate_pending = False
+
+    def configure_goodput(self, flops_per_decode_token: float,
+                          flops_per_prefill_token: float,
+                          peak_flops: float | None) -> None:
+        """Install the analytic FLOPs rates (utils/flops.py, "model"
+        convention) and the card's peak that turn each tick's useful
+        tokens into a host-computed ``serving_mfu``; a None peak (the
+        CPU) leaves ``serving_mfu`` None."""
+        self._fpt_decode = flops_per_decode_token
+        self._fpt_prefill = flops_per_prefill_token
+        self._peak_flops = peak_flops
+
+    def configure_memory(self, weight_bytes: int, page_pool_bytes: int,
+                         weight_dtype: str, kv_dtype: str) -> None:
+        """Install the resident-bytes gauges (engine construction, only
+        when quantization is on: ``summary()["memory"]`` stays None and
+        tick records carry no int8 stamp otherwise)."""
+        self._memory_on = True
+        self.weight_bytes = int(weight_bytes)
+        self.page_pool_bytes = int(page_pool_bytes)
+        self.weight_dtype = weight_dtype
+        self.kv_dtype = kv_dtype
+
+    def _write_jsonl(self, record: dict) -> None:
+        append_jsonl(self.jsonl_path, record, truncate=self._truncate_pending)
+        self._truncate_pending = False
+
+    def record_prefill(self, prompt_tokens: int, dt_s: float) -> None:
+        """One finished prefill; ``dt_s`` is host dispatch time (the next
+        tick's fetch absorbs device completion), so the derived
+        ``prefill_tokens_per_sec`` is a dispatch rate."""
+        self.prefills += 1
+        self.prefill_tokens += prompt_tokens
+        self.prefill_time_s += dt_s
+
+    def record_prefill_chunk(self, chunk_tokens: int, dt_s: float) -> None:
+        """One chunk step: ``chunk_tokens`` of prompt in ``dt_s`` host
+        seconds (the whole prompt still gets one ``record_prefill``)."""
+        self.prefill_chunks += 1
+        self.prefill_chunk_tokens += chunk_tokens
+        self.prefill_chunk_time_s += dt_s
+
+    def record_prefill_stall(self, dt_s: float) -> None:
+        """Host seconds one engine step spent on prefill work (admissions
+        + chunk budget) before its tick."""
+        self.prefill_stall_s += dt_s
+        self.prefill_stall_ms.record(dt_s * 1000)
+
+    def record_greedy_disagreement(self, n: int = 1) -> None:
+        """``n`` greedy tokens on which a quantized stream disagreed with
+        its reference."""
+        self.greedy_token_disagreements += n
+
+    # ------------------------------------------------- per-request latency
+
+    def record_queue_wait(self, dt_s: float) -> None:
+        """Submit -> slot granted (admission)."""
+        self.queue_wait_ms.record(dt_s * 1000)
+
+    def record_ttft(self, dt_s: float) -> None:
+        """Submit -> first generated token on the host."""
+        self.ttft_ms.record(dt_s * 1000)
+
+    def record_itl(self, dt_s: float, n: int = 1) -> None:
+        """``n`` inter-token gaps of ``dt_s`` each (tokens that arrive in
+        one tick share the tick's per-token average: the host sees no
+        finer than its own sync points)."""
+        self.itl_ms.record(dt_s * 1000, n)
+
+    def record_request(self, record: dict) -> None:
+        """One finished request: count it and append its jsonl record
+        (``"kind": "request"``) when a stream is configured."""
+        self.finished_requests += 1
+        if self.jsonl_path:
+            self._write_jsonl({"kind": "request", **record})
+
+    def record_tick(
+        self, occupied: int, queue_depth: int, tokens_emitted: int,
+        dt_s: float, prefill_stall_ms: float = 0.0,
+        prefill_chunk_tokens: int = 0, prefill_chunk_ms: float = 0.0,
+        prefill_real_tokens: int = 0,
+        prefill_oneshot_tokens: int = 0, prefill_oneshot_lanes: int = 0,
+        slot_lanes: int = 0,
+        traces: list | None = None,
+        kv_pages_used: int | None = None,
+        kv_pages_capacity: int | None = None,
+        kv_page_allocs: int = 0, kv_page_frees: int = 0,
+        quantized: dict | None = None,
+        weight_bytes: int | None = None,
+        page_pool_bytes: int | None = None,
+    ) -> None:
+        """One decode tick.  ``prefill_stall_ms`` is the host time spent
+        on prefill work since the previous tick record (a step that runs
+        no tick rolls its work into the next record); ``prefill_chunk_
+        tokens``/``prefill_chunk_ms`` the chunk tokens dispatched in that
+        window and their dispatch time, ``prefill_real_tokens`` their
+        non-pad share; ``prefill_oneshot_tokens``/``prefill_oneshot_
+        lanes`` the real tokens and padded bucket lanes of one-shot
+        prefills in the window.  ``slot_lanes`` is the token lanes the
+        tick computed (capacity x sub-steps, live or not); with the
+        counts above it gives ``useful_tokens``, ``wasted_token_lanes``,
+        ``goodput_tokens_per_sec`` and ``serving_mfu``.  ``traces`` is
+        the live request trace-id set.  ``kv_pages_used``/
+        ``kv_pages_capacity`` (hybrid engines) gauge the page pool, with
+        ``kv_page_allocs``/``kv_page_frees`` the window's churn.
+        ``quantized`` (int8 serving only) is the ``{"weights": dtype,
+        "kv": dtype}`` stamp, with ``weight_bytes``/``page_pool_bytes``
+        the resident-bytes gauges."""
+        self.ticks += 1
+        self.decode_tokens += tokens_emitted
+        self.decode_time_s += dt_s
+        self._occupied_sum += occupied
+        self._queue_depth_sum += queue_depth
+        self.peak_queue_depth = max(self.peak_queue_depth, queue_depth)
+        # goodput: useful tokens vs computed lanes over the window (the
+        # tick plus the prefill work attributed to it)
+        window_s = dt_s + prefill_stall_ms / 1000.0
+        useful = tokens_emitted + prefill_real_tokens + prefill_oneshot_tokens
+        lanes = slot_lanes + prefill_chunk_tokens + prefill_oneshot_lanes
+        self.useful_tokens += useful
+        self.computed_token_lanes += lanes
+        self._goodput_window_s += window_s
+        mfu = None
+        if self._fpt_decode is not None and self._peak_flops and window_s > 0:
+            flops = (tokens_emitted * self._fpt_decode
+                     + (prefill_real_tokens + prefill_oneshot_tokens) * self._fpt_prefill)
+            self._goodput_flops += flops
+            mfu = flops / (window_s * self._peak_flops)
+        record = {
+            "kind": "serving_tick", "tick": self.ticks,
+            "occupied": occupied, "capacity": self.capacity,
+            "queue_depth": queue_depth,
+            "tokens_emitted": tokens_emitted,
+            "tick_ms": round(dt_s * 1000, 3),
+            "prefill_stall_ms": round(prefill_stall_ms, 3),
+            "prefill_chunk_tokens": prefill_chunk_tokens,
+            "prefill_chunk_ms": round(prefill_chunk_ms, 3),
+            "prefill_oneshot_tokens": prefill_oneshot_tokens,
+            "useful_tokens": useful,
+            "wasted_token_lanes": max(lanes - useful, 0),
+            "goodput_tokens_per_sec": (
+                round(useful / window_s, 1) if window_s > 0 else None),
+            "serving_mfu": None if mfu is None else round(mfu, 6),
+        }
+        if traces is not None:
+            record["traces"] = list(traces)
+        if kv_pages_used is not None:
+            self.kv_pages_used = kv_pages_used
+            self.kv_pages_capacity = kv_pages_capacity
+            self.kv_page_allocs += kv_page_allocs
+            self.kv_page_frees += kv_page_frees
+            self.peak_kv_pages_used = max(self.peak_kv_pages_used, kv_pages_used)
+            record.update({
+                "kv_pages_used": kv_pages_used,
+                "kv_pages_capacity": kv_pages_capacity,
+                "kv_page_allocs": kv_page_allocs,
+                "kv_page_frees": kv_page_frees,
+            })
+        if quantized is not None:
+            record["quantized"] = quantized
+            record["weight_bytes"] = weight_bytes
+            if page_pool_bytes is not None:
+                record["page_pool_bytes"] = page_pool_bytes
+        if self.jsonl_path:
+            self._write_jsonl(record)
+
+    def summary(self) -> dict:
+        """The JAX package's ``summary()``: the same keys and rounding
+        (the sections of features the port lacks are None, their
+        counters 0)."""
+        return {
+            "ticks": self.ticks,
+            "decode_tokens": self.decode_tokens,
+            "decode_tokens_per_sec": (
+                round(self.decode_tokens / self.decode_time_s, 1)
+                if self.decode_time_s else None),
+            "mean_tick_ms": (
+                round(self.decode_time_s / self.ticks * 1000, 3) if self.ticks else None),
+            "mean_slot_occupancy": (
+                round(self._occupied_sum / (self.ticks * self.capacity), 4)
+                if self.ticks else 0.0),
+            "mean_queue_depth": (
+                round(self._queue_depth_sum / self.ticks, 2) if self.ticks else 0.0),
+            "peak_queue_depth": self.peak_queue_depth,
+            "prefills": self.prefills,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_time_s": round(self.prefill_time_s, 4),
+            "prefill_tokens_per_sec": (
+                round(self.prefill_tokens / self.prefill_time_s, 1)
+                if self.prefill_time_s else None),
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "prefill_chunk_tokens_per_sec": (
+                round(self.prefill_chunk_tokens / self.prefill_chunk_time_s, 1)
+                if self.prefill_chunk_time_s else None),
+            "prefill_stall_s": round(self.prefill_stall_s, 4),
+            "prefill_stall_ms": self.prefill_stall_ms.summary(),
+            "finished_requests": self.finished_requests,
+            "preemptions": 0,
+            "migrations": {"out": 0, "in": 0,
+                           "migration_ms": StreamingHistogram().summary()},
+            "goodput": {
+                "useful_tokens": self.useful_tokens,
+                "wasted_token_lanes": max(self.computed_token_lanes - self.useful_tokens, 0),
+                "useful_fraction": (
+                    round(self.useful_tokens / self.computed_token_lanes, 4)
+                    if self.computed_token_lanes else None),
+                "goodput_tokens_per_sec": (
+                    round(self.useful_tokens / self._goodput_window_s, 1)
+                    if self._goodput_window_s else None),
+                "serving_mfu": (
+                    round(self._goodput_flops / (self._goodput_window_s * self._peak_flops), 6)
+                    if (self._peak_flops and self._goodput_window_s
+                        and self._fpt_decode is not None) else None),
+            },
+            **dict.fromkeys(_OFF_SECTIONS),
+            "memory": (None if not self._memory_on else {
+                "weight_bytes": self.weight_bytes,
+                "page_pool_bytes": self.page_pool_bytes,
+                "weight_dtype": self.weight_dtype,
+                "kv_dtype": self.kv_dtype,
+                "greedy_token_disagreements": self.greedy_token_disagreements,
+            }),
+            "kv_pages": (None if self.kv_pages_used is None else {
+                "used": self.kv_pages_used,
+                "capacity": self.kv_pages_capacity,
+                "peak_used": self.peak_kv_pages_used,
+                "allocs": self.kv_page_allocs,
+                "frees": self.kv_page_frees,
+            }),
+            "compile": None,
+            "latency": {
+                "queue_wait_ms": self.queue_wait_ms.summary(),
+                "ttft_ms": self.ttft_ms.summary(),
+                "itl_ms": self.itl_ms.summary(),
+            },
+        }
+
+    def histogram_dicts(self) -> dict:
+        """Full sparse bucket forms of the latency histograms
+        (``StreamingHistogram.to_dict``)."""
+        return {
+            "queue_wait_ms": self.queue_wait_ms.to_dict(),
+            "ttft_ms": self.ttft_ms.to_dict(),
+            "itl_ms": self.itl_ms.to_dict(),
+        }

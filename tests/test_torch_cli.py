@@ -158,6 +158,8 @@ def test_train_cli_sampling_flags(files, monkeypatch):
     seen = {}
 
     class FakeTrainer:
+        history = {}
+
         def __init__(self, cfg, device, sample_prompt_ids, decode_fn):
             seen.update(ids=sample_prompt_ids, decode=decode_fn)
 

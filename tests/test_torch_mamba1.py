@@ -432,8 +432,9 @@ def test_presets_flops_and_invalid_configs_match_jax():
     for f in dataclasses.fields(ModelConfig):
         assert getattr(t.model, f.name) == getattr(j.model, f.name), f.name
     for f in dataclasses.fields(t):
-        if f.name not in ("model", "mesh", "data"):
+        if f.name not in ("model", "mesh", "data", "telemetry"):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert dataclasses.asdict(t.telemetry) == dataclasses.asdict(j.telemetry)
     m = t.model
     assert (m.d_inner, m.effective_d_state, m.effective_dt_rank, m.d_conv,
             m.effective_prefill_chunk_tokens) == (1536, 16, 48, 4, 256)

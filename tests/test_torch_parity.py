@@ -113,10 +113,11 @@ def test_mamba2_mini_preset_equals_jax():
     jax_cfg = jax_get_preset("mamba2-mini")
     cfg = get_train_preset("mamba2-mini")
     assert cfg.model == get_preset("mamba2-mini")
-    for part, jpart in ((cfg.model, jax_cfg.model), (cfg, jax_cfg), (cfg.data, jax_cfg.data)):
+    for part, jpart in ((cfg.model, jax_cfg.model), (cfg, jax_cfg), (cfg.data, jax_cfg.data),
+                        (cfg.telemetry, jax_cfg.telemetry)):
         names = {f.name for f in dataclasses.fields(part)} & {
             f.name for f in dataclasses.fields(jpart)}
-        for name in names - {"model", "mesh", "data"}:
+        for name in names - {"model", "mesh", "data", "telemetry"}:
             assert getattr(part, name) == getattr(jpart, name), name
     assert (cfg.grad_accum_steps, cfg.model.vocab_size_padded) == (1, 50304)
 

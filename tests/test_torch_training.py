@@ -206,9 +206,10 @@ def test_schedule_and_decay_mask_match_jax(pair):
 def test_configs_flops_and_logger_match_jax(tmp_path):
     jt, tt = JaxTrainConfig(), TrainConfig()
     for f in dataclasses.fields(TrainConfig):
-        if f.name not in ("model", "mesh", "data"):
+        if f.name not in ("model", "mesh", "data", "telemetry"):
             assert getattr(tt, f.name) == getattr(jt, f.name), f.name
     assert dataclasses.asdict(tt.data) == dataclasses.asdict(jt.data)
+    assert dataclasses.asdict(tt.telemetry) == dataclasses.asdict(jt.telemetry)
     for name in ("mamba2-tiny", "mamba2-280m"):
         j, t = jax_get_preset(name), get_train_preset(name)
         assert (t.seq_len, t.micro_batch_size, t.total_batch_size, t.max_steps,
