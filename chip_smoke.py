@@ -87,6 +87,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    quantized and cast once and freed: the same requests, greedy stream
    equal to ``generate()``, no page leaked, the bf16 one-shot prefill
    against the chunked one, and peak memory printed beside the rest;
+3b. the engine's admission and occupancy features (``engine_features_
+   phase``, on the decode weights of the 280m runs above, full depth,
+   bf16 unless named, "pallas"): (a) the prefix-state cache on
+   mamba2-280m, hybrid-280m and int8 hybrid-280m, capacity 8: a
+   600-token preamble under four 100-token and two 356-token suffixes
+   and two repeats of the first prompt, on an engine warmed by that
+   prompt against a cache-off one: every stream bit for bit, 3 full
+   and 5 partial hits, fewer ``ssd_fwd`` and ``rpp_fwd`` launches warm,
+   on the hybrids at least one copy-on-write page copy, no page with
+   more than one holder written while shared, and the pages in use at
+   the end the cache's pins (0 after ``clear()``), TTFT p50 warm and
+   cold printed; (b) hybrid-280m at capacity 4: two priority-1 requests
+   arriving while four priority-0 ones decode preempt, reach their
+   first tokens before any priority-0 request finishes, every stream
+   equal to a uniform-priority engine's, no page leaked, swap-out and
+   swap-in ms printed; mamba2-280m's serving mix under
+   ``prefill_schedule`` "rr" and "srpt", streams equal, TTFT p50 side by
+   side; (c) compacted ticks on the three presets at capacity 8 over the
+   serving mix with budgets 64, 8, 16, 8, 32, 8, 16, 8 (greedy), on
+   against off: a stream may part only at a step whose full-width top-two
+   logit margin is within the bf16 tolerance, the hybrids must launch
+   ``rpa_fwd`` at widths below 8; bucket histogram, lanes saved and
+   device ms a tick by width beside the full tick at the same live
+   counts printed, with which widths of hybrid-280m's decode GEMMs give
+   other bits than the 8-row product and ``rpa_fwd``'s device ms with
+   its split rule pinned to the capacity against its own;
 4. eval and import (after serving, about a minute and a half): the
    HellaSwag scorer (``evaluate_hellaswag``) over
    ``tests/data/hellaswag_tiny.jsonl`` (16 examples, ``example_batch`` 8,
@@ -177,6 +203,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1230,7 +1257,8 @@ def serving_mix(cfg, new: int):
     return lens, prompts, requests
 
 
-def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) -> dict:
+def serve(preset: str, path_kernels: tuple[str, ...], params=None, keep_params: bool = False,
+          **overrides) -> dict:
     """Serve 8 requests on a full-width engine of ``preset`` (config
     fields ``overrides``, e.g. the int8 knobs); returns the run's launch
     counts, the greedy stream and the serving numbers.  Every kernel in
@@ -1238,7 +1266,8 @@ def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) 
     it.  ``params``: decode weights already cast for this config (the
     engine, ``generate()`` and the chunk step then share them, since a
     cast of cast weights returns the same tensors); by default fp32
-    masters are made here from a seeded generator."""
+    masters are made here from a seeded generator.  ``keep_params``
+    returns the run's decode weights under "params" too."""
     from mamba_distributed_tpu_torch.config import get_preset
     from mamba_distributed_tpu_torch.inference.generate import generate
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, init_lm_state
@@ -1347,10 +1376,12 @@ def serve(preset: str, path_kernels: tuple[str, ...], params=None, **overrides) 
                 streams=[r.new_tokens.tolist() for r in results],
                 tokens_per_s=n_tokens / wall, ttft_ms=ttft[len(ttft) // 2],
                 chunk_ms=chunk_ms, tick_ms=tick_ms, weight_bytes=param_bytes(dparams),
-                kv_bytes=kv_bytes, peak_gib=peak_gib)
+                kv_bytes=kv_bytes, peak_gib=peak_gib,
+                **({"params": dparams} if keep_params else {}))
 
 
-def serve_int8(bf16: dict, preset: str = "hybrid-280m", params=None) -> dict:
+def serve_int8(bf16: dict, preset: str = "hybrid-280m", params=None,
+               keep_params: bool = False) -> dict:
     """The int8 hybrid serving run of ``preset`` (int8 weights and int8 KV
     pages, the same requests; ``params`` as for ``serve``), against the
     bf16 run ``bf16`` of this call: the int8 branches of both paged
@@ -1359,7 +1390,7 @@ def serve_int8(bf16: dict, preset: str = "hybrid-280m", params=None) -> dict:
     by side."""
     card = smi()
     q8 = serve(preset, ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"), params=params,
-               kv_page_dtype="int8", serving_weight_dtype="int8")
+               keep_params=keep_params, kv_page_dtype="int8", serving_weight_dtype="int8")
     if q8["launches"]["ragged_decode"] or q8["launches"]["ragged_prefill"]:
         raise SystemExit(f"the int8 {preset} run launched a bf16 paged kernel")
     a, b = q8["greedy"], bf16["greedy"]
@@ -2616,6 +2647,456 @@ def telemetry_phase(card: str, served: dict) -> None:
     print(f"telemetry phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# ------------------------------------------------ engine features (phase 3b)
+
+FEATURE_INT8 = dict(kv_page_dtype="int8", serving_weight_dtype="int8")
+FEATURE_NEW = (64, 8, 16, 8, 32, 8, 16, 8)  # the compaction mix's budgets
+MARGIN_TOL = TOL[torch.bfloat16]  # a stream may part only at a near tie
+
+
+def feature_cfg(preset: str, **overrides):
+    from mamba_distributed_tpu_torch.config import get_preset
+
+    return get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", **overrides)
+
+
+def drive(eng, reqs, on_step=None) -> dict:
+    """Submit ``reqs`` at once and step ``eng`` to the end (``on_step``
+    after each step); returns the streams, the sorted TTFTs (ms) and the
+    run's launch counts, zeroed just before it."""
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    ids = [eng.submit(r) for r in reqs]
+    tracked = {t.request_id: t for t in eng.scheduler}
+    if on_step:
+        on_step()
+    while eng.pending:
+        eng.step()
+        if on_step:
+            on_step()
+    torch.cuda.synchronize()
+    return dict(streams=[eng.results[i].new_tokens.tolist() for i in ids],
+                ttft=sorted((tracked[i].t_first_token - tracked[i].t_submit) * 1e3 for i in ids),
+                launches={k: v for k, v in LAUNCHES.items() if v})
+
+
+def p50(xs):
+    return round(sorted(xs)[len(xs) // 2], 1)
+
+
+def page_bytes(eng, page: int) -> list:
+    return [t[:, page].clone() for t in eng.pool["state"]["attn_blocks"]]
+
+
+def shared_page_guard(eng, bad: list):
+    """A callback that holds every page with more than one holder to the
+    bytes it had when it became shared, while it stays shared: no slot
+    may write a page another holder reads."""
+    frozen = {}
+
+    def check():
+        pool = eng.page_pool
+        for p in list(frozen):
+            if pool.refcount(p) <= 1:
+                del frozen[p]
+            elif not all(torch.equal(a, b) for a, b in zip(page_bytes(eng, p), frozen[p])):
+                bad.append(p)
+                del frozen[p]
+        for p in range(1, pool.num_pages + 1):
+            if pool.refcount(p) > 1 and p not in frozen:
+                frozen[p] = page_bytes(eng, p)
+
+    return check
+
+
+def prefix_run(card: str, tag: str, dparams, cfg) -> None:
+    """Phase (a) on one preset: a 600-token preamble under four 100-token
+    suffixes (700 tokens), two 356-token ones (956: congruent mod the
+    256-token chunk, so they share the boundary keys; the deepest shared
+    boundary ends at 444, mid-page) and two repeats of the first prompt,
+    on a warm engine (the first prompt served once before) and a cold
+    one.  Every stream bit for bit; hybrids copy at least one page, keep
+    every shared page's bytes, and end with the cache's pins in use."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
+
+    gen = torch.Generator().manual_seed(3)
+    draw = lambda n: torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+    pre = draw(600)
+    tails = [draw(100) for _ in range(4)] + [draw(356) for _ in range(2)]
+    prompts = [np.concatenate([pre, t]) for t in tails] + [np.concatenate([pre, tails[0]])] * 2
+
+    def reqs():
+        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=32,
+                                  top_k=1 if i == 0 else 50, seed=i)
+                for i, p in enumerate(prompts)]
+
+    cold = drive(ServingEngine(dparams, cfg, capacity=8), reqs())
+    eng = ServingEngine(dparams, dataclasses.replace(cfg, prefix_cache_entries=64), capacity=8)
+    eng.run([GenerationRequest(prompt_ids=prompts[0].copy(), max_new_tokens=32, top_k=50,
+                               seed=100)])
+    m = eng.metrics
+    before = (m.prefix_full_hits, m.prefix_partial_hits, m.prefix_misses, m.prefix_saved_tokens)
+    bad, guard, probe = [], None, None
+    if eng.hybrid:
+        guard = shared_page_guard(eng, bad)
+        deep = next(e for e in eng.prefix_cache._entries.values() if e.kv_len == 444)
+        probe = deep.kv_pages[0]
+        probe_bytes = page_bytes(eng, probe)
+    warm = drive(eng, reqs(), guard)
+    full, part, miss, saved = (a - b for a, b in zip(
+        (m.prefix_full_hits, m.prefix_partial_hits, m.prefix_misses, m.prefix_saved_tokens),
+        before))
+    prefill = "ragged_prefill_int8" if cfg.kv_quantized else "ragged_prefill"
+    fails = []
+    if warm["streams"] != cold["streams"]:
+        fails.append("warm streams differ from cold ones")
+    if (full, part, miss) != (3, 5, 0):
+        fails.append(f"hits full {full}, partial {part}, misses {miss}: want 3, 5, 0")
+    for k in ("ssd_fwd",) + ((prefill,) if eng.hybrid else ()):
+        if not warm["launches"].get(k, 0) < cold["launches"].get(k, 0):
+            fails.append(f"warm {k} launches {warm['launches'].get(k)} not below cold "
+                         f"{cold['launches'].get(k)}")
+    line = (f"prefix cache {tag}: full hits {full}, partial {part}, misses {miss}, saved "
+            f"{saved} prompt tokens; TTFT p50 warm {p50(warm['ttft'])} ms, cold "
+            f"{p50(cold['ttft'])} ms; launches warm {warm['launches']}, cold "
+            f"{cold['launches']}; streams warm == cold: {warm['streams'] == cold['streams']}")
+    if eng.hybrid:
+        same = all(torch.equal(a, b) for a, b in zip(page_bytes(eng, probe), probe_bytes))
+        pinned = {p for e in eng.prefix_cache._entries.values() for p in e.kv_pages}
+        in_use = eng.page_pool.pages_in_use
+        eng.prefix_cache.clear()
+        line += (f"; CoW copies {eng.cow_copies}; shared page {probe} (boundary 444) bytes "
+                 f"equal before and after the sharers: {same}; shared pages written: {bad}; "
+                 f"pages in use at the end {in_use} (the cache pins {len(pinned)}), after "
+                 f"clear() {eng.page_pool.pages_in_use}")
+        if eng.cow_copies < 1 or not same or bad:
+            fails.append(f"CoW {eng.cow_copies}, probe page equal {same}, written {bad}")
+        if in_use != len(pinned) or eng.page_pool.pages_in_use:
+            fails.append("pages leaked")
+    print(f"{line} [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"prefix cache {tag}: {fails}")
+
+
+def preempt_run(card: str, dparams) -> None:
+    """Phase (b): hybrid-280m at capacity 4 with four priority-0 requests
+    (300-token prompts, 96 new tokens); once all four decode, two
+    priority-1 requests (100 tokens, 32 new) arrive and must preempt,
+    reach their first token before any priority-0 request finishes, and
+    every stream must equal a uniform-priority engine's."""
+    from mamba_distributed_tpu_torch.obs import SpanTracer
+    from mamba_distributed_tpu_torch.serving import (
+        GenerationRequest,
+        RequestStatus,
+        ServingEngine,
+    )
+
+    cfg = feature_cfg("hybrid-280m")
+    gen = torch.Generator().manual_seed(4)
+    spec = [(300, 96, 0)] * 4 + [(100, 32, 1)] * 2
+    prompts = [torch.randint(0, cfg.vocab_size, (t,), generator=gen).numpy() for t, _, _ in spec]
+
+    def reqs(prioritized: bool):
+        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=n,
+                                  top_k=1 if i == 0 else 50, seed=i,
+                                  priority=prio if prioritized else None)
+                for i, (p, (_, n, prio)) in enumerate(zip(prompts, spec))]
+
+    uniform = drive(ServingEngine(dparams, cfg, capacity=4), reqs(False))
+    tracer = SpanTracer(ring_len=8192)
+    eng = ServingEngine(dparams, cfg, capacity=4, tracer=tracer)
+    rs = reqs(True)
+    ids = [eng.submit(r) for r in rs[:4]]
+    while len(eng._slots) < 4 or any(t.status is not RequestStatus.DECODE
+                                     for t in eng._slots.values()):
+        eng.step()
+    ids += [eng.submit(r) for r in rs[4:]]
+    step, first, finish = 0, {}, {}
+    while eng.pending:
+        step += 1
+        for ev in eng.step():
+            first.setdefault(ev.request_id, step)
+            if ev.done:
+                finish[ev.request_id] = step
+    torch.cuda.synchronize()
+    streams = [eng.results[i].new_tokens.tolist() for i in ids]
+    spans = [r for r in tracer.ring_pull()["records"] if r.get("kind") == "span"]
+    swap = {n: [round(r["dur_ms"], 3) for r in spans if r["name"] == n]
+            for n in ("serving_preempt", "serving_resume")}
+    hi_first = max(first[i] for i in ids[4:])
+    lo_finish = min(finish[i] for i in ids[:4])
+    fails = []
+    if eng.metrics.preemptions < 1:
+        fails.append("no preemption")
+    if not hi_first < lo_finish:
+        fails.append(f"priority-1 first tokens by step {hi_first}, a priority-0 request "
+                     f"finished at step {lo_finish}")
+    if streams != uniform["streams"]:
+        fails.append("streams differ from the uniform-priority engine's")
+    if eng.page_pool.pages_in_use:
+        fails.append(f"{eng.page_pool.pages_in_use} pages leaked")
+    print(f"preemption hybrid-280m capacity 4: {eng.metrics.preemptions} preemptions; "
+          f"priority-1 first tokens by step {hi_first}, first priority-0 finish at step "
+          f"{lo_finish}; swap-out ms {swap['serving_preempt']}, swap-in ms "
+          f"{swap['serving_resume']}; streams == uniform-priority engine: "
+          f"{streams == uniform['streams']}; pages in use at the end "
+          f"{eng.page_pool.pages_in_use} [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"preemption: {fails}")
+
+
+def srpt_run(card: str, dparams) -> None:
+    """Phase (b), SRPT: mamba2-280m over the serving mix with
+    ``prefill_schedule`` "rr" and "srpt": TTFT p50 side by side, streams
+    equal."""
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+
+    runs = {}
+    for sched in ("rr", "srpt"):
+        cfg = feature_cfg("mamba2-280m", prefill_schedule=sched)
+        runs[sched] = drive(ServingEngine(dparams, cfg, capacity=8), serving_mix(cfg, 32)[2]())
+    same = runs["rr"]["streams"] == runs["srpt"]["streams"]
+    print(f"prefill schedule mamba2-280m: TTFT p50 rr {p50(runs['rr']['ttft'])} ms, srpt "
+          f"{p50(runs['srpt']['ttft'])} ms (all TTFTs rr {[round(x) for x in runs['rr']['ttft']]}"
+          f", srpt {[round(x) for x in runs['srpt']['ttft']]}); streams equal: {same} [{card}]",
+          flush=True)
+    if not same:
+        raise SystemExit("srpt streams differ from rr's")
+
+
+def timed_ticks(eng, log: list) -> None:
+    """Wrap the engine's two tick paths: each tick logs (lane width, live
+    slots, device ms between CUDA events around it, launches in it)."""
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+
+    full, compact = eng._tick, eng._compact_tick
+
+    def timed(fn, width, live, *args):
+        n0 = dict(LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(live, *args)
+        end.record()
+        end.synchronize()
+        log.append((width, len(live), start.elapsed_time(end),
+                    {k: LAUNCHES[k] - n0[k] for k in LAUNCHES if LAUNCHES[k] - n0[k]}))
+        return out
+
+    eng._tick = lambda live: timed(full, eng.capacity, live)
+    eng._compact_tick = lambda live, width: timed(compact, width, live, width)
+
+
+def greedy_margins(dparams, cfg, prompt, new: int, rows: int):
+    """The greedy tokens of ``prompt`` decoded at ``rows`` rows (as
+    ``generate(decode_rows=rows)`` decodes them, so the full-width
+    engine's stream) and the top-two logit margin before each token."""
+    from mamba_distributed_tpu_torch.inference.bucketing import (
+        next_pow2_bucket,
+        pad_to_bucket,
+        use_chunked_prefill,
+    )
+    from mamba_distributed_tpu_torch.inference.generate import (
+        _pad_rows,
+        top_k_sample,
+        vocab_pad_mask,
+    )
+    from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step
+    from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
+
+    t, hybrid = len(prompt), bool(cfg.attn_layer_idx)
+    ids = torch.as_tensor(prompt, dtype=torch.int64)[None]
+    with torch.no_grad():
+        if hybrid or use_chunked_prefill(t, cfg.effective_prefill_chunk_tokens):
+            logits, state = chunked_prefill(dparams, cfg, ids, max_len=t + new if hybrid else 0)
+        else:
+            padded, mask = pad_to_bucket(ids.cuda(), next_pow2_bucket(t))
+            logits, state = lm_prefill(dparams, cfg, padded, max_len=t + new, token_mask=mask)
+        state, logits = _pad_rows(state, logits, rows)
+        pad = vocab_pad_mask(cfg, "cuda")
+        ones = torch.ones((rows,), dtype=torch.int64, device="cuda")
+        u = torch.full((rows,), 0.5, device="cuda")
+        temp = torch.ones((rows,), device="cuda")
+        toks, margins = [], []
+        for i in range(new):
+            top2 = torch.topk((logits + pad)[0], 2).values
+            margins.append(float(top2[0] - top2[1]))
+            tok = top_k_sample(logits + pad, u, 1, temp, ones)
+            toks.append(int(tok[0]))
+            if i + 1 < new:
+                logits, state = lm_step(dparams, cfg, state, tok)
+    return toks, margins
+
+
+def compaction_run(card: str, tag: str, dparams, cfg) -> None:
+    """Phase (c) on one preset: the serving mix with budgets 64, 8, 16, 8,
+    32, 8, 16, 8 (occupancy falls from 8 to 1), every request greedy so a
+    stream that parts can be judged by its margin, compaction on against
+    off.  A stream that differs must part at a step where the full-width
+    run's top-two margin is within the bf16 tolerance; hybrids must
+    launch ``rpa_fwd`` at widths below 8."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
+    from mamba_distributed_tpu_torch.utils.metrics import ServingMetrics
+
+    _, prompts, _ = serving_mix(cfg, 1)
+
+    def reqs():
+        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=n, top_k=1, seed=i)
+                for i, (p, n) in enumerate(zip(prompts, FEATURE_NEW))]
+
+    logs, runs, engines = {}, {}, {}
+    for on in (False, True):
+        eng = ServingEngine(dparams, dataclasses.replace(cfg, tick_compaction=on), capacity=8,
+                            metrics=ServingMetrics(8))
+        logs[on] = []
+        timed_ticks(eng, logs[on])
+        runs[on], engines[on] = drive(eng, reqs()), eng
+    decode = "ragged_decode_int8" if cfg.kv_quantized else "ragged_decode"
+    fails, parted = [], []
+    for i, (a, b) in enumerate(zip(runs[False]["streams"], runs[True]["streams"])):
+        if a == b:
+            continue
+        k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        toks, margins = greedy_margins(dparams, cfg, prompts[i], FEATURE_NEW[i], 8)
+        parted.append((i, k, round(margins[k], 5)))
+        if toks != a:
+            fails.append(f"request {i}: the full-width reference does not reproduce its stream")
+        elif margins[k] > MARGIN_TOL:
+            fails.append(f"request {i} parts at step {k} with margin {margins[k]:.5f}")
+    by_width = collections.defaultdict(list)
+    full_at = collections.defaultdict(list)
+    for width, live, ms, _ in logs[True]:
+        by_width[width].append((live, ms))
+    for _, live, ms, _ in logs[False]:
+        full_at[live].append(ms)
+    timing = {}
+    for width, entries in sorted(by_width.items()):
+        lives = sorted({live for live, _ in entries})
+        ref = [ms for live in lives for ms in full_at.get(live, [])]
+        timing[width] = (round(sum(ms for _, ms in entries) / len(entries), 3),
+                         round(sum(ref) / len(ref), 3) if ref else None, lives)
+    narrow_rpa = sum(l.get(decode, 0) for w, _, _, l in logs[True] if w < 8)
+    if engines[True].hybrid and not narrow_rpa:
+        fails.append(f"no {decode} launch at a width below 8")
+    comp = engines[True].metrics.summary()["compaction"]
+    print(f"compaction {tag}: streams equal {len(prompts) - len(parted)} of {len(prompts)}; "
+          f"parted (request, first step, full-width top-two margin) {parted}; bucket histogram "
+          f"{comp['bucket_histogram']}, lanes saved {comp['lanes_saved']}; device ms a tick by "
+          f"width (compacted, full tick at the same live counts, live counts) {timing}; "
+          f"{decode} launches on {runs[True]['launches'].get(decode, 0)} (at widths below 8: "
+          f"{narrow_rpa}), off {runs[False]['launches'].get(decode, 0)} [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"compaction {tag}: {fails}")
+
+
+ROW_TRIALS = 32  # random 8-row batches a row-count probe takes
+
+
+def compaction_kernels(card: str, dparams, cfg) -> None:
+    """What the row count does on the card: each of hybrid-280m's decode
+    GEMMs (bf16, through ``models/common.linear`` and the LM head) and
+    the other row-wise ops of its Mamba-2 decode step (the norms, the
+    conv update, the SSM update) over ``ROW_TRIALS`` random 8-row batches:
+    how many rows of the first 1, 2 and 4 rows, called alone, differ from
+    the same rows of the 8-row call; and ``rpa_fwd`` at 2 and 4 rows with
+    its split rule pinned to 8 rows (the compacted tick's) against its
+    own, device ms each."""
+    from mamba_distributed_tpu_torch.models.common import linear
+    from mamba_distributed_tpu_torch.models.lm import _head_logits
+    from mamba_distributed_tpu_torch.ops.conv import causal_conv1d_update
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+    from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm_gated
+    from mamba_distributed_tpu_torch.ops.ssd import ssd_state_update
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    blocks, attn = dparams["blocks"], dparams["attn_blocks"]
+    mix = {k: v[0] for k, v in blocks["mixer"].items() if not isinstance(v, dict)}
+    conv = blocks["mixer"]["conv"]
+    layer = lambda p: {k: v[0] for k, v in p.items()}
+    nh, hp, ns, cd = cfg.nheads, cfg.headdim, cfg.effective_d_state, conv["kernel"].shape[1]
+    bf = torch.bfloat16
+    rnd = lambda *shape, dtype=torch.float32: torch.randn(
+        shape, generator=gen, device="cuda").to(dtype)
+    # name -> (the op, the shapes and dtypes of its row-major inputs)
+    sites = {
+        "mamba in_proj": (lambda x: linear(layer(blocks["mixer"]["in_proj"]), x, bf),
+                          [((cfg.d_model,), bf)]),
+        "mamba out_proj": (lambda x: linear(layer(blocks["mixer"]["out_proj"]), x, bf),
+                           [((cfg.d_inner,), bf)]),
+        "attention wqkv": (lambda x: linear(layer(attn["mixer"]["wqkv"]), x, bf),
+                           [((cfg.d_model,), bf)]),
+        "attention out_proj": (lambda x: linear(layer(attn["mixer"]["out_proj"]), x, bf),
+                               [((cfg.d_model,), bf)]),
+        "head": (lambda x: _head_logits(dparams, cfg, x), [((cfg.d_model,), bf)]),
+        "add_rms_norm": (lambda h, r: add_rms_norm(h, r, blocks["norm"]["weight"][0]),
+                         [((cfg.d_model,), bf), ((cfg.d_model,), torch.float32)]),
+        "rms_norm_gated": (lambda y, z: rms_norm_gated(y, z, blocks["mixer"]["norm"]["weight"][0]),
+                           [((cfg.d_inner,), bf), ((cfg.d_inner,), bf)]),
+        "causal_conv1d_update": (
+            lambda xt, st: causal_conv1d_update(xt, st.clone(), conv["kernel"][0],
+                                                conv.get("bias", [None])[0]),
+            [((cd,), bf), ((cfg.d_conv - 1, cd), bf)]),
+        "ssd_state_update": (
+            lambda st, xt, dt, bt, ct: ssd_state_update(
+                st, xt, dt, -torch.exp(mix["A_log"].float()), bt, ct, mix.get("D"),
+                dt_bias=mix["dt_bias"]),
+            [((nh, hp, ns), torch.float32), ((nh, hp), bf), ((nh,), torch.float32),
+             ((cfg.ngroups, ns), bf), ((cfg.ngroups, ns), bf)]),
+    }
+    flat = lambda out: out if isinstance(out, tuple) else (out,)
+    rows = {}
+    with torch.no_grad():
+        for name, (fn, shapes) in sites.items():
+            differ = {1: 0, 2: 0, 4: 0}
+            for _ in range(ROW_TRIALS):
+                inputs = [rnd(8, *shape, dtype=dtype) for shape, dtype in shapes]
+                ref = flat(fn(*inputs))
+                for w in differ:
+                    got = flat(fn(*(t[:w] for t in inputs)))
+                    differ[w] += sum(not all(torch.equal(a[r], b[r]) for a, b in zip(got, ref))
+                                     for r in range(w))
+            rows[name] = differ
+    split = {}
+    lens = [700, 300, 956, 120]
+    for w in (2, 4):
+        args = rpa_case(gen, w, 12, 4, 64, 64, 16, lens[:w], torch.bfloat16, False)
+        pinned = sum(device_ms(lambda: ak.ragged_paged_decode_attention(
+            *args, split_rows=8)).values())
+        own = sum(device_ms(lambda: ak.ragged_paged_decode_attention(*args)).values())
+        same = torch.equal(ak.ragged_paged_decode_attention(*args, split_rows=8),
+                           ak.ragged_paged_decode_attention(*args))
+        split[w] = (round(pinned, 4), round(own, 4), ak.rpa_splits(8, 4, 16),
+                    ak.rpa_splits(w, 4, 16), same)
+    print(f"compaction rows on the card, hybrid-280m bf16: rows that differ from the 8-row "
+          f"call's over {ROW_TRIALS} random batches (of {ROW_TRIALS}, {2 * ROW_TRIALS} and "
+          f"{4 * ROW_TRIALS} rows at widths 1, 2, 4) {rows}; rpa_fwd device ms at (lanes: split "
+          f"pinned to 8 rows, own split, splits pinned, splits own, outputs equal) {split} "
+          f"[{card}]", flush=True)
+
+
+def engine_features_phase(card: str, params: dict) -> None:
+    """The admission and occupancy features on the card at full width and
+    depth (phase 3b), on the decode weights the serving phase cast
+    (``params``: preset tag -> weights): the prefix cache (a), priorities,
+    preemption and SRPT grants (b), compacted ticks (c)."""
+    t0 = time.perf_counter()
+    presets = (("mamba2-280m", "mamba2-280m", {}), ("hybrid-280m", "hybrid-280m", {}),
+               ("hybrid-280m int8", "hybrid-280m", FEATURE_INT8))
+    for tag, preset, over in presets:
+        prefix_run(card, tag, params[tag], feature_cfg(preset, **over))
+    preempt_run(card, params["hybrid-280m"])
+    srpt_run(card, params["mamba2-280m"])
+    compaction_kernels(card, params["hybrid-280m"], feature_cfg("hybrid-280m"))
+    for tag, preset, over in presets:
+        compaction_run(card, tag, params[tag], feature_cfg(preset, **over))
+    print(f"engine features phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2686,13 +3167,18 @@ def main() -> int:
     check_7b_shapes(gen, {r["name"]: r for r in rows})
     if not args.kernels_only:
         card = smi()
-        ssd_serve = serve("mamba2-280m", ("ssd_fwd",))
+        ssd_serve = serve("mamba2-280m", ("ssd_fwd",), keep_params=True)
         ssd_launches = ssd_serve["launches"]
-        hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"))
+        hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"),
+                       keep_params=True)
         launches = hybrid["launches"]
-        q8 = serve_int8(hybrid)
+        q8 = serve_int8(hybrid, keep_params=True)
         q8_launches = q8["launches"]
         m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
+        # the admission and occupancy features on the weights cast above
+        engine_features_phase(card, {"mamba2-280m": ssd_serve.pop("params"),
+                                     "hybrid-280m": hybrid.pop("params"),
+                                     "hybrid-280m int8": q8.pop("params")})
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()
         torch.cuda.empty_cache()

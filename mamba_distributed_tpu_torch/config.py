@@ -122,6 +122,35 @@ class ModelConfig:
     # max prefill-chunk tokens dispatched between two decode ticks
     # (serving/engine.py); 0 => unbounded
     prefill_tokens_per_tick: int = 512
+    # how the chunk budget is shared across concurrent partial prefills:
+    # "rr" rotates one chunk at a time in admission order; "srpt" grants
+    # the prompt with the fewest remaining chunks first, with a
+    # starvation guard (serving/engine._pick_prefill_slot)
+    prefill_schedule: str = "rr"
+
+    # --- prefix-state cache and priorities (serving/prefix_cache.py,
+    # serving/engine.py) ---
+    # entry cap of the prefix-state cache (chunk-boundary carries and
+    # full-prompt state + logits, keyed by the prompt's layout hash);
+    # 0 turns the cache off.  Hybrid entries pin KV pages of one engine
+    prefix_cache_entries: int = 0
+    # byte cap over the cached carries, logits and pinned KV page bytes;
+    # 0 => the entry cap only
+    prefix_cache_bytes: int = 0
+    # misses a prefix must collect before its snapshot is stored
+    prefix_min_chunk_hits: int = 1
+    # priority of a request whose ``priority`` is None (higher wins); a
+    # queued request that outranks a decoding slot preempts it when no
+    # slot is free
+    serving_default_priority: int = 0
+
+    # --- occupancy-adaptive compacted ticks (serving/engine.py) ---
+    # gather the decodable slots into a pow2 lane bucket, run the tick at
+    # that width and scatter the rows back; False is the full-width tick
+    tick_compaction: bool = False
+    # ticks of lower occupancy the lane bucket waits before it shrinks
+    # (it grows at once); 0 shrinks at once
+    compaction_hysteresis_ticks: int = 4
 
     # --- paged attention KV cache (hybrid stacks; models/attention.py,
     # serving/state_cache.py) ---
@@ -207,6 +236,32 @@ class ModelConfig:
             raise ValueError(
                 f"prefill_tokens_per_tick must be >= 0 (0 => unbounded), "
                 f"got {self.prefill_tokens_per_tick}"
+            )
+        if self.prefill_schedule not in ("rr", "srpt"):
+            raise ValueError(
+                f"prefill_schedule must be 'rr' or 'srpt', got "
+                f"{self.prefill_schedule!r}"
+            )
+        if self.compaction_hysteresis_ticks < 0:
+            raise ValueError(
+                f"compaction_hysteresis_ticks must be >= 0 (0 shrinks the "
+                f"lane bucket immediately), got "
+                f"{self.compaction_hysteresis_ticks}"
+            )
+        if self.prefix_cache_entries < 0:
+            raise ValueError(
+                f"prefix_cache_entries must be >= 0 (0 disables the "
+                f"prefix-state cache), got {self.prefix_cache_entries}"
+            )
+        if self.prefix_cache_bytes < 0:
+            raise ValueError(
+                f"prefix_cache_bytes must be >= 0 (0 => entry cap only), "
+                f"got {self.prefix_cache_bytes}"
+            )
+        if self.prefix_min_chunk_hits < 1:
+            raise ValueError(
+                f"prefix_min_chunk_hits must be >= 1 (store on first "
+                f"sight), got {self.prefix_min_chunk_hits}"
             )
         if self.attn_impl not in ("auto", "xla", "pallas"):
             raise ValueError(

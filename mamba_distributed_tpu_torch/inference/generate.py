@@ -171,7 +171,7 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
              max_new_tokens: int = 32, top_k: int = 50,
              temperature: float = 1.0, eos_id: int | None = None,
              length_bucketing: bool = True,
-             decode_rows: int | None = None) -> torch.Tensor:
+             decode_rows: int | None = None, prefix_cache=None) -> torch.Tensor:
     """prompt_ids (b, t) -> (b, t + max_new_tokens) tokens, on the
     device of ``params`` (fp32 masters, decode-cast here).
 
@@ -184,7 +184,17 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     prefill one-shot and unpadded through the full-sequence attention,
     their K/V packed into a private paged cache of capacity ``t +
     max_new_tokens``, as the JAX ``_generate_impl`` does.
-    ``decode_rows`` pads the decode batch (see the module docstring)."""
+    ``decode_rows`` pads the decode batch (see the module docstring).
+
+    ``prefix_cache`` (a serving/prefix_cache.PrefixCache; pure-SSM,
+    batch 1) reuses carry snapshots: an exact-prompt full hit skips the
+    prefill (one-shot and chunked layouts), a chunked partial hit
+    resumes at the first uncached chunk, and chunked prefills store
+    their boundaries back.  A cache an engine warmed serves here too
+    (same keys and layouts).  The one-shot path only looks up, as the
+    JAX package's does, so hit and miss counts match on a shared cache.
+    Hybrid configs ignore the cache (their entries pin an engine's
+    pages)."""
     emb = params["embedding"]
     dev = (emb["kernel"] if isinstance(emb, dict) else emb).device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
@@ -205,7 +215,15 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
         from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
 
         logits, state = chunked_prefill(dparams, cfg, prompt.cpu(),
-                                        max_len=t + max_new_tokens if hybrid else 0)
+                                        max_len=t + max_new_tokens if hybrid else 0,
+                                        prefix_cache=None if hybrid else prefix_cache)
+    elif (prefix_cache is not None and not hybrid and b == 1 and length_bucketing
+          and (hit := prefix_cache.lookup(prompt[0].cpu().numpy(), None)) is not None):
+        # one-shot full hit: decode from a clone (the decode writes its
+        # state in place) of the snapshot an engine's admission stored
+        entry = hit[0]
+        logits = entry.logits
+        state = {"blocks": tuple(x.clone() for x in entry.state["blocks"])}
     else:
         if length_bucketing and not hybrid:
             ids, mask = pad_to_bucket(prompt, next_pow2_bucket(t))

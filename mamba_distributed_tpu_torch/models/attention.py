@@ -231,7 +231,8 @@ def pack_attention_pages(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 
 def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
                          page_table: torch.Tensor, lengths: torch.Tensor,
-                         write_mask: torch.Tensor | None = None):
+                         write_mask: torch.Tensor | None = None,
+                         split_rows: int | None = None):
     """Single-token decode against the paged KV cache: write, then attend.
 
     u_t (b, d); kv = (k_pages, v_pages), or the int8 4-tuple with the
@@ -239,8 +240,10 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
     this step (the new token lands at cache position ``lengths[r]``).
     ``write_mask`` (b,) bool sends masked rows' writes to the trash page
     (how the serving tick keeps dead, done and prefilling slots off live
-    pages).  An int8 write is page-granular (``_qwrite``).  The pages
-    (and scales) are written IN PLACE.  Returns (y (b, d), kv)."""
+    pages).  An int8 write is page-granular (``_qwrite``).
+    ``split_rows`` pins the card decode's split rule to that row count
+    (``ragged_paged_decode_attention``).  The pages (and scales) are
+    written IN PLACE.  Returns (y (b, d), kv)."""
     nh, nkv, hd, rot = _attn_dims(cfg)
     b = u_t.shape[0]
     cd = cfg.torch_compute_dtype
@@ -272,9 +275,12 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
 
     # tokens readable after the write
     kv_len = (lengths + 1).clamp(max=W * pg).to(torch.int32)
-    attend = (ragged_paged_decode_attention_plain if cfg.attn_impl == "xla"
-              else ragged_paged_decode_attention)
-    out = attend(q[:, 0], k_pages, v_pages, page_table, kv_len, *scales)
+    if cfg.attn_impl == "xla":
+        out = ragged_paged_decode_attention_plain(q[:, 0], k_pages, v_pages, page_table,
+                                                  kv_len, *scales)
+    else:
+        out = ragged_paged_decode_attention(q[:, 0], k_pages, v_pages, page_table, kv_len,
+                                            *scales, split_rows=split_rows)
     y = linear(params["out_proj"], out.reshape(b, nh * hd), cd)
     return y, kv
 

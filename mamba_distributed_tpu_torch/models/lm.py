@@ -573,7 +573,7 @@ def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None)
     """One decode-step block; its state ``st`` is updated in place.  A
     Mamba block's ``st`` is ``(conv, ssm)``; an attention block's is
     ``(k_pages, v_pages)`` (int8: with ``k_scale, v_scale``) and
-    ``attn_ctx = (page_table, lengths, write_mask)``."""
+    ``attn_ctx = (page_table, lengths, write_mask, split_rows)``."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm"]["weight"],
                                     cfg.norm_eps)
     if attn_ctx is not None:
@@ -591,7 +591,7 @@ def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None)
 
 
 def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
-            write_mask: torch.Tensor | None = None):
+            write_mask: torch.Tensor | None = None, split_rows: int | None = None):
     """One decode step: token (b,) -> (logits (b, V) fp32, state).
 
     The state is updated IN PLACE (each layer's conv cache and SSM state,
@@ -600,7 +600,8 @@ def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
     functional update would copy all of it every token.  A hybrid's
     ``lengths`` advance by one per row (by ``write_mask`` when given: its
     masked rows write the trash page and keep their length) in a new
-    ``attn_meta`` of the returned state dict."""
+    ``attn_meta`` of the returned state dict.  ``split_rows`` pins the
+    paged decode's split rule (``models/attention.attention_mixer_step``)."""
     cd = cfg.torch_compute_dtype
     hidden = _embed(params, token, cd)
     residual = torch.zeros_like(hidden, dtype=torch.float32)
@@ -610,7 +611,7 @@ def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
         ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
         kv_all = state["attn_blocks"]
         tbl, lengths = state["attn_meta"]
-        attn_ctx = (tbl, lengths, write_mask)
+        attn_ctx = (tbl, lengths, write_mask, split_rows)
     for attn, j in _layer_plan(cfg):
         if attn:
             hidden, residual = _block_step(ablocks[j], cfg, hidden, residual,

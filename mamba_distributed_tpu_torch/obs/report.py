@@ -5,10 +5,12 @@ any mix of ``events.jsonl``, ``metrics.jsonl`` and a ``ServingMetrics``
 stream) into the sections of the JAX package's ``scripts/obs_report.py``
 that the port's records feed, with the same keys and rounding: ``spans``
 (per-name totals and the share of top-level time), ``train``/``val``,
-``serving`` (ticks, decode tokens/s, goodput, the hybrid page gauges,
-the int8 memory stamp) and ``requests`` (exact nearest-rank percentiles
-of queue-wait, TTFT and end-to-end latency, and the per-request ITL
-histograms merged into one).
+``serving`` (ticks, decode tokens/s, goodput, the prefix cache's hit
+counters, the compacted ticks' widths, preemptions, the hybrid page
+gauges, the int8 memory stamp) and ``requests`` (exact nearest-rank
+percentiles of queue-wait, TTFT and end-to-end latency, TTFT split by
+prefix-cache outcome, and the per-request ITL histograms merged into
+one).
 """
 
 from __future__ import annotations
@@ -98,6 +100,30 @@ def _serving(ticks: list[dict]) -> dict:
             "allocs": sum(e.get("kv_page_allocs", 0) for e in kv_ticks),
             "frees": sum(e.get("kv_page_frees", 0) for e in kv_ticks),
         }
+    pticks = [e for e in ticks if e.get("prefix_hits") is not None]
+    prefix = None
+    if pticks:
+        hits = sum(e["prefix_hits"] for e in pticks)
+        misses = sum(e.get("prefix_misses", 0) for e in pticks)
+        prefix = {
+            "hits": hits,
+            "misses": misses,
+            "hit_rate": round(hits / (hits + misses), 4) if hits + misses else None,
+            "saved_prefill_tokens": sum(e.get("prefix_saved_tokens", 0) for e in pticks),
+            "entries": pticks[-1].get("prefix_cache_entries"),
+            "bytes": pticks[-1].get("prefix_cache_bytes"),
+        }
+    cticks = [e for e in ticks if e.get("compaction_width") is not None]
+    compaction = None
+    if cticks:
+        widths = [e["compaction_width"] for e in cticks]
+        compaction = {
+            "ticks": len(cticks),
+            "ticks_compacted": sum(1 for e in cticks if e.get("capacity")
+                                   and e["compaction_width"] < e["capacity"]),
+            "mean_width": round(sum(widths) / len(widths), 2),
+            "min_width": min(widths),
+        }
     qticks = [e for e in ticks if e.get("quantized") is not None]
     memory = None
     if qticks:
@@ -117,6 +143,9 @@ def _serving(ticks: list[dict]) -> dict:
             round(chunk_tokens / (chunk_total_ms / 1000), 1)
             if chunk_tokens and chunk_total_ms else None),
         "goodput": _goodput(ticks),
+        "prefix_cache": prefix,
+        "compaction": compaction,
+        "preemptions": sum(e.get("preemptions", 0) for e in ticks),
         "kv_pages": kv_pages,
         "memory": memory,
     }
@@ -133,7 +162,7 @@ def _requests(reqs: list[dict]) -> dict:
     for e in reqs:
         reason = e.get("finish_reason") or "?"
         finish[reason] = finish.get(reason, 0) + 1
-    return {
+    out = {
         "count": len(reqs),
         "finish_reasons": finish,
         "prompt_tokens": sum(col("prompt_tokens")),
@@ -143,6 +172,12 @@ def _requests(reqs: list[dict]) -> dict:
         "e2e_ms": pcts(col("e2e_ms")),
         "itl_ms": itl.summary() if itl is not None else None,
     }
+    if stamped := [e for e in reqs if "prefix_hit" in e]:
+        # a cache-on engine stamps each request with its lookup outcome
+        timed = [e for e in stamped if e.get("ttft_ms") is not None]
+        out["ttft_hit_ms"] = pcts([e["ttft_ms"] for e in timed if e["prefix_hit"]])
+        out["ttft_miss_ms"] = pcts([e["ttft_ms"] for e in timed if not e["prefix_hit"]])
+    return out
 
 
 def build_report(events: list[dict]) -> dict:

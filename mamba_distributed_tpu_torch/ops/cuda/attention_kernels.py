@@ -301,7 +301,8 @@ def _ptr(t) -> int | None:
 
 
 def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
-                                  k_scale=None, v_scale=None, *, lib=None):
+                                  k_scale=None, v_scale=None, *, lib=None,
+                                  split_rows: int | None = None):
     """Paged decode attention with per-row lengths (the JAX contract).
 
     q (S, nh, hd) one query token per slot; k_pages/v_pages (P, nkv, pg,
@@ -310,7 +311,11 @@ def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
     and ``v_scale`` (P, nkv) fp32.  Returns (S, nh, hd) in q's dtype;
     rows with ``kv_len == 0`` are zeros.  ``lib``: another build of
     ``ragged_paged_attention.cu`` (through ``declare``) to launch instead
-    of the package's."""
+    of the package's.  ``split_rows``: the row count whose split rule
+    cuts each row's pages (None: the launch's own S).  A row's result
+    depends on its split count only, so a launch over some of a batch's
+    rows that passes the batch's S computes what the batch's launch
+    computes for them (the serving engine's compacted tick)."""
     if not use_kernel("pallas", q):
         return ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len,
                                                    k_scale, v_scale)
@@ -320,7 +325,7 @@ def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
         name, q, k_pages, v_pages, page_table, [("kv_len", kv_len)], nh,
         [("k_scale", k_scale), ("v_scale", v_scale)], lib)
     out = torch.empty((S, nh, hd), dtype=q.dtype, device=q.device)
-    splits = rpa_splits(S, nkv, W)
+    splits = rpa_splits(S if split_rows is None else split_rows, nkv, W)
     part = torch.empty(splits * S * nh * (hd + 2), dtype=torch.float32, device=q.device)
     err = lib.mdt_rpa_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),

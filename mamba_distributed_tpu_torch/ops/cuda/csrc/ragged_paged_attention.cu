@@ -1128,21 +1128,27 @@ extern "C" int mdt_rpa_splits(int S, int nkv, int W) { return rpa_splits(S, nkv,
 // bfloat16 (q, chunk K/V, output); page_dtype: the same code as dtype, or
 // 2 = int8, which takes the scale pointers (null for the other pages).
 // The decode also takes its fp32 workspace, splits * S * nh * (hd + 2)
-// floats (unused with one split), and the split count it was sized for
-// (refused unless it is mdt_rpa_splits').  It launches the walk, then,
-// with more than one split, the combine.
+// floats (unused with one split), and the split count it was sized for:
+// the rule's (mdt_rpa_splits) for S rows, or for another row count (the
+// serving engine's compacted tick passes its capacity's, so each row of a
+// narrow launch is split, and so summed, as in the full one).  It is
+// refused unless it cuts the W pages into ranges of whole pages with none
+// empty.  It launches the walk, then, with more than one split, the
+// combine.
 extern "C" int mdt_rpa_fwd(const void* q, const void* k_pages, const void* v_pages,
                            const int* table, const int* kv_len, const float* k_scale,
                            const float* v_scale, void* out, float* part, int S,
                            int nh, int nkv, int hd, int pg, int W, int splits, long long q_ss,
                            long long q_sh, float sm_scale, int dtype, int page_dtype,
                            void* stream) {
+  const int pps = splits > 0 ? (W + splits - 1) / splits : 0;  // pages a range
   if (!shape_ok(nh, nkv, hd, pg) || S < 1 || W < 1 ||
-      (k_scale == nullptr) != (v_scale == nullptr) || splits != rpa_splits(S, nkv, W))
+      (k_scale == nullptr) != (v_scale == nullptr) || splits < 1 || splits > W ||
+      (W + pps - 1) / pps != splits)
     return (int)cudaErrorInvalidValue;
   DecodeParams p{q,        k_pages, v_pages, table, kv_len,  out,   S,    nh,
                  nkv,      hd,      pg,      W,     q_ss,    q_sh,  sm_scale,
-                 k_scale,  v_scale, part,    rpa_split_pages(S, nkv, W), splits};
+                 k_scale,  v_scale, part,    pps,   splits};
   return (int)dispatch<Decode>(p, S, dtype, page_dtype, k_scale != nullptr,
                                static_cast<cudaStream_t>(stream));
 }

@@ -217,6 +217,10 @@ def ssd_state_update(ssm_state, x_t, dt_t, A, B_t, C_t, D=None, dt_bias=None,
     else:
         s = torch.mul(ssm_state, decay[:, :, None, None], out=out)
         s.add_(dBx)
-    y = torch.einsum("bhpn,bhn->bhp", s, Ch)
+    # a product and a reduction over n rather than a batched GEMM: the
+    # GEMM's kernel (and so its summation order) follows the batch count
+    # b * h on the card, and a row's y must not depend on how many rows
+    # share the launch (the serving engine's compacted tick)
+    y = (s * Ch[:, :, None, :]).sum(-1)
     y = _add_D(y[:, None], x_t[:, None], D)[:, 0]
     return y.to(x_t.dtype), s

@@ -1,7 +1,8 @@
-"""Serving core of the port: slot pool, FCFS scheduler, chunked prefill
-and the continuous-batching engine."""
+"""Serving core of the port: slot pool, priority-FCFS scheduler, chunked
+prefill, the prefix-state cache and the continuous-batching engine."""
 
 from mamba_distributed_tpu_torch.serving.engine import ServingEngine
+from mamba_distributed_tpu_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from mamba_distributed_tpu_torch.serving.scheduler import (
     GenerationRequest,
     GenerationResult,
@@ -9,5 +10,5 @@ from mamba_distributed_tpu_torch.serving.scheduler import (
     TokenEvent,
 )
 
-__all__ = ["GenerationRequest", "GenerationResult", "RequestStatus",
-           "ServingEngine", "TokenEvent"]
+__all__ = ["GenerationRequest", "GenerationResult", "PrefixCache", "PrefixEntry",
+           "RequestStatus", "ServingEngine", "TokenEvent"]

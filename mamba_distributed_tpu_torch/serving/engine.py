@@ -1,12 +1,13 @@
 """Continuous-batching serving engine over the pooled recurrent-state cache
 (counterpart of the core of ``mamba_distributed_tpu/serving/engine.py``).
 
-Each ``step()`` first admits queued requests into free slots (FCFS):
-prompts up to ``cfg.effective_prefill_chunk_tokens`` prefill one-shot
-over their pow2 bucket right there; longer ones park a zero carry in
-their slot and prefill chunk by chunk, at most
-``prefill_tokens_per_tick`` chunk tokens per step (at least one chunk),
-round-robin across concurrent long prompts.
+Each ``step()`` first admits queued requests into free slots (highest
+priority first, FCFS within a class): prompts up to
+``cfg.effective_prefill_chunk_tokens`` prefill one-shot over their pow2
+bucket right there; longer ones park a zero carry in their slot and
+prefill chunk by chunk, at most ``prefill_tokens_per_tick`` chunk tokens
+per step (at least one chunk), round-robin (or SRPT) across concurrent
+long prompts.
 
 Hybrid stacks (attention layers over a paged KV cache) prefill EVERY
 prompt chunk by chunk, straight into the shared page pool.  Admission
@@ -49,9 +50,37 @@ reads host clocks and host arrays the loop already has: the
 ``serving_tick`` span encloses the tick's one host fetch, so it covers
 the device work, and no telemetry adds a launch or a sync.
 
-Left out of the port for now: prefix cache and copy-on-write pages,
-adapters, speculative decoding, preemption and priorities, migration,
-tick compaction, meshes and sharded page pools.
+Admission and occupancy (the JAX engine's layer of the same name):
+
+* **Prefix-state cache** (``prefix_cache=`` or ``cfg.prefix_cache_
+  entries > 0``; serving/prefix_cache.py).  Admission peeks the longest
+  cached chunk-aligned prefix of the prompt and commits the lookup only
+  once a slot is secured.  A full hit inserts the cached state and
+  logits (no prefill); a partial hit seeds the carry and chunking
+  resumes at the first uncached chunk.  Hybrid hits share the prefix's
+  whole KV pages read-only (refcounted) and copy the partial boundary
+  page into a page of their own (copy-on-write).  When the cache stores
+  a boundary that ends mid-page, it pins a frozen copy of that page, not
+  the owner's live one: the owner goes on appending to its page, and an
+  int8 append requantizes the page's earlier rows, which would change
+  what a sharer reads.  So no slot ever writes a page another holder
+  has.  Admission short of pages evicts page-pinning entries first.
+* **Priorities and preemption** (``GenerationRequest.priority``,
+  ``cfg.serving_default_priority``).  The queue pops the highest
+  priority first; when its best request outranks a decoding slot and no
+  slot is free, the lowest-priority victim swaps its carry and last
+  logits to host memory, keeps its page refs and requeues; its resume
+  (``state_cache.restore``) continues the stream bit for bit.
+* **SRPT prefill grants** (``cfg.prefill_schedule="srpt"``): the chunk
+  budget goes to the prefill with the fewest chunks left, except that a
+  slot passed over ``SRPT_STARVATION_GRANTS`` times in a row goes first.
+* **Compacted ticks** (``cfg.tick_compaction``): the tick gathers the
+  decodable slots into a pow2 lane bucket (grown at once, shrunk after
+  ``cfg.compaction_hysteresis_ticks``), runs the same sub-step loop at
+  that width and scatters the rows back (``_compact_tick``).
+
+Left out of the port for now: adapters, speculative decoding, sessions'
+parking, migration, meshes and sharded page pools.
 """
 
 from __future__ import annotations
@@ -77,7 +106,9 @@ from mamba_distributed_tpu_torch.models.lm import (
 from mamba_distributed_tpu_torch.obs import NULL_TRACER, StreamingHistogram
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.ops.quant import param_bytes
+from mamba_distributed_tpu_torch.serving import prefix_cache as prefix_cache_mod
 from mamba_distributed_tpu_torch.serving import state_cache
+from mamba_distributed_tpu_torch.serving.prefix_cache import PrefixCache
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
     chunk_inputs,
@@ -103,7 +134,7 @@ def _to_device(tree, device):
 
 
 class ServingEngine:
-    """Continuous-batching host loop: FCFS admission -> ticks.
+    """Continuous-batching host loop: priority-FCFS admission -> ticks.
 
     Args:
       params: fp32 master params (``models/lm.init_lm_params`` layout),
@@ -122,13 +153,27 @@ class ServingEngine:
       slo: an ``obs.SLOMonitor`` fed every finished request, or None.
       tick_regression: an ``obs.TickRegressionDetector`` fed every
         tick's wall ms, or None.
+      prefix_cache: a ``PrefixCache``, or None to build one from
+        ``cfg.prefix_cache_entries`` (0, the default, keeps it off).
+        Hybrid entries pin pages of this engine's pool; a pure-SSM cache
+        may be shared with ``generate(prefix_cache=)`` under the same
+        params.
     """
+
+    # the SRPT starvation guard: grants a prefill may be passed over in a
+    # row before it takes the next one
+    SRPT_STARVATION_GRANTS = 4
+    # the fewest lanes a compacted tick launches: on the CPU a one-row
+    # fp32 product takes a matrix-vector path that rounds differently from
+    # the multi-row one, so a one-lane launch pads to two
+    COMPACT_MIN_LANES = 2
 
     def __init__(self, params: dict, cfg: ModelConfig, capacity: int = 8,
                  max_top_k: int = 50, tokens_per_tick: int = 8,
                  prefill_tokens_per_tick: int | None = None, device=None,
                  metrics: ServingMetrics | None = None, tracer=NULL_TRACER,
-                 slo=None, tick_regression=None):
+                 slo=None, tick_regression=None,
+                 prefix_cache: PrefixCache | None = None):
         if not 1 <= max_top_k <= cfg.vocab_size_padded:
             raise ValueError(
                 f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
@@ -171,7 +216,7 @@ class ServingEngine:
             self._page_allocs = 0  # per-window gauges -> serving_tick
             self._page_frees = 0
         self._pad_mask = vocab_pad_mask(cfg, device)
-        self.scheduler = FCFSScheduler()
+        self.scheduler = FCFSScheduler(default_priority=cfg.serving_default_priority)
         self._free: list[int] = list(range(capacity))
         self._slots: dict[int, _Tracked] = {}
         # slots holding a partial chunked prefill, in grant rotation order
@@ -208,6 +253,34 @@ class ServingEngine:
             self.metrics.configure_memory(
                 weight_bytes=self._weight_bytes, page_pool_bytes=self._pool_bytes or 0,
                 weight_dtype=cfg.serving_weight_dtype, kv_dtype=cfg.kv_page_dtype)
+        # the prefix-state cache (off unless configured): hybrid entries
+        # pin pages of this pool, which the LRU's evict hook releases
+        if prefix_cache is None and cfg.prefix_cache_entries > 0:
+            prefix_cache = PrefixCache(max_entries=cfg.prefix_cache_entries,
+                                       max_bytes=cfg.prefix_cache_bytes,
+                                       min_hits=cfg.prefix_min_chunk_hits)
+        self.prefix_cache = prefix_cache
+        self.cow_copies = 0  # boundary pages copied on write, lifetime
+        if prefix_cache is not None:
+            if self.hybrid:
+                prefix_cache.evict_hook = self._drop_entry_pages
+                # bytes one physical page holds across every layer's K and V
+                # (and int8 scales): the KV share of an entry's bytes
+                self._page_nbytes = sum(t.numel() * t.element_size() // t.shape[1]
+                                        for t in self.pool["state"]["attn_blocks"])
+            self.metrics.configure_prefix_cache()
+        # compacted ticks: the current pow2 lane bucket and the run of
+        # ticks that would have fit a smaller one
+        self.compaction = cfg.tick_compaction
+        if self.compaction:
+            self._compact_bucket = 1
+            self._shrink_streak = 0
+            self.metrics.configure_compaction()
+        # per-window gauges -> serving_tick records
+        self._pc_hits = 0
+        self._pc_misses = 0
+        self._pc_saved_tokens = 0
+        self._preemptions = 0
         # prefill accounting awaiting a tick record: steps that run no
         # tick (every resident slot still mid-prefill) roll their stall
         # and chunk counters into the next tick's record
@@ -263,23 +336,79 @@ class ServingEngine:
         """Grant the next queued request a slot: a short pure-SSM prompt
         prefills one-shot here; a long one (and every hybrid one) parks a
         zero carry and prefills in the chunk budget
-        (``_advance_prefill``).  Returns False, with the request back at
-        the head of the queue, when a hybrid request's pages do not fit
-        the free pool yet."""
+        (``_advance_prefill``).  With the prefix cache on, a full hit
+        inserts the cached state and logits, and a partial hit seeds the
+        carry at the deepest cached boundary; hybrid hits share the
+        prefix's whole pages and copy its partial boundary page.  A
+        preempted request resumes through ``_resume``.  Returns False,
+        with the request back at the head of the queue, when a hybrid
+        request's pages do not fit the free pool yet (after evicting the
+        cache's page pins)."""
+        if tracked.snapshot is not None:
+            return self._resume(tracked)
         r = tracked.request
         plan = plan_chunks(len(r.prompt_ids), self.cfg.effective_prefill_chunk_tokens,
                            force=self.hybrid)
-        n_pages = 0
+        # peek: the lookup commits only once a slot is secured, so a
+        # request that waits for pages does not count a lookup a step
+        hit = (None if self.prefix_cache is None
+               else self.prefix_cache.lookup(r.prompt_ids, plan, peek=True))
+        n_pages = shared_n = fresh_n = 0
+        cow = False
         if self.hybrid:
             n_pages = attention_page_count(self.cfg, len(r.prompt_ids) + r.max_new_tokens)
-            if n_pages > self.page_pool.free_pages:
+            if hit is not None:
+                # whole shared pages stay read-only; a prefix ending
+                # mid-page costs one more fresh page, its copy
+                page = self.cfg.kv_page_tokens
+                shared_n = hit[0].kv_len // page
+                cow = bool(hit[0].kv_len % page)
+                fresh_n = n_pages - shared_n
+                if fresh_n > self.page_pool.free_pages:
+                    hit = None  # served cold (and committed as a miss)
+            if hit is None and n_pages > self.page_pool.free_pages \
+                    and not self._reclaim_cache_pages(n_pages):
                 self.scheduler.requeue(tracked)
                 return False
         slot = self._free.pop(0)
         tracked.status = RequestStatus.PREFILL
+        entry = hit[0] if hit is not None else None
+        full_hit = entry is not None and entry.full
         t0 = time.perf_counter()
         try:
-            if plan is None:
+            if self.hybrid and entry is not None:
+                fresh = self.page_pool.alloc(fresh_n)
+                shared = list(entry.kv_pages[:shared_n])
+                self.page_pool.incref(shared)
+                # the gauges count page refs taken and dropped, so allocs
+                # still equal frees on a cache-sharing engine
+                self._page_allocs += fresh_n + len(shared)
+                tracked.pages = shared + fresh
+                if cow:
+                    # the slot's first write lands at kv_len, inside the
+                    # prefix's last (partial) page: it appends into a copy
+                    state_cache.copy_page(self.pool["state"]["attn_blocks"],
+                                          entry.kv_pages[shared_n], fresh[0])
+                    self.cow_copies += 1
+                self._page_tbl[slot] = 0
+                self._page_tbl[slot, :n_pages] = tracked.pages
+                self._kv_len[slot] = entry.kv_len
+            if full_hit:
+                # the snapshot is the prefill's output: insert and decode
+                with self.tracer.span("serving_prefill", slot=slot, request=tracked.request_id,
+                                      trace=tracked.trace_id, cache="full"):
+                    state_cache.insert(self.pool, slot, {"blocks": entry.state["blocks"]},
+                                       entry.logits, **self._slot_meta(r))
+            elif entry is not None:
+                # partial hit: the remaining chunks run the computation a
+                # cold admission would, so the stream is the cold one
+                tracked.plan = plan
+                tracked.chunks_done = hit[1]
+                tracked.prefill_dt = 0.0
+                tracked.prefill_seeded_tokens = entry.tokens
+                state_cache.stash_prefill(self.pool, slot, {"blocks": entry.state["blocks"]},
+                                          **self._slot_meta(r))
+            elif plan is None:
                 # one span per one-shot prefill, trace-stamped, so even a
                 # short prompt's journey has an anchor in the stream
                 with self.tracer.span("serving_prefill", slot=slot,
@@ -291,6 +420,10 @@ class ServingEngine:
                                                token_mask=mask)
                     state_cache.insert(self.pool, slot, state, logits,
                                        **self._slot_meta(r))
+                    if self.prefix_cache is not None:
+                        # insert copied the state into the pool, so the
+                        # prefill's own tensors can be kept
+                        self.prefix_cache.maybe_store_full(r.prompt_ids, state, logits)
             else:
                 tracked.plan = plan
                 tracked.chunks_done = 0
@@ -298,6 +431,7 @@ class ServingEngine:
                 if self.hybrid:
                     tracked.pages = self.page_pool.alloc(n_pages)
                     self._page_allocs += n_pages
+                    self._page_tbl[slot] = 0
                     self._page_tbl[slot, :n_pages] = tracked.pages
                     self._kv_len[slot] = 0
                 state_cache.stash_prefill(
@@ -311,13 +445,26 @@ class ServingEngine:
             self._free.insert(0, slot)
             self.scheduler.requeue(tracked)
             raise
+        if self.prefix_cache is not None:
+            # the admission went through: commit the lookup (the cache's
+            # stats, recency and promotion counters) and the window gauges
+            self.prefix_cache.commit_lookup(r.prompt_ids, plan, hit)
+            kind = None if entry is None else ("full" if full_hit else "partial")
+            tracked.cache_hit = kind
+            if kind is None:
+                self._pc_misses += 1
+            else:
+                self._pc_hits += 1
+                self._pc_saved_tokens += entry.tokens
+            self.metrics.record_prefix_lookup(kind, 0 if entry is None else entry.tokens)
         # dt is host dispatch time (the next tick's fetch absorbs the
         # device work)
         t_admit = time.perf_counter()
-        if plan is None:
+        if plan is None and entry is None:
             self.metrics.record_prefill(len(r.prompt_ids), t_admit - t0)
             # goodput: the one-shot prefill's real tokens vs the padded
-            # bucket lanes it computed, in the next tick's window
+            # bucket lanes it computed, in the next tick's window (a full
+            # hit computed no lanes: its win is prefix_saved_tokens)
             self._pending_oneshot_real_tokens += len(r.prompt_ids)
             self._pending_oneshot_lanes += next_pow2_bucket(len(r.prompt_ids))
         tracked.t_admit = t_admit
@@ -325,7 +472,7 @@ class ServingEngine:
         self.metrics.record_queue_wait(t_admit - tracked.t_submit)
         tracked.slot = slot
         self._slots[slot] = tracked
-        if plan is None:
+        if full_hit or plan is None:
             tracked.status = RequestStatus.DECODE
         else:
             self._prefill_queue.append(slot)
@@ -361,10 +508,22 @@ class ServingEngine:
             # share of this window's prefill lanes
             self._pending_chunk_real_tokens += plan.real_tokens(i)
             self._prefill_queue.remove(slot)
+            # the prefix cache keeps this boundary's carry (the chunk
+            # step's output, which nothing writes in place: the pool
+            # takes a copy); the last boundary too, which seeds longer
+            # prompts with the same left pad
+            state = {"blocks": state["blocks"]}
+            self._store_prefix(r.prompt_ids, plan, i, state, slot)
             if tracked.chunks_done == plan.n_chunks:
+                # ...and the full-prompt entry, which an exact repeat
+                # takes without a prefill
+                self._store_prefix(r.prompt_ids, plan, i, state, slot, logits=logits)
                 state_cache.finish_prefill(self.pool, slot, state, logits)
                 tracked.status = RequestStatus.DECODE
-                self.metrics.record_prefill(plan.prompt_len, tracked.prefill_dt)
+                # only the computed tokens: a partial hit's seeded ones
+                # are prefix_saved_tokens
+                self.metrics.record_prefill(plan.prompt_len - tracked.prefill_seeded_tokens,
+                                            tracked.prefill_dt)
             else:
                 state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(r))
                 # rotate to the back: the next grant goes to the others first
@@ -381,24 +540,236 @@ class ServingEngine:
             raise
         return budget_left - plan.chunk
 
+    # ------------------------------------------------- prefix-state cache
+
+    def _drop_entry_pages(self, entry) -> None:
+        """The cache's evict hook: release an entry's page refs (a page
+        frees only when no slot still shares it)."""
+        if entry.kv_pages:
+            self.page_pool.free(list(entry.kv_pages))
+            self._page_frees += len(entry.kv_pages)
+
+    def _store_prefix(self, prompt_ids, plan, i: int, state: dict, slot: int,
+                      logits=None) -> None:
+        """Snapshot chunk ``i``'s carry into the prefix cache (with
+        ``logits``: the full-prompt entry).  A hybrid entry holds refs on
+        the whole pages of the prefix and a frozen copy of its partial
+        last page, if any (the slot goes on writing its own; see the
+        module docstring); with no free page for that copy the entry is
+        not stored."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        if logits is not None:
+            key = prefix_cache_mod.full_key(prompt_ids, plan.chunk)
+            tokens = plan.prompt_len
+        else:
+            key = prefix_cache_mod.boundary_key(prompt_ids, plan, i)
+            tokens = (i + 1) * plan.chunk - plan.pad
+        if not pc.wants(key):
+            return
+        kv_pages, kv_len, page_bytes = None, 0, 0
+        if self.hybrid:
+            kv_len = tokens
+            whole, tail = divmod(kv_len, self.cfg.kv_page_tokens)
+            pages = self._slots[slot].pages
+            if tail and not self.page_pool.free_pages:
+                return
+            self.page_pool.incref(pages[:whole])
+            kv_pages = list(pages[:whole])
+            if tail:
+                (frozen,) = self.page_pool.alloc(1)
+                state_cache.copy_page(self.pool["state"]["attn_blocks"], pages[whole], frozen)
+                kv_pages.append(frozen)
+            kv_pages = tuple(kv_pages)
+            # refs taken (balanced by the evict hook's frees in the gauges)
+            self._page_allocs += len(kv_pages)
+            page_bytes = len(kv_pages) * self._page_nbytes
+        nbytes = (prefix_cache_mod.state_nbytes(state) + page_bytes
+                  + (prefix_cache_mod.tensor_nbytes(logits) if logits is not None else 0))
+        pc.put(key, prefix_cache_mod.PrefixEntry(
+            state=state, tokens=tokens, chunks=i + 1, nbytes=nbytes, logits=logits,
+            kv_pages=kv_pages, kv_len=kv_len))
+
+    def _reclaim_cache_pages(self, n_pages: int) -> bool:
+        """Admission's pressure valve: evict page-pinning cache entries,
+        least recently used first, until ``n_pages`` are free (cache refs
+        would otherwise never release while admission waits on them).
+        Returns True when the reservation fits now."""
+        pc = self.prefix_cache
+        if pc is None or not self._free:
+            return False
+        while n_pages > self.page_pool.free_pages:
+            if not pc.evict_one_pinned():
+                return False
+        return True
+
+    def prefix_hit_fraction(self, prompt_ids) -> float:
+        """Fraction of ``prompt_ids`` whose prefill the cache could skip
+        now (0.0 with the cache off): a probe that counts nothing and
+        touches no recency."""
+        pc = self.prefix_cache
+        if pc is None or len(prompt_ids) == 0:
+            return 0.0
+        plan = plan_chunks(len(prompt_ids), self.cfg.effective_prefill_chunk_tokens,
+                           force=self.hybrid)
+        hit = pc.lookup(np.asarray(prompt_ids, np.int64), plan, peek=True)
+        return 0.0 if hit is None else min(1.0, hit[0].tokens / len(prompt_ids))
+
+    # ------------------------------------------------ priority preemption
+
+    def _victim_slot_admits(self, head: _Tracked) -> bool:
+        """Would a freed slot let ``head`` admit?  Preemption frees a slot,
+        never pages (the victim keeps its refs), so a hybrid head that
+        waits for pages is not helped; a preempted head needs no pages."""
+        if not self.hybrid or head.snapshot is not None:
+            return True
+        r = head.request
+        return (attention_page_count(self.cfg, len(r.prompt_ids) + r.max_new_tokens)
+                <= self.page_pool.free_pages)
+
+    def _pick_victim(self) -> _Tracked | None:
+        """The decoding request to preempt for the queue's best one: the
+        lowest priority strictly below it, then the fewest generated
+        tokens, then the newest.  None when nothing is outranked (with
+        uniform priorities preemption never happens) or a freed slot
+        would not admit the head."""
+        head = self.scheduler.peek()
+        if head is None or not self._victim_slot_admits(head):
+            return None
+        victims = [t for t in self._slots.values()
+                   if t.status is RequestStatus.DECODE and t.priority < head.priority]
+        if not victims:
+            return None
+        return min(victims, key=lambda t: (t.priority, len(t.new_tokens), -t.request_id))
+
+    def _preempt(self, tracked: _Tracked) -> None:
+        """Swap a decoding slot out to host memory: copy its carry and last
+        logits off the card (a synchronizing copy: the swap-out is a move
+        to the host), keep its page refs on the tracker, free the slot and
+        requeue it.  ``_resume`` restores it with the token count, so the
+        stream goes on as if never interrupted."""
+        slot = tracked.slot
+        with self.tracer.span("serving_preempt", slot=slot, request=tracked.request_id,
+                              trace=tracked.trace_id):
+            # copies even when the pool lies on the host (.cpu() would alias)
+            snap = {
+                "blocks": tuple(t[:, slot:slot + 1].to("cpu", copy=True)
+                                for t in self.pool["state"]["blocks"]),
+                "logits": self.pool["logits"][slot:slot + 1].to("cpu", copy=True),
+                "step": len(tracked.new_tokens),
+            }
+            if self.hybrid:
+                snap["kv_len"] = int(self._kv_len[slot])
+                self._page_tbl[slot] = 0
+                self._kv_len[slot] = 0
+            tracked.snapshot = snap
+            tracked.preempted += 1
+            self._preemptions += 1
+            self.metrics.record_preemption()
+            state_cache.evict(self.pool, slot)
+            del self._slots[slot]
+            self._free.append(slot)
+            self._free.sort()
+            self.scheduler.requeue(tracked)
+
+    def _resume(self, tracked: _Tracked) -> bool:
+        """Re-admit a preempted request from its host snapshot into the
+        first free slot, its token count restored (its page refs rode on
+        the tracker).  Returns False, requeued, when no slot is free."""
+        if not self._free:
+            self.scheduler.requeue(tracked)
+            return False
+        snap, r = tracked.snapshot, tracked.request
+        slot = self._free.pop(0)
+        try:
+            with self.tracer.span("serving_resume", slot=slot, request=tracked.request_id,
+                                  trace=tracked.trace_id):
+                state_cache.restore(
+                    self.pool, slot,
+                    {"blocks": tuple(t.to(self.device) for t in snap["blocks"])},
+                    snap["logits"].to(self.device), snap["step"], **self._slot_meta(r))
+                if self.hybrid:
+                    self._page_tbl[slot] = 0
+                    self._page_tbl[slot, :len(tracked.pages)] = tracked.pages
+                    self._kv_len[slot] = snap["kv_len"]
+        except Exception:
+            # the snapshot survives the requeue: a retry restores it
+            self._free.insert(0, slot)
+            self._free.sort()
+            self.scheduler.requeue(tracked)
+            raise
+        tracked.snapshot = None
+        tracked.slot = slot
+        tracked.status = RequestStatus.DECODE
+        self._slots[slot] = tracked
+        return True
+
+    def _resume_parked(self) -> None:
+        """Resume queued preempted requests into free slots while the
+        queue's best request waits for pages: a swap-in needs no pages,
+        and finishing is how a preempted request releases the pages the
+        head waits for (without this the two would wait on each other)."""
+        while self._free:
+            parked = self.scheduler.pop_preempted()
+            if parked is None or not self._admit(parked):
+                return
+
+    # ------------------------------------------------------ prefill phase
+
+    def _pick_prefill_slot(self) -> int:
+        """Which partial prefill takes the next chunk grant.  "rr": the
+        rotation head (``_advance_prefill`` moves a still-partial slot to
+        the back).  "srpt": the slot with the fewest chunks left, unless
+        one was passed over ``SRPT_STARVATION_GRANTS`` times in a row;
+        ties go to the rotation order."""
+        queue = self._prefill_queue
+        if self.cfg.prefill_schedule != "srpt" or len(queue) == 1:
+            self._slots[queue[0]].prefill_skipped = 0
+            return queue[0]
+        starved = [s for s in queue
+                   if self._slots[s].prefill_skipped >= self.SRPT_STARVATION_GRANTS]
+        pick = starved[0] if starved else min(
+            queue, key=lambda s: self._slots[s].plan.n_chunks - self._slots[s].chunks_done)
+        for s in queue:
+            if s != pick:
+                self._slots[s].prefill_skipped += 1
+        self._slots[pick].prefill_skipped = 0
+        return pick
+
     def _prefill_phase(self) -> tuple[float, int]:
-        """Admissions, then the chunk budget.  Returns the host seconds
-        spent (the tick's ``prefill_stall``) and the chunk tokens run."""
-        if not ((self._free and self.scheduler.depth) or self._prefill_queue):
+        """Admissions, then the chunk budget, one grant at a time
+        (``_pick_prefill_slot``).  When the queue's best request outranks
+        a decoding slot and no slot is free, the victim is preempted so
+        the request admits this step.  Returns the host seconds spent
+        (the tick's ``prefill_stall``) and the chunk tokens run."""
+        next_victim = (self._pick_victim()
+                       if self.scheduler.depth and not self._free else None)
+        if not ((self._free and self.scheduler.depth) or self._prefill_queue
+                or next_victim is not None):
             return 0.0, 0
         t0 = time.perf_counter()
         chunk_tokens0 = self.metrics.prefill_chunk_tokens
         chunk_s0 = self.metrics.prefill_chunk_time_s
-        if self._free and self.scheduler.depth:
+        if self.scheduler.depth and (self._free or next_victim is not None):
             with self.tracer.span("serving_admit", queued=self.scheduler.depth):
-                while self._free and self.scheduler.depth:
+                while self.scheduler.depth:
+                    if not self._free:
+                        victim = next_victim or self._pick_victim()
+                        next_victim = None
+                        if victim is None:
+                            break
+                        self._preempt(victim)
                     if not self._admit(self.scheduler.pop()):
-                        break  # the queue head waits for pages
+                        # the head waits for pages: preempted requests
+                        # behind it resume (they need none)
+                        self._resume_parked()
+                        break
         budget = self.prefill_tokens_per_tick
         left = float("inf") if budget == 0 else float(budget)
         chunks_run = 0
         while self._prefill_queue and (left > 0 or chunks_run == 0):
-            left = self._advance_prefill(self._prefill_queue[0], left)
+            left = self._advance_prefill(self._pick_prefill_slot(), left)
             chunks_run += 1
         self._pending_chunk_ms += (self.metrics.prefill_chunk_time_s - chunk_s0) * 1000
         return (time.perf_counter() - t0,
@@ -411,25 +782,63 @@ class ServingEngine:
         """Requests not yet finished (queued + in flight)."""
         return self.scheduler.depth + len(self._slots)
 
-    def _tick(self):
-        """Advance every decodable slot ``tokens_per_tick`` tokens.
-        Returns host arrays (tokens, emitted, done), each (steps, S)."""
-        S, steps, dev = self.capacity, self.tokens_per_tick, self.device
+    def _sub_steps(self, state: dict, logits, meta: dict, u, attn_meta=None,
+                   split_rows: int | None = None):
+        """The tick's ``tokens_per_tick`` sub-steps over one set of rows
+        (the pool's, or a compacted tick's lanes): sample, then
+        ``lm_step``, which writes ``state`` in place.  Returns the last
+        logits, the rows' step and done counters and the per-sub-step
+        tokens, live flags and done flags."""
+        has_eos = meta["eos_id"] >= 0
+        step, done = meta["step"], meta["done"]
+        toks, emitted, dones = [], [], []
+        for j in range(self.tokens_per_tick):
+            live = meta["active"] & ~done & ~meta["prefilling"]
+            tok = top_k_sample(logits + self._pad_mask, u[j], self.max_top_k,
+                               meta["temperature"], meta["top_k"])
+            tok = torch.where(done & has_eos, meta["eos_id"], tok)
+            if self.hybrid:
+                # rows that are not live (empty, done, prefilling, pad
+                # lanes) write the trash page only and keep their length
+                logits, stepped = lm_step(self._params, self.cfg,
+                                          {**state, "attn_meta": attn_meta}, tok,
+                                          write_mask=live, split_rows=split_rows)
+                attn_meta = stepped["attn_meta"]
+            else:
+                logits, _ = lm_step(self._params, self.cfg, state, tok)
+            step = step + live
+            done = done | (live & ((has_eos & (tok == meta["eos_id"]))
+                                   | (step >= meta["max_new"])))
+            toks.append(tok)
+            emitted.append(live)
+            dones.append(done)
+        return logits, step, done, toks, emitted, dones
+
+    def _uniforms(self, lanes: dict[int, int], width: int) -> torch.Tensor:
+        """(steps, width) draws: lane ``lanes[s]`` of decoding slot s
+        samples token len(new_tokens) + j of its request at sub-step j."""
+        u = np.full((self.tokens_per_tick, width), 0.5, np.float32)
+        for s, lane in lanes.items():
+            t = self._slots[s]
+            n0 = len(t.new_tokens)
+            u[:, lane] = [step_uniform(t.request.seed, n0 + j)
+                          for j in range(self.tokens_per_tick)]
+        return torch.from_numpy(u).to(self.device)
+
+    def _tick(self, live_slots: list[int]):
+        """Advance every decodable slot ``tokens_per_tick`` tokens at the
+        full slot count.  Returns host arrays (tokens, emitted, done),
+        each (steps, S)."""
+        dev = self.device
         pool, meta = self.pool, self.pool["meta"]
-        # the draws of this tick: slot s's sub-step j samples token
-        # len(new_tokens) + j of its request (it stays live until done)
-        u = np.full((steps, S), 0.5, np.float32)
-        for s, t in self._slots.items():
-            if t.status is RequestStatus.DECODE:
-                n0 = len(t.new_tokens)
-                u[:, s] = [step_uniform(t.request.seed, n0 + j) for j in range(steps)]
-        u = torch.from_numpy(u).to(dev)
+        u = self._uniforms({s: s for s in live_slots}, self.capacity)
         # lm_step updates the pool's state rows in place; a prefilling
         # slot's rows hold a real carry, so save and restore them
         held = sorted(self._prefill_queue)
         if held:
             idx = torch.tensor(held, device=dev)
             saved = [t.index_select(1, idx) for t in pool["state"]["blocks"]]
+        attn_meta = None
         if self.hybrid:
             # the full kv_pages_per_slot width, not a bucket of the live
             # extent: the kernel walks only pages below each row's length,
@@ -437,32 +846,10 @@ class ServingEngine:
             # keeps the tick's shapes static.  generate() sizes its private
             # table to the same width, so the plain version reduces over
             # the same width on both sides and streams stay bit-identical.
-            tbl = torch.tensor(self._page_tbl, device=dev)
-            lengths = torch.tensor(self._kv_len, device=dev)
-        logits = pool["logits"]
-        has_eos = meta["eos_id"] >= 0
-        step, done = meta["step"], meta["done"]
-        toks, emitted, dones = [], [], []
-        for j in range(steps):
-            live = meta["active"] & ~done & ~meta["prefilling"]
-            tok = top_k_sample(logits + self._pad_mask, u[j], self.max_top_k,
-                               meta["temperature"], meta["top_k"])
-            tok = torch.where(done & has_eos, meta["eos_id"], tok)
-            if self.hybrid:
-                # rows that are not live (empty, done, prefilling) write
-                # the trash page only and keep their length
-                state = {**pool["state"], "attn_meta": (tbl, lengths)}
-                logits, state = lm_step(self._params, self.cfg, state, tok,
-                                        write_mask=live)
-                lengths = state["attn_meta"][1]
-            else:
-                logits, _ = lm_step(self._params, self.cfg, pool["state"], tok)
-            step = step + live
-            done = done | (live & ((has_eos & (tok == meta["eos_id"]))
-                                   | (step >= meta["max_new"])))
-            toks.append(tok)
-            emitted.append(live)
-            dones.append(done)
+            attn_meta = (torch.tensor(self._page_tbl, device=dev),
+                         torch.tensor(self._kv_len, device=dev))
+        logits, step, done, toks, emitted, dones = self._sub_steps(
+            pool["state"], pool["logits"], meta, u, attn_meta)
         if held:
             for t, v in zip(pool["state"]["blocks"], saved):
                 t.index_copy_(1, idx, v)
@@ -474,6 +861,95 @@ class ServingEngine:
             # mirror the device-side lengths: +1 per live sub-step
             self._kv_len += emitted.sum(axis=0).astype(np.int32)
         return tokens, emitted, torch.stack(dones).cpu().numpy()
+
+    # ----------------------------------------------------- compacted ticks
+
+    def _compaction_width(self, live_slots: list[int]) -> int | None:
+        """Lane width of this tick's compacted launch, or None for the
+        full-width tick (compaction off, or no narrower than capacity).
+        The bucket is the pow2 of the live count, grown at once and
+        shrunk only after ``cfg.compaction_hysteresis_ticks`` ticks in a
+        row that would have fit the smaller one; the launch takes at
+        least ``COMPACT_MIN_LANES`` lanes."""
+        if not self.compaction:
+            return None
+        need = next_pow2_bucket(max(1, len(live_slots)), min_bucket=1)
+        b = self._compact_bucket
+        if need > b:
+            b, self._shrink_streak = need, 0
+        elif need < b:
+            self._shrink_streak += 1
+            if self._shrink_streak >= self.cfg.compaction_hysteresis_ticks:
+                b, self._shrink_streak = need, 0
+        else:
+            self._shrink_streak = 0
+        self._compact_bucket = b
+        width = max(b, self.COMPACT_MIN_LANES)
+        return None if width >= self.capacity else width
+
+    def _compact_tick(self, live_slots: list[int], width: int):
+        """One compacted tick: gather the decodable slots' rows into
+        ``width`` lanes (live slots in slot order, pad lanes repeating
+        slot 0 as the JAX engine pads), run the full tick's sub-steps at
+        that width and scatter the live lanes back; mid-prefill rows are
+        never gathered, so none needs saving.  Pad lanes' table rows
+        point at the trash page with length 0, so their KV writes land
+        there.
+
+        The launch is made to compute what the full tick computes for
+        each live row: every op of the decode step is per row, the page
+        table keeps its full width, the paged decode's split rule is
+        pinned to the capacity (``split_rows``), and no launch goes below
+        ``COMPACT_MIN_LANES`` rows (a one-row fp32 product takes the
+        CPU's matrix-vector path, which rounds differently).  Two
+        row-count effects remain.  On the CPU an elementwise kernel
+        computes the scalar tail of a small tensor with other rounding
+        than its vector body (the softplus of dt, (lanes, heads), at 24
+        heads), so a carry can differ in its last bit with its lane; on
+        the card a GEMM may pick another kernel at another row count.
+        Either moves a carry by an ulp; the CPU tests hold the streams
+        equal at their size, and ``chip_smoke.py`` measures the card.
+        Returns (tokens, emitted, done) at full width (steps, S)."""
+        dev = self.device
+        lanes = {s: j for j, s in enumerate(sorted(live_slots))}
+        idx = np.zeros((width,), np.int64)
+        inv = np.zeros((self.capacity,), np.int64)
+        touched = np.zeros((self.capacity,), bool)
+        for s, j in lanes.items():
+            idx[j], inv[s], touched[s] = s, j, True
+        rows = {"blocks": self.pool["state"]["blocks"], "logits": self.pool["logits"],
+                "meta": self.pool["meta"]}
+        lane_rows = state_cache.gather_slots(rows, torch.from_numpy(idx).to(dev))
+        attn_meta = None
+        state = {"blocks": lane_rows["blocks"]}
+        if self.hybrid:
+            state["attn_blocks"] = self.pool["state"]["attn_blocks"]
+            tbl = self._page_tbl[idx]
+            lengths = self._kv_len[idx]
+            tbl[len(lanes):] = 0
+            lengths[len(lanes):] = 0
+            attn_meta = (torch.from_numpy(tbl).to(dev), torch.from_numpy(lengths).to(dev))
+        u = self._uniforms(lanes, width)
+        logits, step, done, toks, emitted, dones = self._sub_steps(
+            state, lane_rows["logits"], lane_rows["meta"], u, attn_meta,
+            split_rows=self.capacity)
+        state_cache.scatter_slots(
+            rows, {"blocks": state["blocks"], "logits": logits,
+                   "meta": {**lane_rows["meta"], "step": step, "done": done}},
+            torch.from_numpy(inv).to(dev), torch.from_numpy(touched).to(dev))
+        # the one host sync of the tick
+        tokens = torch.stack(toks).cpu().numpy()
+        emitted = torch.stack(emitted).cpu().numpy()
+        done = torch.stack(dones).cpu().numpy()
+        cols = np.fromiter(lanes.keys(), np.int64, len(lanes))
+        ls = np.fromiter(lanes.values(), np.int64, len(lanes))
+        out = [np.zeros((self.tokens_per_tick, self.capacity), a.dtype)
+               for a in (tokens, emitted, done)]
+        for full, lane in zip(out, (tokens, emitted, done)):
+            full[:, cols] = lane[:, ls]
+        if self.hybrid:
+            self._kv_len += out[1].sum(axis=0).astype(np.int32)
+        return tuple(out)
 
     @torch.no_grad()
     def step(self) -> list[TokenEvent]:
@@ -489,15 +965,21 @@ class ServingEngine:
         if not any(t.status is RequestStatus.DECODE for t in self._slots.values()):
             return []
         occupied = len(self._slots)
+        live_slots = [s for s, t in self._slots.items() if t.status is RequestStatus.DECODE]
+        # the lane width this tick launches (None: the full width);
+        # mid-prefill residents are left out of a compacted launch
+        width = self._compaction_width(live_slots)
         # the requests this tick advances (mid-prefill residents sample
         # nothing), stamped on the span and the tick record
-        live_traces = sorted(t.trace_id for t in self._slots.values()
-                             if t.status is RequestStatus.DECODE)
+        live_traces = sorted(self._slots[s].trace_id for s in live_slots)
         t0 = time.perf_counter()
         # the span encloses the tick's one host fetch, so it covers the
         # tick's device work
         with self.tracer.span("serving_tick", occupied=occupied, traces=live_traces):
-            tokens, emitted, done = self._tick()
+            if width is None:
+                tokens, emitted, done = self._tick(live_slots)
+            else:
+                tokens, emitted, done = self._compact_tick(live_slots, width)
         t_now = time.perf_counter()
         dt = t_now - t0
         events: list[TokenEvent] = []
@@ -526,6 +1008,10 @@ class ServingEngine:
             if tracked.t_first_token is None:
                 tracked.t_first_token = t_now
                 self.metrics.record_ttft(t_now - tracked.t_submit)
+                if self.prefix_cache is not None:
+                    # TTFT split by the cache outcome
+                    self.metrics.record_prefix_ttft(t_now - tracked.t_submit,
+                                                    hit=tracked.cache_hit is not None)
                 gaps, t_prev = m - 1, t0
             else:
                 gaps, t_prev = m, tracked.t_last_token
@@ -552,6 +1038,14 @@ class ServingEngine:
                 "e2e_ms": round((t_now - tracked.t_submit) * 1000, 3),
                 "itl_hist": tracked.itl_hist.to_dict(),
             }
+            # feature stamps only when the features are on, so records of
+            # plain engines keep their bytes
+            if self.prefix_cache is not None:
+                request_record["prefix_hit"] = tracked.cache_hit
+            if tracked.preempted:
+                request_record["preemptions"] = tracked.preempted
+            if tracked.priority != self.scheduler.default_priority:
+                request_record["priority"] = tracked.priority
             self.metrics.record_request(request_record)
             if self.slo is not None:
                 self.slo.observe_request(request_record)
@@ -569,6 +1063,12 @@ class ServingEngine:
                           kv_page_frees=self._page_frees)
             self._page_allocs = 0
             self._page_frees = 0
+        if self.prefix_cache is not None:
+            gauges.update(prefix_hits=self._pc_hits, prefix_misses=self._pc_misses,
+                          prefix_saved_tokens=self._pc_saved_tokens,
+                          prefix_cache_entries=len(self.prefix_cache),
+                          prefix_cache_bytes=self.prefix_cache.nbytes)
+            self._pc_hits = self._pc_misses = self._pc_saved_tokens = 0
         if self.quantized_weights or self.quantized_kv:
             gauges.update(quantized=self._quant_stamp, weight_bytes=self._weight_bytes,
                           page_pool_bytes=self._pool_bytes)
@@ -583,9 +1083,13 @@ class ServingEngine:
             prefill_real_tokens=self._pending_chunk_real_tokens,
             prefill_oneshot_tokens=self._pending_oneshot_real_tokens,
             prefill_oneshot_lanes=self._pending_oneshot_lanes,
-            # the tick computes every slot's lanes, live or not
-            slot_lanes=self.capacity * self.tokens_per_tick,
-            traces=live_traces, **gauges)
+            # the tick computes every lane it launched, live or not: the
+            # compacted width, or the capacity
+            slot_lanes=(self.capacity if width is None else width) * self.tokens_per_tick,
+            compaction_width=(((self.capacity if width is None else width)
+                               if self.compaction else None)),
+            traces=live_traces, preemptions=self._preemptions, **gauges)
+        self._preemptions = 0
         self._pending_stall_ms = 0.0
         self._pending_chunk_tokens = 0
         self._pending_chunk_real_tokens = 0

@@ -108,14 +108,31 @@ def private_page_count(cfg: ModelConfig, max_len: int) -> int:
     return max(cfg.kv_pages_per_slot, attention_page_count(cfg, max_len))
 
 
+def _clone_blocks(blocks) -> tuple:
+    return tuple(t.clone() for t in blocks)
+
+
 @torch.no_grad()
 def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
-                    plan: ChunkPlan | None = None, max_len: int = 0):
+                    plan: ChunkPlan | None = None, max_len: int = 0,
+                    prefix_cache=None):
     """Drive a whole prompt through the chunk step (the solo
     ``generate()`` path; the engine paces the same loop itself).
     ``params`` must already be decode-cast.  For hybrid stacks
     ``max_len`` (prompt + decode budget) sizes the private paged KV
-    cache.  Returns (last_logits (b, V) fp32, state)."""
+    cache.  Returns (last_logits (b, V) fp32, state).
+
+    ``prefix_cache`` (a serving/prefix_cache.PrefixCache; batch-1
+    pure-SSM prompts only: hybrid entries pin a serving engine's pages)
+    reuses and refreshes carry snapshots.  A full hit returns the cached
+    logits and a clone of the cached state with no chunk step; a partial
+    hit resumes from the deepest cached boundary carry (the chunk step
+    does not write its input carry); each chunk stores its boundary, and
+    the last also the full entry.  The returned state is decoded in
+    place by the caller, so the last chunk's carry is stored as a clone.
+    Cached carries are outputs of this exact layout's chunk steps, so
+    warm results are bit-identical to cold ones, and to a cache-enabled
+    engine's."""
     dev = params["norm_f"]["weight"].device  # the embedding may be int8 codes + scales
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64)
     if prompt.ndim == 1:
@@ -137,8 +154,24 @@ def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
         )
     pages = private_page_count(cfg, max_len) if hybrid else 0
     state = init_lm_state(cfg, batch=b, max_len=pages * cfg.kv_page_tokens, device=dev)
+    use_cache = prefix_cache is not None and not hybrid and b == 1
+    start = 0
+    if use_cache:
+        hit = prefix_cache.lookup(prompt[0].numpy(), plan)
+        if hit is not None:
+            entry, start = hit
+            if start == plan.n_chunks:
+                return entry.logits, {"blocks": _clone_blocks(entry.state["blocks"])}
+            state = {"blocks": entry.state["blocks"]}
     logits = None
-    for i in range(plan.n_chunks):
+    for i in range(start, plan.n_chunks):
         ids, mask = chunk_inputs(prompt, plan, i, device=dev)
         logits, state = prefill_chunk(params, ids, mask, state, cfg)
+        if use_cache:
+            last = i == plan.n_chunks - 1
+            keep = {"blocks": _clone_blocks(state["blocks"]) if last else state["blocks"]}
+            prefix_cache.maybe_store_boundary(prompt[0].numpy(), plan, i, keep)
+            if last:
+                prefix_cache.maybe_store_full(prompt[0].numpy(), keep, logits,
+                                              chunk=plan.chunk, chunks=plan.n_chunks)
     return logits, state

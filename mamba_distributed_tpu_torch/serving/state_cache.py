@@ -29,6 +29,11 @@ here writes the pool's tensors IN PLACE (one slot's rows) and returns the
 same pool.  A slot holding a partial chunked prefill is ``active`` and
 ``prefilling``: the decode tick keeps it out of sampling and restores its
 rows after the step (serving/engine.py).
+
+The admission and occupancy features of the engine add: ``restore`` (a
+preempted request back mid-decode), ``copy_page`` (the prefix cache's
+copy-on-write of a shared page) and ``gather_slots``/``scatter_slots``
+(the compacted tick's lanes).
 """
 
 from __future__ import annotations
@@ -189,6 +194,64 @@ def insert(pool: dict, slot: int, state: dict, logits: torch.Tensor,
                 step=0, max_new=max_new, top_k=top_k, temperature=temperature,
                 eos_id=eos_id)
     return pool
+
+
+def restore(pool: dict, slot: int, state: dict, logits: torch.Tensor, step: int,
+            max_new: int, top_k: int, temperature: float, eos_id: int) -> dict:
+    """Re-admit a PREEMPTED request mid-decode (in place): ``insert`` with
+    the generated-token counter restored instead of zeroed, so the
+    stream continues where the swap-out cut it."""
+    _write_blocks(pool, slot, state)
+    pool["logits"][slot].copy_(logits[0])
+    _write_meta(pool, slot, active=True, done=False, prefilling=False,
+                step=step, max_new=max_new, top_k=top_k, temperature=temperature,
+                eos_id=eos_id)
+    return pool
+
+
+def copy_page(attn_blocks: tuple, src: int, dst: int) -> tuple:
+    """Copy-on-write page duplication: copy physical page ``src`` into
+    ``dst`` across every attention layer's K and V pool (page axis 1 of
+    the (A, P+1, nkv, page, hd) leaves) and, for int8 pages, the page's
+    (A, P+1, nkv) scales, in place.  A slot that appends to a shared
+    cached prefix writes into its own copy of the boundary page; the
+    sharers keep reading the original."""
+    for t in attn_blocks:
+        t[:, dst].copy_(t[:, src])
+    return attn_blocks
+
+
+def gather_slots(rows: dict, idx: torch.Tensor) -> dict:
+    """Gather slot rows ``idx`` (W,) of a ``{"blocks", "logits", "meta"}``
+    tree (the per-slot parts of a pool: ``blocks`` leaves (L, S, ...) on
+    axis 1, ``logits`` and ``meta`` leaves on axis 0) into a compact tree
+    of W lanes (copies: the full pool lives on).  Pad lanes may repeat
+    any in-range slot: ``scatter_slots`` never reads them back."""
+    return {
+        "blocks": tuple(t.index_select(1, idx) for t in rows["blocks"]),
+        "logits": rows["logits"].index_select(0, idx),
+        "meta": {k: v.index_select(0, idx) for k, v in rows["meta"].items()},
+    }
+
+
+def scatter_slots(rows: dict, compact: dict, inv: torch.Tensor,
+                  touched: torch.Tensor) -> dict:
+    """Write a compacted tick's lanes back into the full rows, in place:
+    slot s takes lane ``inv[s]`` where ``touched[s]`` and keeps its row
+    otherwise (mid-prefill carries, empty slots).  A per-slot gather and
+    select, not a scatter, so a pad lane that repeats a slot can never
+    overwrite a live row."""
+
+    def put(full, lanes, ax):
+        sel = touched.reshape((1,) * ax + (-1,) + (1,) * (full.ndim - ax - 1))
+        full.copy_(torch.where(sel, lanes.index_select(ax, inv), full))
+
+    for f, c in zip(rows["blocks"], compact["blocks"]):
+        put(f, c, 1)
+    put(rows["logits"], compact["logits"], 0)
+    for k, f in rows["meta"].items():
+        put(f, compact["meta"][k], 0)
+    return rows
 
 
 def evict(pool: dict, slot: int) -> dict:

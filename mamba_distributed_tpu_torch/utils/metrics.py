@@ -86,12 +86,12 @@ def emit_bench_record(record: dict, json_path: str | None = None) -> None:
 
 
 # summary() sections of engine features the port does not have yet
-# (prefix cache, compaction, pipeline stages, speculation, adapters,
-# tuning, admission, sessions, the compile watchdog): the JAX package's
+# (pipeline stages, speculation, adapters, tuning, admission, sessions,
+# the compile watchdog): the JAX package's
 # summary() holds them as None while the feature is off, so the port's
 # holds the same keys at None
-_OFF_SECTIONS = ("prefix_cache", "compaction", "pipeline", "speculation", "adapters",
-                 "tuning", "admission", "sessions")
+_OFF_SECTIONS = ("pipeline", "speculation", "adapters", "tuning", "admission",
+                 "sessions")
 
 
 class ServingMetrics:
@@ -118,9 +118,14 @@ class ServingMetrics:
     peak that the engine installs through ``configure_goodput``
     (``serving_mfu`` stays None where no peak applies, a CPU run).
 
-    Left out until the port has the features that feed them: the prefix
-    cache, preemption, migration, speculation, compaction, pipeline,
-    adapter, tuning, session, admission and compile-watchdog methods.
+    The prefix cache (``configure_prefix_cache``, ``record_prefix_
+    lookup``, ``record_prefix_ttft``), preemption (``record_preemption``)
+    and tick compaction (``configure_compaction``) feed their summary
+    sections and record fields only when the engine turns them on:
+    records and summaries with them off are the same bytes as without
+    them.  Left out until the port has the features that feed them: the
+    migration, speculation, pipeline, adapter, tuning, session,
+    admission and compile-watchdog methods.
     """
 
     def __init__(self, capacity: int, jsonl_path: str | None = None):
@@ -162,6 +167,25 @@ class ServingMetrics:
         self.queue_wait_ms = StreamingHistogram()
         self.ttft_ms = StreamingHistogram()
         self.itl_ms = StreamingHistogram()
+        # the prefix-state cache: configure_prefix_cache() (engine
+        # construction, cache on) unlocks summary()["prefix_cache"]: hit
+        # counts, saved prefill tokens and the TTFT split hit vs miss
+        self._prefix_cache_on = False
+        self.prefix_full_hits = 0
+        self.prefix_partial_hits = 0
+        self.prefix_misses = 0
+        self.prefix_saved_tokens = 0
+        self.prefix_ttft_hit_ms = StreamingHistogram()
+        self.prefix_ttft_miss_ms = StreamingHistogram()
+        # compacted ticks: configure_compaction() unlocks
+        # summary()["compaction"]: ticks per lane width and the token
+        # lanes the narrower launches saved against full capacity
+        self._compaction_on = False
+        self.compaction_ticks = 0  # ticks narrower than capacity
+        self.compaction_hist: dict[int, int] = {}  # lane width -> ticks
+        self.compaction_lanes_saved = 0
+        # priority preemptions (serving/engine._preempt)
+        self.preemptions = 0
         # int8 serving: configure_memory() (engine construction, only
         # when weights or KV pages are int8) unlocks summary()["memory"]
         self._memory_on = False
@@ -200,6 +224,37 @@ class ServingMetrics:
         self.page_pool_bytes = int(page_pool_bytes)
         self.weight_dtype = weight_dtype
         self.kv_dtype = kv_dtype
+
+    def configure_prefix_cache(self) -> None:
+        """Mark the prefix-state cache on (engine construction):
+        ``summary()`` gains its ``prefix_cache`` section."""
+        self._prefix_cache_on = True
+
+    def record_prefix_lookup(self, kind: str | None, saved_tokens: int = 0) -> None:
+        """One admission's cache lookup: ``kind`` "full" (prefill
+        skipped), "partial" (seeded at a chunk boundary) or None (miss);
+        ``saved_tokens`` the prompt tokens the hit's snapshot covers."""
+        if kind == "full":
+            self.prefix_full_hits += 1
+        elif kind == "partial":
+            self.prefix_partial_hits += 1
+        else:
+            self.prefix_misses += 1
+        self.prefix_saved_tokens += saved_tokens
+
+    def record_prefix_ttft(self, dt_s: float, hit: bool) -> None:
+        """A request's TTFT, split by its cache outcome."""
+        (self.prefix_ttft_hit_ms if hit else self.prefix_ttft_miss_ms).record(dt_s * 1000)
+
+    def record_preemption(self) -> None:
+        """One priority swap-out (serving/engine._preempt)."""
+        self.preemptions += 1
+
+    def configure_compaction(self) -> None:
+        """Mark compacted ticks on (engine construction): ``summary()``
+        gains its ``compaction`` section and tick records their
+        ``compaction_width`` stamp."""
+        self._compaction_on = True
 
     def _write_jsonl(self, record: dict) -> None:
         append_jsonl(self.jsonl_path, record, truncate=self._truncate_pending)
@@ -262,12 +317,19 @@ class ServingMetrics:
         prefill_oneshot_tokens: int = 0, prefill_oneshot_lanes: int = 0,
         slot_lanes: int = 0,
         traces: list | None = None,
+        preemptions: int = 0,
+        prefix_hits: int | None = None,
+        prefix_misses: int | None = None,
+        prefix_saved_tokens: int | None = None,
+        prefix_cache_entries: int | None = None,
+        prefix_cache_bytes: int | None = None,
         kv_pages_used: int | None = None,
         kv_pages_capacity: int | None = None,
         kv_page_allocs: int = 0, kv_page_frees: int = 0,
         quantized: dict | None = None,
         weight_bytes: int | None = None,
         page_pool_bytes: int | None = None,
+        compaction_width: int | None = None,
     ) -> None:
         """One decode tick.  ``prefill_stall_ms`` is the host time spent
         on prefill work since the previous tick record (a step that runs
@@ -277,15 +339,22 @@ class ServingMetrics:
         non-pad share; ``prefill_oneshot_tokens``/``prefill_oneshot_
         lanes`` the real tokens and padded bucket lanes of one-shot
         prefills in the window.  ``slot_lanes`` is the token lanes the
-        tick computed (capacity x sub-steps, live or not); with the
+        tick computed (its lane width x sub-steps, live or not); with the
         counts above it gives ``useful_tokens``, ``wasted_token_lanes``,
         ``goodput_tokens_per_sec`` and ``serving_mfu``.  ``traces`` is
-        the live request trace-id set.  ``kv_pages_used``/
+        the live request trace-id set.  ``preemptions`` counts the
+        window's swap-outs (stamped when nonzero); ``prefix_hits``/
+        ``prefix_misses``/``prefix_saved_tokens`` are the prefix cache's
+        window counters and ``prefix_cache_entries``/``prefix_cache_
+        bytes`` its occupancy (cache-on engines only).  ``kv_pages_used``/
         ``kv_pages_capacity`` (hybrid engines) gauge the page pool, with
         ``kv_page_allocs``/``kv_page_frees`` the window's churn.
         ``quantized`` (int8 serving only) is the ``{"weights": dtype,
         "kv": dtype}`` stamp, with ``weight_bytes``/``page_pool_bytes``
-        the resident-bytes gauges."""
+        the resident-bytes gauges.  ``compaction_width`` (compaction on)
+        is the lane width the tick launched; ``slot_lanes`` is billed at
+        it, and ``lanes_saved`` adds what a full-width launch would have
+        computed on top."""
         self.ticks += 1
         self.decode_tokens += tokens_emitted
         self.decode_time_s += dt_s
@@ -324,6 +393,16 @@ class ServingMetrics:
         }
         if traces is not None:
             record["traces"] = list(traces)
+        if preemptions:
+            record["preemptions"] = preemptions
+        if prefix_hits is not None:
+            record.update({
+                "prefix_hits": prefix_hits,
+                "prefix_misses": prefix_misses,
+                "prefix_saved_tokens": prefix_saved_tokens,
+                "prefix_cache_entries": prefix_cache_entries,
+                "prefix_cache_bytes": prefix_cache_bytes,
+            })
         if kv_pages_used is not None:
             self.kv_pages_used = kv_pages_used
             self.kv_pages_capacity = kv_pages_capacity
@@ -341,13 +420,22 @@ class ServingMetrics:
             record["weight_bytes"] = weight_bytes
             if page_pool_bytes is not None:
                 record["page_pool_bytes"] = page_pool_bytes
+        if compaction_width is not None:
+            record["compaction_width"] = compaction_width
+            self.compaction_hist[compaction_width] = (
+                self.compaction_hist.get(compaction_width, 0) + 1)
+            if compaction_width < self.capacity:
+                self.compaction_ticks += 1
+                self.compaction_lanes_saved += (
+                    slot_lanes * self.capacity // compaction_width - slot_lanes)
         if self.jsonl_path:
             self._write_jsonl(record)
 
     def summary(self) -> dict:
         """The JAX package's ``summary()``: the same keys and rounding
-        (the sections of features the port lacks are None, their
-        counters 0)."""
+        (the sections of features the port lacks, or that are off, are
+        None, their counters 0)."""
+        looked = self.prefix_full_hits + self.prefix_partial_hits + self.prefix_misses
         return {
             "ticks": self.ticks,
             "decode_tokens": self.decode_tokens,
@@ -376,9 +464,19 @@ class ServingMetrics:
             "prefill_stall_s": round(self.prefill_stall_s, 4),
             "prefill_stall_ms": self.prefill_stall_ms.summary(),
             "finished_requests": self.finished_requests,
-            "preemptions": 0,
+            "preemptions": self.preemptions,
             "migrations": {"out": 0, "in": 0,
                            "migration_ms": StreamingHistogram().summary()},
+            "prefix_cache": (None if not self._prefix_cache_on else {
+                "full_hits": self.prefix_full_hits,
+                "partial_hits": self.prefix_partial_hits,
+                "misses": self.prefix_misses,
+                "hit_rate": (round((self.prefix_full_hits + self.prefix_partial_hits)
+                                   / looked, 4) if looked else None),
+                "saved_prefill_tokens": self.prefix_saved_tokens,
+                "ttft_hit_ms": self.prefix_ttft_hit_ms.summary(),
+                "ttft_miss_ms": self.prefix_ttft_miss_ms.summary(),
+            }),
             "goodput": {
                 "useful_tokens": self.useful_tokens,
                 "wasted_token_lanes": max(self.computed_token_lanes - self.useful_tokens, 0),
@@ -393,6 +491,14 @@ class ServingMetrics:
                     if (self._peak_flops and self._goodput_window_s
                         and self._fpt_decode is not None) else None),
             },
+            "compaction": (None if not self._compaction_on else {
+                "ticks_compacted": self.compaction_ticks,
+                # one launch shape per distinct narrow width
+                "recompiles": sum(1 for w in self.compaction_hist if w < self.capacity),
+                "bucket_histogram": {str(w): n for w, n in
+                                     sorted(self.compaction_hist.items())},
+                "lanes_saved": self.compaction_lanes_saved,
+            }),
             **dict.fromkeys(_OFF_SECTIONS),
             "memory": (None if not self._memory_on else {
                 "weight_bytes": self.weight_bytes,

@@ -304,3 +304,34 @@ def test_wrapper_passes_the_rule_and_its_workspace(monkeypatch, pages):
     splits = ak.rpa_splits(S, nkv, W)
     assert call[9:16] == (S, nh, nkv, hd, args[1].shape[2], W, splits)
     assert (call[8], splits * S * nh * (hd + 2), torch.float32) in sizes
+    # split_rows: the rule of another row count, its workspace sized to it
+    lib.calls.clear()
+    ak.ragged_paged_decode_attention(*args, lib=lib, split_rows=64)
+    (call,) = lib.calls
+    pinned = ak.rpa_splits(64, nkv, W)
+    assert pinned != splits and call[15] == pinned
+    assert (call[8], pinned * S * nh * (hd + 2), torch.float32) in sizes
+
+
+def test_pinned_split_reproduces_the_full_launch_rows():
+    """Two rows of an 8-row decode, launched alone with the split count
+    of 8 rows (what the serving engine's compacted tick does), give the
+    8-row launch's rows bit for bit in the kernel's arithmetic (fp32, so
+    that no rounding of the output hides a difference); with the rule of
+    2 rows, another split count, they differ."""
+    gen = torch.Generator().manual_seed(7)
+    S, nh, nkv, hd, pg, W = 8, 12, 4, 64, 16, 16
+    P = 1 + S * W
+    kp = torch.randn((P, nkv, pg, hd), generator=gen)
+    vp = torch.randn((P, nkv, pg, hd), generator=gen)
+    q = torch.randn((S, nh, hd), generator=gen)
+    tbl = torch.arange(1, P, dtype=torch.int32).reshape(S, W)
+    lens = torch.tensor([250, 31, 199, 256, 7, 120, 64, 180], dtype=torch.int32)
+    full = split_decode_model(q, kp, vp, tbl, lens)
+    rows = [2, 5]
+    pinned, own = ak.rpa_splits(S, nkv, W), ak.rpa_splits(len(rows), nkv, W)
+    assert pinned != own
+    part = split_decode_model(q[rows], kp, vp, tbl[rows], lens[rows], splits=pinned)
+    assert torch.equal(part, full[rows])
+    other = split_decode_model(q[rows], kp, vp, tbl[rows], lens[rows], splits=own)
+    assert not torch.equal(other, full[rows])
