@@ -62,7 +62,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    at hybrid-7b's shapes (128 SSD heads of 64 at b 1, t 256 and b 4, t
    4096; the paged kernels at 32 query / 8 KV heads of 128; flash at b 4,
    t 4096), each against its plain version and timed beside its bound
-   and, for attention, SDPA (``check_7b_shapes``);
+   and, for attention, SDPA (``check_7b_shapes``); ``ssd_fwd``,
+   ``m1_scan`` and ``rpp_fwd`` (bf16 and int8 pages) at the speculative
+   verify's shape, 8 rows of K+1 = 4 tokens over a 17-page table
+   (``check_verify_shapes``); and the two RMSNorm kernels of
+   ``rms_norm.cu`` (no ``pallas_call`` counterpart) against their plain
+   versions at 8 and 256 rows of 768 to 8192 channels (``check_norms``);
 3. serve requests on a full-width mamba2-280m ``ServingEngine`` (64
    layers, bf16, ``ssm_impl="pallas"``, random weights from a seeded
    ``torch.Generator``): prompts of 12 and 100 tokens take the one-shot
@@ -88,8 +93,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    equal to ``generate()``, no page leaked, the bf16 one-shot prefill
    against the chunked one, and peak memory printed beside the rest;
 3b. the engine's admission and occupancy features (``engine_features_
-   phase``, on the decode weights of the 280m runs above, full depth,
-   bf16 unless named, "pallas"): (a) the prefix-state cache on
+   phase``, on the decode weights of the 280m runs above, bf16 unless
+   named, "pallas"; (a) and (b) on the first 16 of the 64 layers, the
+   cut that keeps the script near 900 s, (c) at full depth): (a) the
+   prefix-state cache on
    mamba2-280m, hybrid-280m and int8 hybrid-280m, capacity 8: a
    600-token preamble under four 100-token and two 356-token suffixes
    and two repeats of the first prompt, on an engine warmed by that
@@ -106,20 +113,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``prefill_schedule`` "rr" and "srpt", streams equal, TTFT p50 side by
    side; (c) compacted ticks on the three presets at capacity 8 over the
    serving mix with budgets 64, 8, 16, 8, 32, 8, 16, 8 (greedy), on
-   against off: a stream may part only at a step whose full-width top-two
-   logit margin is within the bf16 tolerance, the hybrids must launch
-   ``rpa_fwd`` at widths below 8; bucket histogram, lanes saved and
-   device ms a tick by width beside the full tick at the same live
-   counts printed, with which widths of hybrid-280m's decode GEMMs give
-   other bits than the 8-row product and ``rpa_fwd``'s device ms with
-   its split rule pinned to the capacity against its own;
+   against off: every stream equal, the hybrids must launch ``rpa_fwd``
+   at widths below 8; bucket histogram, lanes saved and device ms a tick
+   by width beside the full tick at the same live counts printed, with
+   which widths of hybrid-280m's decode GEMMs and row-wise ops give other
+   bits than the 8-row call (none allowed for the two norm kernels) and
+   ``rpa_fwd``'s device ms with its split rule pinned to the capacity
+   against its own; before them, hybrid-280m's decode sub-step with the
+   norm kernels and with the plain norms (kernels run, device and event
+   ms: ``norm_tick``);
+3c. speculative decoding (``spec_phase``, the same weights, K = 3,
+   capacity 8, greedy) on mamba2-280m, hybrid-280m, int8 hybrid-280m and
+   mamba1-280m over the serving mix (32 new tokens) and a repetitive mix
+   (8 prompts of a 32-token pattern tiled to 256, 64 new tokens): the
+   compacted spec engine's streams equal the spec engine's, a spec stream
+   parts from the non-spec engine's only at a step whose full-width
+   top-two margin is within the bf16 tolerance, the verify launches
+   ``ssd_fwd``/``m1_scan``/``rpp_fwd`` and no ``rpa_fwd``; printed: the
+   acceptance rate, committed tokens a verify launch, launches a
+   committed token, tick ms a committed token and tokens/s against the
+   non-spec engine, ``summary()["speculation"]``, and the device ms of
+   one verify launch against K+1 decode sub-steps; then a ``ModelDrafter``
+   (a seeded 4-layer mamba2 companion) on mamba2-280m's repetitive mix;
 4. eval and import (after serving, about a minute and a half): the
    HellaSwag scorer (``evaluate_hellaswag``) over
    ``tests/data/hellaswag_tiny.jsonl`` (16 examples, ``example_batch`` 8,
    so 32 rows) with a word-level tokenizer of 1, 6 and 18 ids a word
    (rows padded to 32, 96 and 288 tokens: SSD chunks of 32, 96 and 144)
-   on full-width, full-depth mamba2-280m, hybrid-280m and mamba1-280m
-   (bf16, seeded weights), once with "pallas"/"auto" and once with "xla":
+   on full-width mamba2-280m, hybrid-280m and mamba1-280m cut to 16
+   layers (bf16, seeded weights), once with "pallas"/"auto" and once with "xla":
    the logits (RMS error over RMS) and the per-row summed and mean losses
    agree at the bf16 tolerance, the pallas
    runs launch ``ssd_fwd``, ``flash_fwd`` and ``m1_scan`` (the xla runs
@@ -1041,6 +1063,187 @@ def check_flash(gen, micro: int):
 
 # ------------------------------------------------ selective scan (Mamba-1)
 
+# ------------------------------------------------------------- RMSNorm kernels
+
+# (rows, width, group) of each norm kernel's checked and timed shapes: the
+# decode tick's 8 rows and a 256-token chunk step's, at the 280m presets'
+# widths (d_model 768 for the residual norm, d_inner 1536 for the gated
+# one), 1536 for both, and hybrid-7b's (d_model 4096, d_inner 8192, and a
+# grouped norm of 8 groups); the first shape of each is its row's
+NORM_SHAPES = {
+    "add_rms_norm": ((8, 768, None), (256, 768, None), (8, 1536, None), (256, 1536, None),
+                     (256, 4096, None), (256, 8192, None)),
+    "rms_norm_gated": ((8, 1536, None), (256, 1536, None), (256, 8192, None),
+                       (256, 8192, 1024)),
+}
+NORM_SOURCE = "mamba_distributed_tpu_torch/ops/cuda/csrc/rms_norm.cu"
+NORM_NO_PALLAS = ("none: no pallas_call counterpart (mamba_distributed_tpu/ops/norm.py:23-75 "
+                  "is plain jnp, left to XLA)")
+
+
+def norm_case(gen, name: str, rows: int, d: int, group, dtype):
+    """(kernel call, plain call, bytes moved) of one norm case: bf16 (or
+    fp32) activations, an fp32 residual stream and fp32 weights, as the
+    decode step and the chunk step feed them; the bytes count each input
+    read once and each output written once."""
+    from mamba_distributed_tpu_torch.ops.cuda import norm_kernels as nk
+
+    e = torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    w = 1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    if name == "add_rms_norm":
+        r = torch.randn((rows, d), generator=gen, device="cuda")
+        return (lambda: nk.add_rms_norm_kernel(x, r, w), lambda: nk.add_rms_norm_plain(x, r, w),
+                rows * d * (e + 4 + e + 4) + d * 4)
+    z = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    return (lambda: (nk.rms_norm_gated_kernel(x, z, w, group_size=group),),
+            lambda: (nk.rms_norm_gated_plain(x, z, w, group_size=group),),
+            rows * d * 3 * e + d * 4)
+
+
+def check_norms(gen) -> list[dict]:
+    """The two RMSNorm kernels (``rms_norm.cu``, no ``pallas_call``
+    counterpart) against their plain versions in fp32 and bf16 at
+    ``NORM_SHAPES``, two launches bit-identical, timed in bf16 by device
+    time beside their bytes bound and the plain version's device time.
+    (Their row-count invariance is held in ``compaction_kernels``.)"""
+    rows = []
+    for name, shapes in NORM_SHAPES.items():
+        entries = []
+        for n_rows, d, group in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                kern, plain, nbytes = norm_case(gen, name, n_rows, d, group, dtype)
+                got, got2, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                errs = [rel_err(a, b) for a, b in zip(got, ref)]
+                err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+                same = all(torch.equal(a, b) for a, b in zip(got, got2))
+                tag = f"{str(dtype)[6:]} rows={n_rows} d={d} group={group}"
+                print(f"check {name} {tag}: max_abs_err={err:.3e} (rel {rel:.2e}), tol rel "
+                      f"{TOL[dtype]:.0e}; 2 launches bit-identical: {same}", flush=True)
+                if rel > TOL[dtype] or not same:
+                    raise SystemExit(f"{name} disagrees with the plain version (rel {rel:.3e})"
+                                     f" or differs between launches ({same}): {tag}")
+                if dtype is not torch.bfloat16:
+                    continue
+                ms = sum(device_ms(kern, 50).values())
+                plain_ms = sum(device_ms(plain, 20).values())
+                bound_ms, bound_by = bound(nbytes, 0)
+                print(f"time {name} {tag}: kernel {ms:.5f} ms of device time, plain "
+                      f"{plain_ms:.5f} ms of device time, bound {bound_ms:.6f} ms ({bound_by}: "
+                      f"{nbytes} B)", flush=True)
+                entries.append(dict(shape=tag, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, max_abs_err=err))
+        head = entries[0]
+        rows.append(dict(name=name, route="cuda", source=NORM_SOURCE, replaces=NORM_NO_PALLAS,
+                         pallas_call=False, launches=None, max_abs_err=head["max_abs_err"],
+                         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                         bound_by=head["bound_by"], library_ms=None, shapes=entries))
+    return rows
+
+
+# ------------------------------------------------- kernels at the verify shape
+
+SPEC_K = 3  # draft tokens of the speculative runs: the verify feeds K+1 a row
+# the verify launch's rows at capacity 8 for the paged prefill: KV lengths
+# of the slots (one masked row, chunk_real 0) and the spec engine's page
+# table width (hybrid-280m's 16 pages a slot and the trash column)
+VERIFY_LENS = [300, 12, 700, 100, 956, 257, 63, 0]
+VERIFY_REALS = [SPEC_K + 1] * 7 + [0]
+VERIFY_W = 17
+
+
+def rpp_rows_work(args) -> tuple[int, int]:
+    """``rpp_work`` summed over the rows of a batched paged prefill."""
+    q, kc, vc, kp, vp, tbl, ln, cr, *scales = args
+    works = [rpp_work((q[i:i + 1], kc[i:i + 1], vc[i:i + 1], kp, vp, tbl[i:i + 1],
+                       ln[i:i + 1], cr[i:i + 1], *scales)) for i in range(q.shape[0])]
+    return sum(b for b, _ in works), sum(f for _, f in works)
+
+
+def check_verify_shapes(gen, rows: dict) -> None:
+    """The kernels the speculative verify launches, at its shape: 8 rows
+    of K+1 = 4 tokens.  ``ssd_fwd`` (bf16, seeded, the 4-token chunk that
+    ``_divisor_chunk`` gives, on the tensor cores, zero-filled past l
+    inside its 64-row block) and ``m1_scan`` (fp32, t 4, below its 16-step
+    ``cp.async`` tile) against their plain versions; ``rpp_fwd`` and
+    ``rpp_fwd_int8`` at c 4 over a 17-page table (16 and the trash column)
+    with one masked row, pages bit-identical; each timed by device time
+    beside its bound, into its row's ``shapes``."""
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+    from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as sk
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels
+    from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk, ssd_chunked
+
+    b, c = 8, SPEC_K + 1
+    dtype = torch.bfloat16
+    inp = ssd_inputs(gen, b, c, 1, dtype, True)
+    kw = dict(chunk_size=256, return_final_state=True, compute_dtype=dtype)
+    got, ref = ssd_kernels.ssd_chunked_kernel(**inp, **kw), ssd_chunked(**inp, **kw)
+    errs = [rel_err(a, r) for a, r in zip(got, ref)]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    l = _divisor_chunk(c, 256)
+    args = (inp["x"], inp["dt"], inp["A"], inp["B"], inp["C"], l, inp["initial_state"], dtype)
+    ms = sum(device_ms(lambda: ssd_kernels._ssd_fwd(*args), 50).values())
+    plain_ms = cuda_ms(lambda: ssd_chunked(**inp, **kw), 5, 1)
+    nbytes, flops = ssd_work(b, c, 24, 1, 64, 128, l, dtype, True)
+    bound_ms, bound_by = bound(nbytes, flops)
+    route = "tensor cores" if ssd_kernels.ssd_uses_tensor_cores(dtype, 64, 128) else "CUDA cores"
+    print(f"verify shape ssd_fwd bf16 b={b} t={c} l={l} h=24 seeded ({route}): max_abs_err="
+          f"{err:.3e} (rel {rel:.2e}), tol rel {TOL[dtype]:.0e}; kernel {ms:.4f} ms of device "
+          f"time, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    if rel > TOL[dtype] or not all(torch.isfinite(t).all() for t in got):
+        raise SystemExit(f"ssd_fwd at the verify shape: rel {rel:.3e}")
+    rows["ssd_fwd"]["shapes"].append(dict(
+        shape=f"bf16 b={b} t={c} l={l} h=24 seeded (verify)", ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+
+    tol = TOL[torch.float32]
+    u, dt, A, B, C, h0 = m1_inputs(gen, b, c, 1536, True)
+    errs = [rel_err(a, r) for a, r in zip(sk.m1_scan(u, dt, A, B, C, h0),
+                                          sk.m1_scan_plain(u, dt, A, B, C, h0))]
+    err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+    ms = sum(device_ms(lambda: sk.m1_scan(u, dt, A, B, C, h0), 50).values())
+    plain_ms = cuda_ms(lambda: sk.m1_scan_plain(u, dt, A, B, C, h0), 5, 1)
+    (nb, ne, nf), _, _ = m1_work(b, c, 1536, 16, True, False)
+    bound_ms, bound_by = m1_bound(nb, ne, nf)
+    print(f"verify shape m1_scan fp32 b={b} t={c} d=1536 seeded ({sk.m1_scan_ctas(b, 1536)} "
+          f"CTAs): max_abs_err={err:.3e} (rel {rel:.2e}), tol rel {tol:.0e}; kernel {ms:.4f} ms "
+          f"of device time, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+    if rel > tol:
+        raise SystemExit(f"m1_scan at the verify shape: rel {rel:.3e}")
+    rows["m1_scan"]["shapes"].append(dict(
+        shape=f"fp32 b={b} t={c} d=1536 seeded (verify)", ctas=sk.m1_scan_ctas(b, 1536), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+
+    for quant, name in ((False, "rpp_fwd"), (True, "rpp_fwd_int8")):
+        args, real = rpp_case(gen, b, c, 12, 4, 64, VERIFY_W, VERIFY_LENS, VERIFY_REALS,
+                              dtype, quant)
+        q, kc, vc, kp, vp, tbl, ln, cr, *scales = args
+        kp2, vp2 = kp.clone(), vp.clone()
+        out, gk, gv = ak.ragged_paged_prefill_attention(*args)
+        ref, rk, rv = ak.ragged_paged_prefill_attention_plain(q, kc, vc, kp2, vp2, tbl, ln, cr,
+                                                              *scales)
+        torch.cuda.synchronize()
+        if not (torch.equal(gk[1:], rk[1:]) and torch.equal(gv[1:], rv[1:])):
+            raise SystemExit(f"{name} at the verify shape wrote pages unlike the plain version")
+        err, rel = rel_err(out[real], ref[real])
+        ms = sum(device_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50).values())
+        plain_ms = cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 5, 1)
+        nbytes, flops = rpp_rows_work(args)
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"verify shape {name} bf16 q b={b} c={c} W={VERIFY_W} lengths={VERIFY_LENS} "
+              f"chunk_real={VERIFY_REALS}: max_abs_err={err:.3e} (rel {rel:.2e}), tol rel "
+              f"{TOL[dtype]:.0e}, pages bit-identical; kernels {ms:.4f} ms of device time, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+        if rel > TOL[dtype] or not torch.isfinite(out[real]).all():
+            raise SystemExit(f"{name} at the verify shape: rel {rel:.3e}")
+        rows[name].setdefault("shapes", []).append(dict(
+            shape=f"bf16 q b={b} c={c} W={VERIFY_W} (verify)", ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+
+
 def m1_layout_extra(b, t, d, n):
     """Bytes the port's layout moves beyond ``m1_work``'s count: the entry
     states at T_BLK steps in place of the TPU tile (written by kernel 5,
@@ -1389,7 +1592,8 @@ def serve_int8(bf16: dict, preset: str = "hybrid-280m", params=None,
     agreement with bf16 (printed, not gated) and the serving numbers side
     by side."""
     card = smi()
-    q8 = serve(preset, ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8"), params=params,
+    q8 = serve(preset, ("ssd_fwd", "ragged_decode_int8", "ragged_prefill_int8",
+                        *NORM_SHAPES), params=params,
                keep_params=keep_params, kv_page_dtype="int8", serving_weight_dtype="int8")
     if q8["launches"]["ragged_decode"] or q8["launches"]["ragged_prefill"]:
         raise SystemExit(f"the int8 {preset} run launched a bf16 paged kernel")
@@ -1933,11 +2137,13 @@ def eval_forward(params, cfg):
 
 def eval_preset(card: str, preset: str, path_kernels: tuple[str, ...]) -> set[int]:
     """``evaluate_hellaswag`` over the tiny HellaSwag file (16 examples,
-    ``example_batch`` 8: R 32) on a seeded full-width, full-depth
-    ``preset`` (bf16) with "pallas"/"auto" and with "xla", at each word
-    width; the logits (RMS error over RMS) and the per-row summed and
-    mean losses of the two must agree at the bf16 tolerance, and the pallas run must launch every kernel of
-    ``path_kernels`` (the xla run none).  Returns the padded lengths."""
+    ``example_batch`` 8: R 32) on a seeded full-width ``preset`` cut to
+    ``CUT_LAYERS`` layers (bf16) with "pallas"/"auto" and with "xla", at
+    each word width; the logits (RMS error over RMS) and the per-row
+    summed and mean losses of the two must agree at the bf16 tolerance,
+    and the pallas run must launch every kernel of ``path_kernels`` (the
+    xla run none but the norm kernels, which no impl knob selects).
+    Returns the padded lengths."""
     import dataclasses
 
     from mamba_distributed_tpu_torch.config import get_preset
@@ -1948,7 +2154,8 @@ def eval_preset(card: str, preset: str, path_kernels: tuple[str, ...]) -> set[in
     from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
     from mamba_distributed_tpu_torch.ops.ssd import _divisor_chunk
 
-    cfg = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16")
+    cfg = cut_layers(get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16"),
+                     CUT_LAYERS)
     check_kernel_shapes(cfg)
     xla = dataclasses.replace(cfg, ssm_impl="xla", attn_impl="xla")
     params = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -1979,8 +2186,11 @@ def eval_preset(card: str, preset: str, path_kernels: tuple[str, ...]) -> set[in
         for k in path_kernels:
             if launches["pallas"].get(k, 0) < 1:
                 raise SystemExit(f"the {preset} eval path launched no {k} kernel")
-        if launches["xla"]:
-            raise SystemExit(f"the {preset} xla eval launched hand kernels: {launches['xla']}")
+        # the norm kernels follow no impl knob (ops/dispatch.use_norm_kernel):
+        # the xla run takes them too, and no other hand kernel
+        xla_hand = {k: v for k, v in launches["xla"].items() if k not in NORM_SHAPES}
+        if xla_hand:
+            raise SystemExit(f"the {preset} xla eval launched hand kernels: {xla_hand}")
         # the logits and per-row losses of the two implementations on the
         # same batches: the losses sit near ln V with random weights, the
         # logits show what the mixers computed.  The logits are gated by
@@ -2651,13 +2861,49 @@ def telemetry_phase(card: str, served: dict) -> None:
 
 FEATURE_INT8 = dict(kv_page_dtype="int8", serving_weight_dtype="int8")
 FEATURE_NEW = (64, 8, 16, 8, 32, 8, 16, 8)  # the compaction mix's budgets
-MARGIN_TOL = TOL[torch.bfloat16]  # a stream may part only at a near tie
+# a bf16 spec stream may part from the non-spec one only at a near tie:
+# a top-two margin within the bf16 tolerance of the step's largest |logit|
+# (the scale every bf16 check here is relative to)
+MARGIN_TOL = TOL[torch.bfloat16]
 
 
-def feature_cfg(preset: str, **overrides):
+# the depth of phase 3b's (a) and (b) runs and of the eval phase's scorer
+# runs: cut from 64 layers (PRs 13-15 ran them at full depth) to keep the
+# script near 900 s with the speculative phase added; the compaction and
+# speculative runs stay at full depth
+CUT_LAYERS = 16
+
+
+def cut_layers(cfg, layers: int | None):
+    """``cfg`` cut to its first ``layers`` layers (its attention layers
+    among them), or ``cfg`` itself for None."""
+    import dataclasses
+
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layer=layers, attn_layer_idx=tuple(
+        i for i in cfg.attn_layer_idx if i < layers))
+
+
+def layer_prefix(dparams: dict, cfg) -> dict:
+    """Decode weights of a deeper stack cut to ``cfg``'s layers: the
+    first layers of every layer-stacked leaf (views)."""
+    n_attn = len(cfg.attn_layer_idx)
+
+    def head(tree, n):
+        return {k: head(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+
+    out = {**dparams, "blocks": head(dparams["blocks"], cfg.n_layer - n_attn)}
+    if n_attn:
+        out["attn_blocks"] = head(dparams["attn_blocks"], n_attn)
+    return out
+
+
+def feature_cfg(preset: str, layers: int | None = None, **overrides):
     from mamba_distributed_tpu_torch.config import get_preset
 
-    return get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", **overrides)
+    return cut_layers(get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16",
+                                 **overrides), layers)
 
 
 def drive(eng, reqs, on_step=None) -> dict:
@@ -2782,7 +3028,7 @@ def prefix_run(card: str, tag: str, dparams, cfg) -> None:
         raise SystemExit(f"prefix cache {tag}: {fails}")
 
 
-def preempt_run(card: str, dparams) -> None:
+def preempt_run(card: str, dparams, layers: int | None = None) -> None:
     """Phase (b): hybrid-280m at capacity 4 with four priority-0 requests
     (300-token prompts, 96 new tokens); once all four decode, two
     priority-1 requests (100 tokens, 32 new) arrive and must preempt,
@@ -2795,7 +3041,7 @@ def preempt_run(card: str, dparams) -> None:
         ServingEngine,
     )
 
-    cfg = feature_cfg("hybrid-280m")
+    cfg = feature_cfg("hybrid-280m", layers)
     gen = torch.Generator().manual_seed(4)
     spec = [(300, 96, 0)] * 4 + [(100, 32, 1)] * 2
     prompts = [torch.randint(0, cfg.vocab_size, (t,), generator=gen).numpy() for t, _, _ in spec]
@@ -2849,7 +3095,7 @@ def preempt_run(card: str, dparams) -> None:
         raise SystemExit(f"preemption: {fails}")
 
 
-def srpt_run(card: str, dparams) -> None:
+def srpt_run(card: str, dparams, layers: int | None = None) -> None:
     """Phase (b), SRPT: mamba2-280m over the serving mix with
     ``prefill_schedule`` "rr" and "srpt": TTFT p50 side by side, streams
     equal."""
@@ -2857,7 +3103,7 @@ def srpt_run(card: str, dparams) -> None:
 
     runs = {}
     for sched in ("rr", "srpt"):
-        cfg = feature_cfg("mamba2-280m", prefill_schedule=sched)
+        cfg = feature_cfg("mamba2-280m", layers, prefill_schedule=sched)
         runs[sched] = drive(ServingEngine(dparams, cfg, capacity=8), serving_mix(cfg, 32)[2]())
     same = runs["rr"]["streams"] == runs["srpt"]["streams"]
     print(f"prefill schedule mamba2-280m: TTFT p50 rr {p50(runs['rr']['ttft'])} ms, srpt "
@@ -2890,10 +3136,31 @@ def timed_ticks(eng, log: list) -> None:
     eng._compact_tick = lambda live, width: timed(compact, width, live, width)
 
 
-def greedy_margins(dparams, cfg, prompt, new: int, rows: int):
-    """The greedy tokens of ``prompt`` decoded at ``rows`` rows (as
-    ``generate(decode_rows=rows)`` decodes them, so the full-width
-    engine's stream) and the top-two logit margin before each token."""
+def merge_states(states: list, logits: list):
+    """Batch-1 decode states (and their last logits) stacked into one
+    batch: the carries along the batch axis; a hybrid's private page
+    pools side by side along the page axis, each row's table shifted to
+    its own pool (its trash page included)."""
+    merged = {"blocks": tuple(torch.cat(parts, dim=1)
+                              for parts in zip(*(st["blocks"] for st in states)))}
+    if "attn_meta" in states[0]:
+        offsets = np.cumsum([0] + [st["attn_blocks"][0].shape[1] for st in states[:-1]])
+        merged["attn_blocks"] = tuple(torch.cat(parts, dim=1) for parts in
+                                      zip(*(st["attn_blocks"] for st in states)))
+        merged["attn_meta"] = (
+            torch.cat([st["attn_meta"][0] + int(o) for st, o in zip(states, offsets)]),
+            torch.cat([st["attn_meta"][1] for st in states]))
+    return merged, torch.cat(logits)
+
+
+def greedy_margins(dparams, cfg, prompts, news, rows: int):
+    """The greedy streams of ``prompts`` (``news[i]`` tokens each, at most
+    ``rows`` prompts) decoded together at ``rows`` rows, each prompt
+    prefilled alone as the engine prefills it: the full-width engine's
+    streams, since every op of the decode step computes a row from that
+    row alone at a fixed row count.  Returns, per prompt, (tokens, the
+    top-two logit margin before each token, the largest |logit| there:
+    the scale a relative tolerance applies to)."""
     from mamba_distributed_tpu_torch.inference.bucketing import (
         next_pow2_bucket,
         pad_to_bucket,
@@ -2907,37 +3174,48 @@ def greedy_margins(dparams, cfg, prompt, new: int, rows: int):
     from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step
     from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
 
-    t, hybrid = len(prompt), bool(cfg.attn_layer_idx)
-    ids = torch.as_tensor(prompt, dtype=torch.int64)[None]
+    hybrid = bool(cfg.attn_layer_idx)
+    states, firsts = [], []
     with torch.no_grad():
-        if hybrid or use_chunked_prefill(t, cfg.effective_prefill_chunk_tokens):
-            logits, state = chunked_prefill(dparams, cfg, ids, max_len=t + new if hybrid else 0)
-        else:
-            padded, mask = pad_to_bucket(ids.cuda(), next_pow2_bucket(t))
-            logits, state = lm_prefill(dparams, cfg, padded, max_len=t + new, token_mask=mask)
-        state, logits = _pad_rows(state, logits, rows)
+        for prompt, new in zip(prompts, news):
+            t = len(prompt)
+            ids = torch.as_tensor(prompt, dtype=torch.int64)[None]
+            if hybrid or use_chunked_prefill(t, cfg.effective_prefill_chunk_tokens):
+                logits, state = chunked_prefill(dparams, cfg, ids,
+                                                max_len=t + new if hybrid else 0)
+            else:
+                padded, mask = pad_to_bucket(ids.cuda(), next_pow2_bucket(t))
+                logits, state = lm_prefill(dparams, cfg, padded, token_mask=mask)
+            states.append(state)
+            firsts.append(logits)
+        state, logits = _pad_rows(*merge_states(states, firsts), rows)
         pad = vocab_pad_mask(cfg, "cuda")
         ones = torch.ones((rows,), dtype=torch.int64, device="cuda")
         u = torch.full((rows,), 0.5, device="cuda")
         temp = torch.ones((rows,), device="cuda")
-        toks, margins = [], []
-        for i in range(new):
-            top2 = torch.topk((logits + pad)[0], 2).values
-            margins.append(float(top2[0] - top2[1]))
+        steps, n = [], len(prompts)
+        for i in range(max(news)):
+            top2 = torch.topk((logits + pad)[:n], 2).values
+            peak = logits[:n, :cfg.vocab_size].abs().amax(dim=-1)
             tok = top_k_sample(logits + pad, u, 1, temp, ones)
-            toks.append(int(tok[0]))
-            if i + 1 < new:
+            steps.append(torch.stack([tok[:n].double(), (top2[:, 0] - top2[:, 1]).double(),
+                                      peak.double()]))
+            if i + 1 < max(news):
                 logits, state = lm_step(dparams, cfg, state, tok)
-    return toks, margins
+        table = torch.stack(steps).cpu().numpy()  # (steps, 3, n)
+    return [([int(x) for x in table[:new, 0, r]], table[:new, 1, r].tolist(),
+             table[:new, 2, r].tolist()) for r, new in enumerate(news)]
 
 
 def compaction_run(card: str, tag: str, dparams, cfg) -> None:
     """Phase (c) on one preset: the serving mix with budgets 64, 8, 16, 8,
-    32, 8, 16, 8 (occupancy falls from 8 to 1), every request greedy so a
-    stream that parts can be judged by its margin, compaction on against
-    off.  A stream that differs must part at a step where the full-width
-    run's top-two margin is within the bf16 tolerance; hybrids must
-    launch ``rpa_fwd`` at widths below 8."""
+    32, 8, 16, 8 (occupancy falls from 8 to 1), every request greedy,
+    compaction on against off.  Every stream must be equal: a compacted
+    tick computes each live row as the full tick does (the norms are
+    row-count invariant kernels, ``compaction_kernels`` holds every
+    row-wise op to that).  A stream that parts fails the run, printed with
+    the step and the full-width top-two margin where it parts; hybrids
+    must launch ``rpa_fwd`` at widths below 8."""
     import dataclasses
 
     from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
@@ -2962,12 +3240,11 @@ def compaction_run(card: str, tag: str, dparams, cfg) -> None:
         if a == b:
             continue
         k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        toks, margins = greedy_margins(dparams, cfg, prompts[i], FEATURE_NEW[i], 8)
+        ((toks, margins, _),) = greedy_margins(dparams, cfg, [prompts[i]], [FEATURE_NEW[i]], 8)
         parted.append((i, k, round(margins[k], 5)))
-        if toks != a:
-            fails.append(f"request {i}: the full-width reference does not reproduce its stream")
-        elif margins[k] > MARGIN_TOL:
-            fails.append(f"request {i} parts at step {k} with margin {margins[k]:.5f}")
+        fails.append(f"request {i} parts at step {k} (full-width top-two margin "
+                     f"{margins[k]:.5f}; the full-width reference reproduces the uncompacted "
+                     f"stream: {toks == a})")
     by_width = collections.defaultdict(list)
     full_at = collections.defaultdict(list)
     for width, live, ms, _ in logs[True]:
@@ -3003,9 +3280,9 @@ def compaction_kernels(card: str, dparams, cfg) -> None:
     the other row-wise ops of its Mamba-2 decode step (the norms, the
     conv update, the SSM update) over ``ROW_TRIALS`` random 8-row batches:
     how many rows of the first 1, 2 and 4 rows, called alone, differ from
-    the same rows of the 8-row call; and ``rpa_fwd`` at 2 and 4 rows with
-    its split rule pinned to 8 rows (the compacted tick's) against its
-    own, device ms each."""
+    the same rows of the 8-row call, which must be none for the two norm
+    kernels; and ``rpa_fwd`` at 2 and 4 rows with its split rule pinned
+    to 8 rows (the compacted tick's) against its own, device ms each."""
     from mamba_distributed_tpu_torch.models.common import linear
     from mamba_distributed_tpu_torch.models.lm import _head_logits
     from mamba_distributed_tpu_torch.ops.conv import causal_conv1d_update
@@ -3077,6 +3354,9 @@ def compaction_kernels(card: str, dparams, cfg) -> None:
           f"{4 * ROW_TRIALS} rows at widths 1, 2, 4) {rows}; rpa_fwd device ms at (lanes: split "
           f"pinned to 8 rows, own split, splits pinned, splits own, outputs equal) {split} "
           f"[{card}]", flush=True)
+    bad = {k: rows[k] for k in NORM_SHAPES if any(rows[k].values())}
+    if bad:
+        raise SystemExit(f"the norm kernels depend on the row count: {bad}")
 
 
 def engine_features_phase(card: str, params: dict) -> None:
@@ -3087,14 +3367,312 @@ def engine_features_phase(card: str, params: dict) -> None:
     t0 = time.perf_counter()
     presets = (("mamba2-280m", "mamba2-280m", {}), ("hybrid-280m", "hybrid-280m", {}),
                ("hybrid-280m int8", "hybrid-280m", FEATURE_INT8))
-    for tag, preset, over in presets:
-        prefix_run(card, tag, params[tag], feature_cfg(preset, **over))
-    preempt_run(card, params["hybrid-280m"])
-    srpt_run(card, params["mamba2-280m"])
+    print(f"engine features (a) and (b): depth cut from 64 to {CUT_LAYERS} layers (their "
+          f"first {CUT_LAYERS} layers' weights), full width", flush=True)
+    cut = {tag: feature_cfg(preset, CUT_LAYERS, **over) for tag, preset, over in presets}
+    for tag, _, _ in presets:
+        prefix_run(card, tag, layer_prefix(params[tag], cut[tag]), cut[tag])
+    preempt_run(card, layer_prefix(params["hybrid-280m"], cut["hybrid-280m"]), CUT_LAYERS)
+    srpt_run(card, layer_prefix(params["mamba2-280m"], cut["mamba2-280m"]), CUT_LAYERS)
+    norm_tick(card, params["hybrid-280m"], feature_cfg("hybrid-280m"))
     compaction_kernels(card, params["hybrid-280m"], feature_cfg("hybrid-280m"))
     for tag, preset, over in presets:
         compaction_run(card, tag, params[tag], feature_cfg(preset, **over))
     print(f"engine features phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
+# ------------------------------------- norm kernels in the decode step
+
+@contextlib.contextmanager
+def plain_norms():
+    """Route ``ops/norm.py`` to its plain expressions on the card for the
+    block: a measurement of what the norm kernels replace."""
+    from mamba_distributed_tpu_torch.ops import norm
+
+    saved = norm.use_norm_kernel
+    norm.use_norm_kernel = lambda *tensors: False
+    try:
+        yield
+    finally:
+        norm.use_norm_kernel = saved
+
+
+def kernel_events(fn) -> int:
+    """CUDA kernels one call of ``fn`` runs, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def decode_state(cfg, rows: int, cached: int, width: int):
+    """A decode state of ``rows`` rows with ``cached`` tokens a row: zero
+    carries and, for a hybrid, an identity-paged private cache of
+    ``width`` pages a row at that length."""
+    from mamba_distributed_tpu_torch.models.lm import init_lm_state
+
+    st = init_lm_state(cfg, rows, max_len=width * cfg.kv_page_tokens if cfg.attn_layer_idx
+                       else 0, device="cuda")
+    if cfg.attn_layer_idx:
+        st["attn_meta"] = (st["attn_meta"][0],
+                           torch.full((rows,), cached, dtype=torch.int32, device="cuda"))
+    return st
+
+
+def norm_tick(card: str, dparams, cfg) -> None:
+    """hybrid-280m's decode sub-step at 8 rows (300 cached tokens a row)
+    with the norm kernels and with the plain norms: the CUDA kernels it
+    runs (profile), the norm kernels' launches in it, and its device ms
+    and event ms a sub-step.  A record of what the launches saved, not a
+    claim."""
+    from mamba_distributed_tpu_torch.models.lm import lm_step
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+
+    st = decode_state(cfg, 8, 300, cfg.kv_pages_per_slot)
+    tok = torch.randint(0, cfg.vocab_size, (8,), device="cuda")
+    step = lambda: lm_step(dparams, cfg, st, tok)  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        n0 = {k: LAUNCHES[k] for k in NORM_SHAPES}
+        step()
+        norm_launches = {k: LAUNCHES[k] - n0[k] for k in NORM_SHAPES}
+        for route in ("kernels", "plain"):
+            with plain_norms() if route == "plain" else contextlib.nullcontext():
+                out[route] = (kernel_events(step), sum(device_ms(step, 10).values()),
+                              cuda_ms(step, 10))
+    (ek, dk, ck), (ep, dp, cp) = out["kernels"], out["plain"]
+    print(f"norm kernels in hybrid-280m's decode sub-step (8 rows, bf16): norm launches "
+          f"{norm_launches}; CUDA kernels a sub-step {ek} with the norm kernels, {ep} with the "
+          f"plain norms ({ep - ek} fewer); device ms a sub-step {dk:.4f} vs {dp:.4f}, event ms "
+          f"{ck:.4f} vs {cp:.4f}; a decode tick of {8} sub-steps {8 * ck:.3f} vs {8 * cp:.3f} "
+          f"ms by the event timer [{card}]", flush=True)
+
+
+# -------------------------------------------- speculative decoding (3c)
+
+SPEC_PRESETS = (("mamba2-280m", "mamba2-280m", {}), ("hybrid-280m", "hybrid-280m", {}),
+                ("hybrid-280m int8", "hybrid-280m", FEATURE_INT8),
+                ("mamba1-280m", "mamba1-280m", {}))
+SPEC_NEW = 32  # new tokens a request of the serving mix
+REPEAT = (32, 256, 64)  # the repetitive mix: pattern, prompt and new tokens
+
+
+def spec_traffic(cfg, mix: str):
+    """(prompts, budgets) of a speculative run, 8 requests: "serving" is
+    the serving mix's prompts (12, 100, 300 and 700 tokens, twice) with
+    ``SPEC_NEW`` new tokens each; "repetitive" is 8 prompts of a seeded
+    32-token pattern tiled to 256 tokens, 64 new tokens each (code-like
+    text, where the n-gram drafter is strong)."""
+    if mix == "serving":
+        _, prompts, _ = serving_mix(cfg, SPEC_NEW)
+        return prompts, [SPEC_NEW] * len(prompts)
+    pat, length, new = REPEAT
+    g = torch.Generator().manual_seed(2)
+    prompts = [np.tile(torch.randint(0, cfg.vocab_size, (pat,), generator=g).numpy(),
+                       length // pat) for _ in range(8)]
+    return prompts, [new] * len(prompts)
+
+
+def verify_check(dparams, cfg, prompts) -> dict:
+    """One verify launch against K+1 decode sub-steps from the same state:
+    8 rows prefilled with ``prompts`` (256 tokens each; a hybrid's table
+    at the spec engine's width), then K+1 seeded tokens a row fed as one
+    ``spec_verify`` and as K+1 ``lm_step`` calls.  Returns the largest
+    |verify logit - step logit| over the positions, relative to the
+    steps' largest |logit| (the chunk-versus-step rounding the
+    speculative streams ride on), and the device and event ms of the
+    launch and of the K+1 sub-steps."""
+    from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step, lm_verify_chunk
+    from mamba_distributed_tpu_torch.serving import spec_decode
+    from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
+
+    W = SPEC_K + 1
+    ids = torch.as_tensor(np.stack(prompts[:8]), dtype=torch.int64)
+    with torch.no_grad():
+        if cfg.attn_layer_idx:
+            _, st = chunked_prefill(dparams, cfg, ids, max_len=spec_decode.spec_page_len(
+                cfg, ids.shape[1] + W))
+        else:
+            _, st = lm_prefill(dparams, cfg, ids.cuda())
+        feed = torch.randint(0, cfg.vocab_size, (8, W), generator=torch.Generator().manual_seed(4))
+        feed, mask = feed.cuda(), torch.ones((8, W), device="cuda")
+        # the verify's logits (spec_verify's argmax input) from the state
+        vlog, _ = lm_verify_chunk(dparams, cfg, feed, st, token_mask=mask)
+        step_st = {**st, "blocks": tuple(t.clone() for t in st["blocks"])}
+        diff = peak = 0.0
+        for j in range(W):
+            slog, step_st = lm_step(dparams, cfg, step_st, feed[:, j])
+            diff = max(diff, float((vlog[:, j] - slog).abs().max()))
+            peak = max(peak, float(slog.abs().max()))
+        tok = feed[:, 0]
+        verify = lambda: spec_decode.spec_verify(dparams, st, feed, mask, cfg)  # noqa: E731
+        step = lambda: lm_step(dparams, cfg, step_st, tok)  # noqa: E731
+        return dict(rel=diff / peak, diff=diff, v_dev=sum(device_ms(verify, 3).values()),
+                    s_dev=W * sum(device_ms(step, 3).values()), v_ev=cuda_ms(verify, 3),
+                    s_ev=W * cuda_ms(step, 3))
+
+
+def per_token(launches: dict, tokens: int, keys) -> dict:
+    return {k: round(launches.get(k, 0) / tokens, 3) for k in keys if k in launches}
+
+
+def spec_run(card: str, tag: str, dparams, cfg, mix: str, base=None, drafter=None,
+             compacted: bool = True) -> dict:
+    """One preset and mix: the non-speculative engine (or ``base``, its
+    run), the K = 3 spec engine and (``compacted``) the compacted spec
+    engine, capacity 8, greedy.  The compacted spec streams must equal the
+    spec streams.
+    In fp32 every spec stream must equal the non-spec one (speculation is
+    lossless); in bf16 one may part only at a step whose full-width
+    top-two margin is within ``MARGIN_TOL`` of that step's largest
+    |logit| (the verify's chunk arithmetic rounds elsewhere than the
+    decode step: ``verify_check``).  Prints the acceptance rate,
+    committed tokens per verify launch, kernel launches per committed
+    token, tick ms per committed token and tokens/s, spec against
+    non-spec."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.serving import GenerationRequest, ServingEngine
+    from mamba_distributed_tpu_torch.utils.metrics import ServingMetrics
+
+    prompts, new = spec_traffic(cfg, mix)
+
+    def reqs():
+        return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=n, top_k=1, seed=i)
+                for i, (p, n) in enumerate(zip(prompts, new))]
+
+    spec_cfg = dataclasses.replace(cfg, spec_tokens=SPEC_K,
+                                   spec_drafter="model" if drafter else "ngram")
+    runs = {} if base is None else {"base": base}
+    for name, c in (("base", cfg), ("spec", spec_cfg),
+                    ("compacted", dataclasses.replace(spec_cfg, tick_compaction=True))):
+        if name in runs or (name == "compacted" and not compacted):
+            continue
+        kw = {"drafter": drafter()} if drafter and name != "base" else {}
+        eng = ServingEngine(dparams, c, capacity=8, metrics=ServingMetrics(8), **kw)
+        t0 = time.perf_counter()
+        run = drive(eng, reqs())
+        run.update(wall=time.perf_counter() - t0, summary=eng.metrics.summary())
+        if eng.hybrid and eng.page_pool.pages_in_use:
+            raise SystemExit(f"spec {tag} {mix} {name}: {eng.page_pool.pages_in_use} pages leaked")
+        runs[name] = run
+    fails, parted = [], []
+    same = runs["compacted"]["streams"] == runs["spec"]["streams"] if compacted else None
+    if same is False:
+        diff = [i for i, (a, b) in enumerate(zip(runs["compacted"]["streams"],
+                                                 runs["spec"]["streams"])) if a != b]
+        fails.append(f"the compacted spec streams {diff} differ from the spec engine's")
+    apart = [i for i, (a, b) in enumerate(zip(runs["base"]["streams"], runs["spec"]["streams"]))
+             if a != b]
+    refs = (dict(zip(apart, greedy_margins(dparams, cfg, [prompts[i] for i in apart],
+                                           [new[i] for i in apart], 8))) if apart else {})
+    for i in apart:
+        a, b = runs["base"]["streams"][i], runs["spec"]["streams"][i]
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        toks, margins, peaks = refs[i]
+        parted.append((i, k, round(margins[k], 5), round(margins[k] / peaks[k], 5)))
+        if toks != a:
+            fails.append(f"request {i}: the full-width reference does not reproduce its stream")
+        elif cfg.torch_compute_dtype == torch.float32:
+            fails.append(f"request {i} parts from the non-spec stream in fp32 at step {k}")
+        elif margins[k] > MARGIN_TOL * peaks[k]:
+            fails.append(f"request {i} parts from the non-spec stream at step {k} with margin "
+                         f"{margins[k]:.5f} > {MARGIN_TOL} x {peaks[k]:.4f}")
+    hybrid = bool(cfg.attn_layer_idx)
+    q8 = "_int8" if cfg.kv_quantized and hybrid else ""
+    need = (("m1_scan",) if cfg.ssm_layer == "mamba1" else ("ssd_fwd", "rms_norm_gated")) + (
+        ("add_rms_norm",) + ((f"ragged_prefill{q8}",) if hybrid else ()))
+    for k in need:
+        if not runs["spec"]["launches"].get(k):
+            fails.append(f"the spec run launched no {k}")
+    if runs["spec"]["launches"].get(f"ragged_decode{q8}"):
+        fails.append("the spec run launched the paged decode (the verify is a chunk step)")
+    keys = ("ssd_fwd", "m1_scan", f"ragged_prefill{q8}", f"ragged_decode{q8}")
+    out = {}
+    for name in ("base", "spec"):
+        run = runs[name]
+        tokens = sum(len(s) for s in run["streams"])
+        summ = run["summary"]
+        out[name] = dict(
+            launches=per_token(run["launches"], tokens, keys),
+            tick_ms_per_token=(round(1000 / summ["decode_tokens_per_sec"], 4)
+                               if summ["decode_tokens_per_sec"] else None),
+            decode_tokens_per_s=summ["decode_tokens_per_sec"],
+            wall_tokens_per_s=round(tokens / run["wall"], 1))
+    sp = runs["spec"]["summary"]["speculation"]
+    equal = sum(a == b for a, b in zip(runs["base"]["streams"], runs["spec"]["streams"]))
+    print(f"spec {tag} {mix} mix ({'ModelDrafter' if drafter else 'n-gram'}, K={SPEC_K}, "
+          f"capacity 8, greedy): streams equal to the non-spec engine's {equal} of "
+          f"{len(prompts)}; parted (request, step, full-width top-two margin, over the step's "
+          f"largest |logit|) {parted}; "
+          f"compacted spec == spec: {'not run' if same is None else same}; "
+          f"acceptance rate {sp['acceptance_rate']}, committed tokens per verify launch "
+          f"{sp['accepted_tokens_per_tick']}; kernel launches per committed token spec "
+          f"{out['spec']['launches']} vs non-spec {out['base']['launches']}; tick ms per "
+          f"committed token spec {out['spec']['tick_ms_per_token']} vs non-spec "
+          f"{out['base']['tick_ms_per_token']}; decode tokens/s spec "
+          f"{out['spec']['decode_tokens_per_s']} vs non-spec {out['base']['decode_tokens_per_s']}"
+          f"; wall tokens/s (prefill included) spec {out['spec']['wall_tokens_per_s']} vs "
+          f"non-spec {out['base']['wall_tokens_per_s']}; summary()['speculation'] {sp} [{card}]",
+          flush=True)
+    if fails:
+        raise SystemExit(f"spec {tag} {mix}: {fails}")
+    return runs["base"]
+
+
+def spec_phase(card: str, params: dict) -> None:
+    """Speculative decoding on the card (phase 3c), on the decode weights
+    the serving phase cast (``params``: preset tag -> weights), full width
+    and depth: per preset ``verify_check`` (the verify's logits within the
+    bf16 tolerance of K+1 decode steps', and the device ms of each), then
+    ``spec_run`` over the serving mix and the repetitive mix; then
+    mamba2-280m in fp32 (seeded masters), where the verify's logits must
+    sit within the fp32 tolerance and every spec stream equal the
+    non-spec one; last a ``ModelDrafter`` (a seeded 4-layer mamba2
+    companion at mamba2-280m's width and vocab) on mamba2-280m's
+    repetitive mix."""
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.serving import ModelDrafter
+    from mamba_distributed_tpu_torch.serving.prefill import cast_decode_params
+
+    t0 = time.perf_counter()
+    bases = {}
+
+    def check(tag, dparams, cfg):
+        v = verify_check(dparams, cfg, spec_traffic(cfg, "repetitive")[0])
+        tol = TOL[cfg.torch_compute_dtype]
+        print(f"spec {tag}: one verify launch (8 rows x {SPEC_K + 1} tokens after 256) against "
+              f"{SPEC_K + 1} decode sub-steps from the same state: logits max_abs_diff "
+              f"{v['diff']:.5f} (rel {v['rel']:.2e}, tol rel {tol:.0e}); {v['v_dev']:.4f} ms of "
+              f"device time vs {v['s_dev']:.4f} ms; by the event timer {v['v_ev']:.4f} vs "
+              f"{v['s_ev']:.4f} ms [{card}]", flush=True)
+        if v["rel"] > tol:
+            raise SystemExit(f"spec {tag}: the verify's logits sit {v['rel']:.3e} from the "
+                             f"decode steps', over {tol}")
+
+    for tag, preset, over in SPEC_PRESETS:
+        cfg = feature_cfg(preset, **over)
+        check(tag, params[tag], cfg)
+        for mix in ("serving", "repetitive"):
+            bases[tag, mix] = spec_run(card, tag, params[tag], cfg, mix)
+    f32 = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32")
+    masters = init_lm_params(f32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    f32_params = cast_decode_params(masters, f32)
+    check("mamba2-280m fp32", f32_params, f32)
+    spec_run(card, "mamba2-280m fp32", f32_params, f32, "serving", compacted=False)
+    del masters, f32_params
+    dcfg = feature_cfg("mamba2-280m", n_layer=4)
+    dparams = init_lm_params(dcfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    spec_run(card, "mamba2-280m", params["mamba2-280m"], feature_cfg("mamba2-280m"),
+             "repetitive", base=bases["mamba2-280m", "repetitive"],
+             drafter=lambda: ModelDrafter(dparams, dcfg), compacted=False)
+    print(f"spec phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
 def main() -> int:
@@ -3165,20 +3743,28 @@ def main() -> int:
     rows = [check_ssd(gen), *check_ssd_bwd(gen), rpa, rpp, *check_flash(gen, micro=32),
             *check_m1(gen), rpa_int8, rpp_int8]
     check_7b_shapes(gen, {r["name"]: r for r in rows})
+    check_verify_shapes(gen, {r["name"]: r for r in rows})
+    # the RMSNorm kernels, which have no pallas_call counterpart
+    rows += check_norms(gen)
     if not args.kernels_only:
         card = smi()
-        ssd_serve = serve("mamba2-280m", ("ssd_fwd",), keep_params=True)
+        norms = tuple(NORM_SHAPES)
+        ssd_serve = serve("mamba2-280m", ("ssd_fwd", *norms), keep_params=True)
         ssd_launches = ssd_serve["launches"]
-        hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill"),
+        hybrid = serve("hybrid-280m", ("ssd_fwd", "ragged_decode", "ragged_prefill", *norms),
                        keep_params=True)
         launches = hybrid["launches"]
         q8 = serve_int8(hybrid, keep_params=True)
         q8_launches = q8["launches"]
-        m1_launches = serve("mamba1-280m", ("m1_scan",))["launches"]
-        # the admission and occupancy features on the weights cast above
-        engine_features_phase(card, {"mamba2-280m": ssd_serve.pop("params"),
-                                     "hybrid-280m": hybrid.pop("params"),
-                                     "hybrid-280m int8": q8.pop("params")})
+        m1_serve = serve("mamba1-280m", ("m1_scan", "add_rms_norm"), keep_params=True)
+        m1_launches = m1_serve["launches"]
+        # the admission and occupancy features, then speculative decoding,
+        # on the weights cast above
+        served = {"mamba2-280m": ssd_serve.pop("params"), "hybrid-280m": hybrid.pop("params"),
+                  "hybrid-280m int8": q8.pop("params"), "mamba1-280m": m1_serve.pop("params")}
+        engine_features_phase(card, served)
+        spec_phase(card, served)
+        del served
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()
         torch.cuda.empty_cache()
@@ -3243,13 +3829,15 @@ def main() -> int:
         # the hybrid training run for the flash kernels, the mamba1
         # serving run for m1_scan, the mamba1 training run for the scan
         # backward kernels, the int8 hybrid serving run for the int8
-        # branches of the paged attention kernels
+        # branches of the paged attention kernels, the mamba2 serving run
+        # for the two norm kernels
         for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
                                  train_launches["ssd_bwd"], launches["ragged_decode"],
                                  launches["ragged_prefill"], *(hyb_launches[k] for k in flash),
                                  m1_launches["m1_scan"], m1_train_launches["m1_entry_states"],
                                  m1_train_launches["m1_bwd"], q8_launches["ragged_decode_int8"],
-                                 q8_launches["ragged_prefill_int8"]), strict=True):
+                                 q8_launches["ragged_prefill_int8"],
+                                 *(ssd_launches[k] for k in NORM_SHAPES)), strict=True):
             row["launches"] = n
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build to here", flush=True)
     print(smi())

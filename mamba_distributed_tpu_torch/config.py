@@ -171,6 +171,23 @@ class ModelConfig:
     # the matmul sites dequantize at use
     serving_weight_dtype: str = "bf16"
 
+    # --- speculative decoding (serving/spec_decode.py) ---
+    # draft tokens verified per serving tick; 0 (the default) turns it
+    # off.  K > 0 makes every decode tick one draft-verify step: a
+    # drafter proposes K guesses per slot and one chunk-step launch
+    # (models/lm.lm_verify_chunk) scores all K+1 positions, committing
+    # the longest correct prefix.  Greedy-only (requests must use
+    # top_k=1); the streams stay those of greedy decoding.  The engine
+    # and generate() both read it, so the two speculate alike
+    spec_tokens: int = 0
+    # who drafts: "ngram" (prompt lookup over the stream's own history)
+    # or "model" (a small companion LM; the engine and generate() take
+    # its ModelDrafter instance)
+    spec_drafter: str = "ngram"
+    # longest trailing n-gram the "ngram" drafter matches before it
+    # falls back to shorter ones
+    spec_ngram_order: int = 3
+
     def __post_init__(self):
         if self.ssm_layer not in ("mamba1", "mamba2"):
             raise ValueError(
@@ -293,6 +310,21 @@ class ModelConfig:
             raise ValueError(
                 f"kv_page_dtype must be 'bf16' (compute-dtype pages, the "
                 f"status quo) or 'int8', got {self.kv_page_dtype!r}"
+            )
+        if self.spec_tokens < 0:
+            raise ValueError(
+                f"spec_tokens must be >= 0 (0 disables speculative "
+                f"decoding), got {self.spec_tokens}"
+            )
+        if self.spec_drafter not in ("ngram", "model"):
+            raise ValueError(
+                f"spec_drafter must be 'ngram' or 'model', got "
+                f"{self.spec_drafter!r}"
+            )
+        if self.spec_ngram_order < 1:
+            raise ValueError(
+                f"spec_ngram_order must be >= 1, got "
+                f"{self.spec_ngram_order}"
             )
         if self.ssm_layer == "mamba2":
             self._check_mamba2()

@@ -171,7 +171,8 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
              max_new_tokens: int = 32, top_k: int = 50,
              temperature: float = 1.0, eos_id: int | None = None,
              length_bucketing: bool = True,
-             decode_rows: int | None = None, prefix_cache=None) -> torch.Tensor:
+             decode_rows: int | None = None, prefix_cache=None,
+             drafter=None) -> torch.Tensor:
     """prompt_ids (b, t) -> (b, t + max_new_tokens) tokens, on the
     device of ``params`` (fp32 masters, decode-cast here).
 
@@ -194,7 +195,15 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     (same keys and layouts).  The one-shot path only looks up, as the
     JAX package's does, so hit and miss counts match on a shared cache.
     Hybrid configs ignore the cache (their entries pin an engine's
-    pages)."""
+    pages).
+
+    ``cfg.spec_tokens > 0`` routes greedy (``top_k=1``) batch-1 calls
+    through the speculative path (serving/spec_decode.spec_generate): the
+    draft -> verify -> accept/rollback loop of the engine's spec tick, so
+    its stream equals a spec engine's (``decode_rows=capacity`` sets the
+    verify's row count).  ``drafter`` overrides the config's (a
+    ``Drafter``; ``spec_drafter="model"`` needs one) and moves only the
+    acceptance rate.  Sampled or batched calls take the normal path."""
     emb = params["embedding"]
     dev = (emb["kernel"] if isinstance(emb, dict) else emb).device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
@@ -205,6 +214,13 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
         raise ValueError("max_new_tokens must be >= 1")
     if not 1 <= top_k <= cfg.vocab_size_padded:
         raise ValueError(f"top_k={top_k} out of range")
+    if cfg.spec_tokens > 0 and top_k == 1 and b == 1 and length_bucketing:
+        # deferred import: serving imports this module
+        from mamba_distributed_tpu_torch.serving.spec_decode import spec_generate
+
+        return spec_generate(params, cfg, prompt, max_new_tokens=max_new_tokens,
+                             eos_id=eos_id, prefix_cache=prefix_cache, drafter=drafter,
+                             decode_rows=decode_rows)
     if dev.type == "cuda":
         check_kernel_shapes(cfg)
     dparams = _decode_params(params, cfg)

@@ -545,6 +545,25 @@ def lm_prefill_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     return logits[:, 0].float(), new_state
 
 
+def lm_verify_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+                    state: dict, token_mask: torch.Tensor | None = None):
+    """The speculative-decoding verify step (lm.py:844-872): the chunk
+    step of ``lm_prefill_chunk`` (the same carry threading and paged KV
+    write) with the logits of EVERY position.  Returns (logits (b, c, V)
+    fp32, new state), ``logits[:, i]`` scoring the token after
+    ``input_ids[:, i]``.
+
+    The new state has passed all ``c`` fed tokens, so a caller that
+    accepts fewer keeps the input carries, which this step leaves
+    untouched (serving/spec_decode.py).  A hybrid's pages are written in
+    place at ``[lengths, lengths + n_real)``; on a rejection the caller
+    does not advance its lengths, so those cells stay dead and the next
+    verify writes them again."""
+    hidden, residual, new_state = _chunk_backbone(params, cfg, input_ids,
+                                                  state, token_mask)
+    return _final_logits(params, cfg, hidden, residual).float(), new_state
+
+
 def init_lm_blocks_state(cfg: ModelConfig, batch: int, device=None):
     """Layer-stacked zero conv+SSM decode states of the Mamba layers (in a
     hybrid stack the attention layers' KV lives in the paged cache)."""

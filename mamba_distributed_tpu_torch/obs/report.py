@@ -6,8 +6,9 @@ stream) into the sections of the JAX package's ``scripts/obs_report.py``
 that the port's records feed, with the same keys and rounding: ``spans``
 (per-name totals and the share of top-level time), ``train``/``val``,
 ``serving`` (ticks, decode tokens/s, goodput, the prefix cache's hit
-counters, the compacted ticks' widths, preemptions, the hybrid page
-gauges, the int8 memory stamp) and ``requests`` (exact nearest-rank
+counters, the compacted ticks' widths, the speculation counters,
+preemptions, the hybrid page gauges, the int8 memory stamp) and
+``requests`` (exact nearest-rank
 percentiles of queue-wait, TTFT and end-to-end latency, TTFT split by
 prefix-cache outcome, and the per-request ITL histograms merged into
 one).
@@ -124,6 +125,22 @@ def _serving(ticks: list[dict]) -> dict:
             "mean_width": round(sum(widths) / len(widths), 2),
             "min_width": min(widths),
         }
+    spticks = [e for e in ticks if e.get("spec_drafted") is not None]
+    speculation = None
+    if spticks:
+        drafted = sum(e["spec_drafted"] for e in spticks)
+        accepted = sum(e.get("spec_accepted", 0) for e in spticks)
+        # committed tokens per stream per verify launch (records without
+        # spec_streams fall back to per tick)
+        streams = sum(e.get("spec_streams") or 0 for e in spticks)
+        speculation = {
+            "ticks": len(spticks),
+            "drafted": drafted,
+            "accepted": accepted,
+            "acceptance_rate": round(accepted / drafted, 4) if drafted else None,
+            "accepted_tokens_per_tick": round(
+                sum(e.get("tokens_emitted", 0) for e in spticks) / (streams or len(spticks)), 2),
+        }
     qticks = [e for e in ticks if e.get("quantized") is not None]
     memory = None
     if qticks:
@@ -145,6 +162,7 @@ def _serving(ticks: list[dict]) -> dict:
         "goodput": _goodput(ticks),
         "prefix_cache": prefix,
         "compaction": compaction,
+        "speculation": speculation,
         "preemptions": sum(e.get("preemptions", 0) for e in ticks),
         "kv_pages": kv_pages,
         "memory": memory,

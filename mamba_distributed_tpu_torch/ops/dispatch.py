@@ -14,6 +14,11 @@ on a TPU and interpreted elsewhere.  Here:
 ``cfg.ssm_impl`` and ``cfg.attn_impl`` both go through this rule, and
 ``check_kernel_shapes`` refuses, when a CUDA engine, ``generate()`` or
 trainer is built, a config whose kernels were not built for its shapes.
+
+The RMSNorm kernels (ops/norm.py), which no knob selects, follow a rule
+of their own (``use_norm_kernel``): the kernel on a CUDA tensor when
+autograd does not need the op, the plain expression under autograd and
+on the CPU.  A kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -34,6 +39,20 @@ def use_kernel(impl: str, x: torch.Tensor) -> bool:
     raise ValueError(
         f"no kernel or plain route for a tensor on {x.device.type!r}"
     )
+
+
+def use_norm_kernel(x: torch.Tensor, *others: torch.Tensor | None) -> bool:
+    """True when a norm of ``x`` (with ``others``, its other inputs, None
+    allowed) must go through its hand-written kernel: ``x`` lies on a
+    CUDA device and autograd does not need the op (grad mode is off, or
+    no input requires grad).  The train step keeps the plain expression,
+    whose backward autograd takes."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel or plain route for a tensor on {x.device.type!r}")
+    return not (torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad for t in (x, *others)))
 
 
 def check_kernel_shapes(cfg) -> None:

@@ -79,8 +79,20 @@ Admission and occupancy (the JAX engine's layer of the same name):
   ``cfg.compaction_hysteresis_ticks``), runs the same sub-step loop at
   that width and scatters the rows back (``_compact_tick``).
 
-Left out of the port for now: adapters, speculative decoding, sessions'
-parking, migration, meshes and sharded page pools.
+Speculative decoding (``cfg.spec_tokens = K > 0``; serving/
+spec_decode.py) swaps the tick for a draft-verify tick (``_spec_tick``):
+per decodable slot a drafter proposes up to K tokens after its pending
+committed ones, one ``lm_verify_chunk`` launch of width K+1 over the
+slots scores them, and each slot commits its longest correct prefix
+plus one token of the model's own.  Greedy only (``submit`` refuses
+``top_k != 1``); the streams stay those of the non-speculative engine
+up to the chunk-versus-step rounding of near ties.  Compaction runs the
+verify at the lane width.  The hybrid page table gains a column that
+always names the trash page, where a fully reserved slot's verify
+overshoot lands.
+
+Left out of the port for now: adapters, sessions' parking, migration,
+meshes and sharded page pools.
 """
 
 from __future__ import annotations
@@ -107,7 +119,7 @@ from mamba_distributed_tpu_torch.obs import NULL_TRACER, StreamingHistogram
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.ops.quant import param_bytes
 from mamba_distributed_tpu_torch.serving import prefix_cache as prefix_cache_mod
-from mamba_distributed_tpu_torch.serving import state_cache
+from mamba_distributed_tpu_torch.serving import spec_decode, state_cache
 from mamba_distributed_tpu_torch.serving.prefix_cache import PrefixCache
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
@@ -158,6 +170,11 @@ class ServingEngine:
         Hybrid entries pin pages of this engine's pool; a pure-SSM cache
         may be shared with ``generate(prefix_cache=)`` under the same
         params.
+      drafter: a ``serving/spec_decode.Drafter`` for speculative decoding
+        (read only when ``cfg.spec_tokens > 0``); None builds the
+        config's (``spec_drafter="ngram"``; ``"model"`` needs an instance,
+        a ``ModelDrafter``).  The drafter moves the acceptance rate, never
+        the tokens.
     """
 
     # the SRPT starvation guard: grants a prefill may be passed over in a
@@ -173,7 +190,8 @@ class ServingEngine:
                  prefill_tokens_per_tick: int | None = None, device=None,
                  metrics: ServingMetrics | None = None, tracer=NULL_TRACER,
                  slo=None, tick_regression=None,
-                 prefix_cache: PrefixCache | None = None):
+                 prefix_cache: PrefixCache | None = None,
+                 drafter: spec_decode.Drafter | None = None):
         if not 1 <= max_top_k <= cfg.vocab_size_padded:
             raise ValueError(
                 f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
@@ -205,13 +223,35 @@ class ServingEngine:
         self.prefill_tokens_per_tick = prefill_tokens_per_tick
         self._params = cast_decode_params(_to_device(params, device), cfg)
         self.pool = state_cache.init_pool(cfg, capacity, device)
+        self.metrics = metrics or ServingMetrics(capacity)
+        # speculative decoding: K = cfg.spec_tokens > 0 runs one verify
+        # launch of width K+1 a step instead of the sub-step loop; K = 0
+        # keeps no spec state and stamps nothing on the records
+        self.spec = cfg.spec_tokens > 0
+        if self.spec:
+            self.spec_width = cfg.spec_tokens + 1
+            self.drafter = drafter if drafter is not None else spec_decode.make_drafter(cfg)
+            self._spec_drafted = 0  # per-window gauges -> serving_tick
+            self._spec_accepted = 0
+            self._spec_streams = 0  # live slot-launches in the window
+            # verify lanes the last tick computed, debited from the next
+            # step's chunk-prefill budget
+            self._spec_budget_debt = 0
+            self.metrics.configure_speculation(cfg.spec_tokens, cfg.spec_drafter)
+        else:
+            self.drafter = None
         self.hybrid = bool(cfg.attn_layer_idx)
         if self.hybrid:
             self.page_pool = state_cache.PagePool(
                 state_cache.hybrid_pool_pages(cfg, capacity))
             # host-owned paged-KV metadata: each slot's page-table row
-            # (unreserved entries name the trash page 0) and KV length
-            self._page_tbl = np.zeros((capacity, cfg.kv_pages_per_slot), np.int32)
+            # (unreserved entries name the trash page 0) and KV length.
+            # Spec mode adds a column that always names the trash page:
+            # the verify may write up to K+1 tokens past a slot's
+            # reservation, and those writes must land there, never clamp
+            # onto the slot's own last live page
+            self._page_tbl = np.zeros(
+                (capacity, cfg.kv_pages_per_slot + (1 if self.spec else 0)), np.int32)
             self._kv_len = np.zeros((capacity,), np.int32)
             self._page_allocs = 0  # per-window gauges -> serving_tick
             self._page_frees = 0
@@ -223,7 +263,6 @@ class ServingEngine:
         self._prefill_queue: list[int] = []
         self.results: dict[int, GenerationResult] = {}
 
-        self.metrics = metrics or ServingMetrics(capacity)
         self.tracer = tracer
         self.slo = slo
         self.tick_regression = tick_regression
@@ -301,6 +340,13 @@ class ServingEngine:
             raise ValueError(
                 f"request top_k={request.top_k} must be in "
                 f"[1, max_top_k={self.max_top_k}]")
+        if self.spec and request.top_k != 1:
+            raise ValueError(
+                f"speculative decoding (cfg.spec_tokens="
+                f"{self.cfg.spec_tokens}) is greedy-only: request "
+                f"top_k={request.top_k} must be 1 (argmax).  Sampling-"
+                f"mode rejection sampling is a ROADMAP residual; serve "
+                f"sampled requests on a spec_tokens=0 engine")
         if self.hybrid:
             need = np.asarray(request.prompt_ids).size + request.max_new_tokens
             if need > self.cfg.kv_slot_tokens:
@@ -399,6 +445,7 @@ class ServingEngine:
                                       trace=tracked.trace_id, cache="full"):
                     state_cache.insert(self.pool, slot, {"blocks": entry.state["blocks"]},
                                        entry.logits, **self._slot_meta(r))
+                    self._seed_spec(tracked, entry.logits)
             elif entry is not None:
                 # partial hit: the remaining chunks run the computation a
                 # cold admission would, so the stream is the cold one
@@ -420,6 +467,7 @@ class ServingEngine:
                                                token_mask=mask)
                     state_cache.insert(self.pool, slot, state, logits,
                                        **self._slot_meta(r))
+                    self._seed_spec(tracked, logits)
                     if self.prefix_cache is not None:
                         # insert copied the state into the pool, so the
                         # prefill's own tensors can be kept
@@ -478,6 +526,17 @@ class ServingEngine:
             self._prefill_queue.append(slot)
         return True
 
+    def _seed_spec(self, tracked: _Tracked, logits) -> None:
+        """Seed a newly decodable slot's pending tokens with the greedy
+        argmax of its prefill logits: the token the first non-speculative
+        tick would emit, and the drafter's anchor.  Its fetch is the one
+        host sync speculation adds per request.  Nothing when speculation
+        is off."""
+        if not self.spec:
+            return
+        tracked.spec_pending = [spec_decode.greedy_token(logits, self.cfg.vocab_size)]
+        tracked.spec_pending_emitted = 0
+
     def _advance_prefill(self, slot: int, budget_left: float) -> float:
         """Run ONE chunk of ``slot``'s prefill; returns the budget left."""
         tracked = self._slots[slot]
@@ -519,6 +578,7 @@ class ServingEngine:
                 # takes without a prefill
                 self._store_prefix(r.prompt_ids, plan, i, state, slot, logits=logits)
                 state_cache.finish_prefill(self.pool, slot, state, logits)
+                self._seed_spec(tracked, logits)
                 tracked.status = RequestStatus.DECODE
                 # only the computed tokens: a partial hit's seeded ones
                 # are prefix_saved_tokens
@@ -699,6 +759,10 @@ class ServingEngine:
             self._free.sort()
             self.scheduler.requeue(tracked)
             raise
+        if self.spec and not tracked.spec_pending:
+            # a snapshot without pending tokens: derive the first from its
+            # logits (a preempted request keeps its own pending)
+            self._seed_spec(tracked, snap["logits"])
         tracked.snapshot = None
         tracked.slot = slot
         tracked.status = RequestStatus.DECODE
@@ -767,6 +831,12 @@ class ServingEngine:
                         break
         budget = self.prefill_tokens_per_tick
         left = float("inf") if budget == 0 else float(budget)
+        if self.spec and budget:
+            # the last verify tick's lanes count against this step's chunk
+            # budget, so speculation does not raise the per-step work the
+            # knob bounds; one chunk still runs whatever the debit
+            left = max(0.0, left - self._spec_budget_debt)
+            self._spec_budget_debt = 0
         chunks_run = 0
         while self._prefill_queue and (left > 0 or chunks_run == 0):
             left = self._advance_prefill(self._pick_prefill_slot(), left)
@@ -887,6 +957,36 @@ class ServingEngine:
         width = max(b, self.COMPACT_MIN_LANES)
         return None if width >= self.capacity else width
 
+    def _gather_lanes(self, live_slots: list[int], width: int):
+        """Gather the decodable slots' rows into ``width`` lanes (live
+        slots in slot order, pad lanes repeating slot 0 as the JAX engine
+        pads).  Returns the lane map {slot: lane}, the scatter maps (inv,
+        touched) on the device, the pool's per-slot rows, their gathered
+        copies and the lanes' launch state: the gathered carries and, for
+        a hybrid, the shared pages and an ``attn_meta`` whose pad lanes
+        point at the trash page with length 0."""
+        dev = self.device
+        lanes = {s: j for j, s in enumerate(sorted(live_slots))}
+        idx = np.zeros((width,), np.int64)
+        inv = np.zeros((self.capacity,), np.int64)
+        touched = np.zeros((self.capacity,), bool)
+        for s, j in lanes.items():
+            idx[j], inv[s], touched[s] = s, j, True
+        rows = {"blocks": self.pool["state"]["blocks"], "logits": self.pool["logits"],
+                "meta": self.pool["meta"]}
+        lane_rows = state_cache.gather_slots(rows, torch.from_numpy(idx).to(dev))
+        state = {"blocks": lane_rows["blocks"]}
+        if self.hybrid:
+            state["attn_blocks"] = self.pool["state"]["attn_blocks"]
+            tbl = self._page_tbl[idx]
+            lengths = self._kv_len[idx]
+            tbl[len(lanes):] = 0
+            lengths[len(lanes):] = 0
+            state["attn_meta"] = (torch.from_numpy(tbl).to(dev),
+                                  torch.from_numpy(lengths).to(dev))
+        return (lanes, torch.from_numpy(inv).to(dev), torch.from_numpy(touched).to(dev),
+                rows, lane_rows, state)
+
     def _compact_tick(self, live_slots: list[int], width: int):
         """One compacted tick: gather the decodable slots' rows into
         ``width`` lanes (live slots in slot order, pad lanes repeating
@@ -910,33 +1010,15 @@ class ServingEngine:
         Either moves a carry by an ulp; the CPU tests hold the streams
         equal at their size, and ``chip_smoke.py`` measures the card.
         Returns (tokens, emitted, done) at full width (steps, S)."""
-        dev = self.device
-        lanes = {s: j for j, s in enumerate(sorted(live_slots))}
-        idx = np.zeros((width,), np.int64)
-        inv = np.zeros((self.capacity,), np.int64)
-        touched = np.zeros((self.capacity,), bool)
-        for s, j in lanes.items():
-            idx[j], inv[s], touched[s] = s, j, True
-        rows = {"blocks": self.pool["state"]["blocks"], "logits": self.pool["logits"],
-                "meta": self.pool["meta"]}
-        lane_rows = state_cache.gather_slots(rows, torch.from_numpy(idx).to(dev))
-        attn_meta = None
-        state = {"blocks": lane_rows["blocks"]}
-        if self.hybrid:
-            state["attn_blocks"] = self.pool["state"]["attn_blocks"]
-            tbl = self._page_tbl[idx]
-            lengths = self._kv_len[idx]
-            tbl[len(lanes):] = 0
-            lengths[len(lanes):] = 0
-            attn_meta = (torch.from_numpy(tbl).to(dev), torch.from_numpy(lengths).to(dev))
+        lanes, inv, touched, rows, lane_rows, state = self._gather_lanes(live_slots, width)
+        attn_meta = state.pop("attn_meta", None)
         u = self._uniforms(lanes, width)
         logits, step, done, toks, emitted, dones = self._sub_steps(
             state, lane_rows["logits"], lane_rows["meta"], u, attn_meta,
             split_rows=self.capacity)
         state_cache.scatter_slots(
             rows, {"blocks": state["blocks"], "logits": logits,
-                   "meta": {**lane_rows["meta"], "step": step, "done": done}},
-            torch.from_numpy(inv).to(dev), torch.from_numpy(touched).to(dev))
+                   "meta": {**lane_rows["meta"], "step": step, "done": done}}, inv, touched)
         # the one host sync of the tick
         tokens = torch.stack(toks).cpu().numpy()
         emitted = torch.stack(emitted).cpu().numpy()
@@ -950,6 +1032,119 @@ class ServingEngine:
         if self.hybrid:
             self._kv_len += out[1].sum(axis=0).astype(np.int32)
         return tuple(out)
+
+    # ----------------------------------------------------- speculative tick
+
+    def _spec_feed(self, tracked: _Tracked) -> list[int]:
+        """One slot's verify row: bring the drafter up to the stream's
+        committed history (prompt + emitted + the unemitted pending; only
+        the part it has not seen), then its pending tokens and up to
+        W - len(pending) drafts, zero-filled to the width W."""
+        W, rid = self.spec_width, tracked.request_id
+        if tracked.spec_observed == 0:
+            # a fresh (or requeued) stream: drop any stale drafter state
+            self.drafter.forget(rid)
+        pend = tracked.spec_pending[tracked.spec_pending_emitted:]
+        plen = len(tracked.request.prompt_ids)
+        total = plen + len(tracked.new_tokens) + len(pend)
+        if total > tracked.spec_observed:
+            k = tracked.spec_observed - plen
+            if k < 0:
+                delta = tracked.request.prompt_ids[k:].tolist() + tracked.new_tokens + pend
+            elif k <= len(tracked.new_tokens):
+                delta = tracked.new_tokens[k:] + pend
+            else:
+                delta = pend[k - len(tracked.new_tokens):]
+            self.drafter.observe(rid, delta)
+            tracked.spec_observed = total
+        n = W - len(tracked.spec_pending)
+        drafts = list(self.drafter.draft(rid, n))[:n] if n > 0 else []
+        self._spec_drafted += n
+        return spec_decode.build_feed(tracked.spec_pending, drafts, W)
+
+    def _spec_tick(self, live_slots: list[int], width: int | None):
+        """One draft-verify tick (serving/spec_decode.py): compose every
+        decodable slot's feed (``_spec_feed``), run ONE ``spec_verify``
+        over the pool's rows (or, with ``width``, over the compacted
+        lanes, scattered back after), fetch the (rows, W) greedy matrix
+        (the tick's one host sync) and decide per slot.  A full accept
+        commits the launch's carries and final logits (the state moved W
+        tokens) and banks the last position's argmax as the next pending;
+        a rejection keeps the pre-tick carries (``spec_commit``'s per-row
+        select) and banks the accepted prefix and the model's correction.
+        Masked rows (empty, mid-prefill, pad lanes) write no KV cell and
+        keep their carries.  A hybrid's lengths advance by W on full
+        accepts only.  Returns (tokens, emitted, done), each (W+1, S)."""
+        W, S, dev = self.spec_width, self.capacity, self.device
+        live = {s: self._slots[s] for s in live_slots}
+        if width is not None:
+            lanes, inv, touched, rows, lane_rows, state = self._gather_lanes(live_slots, width)
+        else:
+            lanes = {s: s for s in live}
+            rows = lane_rows = {"blocks": self.pool["state"]["blocks"],
+                                "logits": self.pool["logits"], "meta": self.pool["meta"]}
+            state = {"blocks": rows["blocks"]}
+            if self.hybrid:
+                state["attn_blocks"] = self.pool["state"]["attn_blocks"]
+                state["attn_meta"] = (torch.tensor(self._page_tbl, device=dev),
+                                      torch.tensor(self._kv_len, device=dev))
+        n_lanes = S if width is None else width
+        ids = np.zeros((n_lanes, W), np.int64)
+        tmask = np.zeros((n_lanes, W), np.float32)
+        trusted = {}
+        for slot, tracked in live.items():
+            ids[lanes[slot]] = self._spec_feed(tracked)
+            tmask[lanes[slot]] = 1.0
+            trusted[slot] = len(tracked.spec_pending)
+        greedy_d, final_logits, new_state, old = spec_decode.spec_verify(
+            self._params, state, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(tmask).to(dev), self.cfg)
+        greedy = greedy_d.cpu().numpy()  # the one host sync of the tick
+        tokens = np.zeros((W + 1, S), np.int64)
+        emitted = np.zeros((W + 1, S), bool)
+        done = np.zeros((W + 1, S), bool)
+        advance = np.zeros((n_lanes,), bool)
+        for slot, tracked in live.items():
+            nt, fed = trusted[slot], ids[lanes[slot]].tolist()
+            a, adv, nxt = spec_decode.verify_greedy(fed, greedy[lanes[slot]], nt)
+            self._spec_accepted += a
+            pending = tracked.spec_pending
+            stream = pending[tracked.spec_pending_emitted:] + fed[nt:nt + a] + [nxt]
+            r = tracked.request
+            now, finished = [], False
+            for tok in stream:
+                now.append(tok)
+                # the non-speculative tick's finish rule: the eos or
+                # budget token is emitted, nothing after it
+                if ((r.eos_id is not None and tok == r.eos_id)
+                        or len(tracked.new_tokens) + len(now) >= r.max_new_tokens):
+                    finished = True
+                    break
+            tokens[:len(now), slot] = now
+            emitted[:len(now), slot] = True
+            if finished:
+                done[len(now) - 1, slot] = True
+            elif adv:
+                advance[lanes[slot]] = True
+                tracked.spec_pending, tracked.spec_pending_emitted = [nxt], 1
+            else:
+                tracked.spec_pending = pending + fed[nt:nt + a] + [nxt]
+                tracked.spec_pending_emitted = len(tracked.spec_pending)
+        # the next step's chunk budget pays for the lanes this tick
+        # computed: the compacted width, or the live rows
+        self._spec_budget_debt = (len(live) if width is None else width) * W
+        self._spec_streams += len(live)
+        spec_decode.spec_commit(new_state, old["blocks"], lane_rows["logits"],
+                                lane_rows["meta"], final_logits,
+                                torch.from_numpy(advance).to(dev), W)
+        if width is not None:
+            state_cache.scatter_slots(rows, lane_rows, inv, touched)
+        if self.hybrid:
+            adv_full = np.zeros((S,), np.int32)
+            for slot, lane in lanes.items():
+                adv_full[slot] = advance[lane]
+            self._kv_len += W * adv_full
+        return tokens, emitted, done
 
     @torch.no_grad()
     def step(self) -> list[TokenEvent]:
@@ -976,7 +1171,9 @@ class ServingEngine:
         # the span encloses the tick's one host fetch, so it covers the
         # tick's device work
         with self.tracer.span("serving_tick", occupied=occupied, traces=live_traces):
-            if width is None:
+            if self.spec:
+                tokens, emitted, done = self._spec_tick(live_slots, width)
+            elif width is None:
                 tokens, emitted, done = self._tick(live_slots)
             else:
                 tokens, emitted, done = self._compact_tick(live_slots, width)
@@ -1026,6 +1223,8 @@ class ServingEngine:
             state_cache.evict(self.pool, slot)
             self._release_pages(slot, tracked)
             self._free.append(slot)
+            if self.spec:
+                self.drafter.forget(tracked.request_id)
             r = tracked.request
             request_record = {
                 "request_id": tracked.request_id,
@@ -1072,6 +1271,13 @@ class ServingEngine:
         if self.quantized_weights or self.quantized_kv:
             gauges.update(quantized=self._quant_stamp, weight_bytes=self._weight_bytes,
                           page_pool_bytes=self._pool_bytes)
+        if self.spec:
+            # the window's draft and accept counts and live slot-launches
+            # (absent when speculation is off)
+            gauges.update(spec_drafted=self._spec_drafted,
+                          spec_accepted=self._spec_accepted,
+                          spec_streams=self._spec_streams)
+            self._spec_drafted = self._spec_accepted = self._spec_streams = 0
         if self.tick_regression is not None:
             self.tick_regression.observe_tick(dt * 1000)
         self.metrics.record_tick(
@@ -1085,7 +1291,8 @@ class ServingEngine:
             prefill_oneshot_lanes=self._pending_oneshot_lanes,
             # the tick computes every lane it launched, live or not: the
             # compacted width, or the capacity
-            slot_lanes=(self.capacity if width is None else width) * self.tokens_per_tick,
+            slot_lanes=((self.capacity if width is None else width)
+                        * (self.spec_width if self.spec else self.tokens_per_tick)),
             compaction_width=(((self.capacity if width is None else width)
                                if self.compaction else None)),
             traces=live_traces, preemptions=self._preemptions, **gauges)

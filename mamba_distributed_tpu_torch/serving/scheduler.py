@@ -123,6 +123,15 @@ class _Tracked:
     preempted: int = 0  # times this request was swapped out
     # prefix-cache outcome at admission: "full" | "partial" | None
     cache_hit: str | None = None
+    # speculative decoding (serving/spec_decode.py, the pending-token
+    # scheme): tokens committed to the stream but not yet folded into the
+    # device state, how many of them the consumer has received, and how
+    # much committed history the drafter has observed.  All three survive
+    # preemption (the snapshot pairs with them); requeue resets them only
+    # when the request will prefill again from scratch
+    spec_pending: list = dataclasses.field(default_factory=list)
+    spec_pending_emitted: int = 0
+    spec_observed: int = 0
 
 
 class FCFSScheduler:
@@ -203,6 +212,13 @@ class FCFSScheduler:
         tracked.prefill_dt = 0.0
         tracked.prefill_seeded_tokens = 0
         tracked.prefill_skipped = 0
+        if tracked.snapshot is None:
+            # a fresh prefill derives the first pending token again, and
+            # the drafter's stream restarts (spec_observed 0 tells the
+            # spec tick to forget it); a preempted request keeps all three
+            tracked.spec_pending = []
+            tracked.spec_pending_emitted = 0
+            tracked.spec_observed = 0
         self._queue.appendleft(tracked)
 
     @property

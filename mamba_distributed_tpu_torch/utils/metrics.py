@@ -86,12 +86,10 @@ def emit_bench_record(record: dict, json_path: str | None = None) -> None:
 
 
 # summary() sections of engine features the port does not have yet
-# (pipeline stages, speculation, adapters, tuning, admission, sessions,
-# the compile watchdog): the JAX package's
-# summary() holds them as None while the feature is off, so the port's
-# holds the same keys at None
-_OFF_SECTIONS = ("pipeline", "speculation", "adapters", "tuning", "admission",
-                 "sessions")
+# (pipeline stages, adapters, tuning, admission, sessions, the compile
+# watchdog): the JAX package's summary() holds them as None while the
+# feature is off, so the port's holds the same keys at None
+_OFF_SECTIONS = ("adapters", "tuning", "admission", "sessions")
 
 
 class ServingMetrics:
@@ -119,13 +117,13 @@ class ServingMetrics:
     (``serving_mfu`` stays None where no peak applies, a CPU run).
 
     The prefix cache (``configure_prefix_cache``, ``record_prefix_
-    lookup``, ``record_prefix_ttft``), preemption (``record_preemption``)
-    and tick compaction (``configure_compaction``) feed their summary
-    sections and record fields only when the engine turns them on:
-    records and summaries with them off are the same bytes as without
-    them.  Left out until the port has the features that feed them: the
-    migration, speculation, pipeline, adapter, tuning, session,
-    admission and compile-watchdog methods.
+    lookup``, ``record_prefix_ttft``), preemption (``record_preemption``),
+    tick compaction (``configure_compaction``) and speculative decoding
+    (``configure_speculation``) feed their summary sections and record
+    fields only when the engine turns them on: records and summaries with
+    them off are the same bytes as without them.  Left out until the port
+    has the features that feed them: the migration, pipeline, adapter,
+    tuning, session, admission and compile-watchdog methods.
     """
 
     def __init__(self, capacity: int, jsonl_path: str | None = None):
@@ -184,6 +182,16 @@ class ServingMetrics:
         self.compaction_ticks = 0  # ticks narrower than capacity
         self.compaction_hist: dict[int, int] = {}  # lane width -> ticks
         self.compaction_lanes_saved = 0
+        # speculative decoding: configure_speculation() unlocks
+        # summary()["speculation"]: draft and accept counts, the accept
+        # rate histogram (in percent) and tokens per stream per launch
+        self._spec_on = False
+        self.spec_tokens_cfg: int | None = None
+        self.spec_drafter: str | None = None
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_stream_ticks = 0  # live streams summed over verify ticks
+        self.spec_accept_rate = StreamingHistogram(lo=1e-2, hi=200.0)
         # priority preemptions (serving/engine._preempt)
         self.preemptions = 0
         # int8 serving: configure_memory() (engine construction, only
@@ -255,6 +263,14 @@ class ServingMetrics:
         gains its ``compaction`` section and tick records their
         ``compaction_width`` stamp."""
         self._compaction_on = True
+
+    def configure_speculation(self, spec_tokens: int, drafter: str) -> None:
+        """Mark speculative decoding on (engine construction): ``summary()``
+        gains its ``speculation`` section and tick records their
+        ``spec_drafted``/``spec_accepted``/``spec_streams`` stamps."""
+        self._spec_on = True
+        self.spec_tokens_cfg = spec_tokens
+        self.spec_drafter = drafter
 
     def _write_jsonl(self, record: dict) -> None:
         append_jsonl(self.jsonl_path, record, truncate=self._truncate_pending)
@@ -329,6 +345,9 @@ class ServingMetrics:
         quantized: dict | None = None,
         weight_bytes: int | None = None,
         page_pool_bytes: int | None = None,
+        spec_drafted: int | None = None,
+        spec_accepted: int | None = None,
+        spec_streams: int | None = None,
         compaction_width: int | None = None,
     ) -> None:
         """One decode tick.  ``prefill_stall_ms`` is the host time spent
@@ -351,7 +370,10 @@ class ServingMetrics:
         ``kv_page_allocs``/``kv_page_frees`` the window's churn.
         ``quantized`` (int8 serving only) is the ``{"weights": dtype,
         "kv": dtype}`` stamp, with ``weight_bytes``/``page_pool_bytes``
-        the resident-bytes gauges.  ``compaction_width`` (compaction on)
+        the resident-bytes gauges.  ``spec_drafted``/``spec_accepted``/
+        ``spec_streams`` (speculation on) are the window's draft lanes fed,
+        drafts accepted and live slot-launches; the window's accept rate
+        goes into a histogram in percent.  ``compaction_width`` (compaction on)
         is the lane width the tick launched; ``slot_lanes`` is billed at
         it, and ``lanes_saved`` adds what a full-width launch would have
         computed on top."""
@@ -420,6 +442,15 @@ class ServingMetrics:
             record["weight_bytes"] = weight_bytes
             if page_pool_bytes is not None:
                 record["page_pool_bytes"] = page_pool_bytes
+        if spec_drafted is not None:
+            self.spec_drafted += spec_drafted
+            self.spec_accepted += spec_accepted or 0
+            if spec_drafted:
+                self.spec_accept_rate.record(100.0 * (spec_accepted or 0) / spec_drafted)
+            self.spec_stream_ticks += spec_streams or 0
+            record["spec_drafted"] = spec_drafted
+            record["spec_accepted"] = spec_accepted
+            record["spec_streams"] = spec_streams
         if compaction_width is not None:
             record["compaction_width"] = compaction_width
             self.compaction_hist[compaction_width] = (
@@ -498,6 +529,21 @@ class ServingMetrics:
                 "bucket_histogram": {str(w): n for w, n in
                                      sorted(self.compaction_hist.items())},
                 "lanes_saved": self.compaction_lanes_saved,
+            }),
+            "pipeline": None,
+            "speculation": (None if not self._spec_on else {
+                "spec_tokens": self.spec_tokens_cfg,
+                "drafter": self.spec_drafter,
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": (round(self.spec_accepted / self.spec_drafted, 4)
+                                    if self.spec_drafted else None),
+                "acceptance_rate_pct_hist": self.spec_accept_rate.summary(),
+                # committed tokens per stream per launch (a non-speculative
+                # tick is exactly 1.0)
+                "accepted_tokens_per_tick": (
+                    round(self.decode_tokens / self.spec_stream_ticks, 2)
+                    if self.spec_stream_ticks else None),
             }),
             **dict.fromkeys(_OFF_SECTIONS),
             "memory": (None if not self._memory_on else {

@@ -110,3 +110,18 @@ def test_port_imports_without_jax_loaded():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("rel", ["mamba_distributed_tpu_torch/serving/spec_decode.py",
+                                 "mamba_distributed_tpu_torch/ops/cuda/norm_kernels.py",
+                                 "mamba_distributed_tpu_torch/ops/norm.py",
+                                 "chip_smoke.py"])
+def test_speculation_and_norm_modules_stand_alone(rel):
+    """The speculative decoding and norm-kernel modules, and the chip
+    script that drives them, are among the checked sources and import
+    neither jax nor the JAX package, at module level or inside a
+    function."""
+    path = REPO / rel
+    assert path in SOURCES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not [m for m in _module_level_imports(path) if _outside_card_installs(m)]
