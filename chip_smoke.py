@@ -135,6 +135,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    non-spec engine, ``summary()["speculation"]``, and the device ms of
    one verify launch against K+1 decode sub-steps; then a ``ModelDrafter``
    (a seeded 4-layer mamba2 companion) on mamba2-280m's repetitive mix;
+3d. multi-tenant LoRA serving (``lora_phase``, the same weights, capacity
+   8, greedy): four seeded random adapters (rank 8, alpha 16, every
+   target) and the base model spread over the serving mix, on full-width,
+   full-depth mamba2-280m and hybrid-280m: every stream against a solo
+   greedy run on its adapter's merged weights, parting only at a step
+   whose top-two margin is within the bf16 tolerance of that step's
+   largest |logit|; the no-adapter streams bit-identical to a LoRA-less
+   engine's; on mamba2-280m the mixed engine's streams equal to
+   sequential per-tenant engines'; the hand kernels launched, every
+   adapter ref and KV page returned; at layer 0 of every target the LoRA
+   ``linear`` gives the same rows at 1, 2 and 4 rows as at 8, and the
+   bf16-output GEMM equals the rounded fp32-output one; printed: tokens/s,
+   TTFT p50 and decode tick ms on against off, mixed against sequential
+   tokens/s, a decode sub-step's CUDA kernels, device and event ms on
+   against off, factor bytes an adapter and upload ms a miss.  Then on
+   the first 16 layers (full width): compacted LoRA ticks equal to full
+   ones, K = 3 compacted spec streams equal to spec ones, fp32
+   mamba2-280m streams equal to the merged references and fp32 spec equal
+   to non-spec, a hot swap to ``tenant-0@v2`` after the first tick that
+   loses no token, a hybrid cache of 2 rows over 4 adapters that waits,
+   evicts and streams as an 8-row one, mamba1-280m (``x_proj`` a target,
+   ``m1_scan`` launched) against its merged references; and int8
+   hybrid-280m with LoRA refusing to build;
 4. eval and import (after serving, about a minute and a half): the
    HellaSwag scorer (``evaluate_hellaswag``) over
    ``tests/data/hellaswag_tiny.jsonl`` (16 examples, ``example_batch`` 8,
@@ -3675,6 +3698,435 @@ def spec_phase(card: str, params: dict) -> None:
     print(f"spec phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# ------------------------------------------------ multi-tenant LoRA (3d)
+
+# the LoRA mix: the serving mix's 8 requests (greedy) spread over four
+# tenants and the base model
+LORA_NAMES = ("tenant-0", "tenant-1", "tenant-2", "tenant-3", None,
+              "tenant-0", "tenant-1", "tenant-2")
+# room for the four tenants and a hot swap's second version; the default
+# cache keeps every registered adapter resident
+LORA_KW = dict(lora_max_adapters=8, lora_rank=8, lora_alpha=16.0)
+LORA_NEW = 32
+
+
+def lora_registry(cfg, dparams):
+    """A registry over ``dparams``' targets holding tenant-0..3, each a
+    seeded ``register_random`` adapter over every target."""
+    from mamba_distributed_tpu_torch.serving.adapters import AdapterRegistry
+
+    reg = AdapterRegistry(cfg, dparams)
+    for i in range(4):
+        reg.register_random(f"tenant-{i}", seed=i)
+    return reg
+
+
+def lora_requests(prompts, names, news) -> list:
+    from mamba_distributed_tpu_torch.serving import GenerationRequest
+
+    return [GenerationRequest(prompt_ids=p.copy(), max_new_tokens=n, top_k=1, seed=i,
+                              adapter=a)
+            for i, (p, a, n) in enumerate(zip(prompts, names, news))]
+
+
+def timed_drive(eng, reqs) -> dict:
+    """``drive`` timed: the streams, the sorted TTFTs (ms), the launches
+    (zeroed before the run), the wall time, tokens/s and the median
+    decode-only tick in ms (a step with no prefill work pending)."""
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    ids = [eng.submit(r) for r in reqs]
+    tracked = {t.request_id: t for t in eng.scheduler}
+    ticks = []
+    while eng.pending:
+        prefill = bool(eng.scheduler.depth or eng._prefill_queue)
+        ts = time.perf_counter()
+        if eng.step() and not prefill:
+            ticks.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [eng.results[i].new_tokens.tolist() for i in ids]
+    return dict(streams=streams, wall=wall, tokens_per_s=sum(map(len, streams)) / wall,
+                ttft=sorted((tracked[i].t_first_token - tracked[i].t_submit) * 1e3 for i in ids),
+                launches={k: v for k, v in LAUNCHES.items() if v},
+                tick_ms=p50(ticks) if ticks else None)
+
+
+def lora_refs(dparams, cfg, reg, prompts, names, news) -> dict:
+    """Each request's reference: the greedy stream of its prompt on its
+    adapter's merged weights ``W + A @ B`` (the base weights for None),
+    cast once, with the top-two margins and largest |logit| of every step
+    (``greedy_margins`` at 8 rows, an adapter's requests together)."""
+    from mamba_distributed_tpu_torch.serving.prefill import cast_decode_params
+
+    refs = {}
+    for name in dict.fromkeys(names):
+        idx = [i for i, n in enumerate(names) if n == name]
+        merged = dparams if name is None else cast_decode_params(reg.merge(dparams, name), cfg)
+        refs.update(zip(idx, greedy_margins(merged, cfg, [prompts[i] for i in idx],
+                                            [news[i] for i in idx], 8)))
+        del merged
+    return refs
+
+
+def lora_gate(tag: str, streams, refs: dict, fp32: bool, fails: list) -> list:
+    """Hold each stream to its merged-weights reference: equal in fp32;
+    in bf16 it may part only at a step whose reference top-two margin is
+    within ``MARGIN_TOL`` of that step's largest |logit| (the delta's sums
+    and the merged weights round differently).  Returns the partings
+    (request, step, margin, margin over the largest |logit|)."""
+    parted = []
+    for i, (toks, margins, peaks) in sorted(refs.items()):
+        s = streams[i]
+        if s == toks:
+            continue
+        k = next(j for j, (x, y) in enumerate(zip(s, toks)) if x != y)
+        parted.append((i, k, round(margins[k], 5), round(margins[k] / peaks[k], 5)))
+        if fp32 or margins[k] > MARGIN_TOL * peaks[k]:
+            fails.append(f"{tag}: request {i} parts from its merged-weights reference at step "
+                         f"{k} (top-two margin {margins[k]:.6f}, largest |logit| {peaks[k]:.4f})")
+    return parted
+
+
+def lora_probes(dparams, cache, slots: list) -> tuple[dict, dict]:
+    """The two properties the LoRA path's exactness rests on, at layer 0
+    of every target on the card (bf16): rows of the first 1, 2 and 4 of
+    8 rows (random activations, random pool rows among ``slots`` and 0,
+    ``ROW_TRIALS`` batches) whose ``linear`` output with the delta differs
+    from the 8-row call's; and elements where the bf16-output GEMM (the
+    LoRA-less path) differs from the rounded fp32-output one (the LoRA
+    path, where a no-adapter row adds an exact 0), at 1, 2, 4 and 8
+    decode rows and a 256-token chunk."""
+    from mamba_distributed_tpu_torch.models.common import linear, mm_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    choices = torch.tensor([0, *slots], device="cuda")
+    rows, gemm = {}, {}
+    with torch.no_grad():
+        for path, pool in cache.pools.items():
+            node = dparams
+            for key in path.split("/"):
+                node = node[key]
+            w = node["kernel"][0]
+            lora = {"A": pool["A"][0], "B": pool["B"][0]}
+            d_in = w.shape[0]
+            differ = {1: 0, 2: 0, 4: 0}
+            for _ in range(ROW_TRIALS):
+                x = torch.randn((8, d_in), generator=gen, device="cuda").to(bf)
+                ids = choices[torch.randint(0, len(choices), (8,), generator=gen, device="cuda")]
+                ref = linear({"kernel": w, "lora": {**lora, "ids": ids}}, x, bf)
+                for n in differ:
+                    got = linear({"kernel": w, "lora": {**lora, "ids": ids[:n]}}, x[:n], bf)
+                    differ[n] += int((got != ref[:n]).any(dim=-1).sum())
+            rows[path] = differ
+            mism = {}
+            for shape in ((1, d_in), (2, d_in), (4, d_in), (8, d_in), (1, 256, d_in)):
+                x = torch.randn(shape, generator=gen, device="cuda").to(bf)
+                mism[shape[-2]] = int((x @ w != mm_f32(x, w).to(bf)).sum())
+            gemm[path] = mism
+    return rows, gemm
+
+
+def lora_substep(dparams, cfg, cache, ids) -> dict:
+    """One decode sub-step (8 rows, 300 cached tokens a row) with the
+    pools bound at ``ids`` and without them: (CUDA kernels by the
+    profiler, device ms, event ms) each."""
+    from mamba_distributed_tpu_torch.models.lm import lm_step
+    from mamba_distributed_tpu_torch.serving.adapters import (
+        attach_adapter_pools,
+        bind_adapter_ids,
+    )
+
+    st = decode_state(cfg, 8, 300, cfg.kv_pages_per_slot)
+    tok = torch.randint(0, cfg.vocab_size, (8,), device="cuda")
+    bound = bind_adapter_ids(attach_adapter_pools(dparams, cache.pools), ids)
+    out = {}
+    with torch.no_grad():
+        for route, p in (("on", bound), ("off", dparams)):
+            step = lambda: lm_step(p, cfg, st, tok)  # noqa: E731
+            out[route] = (kernel_events(step), sum(device_ms(step, 10).values()),
+                          cuda_ms(step, 10))
+    return out
+
+
+def lora_uploads(reg) -> tuple[int, list]:
+    """Factor bytes of one adapter in the device pools (bf16) and the ms
+    of each upload on a one-row cache that evicts at every miss."""
+    from mamba_distributed_tpu_torch.serving.adapters import AdapterCache
+
+    cache = AdapterCache(reg, 1, compute_dtype=torch.bfloat16, device="cuda")
+    ms = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache.acquire(f"tenant-{i}")
+        torch.cuda.synchronize()
+        ms.append(round((time.perf_counter() - t) * 1e3, 3))
+        cache.release(f"tenant-{i}")
+    return cache.nbytes_per_adapter, ms
+
+
+def lora_preset(card: str, tag: str, dparams, cfg, sequential: bool) -> None:
+    """One preset at full width and depth (bf16, capacity 8): the LoRA mix
+    on a LoRA engine against the same prompts on a LoRA-less one (the
+    no-adapter streams bit-identical), every stream against its
+    merged-weights reference (``lora_gate``), with ``sequential`` the
+    mixed engine against sequential per-tenant engines (streams equal),
+    the hand kernels launched, every ref and page returned; printed:
+    tokens/s, TTFT p50 and decode tick ms on against off, mixed against
+    sequential tokens/s, the decode sub-step's kernels and ms on against
+    off, factor bytes and upload ms, and the probes (``lora_probes``)."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+
+    lcfg = dataclasses.replace(cfg, **LORA_KW)
+    reg = lora_registry(lcfg, dparams)
+    _, prompts, _ = serving_mix(cfg, LORA_NEW)
+    names, news = LORA_NAMES, [LORA_NEW] * len(prompts)
+    hybrid = bool(cfg.attn_layer_idx)
+    if sequential:
+        # warm-up of the LoRA path (the batched GEMMs' first calls), not counted
+        ServingEngine(dparams, lcfg, capacity=8, adapters=reg).run(
+            lora_requests(prompts[:2], names[:2], [2, 2]))
+    off = timed_drive(ServingEngine(dparams, cfg, capacity=8),
+                      lora_requests(prompts, [None] * len(prompts), news))
+    eng = ServingEngine(dparams, lcfg, capacity=8, adapters=reg)
+    on = timed_drive(eng, lora_requests(prompts, names, news))
+    fails = []
+    noop = [i for i, n in enumerate(names) if n is None]
+    if any(on["streams"][i] != off["streams"][i] for i in noop):
+        fails.append(f"the no-adapter requests {noop} differ from the LoRA-less engine's")
+    # the delta is live: adapter streams unlike the base model's
+    moved = sum(on["streams"][i] != off["streams"][i] for i, n in enumerate(names) if n)
+    if not moved:
+        fails.append("no adapter stream differs from the base model's")
+    refs = lora_refs(dparams, cfg, reg, prompts, names, news)
+    parted = lora_gate(f"lora {tag}", on["streams"], refs, False, fails)
+    seq, seq_wall = list(on["streams"]), 0.0
+    for name in dict.fromkeys(names) if sequential else ():
+        idx = [i for i, n in enumerate(names) if n == name]
+        run = timed_drive(ServingEngine(dparams, lcfg, capacity=8, adapters=reg),
+                          lora_requests([prompts[i] for i in idx], [name] * len(idx),
+                                        [news[i] for i in idx]))
+        seq_wall += run["wall"]
+        for j, i in enumerate(idx):
+            seq[i] = run["streams"][j]
+    if seq != on["streams"]:
+        apart = [i for i, (a, b) in enumerate(zip(seq, on["streams"])) if a != b]
+        fails.append(f"mixed streams {apart} differ from the sequential per-tenant engines'")
+    need = ("ssd_fwd", "rms_norm_gated", "add_rms_norm") + (
+        ("ragged_prefill", "ragged_decode") if hybrid else ())
+    fails += [f"the LoRA run launched no {k}" for k in need if not on["launches"].get(k)]
+    cache = eng.adapter_cache
+    held = {n: cache.refcount(n) for n in cache.resident_names()}
+    if any(held.values()):
+        fails.append(f"adapter refs held at the end: {held}")
+    if hybrid and eng.page_pool.pages_in_use:
+        fails.append(f"{eng.page_pool.pages_in_use} KV pages leaked")
+    slots = [cache.slot_of(f"tenant-{i}") for i in range(4)]
+    rows, gemm = lora_probes(dparams, cache, slots)
+    if any(any(v.values()) for v in rows.values()):
+        fails.append(f"the LoRA linear depends on the row count: {rows}")
+    if any(any(v.values()) for v in gemm.values()):
+        fails.append(f"the bf16-output GEMM differs from the rounded fp32 one: {gemm}")
+    sub = lora_substep(dparams, cfg, cache,
+                       torch.tensor([cache.slot_of(n) if n else 0 for n in names],
+                                    dtype=torch.int32, device="cuda"))
+    nbytes, uploads = lora_uploads(reg)
+    tokens = sum(map(len, on["streams"]))
+    (ek, dk, ck), (eo, do, co) = sub["on"], sub["off"]
+    keys = ("ssd_fwd", "ragged_prefill", "ragged_decode", "add_rms_norm", "rms_norm_gated")
+    print(f"lora {tag} n_layer={cfg.n_layer} bf16 capacity 8, 4 adapters (rank 8, alpha 16, every "
+          f"target: {list(reg.targets)}) over the serving mix (greedy, {LORA_NEW} new, adapters "
+          f"{list(names)}): tokens/s LoRA on {on['tokens_per_s']:.1f} vs off "
+          f"{off['tokens_per_s']:.1f}; TTFT p50 ms {p50(on['ttft'])} vs {p50(off['ttft'])}; "
+          f"decode tick ms (median, 8 sub-steps) {on['tick_ms']} vs {off['tick_ms']}; "
+          + (f"mixed {on['tokens_per_s']:.1f} vs sequential per-tenant engines "
+             f"{tokens / seq_wall:.1f} tokens/s ({on['wall']:.3f} s vs {seq_wall:.3f} s), "
+             f"streams equal {seq == on['streams']}; " if sequential else "")
+          + f"adapter streams unlike the base model's {moved} of "
+          f"{len(names) - len(noop)}; no-adapter streams == LoRA-less engine's: "
+          f"{all(on['streams'][i] == off['streams'][i] for i in noop)}; parted from the "
+          f"merged-weights references (request, step, top-two margin, over the step's "
+          f"largest |logit|) {parted}; launches on {per_token(on['launches'], tokens, keys)} "
+          f"vs off "
+          f"{per_token(off['launches'], tokens, keys)} a token, LoRA run totals "
+          f"{on['launches']} [{card}]", flush=True)
+    print(f"lora {tag} decode sub-step (8 rows, 300 cached tokens a row, pools bound): CUDA "
+          f"kernels {ek} on vs {eo} off (+{ek - eo}); device ms {dk:.4f} vs {do:.4f}; event ms "
+          f"{ck:.4f} vs {co:.4f} [{card}]", flush=True)
+    print(f"lora {tag} factors: {nbytes} B an adapter in the bf16 pools; upload ms per miss "
+          f"{uploads}; cache {cache.hits} hits, {cache.misses} misses; probes: rows off the "
+          f"8-row call's at 1, 2, 4 rows ({ROW_TRIALS} batches) {rows}; bf16-output vs "
+          f"rounded fp32-output GEMM, elements apart by rows {gemm} [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"lora {tag}: {fails}")
+
+
+def lora_cells(card: str, served: dict) -> None:
+    """The cells on the first ``CUT_LAYERS`` layers (full width): compacted
+    ticks, speculation, fp32, a hot swap, a cache of 2 rows over 4
+    adapters, mamba1-280m; and the int8 rejection."""
+    import dataclasses
+
+    from mamba_distributed_tpu_torch.config import get_preset
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+    from mamba_distributed_tpu_torch.serving.prefill import cast_decode_params
+
+    print(f"lora cells: depth cut from 64 to {CUT_LAYERS} layers (the first {CUT_LAYERS} "
+          f"layers' weights), full width: compaction, spec, fp32, hot swap, cache of 2 rows, "
+          f"mamba1-280m", flush=True)
+    fails = []
+    names = LORA_NAMES
+    m2 = feature_cfg("mamba2-280m", CUT_LAYERS)
+    m2p = layer_prefix(served["mamba2-280m"], m2)
+    l2 = dataclasses.replace(m2, **LORA_KW)
+    reg = lora_registry(l2, m2p)
+    _, prompts, _ = serving_mix(m2, 1)
+    news = list(FEATURE_NEW)
+    # (a) compacted ticks: occupancy falls from 8 to 1
+    runs = {}
+    for on in (False, True):
+        eng = ServingEngine(m2p, dataclasses.replace(l2, tick_compaction=on), capacity=8,
+                            adapters=reg)
+        runs[on] = drive(eng, lora_requests(prompts, names, news))
+    hist = eng.metrics.summary()["compaction"]["bucket_histogram"]
+    comp_equal = runs[True]["streams"] == runs[False]["streams"]
+    if not comp_equal:
+        fails.append("compacted LoRA streams differ from the full ticks'")
+    # (b) speculation, K = 3: compacted spec streams equal spec streams
+    spec = {}
+    for on in (False, True):
+        c = dataclasses.replace(l2, spec_tokens=SPEC_K, tick_compaction=on)
+        spec[on] = drive(ServingEngine(m2p, c, capacity=8, adapters=reg),
+                         lora_requests(prompts, names, news))
+    if spec[True]["streams"] != spec[False]["streams"]:
+        fails.append("compacted LoRA spec streams differ from the spec engine's")
+    spec_same = sum(a == b for a, b in zip(spec[False]["streams"], runs[False]["streams"]))
+    # (c) fp32: streams equal the merged references; spec equal to non-spec
+    f32 = cut_layers(get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32"),
+                     CUT_LAYERS)
+    masters = init_lm_params(f32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    f32p = cast_decode_params(masters, f32)
+    del masters
+    lf = dataclasses.replace(f32, **LORA_KW)
+    freg = lora_registry(lf, f32p)
+    f_run = drive(ServingEngine(f32p, lf, capacity=8, adapters=freg),
+                  lora_requests(prompts, names, news))
+    f_parted = lora_gate("lora mamba2-280m fp32", f_run["streams"],
+                         lora_refs(f32p, f32, freg, prompts, names, news), True, fails)
+    f_spec = drive(ServingEngine(f32p, dataclasses.replace(lf, spec_tokens=SPEC_K), capacity=8,
+                                 adapters=freg), lora_requests(prompts, names, news))
+    if f_spec["streams"] != f_run["streams"]:
+        fails.append("fp32 LoRA spec streams differ from the non-spec ones")
+    del f32p, freg
+    # (d) a hot swap to tenant-0@v2 after the first decode tick
+    eng = ServingEngine(m2p, l2, capacity=8, adapters=reg)
+    reqs = lora_requests(prompts, names, [LORA_NEW] * len(prompts))
+    rid = [eng.submit(r) for r in reqs][0]
+    pre = []
+    while not pre:
+        eng.step()
+        pre = list(next(t for t in eng._slots.values() if t.request_id == rid).new_tokens)
+    reg.register_random("tenant-0", seed=100)
+    swapped = eng.hot_swap_adapter(rid)
+    while eng.pending:
+        eng.step()
+    final = eng.results[rid].new_tokens.tolist()
+    if swapped != "tenant-0@v2" or len(final) != LORA_NEW or final[:len(pre)] != pre:
+        fails.append(f"hot swap to {swapped}: {len(final)} tokens, prefix kept "
+                     f"{final[:len(pre)] == pre}")
+    cont = np.concatenate([prompts[0], np.asarray(pre)])
+    v2 = cast_decode_params(reg.merge(m2p, "tenant-0@v2"), m2)
+    ((toks, margins, peaks),) = greedy_margins(v2, m2, [cont], [LORA_NEW - len(pre)], 8)
+    del v2
+    swap_parted = lora_gate("lora hot swap", {0: final[len(pre):]}, {0: (toks, margins, peaks)},
+                            False, fails)
+    held = {n: eng.adapter_cache.refcount(n) for n in eng.adapter_cache.resident_names()}
+    if any(held.values()):
+        fails.append(f"adapter refs held after the hot swap run: {held}")
+    # (e) a cache of 2 rows over 4 adapters (hybrid): admission waits and
+    # evicts, the streams equal an unconstrained engine's
+    hy = feature_cfg("hybrid-280m", CUT_LAYERS)
+    hyp = layer_prefix(served["hybrid-280m"], hy)
+    lh = dataclasses.replace(hy, **LORA_KW)
+    hreg = lora_registry(lh, hyp)
+    full = drive(ServingEngine(hyp, lh, capacity=8, adapters=hreg),
+                 lora_requests(prompts, names, news))
+    small = ServingEngine(hyp, dataclasses.replace(lh, lora_cache_slots=2), capacity=8,
+                          adapters=hreg)
+    waits, acquire = [0], small.adapter_cache.acquire
+
+    def counted(name):
+        slot = acquire(name)
+        waits[0] += slot is None
+        return slot
+
+    small.adapter_cache.acquire = counted
+    small_run = drive(small, lora_requests(prompts, names, news))
+    ac = small.adapter_cache
+    held = {n: ac.refcount(n) for n in ac.resident_names()}
+    if (small_run["streams"] != full["streams"] or not waits[0] or not ac.evictions
+            or any(held.values()) or small.page_pool.pages_in_use):
+        fails.append(f"cache of 2 rows: streams equal {small_run['streams'] == full['streams']}, "
+                     f"waits {waits[0]}, evictions {ac.evictions}, refs {held}, pages in use "
+                     f"{small.page_pool.pages_in_use}")
+    # (f) int8 weights with LoRA refuse to build
+    try:
+        ServingEngine(served["hybrid-280m int8"],
+                      feature_cfg("hybrid-280m", **FEATURE_INT8, **LORA_KW), capacity=8)
+        int8 = "built"
+    except ValueError as e:
+        int8 = str(e)
+    if "ROADMAP residual" not in int8:
+        fails.append(f"int8 hybrid-280m with LoRA: {int8}")
+    # (g) mamba1-280m: x_proj is a target, m1_scan runs
+    m1 = feature_cfg("mamba1-280m", CUT_LAYERS)
+    m1p = layer_prefix(served["mamba1-280m"], m1)
+    l1 = dataclasses.replace(m1, **LORA_KW)
+    m1reg = lora_registry(l1, m1p)
+    m1_run = drive(ServingEngine(m1p, l1, capacity=8, adapters=m1reg),
+                   lora_requests(prompts, names, [LORA_NEW] * len(prompts)))
+    m1_parted = lora_gate("lora mamba1-280m", m1_run["streams"],
+                          lora_refs(m1p, m1, m1reg, prompts, names, [LORA_NEW] * len(prompts)),
+                          False, fails)
+    if "blocks/mixer/x_proj" not in m1reg.targets or not m1_run["launches"].get("m1_scan"):
+        fails.append(f"mamba1-280m: targets {list(m1reg.targets)}, launches {m1_run['launches']}")
+    print(f"lora cells ({CUT_LAYERS} layers): compacted == full ticks {comp_equal} (bucket "
+          f"histogram {hist}); spec K={SPEC_K}: compacted spec == spec "
+          f"{spec[True]['streams'] == spec[False]['streams']}, bf16 spec streams equal to "
+          f"non-spec {spec_same} of {len(prompts)}, launches {spec[False]['launches']}; fp32: "
+          f"parted from the merged references {f_parted}, spec == non-spec "
+          f"{f_spec['streams'] == f_run['streams']}; hot swap to {swapped} after {len(pre)} "
+          f"tokens: {len(final)} of {LORA_NEW} tokens, prefix kept, suffix parted from merged "
+          f"v2 {swap_parted}; hybrid cache of 2 rows: admission waits {waits[0]}, evictions "
+          f"{ac.evictions}, misses {ac.misses}, streams == 8-row cache's "
+          f"{small_run['streams'] == full['streams']}, pages in use "
+          f"{small.page_pool.pages_in_use}; int8 hybrid-280m with LoRA refused: "
+          f"{'ROADMAP residual' in int8}; mamba1-280m parted {m1_parted}, launches "
+          f"{m1_run['launches']} [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"lora cells: {fails}")
+
+
+def lora_phase(card: str, params: dict) -> None:
+    """Multi-tenant LoRA serving on the card (phase 3d), on the decode
+    weights the serving phase cast (``params``: preset tag -> weights):
+    ``lora_preset`` on mamba2-280m (with the sequential engines) and
+    hybrid-280m at full depth, then ``lora_cells``."""
+    t0 = time.perf_counter()
+    for tag in ("mamba2-280m", "hybrid-280m"):
+        lora_preset(card, tag, params[tag], feature_cfg(tag), sequential=tag == "mamba2-280m")
+    lora_cells(card, params)
+    print(f"lora phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3764,6 +4216,7 @@ def main() -> int:
                   "hybrid-280m int8": q8.pop("params"), "mamba1-280m": m1_serve.pop("params")}
         engine_features_phase(card, served)
         spec_phase(card, served)
+        lora_phase(card, served)
         del served
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()

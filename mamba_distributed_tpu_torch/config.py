@@ -8,9 +8,11 @@ from one keyword dict.  Pure Mamba-2 and Mamba-1 stacks and hybrid
 stacks (attention layers at ``attn_layer_idx``: full-sequence attention
 in training and one-shot prefill, a paged KV cache in decode), with or
 without a gated MLP or a token-choice MoE after each mixer
-(``d_intermediate``, ``moe_*``), are served and trained on one device;
-LoRA and mesh sizes above 1 are left out, and a config the port cannot
-run raises at construction with the reason.
+(``d_intermediate``, ``moe_*``), are served and trained on one device,
+with multi-tenant LoRA adapters in serving (``lora_*``,
+``tenant_max_slots``).  Mesh sizes above 1 and the online-tuning
+``tune_*`` fields are left out, and a config the port cannot run raises
+at construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -188,6 +190,28 @@ class ModelConfig:
     # falls back to shorter ones
     spec_ngram_order: int = 3
 
+    # --- multi-tenant LoRA serving (serving/adapters.py) ---
+    # named adapters one engine may serve; 0 (the default) turns LoRA
+    # off: no factor pools ride the params and no record gains a field.
+    # > 0 adds the segmented delta ``(x @ A[ids]) @ B[ids]`` to every
+    # targeted linear, with per-slot adapter ids, so slots running
+    # different adapters (or none) share one launch
+    lora_max_adapters: int = 0
+    # low-rank dimension shared by every adapter of an engine
+    lora_rank: int = 8
+    # the delta's weight is alpha / rank, folded into the stored B once
+    lora_alpha: float = 16.0
+    # device factor-pool slots; 0 => lora_max_adapters (all resident).
+    # Fewer pages adapters: admission reserves a slot as it reserves KV
+    # pages, and waits while every slot is pinned
+    lora_cache_slots: int = 0
+    # most concurrent resident slots one tenant (adapter base name, any
+    # version) may hold; 0 = no quota.  An over-quota admission waits
+    tenant_max_slots: int = 0
+    # share of bare-name requests routed to a tenant's latest adapter
+    # version (the rest pin the previous one, by a hash of the request)
+    lora_ab_fraction: float = 1.0
+
     def __post_init__(self):
         if self.ssm_layer not in ("mamba1", "mamba2"):
             raise ValueError(
@@ -326,6 +350,7 @@ class ModelConfig:
                 f"spec_ngram_order must be >= 1, got "
                 f"{self.spec_ngram_order}"
             )
+        self._check_lora()
         if self.ssm_layer == "mamba2":
             self._check_mamba2()
 
@@ -339,6 +364,39 @@ class ModelConfig:
             raise ValueError(
                 f"nheads={self.nheads} must be a multiple of "
                 f"ngroups={self.ngroups}"
+            )
+
+    def _check_lora(self) -> None:
+        if self.lora_max_adapters < 0:
+            raise ValueError(
+                f"lora_max_adapters must be >= 0 (0 disables multi-"
+                f"tenant LoRA serving), got {self.lora_max_adapters}"
+            )
+        if self.lora_max_adapters > 0:
+            if self.lora_rank < 1:
+                raise ValueError(
+                    f"lora_rank must be >= 1 when LoRA serving is on, "
+                    f"got {self.lora_rank}"
+                )
+            if self.lora_alpha <= 0:
+                raise ValueError(
+                    f"lora_alpha must be > 0, got {self.lora_alpha}"
+                )
+            if self.lora_cache_slots < 0:
+                raise ValueError(
+                    f"lora_cache_slots must be >= 0 (0 => auto: "
+                    f"lora_max_adapters), got {self.lora_cache_slots}"
+                )
+        if self.tenant_max_slots < 0:
+            raise ValueError(
+                f"tenant_max_slots must be >= 0 (0 = no per-tenant "
+                f"quota), got {self.tenant_max_slots}"
+            )
+        if not 0.0 <= self.lora_ab_fraction <= 1.0:
+            raise ValueError(
+                f"lora_ab_fraction must be in [0, 1] (the share of "
+                f"bare-name requests routed to the latest adapter "
+                f"version), got {self.lora_ab_fraction}"
             )
 
     def _check_hybrid(self) -> None:
@@ -413,6 +471,15 @@ class ModelConfig:
     @property
     def effective_attn_head_dim(self) -> int:
         return self.attn_head_dim or self.d_model // self.effective_attn_num_heads
+
+    @property
+    def effective_lora_cache_slots(self) -> int:
+        """Device adapter-cache slots allocated (0 = LoRA off):
+        ``lora_cache_slots``, or every registered adapter resident when
+        the knob is 0."""
+        if self.lora_max_adapters <= 0:
+            return 0
+        return self.lora_cache_slots or self.lora_max_adapters
 
     @property
     def kv_quantized(self) -> bool:

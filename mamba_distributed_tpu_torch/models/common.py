@@ -1,5 +1,6 @@
 """Linear layer and init helpers (counterpart of
-``mamba_distributed_tpu/models/common.py``, without LoRA).
+``mamba_distributed_tpu/models/common.py``), with the segmented LoRA
+delta of multi-tenant serving (serving/adapters.py).
 
 Weights are stored (in_features, out_features), as in the JAX package,
 so the forward pass is ``x @ W`` and the two packages' trees map key for
@@ -29,6 +30,32 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` with fp32 accumulation and an fp32 result
+    (``mm_f32`` for batched products)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def lora_delta(lora: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The segmented LoRA delta ``(x @ A[ids]) @ B[ids]`` in fp32
+    (common.py:88-101): ``lora`` holds the stacked factor pools ``A``
+    (N, d_in, r) and ``B`` (N, r, d_out) and the launch's per-row pool
+    ids (b,); x is (b, ..., d_in), its leading axis the rows.  The inner
+    (b, ..., r) product is rounded to the compute dtype, as the JAX
+    package rounds it, before the second product.  Row 0 of the pools
+    is zero, so an id-0 row's delta is an exact 0."""
+    ids = lora["ids"]
+    a = lora["A"].index_select(0, ids).to(compute_dtype)
+    b = lora["B"].index_select(0, ids).to(compute_dtype)
+    x3 = x.to(compute_dtype).reshape(x.shape[0], -1, x.shape[-1])
+    xa = bmm_f32(x3, a).to(compute_dtype)
+    return bmm_f32(xa, b).reshape(*x.shape[:-1], b.shape[-1])
+
+
 def linear(params: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x @ kernel (+ bias)`` with compute-dtype inputs, fp32
     accumulation and a compute-dtype output (common.py:44-102).
@@ -38,19 +65,30 @@ def linear(params: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.T
     activation in fp32 before its cast: ``(x * scale) @ q``; column
     scales multiply the fp32 accumulator: ``(x @ q) * scale``.  The
     int8 codes are exact in the compute dtype, so the cast that feeds
-    the product is lossless."""
+    the product is lossless.
+
+    With a bound ``params["lora"]`` (``{"A", "B", "ids"}``; serving/
+    adapters.bind_adapter_ids) the segmented delta ``lora_delta`` of the
+    pre-scale activation lands on the fp32 accumulator, before the bias
+    and the one rounding, so slots running different adapters (or none)
+    share this launch.  Without one, nothing changes."""
     scale = params.get("scale")
+    x0 = x  # the pre-scale activation: the LoRA delta reads it
     if scale is not None and scale.shape[-1] == 1:
         x = x.float() * scale[..., 0]
         scale = None
     w = params["kernel"].to(compute_dtype)
     xc = x.to(compute_dtype)
-    if scale is None and "bias" not in params:
+    lora = params.get("lora")
+    bound = lora is not None and "ids" in lora
+    if scale is None and "bias" not in params and not bound:
         # one GEMM: fp32 accumulation, rounded once to the compute dtype
         return xc @ w
     y = mm_f32(xc, w)
     if scale is not None:
         y = y * scale
+    if bound:
+        y = y + lora_delta(lora, x0, compute_dtype)
     if "bias" in params:
         # the bias lands on the fp32 accumulator before the one rounding
         y = y + params["bias"].float()

@@ -6,8 +6,8 @@ stream) into the sections of the JAX package's ``scripts/obs_report.py``
 that the port's records feed, with the same keys and rounding: ``spans``
 (per-name totals and the share of top-level time), ``train``/``val``,
 ``serving`` (ticks, decode tokens/s, goodput, the prefix cache's hit
-counters, the compacted ticks' widths, the speculation counters,
-preemptions, the hybrid page gauges, the int8 memory stamp) and
+counters, the compacted ticks' widths, the speculation counters, the
+adapter cache's counters, preemptions, the hybrid page gauges, the int8 memory stamp) and
 ``requests`` (exact nearest-rank
 percentiles of queue-wait, TTFT and end-to-end latency, TTFT split by
 prefix-cache outcome, and the per-request ITL histograms merged into
@@ -141,6 +141,16 @@ def _serving(ticks: list[dict]) -> dict:
             "accepted_tokens_per_tick": round(
                 sum(e.get("tokens_emitted", 0) for e in spticks) / (streams or len(spticks)), 2),
         }
+    aticks = [e for e in ticks if e.get("adapters_resident") is not None]
+    adapters = None
+    if aticks:
+        adapters = {
+            "resident": aticks[-1]["adapters_resident"],
+            "cache_hits": sum(e.get("adapter_cache_hits", 0) for e in aticks),
+            "cache_misses": sum(e.get("adapter_cache_misses", 0) for e in aticks),
+            "cache_evictions": sum(e.get("adapter_cache_evictions", 0) for e in aticks),
+            "peak_live": max(e.get("adapters_live", 0) for e in aticks),
+        }
     qticks = [e for e in ticks if e.get("quantized") is not None]
     memory = None
     if qticks:
@@ -163,6 +173,7 @@ def _serving(ticks: list[dict]) -> dict:
         "prefix_cache": prefix,
         "compaction": compaction,
         "speculation": speculation,
+        "adapters": adapters,
         "preemptions": sum(e.get("preemptions", 0) for e in ticks),
         "kv_pages": kv_pages,
         "memory": memory,

@@ -91,13 +91,31 @@ verify at the lane width.  The hybrid page table gains a column that
 always names the trash page, where a fully reserved slot's verify
 overshoot lands.
 
-Left out of the port for now: adapters, sessions' parking, migration,
-meshes and sharded page pools.
+Multi-tenant LoRA (``cfg.lora_max_adapters > 0``; serving/adapters.py):
+the engine holds an ``AdapterRegistry`` of named adapters and a bounded,
+refcounted ``AdapterCache`` of their factors on the card, attached to
+the decode params.  ``submit`` pins a request's adapter version (A/B
+routing with ``cfg.lora_ab_fraction < 1``); admission checks the tenant
+quota (``cfg.tenant_max_slots``), then reserves the adapter's cache row
+before any page, and waits while every row is pinned; the row rides a
+preemption and is released at finish or failure.  Each slot's row sits
+in the pool meta (``adapter_id``, 0 = none), and every tick, compacted
+tick, prefill chunk and verify binds the rows of its launch once, so
+slots running different adapters share one launch.  Prefix-cache keys
+carry the adapter's salt.  ``hot_swap_adapter`` moves a decoding stream
+to another adapter version without losing a token.  Int8 weights with
+LoRA raise at construction.
+
+Left out of the port for now: sessions' parking, migration, meshes and
+sharded page pools, the router's adapter affinity and the online-tuning
+plane.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -119,6 +137,7 @@ from mamba_distributed_tpu_torch.obs import NULL_TRACER, StreamingHistogram
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.ops.quant import param_bytes
 from mamba_distributed_tpu_torch.serving import prefix_cache as prefix_cache_mod
+from mamba_distributed_tpu_torch.serving import adapters as adapters_mod
 from mamba_distributed_tpu_torch.serving import spec_decode, state_cache
 from mamba_distributed_tpu_torch.serving.prefix_cache import PrefixCache
 from mamba_distributed_tpu_torch.serving.prefill import (
@@ -132,8 +151,10 @@ from mamba_distributed_tpu_torch.serving.scheduler import (
     GenerationRequest,
     GenerationResult,
     RequestStatus,
+    TenantQuotaExceeded,
     TokenEvent,
     _Tracked,
+    check_tenant_quota,
 )
 from mamba_distributed_tpu_torch.utils.flops import flops_per_token, peak_flops
 from mamba_distributed_tpu_torch.utils.metrics import ServingMetrics
@@ -175,6 +196,13 @@ class ServingEngine:
         config's (``spec_drafter="ngram"``; ``"model"`` needs an instance,
         a ``ModelDrafter``).  The drafter moves the acceptance rate, never
         the tokens.
+      adapters: a ``serving/adapters.AdapterRegistry`` of named LoRA
+        adapters (read only when ``cfg.lora_max_adapters > 0``; None
+        builds an empty one over ``params``' targets).  One registry may
+        back several engines; each keeps its own device cache.  A stream
+        under adapter ``a`` matches a solo ``generate()`` on
+        ``adapters.merge(params, a)`` up to the re-association of the
+        delta's sums.
     """
 
     # the SRPT starvation guard: grants a prefill may be passed over in a
@@ -191,7 +219,8 @@ class ServingEngine:
                  metrics: ServingMetrics | None = None, tracer=NULL_TRACER,
                  slo=None, tick_regression=None,
                  prefix_cache: PrefixCache | None = None,
-                 drafter: spec_decode.Drafter | None = None):
+                 drafter: spec_decode.Drafter | None = None,
+                 adapters: adapters_mod.AdapterRegistry | None = None):
         if not 1 <= max_top_k <= cfg.vocab_size_padded:
             raise ValueError(
                 f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
@@ -315,6 +344,45 @@ class ServingEngine:
             self._compact_bucket = 1
             self._shrink_streak = 0
             self.metrics.configure_compaction()
+        # multi-tenant LoRA: factor pools attached to the decode params and
+        # per-slot adapter rows bound into every launch.  Off (the default)
+        # attaches nothing and stamps nothing
+        self.lora = cfg.lora_max_adapters > 0
+        if self.lora:
+            if self.quantized_weights:
+                raise ValueError(
+                    "int8 base weights + a LoRA delta is a ROADMAP "
+                    "residual (the two dequant paths don't compose "
+                    "yet): serve LoRA adapters with "
+                    "serving_weight_dtype='bf16', or quantize without "
+                    "lora_max_adapters")
+            self.adapters = (adapters if adapters is not None
+                             else adapters_mod.AdapterRegistry(cfg, params))
+            if self.adapters.rank != cfg.lora_rank:
+                raise ValueError(
+                    f"adapter registry rank {self.adapters.rank} != "
+                    f"cfg.lora_rank {cfg.lora_rank} — the factor pools "
+                    f"are static-shape; one rank per engine")
+            self.adapter_cache = adapters_mod.AdapterCache(
+                self.adapters, cfg.effective_lora_cache_slots,
+                compute_dtype=cfg.torch_compute_dtype, device=device)
+            self._base_decode_params = self._params
+            self._lora_version = -1
+            self._refresh_lora_params()
+            # the cache's lifetime counters at the last tick record
+            self._ad_hits0 = self._ad_misses0 = self._ad_evictions0 = 0
+            self.metrics.configure_adapters(cfg.lora_max_adapters, cfg.lora_rank,
+                                            cfg.effective_lora_cache_slots)
+        else:
+            self.adapters = None
+            self.adapter_cache = None
+        # the per-tenant slot quota (0 = none) and the window counters of
+        # quota stalls and hot swaps
+        self.tenant_max_slots = cfg.tenant_max_slots
+        self._quota_stalls = 0
+        self._hot_swaps = 0
+        if self.tenant_max_slots:
+            self.metrics.configure_tuning()
         # per-window gauges -> serving_tick records
         self._pc_hits = 0
         self._pc_misses = 0
@@ -347,6 +415,20 @@ class ServingEngine:
                 f"top_k={request.top_k} must be 1 (argmax).  Sampling-"
                 f"mode rejection sampling is a ROADMAP residual; serve "
                 f"sampled requests on a spec_tokens=0 engine")
+        if request.adapter:
+            if not self.lora:
+                raise ValueError(
+                    f"request names adapter {request.adapter!r} but this "
+                    f"engine serves the base model only "
+                    f"(cfg.lora_max_adapters=0); enable multi-tenant LoRA "
+                    f"serving or drop the adapter field")
+            if request.adapter not in self.adapters:
+                raise adapters_mod.UnknownAdapterError(
+                    f"unknown adapter {request.adapter!r}: this engine's "
+                    f"registry holds {self.adapters.names()}")
+            # pin the version at submit, so a version registered later
+            # never retargets a queued stream (A/B-routed below 1.0)
+            request.adapter = self._ab_resolve(request, request.adapter)
         if self.hybrid:
             need = np.asarray(request.prompt_ids).size + request.max_new_tokens
             if need > self.cfg.kv_slot_tokens:
@@ -362,10 +444,101 @@ class ServingEngine:
                     f"it could never be admitted")
         return self.scheduler.submit(request).request_id
 
-    def _slot_meta(self, r: GenerationRequest) -> dict:
+    def _slot_meta(self, tracked: _Tracked) -> dict:
+        r = tracked.request
         return dict(max_new=r.max_new_tokens, top_k=r.top_k,
                     temperature=r.temperature,
-                    eos_id=-1 if r.eos_id is None else r.eos_id)
+                    eos_id=-1 if r.eos_id is None else r.eos_id,
+                    adapter_id=tracked.adapter_slot or 0)
+
+    # ---------------------------------------------------- multi-tenant LoRA
+
+    def _refresh_lora_params(self) -> None:
+        """Re-attach the adapter cache's pools to the decode params after
+        a pool write (``AdapterCache.version``).  Host-side tree surgery:
+        the pools are written in place, so the tree holds the same
+        tensors."""
+        if self.adapter_cache.version == self._lora_version:
+            return
+        self._params = adapters_mod.attach_adapter_pools(
+            self._base_decode_params, self.adapter_cache.pools)
+        self._lora_version = self.adapter_cache.version
+
+    def _bound_params(self, ids: torch.Tensor | None) -> dict:
+        """The decode params with a launch's (b,) adapter rows bound
+        (LoRA engines), or as they are."""
+        if not self.lora or ids is None:
+            return self._params
+        return adapters_mod.bind_adapter_ids(self._params, ids)
+
+    def adapter_resident(self, name: str) -> bool:
+        """Is ``name``'s factor set in this engine's device cache now?
+        A pure probe."""
+        return self.lora and self.adapter_cache.resident(name)
+
+    def _ab_resolve(self, request: GenerationRequest, adapter: str) -> str:
+        """Submit-time version pin with A/B routing: the plain ``resolve``
+        with ``cfg.lora_ab_fraction >= 1``, for explicit ``@vN`` names
+        and for tenants with one version.  Below 1, a bare name routes
+        that share of requests to the latest version and the rest to the
+        previous one, by a crc32 of the adapter base, the seed and the
+        prompt bytes (the JAX package's hash, so both pick the same arm)."""
+        frac = self.cfg.lora_ab_fraction
+        base, ver = adapters_mod.split_adapter_version(adapter)
+        if frac >= 1.0 or ver is not None:
+            return self.adapters.resolve(adapter)
+        latest = self.adapters.version_of(base)
+        if latest < 2:
+            return self.adapters.resolve(adapter)
+        prev_key = adapters_mod.versioned_name(base, latest - 1)
+        if prev_key not in self.adapters:
+            # a forward version jump: no control arm to route to
+            return self.adapters.resolve(adapter)
+        h = zlib.crc32(
+            np.asarray(request.prompt_ids, np.int32).tobytes(),
+            zlib.crc32(f"{base}:{request.seed}".encode("utf-8")))
+        if (h % 10_000) < int(frac * 10_000):
+            return adapters_mod.versioned_name(base, latest)
+        return prev_key
+
+    def _adapter_salt(self, request: GenerationRequest) -> bytes:
+        """Prefix-cache key salt of a request's adapter (``b""`` on
+        LoRA-less engines and adapter-less requests)."""
+        if not self.lora:
+            return b""
+        return adapters_mod.prefix_salt(request.adapter)
+
+    def _acquire_adapter_ref(self, tracked: _Tracked) -> bool:
+        """Reserve the request's adapter cache row (``tracked.adapter_
+        slot``; 0 = no adapter).  False when every row is pinned: the
+        caller requeues and admission waits, as for short pages."""
+        if not self.lora or not tracked.request.adapter:
+            tracked.adapter_slot = 0
+            return True
+        if tracked.adapter_slot:  # a preempted resume: the ref rode along
+            return True
+        slot = self.adapter_cache.acquire(tracked.request.adapter)
+        if slot is None:
+            return False
+        tracked.adapter_slot = slot
+        self._refresh_lora_params()
+        return True
+
+    def _lora_ids(self, tracked: _Tracked) -> torch.Tensor | None:
+        """The (1,) adapter row of a batch-1 prefill launch (LoRA engines
+        only; row 0 for adapter-less requests)."""
+        if not self.lora:
+            return None
+        return torch.full((1,), tracked.adapter_slot or 0, dtype=torch.int32,
+                          device=self.device)
+
+    def _release_adapter_ref(self, tracked: _Tracked) -> None:
+        """Drop the request's adapter-row ref (finish, failure, a page
+        stall, a hot swap).  Idempotent through the ``adapter_slot``
+        sentinel."""
+        if self.lora and tracked.adapter_slot:
+            self.adapter_cache.release(tracked.request.adapter)
+        tracked.adapter_slot = None
 
     def _release_pages(self, slot: int, tracked: _Tracked) -> None:
         """Return a slot's KV pages to the pool and point its table row at
@@ -393,12 +566,30 @@ class ServingEngine:
         if tracked.snapshot is not None:
             return self._resume(tracked)
         r = tracked.request
+        # the tenant quota: a tenant at its cap waits in the queue (a
+        # resume bypasses it: it held a slot before)
+        if self.tenant_max_slots:
+            try:
+                check_tenant_quota(r.adapter,
+                                   (t.request.adapter for t in self._slots.values()),
+                                   self.tenant_max_slots)
+            except TenantQuotaExceeded:
+                self._quota_stalls += 1
+                self.metrics.record_quota_stall()
+                self.scheduler.requeue(tracked)
+                return False
+        # the adapter's cache row first, as for pages: while every row is
+        # pinned the request waits, so nothing misses its factors mid-flight
+        if not self._acquire_adapter_ref(tracked):
+            self.scheduler.requeue(tracked)
+            return False
+        salt = self._adapter_salt(r)
         plan = plan_chunks(len(r.prompt_ids), self.cfg.effective_prefill_chunk_tokens,
                            force=self.hybrid)
         # peek: the lookup commits only once a slot is secured, so a
         # request that waits for pages does not count a lookup a step
         hit = (None if self.prefix_cache is None
-               else self.prefix_cache.lookup(r.prompt_ids, plan, peek=True))
+               else self.prefix_cache.lookup(r.prompt_ids, plan, peek=True, salt=salt))
         n_pages = shared_n = fresh_n = 0
         cow = False
         if self.hybrid:
@@ -414,6 +605,9 @@ class ServingEngine:
                     hit = None  # served cold (and committed as a miss)
             if hit is None and n_pages > self.page_pool.free_pages \
                     and not self._reclaim_cache_pages(n_pages):
+                # page-stalled: the adapter ref goes too (the retry takes
+                # it again), so a waiting request pins no cache row
+                self._release_adapter_ref(tracked)
                 self.scheduler.requeue(tracked)
                 return False
         slot = self._free.pop(0)
@@ -444,7 +638,7 @@ class ServingEngine:
                 with self.tracer.span("serving_prefill", slot=slot, request=tracked.request_id,
                                       trace=tracked.trace_id, cache="full"):
                     state_cache.insert(self.pool, slot, {"blocks": entry.state["blocks"]},
-                                       entry.logits, **self._slot_meta(r))
+                                       entry.logits, **self._slot_meta(tracked))
                     self._seed_spec(tracked, entry.logits)
             elif entry is not None:
                 # partial hit: the remaining chunks run the computation a
@@ -454,7 +648,7 @@ class ServingEngine:
                 tracked.prefill_dt = 0.0
                 tracked.prefill_seeded_tokens = entry.tokens
                 state_cache.stash_prefill(self.pool, slot, {"blocks": entry.state["blocks"]},
-                                          **self._slot_meta(r))
+                                          **self._slot_meta(tracked))
             elif plan is None:
                 # one span per one-shot prefill, trace-stamped, so even a
                 # short prompt's journey has an anchor in the stream
@@ -463,15 +657,16 @@ class ServingEngine:
                     prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
                                              device=self.device)[None]
                     ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
-                    logits, state = lm_prefill(self._params, self.cfg, ids,
-                                               token_mask=mask)
+                    logits, state = lm_prefill(self._bound_params(self._lora_ids(tracked)),
+                                               self.cfg, ids, token_mask=mask)
                     state_cache.insert(self.pool, slot, state, logits,
-                                       **self._slot_meta(r))
+                                       **self._slot_meta(tracked))
                     self._seed_spec(tracked, logits)
                     if self.prefix_cache is not None:
                         # insert copied the state into the pool, so the
                         # prefill's own tensors can be kept
-                        self.prefix_cache.maybe_store_full(r.prompt_ids, state, logits)
+                        self.prefix_cache.maybe_store_full(r.prompt_ids, state, logits,
+                                                           salt=salt)
             else:
                 tracked.plan = plan
                 tracked.chunks_done = 0
@@ -485,18 +680,19 @@ class ServingEngine:
                 state_cache.stash_prefill(
                     self.pool, slot,
                     {"blocks": init_lm_blocks_state(self.cfg, 1, self.device)},
-                    **self._slot_meta(r))
+                    **self._slot_meta(tracked))
         except Exception:
-            # a failed prefill leaks neither the slot nor its pages, and
-            # does not drop the request
+            # a failed prefill leaks neither the slot nor its pages nor its
+            # adapter ref, and does not drop the request
             self._release_pages(slot, tracked)
+            self._release_adapter_ref(tracked)
             self._free.insert(0, slot)
             self.scheduler.requeue(tracked)
             raise
         if self.prefix_cache is not None:
             # the admission went through: commit the lookup (the cache's
             # stats, recency and promotion counters) and the window gauges
-            self.prefix_cache.commit_lookup(r.prompt_ids, plan, hit)
+            self.prefix_cache.commit_lookup(r.prompt_ids, plan, hit, salt=salt)
             kind = None if entry is None else ("full" if full_hit else "partial")
             tracked.cache_hit = kind
             if kind is None:
@@ -555,7 +751,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             with self.tracer.span("serving_prefill_chunk", slot=slot, chunk=i,
                                   of=plan.n_chunks, trace=tracked.trace_id):
-                logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg)
+                logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg,
+                                              adapter_ids=self._lora_ids(tracked))
             dt = time.perf_counter() - t0  # host dispatch time
             if self.hybrid:
                 # the left pad of chunk 0 is never written
@@ -572,11 +769,13 @@ class ServingEngine:
             # takes a copy); the last boundary too, which seeds longer
             # prompts with the same left pad
             state = {"blocks": state["blocks"]}
-            self._store_prefix(r.prompt_ids, plan, i, state, slot)
+            salt = self._adapter_salt(r)
+            self._store_prefix(r.prompt_ids, plan, i, state, slot, salt=salt)
             if tracked.chunks_done == plan.n_chunks:
                 # ...and the full-prompt entry, which an exact repeat
                 # takes without a prefill
-                self._store_prefix(r.prompt_ids, plan, i, state, slot, logits=logits)
+                self._store_prefix(r.prompt_ids, plan, i, state, slot, logits=logits,
+                                   salt=salt)
                 state_cache.finish_prefill(self.pool, slot, state, logits)
                 self._seed_spec(tracked, logits)
                 tracked.status = RequestStatus.DECODE
@@ -585,12 +784,13 @@ class ServingEngine:
                 self.metrics.record_prefill(plan.prompt_len - tracked.prefill_seeded_tokens,
                                             tracked.prefill_dt)
             else:
-                state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(r))
+                state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(tracked))
                 # rotate to the back: the next grant goes to the others first
                 self._prefill_queue.append(slot)
         except Exception:
             state_cache.evict(self.pool, slot)
             self._release_pages(slot, tracked)
+            self._release_adapter_ref(tracked)
             if slot in self._prefill_queue:
                 self._prefill_queue.remove(slot)
             del self._slots[slot]
@@ -610,7 +810,7 @@ class ServingEngine:
             self._page_frees += len(entry.kv_pages)
 
     def _store_prefix(self, prompt_ids, plan, i: int, state: dict, slot: int,
-                      logits=None) -> None:
+                      logits=None, salt: bytes = b"") -> None:
         """Snapshot chunk ``i``'s carry into the prefix cache (with
         ``logits``: the full-prompt entry).  A hybrid entry holds refs on
         the whole pages of the prefix and a frozen copy of its partial
@@ -621,10 +821,10 @@ class ServingEngine:
         if pc is None:
             return
         if logits is not None:
-            key = prefix_cache_mod.full_key(prompt_ids, plan.chunk)
+            key = prefix_cache_mod.full_key(prompt_ids, plan.chunk, salt)
             tokens = plan.prompt_len
         else:
-            key = prefix_cache_mod.boundary_key(prompt_ids, plan, i)
+            key = prefix_cache_mod.boundary_key(prompt_ids, plan, i, salt)
             tokens = (i + 1) * plan.chunk - plan.pad
         if not pc.wants(key):
             return
@@ -664,16 +864,18 @@ class ServingEngine:
                 return False
         return True
 
-    def prefix_hit_fraction(self, prompt_ids) -> float:
+    def prefix_hit_fraction(self, prompt_ids, adapter: str | None = None) -> float:
         """Fraction of ``prompt_ids`` whose prefill the cache could skip
         now (0.0 with the cache off): a probe that counts nothing and
-        touches no recency."""
+        touches no recency.  ``adapter`` keys the probe to a LoRA
+        identity: entries under another adapter are not hits."""
         pc = self.prefix_cache
         if pc is None or len(prompt_ids) == 0:
             return 0.0
         plan = plan_chunks(len(prompt_ids), self.cfg.effective_prefill_chunk_tokens,
                            force=self.hybrid)
-        hit = pc.lookup(np.asarray(prompt_ids, np.int64), plan, peek=True)
+        hit = pc.lookup(np.asarray(prompt_ids, np.int64), plan, peek=True,
+                        salt=b"" if not self.lora else adapters_mod.prefix_salt(adapter))
         return 0.0 if hit is None else min(1.0, hit[0].tokens / len(prompt_ids))
 
     # ------------------------------------------------ priority preemption
@@ -717,7 +919,9 @@ class ServingEngine:
                 "blocks": tuple(t[:, slot:slot + 1].to("cpu", copy=True)
                                 for t in self.pool["state"]["blocks"]),
                 "logits": self.pool["logits"][slot:slot + 1].to("cpu", copy=True),
-                "step": len(tracked.new_tokens),
+                # the device step counter of the current request (a hot-
+                # swapped continuation restarted it at swap_base)
+                "step": len(tracked.new_tokens) - tracked.swap_base,
             }
             if self.hybrid:
                 snap["kv_len"] = int(self._kv_len[slot])
@@ -737,10 +941,11 @@ class ServingEngine:
         """Re-admit a preempted request from its host snapshot into the
         first free slot, its token count restored (its page refs rode on
         the tracker).  Returns False, requeued, when no slot is free."""
-        if not self._free:
+        # the adapter row first (a preempted request's ref rode along)
+        if not self._free or not self._acquire_adapter_ref(tracked):
             self.scheduler.requeue(tracked)
             return False
-        snap, r = tracked.snapshot, tracked.request
+        snap = tracked.snapshot
         slot = self._free.pop(0)
         try:
             with self.tracer.span("serving_resume", slot=slot, request=tracked.request_id,
@@ -748,7 +953,7 @@ class ServingEngine:
                 state_cache.restore(
                     self.pool, slot,
                     {"blocks": tuple(t.to(self.device) for t in snap["blocks"])},
-                    snap["logits"].to(self.device), snap["step"], **self._slot_meta(r))
+                    snap["logits"].to(self.device), snap["step"], **self._slot_meta(tracked))
                 if self.hybrid:
                     self._page_tbl[slot] = 0
                     self._page_tbl[slot, :len(tracked.pages)] = tracked.pages
@@ -856,9 +1061,12 @@ class ServingEngine:
                    split_rows: int | None = None):
         """The tick's ``tokens_per_tick`` sub-steps over one set of rows
         (the pool's, or a compacted tick's lanes): sample, then
-        ``lm_step``, which writes ``state`` in place.  Returns the last
-        logits, the rows' step and done counters and the per-sub-step
-        tokens, live flags and done flags."""
+        ``lm_step``, which writes ``state`` in place.  A LoRA engine binds
+        the rows' adapter ids (``meta["adapter_id"]``) once for the whole
+        tick: admission happens between ticks.  Returns the last logits,
+        the rows' step and done counters and the per-sub-step tokens, live
+        flags and done flags."""
+        params = self._bound_params(meta["adapter_id"])
         has_eos = meta["eos_id"] >= 0
         step, done = meta["step"], meta["done"]
         toks, emitted, dones = [], [], []
@@ -870,12 +1078,12 @@ class ServingEngine:
             if self.hybrid:
                 # rows that are not live (empty, done, prefilling, pad
                 # lanes) write the trash page only and keep their length
-                logits, stepped = lm_step(self._params, self.cfg,
+                logits, stepped = lm_step(params, self.cfg,
                                           {**state, "attn_meta": attn_meta}, tok,
                                           write_mask=live, split_rows=split_rows)
                 attn_meta = stepped["attn_meta"]
             else:
-                logits, _ = lm_step(self._params, self.cfg, state, tok)
+                logits, _ = lm_step(params, self.cfg, state, tok)
             step = step + live
             done = done | (live & ((has_eos & (tok == meta["eos_id"]))
                                    | (step >= meta["max_new"])))
@@ -890,7 +1098,8 @@ class ServingEngine:
         u = np.full((self.tokens_per_tick, width), 0.5, np.float32)
         for s, lane in lanes.items():
             t = self._slots[s]
-            n0 = len(t.new_tokens)
+            # a hot-swapped continuation draws from step 0 of its own
+            n0 = len(t.new_tokens) - t.swap_base
             u[:, lane] = [step_uniform(t.request.seed, n0 + j)
                           for j in range(self.tokens_per_tick)]
         return torch.from_numpy(u).to(self.device)
@@ -1098,7 +1307,8 @@ class ServingEngine:
             trusted[slot] = len(tracked.spec_pending)
         greedy_d, final_logits, new_state, old = spec_decode.spec_verify(
             self._params, state, torch.from_numpy(ids).to(dev),
-            torch.from_numpy(tmask).to(dev), self.cfg)
+            torch.from_numpy(tmask).to(dev), self.cfg,
+            adapter_ids=lane_rows["meta"]["adapter_id"] if self.lora else None)
         greedy = greedy_d.cpu().numpy()  # the one host sync of the tick
         tokens = np.zeros((W + 1, S), np.int64)
         emitted = np.zeros((W + 1, S), bool)
@@ -1222,10 +1432,13 @@ class ServingEngine:
             tracked = self._slots.pop(slot)
             state_cache.evict(self.pool, slot)
             self._release_pages(slot, tracked)
+            self._release_adapter_ref(tracked)
             self._free.append(slot)
             if self.spec:
                 self.drafter.forget(tracked.request_id)
-            r = tracked.request
+            # a hot-swapped stream finishes as its continuation request:
+            # the record and result echo what the user submitted
+            r = tracked.orig_request or tracked.request
             request_record = {
                 "request_id": tracked.request_id,
                 "trace_id": tracked.trace_id,
@@ -1245,6 +1458,11 @@ class ServingEngine:
                 request_record["preemptions"] = tracked.preempted
             if tracked.priority != self.scheduler.default_priority:
                 request_record["priority"] = tracked.priority
+            if self.lora and tracked.request.adapter:
+                # the adapter the stream finished under (a hot swap's target)
+                request_record["adapter"] = tracked.request.adapter
+            if tracked.hot_swaps:
+                request_record["hot_swaps"] = tracked.hot_swaps
             self.metrics.record_request(request_record)
             if self.slo is not None:
                 self.slo.observe_request(request_record)
@@ -1278,6 +1496,19 @@ class ServingEngine:
                           spec_accepted=self._spec_accepted,
                           spec_streams=self._spec_streams)
             self._spec_drafted = self._spec_accepted = self._spec_streams = 0
+        if self.lora:
+            # the adapter cache's window churn, residency and the distinct
+            # adapters this tick's launch mixed (absent with LoRA off)
+            ac = self.adapter_cache
+            gauges.update(
+                adapters_resident=ac.resident_count,
+                adapter_cache_hits=ac.hits - self._ad_hits0,
+                adapter_cache_misses=ac.misses - self._ad_misses0,
+                adapter_cache_evictions=ac.evictions - self._ad_evictions0,
+                adapters_live=len({t.adapter_slot for t in self._slots.values()
+                                   if t.status is RequestStatus.DECODE and t.adapter_slot}))
+            self._ad_hits0, self._ad_misses0 = ac.hits, ac.misses
+            self._ad_evictions0 = ac.evictions
         if self.tick_regression is not None:
             self.tick_regression.observe_tick(dt * 1000)
         self.metrics.record_tick(
@@ -1295,8 +1526,13 @@ class ServingEngine:
                         * (self.spec_width if self.spec else self.tokens_per_tick)),
             compaction_width=(((self.capacity if width is None else width)
                                if self.compaction else None)),
-            traces=live_traces, preemptions=self._preemptions, **gauges)
+            traces=live_traces, preemptions=self._preemptions,
+            # stamped only when nonzero
+            tenant_quota_stalls=self._quota_stalls, adapter_hot_swaps=self._hot_swaps,
+            **gauges)
         self._preemptions = 0
+        self._quota_stalls = 0
+        self._hot_swaps = 0
         self._pending_stall_ms = 0.0
         self._pending_chunk_tokens = 0
         self._pending_chunk_real_tokens = 0
@@ -1304,6 +1540,81 @@ class ServingEngine:
         self._pending_oneshot_real_tokens = 0
         self._pending_oneshot_lanes = 0
         return events
+
+    # ------------------------------------------------------------ hot swaps
+
+    def hot_swap_adapter(self, request_id: int, adapter: str | None = None) -> str:
+        """Move a live decoding stream to another adapter version
+        (default: the latest of its current base) without losing a token.
+
+        The carry was shaped by the old factors, so it goes, once: the
+        slot is evicted and its pages and adapter ref released, and the
+        stream is requeued as a continuation request whose prompt is the
+        original prompt plus every token emitted since the last swap,
+        decoding under the new version.  ``tracked.new_tokens`` goes on
+        across the swap; ``tracked.orig_request`` keeps what the user
+        submitted (for the finish record and result) and ``tracked.
+        swap_base`` the tokens emitted at the swap (the continuation's
+        step counter restarts at 0).  Returns the adapter now in effect
+        (no-op when already there).  Raises ``ValueError`` for a stream
+        that is not decoding or holds speculative tokens in flight."""
+        if not self.lora:
+            raise ValueError(
+                "hot_swap_adapter needs multi-tenant LoRA serving "
+                "(cfg.lora_max_adapters > 0)")
+        tracked = next((t for t in self._slots.values() if t.request_id == request_id),
+                       None)
+        if tracked is None or tracked.status is not RequestStatus.DECODE:
+            raise ValueError(
+                f"request {request_id} is not swappable: only a resident "
+                f"DECODING stream holds the carry a swap invalidates "
+                f"(queued/prefilling streams finish prefill first; retry "
+                f"shortly)")
+        if self.spec and tracked.spec_pending:
+            raise ValueError(
+                f"request {request_id} has {len(tracked.spec_pending)} "
+                f"speculative draft token(s) in flight; retry after the "
+                f"next verify tick drains them")
+        r = tracked.request
+        old = r.adapter
+        if not old:
+            raise ValueError(
+                f"request {request_id} decodes the base model — there is "
+                f"no adapter to swap")
+        new = self.adapters.resolve(
+            adapter if adapter is not None else self.adapters.latest(old))
+        self.adapters.factors(new)  # UnknownAdapterError before any change
+        if new == old:
+            return old
+        slot = tracked.slot
+        emitted = len(tracked.new_tokens)
+        with self.tracer.span("serving_hot_swap", slot=slot, request=tracked.request_id,
+                              trace=tracked.trace_id, adapter=new):
+            # the release keys off the old request's adapter: before the
+            # request changes
+            state_cache.evict(self.pool, slot)
+            self._release_pages(slot, tracked)
+            self._release_adapter_ref(tracked)
+            del self._slots[slot]
+            self._free.append(slot)
+            self._free.sort()
+            if tracked.orig_request is None:
+                tracked.orig_request = r
+            tracked.request = dataclasses.replace(
+                r,
+                prompt_ids=np.concatenate([
+                    np.asarray(r.prompt_ids, np.int64),
+                    np.asarray(tracked.new_tokens[tracked.swap_base:], np.int64)]),
+                max_new_tokens=r.max_new_tokens - (emitted - tracked.swap_base),
+                adapter=new)
+            tracked.swap_base = emitted
+            tracked.hot_swaps += 1
+            self._hot_swaps += 1
+            self.metrics.record_hot_swap()
+            # the continuation prefills again through admission (prefix-
+            # warm under the new version's salt where it can)
+            self.scheduler.requeue(tracked)
+        return new
 
     # ------------------------------------------------------------ frontends
 

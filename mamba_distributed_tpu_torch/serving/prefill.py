@@ -30,6 +30,7 @@ from mamba_distributed_tpu_torch.inference.bucketing import (
 from mamba_distributed_tpu_torch.inference.generate import _decode_params
 from mamba_distributed_tpu_torch.models.attention import attention_page_count
 from mamba_distributed_tpu_torch.models.lm import init_lm_state, lm_prefill_chunk
+from mamba_distributed_tpu_torch.serving.adapters import bind_adapter_ids
 
 
 def cast_decode_params(params: dict, cfg: ModelConfig) -> dict:
@@ -92,10 +93,16 @@ def chunk_inputs(prompt_ids, plan: ChunkPlan, i: int, device=None):
     return torch.from_numpy(out).to(device), torch.from_numpy(mask).to(device)
 
 
-def prefill_chunk(params: dict, ids, mask, state: dict, cfg: ModelConfig):
+def prefill_chunk(params: dict, ids, mask, state: dict, cfg: ModelConfig,
+                  adapter_ids: torch.Tensor | None = None):
     """The chunk step: (ids, mask, carry) -> (last logits, carry').
     ``params`` must already be decode-cast (``cast_decode_params``).  A
-    hybrid carry's KV pages are written in place."""
+    hybrid carry's KV pages are written in place.  ``adapter_ids`` (LoRA
+    engines only; (b,) int32) binds the rows' factor-pool rows into the
+    attached pools (serving/adapters.py), so the chunk adds the
+    request's delta as the ticks will."""
+    if adapter_ids is not None:
+        params = bind_adapter_ids(params, adapter_ids)
     return lm_prefill_chunk(params, cfg, ids, state, token_mask=mask)
 
 

@@ -58,8 +58,8 @@ def boundary_key(prompt_ids, plan, i: int, salt: bytes = b"") -> str:
     """Key of the carry after chunk ``i`` of ``plan``'s layout: the
     chunk width, the left-pad, and every real token consumed through
     that chunk — exactly the inputs that determine the carry.
-    ``salt`` mixes into the key anything else the carry depends on (the
-    JAX package salts by LoRA adapter; the port serves no adapters yet).
+    ``salt`` mixes into the key anything else the carry depends on: the
+    engine salts by LoRA adapter (serving/adapters.prefix_salt).
     The empty default leaves every digest byte-identical to the unsalted
     one."""
     real = (i + 1) * plan.chunk - plan.pad

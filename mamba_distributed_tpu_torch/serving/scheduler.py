@@ -1,6 +1,8 @@
 """Request lifecycle + priority-FCFS admission for the serving engine
-(counterpart of ``mamba_distributed_tpu/serving/scheduler.py``, without
-adapters and tenant quotas).
+(counterpart of ``mamba_distributed_tpu/serving/scheduler.py``), with a
+request's LoRA adapter and the per-tenant slot quota.  The adapter
+fields of the service wire and the router's adapter affinity are not
+ported yet.
 
 A request moves QUEUED -> PREFILL -> DECODE -> FINISHED:
 
@@ -22,6 +24,33 @@ from typing import Iterator
 import numpy as np
 
 from mamba_distributed_tpu_torch.obs.context import mint_trace_id
+from mamba_distributed_tpu_torch.serving.adapters import split_adapter_version
+
+
+class TenantQuotaExceeded(RuntimeError):
+    """Admitting this request would give one tenant (adapter base name;
+    its versions share the quota) more concurrent resident slots than
+    ``cfg.tenant_max_slots``.  The engine requeues the request, as for a
+    KV-page stall: the quota is backpressure, never shedding."""
+
+
+def check_tenant_quota(adapter: str | None, resident_adapters,
+                       max_slots: int) -> None:
+    """Raise :class:`TenantQuotaExceeded` when ``adapter``'s tenant
+    already holds ``max_slots`` of the slots whose adapters
+    ``resident_adapters`` names (None entries, base-model streams, never
+    count; ``tenant@v2`` counts against ``tenant``)."""
+    if max_slots <= 0 or not adapter:
+        return
+    base, _ = split_adapter_version(adapter)
+    held = sum(1 for a in resident_adapters
+               if a and split_adapter_version(a)[0] == base)
+    if held >= max_slots:
+        raise TenantQuotaExceeded(
+            f"tenant {base!r} holds {held}/{max_slots} resident slots "
+            f"(cfg.tenant_max_slots) — request stays queued until one "
+            f"frees"
+        )
 
 
 class RequestStatus(enum.Enum):
@@ -53,6 +82,10 @@ class GenerationRequest:
     # first (FCFS within a class), and the engine preempts a lower-
     # priority decoding slot when this request waits with no slot free
     priority: int | None = None
+    # named LoRA adapter this request decodes under (serving/
+    # adapters.py; None = the base model), checked at submit against the
+    # engine's AdapterRegistry: an unknown name raises UnknownAdapterError
+    adapter: str | None = None
 
 
 @dataclasses.dataclass
@@ -132,6 +165,17 @@ class _Tracked:
     spec_pending: list = dataclasses.field(default_factory=list)
     spec_pending_emitted: int = 0
     spec_observed: int = 0
+    # multi-tenant LoRA: the device factor-pool row this request's slot
+    # reads (0 = the zero row; None = no cache ref held).  Acquired at
+    # admission, released at finish or failure; it rides a preemption
+    adapter_slot: int | None = None
+    # hot swaps (serving/engine.hot_swap_adapter): the request as the
+    # user submitted it (None until the first swap; finish records and
+    # results echo it), the tokens emitted at the last swap (the
+    # continuation's step counter restarts at 0) and the swap count
+    orig_request: GenerationRequest | None = None
+    swap_base: int = 0
+    hot_swaps: int = 0
 
 
 class FCFSScheduler:

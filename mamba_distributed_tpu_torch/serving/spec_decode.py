@@ -58,6 +58,7 @@ from mamba_distributed_tpu_torch.inference.bucketing import next_pow2_bucket, pa
 from mamba_distributed_tpu_torch.inference.generate import _pad_rows, vocab_pad_mask
 from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step, lm_verify_chunk
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
+from mamba_distributed_tpu_torch.serving.adapters import bind_adapter_ids
 from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
     chunked_prefill,
@@ -81,7 +82,7 @@ TRACE_COUNTS = {
 
 
 def spec_verify(params: dict, state: dict, ids: torch.Tensor, token_mask: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, adapter_ids: torch.Tensor | None = None):
     """The verify launch: feed every row's ``ids`` (b, W) through
     ``lm_verify_chunk`` from ``state`` and score all W positions.
 
@@ -93,8 +94,14 @@ def spec_verify(params: dict, state: dict, ids: torch.Tensor, token_mask: torch.
     Returns ``(greedy (b, W) int64, final_logits (b, V) fp32, new_state,
     old)``: ``greedy[:, i]`` is the argmax over the real vocab after fed
     token i (the whole accept/reject input, fetched once by the caller),
-    ``old`` the pre-tick ``{"blocks"}`` (and a hybrid's ``attn_meta``)."""
+    ``old`` the pre-tick ``{"blocks"}`` (and a hybrid's ``attn_meta``).
+
+    ``adapter_ids`` (LoRA engines only; (b,) int32) binds the rows'
+    factor-pool rows (serving/adapters.py): streams under different
+    adapters share this one verify launch as they share the tick."""
     TRACE_COUNTS["verify"] += 1
+    if adapter_ids is not None:
+        params = bind_adapter_ids(params, adapter_ids)
     old = {"blocks": state["blocks"]}
     if "attn_meta" in state:
         old["attn_meta"] = state["attn_meta"]

@@ -13,6 +13,7 @@ a fixed-capacity pool of S slots whose tensors never change shape:
       "active", "done", "prefilling": bool,
       "step", "max_new", "top_k": int64,
       "temperature": fp32, "eos_id": int64 (-1 => no EOS stopping),
+      "adapter_id": int32,              # LoRA factor-pool row (0 = none)
     },
   }
 
@@ -168,6 +169,9 @@ def init_pool(cfg: ModelConfig, capacity: int, device=None) -> dict:
             "top_k": full(1, torch.int64),
             "temperature": full(1.0, torch.float32),
             "eos_id": full(-1, torch.int64),
+            # the slot's LoRA factor-pool row (serving/adapters.py): the
+            # tick binds it as the launch's row ids; 0 is the zero row
+            "adapter_id": full(0, torch.int32),
         },
     }
 
@@ -185,27 +189,30 @@ def _write_meta(pool: dict, slot: int, **values) -> None:
 
 
 def insert(pool: dict, slot: int, state: dict, logits: torch.Tensor,
-           max_new: int, top_k: int, temperature: float, eos_id: int) -> dict:
+           max_new: int, top_k: int, temperature: float, eos_id: int,
+           adapter_id: int = 0) -> dict:
     """Admit a prefilled request (batch-1 ``state`` + last ``logits``)
-    into ``slot``, in place."""
+    into ``slot``, in place.  ``adapter_id`` is the request's LoRA
+    factor-pool row (0 = none)."""
     _write_blocks(pool, slot, state)
     pool["logits"][slot].copy_(logits[0])
     _write_meta(pool, slot, active=True, done=False, prefilling=False,
                 step=0, max_new=max_new, top_k=top_k, temperature=temperature,
-                eos_id=eos_id)
+                eos_id=eos_id, adapter_id=adapter_id)
     return pool
 
 
 def restore(pool: dict, slot: int, state: dict, logits: torch.Tensor, step: int,
-            max_new: int, top_k: int, temperature: float, eos_id: int) -> dict:
+            max_new: int, top_k: int, temperature: float, eos_id: int,
+            adapter_id: int = 0) -> dict:
     """Re-admit a PREEMPTED request mid-decode (in place): ``insert`` with
     the generated-token counter restored instead of zeroed, so the
-    stream continues where the swap-out cut it."""
+    stream continues where the swap-out cut it (and its adapter row)."""
     _write_blocks(pool, slot, state)
     pool["logits"][slot].copy_(logits[0])
     _write_meta(pool, slot, active=True, done=False, prefilling=False,
                 step=step, max_new=max_new, top_k=top_k, temperature=temperature,
-                eos_id=eos_id)
+                eos_id=eos_id, adapter_id=adapter_id)
     return pool
 
 
@@ -262,14 +269,15 @@ def evict(pool: dict, slot: int) -> dict:
 
 
 def stash_prefill(pool: dict, slot: int, state: dict, max_new: int,
-                  top_k: int, temperature: float, eos_id: int) -> dict:
+                  top_k: int, temperature: float, eos_id: int,
+                  adapter_id: int = 0) -> dict:
     """Park a PARTIAL prefill carry in ``slot`` (in place): active, but
     ``prefilling`` keeps it out of the decode tick.  Re-stashing after
     more chunks overwrites the carry."""
     _write_blocks(pool, slot, state)
     _write_meta(pool, slot, active=True, done=False, prefilling=True,
                 step=0, max_new=max_new, top_k=top_k, temperature=temperature,
-                eos_id=eos_id)
+                eos_id=eos_id, adapter_id=adapter_id)
     return pool
 
 

@@ -86,10 +86,12 @@ def emit_bench_record(record: dict, json_path: str | None = None) -> None:
 
 
 # summary() sections of engine features the port does not have yet
-# (pipeline stages, adapters, tuning, admission, sessions, the compile
-# watchdog): the JAX package's summary() holds them as None while the
-# feature is off, so the port's holds the same keys at None
-_OFF_SECTIONS = ("adapters", "tuning", "admission", "sessions")
+# (pipeline stages, admission, sessions, the compile watchdog): the JAX
+# package's summary() holds them as None while the feature is off, so
+# the port's holds the same keys at None.  The "tuning" section carries
+# the quota and hot-swap counters; its tune_* counters stay 0 until the
+# online-tuning plane is ported
+_OFF_SECTIONS = ("admission", "sessions")
 
 
 class ServingMetrics:
@@ -119,11 +121,14 @@ class ServingMetrics:
     The prefix cache (``configure_prefix_cache``, ``record_prefix_
     lookup``, ``record_prefix_ttft``), preemption (``record_preemption``),
     tick compaction (``configure_compaction``) and speculative decoding
-    (``configure_speculation``) feed their summary sections and record
-    fields only when the engine turns them on: records and summaries with
-    them off are the same bytes as without them.  Left out until the port
-    has the features that feed them: the migration, pipeline, adapter,
-    tuning, session, admission and compile-watchdog methods.
+    (``configure_speculation``), multi-tenant LoRA (``configure_
+    adapters``) and the tenant quota and hot swaps (``configure_tuning``,
+    ``record_quota_stall``, ``record_hot_swap``) feed their summary
+    sections and record fields only when the engine turns them on:
+    records and summaries with them off are the same bytes as without
+    them.  Left out until the port has the features that feed them: the
+    migration, pipeline, tune-job, session, admission and
+    compile-watchdog methods.
     """
 
     def __init__(self, capacity: int, jsonl_path: str | None = None):
@@ -194,6 +199,27 @@ class ServingMetrics:
         self.spec_accept_rate = StreamingHistogram(lo=1e-2, hi=200.0)
         # priority preemptions (serving/engine._preempt)
         self.preemptions = 0
+        # multi-tenant LoRA: configure_adapters() unlocks
+        # summary()["adapters"]: the registry and cache shape, the cache's
+        # hit, miss and eviction totals and the distinct-adapter gauge
+        self._adapters_on = False
+        self.lora_max_adapters: int | None = None
+        self.lora_rank: int | None = None
+        self.lora_cache_slots: int | None = None
+        self.adapters_resident: int = 0
+        self.adapter_cache_hits = 0
+        self.adapter_cache_misses = 0
+        self.adapter_cache_evictions = 0
+        self.peak_adapters_live = 0
+        self._adapters_live_sum = 0
+        self._adapter_ticks = 0
+        # the tenant quota and hot swaps: configure_tuning() (or the first
+        # record_quota_stall/record_hot_swap) unlocks summary()["tuning"].
+        # The tune_* counters belong to the online-tuning plane, not
+        # ported: they stay at their zero values
+        self._tuning_on = False
+        self.tenant_quota_stalls = 0
+        self.adapter_hot_swaps = 0
         # int8 serving: configure_memory() (engine construction, only
         # when weights or KV pages are int8) unlocks summary()["memory"]
         self._memory_on = False
@@ -272,6 +298,34 @@ class ServingMetrics:
         self.spec_tokens_cfg = spec_tokens
         self.spec_drafter = drafter
 
+    def configure_adapters(self, max_adapters: int, rank: int,
+                           cache_slots: int) -> None:
+        """Mark multi-tenant LoRA on (engine construction): ``summary()``
+        gains its ``adapters`` section and tick records their
+        adapter-cache stamps."""
+        self._adapters_on = True
+        self.lora_max_adapters = int(max_adapters)
+        self.lora_rank = int(rank)
+        self.lora_cache_slots = int(cache_slots)
+
+    def configure_tuning(self) -> None:
+        """Mark the tenant quota and hot swaps live: ``summary()`` gains
+        its ``tuning`` section.  Idempotent; the two ``record_*`` methods
+        below call it on their first event."""
+        self._tuning_on = True
+
+    def record_quota_stall(self) -> None:
+        """One admission deferred by the per-tenant quota (serving/
+        scheduler.TenantQuotaExceeded: requeued, not shed)."""
+        self.configure_tuning()
+        self.tenant_quota_stalls += 1
+
+    def record_hot_swap(self) -> None:
+        """One live stream switched adapter versions mid-flight
+        (serving/engine.hot_swap_adapter)."""
+        self.configure_tuning()
+        self.adapter_hot_swaps += 1
+
     def _write_jsonl(self, record: dict) -> None:
         append_jsonl(self.jsonl_path, record, truncate=self._truncate_pending)
         self._truncate_pending = False
@@ -334,6 +388,8 @@ class ServingMetrics:
         slot_lanes: int = 0,
         traces: list | None = None,
         preemptions: int = 0,
+        tenant_quota_stalls: int = 0,
+        adapter_hot_swaps: int = 0,
         prefix_hits: int | None = None,
         prefix_misses: int | None = None,
         prefix_saved_tokens: int | None = None,
@@ -349,6 +405,11 @@ class ServingMetrics:
         spec_accepted: int | None = None,
         spec_streams: int | None = None,
         compaction_width: int | None = None,
+        adapters_resident: int | None = None,
+        adapter_cache_hits: int = 0,
+        adapter_cache_misses: int = 0,
+        adapter_cache_evictions: int = 0,
+        adapters_live: int = 0,
     ) -> None:
         """One decode tick.  ``prefill_stall_ms`` is the host time spent
         on prefill work since the previous tick record (a step that runs
@@ -376,7 +437,12 @@ class ServingMetrics:
         goes into a histogram in percent.  ``compaction_width`` (compaction on)
         is the lane width the tick launched; ``slot_lanes`` is billed at
         it, and ``lanes_saved`` adds what a full-width launch would have
-        computed on top."""
+        computed on top.  ``tenant_quota_stalls``/``adapter_hot_swaps`` are
+        the window's quota deferrals and hot swaps (stamped when nonzero);
+        ``adapters_resident`` (LoRA on) gauges the adapter cache, with
+        ``adapter_cache_hits``/``_misses``/``_evictions`` its window churn
+        and ``adapters_live`` the distinct adapters the tick's launch
+        mixed."""
         self.ticks += 1
         self.decode_tokens += tokens_emitted
         self.decode_time_s += dt_s
@@ -417,6 +483,10 @@ class ServingMetrics:
             record["traces"] = list(traces)
         if preemptions:
             record["preemptions"] = preemptions
+        if tenant_quota_stalls:
+            record["tenant_quota_stalls"] = tenant_quota_stalls
+        if adapter_hot_swaps:
+            record["adapter_hot_swaps"] = adapter_hot_swaps
         if prefix_hits is not None:
             record.update({
                 "prefix_hits": prefix_hits,
@@ -451,6 +521,21 @@ class ServingMetrics:
             record["spec_drafted"] = spec_drafted
             record["spec_accepted"] = spec_accepted
             record["spec_streams"] = spec_streams
+        if adapters_resident is not None:
+            self.adapters_resident = adapters_resident
+            self.adapter_cache_hits += adapter_cache_hits
+            self.adapter_cache_misses += adapter_cache_misses
+            self.adapter_cache_evictions += adapter_cache_evictions
+            self.peak_adapters_live = max(self.peak_adapters_live, adapters_live)
+            self._adapters_live_sum += adapters_live
+            self._adapter_ticks += 1
+            record.update({
+                "adapters_resident": adapters_resident,
+                "adapter_cache_hits": adapter_cache_hits,
+                "adapter_cache_misses": adapter_cache_misses,
+                "adapter_cache_evictions": adapter_cache_evictions,
+                "adapters_live": adapters_live,
+            })
         if compaction_width is not None:
             record["compaction_width"] = compaction_width
             self.compaction_hist[compaction_width] = (
@@ -544,6 +629,31 @@ class ServingMetrics:
                 "accepted_tokens_per_tick": (
                     round(self.decode_tokens / self.spec_stream_ticks, 2)
                     if self.spec_stream_ticks else None),
+            }),
+            "adapters": (None if not self._adapters_on else {
+                "max_adapters": self.lora_max_adapters,
+                "rank": self.lora_rank,
+                "cache_slots": self.lora_cache_slots,
+                "resident": self.adapters_resident,
+                "cache_hits": self.adapter_cache_hits,
+                "cache_misses": self.adapter_cache_misses,
+                "cache_evictions": self.adapter_cache_evictions,
+                "peak_live": self.peak_adapters_live,
+                "mean_live": (round(self._adapters_live_sum / self._adapter_ticks, 2)
+                              if self._adapter_ticks else None),
+            }),
+            "tuning": (None if not self._tuning_on else {
+                "quota_stalls": self.tenant_quota_stalls,
+                "hot_swaps": self.adapter_hot_swaps,
+                # the online-tuning plane's counters (not ported)
+                "jobs_submitted": 0,
+                "jobs_completed": 0,
+                "jobs_failed": 0,
+                "train_steps": 0,
+                "deploys": 0,
+                "yields": 0,
+                "step_ms": StreamingHistogram().summary(),
+                "last_loss": None,
             }),
             **dict.fromkeys(_OFF_SECTIONS),
             "memory": (None if not self._memory_on else {

@@ -115,12 +115,13 @@ def test_port_imports_without_jax_loaded():
 @pytest.mark.parametrize("rel", ["mamba_distributed_tpu_torch/serving/spec_decode.py",
                                  "mamba_distributed_tpu_torch/ops/cuda/norm_kernels.py",
                                  "mamba_distributed_tpu_torch/ops/norm.py",
+                                 "mamba_distributed_tpu_torch/serving/adapters.py",
                                  "chip_smoke.py"])
 def test_speculation_and_norm_modules_stand_alone(rel):
-    """The speculative decoding and norm-kernel modules, and the chip
-    script that drives them, are among the checked sources and import
-    neither jax nor the JAX package, at module level or inside a
-    function."""
+    """The speculative decoding, norm-kernel and LoRA adapter modules,
+    and the chip script that drives them, are among the checked sources
+    and import neither jax nor the JAX package, at module level or
+    inside a function."""
     path = REPO / rel
     assert path in SOURCES
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
