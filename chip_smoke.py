@@ -225,7 +225,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    slice of the Chrome trace inside the run's wall-clock window; the
    summary's latency percentiles, goodput and ``serving_mfu``, and the
    report's numbers (``obs/report.py``) printed;
-7. print the serving and training numbers beside the card's name and
+7. data parallel (``parallel_phase``): mamba2-280m at full width and
+   depth (bf16, pallas, remat, seq 1024, micro-batch 32 or 16 if 32 does
+   not fit, accum 2) through the port's ``Trainer`` for 3 steps, (a) with
+   no process group and (b) as rank 0 of a world of one on NCCL
+   (``parallel/mesh.init_distributed`` on a free local TCP port, mesh
+   ``data=1``: the trainer's distributed path with its bucketed mean
+   all-reduce); (b)'s losses and pre-clip grad norms must equal (a)'s
+   bit for bit, ``ssd_fwd``, ``ssd_chunk_states`` and ``ssd_bwd`` launch
+   in (b) as in (a), and an NCCL kernel must show in ``torch.profiler``'s
+   trace of one more step of (b); the step ms of both, NCCL's device ms
+   and launches a step, the bytes and buckets all-reduced a step and each
+   run's peak memory are printed;
+8. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -2890,10 +2902,11 @@ FEATURE_NEW = (64, 8, 16, 8, 32, 8, 16, 8)  # the compaction mix's budgets
 MARGIN_TOL = TOL[torch.bfloat16]
 
 
-# the depth of phase 3b's (a) and (b) runs and of the eval phase's scorer
-# runs: cut from 64 layers (PRs 13-15 ran them at full depth) to keep the
-# script near 900 s with the speculative phase added; the compaction and
-# speculative runs stay at full depth
+# the depth of phase 3b's (a) and (b) runs, of the eval phase's scorer
+# runs and of the speculative phase's fp32 run: cut from 64 layers to
+# keep the script near 900 s with the speculative and data-parallel
+# phases in it; the compaction and the bf16 speculative runs stay at
+# full depth
 CUT_LAYERS = 16
 
 
@@ -3654,7 +3667,8 @@ def spec_phase(card: str, params: dict) -> None:
     and depth: per preset ``verify_check`` (the verify's logits within the
     bf16 tolerance of K+1 decode steps', and the device ms of each), then
     ``spec_run`` over the serving mix and the repetitive mix; then
-    mamba2-280m in fp32 (seeded masters), where the verify's logits must
+    mamba2-280m in fp32 on its first ``CUT_LAYERS`` layers (seeded
+    masters), where the verify's logits must
     sit within the fp32 tolerance and every spec stream equal the
     non-spec one; last a ``ModelDrafter`` (a seeded 4-layer mamba2
     companion at mamba2-280m's width and vocab) on mamba2-280m's
@@ -3684,11 +3698,13 @@ def spec_phase(card: str, params: dict) -> None:
         check(tag, params[tag], cfg)
         for mix in ("serving", "repetitive"):
             bases[tag, mix] = spec_run(card, tag, params[tag], cfg, mix)
-    f32 = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32")
+    f32 = cut_layers(get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32"),
+                     CUT_LAYERS)
     masters = init_lm_params(f32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     f32_params = cast_decode_params(masters, f32)
-    check("mamba2-280m fp32", f32_params, f32)
-    spec_run(card, "mamba2-280m fp32", f32_params, f32, "serving", compacted=False)
+    check(f"mamba2-280m fp32 {CUT_LAYERS} layers", f32_params, f32)
+    spec_run(card, f"mamba2-280m fp32 {CUT_LAYERS} layers", f32_params, f32, "serving",
+             compacted=False)
     del masters, f32_params
     dcfg = feature_cfg("mamba2-280m", n_layer=4)
     dparams = init_lm_params(dcfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
@@ -4127,6 +4143,153 @@ def lora_phase(card: str, params: dict) -> None:
     print(f"lora phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# --------------------------------------------- data parallel over NCCL (7)
+
+
+def step_kernels(trainer, accum: int) -> dict:
+    """CUDA kernels of one more train step, by ``torch.profiler``: name ->
+    (device ms, launches).  A profile that records no kernel is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        x, y = trainer._batch(accum, trainer.train_loader)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(trainer.params, x, y)
+            torch.cuda.synchronize()
+        kernels = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count}
+        if kernels:
+            return kernels
+    raise SystemExit("parallel: torch.profiler recorded no kernel in three step profiles")
+
+
+def parallel_run(card: str, micro: int, seq: int, accum: int, nccl: bool) -> dict:
+    """mamba2-280m at full width and depth (bf16, pallas, remat) through
+    the port's Trainer for 3 steps of ``accum`` micro-batches, with no
+    process group (``nccl`` False) or as rank 0 of a world of one on NCCL
+    (``init_distributed`` on a free local TCP port, mesh ``data=1``: the
+    trainer's distributed path, its bucketed all-reduce included); then
+    one more step under the profiler.  The group is destroyed by
+    ``finish()``."""
+    import os
+    import shutil
+    import socket
+
+    from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    tag = "b" if nccl else "a"
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    log = root / f"log_parallel_{tag}"
+    shutil.rmtree(log, ignore_errors=True)
+    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    cfg = get_train_preset(
+        "mamba2-280m", model=model, micro_batch_size=micro,
+        total_batch_size=micro * seq * accum, seq_len=seq, val_steps=1, log_dir=str(log),
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+    if nccl:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+        init_distributed("cuda", init_method=f"tcp://127.0.0.1:{port}")
+    trainer = None
+    try:
+        trainer = Trainer(cfg, device="cuda")
+        if nccl != (trainer.mesh is not None):
+            raise SystemExit(f"parallel ({tag}): the trainer's mesh is {trainer.mesh}")
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run(max_steps=3)
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        kernels = step_kernels(trainer, accum)
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+        comm = dict(trainer.train_step.comm)
+        hist = [trainer.history[s] for s in range(3)]
+    finally:
+        if trainer is not None:
+            trainer.finish()
+        elif nccl:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    recs = [json.loads(line) for line in (log / "metrics.jsonl").read_text().splitlines()]
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(hist=hist, launches=launches, peak_gib=peak, held_gib=held, step_peak_gib=step_peak,
+                kernels=kernels, comm=comm,
+                step_ms=[r["step_ms"] for r in recs if r["kind"] == "train"])
+
+
+def parallel_phase(card: str) -> None:
+    """Data parallel on the card (phase 7): ``parallel_run`` without a
+    process group (a) and at a world of one on NCCL (b), micro-batch 32
+    (16 if 32 does not fit), accum 2.  Fails unless (b)'s losses and
+    pre-clip grad norms equal (a)'s bit for bit (a one-rank NCCL mean is
+    a multiply by 1.0), the SSD kernels launched in (b) as in (a), and an
+    NCCL kernel shows in (b)'s step profile.  Prints the step ms, the
+    NCCL kernels' device ms and launches a step, the bytes and buckets
+    all-reduced a step and each run's peak memory."""
+    t0 = time.perf_counter()
+    seq, accum = 1024, 2
+    for micro in (32, 16):
+        try:
+            a = parallel_run(card, micro, seq, accum, nccl=False)
+        except torch.cuda.OutOfMemoryError:
+            print(f"parallel: micro-batch {micro} does not fit in device memory; halving",
+                  flush=True)
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise SystemExit("parallel: micro-batch 16 does not fit either")
+    b = parallel_run(card, micro, seq, accum, nccl=True)
+    ssd = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd")
+    fails = []
+    if a["hist"] != b["hist"]:
+        fails.append(f"losses/grad norms differ: plain {a['hist']}, NCCL {b['hist']}")
+    for k in ssd:
+        if not 0 < a["launches"][k] == b["launches"][k]:
+            fails.append(f"{k} launches: plain {a['launches'][k]}, NCCL {b['launches'][k]}")
+    only_b = {k: v for k, v in b["kernels"].items() if k not in a["kernels"]}
+    nccl = {k: v for k, v in b["kernels"].items()
+            if "nccl" in k.lower() or "onerank" in k.lower()}
+    if not nccl:
+        fails.append(f"no NCCL kernel in the profile of a step of (b); kernels only in (b): "
+                     f"{sorted(only_b)}")
+    tag = (f"mamba2-280m 64 layers bf16 pallas remat micro={micro} seq={seq} "
+           f"accum={accum} world=1")
+    print(f"parallel {tag}: losses {[h[0] for h in a['hist']]}, grad norms "
+          f"{[h[1] for h in a['hist']]}; plain and NCCL equal bit for bit: "
+          f"{a['hist'] == b['hist']}", flush=True)
+    print(f"parallel {tag}: step ms (a) no group {a['step_ms']}, (b) NCCL {b['step_ms']} "
+          f"[{card}]", flush=True)
+    print(f"parallel {tag}: NCCL kernels in one step of (b) (device ms, launches): {nccl}; "
+          f"total {sum(v[0] for v in nccl.values()):.3f} ms, "
+          f"{sum(v[1] for v in nccl.values())} launches [{card}]", flush=True)
+    print(f"parallel {tag}: kernels in (b)'s step and not in (a)'s: {only_b}", flush=True)
+    print(f"parallel {tag}: gradient all-reduce a step: {b['comm'].get('bytes')} bytes in "
+          f"{b['comm'].get('buckets')} buckets (25 MiB buckets, fp32, the loss in the last)",
+          flush=True)
+    print(f"parallel {tag}: peak max_memory_allocated over the 3 steps (a) "
+          f"{a['peak_gib']:.2f} GiB, (b) {b['peak_gib']:.2f} GiB; allocated after them (a) "
+          f"{a['held_gib']:.2f}, (b) {b['held_gib']:.2f}; peak of the profiled step (a) "
+          f"{a['step_peak_gib']:.2f}, (b) {b['step_peak_gib']:.2f} [{card}]", flush=True)
+    print(f"parallel {tag}: launches (a) {a['launches']}, (b) {b['launches']}", flush=True)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"parallel phase: {fails}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4269,6 +4432,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         telemetry_phase(card, {"mamba2-280m": ssd_serve, "hybrid-280m": hybrid,
                                "hybrid-280m int8": q8})
+        parallel_phase(card)
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

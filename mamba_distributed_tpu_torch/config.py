@@ -520,6 +520,10 @@ PRESETS: dict[str, dict[str, Any]] = {
     "hybrid-7b": dict(d_model=4096, n_layer=32, d_intermediate=14336,
                       attn_layer_idx=tuple(range(3, 32, 8)), attn_num_heads=32,
                       attn_num_kv_heads=8),
+    # the models of the JAX package's data-parallel presets (their meshes
+    # are in TRAIN_PRESETS)
+    "mamba2-280m-dp8": dict(d_model=768, n_layer=64),
+    "mamba2-1.3b-fsdp16": dict(d_model=2048, n_layer=48),
 }
 
 
@@ -532,8 +536,15 @@ def get_preset(name: str, **overrides: Any) -> ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Mesh axes of the JAX package's ``MeshConfig``.  The port trains
-    on one device: every axis must be 1 (``TrainConfig`` checks)."""
+    """Logical device mesh (the JAX package's ``MeshConfig``), one rank of
+    ``torch.distributed`` per device; axes of size 1 collapse.
+
+    data  - pure data parallel (gradients mean-all-reduced, params replicated)
+    fsdp  - data parallel + param/optimizer-state sharding (ZeRO-3 style)
+    seq, tensor, pipe, expert - the JAX package's sequence, tensor, pipeline
+            and expert axes; the port trains with each of them at 1
+            (``TrainConfig`` refuses more, naming the slice that adds it)
+    """
 
     data: int = 1
     fsdp: int = 1
@@ -541,6 +552,20 @@ class MeshConfig:
     tensor: int = 1
     pipe: int = 1
     expert: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return (self.data * self.fsdp * self.seq * self.tensor * self.pipe
+                * self.expert)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("data", "fsdp", "seq", "tensor", "pipe", "expert")
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (self.data, self.fsdp, self.seq, self.tensor, self.pipe,
+                self.expert)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -676,10 +701,42 @@ class TelemetryConfig:
             )
 
 
+def _hybrid_period(cfg: ModelConfig):
+    """(period, offset) when ``attn_layer_idx`` is one attention layer
+    every ``n_layer / n_attn`` layers at a fixed offset, else None (the
+    JAX package's ``models/lm._hybrid_period``, which its pipeline check
+    calls)."""
+    idx = cfg.attn_layer_idx
+    n_attn = len(idx)
+    if n_attn == 0 or cfg.n_layer % n_attn:
+        return None
+    p = cfg.n_layer // n_attn
+    r = idx[0]
+    if not 0 <= r < p:
+        return None
+    if tuple(idx) != tuple(r + g * p for g in range(n_attn)):
+        return None
+    return p, r
+
+
+# the mesh axes the port does not train over yet, and the slice that adds each
+_LATER_AXES = {
+    "seq": "sequence parallelism (sp_conv1d, sp_ssd, sp_selective_scan, ring and "
+           "Ulysses attention on the port's kernels)",
+    "tensor": "tensor parallelism (a packed per-rank in_proj/wqkv layout)",
+    "pipe": "the pipeline (lm_loss_pipelined and its schedule)",
+    "expert": "expert parallelism (the MoE's all-to-all dispatch)",
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
-    the JAX package's ``TrainConfig``, one device)."""
+    the JAX package's ``TrainConfig``).  The port trains over the
+    ``data`` and ``fsdp`` mesh axes (``parallel/``, one
+    ``torch.distributed`` rank per device); a ``seq``, ``tensor``,
+    ``pipe`` or ``expert`` axis above 1 passes the JAX package's checks
+    and is then refused, naming the slice that adds it."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -687,7 +744,7 @@ class TrainConfig:
     telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
 
     total_batch_size: int = 524288  # tokens/step
-    micro_batch_size: int = 32
+    micro_batch_size: int = 32  # rows per data-parallel rank
     seq_len: int = 1024
 
     max_lr: float = 6e-4
@@ -708,28 +765,73 @@ class TrainConfig:
     checkpoint_every: int = 1000
     log_dir: str = "log"
 
+    # shard params and AdamW moments over the fsdp axis (ZeRO-3)
+    shard_params: bool = False
+
     def __post_init__(self):
-        multi = {k: v for k, v in dataclasses.asdict(self.mesh).items() if v != 1}
-        if multi:
+        # the JAX package's checks (config.py:1026-1080), its messages
+        m = self.mesh
+        if m.pipe > 1 and (m.seq * m.tensor * m.expert) > 1:
             raise ValueError(
-                f"mesh axes {multi}: the PyTorch port trains on one device "
-                f"(every mesh axis 1); parallel training is a later slice"
-            )
+                f"mesh.pipe={m.pipe} composes with data/fsdp only; got "
+                f"seq={m.seq}, tensor={m.tensor}, expert={m.expert}")
+        if m.pipe > 1 and self.model.moe_num_experts:
+            raise ValueError(
+                "MoE models do not pipeline yet (the aux-loss carry is "
+                "not threaded through the GPipe schedule); use pipe=1")
+        if m.expert > 1:
+            if not self.model.moe_num_experts:
+                raise ValueError(
+                    f"mesh.expert={m.expert} needs a MoE model "
+                    "(moe_num_experts > 0)")
+            if self.model.moe_num_experts % m.expert:
+                raise ValueError(
+                    f"moe_num_experts={self.model.moe_num_experts} must "
+                    f"divide over mesh.expert={m.expert}")
+        if m.pipe > 1 and self.shard_params:
+            raise ValueError(
+                "mesh.pipe > 1 keeps params replicated across data/fsdp "
+                "(stage-sharded over pipe); shard_params=True is not "
+                "supported with pipeline parallelism")
+        if m.pipe > 1 and self.model.attn_layer_idx:
+            if _hybrid_period(self.model) is None:
+                raise ValueError(
+                    "pipeline parallelism needs a uniform layer stack or a "
+                    "periodic hybrid (one attn layer every n_layer/n_attn)")
+            if len(self.model.attn_layer_idx) % m.pipe != 0:
+                raise ValueError(
+                    f"hybrid pipeline: n_attn={len(self.model.attn_layer_idx)} "
+                    f"supersteps must divide over mesh.pipe={m.pipe} stages")
+        elif m.pipe > 1 and self.model.n_layer % m.pipe != 0:
+            raise ValueError(
+                f"n_layer={self.model.n_layer} must divide over "
+                f"mesh.pipe={m.pipe} stages")
+        later = {k: getattr(m, k) for k in _LATER_AXES if getattr(m, k) != 1}
+        if later:
+            raise ValueError(
+                f"mesh axes {later}: the PyTorch port trains over data and fsdp "
+                f"only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
+                + ", each a later slice")
         if self.micro_batch_size < 1 or self.seq_len < 1:
             raise ValueError(
                 f"micro_batch_size={self.micro_batch_size} and seq_len="
-                f"{self.seq_len} must be >= 1"
-            )
-        if self.total_batch_size % (self.micro_batch_size * self.seq_len):
+                f"{self.seq_len} must be >= 1")
+        denom = self.micro_batch_size * self.seq_len * self.data_parallel_size
+        if self.total_batch_size % denom:
             raise ValueError(
                 f"total_batch_size={self.total_batch_size} must be divisible "
-                f"by micro_batch_size * seq_len = "
-                f"{self.micro_batch_size * self.seq_len}"
-            )
+                f"by micro_batch_size * seq_len * data_parallel_size = {denom} "
+                f"(make sure total_batch_size is divisible by B * T * dp_size)")
 
     @property
     def grad_accum_steps(self) -> int:
-        return self.total_batch_size // (self.micro_batch_size * self.seq_len)
+        return self.total_batch_size // (
+            self.micro_batch_size * self.seq_len * self.data_parallel_size)
+
+    @property
+    def data_parallel_size(self) -> int:
+        # expert is an extra pure-DP batch axis for the non-MoE layers
+        return self.mesh.data * self.mesh.fsdp * self.mesh.expert
 
 
 # The training halves of the presets the port trains (the JAX package's
@@ -746,9 +848,14 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "hybrid-280m": dict(),
     "mamba1-280m": dict(),
     # the JAX preset's seq, micro-batch and total batch; its mesh (fsdp 16,
-    # seq 4) is left out, since the port trains on one device (every mesh
-    # axis 1), so the whole 7B model does not fit one card for training
+    # seq 4) waits for the seq slice, so the whole 7B model does not fit
+    # one card for training
     "hybrid-7b": dict(seq_len=4096, micro_batch_size=4, total_batch_size=4194304),
+    # the JAX package's data-parallel presets (config.py:1174-1187): DDP
+    # over 8 ranks, and params + AdamW moments sharded over 16
+    "mamba2-280m-dp8": dict(mesh=MeshConfig(data=8)),
+    "mamba2-1.3b-fsdp16": dict(mesh=MeshConfig(fsdp=16), shard_params=True,
+                               micro_batch_size=8, total_batch_size=1048576),
 }
 
 

@@ -8,6 +8,19 @@
     python -m mamba_distributed_tpu_torch.train --preset hybrid-7b --n-layer 8 --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
 
+Data parallel and FSDP run one process per device under torchrun, as the
+reference launches (NCCL on the cards, gloo with ``--device cpu``):
+
+    torchrun --standalone --nproc_per_node=8 -m mamba_distributed_tpu_torch.train \
+        --preset mamba2-280m-dp8
+    torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
+        --preset mamba2-tiny --mesh-data 2 --device cpu --max-steps 2
+
+``--mesh-data``/``--mesh-fsdp`` override the preset's mesh (their
+product must be the world size); ``--mesh-seq``/``--mesh-tensor`` are
+refused by the config until their slices.  Only rank 0 prints and
+writes logs and checkpoints.
+
 Telemetry (the JAX CLI's flags): ``--spans`` writes host spans to
 ``{log_dir}/events.jsonl``; the divergence sentinel is on by default and
 dumps ``{log_dir}/flight_record.json`` on a non-finite step, then stops
@@ -37,8 +50,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import os
 
-from mamba_distributed_tpu_torch.config import TRAIN_PRESETS, TrainConfig, get_train_preset
+from mamba_distributed_tpu_torch.config import (
+    TRAIN_PRESETS,
+    MeshConfig,
+    TrainConfig,
+    get_train_preset,
+)
 
 
 def parse_args(argv=None):
@@ -56,6 +75,10 @@ def parse_args(argv=None):
     p.add_argument("--total-batch-size", type=int, default=None)
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None)
+    p.add_argument("--mesh-fsdp", type=int, default=None)
+    p.add_argument("--mesh-seq", type=int, default=None)
+    p.add_argument("--mesh-tensor", type=int, default=None)
     p.add_argument("--ssm-impl", choices=["xla", "pallas"], default="pallas",
                    help="pallas (default): the hand-written SSD or scan kernels on the card "
                         "(their plain versions on the CPU); xla: plain PyTorch autograd")
@@ -122,6 +145,12 @@ def build_config(args) -> TrainConfig:
         ("checkpoint_every", args.checkpoint_every),
         ("log_dir", args.log_dir),
     ) if val is not None}
+    mesh_over = {k: v for k, v in (("data", args.mesh_data), ("fsdp", args.mesh_fsdp),
+                                   ("seq", args.mesh_seq), ("tensor", args.mesh_tensor))
+                 if v is not None}
+    if mesh_over:
+        base = TRAIN_PRESETS[args.preset].get("mesh", MeshConfig())
+        overrides["mesh"] = dataclasses.replace(base, **mesh_over)
     cfg = get_train_preset(args.preset, **overrides)
     model_over = {k: v for k, v in (("ssm_impl", args.ssm_impl),
                                     ("chunk_size", args.chunk_size),
@@ -156,20 +185,32 @@ def main(argv=None) -> dict:
         raise SystemExit(f"--auto-restart must be >= 0, got {args.auto_restart}")
     if args.auto_restart and not args.checkpoint_dir:
         raise SystemExit("--auto-restart needs --checkpoint-dir to recover from")
+    # under torchrun: one rank of the mesh (the process group forms in
+    # make_trainer, anew after a restart, since finish() destroys it)
+    launched = "WORLD_SIZE" in os.environ
+    if launched and args.auto_restart and int(os.environ["WORLD_SIZE"]) > 1:
+        raise SystemExit(
+            f"--auto-restart: a world of {os.environ['WORLD_SIZE']} ranks restarts through "
+            f"torchrun's --max-restarts (every rank has to restart together), not in process")
     cfg = build_config(args)
     sample_ids, decode_fn = resolve_sampling(args)
     import torch
+    import torch.distributed as dist
 
     from mamba_distributed_tpu_torch.obs import DivergenceError
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
     from mamba_distributed_tpu_torch.training import Trainer
 
     def make_trainer(resume: bool, after_crash: bool = False):
+        if launched and not dist.is_initialized():
+            init_distributed(args.device)
         trainer = Trainer(cfg, device=args.device, sample_prompt_ids=sample_ids,
                           decode_fn=decode_fn)
         if resume and args.checkpoint_dir:
             try:
                 trainer.restore_checkpoint(args.checkpoint_dir)
-                print(f"resumed from step {trainer.step}")
+                if trainer.master:
+                    print(f"resumed from step {trainer.step}")
             except FileNotFoundError:
                 if after_crash:
                     trainer.finish()
@@ -179,7 +220,8 @@ def main(argv=None) -> dict:
                         "auto-restart: crashed before any checkpoint was written; "
                         "refusing to silently restart from step 0 (lower "
                         "--checkpoint-every or rerun manually)")
-                print("no checkpoint found; starting fresh")
+                if trainer.master:
+                    print("no checkpoint found; starting fresh")
         return trainer
 
     # restart-based failure recovery: rebuild from the newest full-state

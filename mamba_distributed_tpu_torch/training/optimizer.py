@@ -17,7 +17,11 @@ The reference recipe:
 Parameters, gradients and moments are plain dicts of tensors (the
 port's param tree).  The update runs in place on the parameters and the
 moments: the optimizer state is twice the parameters, and a functional
-update would allocate both again every step.
+update would allocate both again every step.  Under FSDP the trees are
+this rank's shards (``parallel/sharding.shard_params``): the moments are
+allocated on the shards, so they inherit the param's spec, the decay
+mask keys on a leaf's ndim, which sharding leaves alone, and the clip
+takes the global norm the train step computes from the shards.
 """
 
 from __future__ import annotations

@@ -1,20 +1,45 @@
 """Train and eval steps with gradient accumulation (counterpart of the
-JAX package's ``training/train_step.py``, one device).
+JAX package's ``training/train_step.py``).
 
 The JAX step is one jit: a ``lax.scan`` over the leading accum axis
 sums the micro-batch gradients, then divides by accum, takes the global
 norm before the clip, and applies the optimizer.  Here the same runs
 eagerly: a Python loop over the micro-batches, ``torch.autograd.grad``
 for each, the same sums and divisions, then ``AdamW.step`` in place.
+
+Over a mesh (one ``torch.distributed`` rank per device, ``parallel/``)
+each rank runs that loop on its block of the batch rows, and the
+collectives XLA inserts from the JAX shardings are explicit:
+
+* DDP (``shard_params`` off): one bucketed mean all-reduce of the
+  gradients and the loss over the batch ranks a step, after the last
+  micro-batch (the reference syncs DDP on the last micro-step only);
+* FSDP (``shard_params`` on, fsdp above 1): the params and AdamW moments
+  live as shards; the step gathers the full params, runs the same loop,
+  reduce-scatters the mean gradients onto the shards (then averages them
+  over ``data``), takes the global norm from the shards and updates the
+  shards.  The full params are freed when the step returns.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import TrainConfig
 from mamba_distributed_tpu_torch.models.lm import lm_loss
-from mamba_distributed_tpu_torch.training.optimizer import AdamW, global_norm, tree_leaves
+from mamba_distributed_tpu_torch.parallel.collectives import (
+    all_reduce_mean_,
+    reduce_scatter_leaf,
+    sharded_global_norm,
+)
+from mamba_distributed_tpu_torch.parallel.sharding import fsdp_axis, gather_params
+from mamba_distributed_tpu_torch.training.optimizer import (
+    AdamW,
+    global_norm,
+    tree_leaves,
+    tree_map,
+)
 
 
 def loss_and_grads(params: dict, cfg: TrainConfig, x: torch.Tensor, y: torch.Tensor):
@@ -46,36 +71,88 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def make_train_step(cfg: TrainConfig, optimizer: AdamW,
+def is_fsdp(cfg: TrainConfig) -> bool:
+    """Params and moments live as fsdp shards."""
+    return cfg.shard_params and cfg.mesh.fsdp > 1
+
+
+def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict | None = None,
                     overflow_threshold: float | None = None):
     """``step(params, x, y) -> (loss, grad_norm)`` with x/y (accum, B, T);
     ``params`` is updated in place.  The norm is the pre-clip global norm.
     All outputs are 0-d fp32 tensors on the params' device: the caller
     fetches them in one transfer.
 
+    ``mesh`` (``parallel/mesh.build_mesh``; None: one device, the step
+    as it always was) makes x/y this rank's rows and adds the DDP or
+    FSDP collectives; ``specs`` (``parallel/sharding.param_specs``) says
+    which leaves are fsdp shards.  The loss and norm are then the global
+    ones, equal on every rank.  ``step.comm`` holds the bytes and buckets
+    of the last step's gradient all-reduce.
+
     ``overflow_threshold`` (``TelemetryConfig``) appends a third output,
     the overflow flag: 1.0 when the pre-clip global norm exceeds the
     threshold or is non-finite, else 0.0, computed on the device from
     the norm the step already has, so it rides the caller's one fetch
     (the host accumulates the flags, obs/sentinel.py)."""
+    fsdp = mesh is not None and is_fsdp(cfg)
+    if fsdp:
+        fsdp_group, data_group = mesh.get_group("fsdp"), mesh.get_group("data")
+        spec_leaves = tree_leaves(specs)
+
+    def reduce(loss, grads):
+        """The global loss, gradients (this rank's shards under FSDP) and
+        pre-clip norm."""
+        if mesh is None:
+            return loss, grads, global_norm(grads)
+        leaves = tree_leaves(grads)
+        if not fsdp:
+            # one bucketed mean over the batch ranks (the whole world: every
+            # axis but data and fsdp is 1), the loss in the last bucket
+            sizes = all_reduce_mean_([*leaves, loss.reshape(1)])
+            step.comm = {"bytes": sum(sizes), "buckets": len(sizes)}
+            return loss, grads, global_norm(grads)
+        out, replicated, sharded = [], [], []
+        for g, spec in zip(leaves, spec_leaves):
+            ax = fsdp_axis(spec)
+            if ax is None:
+                replicated.append(g)
+                out.append(g)
+            else:
+                out.append(reduce_scatter_leaf(g, ax, fsdp_group))
+                sharded.append(out[-1])
+        sizes = all_reduce_mean_([*replicated, loss.reshape(1)])
+        if cfg.mesh.data > 1:
+            sizes += all_reduce_mean_(sharded, data_group)
+        step.comm = {"bytes": sum(sizes), "buckets": len(sizes)}
+        grads = _rebuild(grads, iter(out))
+        return loss, grads, sharded_global_norm(grads, specs, fsdp_group)
 
     def step(params: dict, x: torch.Tensor, y: torch.Tensor):
-        loss, grads = loss_and_grads(params, cfg, x, y)
-        grad_norm = global_norm(grads)
+        full = (tree_map(lambda t: t.requires_grad_(), gather_params(params, specs, fsdp_group))
+                if fsdp else params)
+        loss, grads = loss_and_grads(full, cfg, x, y)
+        del full
+        loss, grads, grad_norm = reduce(loss, grads)
         optimizer.step(params, grads, grad_norm)
         if overflow_threshold is not None:
             overflow = ~torch.isfinite(grad_norm) | (grad_norm > overflow_threshold)
             return loss, grad_norm, overflow.to(grad_norm.dtype)
         return loss, grad_norm
 
+    step.comm = {}
     return step
 
 
-def make_eval_step(cfg: TrainConfig):
-    """Loss-only step, x/y (B, T)."""
+def make_eval_step(cfg: TrainConfig, mesh=None):
+    """Loss-only step, x/y (B, T), on full params; over a ``mesh`` x/y
+    are this rank's rows and the loss is the mean over the ranks."""
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return lm_loss(params, cfg.model, x, y)
+        loss = lm_loss(params, cfg.model, x, y)
+        if mesh is not None:
+            dist.all_reduce(loss, op=dist.ReduceOp.AVG)
+        return loss
 
     return eval_step

@@ -1,5 +1,5 @@
 """Training loop (counterpart of the JAX package's
-``training/trainer.py``, one device).
+``training/trainer.py``).
 
 The reference's loop: grad-accum steps, validation every ``val_every``
 steps and at the last step, reference-format logging with tokens/s and
@@ -11,9 +11,22 @@ trainer wires it (``cfg.telemetry``): host spans (``data_load``,
 record ``{log_dir}/flight_record.json`` is dumped on a non-finite step
 (then ``DivergenceError``, unless ``halt_on_divergence`` is off) or on
 any exception out of ``run()``.  Restarts after a crash are the CLI's
-(``train.py --auto-restart``).  Left out with the mesh: multi-host
-loading.  The trainer runs on the card unless it is given
-``device="cpu"``.
+(``train.py --auto-restart``).  The trainer runs on the card unless it
+is given ``device="cpu"``.
+
+Data parallel and FSDP: when a ``torch.distributed`` process group is
+up (``torchrun``, ``parallel/mesh.init_distributed``) the trainer is one
+rank of ``cfg.mesh``: its device is ``cuda:{LOCAL_RANK}`` (or the CPU,
+over gloo), its loaders read its block of the batch rows (the
+rank-strided windows of batch coordinate c of ``data_parallel_size``),
+every rank initialises the same full tree from the seed and keeps its
+fsdp shard, and the train step averages the gradients over the ranks
+(``training/train_step.py``).  Rank 0 is the master: only it logs,
+writes records, spans and the sentinel's dump, samples, prints and
+writes checkpoints (the gathered full params and moments, today's
+format, plus every batch rank's loader cursor).  Without a group the
+trainer is the one-device trainer, and a mesh of more than one device
+raises.  ``finish()`` destroys the group.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import TrainConfig
 from mamba_distributed_tpu_torch.data import ShardedTokenLoader, ensure_synthetic_shards
@@ -34,9 +48,22 @@ from mamba_distributed_tpu_torch.obs import (
     SpanTracer,
 )
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
+from mamba_distributed_tpu_torch.parallel.mesh import build_mesh
+from mamba_distributed_tpu_torch.parallel.sharding import (
+    batch_coordinate,
+    gather_params,
+    narrow_leaf,
+    opt_state_specs,
+    param_specs,
+    shard_params,
+)
 from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
-from mamba_distributed_tpu_torch.training.train_step import make_eval_step, make_train_step
+from mamba_distributed_tpu_torch.training.train_step import (
+    is_fsdp,
+    make_eval_step,
+    make_train_step,
+)
 from mamba_distributed_tpu_torch.utils.flops import flops_per_token, peak_flops
 from mamba_distributed_tpu_torch.utils.metrics import MetricsLogger
 
@@ -52,6 +79,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def rank_device(device: torch.device) -> torch.device:
+    """This rank's device under a process group: ``cuda:{LOCAL_RANK}`` on
+    NCCL, the CPU on gloo; any other pairing raises."""
+    want = {"cuda": "nccl", "cpu": "gloo"}.get(device.type)
+    backend = dist.get_backend()
+    if backend != want:
+        raise RuntimeError(f"a {device.type} trainer needs a {want} process group, "
+                           f"this one is {backend}")
+    if device.type == "cuda":
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return device
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, device="cuda", verbose: bool = True,
                  sample_prompt_ids=None, decode_fn=None, loader_backend: str = "auto"):
@@ -59,27 +99,54 @@ class Trainer:
         if torch.device(device).type == "cuda":
             check_kernel_shapes(cfg.model)
         self.device = resolve_device(device)
-        self.verbose = verbose
+        # one rank of cfg.mesh whenever a process group is up
+        self.mesh, self.rank, self.world, self.batch_rank = None, 0, 1, 0
+        if dist.is_available() and dist.is_initialized():
+            self.device = rank_device(self.device)
+            self.mesh = build_mesh(cfg.mesh, self.device.type)
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            self.batch_rank = batch_coordinate(self.mesh)
+        elif cfg.mesh.num_devices > 1:
+            raise RuntimeError(
+                f"mesh {dict(zip(cfg.mesh.axis_names, cfg.mesh.shape))} wants "
+                f"{cfg.mesh.num_devices} ranks and no process group is up: launch under "
+                f"torchrun --nproc_per_node={cfg.mesh.num_devices}")
+        self.master = self.rank == 0
+        self.verbose = verbose = verbose and self.master
+        self._fsdp = self.mesh is not None and is_fsdp(cfg)
 
-        # data: synthetic shards when the data dir holds none
+        # data: synthetic shards when the data dir holds none (the master
+        # writes them, the others wait)
         data_dir = cfg.data.data_dir
-        if cfg.data.allow_synthetic:
+        if cfg.data.allow_synthetic and self.master:
             ensure_synthetic_shards(
                 data_dir, vocab_size=cfg.model.vocab_size,
                 tokens_per_shard=cfg.data.synthetic_tokens_per_shard,
                 num_shards=cfg.data.synthetic_num_shards, seed=cfg.seed,
             )
-        # loader_backend: "auto", "native" or "numpy" (data/loader.py)
+        if self.mesh is not None:
+            dist.barrier()
+        # loader_backend: "auto", "native" or "numpy" (data/loader.py);
+        # each batch rank reads its rank-strided rows
         loader_args = dict(B=cfg.micro_batch_size, T=cfg.seq_len, data_dir=data_dir,
+                           process_rank=self.batch_rank, num_processes=cfg.data_parallel_size,
                            master_process=verbose, backend=loader_backend)
         self.train_loader = ShardedTokenLoader(split="train", **loader_args)
         self.val_loader = ShardedTokenLoader(split="val", **loader_args)
 
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.params = tree_map(lambda t: t.requires_grad_(),
-                               init_lm_params(cfg.model, gen, device=self.device))
+        params = init_lm_params(cfg.model, gen, device=self.device)
         if verbose:
-            print(f"model params: {count_params(self.params):,}")
+            print(f"model params: {count_params(params):,}")
+        self.specs = None
+        if self.mesh is not None:
+            m = cfg.mesh
+            self.specs = param_specs(params, cfg.shard_params, m.fsdp, m.tensor, m.pipe,
+                                     m.expert)
+            if self._fsdp:  # every rank keeps its shard of the same full tree
+                params = shard_params(params, self.specs, self.mesh.get_group("fsdp"))
+        self.params = tree_map(lambda t: t.requires_grad_(), params)
+        del params
         self.optimizer = AdamW(cfg, self.params)
         self.schedule = self.optimizer.schedule
         # telemetry (obs/): spans and the divergence sentinel read only
@@ -89,16 +156,19 @@ class Trainer:
         tcfg = cfg.telemetry
         self.tracer = (SpanTracer(os.path.join(cfg.log_dir, "events.jsonl"),
                                   rotate_bytes=tcfg.span_rotate_bytes)
-                       if tcfg.spans else NULL_TRACER)
-        self.sentinel = (DivergenceSentinel(os.path.join(cfg.log_dir, "flight_record.json"),
+                       if tcfg.spans and self.master else NULL_TRACER)
+        # every rank watches (all halt together on a divergence); only the
+        # master writes the dump
+        self.sentinel = (DivergenceSentinel(os.path.join(cfg.log_dir, "flight_record.json")
+                                            if self.master else None,
                                             capacity=tcfg.flight_recorder_len,
                                             tracer=self.tracer)
                          if tcfg.sentinel else None)
         self._overflow_on = tcfg.overflow_threshold > 0
         self.train_step = make_train_step(
-            cfg, self.optimizer,
+            cfg, self.optimizer, self.mesh, self.specs,
             overflow_threshold=tcfg.overflow_threshold if self._overflow_on else None)
-        self.eval_step = make_eval_step(cfg)
+        self.eval_step = make_eval_step(cfg, self.mesh)
         self.logger = MetricsLogger(cfg.log_dir, verbose)
         self.step = 0
         # step -> (loss, pre-clip grad norm) of every step this trainer ran
@@ -109,8 +179,9 @@ class Trainer:
         self._decode_fn = decode_fn
         self._fpt_model = flops_per_token(cfg.model, cfg.seq_len, convention="model")
         self._fpt_hw = flops_per_token(cfg.model, cfg.seq_len)
-        # MFU only against a card's peak; a CPU run reports none
-        self._peak = peak_flops(self.device) if self.device.type == "cuda" else None
+        # MFU only against the cards' peak; a CPU run reports none
+        self._peak = (peak_flops(self.device) * self.world if self.device.type == "cuda"
+                      else None)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, dtype=torch.int64)
@@ -119,14 +190,23 @@ class Trainer:
         xs, ys = zip(*(loader.next_batch() for _ in range(accum)))
         return self._to_device(np.stack(xs)), self._to_device(np.stack(ys))
 
+    def full_params(self) -> dict:
+        """The full parameter tree (gathered from the shards under FSDP: a
+        collective, so every rank calls it)."""
+        if not self._fsdp:
+            return self.params
+        return gather_params(self.params, self.specs, self.mesh.get_group("fsdp"))
+
     def validate(self) -> float:
+        """The mean loss over ``val_steps`` validation batches (every rank's
+        rows, averaged over the ranks)."""
         with self.tracer.span("eval", steps=self.cfg.val_steps):
             self.val_loader.reset()
+            params = self.full_params()
             total = 0.0
             for _ in range(self.cfg.val_steps):
                 x, y = self.val_loader.next_batch()
-                total += float(self.eval_step(self.params, self._to_device(x),
-                                              self._to_device(y)))
+                total += float(self.eval_step(params, self._to_device(x), self._to_device(y)))
         return total / self.cfg.val_steps
 
     def run(self, max_steps: int | None = None, checkpoint_dir: str | None = None):
@@ -186,18 +266,23 @@ class Trainer:
                     raise DivergenceError(
                         f"non-finite loss/grad_norm at step {step} "
                         f"(loss={loss_f}, grad_norm={grad_norm_f}); flight "
-                        f"record: {self.sentinel.dumped_to}")
+                        f"record: {self.sentinel.dumped_to or 'written by rank 0'}")
             self.step += 1
 
     def sample(self, num_return: int = 4, max_new_tokens: int = 32, top_k: int = 50):
         """Continuations of the sample prompt (4 x 32 tokens, top-k 50, as
-        the reference samples in its loop) through ``generate()``."""
+        the reference samples in its loop) through ``generate()``, on the
+        master (every rank draws the seed and takes part in the gather);
+        None elsewhere."""
         from mamba_distributed_tpu_torch.inference.generate import generate
 
         prompt = torch.as_tensor(self._sample_prompt_ids, dtype=torch.int64)[None]
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self.rng))
+        params = self.full_params()
+        if not self.master:
+            return None
         with torch.no_grad():
-            out = generate(self.params, self.cfg.model, prompt.repeat(num_return, 1),
+            out = generate(params, self.cfg.model, prompt.repeat(num_return, 1),
                            seed=seed, max_new_tokens=max_new_tokens, top_k=top_k)
         if self.verbose:
             for row in out.cpu().tolist():
@@ -205,27 +290,78 @@ class Trainer:
                                     else f"tokens {row}"))
         return out
 
-    def save_checkpoint(self, directory: str) -> str:
+    def save_checkpoint(self, directory: str) -> str | None:
+        """Write the full state: the master writes the gathered params and
+        moments, the loader cursor of batch rank 0 and, over a mesh, every
+        batch rank's cursor (the reference's rank-strided rule lets a rank
+        move to the next shard a window before rank 0, so rank 0's cursor
+        does not give the others'); the ranks meet at a barrier after.
+        Returns the path on the master."""
+        path = None
         with self.tracer.span("checkpoint_save", step=self.step):
-            path = save_checkpoint(directory, self.step, self.params,
-                                   self.optimizer.state_dict(), self.train_loader.state(),
-                                   self.rng.get_state())
+            params, opt_state = self.params, self.optimizer.state_dict()
+            loaders = None
+            if self.mesh is not None:
+                if self._fsdp:
+                    group = self.mesh.get_group("fsdp")
+                    params = gather_params(params, self.specs, group)
+                    ospecs = opt_state_specs(opt_state, self.specs)
+                    opt_state = {k: gather_params(v, ospecs[k], group) if ospecs[k] else v
+                                 for k, v in opt_state.items()}
+                pairs = [None] * self.world
+                dist.all_gather_object(pairs, (self.batch_rank, self.train_loader.state()))
+                by_rank = dict(pairs)
+                loaders = [by_rank[c] for c in range(self.cfg.data_parallel_size)]
+            if self.master:
+                path = save_checkpoint(directory, self.step, params, opt_state,
+                                       self.train_loader.state(), self.rng.get_state(),
+                                       loaders=loaders)
+            del params, opt_state
+            if self.mesh is not None:
+                dist.barrier()
         if self.sentinel is not None:
             self.sentinel.record_event("checkpoint_save", step=self.step)
         return path
 
     def restore_checkpoint(self, directory: str, step: int | None = None) -> None:
+        """Resume from a checkpoint: every rank reads the file and keeps
+        its shard; over a mesh each batch rank takes its own loader cursor
+        (the checkpoint must come from a run of the same world)."""
         ck = restore_checkpoint(directory, step)
+        loader = ck["loader"]
+        if self.mesh is not None:
+            loaders = ck.get("loaders")
+            if loaders is None or len(loaders) != self.cfg.data_parallel_size:
+                raise ValueError(
+                    f"checkpoint {directory} holds "
+                    f"{'one loader cursor' if loaders is None else f'{len(loaders)} cursors'}; "
+                    f"a run over {self.cfg.data_parallel_size} batch ranks resumes from a "
+                    f"checkpoint of the same data-parallel size")
+            loader = loaders[self.batch_rank]
+        state = {"count": ck["opt_state"]["count"], "mu": ck["opt_state"]["mu"],
+                 "nu": ck["opt_state"]["nu"]}
+        params = ck["params"]
+        if self._fsdp:
+            group = self.mesh.get_group("fsdp")
+            index, size = dist.get_rank(group), dist.get_world_size(group)
+            own = lambda tree: tree_map(lambda t, s: narrow_leaf(t, s, index, size),
+                                        tree, self.specs)
+            params = own(params)
+            state["mu"], state["nu"] = own(state["mu"]), own(state["nu"])
         with torch.no_grad():
-            tree_map(lambda dst, src: dst.copy_(src), self.params, ck["params"])
-        self.optimizer.load_state_dict(ck["opt_state"])
-        self.train_loader.restore(ck["loader"])
+            tree_map(lambda dst, src: dst.copy_(src), self.params, params)
+        self.optimizer.load_state_dict(state)
+        self.train_loader.restore(loader)
         self.rng.set_state(ck["rng"])
         self.step = int(ck["step"])
         self.logger.preserve_history()
         self.tracer.preserve_history()
 
     def finish(self) -> None:
-        """Stop the loaders' prefetch threads."""
+        """Stop the loaders' prefetch threads and, over a mesh, destroy the
+        process group."""
         self.train_loader.close()
         self.val_loader.close()
+        if self.mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        self.mesh = None
