@@ -125,7 +125,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3c. speculative decoding (``spec_phase``, the same weights, K = 3,
    capacity 8, greedy) on mamba2-280m, hybrid-280m, int8 hybrid-280m and
    mamba1-280m over the serving mix (32 new tokens) and a repetitive mix
-   (8 prompts of a 32-token pattern tiled to 256, 64 new tokens): the
+   (8 prompts of a 32-token pattern tiled to 256, 64 new tokens), at 64
+   layers on mamba2-280m and on the first 16 layers (full width) of the
+   other three, whose verify checks run at 64 layers: the
    compacted spec engine's streams equal the spec engine's, a spec stream
    parts from the non-spec engine's only at a step whose full-width
    top-two margin is within the bf16 tolerance, the verify launches
@@ -237,7 +239,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    trace of one more step of (b); the step ms of both, NCCL's device ms
    and launches a step, the bytes and buckets all-reduced a step and each
    run's peak memory are printed;
-8. print the serving and training numbers beside the card's name and
+8. tensor parallel (``tensor_phase``): hybrid-280m at full width through
+   the port's Trainer, (a) one process, bf16, 64 layers, micro-batch 8,
+   seq 1024, 3 steps, and (b) the same at mesh ``tensor=2`` in two
+   processes sharing the one card over an explicitly requested gloo
+   group (``--tensor-worker``; the kernels built by this process first);
+   (c, d) as (a, b) in fp32 at 8 layers, 2 steps.  (d)'s losses and grad
+   norms must be (c)'s within rtol 2e-4, (b)'s losses (a)'s within rtol
+   1e-3 and its grad norms within 2e-3, and every rank must launch the
+   SSD and flash kernels as often as the one-process run; the step ms,
+   the tensor-group all-reduces of one profiled step of (b) (their share
+   of the step from ``record_function`` spans in the ``torch.profiler``
+   trace, and from a replay of them alone) and each rank's peak memory
+   are printed.  The
+   kernel phase holds the SSD and flash kernels at hybrid-7b's per-rank
+   head counts at tensor 2, 4 and 8, and the scan kernels at
+   mamba1-280m's d_inner at tensor 2 (``check_tp_shapes``);
+9. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -1843,6 +1861,7 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 
     build/chip_smoke/.  Every kernel in ``path_kernels`` must have
     launched.  Returns the run's launch counts, micro-batch, step ms and
     peak device memory."""
+    import gc
     import shutil
 
     from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
@@ -1858,6 +1877,10 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 
             preset, model=model, micro_batch_size=micro, total_batch_size=micro * seq,
             seq_len=seq, val_steps=2, log_dir=str(root / "log"),
             data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+        # what earlier runs left to the cyclic collector goes before this
+        # run's peak is taken
+        gc.collect()
+        torch.cuda.empty_cache()
         trainer = Trainer(cfg, device="cuda")
         for k in LAUNCHES:
             LAUNCHES[k] = 0
@@ -1865,10 +1888,15 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 
         try:
             trainer.run(max_steps=3)
         except torch.cuda.OutOfMemoryError:
+            oom = True
+        else:
+            oom = False
+        if oom:  # outside the handler: its traceback no longer holds the step's tensors
             print(f"train run: micro-batch {micro} does not fit in device memory; halving",
                   flush=True)
             trainer.finish()
             del trainer
+            gc.collect()
             torch.cuda.empty_cache()
             continue
         break
@@ -3663,10 +3691,12 @@ def spec_run(card: str, tag: str, dparams, cfg, mix: str, base=None, drafter=Non
 
 def spec_phase(card: str, params: dict) -> None:
     """Speculative decoding on the card (phase 3c), on the decode weights
-    the serving phase cast (``params``: preset tag -> weights), full width
-    and depth: per preset ``verify_check`` (the verify's logits within the
-    bf16 tolerance of K+1 decode steps', and the device ms of each), then
-    ``spec_run`` over the serving mix and the repetitive mix; then
+    the serving phase cast (``params``: preset tag -> weights), full width:
+    per preset ``verify_check`` at full depth (the verify's logits within
+    the bf16 tolerance of K+1 decode steps', and the device ms of each),
+    then ``spec_run`` over the serving mix and the repetitive mix, at full
+    depth on mamba2-280m and on the first ``CUT_LAYERS`` layers of the
+    others (a cut that keeps the script near 900 s); then
     mamba2-280m in fp32 on its first ``CUT_LAYERS`` layers (seeded
     masters), where the verify's logits must
     sit within the fp32 tolerance and every spec stream equal the
@@ -3696,8 +3726,12 @@ def spec_phase(card: str, params: dict) -> None:
     for tag, preset, over in SPEC_PRESETS:
         cfg = feature_cfg(preset, **over)
         check(tag, params[tag], cfg)
+        run_tag, run_params = tag, params[tag]
+        if preset != "mamba2-280m":
+            cfg = cut_layers(cfg, CUT_LAYERS)
+            run_tag, run_params = f"{tag} {CUT_LAYERS} layers", layer_prefix(params[tag], cfg)
         for mix in ("serving", "repetitive"):
-            bases[tag, mix] = spec_run(card, tag, params[tag], cfg, mix)
+            bases[tag, mix] = spec_run(card, run_tag, run_params, cfg, mix)
     f32 = cut_layers(get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32"),
                      CUT_LAYERS)
     masters = init_lm_params(f32, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -4290,14 +4324,402 @@ def parallel_phase(card: str) -> None:
         raise SystemExit(f"parallel phase: {fails}")
 
 
+# ------------------------------------------- tensor parallel over gloo (8)
+
+# the hand kernels of the hybrid train path, which every tensor rank must
+# launch as often as the plain trainer does
+TP_KERNELS = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv")
+TP_WAIT_S = 420
+
+
+def tensor_cfg(tag: str, dtype: str, n_layer: int | None, micro: int, tensor: int):
+    """hybrid-280m at full width (pallas, remat; ``n_layer`` cuts its depth,
+    attention at layer 3 then) for the tensor phase, seq 1024, accum 1,
+    one validation batch, synthetic shards under build/chip_smoke/."""
+    from mamba_distributed_tpu_torch.config import (
+        DataConfig,
+        MeshConfig,
+        get_preset,
+        get_train_preset,
+    )
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    cut = {} if n_layer is None else dict(n_layer=n_layer, attn_layer_idx=(3,))
+    model = get_preset("hybrid-280m", ssm_impl="pallas", compute_dtype=dtype, remat=True, **cut)
+    return get_train_preset(
+        "hybrid-280m", model=model, mesh=MeshConfig(tensor=tensor), micro_batch_size=micro,
+        total_batch_size=micro * 1024, seq_len=1024, val_steps=1,
+        log_dir=str(root / f"log_tensor_{tag}"),
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+
+
+def tensor_train(cfg, steps: int, profile: bool) -> dict:
+    """``cfg`` through the port's Trainer on this process's card (one rank
+    of a tensor group when one is up): ``steps`` steps from zeroed launch
+    counts, then, with ``profile``, one more step under ``torch.profiler``
+    (CPU and CUDA), the step and each tensor-group all-reduce in a
+    ``record_function`` span of its own, the all-reduces counted and their
+    shapes kept; then those all-reduces replayed back to back on their own
+    (the time they take without the step around them).  Returns the
+    history, launches, rank-0 step ms, peak memory, the trace's step and
+    all-reduce spans, its all-reduce events and device busy time, and the
+    replay's ms."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel import collectives
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # verbose: the master writes metrics.jsonl (its step ms) and prints
+    trainer = Trainer(cfg, device=f"cuda:{torch.cuda.current_device()}")
+    out = {}
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run(max_steps=steps)
+        out["launches"] = dict(LAUNCHES)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["hist"] = [trainer.history[s] for s in range(steps)]
+        if profile:
+            x, y = trainer._batch(cfg.grad_accum_steps, trainer.train_loader)
+            torch.cuda.synchronize()
+            collectives.TP_COMM.update(calls=0, bytes=0)
+            shapes, reduce_ = [], collectives.tp_all_reduce_
+
+            def keep(t, group):  # the step's all-reduces, their shapes kept
+                shapes.append((tuple(t.shape), t.dtype))
+                # a span over the whole blocking call: gloo stages a CUDA
+                # tensor through the host, so the host waits in it
+                with record_function("tp_all_reduce"):
+                    return reduce_(t, group)
+
+            collectives.tp_all_reduce_ = keep
+            try:
+                t0 = time.perf_counter()
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    with record_function("tp_train_step"):
+                        trainer.train_step(trainer.params, x, y)
+                        torch.cuda.synchronize()
+                out["profiled_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                collectives.tp_all_reduce_ = reduce_
+            out["tp_comm"] = dict(collectives.TP_COMM)
+            events = prof.key_averages()
+            # the host spans (a span also shows as a device-side annotation)
+            spans = {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                     if e.key in ("tp_train_step", "tp_all_reduce")
+                     and e.device_type == DeviceType.CPU}
+            if set(spans) != {"tp_train_step", "tp_all_reduce"} or not all(
+                    ms > 0 for _, ms in spans.values()):
+                raise SystemExit(f"tensor: the trace holds spans {spans}")
+            out["trace_step_ms"] = spans["tp_train_step"][1]
+            out["trace_reduce"] = spans["tp_all_reduce"]
+            out["reduce_events"] = {
+                e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                if ("all_reduce" in e.key.lower() or "allreduce" in e.key.lower())
+                and e.device_type == DeviceType.CPU and e.key not in spans}
+            # kernels and copies: not the spans' device-side annotations
+            out["device_busy_ms"] = sum(e.self_device_time_total for e in events
+                                        if e.device_type == DeviceType.CUDA
+                                        and e.key not in spans) / 1e3
+            bufs = [torch.ones(s_, dtype=d_, device=trainer.device) for s_, d_ in shapes]
+            torch.cuda.synchronize()
+            dist.barrier(trainer.tp.group)
+            t0 = time.perf_counter()
+            for buf in bufs:
+                dist.all_reduce(buf, group=trainer.tp.group)
+            torch.cuda.synchronize()
+            out["replay_ms"] = (time.perf_counter() - t0) * 1e3
+            del bufs
+    finally:
+        trainer.finish()
+    if trainer.master and (Path(cfg.log_dir) / "metrics.jsonl").exists():
+        recs = [json.loads(s) for s in (Path(cfg.log_dir) / "metrics.jsonl").read_text()
+                .splitlines()]
+        out["step_ms"] = [r["step_ms"] for r in recs if r["kind"] == "train"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tensor_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
+    """One rank of the tensor phase's world (``--tensor-worker``): two
+    processes on ``cuda:0`` over an explicitly requested gloo group (NCCL
+    refuses two ranks on one card).  Runs (d) fp32 8 layers 2 steps, then
+    (b) bf16 64 layers 3 steps and one profiled step, each in a group of
+    its own (``finish()`` destroys the group), and writes its results to
+    ``work/rank{rank}.json``."""
+    import os
+
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    res = {}
+    for tag, port, cfg, steps, prof in (
+            ("d", ports[0], tensor_cfg("d", "float32", 8, 8, world), 2, False),
+            ("b", ports[1], tensor_cfg("b", "bfloat16", None, 8, world), 3, True)):
+        init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
+        res[tag] = tensor_train(cfg, steps, prof)
+        res[tag]["tp_rank"] = rank
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def tensor_phase(card: str) -> None:
+    """Tensor parallelism on the card (phase 8): hybrid-280m at full width
+    through the port's Trainer, (a) one process with no group, bf16, 64
+    layers, micro 8, 3 steps; (b) the same at mesh ``tensor=2`` in two
+    processes on ``cuda:0`` over gloo; (c, d) as (a, b) in fp32 cut to 8
+    layers, 2 steps.  Fails unless (d)'s losses and pre-clip grad norms
+    are (c)'s within rtol 2e-4 (the JAX package's TP tolerance), (b)'s
+    losses (a)'s within rtol 1e-3 and its pre-clip grad norms within 2e-3
+    (a wrong or missing bf16 tensor-group sum moves the norms first; near
+    ln V the loss hardly moves), every rank of (b) and (d) launches the
+    hybrid train path's hand kernels as often as (a) and (c), both ranks
+    exit 0 in time.  Prints the step ms, the tensor-group all-reduces
+    of one profiled step of (b): count, bytes, and their share of the step
+    two ways, from the trace (the host time inside the all-reduce spans
+    over the step span's: an upper bound, since each blocking all-reduce
+    also waits for the card to finish the work queued before it) and from
+    a replay of the same all-reduces back to back (the collectives alone,
+    on the host clock, over the step span), each rank's peak memory."""
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    a = tensor_train(tensor_cfg("a", "bfloat16", None, 8, 1), 3, False)
+    c = tensor_train(tensor_cfg("c", "float32", 8, 8, 1), 2, False)
+    t_plain = time.perf_counter() - t0
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tensor"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ports = free_ports(2)
+    env = {**os.environ, "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo"}
+    procs, logs = [], [work / f"log_{r}.txt" for r in range(2)]
+    for r in range(2):
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tensor-worker", str(r), "2",
+                 ",".join(map(str, ports)), str(work)], env=env, stdout=lf,
+                stderr=subprocess.STDOUT))
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=TP_WAIT_S)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:  # a dead rank leaves the other blocked in a collective
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if timed_out or p.returncode != 0:
+            raise SystemExit(f"tensor phase: rank {r} {'timed out' if timed_out else 'exited '}"
+                             f"{'' if timed_out else p.returncode}; log:\n"
+                             + logs[r].read_text()[-4000:])
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    t_tp = time.perf_counter() - t0 - t_plain
+    fails = []
+    # (tag, plain run, rtol on the losses, on the grad norms)
+    for tag, plain, tol, ntol, what in (("d", c, 2e-4, 2e-4, "fp32 8 layers"),
+                                        ("b", a, 1e-3, 2e-3, "bf16 64 layers")):
+        ref = np.array(plain["hist"])
+        for r, res in enumerate(ranks):
+            got = np.array(res[tag]["hist"])
+            gap = np.abs(got - ref) / np.abs(ref)
+            print(f"tensor ({tag}) {what} rank {r}: losses {got[:, 0].tolist()} against "
+                  f"{ref[:, 0].tolist()}, grad norms {got[:, 1].tolist()} against "
+                  f"{ref[:, 1].tolist()}; largest gap rel loss {gap[:, 0].max():.3e}, "
+                  f"grad norm {gap[:, 1].max():.3e} (tol {tol:.0e} on the losses, "
+                  f"{ntol:.0e} on the grad norms)", flush=True)
+            if (not np.isfinite(got).all() or gap[:, 0].max() > tol
+                    or gap[:, 1].max() > ntol):
+                fails.append(f"({tag}) rank {r}: rel loss {gap[:, 0].max():.3e} (tol {tol:.0e}), "
+                             f"grad norm {gap[:, 1].max():.3e} (tol {ntol:.0e})")
+            for k in TP_KERNELS:
+                if not 0 < plain["launches"][k] == res[tag]["launches"][k]:
+                    fails.append(f"({tag}) rank {r} {k} launches {res[tag]['launches'][k]}, "
+                                 f"plain {plain['launches'][k]}")
+    b0 = ranks[0]["b"]
+    print(f"tensor hybrid-280m 64 layers bf16 micro=8 seq=1024: step ms (a) one process "
+          f"{a['step_ms']}, (b) tensor=2 over gloo on one card {b0['step_ms']} [{card}]",
+          flush=True)
+    comm, step_ms = b0["tp_comm"], b0["trace_step_ms"]
+    n_spans, span_ms = b0["trace_reduce"]
+    if n_spans != comm["calls"]:
+        fails.append(f"(b) the trace holds {n_spans} all-reduce spans, the step made "
+                     f"{comm['calls']}")
+    print(f"tensor (b) one profiled step of rank 0: {comm['calls']} tensor-group all-reduces, "
+          f"{comm['bytes']} bytes; torch.profiler trace: step span {step_ms:.1f} ms "
+          f"(host clock around the profile {b0['profiled_ms']:.1f} ms), {n_spans} all-reduce "
+          f"spans {span_ms:.1f} ms, {span_ms / step_ms:.3f} of the step (upper bound: each "
+          f"also waits for the card's queued work); the same all-reduces replayed back to back "
+          f"{b0['replay_ms']:.1f} ms, {b0['replay_ms'] / step_ms:.3f} of the step span; "
+          f"device busy {b0['device_busy_ms']:.1f} ms "
+          f"({b0['device_busy_ms'] / step_ms:.3f} of the step: rank 0's kernels and copies); "
+          f"the profile's all-reduce events (count, CPU ms) {b0['reduce_events']} [{card}]",
+          flush=True)
+    print(f"tensor peak max_memory_allocated: (a) {a['peak_gib']:.2f} GiB, (b) rank 0 "
+          f"{ranks[0]['b']['peak_gib']:.2f}, rank 1 {ranks[1]['b']['peak_gib']:.2f}; (c) "
+          f"{c['peak_gib']:.2f}, (d) {ranks[0]['d']['peak_gib']:.2f} / "
+          f"{ranks[1]['d']['peak_gib']:.2f} [{card}]", flush=True)
+    print(f"tensor launches (a) {a['launches']}, (b) rank 0 {ranks[0]['b']['launches']}",
+          flush=True)
+    print(f"tensor phase: {time.perf_counter() - t0:.1f} s (plain runs {t_plain:.1f}, the two "
+          f"ranks {t_tp:.1f}) [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"tensor phase: {fails}")
+
+
+def check_tp_shapes(gen) -> None:
+    """The hand kernels at the per-rank shapes of tensor parallelism:
+    ``ssd_fwd``, ``ssd_chunk_states`` and ``ssd_bwd`` at hybrid-7b's 64,
+    32 and 16 SSD heads a rank (tensor 2, 4, 8; b 4, t 4096, d_state 128),
+    the flash kernels at its 16q/4kv, 8q/2kv and 4q/1kv heads of 128
+    (b 4, t 4096, the plain versions at b 1), and ``m1_scan`` and ``m1_bwd``
+    at mamba1-280m's d_inner 768 a rank at tensor 2 (fp32, b 32, t 1024),
+    each against its plain version at the tolerance of its dtype, timed
+    beside its bound."""
+    from mamba_distributed_tpu_torch.ops.cuda import flash_kernels as fk
+    from mamba_distributed_tpu_torch.ops.cuda import scan_kernels as mk
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
+    from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_work
+    from mamba_distributed_tpu_torch.ops.ssd import chunk_log_decay, ssd_chunked, state_passing
+
+    bf16, l, b, t = torch.bfloat16, 256, 4, 4096
+    failures = []
+
+    def show(name, shape, err, tol, ms, plain_ms, work):
+        bound_ms, bound_by = (m1_bound(*work) if len(work) == 3 else bound(*work))
+        print(f"time {name} tensor-parallel {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" bound {bound_ms:.6f} ms ({bound_by}); max_abs_err={err[0]:.3e} (rel "
+              f"{err[1]:.2e}), tol rel {tol:.0e}", flush=True)
+        if not err[1] <= tol:
+            failures.append(f"{name} {shape}: rel {err[1]:.3e}")
+
+    for n, h in ((2, 64), (4, 32), (8, 16)):
+        shape = f"hybrid-7b tensor {n}: b={b} t={t} h={h}"
+        inp = ssd_inputs(gen, b, t, 1, bf16, False, h=h)
+        kw = dict(chunk_size=l, return_final_state=True, compute_dtype=bf16)
+        yk, fk_ = sk.ssd_chunked_kernel(**inp, **kw)
+        yp, fp = ssd_chunked(**inp, **kw)
+        err = max(rel_err(yk, yp), rel_err(fk_, fp), key=lambda e: e[1])
+        args = (inp["x"], inp["dt"], inp["A"], inp["B"], inp["C"], l, inp["initial_state"], bf16)
+        show("ssd_fwd", shape, err, TOL[bf16],
+             sum(device_ms(lambda: sk._ssd_fwd(*args), 10).values()),
+             cuda_ms(lambda: ssd_chunked(**inp, **kw), 2, 1),
+             ssd_work(b, t, h, 1, 64, 128, l, bf16, False))
+        del yk, fk_, yp, fp
+        x, dt, A, B, C = (inp[k] for k in ("x", "dt", "A", "B", "C"))
+        a4 = chunk_log_decay(dt, A, l)
+        a_cum = a4.reshape(b, t, h).contiguous()
+        st_k = sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, bf16)
+        st_p = sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16)
+        prev = state_passing(st_p, torch.exp(a4[:, :, -1]), None)[0].contiguous()
+        dy = torch.randn((b, t, h, 64), generator=gen, device="cuda").to(bf16)
+        bargs = (x, dt, a_cum, B, C, prev, dy, None, l, bf16)
+        got, ref = sk.ssd_bwd_kernel(*bargs), sk.ssd_bwd_plain(*bargs)
+        w2, w3 = ssd_bwd_work(b, t, h, 1, 64, 128, l, bf16, False, False)
+        show("ssd_chunk_states", shape, rel_err(st_k, st_p), TOL[bf16],
+             sum(device_ms(lambda: sk.ssd_chunk_states_kernel(x, dt, a_cum, B, l, bf16),
+                           10).values()),
+             cuda_ms(lambda: sk.ssd_chunk_states_plain(x, dt, a_cum, B, l, bf16), 2, 1), w2)
+        show("ssd_bwd", shape, max((rel_err(g_, r_) for g_, r_ in zip(got, ref)),
+                                   key=lambda e: e[1]), TOL[bf16],
+             cuda_ms(lambda: sk.ssd_bwd_kernel(*bargs), 5),
+             cuda_ms(lambda: sk.ssd_bwd_plain(*bargs), 2, 1), w3)
+        del inp, x, dt, A, B, C, a4, a_cum, st_k, st_p, prev, dy, bargs, got, ref
+        torch.cuda.empty_cache()
+
+    hd = 128
+    for n, nh, nkv in ((2, 16, 4), (4, 8, 2), (8, 4, 1)):
+        shape = f"hybrid-7b tensor {n}: b={b} t={t} nh={nh} nkv={nkv} hd={hd}"
+        qt, kt, vt, do = flash_inputs(gen, b, t, t, nh, nkv, hd, bf16)
+        one = (qt[:1], kt[:1], vt[:1])
+        o_k, lse_k = fk.flash_fwd(qt, kt, vt, 0, t)
+        delta = (do.float() * o_k.float()).sum(-1).contiguous()
+        bwd = (qt, kt, vt, do, lse_k, delta, 0, t)
+        bwd1 = (*one, do[:1], lse_k[:1], delta[:1], 0, t)
+        errs = (rel_err(o_k[:1], fk.flash_fwd_plain(*one, 0, t)[0]),
+                rel_err(fk.flash_bwd_dq(*bwd)[:1], fk.flash_bwd_dq_plain(*bwd1)),
+                max((rel_err(g_[:1], r_) for g_, r_ in zip(fk.flash_bwd_dkv(*bwd),
+                                                         fk.flash_bwd_dkv_plain(*bwd1))),
+                    key=lambda e: e[1]))
+        timed = (("flash_fwd", lambda: fk.flash_fwd(qt, kt, vt, 0, t),
+                  lambda: fk.flash_fwd_plain(*one, 0, t)),
+                 ("flash_bwd_dq", lambda: fk.flash_bwd_dq(*bwd),
+                  lambda: fk.flash_bwd_dq_plain(*bwd1)),
+                 ("flash_bwd_dkv", lambda: fk.flash_bwd_dkv(*bwd),
+                  lambda: fk.flash_bwd_dkv_plain(*bwd1)))
+        for (name, kern, plain), err, work in zip(timed, errs,
+                                                  flash_work(b, t, t, nh, nkv, hd, 0, bf16)):
+            show(name, shape + " (plain at b=1)", err, TOL[bf16], cuda_ms(kern, 5),
+                 cuda_ms(plain, 2, 1), work)
+        del qt, kt, vt, do, o_k, lse_k, delta, bwd, bwd1
+        torch.cuda.empty_cache()
+
+    mb, mt, d = 32, 1024, 768
+    u, dt, A, B, C, _ = m1_inputs(gen, mb, mt, d, False)
+    dy = torch.randn((mb, mt, d), generator=gen, device="cuda")
+    states = mk.m1_entry_states_plain(u, dt, A, B)
+    works = m1_work(mb, mt, d, 16, False, False)
+    for (name, kern, plain), work in zip(
+            (("m1_scan", lambda: mk.m1_scan(u, dt, A, B, C),
+              lambda: mk.m1_scan_plain(u, dt, A, B, C)),
+             ("m1_bwd", lambda: mk.m1_bwd(u, dt, A, B, C, states, dy),
+              lambda: mk.m1_bwd_plain(u, dt, A, B, C, states, dy))), (works[0], works[2])):
+        err = max((rel_err(g_, r_) for g_, r_ in zip(kern(), plain())), key=lambda e: e[1])
+        show(name, f"mamba1-280m tensor 2: fp32 b={mb} t={mt} d={d}", err, TOL[torch.float32],
+             cuda_ms(kern, 5), cuda_ms(plain, 2, 1), work)
+    del u, dt, A, B, C, dy, states
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("tensor-parallel kernel shapes disagree with the plain versions:\n"
+                         + "\n".join(failures))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, skip the serving and training runs")
+    ap.add_argument("--tensor-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of tensor_phase's world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.tensor_worker:
+        rank, world, ports, work = args.tensor_worker
+        return tensor_worker(int(rank), int(world), [int(p) for p in ports.split(",")],
+                             Path(work))
     from mamba_distributed_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4358,6 +4780,7 @@ def main() -> int:
     rows = [check_ssd(gen), *check_ssd_bwd(gen), rpa, rpp, *check_flash(gen, micro=32),
             *check_m1(gen), rpa_int8, rpp_int8]
     check_7b_shapes(gen, {r["name"]: r for r in rows})
+    check_tp_shapes(gen)
     check_verify_shapes(gen, {r["name"]: r for r in rows})
     # the RMSNorm kernels, which have no pallas_call counterpart
     rows += check_norms(gen)
@@ -4433,6 +4856,7 @@ def main() -> int:
         telemetry_phase(card, {"mamba2-280m": ssd_serve, "hybrid-280m": hybrid,
                                "hybrid-280m int8": q8})
         parallel_phase(card)
+        tensor_phase(card)
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

@@ -539,11 +539,14 @@ class MeshConfig:
     """Logical device mesh (the JAX package's ``MeshConfig``), one rank of
     ``torch.distributed`` per device; axes of size 1 collapse.
 
-    data  - pure data parallel (gradients mean-all-reduced, params replicated)
-    fsdp  - data parallel + param/optimizer-state sharding (ZeRO-3 style)
-    seq, tensor, pipe, expert - the JAX package's sequence, tensor, pipeline
-            and expert axes; the port trains with each of them at 1
-            (``TrainConfig`` refuses more, naming the slice that adds it)
+    data   - pure data parallel (gradients mean-all-reduced, params replicated)
+    fsdp   - data parallel + param/optimizer-state sharding (ZeRO-3 style)
+    tensor - tensor parallel: every mixer and FFN on its ranks' own heads of
+             a packed per-rank layout (parallel/tp_layout.py); the ranks of
+             one tensor group read the same batch rows
+    seq, pipe, expert - the JAX package's sequence, pipeline and expert
+            axes; the port trains with each of them at 1 (``TrainConfig``
+            refuses more, naming the slice that adds it)
     """
 
     data: int = 1
@@ -723,7 +726,6 @@ def _hybrid_period(cfg: ModelConfig):
 _LATER_AXES = {
     "seq": "sequence parallelism (sp_conv1d, sp_ssd, sp_selective_scan, ring and "
            "Ulysses attention on the port's kernels)",
-    "tensor": "tensor parallelism (a packed per-rank in_proj/wqkv layout)",
     "pipe": "the pipeline (lm_loss_pipelined and its schedule)",
     "expert": "expert parallelism (the MoE's all-to-all dispatch)",
 }
@@ -733,10 +735,13 @@ _LATER_AXES = {
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
     the JAX package's ``TrainConfig``).  The port trains over the
-    ``data`` and ``fsdp`` mesh axes (``parallel/``, one
-    ``torch.distributed`` rank per device); a ``seq``, ``tensor``,
-    ``pipe`` or ``expert`` axis above 1 passes the JAX package's checks
-    and is then refused, naming the slice that adds it."""
+    ``data``, ``fsdp`` and ``tensor`` mesh axes (``parallel/``, one
+    ``torch.distributed`` rank per device), alone or together; a
+    ``seq``, ``pipe`` or ``expert`` axis above 1 passes the JAX package's
+    checks and is then refused, naming the slice that adds it.  Like the
+    JAX package, no check asks the tensor size to divide the heads: a
+    block whose heads it does not divide runs whole on each tensor rank
+    (``parallel/tp_layout.py``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -809,8 +814,8 @@ class TrainConfig:
         later = {k: getattr(m, k) for k in _LATER_AXES if getattr(m, k) != 1}
         if later:
             raise ValueError(
-                f"mesh axes {later}: the PyTorch port trains over data and fsdp "
-                f"only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
+                f"mesh axes {later}: the PyTorch port trains over data, fsdp and "
+                f"tensor only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
                 + ", each a later slice")
         if self.micro_batch_size < 1 or self.seq_len < 1:
             raise ValueError(

@@ -54,7 +54,12 @@ from __future__ import annotations
 import torch
 
 from mamba_distributed_tpu_torch.config import ModelConfig
-from mamba_distributed_tpu_torch.models.common import init_linear, linear, out_proj_rescale
+from mamba_distributed_tpu_torch.models.common import (
+    init_linear,
+    linear,
+    out_proj_rescale,
+    row_parallel_linear,
+)
 from mamba_distributed_tpu_torch.ops.blockwise_attention import blockwise_sdpa_causal
 from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
     _sdpa_positions,
@@ -66,6 +71,7 @@ from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
 )
 from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_sdpa_causal
 from mamba_distributed_tpu_torch.ops.quant import Q_MAX, SCALE_EPS, kv_quantize, kv_requant
+from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp
 
 __all__ = [
     "_sdpa_positions", "apply_rope", "attention_mixer", "attention_mixer_chunk",
@@ -128,10 +134,12 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig):
+def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp=None):
     """(b, t, (nh + 2 nkv) hd) -> q (b, t, nh, hd), k, v (b, t, nkv, hd),
-    views of ``qkv``."""
+    views of ``qkv``; under ``tp`` this rank's q_r | k_r | v_r heads."""
     nh, nkv, hd, _ = _attn_dims(cfg)
+    if tp is not None:
+        nh, nkv = nh // tp.size, nkv // tp.size
     b, t, _ = qkv.shape
     q = qkv[..., :nh * hd].reshape(b, t, nh, hd)
     k = qkv[..., nh * hd:(nh + nkv) * hd].reshape(b, t, nkv, hd)
@@ -140,24 +148,29 @@ def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig):
 
 
 def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
-                    return_final_state: bool = False):
+                    return_final_state: bool = False, tp=None):
     """Full-sequence causal attention (models/attention.py:120-182 of the
     JAX package, without its sequence-parallel branches): u (b, t, d) ->
     y (b, t, d).  RoPE at positions 0..t-1, then the flash kernels
     ("pallas"/"auto") or the blockwise online softmax ("xla").  With
     ``return_final_state`` the raw (k, v) (b, t, nkv, hd) of the whole
-    sequence come back too, for ``pack_attention_pages``."""
+    sequence come back too, for ``pack_attention_pages``.  Under ``tp``
+    (a ``parallel/tp_layout.TPContext``) on this rank's query and KV
+    heads: the input's gradient summed over the tensor group, ``out_proj``
+    row-parallel.  The paged serving halves stay single-device."""
     nh, _, hd, rot = _attn_dims(cfg)
+    if tp is not None:
+        nh //= tp.size
     b, t, _ = u.shape
     cd = cfg.torch_compute_dtype
-    q, k, v = _split_qkv(linear(params["wqkv"], u, cd), cfg)
+    q, k, v = _split_qkv(linear(params["wqkv"], copy_to_tp(u, tp), cd), cfg, tp)
     if rot > 0:
         angles = rope_angles(torch.arange(t, device=u.device), rot, cfg.rope_theta)
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
     attend = blockwise_sdpa_causal if cfg.attn_impl == "xla" else flash_sdpa_causal
     out = attend(q, k, v)
-    y = linear(params["out_proj"], out.reshape(b, t, nh * hd), cd)
+    y = row_parallel_linear(params["out_proj"], out.reshape(b, t, nh * hd), cd, tp)
     if return_final_state:
         return y, (k, v)
     return y

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from mamba_distributed_tpu_torch.parallel.collectives import reduce_from_tp
+
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with fp32 accumulation and an fp32 result.
@@ -93,6 +95,21 @@ def linear(params: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.T
         # the bias lands on the fp32 accumulator before the one rounding
         y = y + params["bias"].float()
     return y.to(compute_dtype)
+
+
+def row_parallel_linear(params: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+                        tp=None) -> torch.Tensor:
+    """``linear`` of a row-parallel projection: this tensor rank's rows
+    of ``kernel`` times its channels of ``x``, the compute-dtype partial
+    products summed over the tensor group (``reduce_from_tp``, as
+    Megatron sums them), the bias added once after the sum, so every
+    configuration moves the same bytes.  ``tp=None``: ``linear``."""
+    if tp is None:
+        return linear(params, x, compute_dtype)
+    y = reduce_from_tp(x.to(compute_dtype) @ params["kernel"].to(compute_dtype), tp)
+    if "bias" in params:
+        y = y + params["bias"].to(compute_dtype)
+    return y
 
 
 def out_proj_rescale(n_layer: int, d_intermediate: int) -> float:

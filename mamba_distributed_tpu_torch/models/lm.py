@@ -84,6 +84,7 @@ from mamba_distributed_tpu_torch.models.common import (
     linear,
     mm_f32,
     out_proj_rescale,
+    row_parallel_linear,
     uniform_fan_in,
 )
 from mamba_distributed_tpu_torch.models.mamba1 import (
@@ -100,6 +101,8 @@ from mamba_distributed_tpu_torch.models.mamba2 import (
 )
 from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm
 from mamba_distributed_tpu_torch.ops.remat import remat_block
+from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from mamba_distributed_tpu_torch.parallel.tp_layout import block_tp
 
 
 class _Mixer(NamedTuple):
@@ -214,10 +217,13 @@ def _residual_dtype(cfg: ModelConfig):
     return torch.float32 if cfg.residual_in_fp32 else cfg.torch_compute_dtype
 
 
-def _gated_mlp(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """GatedMLP (lm.py:144-148): fc2(y * silu(gate)), the gate in fp32."""
-    y, gate = linear(params["fc1"], x, compute_dtype).chunk(2, dim=-1)
-    return linear(params["fc2"], y * F.silu(gate.float()).to(y.dtype), compute_dtype)
+def _gated_mlp(params: dict, x: torch.Tensor, compute_dtype, tp=None) -> torch.Tensor:
+    """GatedMLP (lm.py:144-148): fc2(y * silu(gate)), the gate in fp32.
+    Under ``tp`` fc1 holds this rank's y_r | gate_r columns and fc2 is
+    row-parallel."""
+    y, gate = linear(params["fc1"], copy_to_tp(x, tp), compute_dtype).chunk(2, dim=-1)
+    return row_parallel_linear(params["fc2"], y * F.silu(gate.float()).to(y.dtype),
+                               compute_dtype, tp)
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -227,13 +233,21 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, compute_dtype) -> tor
     return torch.einsum(eq, a.to(compute_dtype).float(), b.to(compute_dtype).float())
 
 
-def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
+def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=None):
     """Token-choice top-k mixture of gated-MLP experts -> (out, aux), in
     the JAX package's dense-dispatch formulation (lm.py:151-208):
     every choice takes the next slot of its expert's queue, primary
     choices of all tokens before any secondary one; a choice past the
     capacity is dropped (its token rides the residual).  ``aux`` is the
-    Switch load-balance loss E * sum_e f_e P_e / k (1 at perfect balance)."""
+    Switch load-balance loss E * sum_e f_e P_e / k (1 at perfect balance).
+
+    Under ``tp`` every expert holds this rank's columns of w1 (y_r |
+    gate_r) and rows of w2, and ``out`` (n, d) is summed over the tensor
+    group.  The router is replicated and its gradient full on every
+    rank: the gate weights' gradient (partial: it reads this rank's
+    expert outputs) is summed over the group where they enter the
+    combine, and the router reads ``x`` before ``copy_to_tp``, so only
+    the experts' share of x's gradient is summed."""
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     b, t, d = x.shape
     n = b * t
@@ -253,31 +267,32 @@ def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype):
     slot = F.one_hot(pos.long().clamp_max(cap - 1), cap).float()
     sel = oh[..., None] * slot[:, :, None, :] * keep[..., None, None]
     dispatch = sel.sum(1)
-    combine = (sel * gate_vals[..., None, None]).sum(1)
+    combine = (sel * copy_to_tp(gate_vals, tp)[..., None, None]).sum(1)
 
     cd = compute_dtype
-    xe = _einsum_f32("nd,nec->ecd", xt, dispatch, cd).to(cd)
+    xe = _einsum_f32("nd,nec->ecd", copy_to_tp(xt, tp), dispatch, cd).to(cd)
     y, gate = _einsum_f32("ecd,edf->ecf", xe, params["w1"], cd).chunk(2, dim=-1)
     h = (y * F.silu(gate)).to(cd)
     ye = _einsum_f32("ecf,efd->ecd", h, params["w2"], cd)  # (E, C, d)
-    out = torch.einsum("nec,ecd->nd", combine, ye)
+    out = reduce_from_tp(torch.einsum("nec,ecd->nd", combine, ye), tp)
 
     f = oh.sum(1).mean(0)  # share of choices routed to each expert
     aux = E * (f * probs.mean(0)).sum() / k
     return out.reshape(b, t, d).to(x.dtype), aux
 
 
-def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None):
+def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None, tp=None):
     """The block's second half (lm.py:281-297): add + ``norm2``, then the
     gated MLP or the MoE -> (hidden, residual, aux or None).  The stream
-    is carried in ``residual_dtype`` (default: the config's)."""
+    is carried in ``residual_dtype`` (default: the config's); ``tp``: the
+    tensor group, when the FFN splits over it."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm2"]["weight"], cfg.norm_eps,
                                     residual_dtype=residual_dtype or _residual_dtype(cfg))
     cd = cfg.torch_compute_dtype
     if cfg.moe_num_experts:
-        hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd)
+        hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd, tp)
         return hidden, residual, aux
-    return _gated_mlp(bp["mlp"], normed, cd), residual, None
+    return _gated_mlp(bp["mlp"], normed, cd, tp), residual, None
 
 
 def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
@@ -335,26 +350,31 @@ def count_params(params: dict) -> int:
     return params.numel()
 
 
-def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool):
+def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool, tp=None):
     """One prenorm block in the single-carry form of the JAX
     ``_backbone`` (lm.py:437-444): the post-add stream -> (the next one,
     the MoE aux term or None), through the attention mixer at an
-    attention layer."""
+    attention layer.  ``tp``: the tensor group (``TPContext``); the
+    mixer and the FFN each split over it when their heads divide by its
+    size and run whole otherwise (``tp_layout.block_tp``)."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
     mixer = attention_mixer if attn else _MIXERS[cfg.ssm_layer].forward
-    hidden, aux = mixer(bp["mixer"], cfg, normed), None
+    mixer_tp = block_tp(tp, cfg, "attn" if attn else "ssm")
+    hidden, aux = mixer(bp["mixer"], cfg, normed, tp=mixer_tp), None
     if cfg.d_intermediate > 0:
-        hidden, res, aux = _ffn(bp, cfg, hidden, res)
+        hidden, res, aux = _ffn(bp, cfg, hidden, res, tp=block_tp(tp, cfg, "ffn"))
     return res + hidden.to(res.dtype), aux
 
 
-def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor):
+def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None):
     """Embedding -> layer stack in global order -> (the post-add stream
     before the final norm, the sum of the MoE aux terms or None)
     (lm.py:415-519; the JAX periodic-hybrid scan over supersteps and its
     unrolled aperiodic loop are this one loop).  With ``cfg.remat`` and
     autograd on, each block is checkpointed as a whole under
-    ``cfg.remat_policy`` (ops/remat.py), as the JAX ``mbody``/``abody``."""
+    ``cfg.remat_policy`` (ops/remat.py), as the JAX ``mbody``/``abody``;
+    under ``tp`` a recompute runs the block's forward all-reduces again,
+    in the same order on every tensor rank."""
     res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
     mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
@@ -364,9 +384,9 @@ def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor):
     for attn, j in _layer_plan(cfg):
         bp = ablocks[j] if attn else mblocks[j]
         if remat:
-            res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn)
+            res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn, tp)
         else:
-            res, aux = _train_block(bp, cfg, res, attn)
+            res, aux = _train_block(bp, cfg, res, attn, tp)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return res, aux_total
@@ -398,15 +418,18 @@ def _mean_aux(cfg: ModelConfig, aux_total, like: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-               return_aux: bool = False):
+               return_aux: bool = False, tp=None):
     """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542)
     [, the per-layer mean of the MoE aux terms, 0 for a dense model].
 
     The head is one compute-dtype GEMM: fp32 accumulation rounded once to
     the compute dtype, the rounding the JAX package applies to its fp32
-    logits (lm.py:538), and a product autograd differentiates."""
+    logits (lm.py:538), and a product autograd differentiates.  ``tp``:
+    this rank's packed params over the tensor group
+    (``parallel/tp_layout.py``); the head is replicated, so every tensor
+    rank returns the whole logits."""
     cd = cfg.torch_compute_dtype
-    res, aux_total = _backbone(params, cfg, input_ids)
+    res, aux_total = _backbone(params, cfg, input_ids, tp)
     normed = _final_norm(params, cfg, res)
     if cfg.tie_embeddings:
         logits = normed.to(cd) @ params["embedding"].to(cd).t()
@@ -418,7 +441,7 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
+            targets: torch.Tensor, tp=None) -> torch.Tensor:
     """Mean cross-entropy in fp32 against the loader's pre-shifted
     targets, plus ``moe_aux_weight`` times the mean MoE aux term for a
     MoE model (lm.py:545-586).  ``loss_impl="dense"``: one head product,
@@ -427,12 +450,12 @@ def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     if cfg.loss_impl == "blocked":
         from mamba_distributed_tpu_torch.ops.loss import blocked_cross_entropy
 
-        res, aux_total = _backbone(params, cfg, input_ids)
+        res, aux_total = _backbone(params, cfg, input_ids, tp)
         ce = blocked_cross_entropy(_final_norm(params, cfg, res), _head_matrix(params, cfg),
                                    targets, cfg.loss_vocab_blocks, cfg.torch_compute_dtype)
         aux = _mean_aux(cfg, aux_total, res)
     else:
-        logits, aux = lm_forward(params, cfg, input_ids, return_aux=True)
+        logits, aux = lm_forward(params, cfg, input_ids, return_aux=True, tp=tp)
         lf = logits.float()
         tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
         ce = (torch.logsumexp(lf, dim=-1) - tgt).mean()

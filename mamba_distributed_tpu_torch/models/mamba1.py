@@ -16,6 +16,13 @@ preferred_element_type=fp32)``: here the product of the compute-dtype
 operands upcast to fp32, the same function (a bf16 x bf16 product is
 exact in fp32) and one that autograd differentiates on the card, where
 ``torch.mm(..., out_dtype=fp32)`` has no derivative.
+
+Under tensor parallelism (``tp``, a ``parallel/tp_layout.TPContext``)
+each rank holds d_inner / size channels (x_r | z_r of ``in_proj``, its
+rows of ``x_proj`` and ``out_proj``, its columns of ``dt_proj``): the
+input's gradient is summed over the tensor group, ``x_proj``'s output
+is summed both ways (every rank reads the whole dt, B and C, and each
+one's gradient of them is partial) and ``out_proj`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -30,10 +37,12 @@ from mamba_distributed_tpu_torch.models.common import (
     init_linear,
     linear,
     out_proj_rescale,
+    row_parallel_linear,
 )
 from mamba_distributed_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update
 from mamba_distributed_tpu_torch.ops.cuda.scan_kernels import selective_scan_kernel
 from mamba_distributed_tpu_torch.ops.scan import selective_scan, selective_state_update
+from mamba_distributed_tpu_torch.parallel.collectives import all_reduce_tp, copy_to_tp
 
 
 def init_mamba1_params(cfg: ModelConfig, generator: torch.Generator,
@@ -62,12 +71,13 @@ def init_mamba1_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor):
+def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
     """x (conv output, compute dtype) -> (dt fp32 without its bias, A,
-    B fp32, C fp32)."""
+    B fp32, C fp32); under ``tp`` x is this rank's channels and the
+    ``x_proj`` product is summed over the tensor group."""
     ds, dtr = cfg.effective_d_state, cfg.effective_dt_rank
     cd = cfg.torch_compute_dtype
-    x_db = linear(params["x_proj"], x, cd)
+    x_db = all_reduce_tp(linear(params["x_proj"], x, cd), tp)
     B = x_db[..., dtr:dtr + ds].float()
     C = x_db[..., dtr + ds:].float()
     # dt_proj without its bias: the bias folds into the scan's delta_bias
@@ -78,17 +88,18 @@ def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor):
 
 def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                  initial_conv_state=None, initial_ssm_state=None,
-                 return_final_state: bool = False, token_mask=None):
+                 return_final_state: bool = False, token_mask=None, tp=None):
     """Full-sequence mixer forward: u (b, t, d_model) -> y (b, t, d_model)
-    [, (conv_state (b, d_conv-1, d_inner), ssm_state (b, d_inner, n) fp32)].
+    [, (conv_state (b, d_conv-1, d_inner), ssm_state (b, d_inner, n) fp32)];
+    under ``tp`` on this rank's channels (module docstring).
 
     ``token_mask`` (b, t) {0,1} zeroes the conv and scan inputs at
     left-pad positions (before and after the conv, as in
     ``mamba2_mixer``): with x = 0 the update term dt*B*x vanishes and a
     zero initial state stays zero through the pad prefix."""
-    di = cfg.d_inner
+    di = cfg.d_inner if tp is None else cfg.d_inner // tp.size
     cd = cfg.torch_compute_dtype
-    xz = linear(params["in_proj"], u, cd)
+    xz = linear(params["in_proj"], copy_to_tp(u, tp), cd)
     x, z = xz[..., :di], xz[..., di:]
     if token_mask is not None:
         x = x * token_mask[..., None].to(x.dtype)
@@ -98,7 +109,7 @@ def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     )
     if token_mask is not None:
         x = x * token_mask[..., None].to(x.dtype)
-    dt, A, B, C = _scan_inputs(params, cfg, x)
+    dt, A, B, C = _scan_inputs(params, cfg, x, tp)
     scan = selective_scan_kernel if cfg.ssm_impl == "pallas" else selective_scan
     kw = dict(D=params["D"], z=z, delta_bias=params["dt_proj"]["bias"], delta_softplus=True)
     if initial_ssm_state is None and not return_final_state:
@@ -106,7 +117,7 @@ def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     else:
         y, ssm_state = scan(x, dt, A, B, C, **kw, initial_state=initial_ssm_state,
                             return_final_state=True)
-    out = linear(params["out_proj"], y, cd)
+    out = row_parallel_linear(params["out_proj"], y, cd, tp)
     if return_final_state:
         return out, (conv_state, ssm_state)
     return out

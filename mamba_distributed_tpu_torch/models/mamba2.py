@@ -7,6 +7,12 @@ Forward:  u -> in_proj -> split(z, xBC, dt) -> causal_conv1d(xBC) ->
 With ``cfg.ssm_impl="pallas"`` the SSD runs through the hand-written
 CUDA kernel on a CUDA tensor (ops/cuda/ssd_kernels.py) and through the
 plain formulation on a CPU tensor (ops/dispatch.py).
+
+Under tensor parallelism (``tp``, a ``parallel/tp_layout.TPContext``)
+the mixer runs on this rank's heads of the packed layout (z_r | x_r |
+B | C | dt_r, each rank holding B and C whole at ``ngroups = 1``): the
+input's gradient is summed over the tensor group, the gated norm's sum
+of squares too at ``ngroups = 1``, and ``out_proj`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -21,18 +27,23 @@ from mamba_distributed_tpu_torch.models.common import (
     init_linear,
     linear,
     out_proj_rescale,
+    row_parallel_linear,
 )
 from mamba_distributed_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_update
 from mamba_distributed_tpu_torch.ops.cuda.ssd_kernels import ssd_chunked_kernel
 from mamba_distributed_tpu_torch.ops.norm import rms_norm_gated
 from mamba_distributed_tpu_torch.ops.ssd import ssd_chunked, ssd_state_update
+from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp
 
 
-def _dims(cfg: ModelConfig):
-    di = cfg.d_inner
+def _dims(cfg: ModelConfig, tp=None):
+    """(d_inner, d_state, ngroups, nheads, in_proj width, conv width), of
+    this tensor rank's part under ``tp`` (B and C whole at ngroups 1)."""
+    n = 1 if tp is None else tp.size
+    di = cfg.d_inner // n
     ds = cfg.effective_d_state
-    g = cfg.ngroups
-    nh = cfg.nheads
+    g = cfg.ngroups if cfg.ngroups == 1 else cfg.ngroups // n
+    nh = cfg.nheads // n
     return di, ds, g, nh, 2 * di + 2 * g * ds + nh, di + 2 * g * ds
 
 
@@ -63,37 +74,42 @@ def init_mamba2_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _split_zxbcdt(zxbcdt, cfg: ModelConfig):
-    di, _, _, _, _, conv_dim = _dims(cfg)
+def _split_zxbcdt(zxbcdt, cfg: ModelConfig, tp=None):
+    di, _, _, _, _, conv_dim = _dims(cfg, tp)
     return (zxbcdt[..., :di], zxbcdt[..., di:di + conv_dim],
             zxbcdt[..., di + conv_dim:])
 
 
-def _split_xbc(xBC, cfg: ModelConfig):
-    di, ds, g, _, _, _ = _dims(cfg)
+def _split_xbc(xBC, cfg: ModelConfig, tp=None):
+    di, ds, g, _, _, _ = _dims(cfg, tp)
     return xBC[..., :di], xBC[..., di:di + g * ds], xBC[..., di + g * ds:]
 
 
-def _D(params, cfg: ModelConfig):
-    return params["D"].reshape(cfg.nheads, cfg.headdim) if cfg.d_has_hdim else params["D"]
+def _D(params, cfg: ModelConfig, tp=None):
+    if not cfg.d_has_hdim:
+        return params["D"]
+    return params["D"].reshape(_dims(cfg, tp)[3], cfg.headdim)
 
 
 def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                  initial_conv_state=None, initial_ssm_state=None,
-                 return_final_state: bool = False, token_mask=None):
+                 return_final_state: bool = False, token_mask=None, tp=None):
     """Full-sequence mixer forward: u (b, t, d_model) -> y (b, t, d_model)
-    [, (conv_state (b, d_conv-1, conv_dim), ssm_state (b, h, p, n) fp32)].
+    [, (conv_state (b, d_conv-1, conv_dim), ssm_state (b, h, p, n) fp32)];
+    under ``tp`` on this rank's heads (module docstring), y summed over
+    the tensor group.
 
     ``token_mask`` (b, t) {0,1} zeroes the conv/SSM inputs at left-pad
     positions: BEFORE the conv (pads must look like the zero initial
     conv state) and AFTER it (the conv bias + silu would otherwise leak
     into x and B).  dt is not masked: a zero x and B add nothing to the
     state, and dt only decays a state that is still zero."""
-    di, ds, g, nh, _, _ = _dims(cfg)
+    di, ds, g, nh, _, _ = _dims(cfg, tp)
     b, t, _ = u.shape
     cd = cfg.torch_compute_dtype
 
-    z, xBC, dt = _split_zxbcdt(linear(params["in_proj"], u, cd), cfg)
+    u = copy_to_tp(u, tp)
+    z, xBC, dt = _split_zxbcdt(linear(params["in_proj"], u, cd), cfg, tp)
     if token_mask is not None:
         xBC = xBC * token_mask[..., None].to(xBC.dtype)
     xBC, conv_state = causal_conv1d(
@@ -103,14 +119,14 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     )
     if token_mask is not None:
         xBC = xBC * token_mask[..., None].to(xBC.dtype)
-    x, B, C = _split_xbc(xBC, cfg)
+    x, B, C = _split_xbc(xBC, cfg, tp)
     x = x.reshape(b, t, nh, cfg.headdim)
     B = B.reshape(b, t, g, ds)
     C = C.reshape(b, t, g, ds)
     dtf = F.softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
     ssd = ssd_chunked_kernel if cfg.ssm_impl == "pallas" else ssd_chunked
-    kw = dict(chunk_size=cfg.chunk_size, D=_D(params, cfg), compute_dtype=cd)
+    kw = dict(chunk_size=cfg.chunk_size, D=_D(params, cfg, tp), compute_dtype=cd)
     if initial_ssm_state is None and not return_final_state:
         # the training path: no final state, so under the "mixer" remat
         # policy the SSD's y alone is kept (ops/remat.py)
@@ -118,9 +134,13 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     else:
         y, ssm_state = ssd(x, dtf, A, B, C, **kw, initial_state=initial_ssm_state,
                            return_final_state=True)
-    y = rms_norm_gated(y.reshape(b, t, di), z, params["norm"]["weight"],
-                       cfg.norm_eps, group_size=di // g if g > 1 else None)
-    out = linear(params["out_proj"], y, cd)
+    # groups of d_inner / ngroups channels, which a tensor rank holds
+    # whole; at ngroups 1 one row spans the tensor group
+    grouped = cfg.ngroups > 1
+    y = rms_norm_gated(y.reshape(b, t, di), z, params["norm"]["weight"], cfg.norm_eps,
+                       group_size=cfg.d_inner // cfg.ngroups if grouped else None,
+                       tp=None if grouped else tp)
+    out = row_parallel_linear(params["out_proj"], y, cd, tp)
     if return_final_state:
         return out, (conv_state, ssm_state)
     return out

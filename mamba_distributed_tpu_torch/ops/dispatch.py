@@ -18,7 +18,11 @@ trainer is built, a config whose kernels were not built for its shapes.
 The RMSNorm kernels (ops/norm.py), which no knob selects, follow a rule
 of their own (``use_norm_kernel``): the kernel on a CUDA tensor when
 autograd does not need the op, the plain expression under autograd and
-on the CPU.  A kernel that fails to build or launch raises.
+on the CPU.  One case is named and takes a composite on the card too:
+the gated norm of a row that spans a tensor group (Mamba-2 at
+``ngroups = 1`` under tensor parallelism), whose sum of squares is
+all-reduced over the group, which the kernel, normalising its local
+row, does not do.  A kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ def use_norm_kernel(x: torch.Tensor, *others: torch.Tensor | None) -> bool:
     allowed) must go through its hand-written kernel: ``x`` lies on a
     CUDA device and autograd does not need the op (grad mode is off, or
     no input requires grad).  The train step keeps the plain expression,
-    whose backward autograd takes."""
+    whose backward autograd takes.  The gated norm of a row that spans a
+    tensor group does not ask: it takes its composite (module
+    docstring)."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":

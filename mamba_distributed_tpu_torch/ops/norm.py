@@ -11,14 +11,24 @@ a CUDA tensor when autograd does not need the op
 (``ops/dispatch.use_norm_kernel``).  Under autograd (the train step,
 which needs the backward and no row invariance) and on the CPU, the
 plain expressions run.
+
+Under tensor parallelism a Mamba-2 block at ``ngroups = 1`` normalises
+its gated output over the whole d_inner, which its tensor ranks hold a
+part each: ``rms_norm_gated(..., tp=)`` sums each row's squares over the
+tensor group (both ways: every rank's gradient of the sum is partial)
+and divides by the full width.  That composite runs on the card too
+(the named exception of ``ops/dispatch``): the kernel normalises the
+local row only.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from mamba_distributed_tpu_torch.ops.cuda import norm_kernels as nk
 from mamba_distributed_tpu_torch.ops.dispatch import use_norm_kernel
+from mamba_distributed_tpu_torch.parallel.collectives import all_reduce_tp
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
@@ -39,9 +49,18 @@ def add_rms_norm(x: torch.Tensor, residual: torch.Tensor | None,
 
 
 def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
-                   eps: float = 1e-5, group_size: int | None = None):
+                   eps: float = 1e-5, group_size: int | None = None, tp=None):
     """Gated RMSNorm ``rms_norm(x * silu(z))``, per contiguous group of
-    ``group_size`` channels when given."""
+    ``group_size`` channels when given.  With ``tp`` (a ``TPContext``)
+    and no groups, a row is this rank's part of one that spans the
+    tensor group (module docstring)."""
+    if tp is not None and group_size is None:
+        # ops/dispatch's named exception: the kernel would normalise the
+        # local row only, so the tensor-group composite runs on the card too
+        xf = x.float() * F.silu(z.float())
+        ss = all_reduce_tp(xf.square().sum(dim=-1, keepdim=True), tp)
+        y = xf * torch.rsqrt(ss / (xf.shape[-1] * tp.size) + eps)
+        return (y * weight.float()).to(x.dtype)
     if use_norm_kernel(x, z, weight):
         return nk.rms_norm_gated_kernel(x, z, weight, eps, group_size)
     return nk.rms_norm_gated_plain(x, z, weight, eps, group_size)

@@ -1,31 +1,43 @@
-"""Data-parallel and FSDP training over ``torch.distributed`` (the JAX
-package's ``parallel/`` mesh and sharding rules, for the ``data`` and
-``fsdp`` axes).
+"""Data-parallel, FSDP and tensor-parallel training over
+``torch.distributed`` (the JAX package's ``parallel/`` mesh and sharding
+rules, for the ``data``, ``fsdp`` and ``tensor`` axes).
 
 One process per device, started by ``torchrun`` (or by a caller that
 sets its ``RANK``, ``LOCAL_RANK`` and ``WORLD_SIZE``): ``mesh`` joins
 the process group and builds the device mesh with the JAX axis names,
 ``sharding`` holds the JAX rules that say which axis of each parameter
-an axis of the mesh cuts, and ``collectives`` moves leaves between
-their shards and their full form (the collectives XLA inserts itself in
-the JAX package).  The sequence, tensor, pipeline and expert axes are
-later slices: the rules for tensor, expert and pipe are ported (pure,
-held against the JAX package's), only fsdp is executed.
+an axis of the mesh cuts, ``tp_layout`` the packed per-rank layout of
+tensor parallelism (no JAX counterpart: GSPMD needs none), and
+``collectives`` moves leaves between their shards and their full form
+and holds the blocks' tensor-group autograd collectives (the
+collectives XLA inserts itself in the JAX package).  The sequence,
+pipeline and expert axes are later slices: the rules for expert and
+pipe are ported (pure, held against the JAX package's), fsdp and tensor
+are executed.
 """
 
-from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, init_distributed
+from mamba_distributed_tpu_torch.parallel.mesh import (
+    build_mesh,
+    init_distributed,
+    tensor_context,
+)
 from mamba_distributed_tpu_torch.parallel.sharding import (
     batch_coordinate,
     gather_params,
     param_specs,
     shard_params,
 )
+from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan, unpack_tp
 
 __all__ = [
     "batch_coordinate",
     "build_mesh",
     "gather_params",
     "init_distributed",
+    "pack_tp",
     "param_specs",
     "shard_params",
+    "tensor_context",
+    "tp_plan",
+    "unpack_tp",
 ]

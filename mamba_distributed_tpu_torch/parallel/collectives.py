@@ -1,7 +1,11 @@
-"""The collectives of data-parallel and FSDP training.
+"""The collectives of data-parallel, FSDP and tensor-parallel training.
 
 The JAX package has no counterpart: XLA inserts these itself from the
-shardings.  ``torch.distributed`` gathers and scatters along dim 0, so
+shardings.  Tensor parallelism's three autograd Functions over the
+tensor group (``copy_to_tp``, ``reduce_from_tp``, ``all_reduce_tp``)
+are the identity when the block has no group (``tp=None``); every
+all-reduce they run, and the step's gradient and norm sums over the
+tensor group, add to ``TP_COMM``.  ``torch.distributed`` gathers and scatters along dim 0, so
 a leaf whose fsdp axis is another one moves that axis to the front
 (contiguous), goes through the collective and moves it back.  Means
 are ``ReduceOp.AVG``, which NCCL computes as a pre-multiplied sum
@@ -96,6 +100,132 @@ def sharded_global_norm(grads: dict, specs: dict, group=None) -> torch.Tensor:
     dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
     return torch.sqrt(part + (torch.stack(replicated).sum() if replicated else zero))
 
+
+
+# tensor-group all-reduces since the last reset: count and bytes
+TP_COMM = {"calls": 0, "bytes": 0}
+
+
+def tp_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` (contiguous) over the tensor ``group`` in place."""
+    TP_COMM["calls"] += 1
+    TP_COMM["bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward, gradient summed over the tensor group: the
+    replicated input of a column-parallel block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tp_all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the tensor group forward, identity backward: the partial
+    output of a row-parallel projection that feeds the replicated
+    stream."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return tp_all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceTP(torch.autograd.Function):
+    """Sum over the tensor group both ways: a sum that feeds every rank's
+    own channels afterwards (Mamba-1's ``x_proj`` output, the gated
+    norm's sum of squares), so each rank's gradient of it is partial."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return tp_all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tp_all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def copy_to_tp(x: torch.Tensor, tp) -> torch.Tensor:
+    return x if tp is None else _CopyToTP.apply(x, tp.group)
+
+
+def reduce_from_tp(x: torch.Tensor, tp) -> torch.Tensor:
+    return x if tp is None else _ReduceFromTP.apply(x, tp.group)
+
+
+def all_reduce_tp(x: torch.Tensor, tp) -> torch.Tensor:
+    return x if tp is None else _AllReduceTP.apply(x, tp.group)
+
+
+def sum_shared_(grads: list, plans: list, group) -> None:
+    """Sum over the tensor ``group``, in place, the gradients of the
+    positions every tensor rank holds whole (``"partial"`` leaves): one
+    flat all-reduce."""
+    picked = []
+    for g, lp in zip(grads, plans):
+        if lp.kind == "partial":
+            ax = g.ndim + lp.axis
+            idx = torch.as_tensor(lp.shared, dtype=torch.long, device=g.device)
+            picked.append((g, ax, idx, g.index_select(ax, idx)))
+    if not picked:
+        return
+    flat = tp_all_reduce_(torch.cat([p.reshape(-1) for *_, p in picked]), group)
+    offset = 0
+    for g, ax, idx, p in picked:
+        g.index_copy_(ax, idx, flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+
+
+def tp_global_norm(grads: list, plans: list, fsdp_cut: list, tensor_group,
+                   fsdp_group=None) -> torch.Tensor:
+    """``optimizer.global_norm`` of the full gradients from this rank's
+    packed (and, where ``fsdp_cut``, fsdp-sharded) leaves: the positions
+    a tensor rank holds alone count once per shard (summed over the
+    tensor group), the replicated ones once; the leaves fsdp cuts are
+    summed over ``fsdp_group`` as well."""
+    zero = grads[0].new_zeros((), dtype=torch.float32)
+    # [own positions, replicated positions] x [fsdp-cut, whole]
+    acc = [[zero, zero], [zero, zero]]
+    for g, lp, cut in zip(grads, plans, fsdp_cut):
+        g = g.float()
+        col = 0 if cut else 1
+        if lp.kind == "full":
+            acc[1][col] = acc[1][col] + g.square().sum()
+            continue
+        if lp.kind == "partial":
+            ax = g.ndim + lp.axis
+            own = torch.as_tensor(lp.own, dtype=torch.long, device=g.device)
+            shared = torch.as_tensor(lp.shared, dtype=torch.long, device=g.device)
+            acc[1][col] = acc[1][col] + g.index_select(ax, shared).square().sum()
+            g = g.index_select(ax, own)
+        acc[0][col] = acc[0][col] + g.square().sum()
+    if fsdp_group is not None:
+        cut = torch.stack([acc[0][0], acc[1][0]])
+        dist.all_reduce(cut, op=dist.ReduceOp.SUM, group=fsdp_group)
+        acc[0][0], acc[1][0] = cut[0], cut[1]
+    own = tp_all_reduce_((acc[0][0] + acc[0][1]).reshape(1), tensor_group)[0]
+    return torch.sqrt(own + acc[1][0] + acc[1][1])
+
+
+def all_gather_list(t: torch.Tensor, group) -> list:
+    """Every rank's ``t`` (the same shape on each), in rank order, through
+    the list form of ``all_gather`` (which gloo implements for CUDA
+    tensors too)."""
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
 
 
 def _leaves(tree) -> list:

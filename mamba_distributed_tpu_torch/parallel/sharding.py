@@ -11,10 +11,13 @@ inherit their param's spec and scalars replicate.  Batches split their
 rows over ``(data, fsdp)`` (and ``expert``, a pure-DP batch axis for
 the non-MoE layers), data outermost.
 
-Only fsdp is executed: ``shard_params`` narrows each leaf to this
-rank's block of its fsdp axis and ``gather_params`` reassembles the
-full leaves.  The tensor, expert and pipe branches are pure and wait
-for their slices.
+The fsdp and tensor axes are executed.  ``shard_params`` packs each
+leaf into this rank's tensor shard (``parallel/tp_layout.py``: its own
+heads of every segment side by side, not JAX's even cut of the packed
+axis), then narrows it to its block of the fsdp axis; ``gather_params``
+reverses both.  The fsdp axis of a packed leaf is the one JAX's spec
+gives ``fsdp``, checked against the local shape (``executed_specs``).
+The expert and pipe branches are pure and wait for their slices.
 """
 
 from __future__ import annotations
@@ -22,7 +25,14 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from mamba_distributed_tpu_torch.parallel.collectives import all_gather_leaf
+from mamba_distributed_tpu_torch.parallel.collectives import all_gather_leaf, all_gather_list
+from mamba_distributed_tpu_torch.parallel.tp_layout import (
+    FULL,
+    PARTIAL,
+    pack_tp,
+    plan_tree,
+    unpack_leaf,
+)
 
 # (path-suffix pattern, axis-from-end carrying the d_inner/head dimension)
 # column-parallel weights shard their output axis, row-parallel their input
@@ -159,16 +169,51 @@ def narrow_leaf(full: torch.Tensor, spec: tuple, index: int, size: int) -> torch
     return full.narrow(ax, index * n, n).clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params: dict, specs: dict, group=None) -> dict:
-    """This rank's shard of every leaf: its block of the leaf's fsdp axis
-    (the rank's index in ``group``, the fsdp group), a contiguous clone."""
+def executed_specs(specs: dict, local: dict, fsdp_size: int, plan) -> dict:
+    """``specs`` (``param_specs``, JAX's) as the packed ``local`` tree
+    (``plan``'s) executes them: a leaf keeps its fsdp axis when the
+    local shape divides by ``fsdp_size`` there, and when that axis is
+    not the packed axis of a leaf with replicated-partial positions
+    (whose positions must stay whole on each rank); otherwise it is
+    whole over fsdp."""
+
+    def fix(t, spec, lp):
+        ax = fsdp_axis(spec)
+        if ax is None:
+            return spec
+        bad = t.shape[ax] % fsdp_size != 0 or (lp.kind == PARTIAL and ax == t.ndim + lp.axis)
+        return tuple(None if s == "fsdp" else s for s in spec) if bad else spec
+
+    def walk(t, spec, lp):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k], lp[k]) for k in t}
+        return fix(t, spec, lp)
+
+    return walk(local, specs, plan_tree(local, plan))
+
+
+def shard_params(params: dict, specs: dict, group=None, tp=None, plan=None) -> dict:
+    """This rank's shard of every leaf, contiguous clones: with ``tp``
+    (``TPContext``) and its ``plan``, first its packed tensor shard
+    (``tp_layout.pack_tp``), then its block of the leaf's fsdp axis (the
+    rank's index in ``group``, the fsdp group).  ``specs`` are the
+    specs of the packed tree (``executed_specs``)."""
+    if tp is not None:
+        params = pack_tp(params, plan, tp.rank)
     index, size = dist.get_rank(group), dist.get_world_size(group)
     return _tree_map(lambda t, s: narrow_leaf(t.detach(), s, index, size), params, specs)
 
 
-def gather_params(shards: dict, specs: dict, group=None) -> dict:
-    """The full leaves from every rank's shard (``all_gather`` over the
-    fsdp ``group``), fresh tensors; a replicated leaf comes back as a
-    detached alias of its own storage."""
-    return _tree_map(lambda t, s: t.detach() if fsdp_axis(s) is None
-                     else all_gather_leaf(t.detach(), fsdp_axis(s), group), shards, specs)
+def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None) -> dict:
+    """The full leaves from every rank's shard: ``all_gather`` over the
+    fsdp ``group``, then, with ``tp`` and its ``plan``, every tensor
+    rank's packed leaf (the list form of ``all_gather``) unpacked into
+    the logical leaf.  Fresh tensors; a leaf neither axis cuts comes back
+    as a detached alias of its own storage."""
+    out = _tree_map(lambda t, s: t.detach() if fsdp_axis(s) is None
+                    else all_gather_leaf(t.detach(), fsdp_axis(s), group), shards, specs)
+    if tp is None:
+        return out
+    plans = plan_tree(out, plan)
+    return _tree_map(lambda t, lp: t if lp.kind == FULL
+                     else unpack_leaf(all_gather_list(t, tp.group), lp), out, plans)

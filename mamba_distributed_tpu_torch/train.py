@@ -16,10 +16,19 @@ reference launches (NCCL on the cards, gloo with ``--device cpu``):
     torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
         --preset mamba2-tiny --mesh-data 2 --device cpu --max-steps 2
 
-``--mesh-data``/``--mesh-fsdp`` override the preset's mesh (their
-product must be the world size); ``--mesh-seq``/``--mesh-tensor`` are
-refused by the config until their slices.  Only rank 0 prints and
-writes logs and checkpoints.
+Tensor parallelism is the ``tensor`` axis (every mixer and FFN on its
+rank's own heads, the ranks of one tensor group reading the same rows),
+alone or with data and fsdp:
+
+    torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
+        --preset hybrid-280m --mesh-tensor 2
+    torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
+        --preset mamba2-tiny --mesh-tensor 2 --device cpu --max-steps 2
+
+``--mesh-data``/``--mesh-fsdp``/``--mesh-tensor`` override the preset's
+mesh (their product must be the world size); ``--mesh-seq`` is refused
+by the config until its slice.  Only rank 0 prints and writes logs and
+checkpoints.
 
 Telemetry (the JAX CLI's flags): ``--spans`` writes host spans to
 ``{log_dir}/events.jsonl``; the divergence sentinel is on by default and

@@ -14,19 +14,27 @@ any exception out of ``run()``.  Restarts after a crash are the CLI's
 (``train.py --auto-restart``).  The trainer runs on the card unless it
 is given ``device="cpu"``.
 
-Data parallel and FSDP: when a ``torch.distributed`` process group is
-up (``torchrun``, ``parallel/mesh.init_distributed``) the trainer is one
-rank of ``cfg.mesh``: its device is ``cuda:{LOCAL_RANK}`` (or the CPU,
-over gloo), its loaders read its block of the batch rows (the
-rank-strided windows of batch coordinate c of ``data_parallel_size``),
-every rank initialises the same full tree from the seed and keeps its
-fsdp shard, and the train step averages the gradients over the ranks
-(``training/train_step.py``).  Rank 0 is the master: only it logs,
-writes records, spans and the sentinel's dump, samples, prints and
-writes checkpoints (the gathered full params and moments, today's
-format, plus every batch rank's loader cursor).  Without a group the
-trainer is the one-device trainer, and a mesh of more than one device
-raises.  ``finish()`` destroys the group.
+Data parallel, FSDP and tensor parallel: when a ``torch.distributed``
+process group is up (``torchrun``, ``parallel/mesh.init_distributed``)
+the trainer is one rank of ``cfg.mesh``: its device is
+``cuda:{LOCAL_RANK}`` (a card given with its index, e.g. ``cuda:0`` for
+two gloo ranks sharing one card, is kept; the CPU over gloo), its
+loaders read its block of the batch rows (the rank-strided windows of
+batch coordinate c of ``data_parallel_size``, over ``(data, fsdp)``
+only: the ranks of one tensor group read the same rows), every rank
+initialises the same full tree from the seed, packs its tensor shard
+(``parallel/tp_layout.py``) and keeps its fsdp block of that, and the
+train step runs the blocks' tensor collectives and averages the
+gradients over the batch ranks (``training/train_step.py``).  Rank 0 is
+the master: only it logs, writes records, spans and the sentinel's dump,
+samples, prints and writes checkpoints (the logical full params and
+moments, gathered over fsdp, then over tensor and unpacked: today's
+format, plus every batch rank's loader cursor).  Validation runs the
+train step's forward on the packed shards; sampling gathers the full
+params on every rank and runs today's ``generate()`` on the master (TP
+decode is a later slice).  MFU stays over the world's peak.  Without a
+group the trainer is the one-device trainer, and a mesh of more than one
+device raises.  ``finish()`` destroys the group.
 """
 
 from __future__ import annotations
@@ -48,15 +56,17 @@ from mamba_distributed_tpu_torch.obs import (
     SpanTracer,
 )
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
-from mamba_distributed_tpu_torch.parallel.mesh import build_mesh
+from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, tensor_context
 from mamba_distributed_tpu_torch.parallel.sharding import (
     batch_coordinate,
+    executed_specs,
     gather_params,
     narrow_leaf,
     opt_state_specs,
     param_specs,
     shard_params,
 )
+from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan
 from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
 from mamba_distributed_tpu_torch.training.train_step import (
@@ -80,14 +90,16 @@ def resolve_device(device) -> torch.device:
 
 
 def rank_device(device: torch.device) -> torch.device:
-    """This rank's device under a process group: ``cuda:{LOCAL_RANK}`` on
-    NCCL, the CPU on gloo; any other pairing raises."""
-    want = {"cuda": "nccl", "cpu": "gloo"}.get(device.type)
+    """This rank's device under a process group: on a card
+    ``cuda:{LOCAL_RANK}``, or the card ``device`` names by its index
+    (``init_distributed`` pinned it), over NCCL or an explicitly asked-for
+    gloo group; the CPU over gloo.  Any other pairing raises."""
     backend = dist.get_backend()
-    if backend != want:
-        raise RuntimeError(f"a {device.type} trainer needs a {want} process group, "
-                           f"this one is {backend}")
-    if device.type == "cuda":
+    allowed = {"cuda": ("nccl", "gloo"), "cpu": ("gloo",)}.get(device.type, ())
+    if backend not in allowed:
+        raise RuntimeError(f"a {device.type} trainer needs a {' or '.join(allowed) or 'known'} "
+                           f"process group, this one is {backend}")
+    if device.type == "cuda" and device.index is None:
         return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     return device
 
@@ -103,7 +115,9 @@ class Trainer:
         self.mesh, self.rank, self.world, self.batch_rank = None, 0, 1, 0
         if dist.is_available() and dist.is_initialized():
             self.device = rank_device(self.device)
-            self.mesh = build_mesh(cfg.mesh, self.device.type)
+            # the mesh's device type names the backend's: a gloo group on
+            # a card is a CPU mesh (its groups are gloo's either way)
+            self.mesh = build_mesh(cfg.mesh, "cuda" if dist.get_backend() == "nccl" else "cpu")
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
             self.batch_rank = batch_coordinate(self.mesh)
         elif cfg.mesh.num_devices > 1:
@@ -114,6 +128,8 @@ class Trainer:
         self.master = self.rank == 0
         self.verbose = verbose = verbose and self.master
         self._fsdp = self.mesh is not None and is_fsdp(cfg)
+        self.tp = tensor_context(self.mesh) if self.mesh is not None else None
+        self.plan = tp_plan(cfg.model, self.tp.size) if self.tp is not None else None
 
         # data: synthetic shards when the data dir holds none (the master
         # writes them, the others wait)
@@ -143,7 +159,10 @@ class Trainer:
             m = cfg.mesh
             self.specs = param_specs(params, cfg.shard_params, m.fsdp, m.tensor, m.pipe,
                                      m.expert)
-            if self._fsdp:  # every rank keeps its shard of the same full tree
+            if self.tp is not None:  # every rank packs its tensor shard of the full tree
+                params = pack_tp(params, self.plan, self.tp.rank)
+                self.specs = executed_specs(self.specs, params, m.fsdp, self.plan)
+            if self._fsdp:  # and keeps its fsdp block of that
                 params = shard_params(params, self.specs, self.mesh.get_group("fsdp"))
         self.params = tree_map(lambda t: t.requires_grad_(), params)
         del params
@@ -190,19 +209,39 @@ class Trainer:
         xs, ys = zip(*(loader.next_batch() for _ in range(accum)))
         return self._to_device(np.stack(xs)), self._to_device(np.stack(ys))
 
-    def full_params(self) -> dict:
-        """The full parameter tree (gathered from the shards under FSDP: a
-        collective, so every rank calls it)."""
+    def local_params(self) -> dict:
+        """This rank's packed tensor shard of every leaf, whole over fsdp
+        (gathered from the shards under FSDP: a collective, so every rank
+        calls it); the full tree without a tensor axis."""
         if not self._fsdp:
             return self.params
         return gather_params(self.params, self.specs, self.mesh.get_group("fsdp"))
 
+    def full_params(self) -> dict:
+        """The full (logical) parameter tree: gathered over fsdp, then over
+        tensor and unpacked (collectives, so every rank calls it)."""
+        if self.tp is None:
+            return self.local_params()
+        group = self.mesh.get_group("fsdp") if self._fsdp else None
+        return gather_params(self.params, self.specs, group, self.tp, self.plan)
+
+    def _own(self, tree: dict) -> dict:
+        """This rank's shard of a full (logical) tree: packed over tensor,
+        narrowed over fsdp."""
+        if self.tp is not None:
+            tree = pack_tp(tree, self.plan, self.tp.rank)
+        if not self._fsdp:
+            return tree
+        group = self.mesh.get_group("fsdp")
+        index, size = dist.get_rank(group), dist.get_world_size(group)
+        return tree_map(lambda t, s: narrow_leaf(t, s, index, size), tree, self.specs)
+
     def validate(self) -> float:
         """The mean loss over ``val_steps`` validation batches (every rank's
-        rows, averaged over the ranks)."""
+        rows, averaged over the batch ranks)."""
         with self.tracer.span("eval", steps=self.cfg.val_steps):
             self.val_loader.reset()
-            params = self.full_params()
+            params = self.local_params()
             total = 0.0
             for _ in range(self.cfg.val_steps):
                 x, y = self.val_loader.next_batch()
@@ -302,12 +341,12 @@ class Trainer:
             params, opt_state = self.params, self.optimizer.state_dict()
             loaders = None
             if self.mesh is not None:
-                if self._fsdp:
-                    group = self.mesh.get_group("fsdp")
-                    params = gather_params(params, self.specs, group)
+                if self._fsdp or self.tp is not None:
+                    group = self.mesh.get_group("fsdp") if self._fsdp else None
+                    params = gather_params(params, self.specs, group, self.tp, self.plan)
                     ospecs = opt_state_specs(opt_state, self.specs)
-                    opt_state = {k: gather_params(v, ospecs[k], group) if ospecs[k] else v
-                                 for k, v in opt_state.items()}
+                    opt_state = {k: gather_params(v, ospecs[k], group, self.tp, self.plan)
+                                 if ospecs[k] else v for k, v in opt_state.items()}
                 pairs = [None] * self.world
                 dist.all_gather_object(pairs, (self.batch_rank, self.train_loader.state()))
                 by_rank = dict(pairs)
@@ -341,13 +380,9 @@ class Trainer:
         state = {"count": ck["opt_state"]["count"], "mu": ck["opt_state"]["mu"],
                  "nu": ck["opt_state"]["nu"]}
         params = ck["params"]
-        if self._fsdp:
-            group = self.mesh.get_group("fsdp")
-            index, size = dist.get_rank(group), dist.get_world_size(group)
-            own = lambda tree: tree_map(lambda t, s: narrow_leaf(t, s, index, size),
-                                        tree, self.specs)
-            params = own(params)
-            state["mu"], state["nu"] = own(state["mu"]), own(state["nu"])
+        if self._fsdp or self.tp is not None:
+            params = self._own(params)
+            state["mu"], state["nu"] = self._own(state["mu"]), self._own(state["nu"])
         with torch.no_grad():
             tree_map(lambda dst, src: dst.copy_(src), self.params, params)
         self.optimizer.load_state_dict(state)
@@ -365,3 +400,4 @@ class Trainer:
         if self.mesh is not None and dist.is_initialized():
             dist.destroy_process_group()
         self.mesh = None
+
