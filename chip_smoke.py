@@ -255,7 +255,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernel phase holds the SSD and flash kernels at hybrid-7b's per-rank
    head counts at tensor 2, 4 and 8, and the scan kernels at
    mamba1-280m's d_inner at tensor 2 (``check_tp_shapes``);
-9. print the serving and training numbers beside the card's name and
+9. expert parallel (``expert_phase``): hybrid-280m's widths made MoE (8
+   experts, top 2, d_intermediate 2048, capacity factor 1.25) cut to 16
+   layers through the port's Trainer, (a) one process, bf16, micro 8,
+   seq 1024, 3 steps, and (b) the same at mesh ``expert=2`` in two
+   processes sharing the card over gloo (``--expert-worker``), micro 4
+   each; (c, d) as (a, b) in fp32 at 4 layers, 2 steps.  (d)'s losses
+   and grad norms must be (c)'s within rtol 2e-4, (b)'s losses (a)'s
+   within 1e-3 and its grad norms within 2e-3, (d)'s keep masks of the
+   first MoE layer's first micro-batch (both ranks together) (c)'s but
+   at near ties, and every rank must launch the SSD and flash kernels
+   as often as the one-process run; the step ms, the all-to-alls of one
+   profiled step of (b) (count, bytes, their share of the step from the
+   trace's spans), the dropped choices and each rank's peak memory are
+   printed;
+10. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -4492,6 +4506,47 @@ def free_ports(n: int) -> list[int]:
             s.close()
 
 
+def run_workers(phase: str, wait_s: int, world: int = 2) -> list[dict]:
+    """Run ``python3 chip_smoke.py --{phase}-worker RANK WORLD PORTS DIR``
+    in ``world`` processes sharing this card (``LOCAL_RANK=0``, gloo on the
+    loopback, two free ports: one group a run), each rank's log in
+    ``build/chip_smoke/{phase}/log_{rank}.txt``; a rank that fails or
+    outlasts ``wait_s`` stops the phase with its log, and every rank is
+    killed on the way out.  Returns each rank's ``rank{r}.json``."""
+    import os
+    import shutil
+
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / phase
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ports = free_ports(2)
+    env = {**os.environ, "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo"}
+    procs, logs = [], [work / f"log_{r}.txt" for r in range(world)]
+    for r in range(world):
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), f"--{phase}-worker", str(r),
+                 str(world), ",".join(map(str, ports)), str(work)], env=env, stdout=lf,
+                stderr=subprocess.STDOUT))
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=wait_s)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:  # a dead rank leaves the other blocked in a collective
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if timed_out or p.returncode != 0:
+            raise SystemExit(f"{phase} phase: rank {r} {'timed out' if timed_out else 'exited '}"
+                             f"{'' if timed_out else p.returncode}; log:\n"
+                             + logs[r].read_text()[-4000:])
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+
+
 def tensor_phase(card: str) -> None:
     """Tensor parallelism on the card (phase 8): hybrid-280m at full width
     through the port's Trainer, (a) one process with no group, bf16, 64
@@ -4510,42 +4565,11 @@ def tensor_phase(card: str) -> None:
     also waits for the card to finish the work queued before it) and from
     a replay of the same all-reduces back to back (the collectives alone,
     on the host clock, over the step span), each rank's peak memory."""
-    import os
-    import shutil
-
     t0 = time.perf_counter()
     a = tensor_train(tensor_cfg("a", "bfloat16", None, 8, 1), 3, False)
     c = tensor_train(tensor_cfg("c", "float32", 8, 8, 1), 2, False)
     t_plain = time.perf_counter() - t0
-    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tensor"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    ports = free_ports(2)
-    env = {**os.environ, "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo"}
-    procs, logs = [], [work / f"log_{r}.txt" for r in range(2)]
-    for r in range(2):
-        with open(logs[r], "w") as lf:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--tensor-worker", str(r), "2",
-                 ",".join(map(str, ports)), str(work)], env=env, stdout=lf,
-                stderr=subprocess.STDOUT))
-    timed_out = False
-    try:
-        for p in procs:
-            p.wait(timeout=TP_WAIT_S)
-    except subprocess.TimeoutExpired:
-        timed_out = True
-    finally:
-        for p in procs:  # a dead rank leaves the other blocked in a collective
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        if timed_out or p.returncode != 0:
-            raise SystemExit(f"tensor phase: rank {r} {'timed out' if timed_out else 'exited '}"
-                             f"{'' if timed_out else p.returncode}; log:\n"
-                             + logs[r].read_text()[-4000:])
-    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    ranks = run_workers("tensor", TP_WAIT_S)
     t_tp = time.perf_counter() - t0 - t_plain
     fails = []
     # (tag, plain run, rtol on the losses, on the grad norms)
@@ -4597,6 +4621,258 @@ def tensor_phase(card: str) -> None:
           f"ranks {t_tp:.1f}) [{card}]", flush=True)
     if fails:
         raise SystemExit(f"tensor phase: {fails}")
+
+
+# ------------------------------------------- expert parallel over gloo (9)
+
+EP_WAIT_S = 420
+# the MoE made of hybrid-280m's widths (no preset: the JAX package has no
+# MoE preset): Mixtral-8x7B's routing (8 experts, top 2), d_intermediate
+# 8/3 d_model, the JAX defaults' capacity factor and aux weight
+EP_MOE = dict(d_intermediate=2048, moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+              moe_aux_weight=0.01)
+# a near tie: the k-th and (k+1)-th router probabilities closer than this
+EP_TIE = 1e-5
+
+
+def expert_cfg(tag: str, dtype: str, n_layer: int, micro: int, expert: int):
+    """hybrid-280m's widths made MoE (``EP_MOE``; pallas, remat), cut to
+    ``n_layer`` layers (16: attention at 3 and 11, hybrid-280m's every-8th
+    rule; 4: at 3), seq 1024, accum 1, at mesh ``expert``, one validation
+    batch, synthetic shards under build/chip_smoke/."""
+    from mamba_distributed_tpu_torch.config import (
+        DataConfig,
+        MeshConfig,
+        get_preset,
+        get_train_preset,
+    )
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    model = get_preset("hybrid-280m", ssm_impl="pallas", compute_dtype=dtype, remat=True,
+                       n_layer=n_layer, attn_layer_idx=(3, 11) if n_layer >= 12 else (3,),
+                       **EP_MOE)
+    return get_train_preset(
+        "hybrid-280m", model=model, mesh=MeshConfig(expert=expert), micro_batch_size=micro,
+        total_batch_size=micro * 1024 * expert, seq_len=1024, val_steps=1,
+        log_dir=str(root / f"log_expert_{tag}"),
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+
+
+def expert_train(cfg, steps: int, profile: bool) -> dict:
+    """``cfg`` through the port's Trainer on this process's card (one rank
+    of an expert group when one is up): ``steps`` steps from zeroed launch
+    counts; the first MoE layer's input of the first training micro-batch
+    is kept and routed again after the run (``lm.moe_route``: this rank's
+    keep mask and each token's margin between its k-th and (k+1)-th router
+    probabilities); then, with ``profile``, one more step under
+    ``torch.profiler`` (CPU and CUDA), the step and each expert-group
+    all-to-all in a ``record_function`` span of its own, ``EP_COMM``
+    zeroed before it.  Returns the history, launches, step ms, peak
+    memory, the keep mask and margins, and the trace's step and
+    all-to-all spans and device busy time."""
+    import gc
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from mamba_distributed_tpu_torch.models import lm
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel import collectives
+    from mamba_distributed_tpu_torch.parallel.mesh import route_context
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device=f"cuda:{torch.cuda.current_device()}")
+    out, first, moe_mlp = {}, [], lm._moe_mlp
+
+    def keep_first(params, cfg_, x, *args, **kw):  # the first training call's input
+        if not first and torch.is_grad_enabled():
+            first.append(({k: v.detach().clone() for k, v in params["router"].items()},
+                          x.detach().reshape(-1, x.shape[-1]).clone()))
+        return moe_mlp(params, cfg_, x, *args, **kw)
+
+    lm._moe_mlp = keep_first
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.run(max_steps=steps)
+        finally:
+            lm._moe_mlp = moe_mlp
+        out["launches"] = dict(LAUNCHES)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["hist"] = [trainer.history[s] for s in range(steps)]
+        router, xt = first[0]
+        with torch.no_grad():
+            route = lm.moe_route({"router": router}, cfg.model, xt, route_context(trainer.mesh)
+                                 if trainer.mesh is not None else None)
+        top = torch.topk(route.probs, cfg.model.moe_top_k + 1, dim=-1).values
+        out["keep"] = route.keep.int().tolist()
+        out["margin"] = (top[:, -2] - top[:, -1]).tolist()
+        out["cap"] = route.cap
+        out["coord"] = trainer.batch_rank
+        del first[:], route, xt
+        if profile:
+            x, y = trainer._batch(cfg.grad_accum_steps, trainer.train_loader)
+            torch.cuda.synchronize()
+            collectives.EP_COMM.update(calls=0, bytes=0, route_calls=0, route_bytes=0)
+            a2a = collectives._all_to_all
+
+            def spanned(*args):  # a span over the whole blocking call
+                with record_function("ep_all_to_all"):
+                    return a2a(*args)
+
+            collectives._all_to_all = spanned
+            try:
+                t0 = time.perf_counter()
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    with record_function("ep_train_step"):
+                        trainer.train_step(trainer.params, x, y)
+                        torch.cuda.synchronize()
+                out["profiled_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                collectives._all_to_all = a2a
+            out["ep_comm"] = dict(collectives.EP_COMM)
+            events = prof.key_averages()
+            spans = {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                     if e.key in ("ep_train_step", "ep_all_to_all")
+                     and e.device_type == DeviceType.CPU}
+            if set(spans) != {"ep_train_step", "ep_all_to_all"} or not all(
+                    ms > 0 for _, ms in spans.values()):
+                raise SystemExit(f"expert: the trace holds spans {spans}")
+            out["trace_step_ms"] = spans["ep_train_step"][1]
+            out["trace_a2a"] = spans["ep_all_to_all"]
+            out["device_busy_ms"] = sum(e.self_device_time_total for e in events
+                                        if e.device_type == DeviceType.CUDA
+                                        and e.key not in spans) / 1e3
+    finally:
+        trainer.finish()
+    if trainer.master and (Path(cfg.log_dir) / "metrics.jsonl").exists():
+        recs = [json.loads(s) for s in (Path(cfg.log_dir) / "metrics.jsonl").read_text()
+                .splitlines()]
+        out["step_ms"] = [r["step_ms"] for r in recs if r["kind"] == "train"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
+    """One rank of the expert phase's world (``--expert-worker``): two
+    processes on ``cuda:0`` over an explicitly requested gloo group.  Runs
+    (d) fp32 4 layers 2 steps, then (b) bf16 16 layers 3 steps and one
+    profiled step, each in a group of its own, and writes its results to
+    ``work/rank{rank}.json``."""
+    import os
+
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    res = {}
+    for tag, port, cfg, steps, prof in (
+            ("d", ports[0], expert_cfg("d", "float32", 4, 8 // world, world), 2, False),
+            ("b", ports[1], expert_cfg("b", "bfloat16", 16, 8 // world, world), 3, True)):
+        init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
+        res[tag] = expert_train(cfg, steps, prof)
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def expert_phase(card: str) -> None:
+    """Expert parallelism on the card (phase 9): hybrid-280m's widths made
+    MoE (``EP_MOE``) through the port's Trainer, (a) one process with no
+    group, bf16, 16 layers, micro 8, seq 1024, 3 steps; (b) the same at
+    mesh ``expert=2`` in two processes on ``cuda:0`` over gloo, micro 4
+    each (the same global rows); (c, d) as (a, b) in fp32 cut to 4 layers,
+    2 steps.  Fails unless (d)'s losses and pre-clip grad norms are (c)'s
+    within rtol 2e-4 (the JAX package's EP tolerance), (b)'s losses (a)'s
+    within 1e-3 and its grad norms within 2e-3, (d)'s two keep masks of
+    the first MoE layer's first micro-batch, concatenated, are (c)'s but
+    at near ties (tokens whose k-th and (k+1)-th router probabilities lie
+    within ``EP_TIE``: counted and printed), every rank launches the SSD
+    and flash kernels as often as the one-process run, and both ranks
+    exit 0 in time.  Prints the step ms, the all-to-alls of one profiled
+    step of (b) (count, bytes, and their share of the step from the
+    trace's spans: an upper bound, since each blocking all-to-all also
+    waits for the card's queued work), the dropped choices and each
+    rank's peak memory."""
+    t0 = time.perf_counter()
+    a = expert_train(expert_cfg("a", "bfloat16", 16, 8, 1), 3, False)
+    c = expert_train(expert_cfg("c", "float32", 4, 8, 1), 2, False)
+    t_plain = time.perf_counter() - t0
+    ranks = sorted(run_workers("expert", EP_WAIT_S), key=lambda r: r["d"]["coord"])
+    t_ep = time.perf_counter() - t0 - t_plain
+    fails = []
+    for tag, plain, tol, ntol, what in (("d", c, 2e-4, 2e-4, "fp32 4 layers"),
+                                        ("b", a, 1e-3, 2e-3, "bf16 16 layers")):
+        ref = np.array(plain["hist"])
+        for r, res in enumerate(ranks):
+            got = np.array(res[tag]["hist"])
+            gap = np.abs(got - ref) / np.abs(ref)
+            print(f"expert ({tag}) {what} rank {r}: losses {got[:, 0].tolist()} against "
+                  f"{ref[:, 0].tolist()}, grad norms {got[:, 1].tolist()} against "
+                  f"{ref[:, 1].tolist()}; largest gap rel loss {gap[:, 0].max():.3e}, "
+                  f"grad norm {gap[:, 1].max():.3e} (tol {tol:.0e} on the losses, "
+                  f"{ntol:.0e} on the grad norms)", flush=True)
+            if (not np.isfinite(got).all() or gap[:, 0].max() > tol
+                    or gap[:, 1].max() > ntol):
+                fails.append(f"({tag}) rank {r}: rel loss {gap[:, 0].max():.3e} (tol {tol:.0e}), "
+                             f"grad norm {gap[:, 1].max():.3e} (tol {ntol:.0e})")
+            for k in TP_KERNELS:
+                if not 0 < plain["launches"][k] == res[tag]["launches"][k]:
+                    fails.append(f"({tag}) rank {r} {k} launches {res[tag]['launches'][k]}, "
+                                 f"plain {plain['launches'][k]}")
+    # the kept choices of the first MoE layer's first micro-batch: (d)'s two
+    # ranks together against (c), but at near ties; dropped counts of all four
+    for tag, plain in (("d", c), ("b", a)):
+        keep = np.array(plain["keep"], dtype=bool)
+        got = np.concatenate([np.array(res[tag]["keep"], dtype=bool) for res in ranks])
+        tie = np.array(plain["margin"]) < EP_TIE
+        differ = (got != keep).any(-1)
+        print(f"expert ({tag}) first MoE layer, first micro-batch: capacity {plain['cap']} "
+              f"slots an expert ({ranks[0][tag]['cap']} on the ranks), dropped choices "
+              f"{int((~keep).sum())} of {keep.size} in one process, "
+              f"{int((~got).sum())} over the two ranks; tokens whose kept choices differ "
+              f"{int(differ.sum())}, of them at a near tie (k-th and (k+1)-th router "
+              f"probabilities within {EP_TIE:.0e}) {int((differ & tie).sum())}; near ties "
+              f"{int(tie.sum())}", flush=True)
+        if tag == "d" and ((differ & ~tie).any() or ranks[0][tag]["cap"] != plain["cap"]):
+            fails.append(f"(d) keep masks differ from (c)'s at {int((differ & ~tie).sum())} "
+                         f"tokens that are not near ties")
+    b0 = ranks[0]["b"]
+    print(f"expert hybrid-280m-MoE 16 layers bf16 micro=8 seq=1024: step ms (a) one process "
+          f"{a['step_ms']}, (b) expert=2 over gloo on one card (micro 4 a rank) "
+          f"{b0['step_ms']} [{card}]", flush=True)
+    comm, step_ms = b0["ep_comm"], b0["trace_step_ms"]
+    n_spans, span_ms = b0["trace_a2a"]
+    if n_spans != comm["calls"]:
+        fails.append(f"(b) the trace holds {n_spans} all-to-all spans, the step made "
+                     f"{comm['calls']}")
+    print(f"expert (b) one profiled step of rank 0: {comm['calls']} expert-group all-to-alls, "
+          f"{comm['bytes']} bytes sent; {comm['route_calls']} routing exchanges (count "
+          f"all-gathers and load-balance sums over the batch ranks), {comm['route_bytes']} "
+          f"bytes; torch.profiler trace: step span {step_ms:.1f} ms (host clock around the "
+          f"profile {b0['profiled_ms']:.1f} ms), {n_spans} all-to-all spans {span_ms:.1f} ms, "
+          f"{span_ms / step_ms:.3f} of the step (upper bound: each also waits for the card's "
+          f"queued work); device busy {b0['device_busy_ms']:.1f} ms "
+          f"({b0['device_busy_ms'] / step_ms:.3f} of the step) [{card}]", flush=True)
+    print(f"expert peak max_memory_allocated: (a) {a['peak_gib']:.2f} GiB, (b) rank 0 "
+          f"{ranks[0]['b']['peak_gib']:.2f}, rank 1 {ranks[1]['b']['peak_gib']:.2f}; (c) "
+          f"{c['peak_gib']:.2f}, (d) {ranks[0]['d']['peak_gib']:.2f} / "
+          f"{ranks[1]['d']['peak_gib']:.2f} [{card}]", flush=True)
+    print(f"expert launches (a) {a['launches']}, (b) rank 0 {ranks[0]['b']['launches']}",
+          flush=True)
+    print(f"expert phase: {time.perf_counter() - t0:.1f} s (plain runs {t_plain:.1f}, the two "
+          f"ranks {t_ep:.1f}) [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"expert phase: {fails}")
 
 
 def check_tp_shapes(gen) -> None:
@@ -4712,14 +4988,16 @@ def main() -> int:
                     help="build and check the kernels, skip the serving and training runs")
     ap.add_argument("--tensor-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of tensor_phase's world
+    ap.add_argument("--expert-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of expert_phase's world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    if args.tensor_worker:
-        rank, world, ports, work = args.tensor_worker
-        return tensor_worker(int(rank), int(world), [int(p) for p in ports.split(",")],
-                             Path(work))
+    for worker, fn in ((args.tensor_worker, tensor_worker), (args.expert_worker, expert_worker)):
+        if worker:
+            rank, world, ports, work = worker
+            return fn(int(rank), int(world), [int(p) for p in ports.split(",")], Path(work))
     from mamba_distributed_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4857,6 +5135,7 @@ def main() -> int:
                                "hybrid-280m int8": q8})
         parallel_phase(card)
         tensor_phase(card)
+        expert_phase(card)
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

@@ -8,11 +8,12 @@ from one keyword dict.  Pure Mamba-2 and Mamba-1 stacks and hybrid
 stacks (attention layers at ``attn_layer_idx``: full-sequence attention
 in training and one-shot prefill, a paged KV cache in decode), with or
 without a gated MLP or a token-choice MoE after each mixer
-(``d_intermediate``, ``moe_*``), are served and trained on one device,
-with multi-tenant LoRA adapters in serving (``lora_*``,
-``tenant_max_slots``).  Mesh sizes above 1 and the online-tuning
-``tune_*`` fields are left out, and a config the port cannot run raises
-at construction with the reason.
+(``d_intermediate``, ``moe_*``), are served on one device, with
+multi-tenant LoRA adapters in serving (``lora_*``, ``tenant_max_slots``),
+and trained on one device or over the ``data``, ``fsdp``, ``tensor`` and
+``expert`` mesh axes.  The ``seq`` and ``pipe`` axes and the
+online-tuning ``tune_*`` fields are left out, and a config the port
+cannot run raises at construction with the reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -43,8 +44,9 @@ class ModelConfig:
     # 0 => no MLP between mixers (the pure mixer stack)
     d_intermediate: int = 0
     # --- MoE: 0 => dense gated MLP; > 1 => the MLP becomes a token-choice
-    # top-k mixture of experts (dense dispatch and combine, as in the JAX
-    # package; experts are not sharded: the port trains on one device) ---
+    # top-k mixture of experts (dense dispatch and combine on one device, as
+    # in the JAX package; over a mesh the routing is global over the batch
+    # ranks and mesh.expert shards the experts, models/lm._moe_mlp) ---
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -544,9 +546,12 @@ class MeshConfig:
     tensor - tensor parallel: every mixer and FFN on its ranks' own heads of
              a packed per-rank layout (parallel/tp_layout.py); the ranks of
              one tensor group read the same batch rows
-    seq, pipe, expert - the JAX package's sequence, pipeline and expert
-            axes; the port trains with each of them at 1 (``TrainConfig``
-            refuses more, naming the slice that adds it)
+    expert - expert parallel: the MoE's experts sharded over it, the
+             routed rows moved by all-to-alls; a batch axis for every other
+             layer
+    seq, pipe - the JAX package's sequence and pipeline axes; the port
+            trains with each of them at 1 (``TrainConfig`` refuses more,
+            naming the slice that adds it)
     """
 
     data: int = 1
@@ -727,7 +732,6 @@ _LATER_AXES = {
     "seq": "sequence parallelism (sp_conv1d, sp_ssd, sp_selective_scan, ring and "
            "Ulysses attention on the port's kernels)",
     "pipe": "the pipeline (lm_loss_pipelined and its schedule)",
-    "expert": "expert parallelism (the MoE's all-to-all dispatch)",
 }
 
 
@@ -735,9 +739,9 @@ _LATER_AXES = {
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
     the JAX package's ``TrainConfig``).  The port trains over the
-    ``data``, ``fsdp`` and ``tensor`` mesh axes (``parallel/``, one
-    ``torch.distributed`` rank per device), alone or together; a
-    ``seq``, ``pipe`` or ``expert`` axis above 1 passes the JAX package's
+    ``data``, ``fsdp``, ``tensor`` and ``expert`` mesh axes
+    (``parallel/``, one ``torch.distributed`` rank per device), alone or
+    together; a ``seq`` or ``pipe`` axis above 1 passes the JAX package's
     checks and is then refused, naming the slice that adds it.  Like the
     JAX package, no check asks the tensor size to divide the heads: a
     block whose heads it does not divide runs whole on each tensor rank
@@ -814,8 +818,8 @@ class TrainConfig:
         later = {k: getattr(m, k) for k in _LATER_AXES if getattr(m, k) != 1}
         if later:
             raise ValueError(
-                f"mesh axes {later}: the PyTorch port trains over data, fsdp and "
-                f"tensor only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
+                f"mesh axes {later}: the PyTorch port trains over data, fsdp, "
+                f"tensor and expert only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
                 + ", each a later slice")
         if self.micro_batch_size < 1 or self.seq_len < 1:
             raise ValueError(

@@ -101,7 +101,13 @@ from mamba_distributed_tpu_torch.models.mamba2 import (
 )
 from mamba_distributed_tpu_torch.ops.norm import add_rms_norm, rms_norm
 from mamba_distributed_tpu_torch.ops.remat import remat_block
-from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from mamba_distributed_tpu_torch.parallel.collectives import (
+    all_to_all,
+    copy_to_tp,
+    gather_counts,
+    reduce_from_tp,
+    route_sum,
+)
 from mamba_distributed_tpu_torch.parallel.tp_layout import block_tp
 
 
@@ -233,7 +239,8 @@ def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, compute_dtype) -> tor
     return torch.einsum(eq, a.to(compute_dtype).float(), b.to(compute_dtype).float())
 
 
-def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=None):
+def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=None,
+             route=None, ep=None):
     """Token-choice top-k mixture of gated-MLP experts -> (out, aux), in
     the JAX package's dense-dispatch formulation (lm.py:151-208):
     every choice takes the next slot of its expert's queue, primary
@@ -247,33 +254,34 @@ def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=
     rank: the gate weights' gradient (partial: it reads this rank's
     expert outputs) is summed over the group where they enter the
     combine, and the router reads ``x`` before ``copy_to_tp``, so only
-    the experts' share of x's gradient is summed."""
+    the experts' share of x's gradient is summed.
+
+    With ``route`` (``parallel/mesh.RouteContext``: the batch ranks of a
+    mesh) ``x`` is this rank's block of the global micro-batch and the
+    routing is the JAX package's on the whole of it (``_moe_routed``);
+    with ``ep`` (``EPContext``) this rank holds only its block of the
+    experts."""
+    if route is not None:
+        return _moe_routed(params, cfg, x, compute_dtype, tp, route, ep)
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     b, t, d = x.shape
     n = b * t
-    cap = max(1, -(-int(cfg.moe_capacity_factor * k * n) // E))
     xt = x.reshape(n, d)
-    probs = torch.softmax(linear(params["router"], xt, torch.float32), dim=-1)  # (n, E)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (n, k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    oh = F.one_hot(gate_idx, E).float()  # (n, k, E)
-    ohf = oh.transpose(0, 1).reshape(k * n, E)  # in priority order
-    pos = ((ohf.cumsum(0) - ohf) * ohf).sum(-1).reshape(k, n).t()  # (n, k)
-    keep = (pos < cap).float()
-    gate_vals = gate_vals * keep
+    r = moe_route(params, cfg, xt)
+    cap, probs = r.cap, r.probs
+    oh = F.one_hot(r.gate_idx, E).float()  # (n, k, E)
+    keep = r.keep.float()
+    gate_vals = r.gate_vals * keep
     # (n, k, E, C) one-hot over (expert, slot) -> dispatch / combine (n, E, C);
     # a dropped choice's slot is clipped into range, then masked by keep
-    slot = F.one_hot(pos.long().clamp_max(cap - 1), cap).float()
+    slot = F.one_hot(r.pos.clamp_max(cap - 1), cap).float()
     sel = oh[..., None] * slot[:, :, None, :] * keep[..., None, None]
     dispatch = sel.sum(1)
     combine = (sel * copy_to_tp(gate_vals, tp)[..., None, None]).sum(1)
 
     cd = compute_dtype
     xe = _einsum_f32("nd,nec->ecd", copy_to_tp(xt, tp), dispatch, cd).to(cd)
-    y, gate = _einsum_f32("ecd,edf->ecf", xe, params["w1"], cd).chunk(2, dim=-1)
-    h = (y * F.silu(gate)).to(cd)
-    ye = _einsum_f32("ecf,efd->ecd", h, params["w2"], cd)  # (E, C, d)
+    ye = _experts(params, xe, cd)  # (E, C, d)
     out = reduce_from_tp(torch.einsum("nec,ecd->nd", combine, ye), tp)
 
     f = oh.sum(1).mean(0)  # share of choices routed to each expert
@@ -281,16 +289,151 @@ def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=
     return out.reshape(b, t, d).to(x.dtype), aux
 
 
-def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None, tp=None):
+def _route_topk(params: dict, xt: torch.Tensor, k: int):
+    """The router: fp32 probabilities (n, E), their top k and the gate
+    weights renormalized over them."""
+    probs = torch.softmax(linear(params["router"], xt, torch.float32), dim=-1)  # (n, E)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (n, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate_vals, gate_idx, probs
+
+
+def _experts(params: dict, xe: torch.Tensor, cd) -> torch.Tensor:
+    """The experts' gated MLPs on their slots (E, C, d) -> fp32 (E, C, d)."""
+    y, gate = _einsum_f32("ecd,edf->ecf", xe, params["w1"], cd).chunk(2, dim=-1)
+    h = (y * F.silu(gate)).to(cd)
+    return _einsum_f32("ecf,efd->ecd", h, params["w2"], cd)
+
+
+def moe_queue(counts: torch.Tensor, cap: int):
+    """The global queue of every batch rank's choices from their (R, k, E)
+    integer counts (rank r's tokens are the r-th block of the global
+    micro-batch): (first, kept), each (R, k, E).  ``first[r, j, e]`` is
+    the slot of rank r's first choice-j row at expert e in the JAX
+    package's priority order (every choice-j row of every rank after
+    every choice-(j-1) row; within one choice, ranks in order); its rows
+    take the next slots in token order, and ``kept`` of them fit under
+    ``cap``."""
+    total = counts.sum(0)  # (k, E)
+    first = (total.cumsum(0) - total)[None] + (counts.cumsum(0) - counts)
+    kept = (cap - first).clamp(min=0).minimum(counts)
+    return first, kept
+
+
+class MoERoute(NamedTuple):
+    """One rank's routing of its block of the global micro-batch."""
+
+    gate_vals: torch.Tensor  # (n, k) fp32, renormalized over the top k
+    gate_idx: torch.Tensor   # (n, k) experts
+    probs: torch.Tensor      # (n, E) fp32
+    pos: torch.Tensor        # (n, k) global slots in the experts' queues
+    keep: torch.Tensor       # (n, k) bool: the slot is under the capacity
+    first: torch.Tensor      # (R, k, E) from moe_queue
+    kept: torch.Tensor       # (R, k, E)
+    cap: int
+
+
+def moe_route(params: dict, cfg: ModelConfig, xt: torch.Tensor, route=None) -> MoERoute:
+    """The routing of this rank's tokens ``xt`` (n, d) over the batch
+    ranks of ``route`` (None: one device, the tokens are the whole
+    micro-batch), as the JAX package routes the concatenated global
+    micro-batch: the capacity counts the global tokens, and a choice's
+    slot is its expert's count of the earlier choices, of the earlier
+    ranks' same choice and the local exclusive cumsum (``moe_queue``, from
+    every rank's (k, E) counts, all-gathered): exact integers, the JAX
+    package's float cumsum of one-hots."""
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    n = xt.shape[0]
+    size, coord = (1, 0) if route is None else (route.size, route.coord)
+    cap = max(1, -(-int(cfg.moe_capacity_factor * k * n * size) // E))
+    gate_vals, gate_idx, probs = _route_topk(params, xt, k)
+    oh = F.one_hot(gate_idx, E)  # (n, k, E) int64
+    counts = oh.sum(0)[None] if route is None else gather_counts(oh.sum(0), route.group, size)
+    first, kept = moe_queue(counts, cap)  # counts (R, k, E)
+    pos = ((oh.cumsum(0) - oh + first[coord]) * oh).sum(-1)
+    return MoERoute(gate_vals, gate_idx, probs, pos, pos < cap, first, kept, cap)
+
+
+def _moe_routed(params: dict, cfg: ModelConfig, x: torch.Tensor, cd, tp, route, ep):
+    """``_moe_mlp`` over the batch ranks of ``route``: the result of the
+    JAX package's ``_moe_mlp`` on the concatenated global micro-batch,
+    for this rank's rows.
+
+    The routing is ``moe_route``'s.  The load-balance sums are summed
+    over the batch ranks both ways (``route_sum``) and divided by the
+    global token count.
+
+    The kept (token, choice) rows go, in the compute dtype (JAX's ``xe``),
+    ordered by (expert, slot), to the rank that holds their expert: with
+    ``ep`` the expert rank of this rank's expert group, by one
+    all-to-all whose split sizes, like every received row's slot, every
+    rank reads off the gathered counts (so only the rows cross); without
+    ``ep``, this rank.  The expert rank scatters them into its (E/ep, C,
+    d) slots at their global slot, runs its experts' gated MLPs and
+    gathers the fp32 outputs back in received order; the reverse
+    all-to-all returns them, and the gate weights combine them at their
+    source rank."""
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    b, t, d = x.shape
+    n = b * t
+    xt = x.reshape(n, d)
+    r = moe_route(params, cfg, xt, route)
+    cap, first, kept = r.cap, r.first, r.kept
+
+    # this rank's kept rows, ordered by (expert, slot)
+    tok, ch = r.keep.nonzero(as_tuple=True)
+    expert, slot = r.gate_idx[tok, ch], r.pos[tok, ch]
+    order = torch.argsort(expert * cap + slot)
+    tok, ch = tok[order], ch[order]
+    rows = copy_to_tp(xt, tp).to(cd)[tok]
+    gate = copy_to_tp(r.gate_vals, tp)[tok, ch]
+
+    # the sources of the rows this rank's experts take, in order
+    size, rank = (1, 0) if ep is None else (ep.size, ep.rank)
+    el = E // size
+    srcs = torch.arange(size, device=x.device) + route.coord - rank
+    if ep is not None:
+        per_rank = kept.sum(1).reshape(route.size, size, el).sum(-1).tolist()  # (R, size)
+        send = per_rank[route.coord]
+        recv = [per_rank[s][rank] for s in srcs.tolist()]
+        rows = all_to_all(rows, send, recv, ep)
+    # received rows: by source, then local expert, then choice, then slot
+    mine = slice(rank * el, (rank + 1) * el)
+    starts = first[srcs][:, :, mine].transpose(1, 2).reshape(-1)  # (size, el, k)
+    lengths = kept[srcs][:, :, mine].transpose(1, 2).reshape(-1)
+    local_e = torch.arange(el, device=x.device).repeat_interleave(k).repeat(size)
+    offsets = lengths.cumsum(0) - lengths
+    total = int(lengths.sum()) if ep is None else sum(recv)
+    within = torch.arange(total, device=x.device) - offsets.repeat_interleave(lengths, 0,
+                                                                              output_size=total)
+    flat = (local_e * cap + starts).repeat_interleave(lengths, 0, output_size=total) + within
+
+    xe = rows.new_zeros((el * cap, d)).index_copy(0, flat, rows).reshape(el, cap, d)
+    ye = _experts(params, xe, cd).reshape(el * cap, d)[flat]  # fp32, received order
+    if ep is not None:
+        ye = all_to_all(ye, recv, send, ep)
+    out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    out = reduce_from_tp(out.index_add(0, tok, ye * gate[:, None]), tp)
+
+    # the Switch aux over the global micro-batch: global f and P
+    f = F.one_hot(r.gate_idx, E).sum((0, 1)).float()
+    f, p_mean = route_sum(torch.stack([f, r.probs.sum(0)]), route) / (n * route.size)
+    aux = E * (f * p_mean).sum() / k
+    return out.reshape(b, t, d).to(x.dtype), aux
+
+
+def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None, tp=None,
+         route=None, ep=None):
     """The block's second half (lm.py:281-297): add + ``norm2``, then the
     gated MLP or the MoE -> (hidden, residual, aux or None).  The stream
     is carried in ``residual_dtype`` (default: the config's); ``tp``: the
-    tensor group, when the FFN splits over it."""
+    tensor group, when the FFN splits over it; ``route`` and ``ep``: the
+    MoE's batch ranks and expert group (``_moe_mlp``)."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm2"]["weight"], cfg.norm_eps,
                                     residual_dtype=residual_dtype or _residual_dtype(cfg))
     cd = cfg.torch_compute_dtype
     if cfg.moe_num_experts:
-        hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd, tp)
+        hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd, tp, route, ep)
         return hidden, residual, aux
     return _gated_mlp(bp["mlp"], normed, cd, tp), residual, None
 
@@ -350,23 +493,27 @@ def count_params(params: dict) -> int:
     return params.numel()
 
 
-def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool, tp=None):
+def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool, tp=None,
+                 route=None, ep=None):
     """One prenorm block in the single-carry form of the JAX
     ``_backbone`` (lm.py:437-444): the post-add stream -> (the next one,
     the MoE aux term or None), through the attention mixer at an
     attention layer.  ``tp``: the tensor group (``TPContext``); the
     mixer and the FFN each split over it when their heads divide by its
-    size and run whole otherwise (``tp_layout.block_tp``)."""
+    size and run whole otherwise (``tp_layout.block_tp``).  ``route`` and
+    ``ep``: the MoE's batch ranks and expert group (``_moe_mlp``)."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
     mixer = attention_mixer if attn else _MIXERS[cfg.ssm_layer].forward
     mixer_tp = block_tp(tp, cfg, "attn" if attn else "ssm")
     hidden, aux = mixer(bp["mixer"], cfg, normed, tp=mixer_tp), None
     if cfg.d_intermediate > 0:
-        hidden, res, aux = _ffn(bp, cfg, hidden, res, tp=block_tp(tp, cfg, "ffn"))
+        hidden, res, aux = _ffn(bp, cfg, hidden, res, tp=block_tp(tp, cfg, "ffn"),
+                                route=route, ep=ep)
     return res + hidden.to(res.dtype), aux
 
 
-def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None):
+def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None, route=None,
+              ep=None):
     """Embedding -> layer stack in global order -> (the post-add stream
     before the final norm, the sum of the MoE aux terms or None)
     (lm.py:415-519; the JAX periodic-hybrid scan over supersteps and its
@@ -374,7 +521,9 @@ def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None):
     autograd on, each block is checkpointed as a whole under
     ``cfg.remat_policy`` (ops/remat.py), as the JAX ``mbody``/``abody``;
     under ``tp`` a recompute runs the block's forward all-reduces again,
-    in the same order on every tensor rank."""
+    in the same order on every tensor rank, and under ``route``/``ep``
+    the MoE's count exchange and all-to-alls, which route exactly as the
+    forward did (the slots come from integer counts)."""
     res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
     mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
@@ -384,9 +533,10 @@ def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None):
     for attn, j in _layer_plan(cfg):
         bp = ablocks[j] if attn else mblocks[j]
         if remat:
-            res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn, tp)
+            res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn, tp,
+                                   route, ep)
         else:
-            res, aux = _train_block(bp, cfg, res, attn, tp)
+            res, aux = _train_block(bp, cfg, res, attn, tp, route, ep)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return res, aux_total
@@ -418,7 +568,7 @@ def _mean_aux(cfg: ModelConfig, aux_total, like: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-               return_aux: bool = False, tp=None):
+               return_aux: bool = False, tp=None, route=None, ep=None):
     """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542)
     [, the per-layer mean of the MoE aux terms, 0 for a dense model].
 
@@ -427,9 +577,10 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     logits (lm.py:538), and a product autograd differentiates.  ``tp``:
     this rank's packed params over the tensor group
     (``parallel/tp_layout.py``); the head is replicated, so every tensor
-    rank returns the whole logits."""
+    rank returns the whole logits.  ``route``/``ep``: this rank's block
+    of the global micro-batch and its experts (``_moe_mlp``)."""
     cd = cfg.torch_compute_dtype
-    res, aux_total = _backbone(params, cfg, input_ids, tp)
+    res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep)
     normed = _final_norm(params, cfg, res)
     if cfg.tie_embeddings:
         logits = normed.to(cd) @ params["embedding"].to(cd).t()
@@ -441,7 +592,7 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-            targets: torch.Tensor, tp=None) -> torch.Tensor:
+            targets: torch.Tensor, tp=None, route=None, ep=None) -> torch.Tensor:
     """Mean cross-entropy in fp32 against the loader's pre-shifted
     targets, plus ``moe_aux_weight`` times the mean MoE aux term for a
     MoE model (lm.py:545-586).  ``loss_impl="dense"``: one head product,
@@ -450,12 +601,13 @@ def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     if cfg.loss_impl == "blocked":
         from mamba_distributed_tpu_torch.ops.loss import blocked_cross_entropy
 
-        res, aux_total = _backbone(params, cfg, input_ids, tp)
+        res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep)
         ce = blocked_cross_entropy(_final_norm(params, cfg, res), _head_matrix(params, cfg),
                                    targets, cfg.loss_vocab_blocks, cfg.torch_compute_dtype)
         aux = _mean_aux(cfg, aux_total, res)
     else:
-        logits, aux = lm_forward(params, cfg, input_ids, return_aux=True, tp=tp)
+        logits, aux = lm_forward(params, cfg, input_ids, return_aux=True, tp=tp,
+                                 route=route, ep=ep)
         lf = logits.float()
         tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
         ce = (torch.logsumexp(lf, dim=-1) - tgt).mean()

@@ -1,11 +1,17 @@
-"""The collectives of data-parallel, FSDP and tensor-parallel training.
+"""The collectives of data-parallel, FSDP, tensor-parallel and
+expert-parallel training.
 
 The JAX package has no counterpart: XLA inserts these itself from the
 shardings.  Tensor parallelism's three autograd Functions over the
 tensor group (``copy_to_tp``, ``reduce_from_tp``, ``all_reduce_tp``)
 are the identity when the block has no group (``tp=None``); every
 all-reduce they run, and the step's gradient and norm sums over the
-tensor group, add to ``TP_COMM``.  ``torch.distributed`` gathers and scatters along dim 0, so
+tensor group, add to ``TP_COMM``.  The MoE's global routing exchanges
+each rank's per-expert choice counts (``gather_counts``) and sums its
+load-balance terms both ways (``route_sum``) over the batch ranks;
+expert parallelism moves the routed rows with ``all_to_all`` over the
+expert group, whose backward is the reverse all-to-all.  All three add
+to ``EP_COMM``.  ``torch.distributed`` gathers and scatters along dim 0, so
 a leaf whose fsdp axis is another one moves that axis to the front
 (contiguous), goes through the collective and moves it back.  Means
 are ``ReduceOp.AVG``, which NCCL computes as a pre-multiplied sum
@@ -189,34 +195,122 @@ def sum_shared_(grads: list, plans: list, group) -> None:
 
 
 def tp_global_norm(grads: list, plans: list, fsdp_cut: list, tensor_group,
-                   fsdp_group=None) -> torch.Tensor:
+                   fsdp_group=None, expert_cut: list | None = None,
+                   expert_group=None) -> torch.Tensor:
     """``optimizer.global_norm`` of the full gradients from this rank's
-    packed (and, where ``fsdp_cut``, fsdp-sharded) leaves: the positions
-    a tensor rank holds alone count once per shard (summed over the
-    tensor group), the replicated ones once; the leaves fsdp cuts are
-    summed over ``fsdp_group`` as well."""
+    packed (and, where ``fsdp_cut``, fsdp-sharded; where ``expert_cut``,
+    expert-sharded) leaves: the positions a tensor rank holds alone
+    count once per shard (summed over the tensor group; with no tensor
+    group every leaf is ``"full"``), the replicated ones once; the
+    leaves fsdp cuts are summed over ``fsdp_group`` as well, and those
+    the expert axis cuts over ``expert_group``."""
     zero = grads[0].new_zeros((), dtype=torch.float32)
-    # [own positions, replicated positions] x [fsdp-cut, whole]
-    acc = [[zero, zero], [zero, zero]]
-    for g, lp, cut in zip(grads, plans, fsdp_cut):
+    # [own positions, replicated positions] x [fsdp-cut, whole] x [expert-cut, whole]
+    acc = [[[zero, zero], [zero, zero]], [[zero, zero], [zero, zero]]]
+    for i, (g, lp, cut) in enumerate(zip(grads, plans, fsdp_cut)):
         g = g.float()
         col = 0 if cut else 1
+        ex = 0 if expert_cut is not None and expert_cut[i] else 1
         if lp.kind == "full":
-            acc[1][col] = acc[1][col] + g.square().sum()
+            acc[1][col][ex] = acc[1][col][ex] + g.square().sum()
             continue
         if lp.kind == "partial":
             ax = g.ndim + lp.axis
             own = torch.as_tensor(lp.own, dtype=torch.long, device=g.device)
             shared = torch.as_tensor(lp.shared, dtype=torch.long, device=g.device)
-            acc[1][col] = acc[1][col] + g.index_select(ax, shared).square().sum()
+            acc[1][col][ex] = acc[1][col][ex] + g.index_select(ax, shared).square().sum()
             g = g.index_select(ax, own)
-        acc[0][col] = acc[0][col] + g.square().sum()
-    if fsdp_group is not None:
-        cut = torch.stack([acc[0][0], acc[1][0]])
-        dist.all_reduce(cut, op=dist.ReduceOp.SUM, group=fsdp_group)
-        acc[0][0], acc[1][0] = cut[0], cut[1]
-    own = tp_all_reduce_((acc[0][0] + acc[0][1]).reshape(1), tensor_group)[0]
-    return torch.sqrt(own + acc[1][0] + acc[1][1])
+        acc[0][col][ex] = acc[0][col][ex] + g.square().sum()
+    # the fsdp-cut terms summed over fsdp, then the expert-cut ones over expert
+    for group, picks in ((fsdp_group, [(o, 0, e) for o in (0, 1) for e in (0, 1)]),
+                         (expert_group, [(o, c, 0) for o in (0, 1) for c in (0, 1)])):
+        if group is None:
+            continue
+        part = torch.stack([acc[o][c][e] for o, c, e in picks])
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+        for j, (o, c, e) in enumerate(picks):
+            acc[o][c][e] = part[j]
+    own, cut, whole = ((acc[o][c][0] + acc[o][c][1]) for o, c in ((0, 0), (1, 0), (1, 1)))
+    own = own + acc[0][1][0] + acc[0][1][1]
+    if tensor_group is not None:
+        own = tp_all_reduce_(own.reshape(1), tensor_group)[0]
+    return torch.sqrt(own + cut + whole)
+
+
+# the MoE's routing exchanges over the batch ranks (the choice counts, the
+# load-balance sums) and its all-to-alls over the expert group since the
+# last reset: count and bytes (sent by this rank)
+EP_COMM = {"calls": 0, "bytes": 0, "route_calls": 0, "route_bytes": 0}
+
+
+def gather_counts(counts: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every batch rank's (k, E) integer choice counts, stacked in the
+    group's rank order: (size, k, E).  One all-gather; it also gives
+    every rank the split sizes of every all-to-all of the layer."""
+    EP_COMM["route_calls"] += 1
+    EP_COMM["route_bytes"] += counts.numel() * counts.element_size()
+    out = counts.new_empty((size * counts.shape[0], *counts.shape[1:]))
+    _all_gather(out, counts.contiguous(), group=group)
+    return out.reshape(size, *counts.shape)
+
+
+def _route_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    EP_COMM["route_calls"] += 1
+    EP_COMM["route_bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _RouteSum(torch.autograd.Function):
+    """Sum over the batch ranks both ways: the load-balance sums feed
+    every rank's loss, so each rank's gradient of them is its own loss's
+    share (the step's batch mean then gives the global gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _route_all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _route_all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def route_sum(x: torch.Tensor, route) -> torch.Tensor:
+    """``x`` summed over the batch ranks of ``route`` (``RouteContext``),
+    gradient summed too."""
+    return _RouteSum.apply(x, route.group)
+
+
+def _all_to_all(x: torch.Tensor, send: list, recv: list, group) -> torch.Tensor:
+    """Rows ``x`` cut into ``send[i]`` rows for expert rank i; returns the
+    ``recv[i]`` rows from each rank i, in rank order."""
+    EP_COMM["calls"] += 1
+    EP_COMM["bytes"] += x.numel() * x.element_size()
+    out = x.new_empty((sum(recv), *x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), recv, send, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The expert group's all-to-all of routed rows; its backward sends
+    the rows' gradients back the way they came."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _all_to_all(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.recv, ctx.send, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, send: list, recv: list, ep) -> torch.Tensor:
+    """``x``'s rows, ``send[i]`` of them for rank i of the expert group
+    ``ep`` (``EPContext``), exchanged for the ``recv[i]`` rows each rank
+    i sends this one (differentiable)."""
+    return _AllToAll.apply(x, send, recv, ep.group)
 
 
 def all_gather_list(t: torch.Tensor, group) -> list:

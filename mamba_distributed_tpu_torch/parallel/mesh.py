@@ -4,13 +4,15 @@
 The JAX package lays its six axes (data, fsdp, seq, tensor, pipe,
 expert) over the chips in that order, data outermost.  Here each device
 is one ``torch.distributed`` rank and ``init_device_mesh`` lays the
-ranks out row-major in the same order, so rank ``r``'s coordinate on
-the ``(data, fsdp)`` axes is ``divmod(r, fsdp)`` while the other axes
-are 1.  Axes of size 1 are kept, so every rule can name all six.
+ranks out row-major in the same order, expert innermost.  Axes of size
+1 are kept, so every rule can name all six.  The groups a step reduces
+over are the ranks that differ only on a set of axes (``axes_group``);
+the batch ranks are those of ``(data, fsdp, expert)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
@@ -18,7 +20,12 @@ import torch
 import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import MeshConfig
+from mamba_distributed_tpu_torch.parallel.sharding import batch_coordinate
 from mamba_distributed_tpu_torch.parallel.tp_layout import TPContext
+
+# the mesh axes a batch's rows split over (expert is a batch axis for every
+# layer but the MoE's experts, as in the JAX package)
+BATCH_AXES = ("data", "fsdp", "expert")
 
 
 def init_distributed(device="cuda", init_method: str | None = None,
@@ -92,17 +99,31 @@ def build_mesh(cfg: MeshConfig, device_type: str):
     return init_device_mesh(device_type, cfg.shape, mesh_dim_names=cfg.axis_names)
 
 
-def batch_group(mesh):
-    """The process group of the batch ranks: those that differ from this
-    rank only on the mesh axes data and fsdp.  Built once per mesh, from
-    ``dist.new_group``, every rank building every such group in the same
-    order; None when it is the whole world (the default group)."""
-    if hasattr(mesh, "_batch_group"):
-        return mesh._batch_group
+def axis_size(mesh, names) -> int:
+    """The number of ranks that differ only on the mesh axes ``names``."""
+    return math.prod(mesh.mesh.shape[mesh.mesh_dim_names.index(n)] for n in names)
+
+
+def axes_group(mesh, names):
+    """The process group of the ranks that differ from this rank only on
+    the mesh axes ``names`` (those above 1; at least one must be).  One
+    axis: the device mesh's group.  Several: built once per mesh and
+    axes, from ``dist.new_group``, every rank building every such group
+    in the same order (so every rank must ask for the same axes in the
+    same order); None when it is the whole world (the default group).
+    Its rank order is the row-major order of ``names``."""
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    names = tuple(n for n in names if axis_size(mesh, (n,)) > 1)
+    if not names:
+        raise ValueError("axes_group: every named axis is 1, so the group is this rank alone")
+    if len(names) == 1:  # the device mesh built it
+        return mesh.get_group(names[0])
+    if names in cache:
+        return cache[names]
     grid = mesh.mesh
-    axes = [mesh.mesh_dim_names.index(n) for n in ("data", "fsdp")]
+    axes = [mesh.mesh_dim_names.index(n) for n in names]
     rest = [i for i in range(grid.ndim) if i not in axes]
-    cols = grid.permute(*rest, *axes).reshape(-1, math.prod(grid.shape[i] for i in axes))
+    cols = grid.permute(*rest, *axes).reshape(-1, axis_size(mesh, names))
     mine = None
     if cols.shape[0] > 1:
         me = dist.get_rank()
@@ -110,8 +131,56 @@ def batch_group(mesh):
             group = dist.new_group(ranks)
             if me in ranks:
                 mine = group
-    mesh._batch_group = mine
+    cache[names] = mine
     return mine
+
+
+def batch_group(mesh):
+    """The process group of the batch ranks: those that differ from this
+    rank only on the mesh axes data, fsdp and expert (``axes_group``;
+    at least one of them above 1), their group rank its batch
+    coordinate."""
+    return axes_group(mesh, BATCH_AXES)
+
+
+@dataclasses.dataclass(frozen=True)
+class RouteContext:
+    """What the MoE's global routing needs of the batch ranks: their
+    group, its size R and this rank's batch coordinate (its block of the
+    global micro-batch's rows, in the group's rank order)."""
+
+    group: object
+    size: int
+    coord: int
+
+
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    """What the MoE needs of the expert group: the group, its size and
+    this rank's index in it (it holds experts ``[rank E/size, (rank + 1)
+    E/size)``)."""
+
+    group: object
+    size: int
+    rank: int
+
+
+def route_context(mesh) -> RouteContext | None:
+    """The batch ranks as the MoE routes over them, None when there is
+    one (the one-device routing)."""
+    size = axis_size(mesh, BATCH_AXES)
+    if size == 1:
+        return None
+    return RouteContext(batch_group(mesh), size, batch_coordinate(mesh))
+
+
+def expert_context(mesh) -> EPContext | None:
+    """The expert group of ``mesh`` as the MoE takes it, None when the
+    expert axis is 1."""
+    size = axis_size(mesh, ("expert",))
+    if size == 1:
+        return None
+    return EPContext(mesh.get_group("expert"), size, mesh.get_local_rank("expert"))
 
 
 def tensor_context(mesh) -> TPContext | None:

@@ -11,13 +11,15 @@ inherit their param's spec and scalars replicate.  Batches split their
 rows over ``(data, fsdp)`` (and ``expert``, a pure-DP batch axis for
 the non-MoE layers), data outermost.
 
-The fsdp and tensor axes are executed.  ``shard_params`` packs each
-leaf into this rank's tensor shard (``parallel/tp_layout.py``: its own
-heads of every segment side by side, not JAX's even cut of the packed
-axis), then narrows it to its block of the fsdp axis; ``gather_params``
-reverses both.  The fsdp axis of a packed leaf is the one JAX's spec
-gives ``fsdp``, checked against the local shape (``executed_specs``).
-The expert and pipe branches are pure and wait for their slices.
+The expert, fsdp and tensor axes are executed.  ``expert_shard`` cuts
+a MoE stack to this rank's block of experts (the axis JAX's spec gives
+``expert``); ``shard_params`` packs each leaf into this rank's tensor shard
+(``parallel/tp_layout.py``: its own heads of every segment side by
+side, not JAX's even cut of the packed axis), then narrows it to its
+block of the fsdp axis; ``gather_params`` reverses all three.  The fsdp
+axis of a packed leaf is the one JAX's spec gives ``fsdp``, checked
+against the local shape (``executed_specs``).  The pipe branch is pure
+and waits for its slice.
 """
 
 from __future__ import annotations
@@ -159,10 +161,17 @@ def _tree_map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def narrow_leaf(full: torch.Tensor, spec: tuple, index: int, size: int) -> torch.Tensor:
-    """Block ``index`` of ``size`` along the leaf's fsdp axis, as a
-    contiguous clone (the whole leaf, cloned, when fsdp does not cut it)."""
-    ax = fsdp_axis(spec)
+def expert_axis(spec: tuple) -> int | None:
+    """The axis of a leaf that the expert axis cuts, or None."""
+    return spec.index("expert") if "expert" in spec else None
+
+
+def narrow_leaf(full: torch.Tensor, spec: tuple, index: int, size: int,
+                axis=fsdp_axis) -> torch.Tensor:
+    """Block ``index`` of ``size`` along the leaf's fsdp axis (``axis``:
+    the rule that finds it), as a contiguous clone (the whole leaf,
+    cloned, when that axis does not cut it)."""
+    ax = axis(spec)
     if ax is None:
         return full.clone()
     n = full.shape[ax] // size
@@ -192,9 +201,18 @@ def executed_specs(specs: dict, local: dict, fsdp_size: int, plan) -> dict:
     return walk(local, specs, plan_tree(local, plan))
 
 
+def expert_shard(params: dict, specs: dict, ep) -> dict:
+    """This rank's block of experts of every MoE stack (``ep``: the
+    ``EPContext``); the other leaves as they are."""
+    return _tree_map(lambda t, s: t if expert_axis(s) is None
+                     else narrow_leaf(t.detach(), s, ep.rank, ep.size, expert_axis),
+                     params, specs)
+
+
 def shard_params(params: dict, specs: dict, group=None, tp=None, plan=None) -> dict:
-    """This rank's shard of every leaf, contiguous clones: with ``tp``
-    (``TPContext``) and its ``plan``, first its packed tensor shard
+    """This rank's shard of every leaf (of its experts, ``expert_shard``,
+    under an expert axis), contiguous clones: with ``tp`` (``TPContext``)
+    and its ``plan``, first its packed tensor shard
     (``tp_layout.pack_tp``), then its block of the leaf's fsdp axis (the
     rank's index in ``group``, the fsdp group).  ``specs`` are the
     specs of the packed tree (``executed_specs``)."""
@@ -204,16 +222,21 @@ def shard_params(params: dict, specs: dict, group=None, tp=None, plan=None) -> d
     return _tree_map(lambda t, s: narrow_leaf(t.detach(), s, index, size), params, specs)
 
 
-def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None) -> dict:
+def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None,
+                  ep=None) -> dict:
     """The full leaves from every rank's shard: ``all_gather`` over the
     fsdp ``group``, then, with ``tp`` and its ``plan``, every tensor
     rank's packed leaf (the list form of ``all_gather``) unpacked into
-    the logical leaf.  Fresh tensors; a leaf neither axis cuts comes back
-    as a detached alias of its own storage."""
+    the logical leaf, then, with ``ep``, every expert rank's experts.
+    Fresh tensors; a leaf no axis cuts comes back as a detached alias of
+    its own storage."""
     out = _tree_map(lambda t, s: t.detach() if fsdp_axis(s) is None
                     else all_gather_leaf(t.detach(), fsdp_axis(s), group), shards, specs)
-    if tp is None:
-        return out
-    plans = plan_tree(out, plan)
-    return _tree_map(lambda t, lp: t if lp.kind == FULL
-                     else unpack_leaf(all_gather_list(t, tp.group), lp), out, plans)
+    if tp is not None:
+        plans = plan_tree(out, plan)
+        out = _tree_map(lambda t, lp: t if lp.kind == FULL
+                        else unpack_leaf(all_gather_list(t, tp.group), lp), out, plans)
+    if ep is not None:
+        out = _tree_map(lambda t, s: t if expert_axis(s) is None
+                        else all_gather_leaf(t, expert_axis(s), ep.group), out, specs)
+    return out

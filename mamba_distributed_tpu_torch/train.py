@@ -25,7 +25,16 @@ alone or with data and fsdp:
     torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
         --preset mamba2-tiny --mesh-tensor 2 --device cpu --max-steps 2
 
-``--mesh-data``/``--mesh-fsdp``/``--mesh-tensor`` override the preset's
+Expert parallelism is the ``expert`` axis of a MoE model (each rank holds
+E/expert of every layer's experts; the routed rows move by all-to-alls;
+a batch axis for every other layer), alone or with the three above; the
+presets have no MoE, so ``--moe-num-experts`` makes one:
+
+    torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
+        --preset hybrid-tiny --d-intermediate 64 --moe-num-experts 4 --mesh-expert 2 \
+        --device cpu --max-steps 2
+
+``--mesh-data``/``--mesh-fsdp``/``--mesh-tensor``/``--mesh-expert`` override the preset's
 mesh (their product must be the world size); ``--mesh-seq`` is refused
 by the config until its slice.  Only rank 0 prints and writes logs and
 checkpoints.
@@ -65,6 +74,7 @@ from mamba_distributed_tpu_torch.config import (
     TRAIN_PRESETS,
     MeshConfig,
     TrainConfig,
+    get_preset,
     get_train_preset,
 )
 
@@ -88,6 +98,7 @@ def parse_args(argv=None):
     p.add_argument("--mesh-fsdp", type=int, default=None)
     p.add_argument("--mesh-seq", type=int, default=None)
     p.add_argument("--mesh-tensor", type=int, default=None)
+    p.add_argument("--mesh-expert", type=int, default=None)
     p.add_argument("--ssm-impl", choices=["xla", "pallas"], default="pallas",
                    help="pallas (default): the hand-written SSD or scan kernels on the card "
                         "(their plain versions on the CPU); xla: plain PyTorch autograd")
@@ -103,6 +114,11 @@ def parse_args(argv=None):
     p.add_argument("--n-layer", type=int, default=None,
                    help="cut the preset's depth (a hybrid keeps its attention layers "
                         "below it)")
+    p.add_argument("--d-intermediate", type=int, default=None,
+                   help="width of the gated MLP (or of each expert) after every mixer")
+    p.add_argument("--moe-num-experts", type=int, default=None,
+                   help="make the MLP a token-choice top-k mixture of this many experts")
+    p.add_argument("--moe-capacity-factor", type=float, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default: the card) or cpu")
     p.add_argument("--sample-prompt", default=None, metavar="TEXT",
@@ -155,23 +171,29 @@ def build_config(args) -> TrainConfig:
         ("log_dir", args.log_dir),
     ) if val is not None}
     mesh_over = {k: v for k, v in (("data", args.mesh_data), ("fsdp", args.mesh_fsdp),
-                                   ("seq", args.mesh_seq), ("tensor", args.mesh_tensor))
+                                   ("seq", args.mesh_seq), ("tensor", args.mesh_tensor),
+                                   ("expert", args.mesh_expert))
                  if v is not None}
     if mesh_over:
         base = TRAIN_PRESETS[args.preset].get("mesh", MeshConfig())
         overrides["mesh"] = dataclasses.replace(base, **mesh_over)
-    cfg = get_train_preset(args.preset, **overrides)
+    # the model first: the mesh checks read it (an expert axis needs a MoE)
+    model = get_preset(args.preset)
     model_over = {k: v for k, v in (("ssm_impl", args.ssm_impl),
                                     ("chunk_size", args.chunk_size),
                                     ("remat_policy", args.remat_policy),
                                     ("loss_impl", args.loss_impl),
-                                    ("conv_impl", args.conv_impl)) if v is not None}
+                                    ("conv_impl", args.conv_impl),
+                                    ("d_intermediate", args.d_intermediate),
+                                    ("moe_num_experts", args.moe_num_experts),
+                                    ("moe_capacity_factor", args.moe_capacity_factor))
+                  if v is not None}
     if args.n_layer is not None:
         model_over["n_layer"] = args.n_layer
         model_over["attn_layer_idx"] = tuple(
-            i for i in cfg.model.attn_layer_idx if i < args.n_layer)
-    if model_over:
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_over))
+            i for i in model.attn_layer_idx if i < args.n_layer)
+    cfg = get_train_preset(args.preset, model=dataclasses.replace(model, **model_over),
+                           **overrides)
     if args.data_dir is not None:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_dir=args.data_dir))
     tele = {}

@@ -29,7 +29,24 @@ collectives XLA inserts from the JAX shardings are explicit:
   leaves' gradients are already equal on every tensor rank.  FSDP
   gathers and reduce-scatters over fsdp only, and the global norm
   counts a rank's own positions once per shard and the replicated ones
-  once (``collectives.tp_global_norm``).
+  once (``collectives.tp_global_norm``);
+* expert parallel (``expert`` above 1, alone or with the three above):
+  each rank holds its block of every MoE's experts (and its Adam
+  moments), and the MoE moves the routed rows to them and back by
+  all-to-alls over the expert group (``lm_loss(..., ep=)``).  Expert is
+  a batch axis for everything else.  The gradients are reduced by kind:
+  a replicated leaf's is the mean over the batch ranks ``(data, fsdp,
+  expert)``; an expert leaf's already sums, through the all-to-all's
+  backward, its expert group's tokens, so it is divided by the expert
+  size and averaged over ``(data, fsdp)``; an fsdp shard is
+  reduce-scattered over fsdp first and then averaged over the batch
+  axes that remain.  The norm sums the expert leaves' squares over the
+  expert group as well.
+
+Over every mesh whose batch ranks number more than one, the MoE routes
+the global micro-batch as the JAX package's one jit does: a global
+capacity, global queue slots and global load-balance terms
+(``models/lm._moe_mlp(route=)``).
 """
 
 from __future__ import annotations
@@ -46,9 +63,16 @@ from mamba_distributed_tpu_torch.parallel.collectives import (
     sum_shared_,
     tp_global_norm,
 )
-from mamba_distributed_tpu_torch.parallel.mesh import batch_group, tensor_context
-from mamba_distributed_tpu_torch.parallel.sharding import fsdp_axis, gather_params
-from mamba_distributed_tpu_torch.parallel.tp_layout import plan_tree, tp_plan
+from mamba_distributed_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    axes_group,
+    axis_size,
+    expert_context,
+    route_context,
+    tensor_context,
+)
+from mamba_distributed_tpu_torch.parallel.sharding import expert_axis, fsdp_axis, gather_params
+from mamba_distributed_tpu_torch.parallel.tp_layout import FULL_LEAF, plan_tree, tp_plan
 from mamba_distributed_tpu_torch.training.optimizer import (
     AdamW,
     global_norm,
@@ -58,15 +82,16 @@ from mamba_distributed_tpu_torch.training.optimizer import (
 
 
 def loss_and_grads(params: dict, cfg: TrainConfig, x: torch.Tensor, y: torch.Tensor,
-                   tp=None):
+                   tp=None, route=None, ep=None):
     """Mean loss and mean gradients over the accum axis of x, y
     (accum, B, T): (loss 0-d fp32 tensor, grads tree like params).
-    ``tp``: the tensor group, ``params`` this rank's packed shard."""
+    ``tp``: the tensor group, ``params`` this rank's packed shard;
+    ``route``, ``ep``: the MoE's batch ranks and expert group."""
     leaves = tree_leaves(params)
     accum = x.shape[0]
     gsum, lsum = None, None
     for i in range(accum):
-        loss = lm_loss(params, cfg.model, x[i], y[i], tp=tp)
+        loss = lm_loss(params, cfg.model, x[i], y[i], tp=tp, route=route, ep=ep)
         g = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
         if gsum is None:
@@ -120,53 +145,73 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     # so a dropped step (and the optimizer and params it holds) is freed
     # at once, not at the next cyclic collection
     comm = {}
-    tp = tensor_context(mesh) if mesh is not None else None
-    # a tensor-only mesh has one batch rank and no batch reduction
-    batch_reduce = mesh is not None and (cfg.data_parallel_size > 1 or tp is None)
-    if batch_reduce:
-        bgroup = batch_group(mesh)
+    tp, route, ep = ((tensor_context(mesh), route_context(mesh), expert_context(mesh))
+                     if mesh is not None else (None, None, None))
     if fsdp:
-        fsdp_group, data_group = mesh.get_group("fsdp"), mesh.get_group("data")
-    if fsdp or tp is not None:
-        spec_leaves = tree_leaves(specs)
-    if tp is not None:
-        plans = tree_leaves(plan_tree(specs, tp_plan(cfg.model, tp.size)))
+        fsdp_group = mesh.get_group("fsdp")
+    if mesh is not None:
+        if specs is None and (fsdp or tp is not None or ep is not None):
+            raise ValueError("make_train_step: a sharded mesh needs the params' specs")
+        spec_leaves = tree_leaves(specs) if specs is not None else None
+    if tp is not None or ep is not None:
+        plans = (tree_leaves(plan_tree(specs, tp_plan(cfg.model, tp.size)))
+                 if tp is not None else [FULL_LEAF] * len(spec_leaves))
         fsdp_cut = [fsdp and fsdp_axis(s) is not None for s in spec_leaves]
+        expert_cut = ([expert_axis(s) is not None for s in spec_leaves]
+                      if ep is not None else None)
+
+    def mean_axes(fsdp_cut_: bool, expert_cut_: bool) -> tuple:
+        """The batch axes a leaf's gradient is still averaged over: those
+        that do not cut it (a tensor-only mesh has none)."""
+        cut = {"fsdp"} if fsdp_cut_ else set()
+        cut |= {"expert"} if expert_cut_ else set()
+        return tuple(a for a in BATCH_AXES if a not in cut)
+
+    # every group the reduction uses, built now in one order on every rank
+    if mesh is not None:
+        groups = {axes: axes_group(mesh, axes)
+                  for axes in (mean_axes(f, e) for f in (False, True) for e in (False, True))
+                  if axis_size(mesh, axes) > 1}
+        if tp is None and BATCH_AXES not in groups:  # a world of one reduces, as DDP does
+            groups[BATCH_AXES] = None
 
     def norm(grads: dict) -> torch.Tensor:
-        if tp is not None:
-            return tp_global_norm(tree_leaves(grads), plans, fsdp_cut, tp.group,
-                                  fsdp_group if fsdp else None)
+        if tp is not None or ep is not None:
+            return tp_global_norm(tree_leaves(grads), plans, fsdp_cut,
+                                  tp.group if tp is not None else None,
+                                  fsdp_group if fsdp else None, expert_cut,
+                                  ep.group if ep is not None else None)
         if fsdp:
             return sharded_global_norm(grads, specs, fsdp_group)
         return global_norm(grads)
 
     def reduce(loss, grads):
         """The global loss, gradients (this rank's shards under FSDP) and
-        pre-clip norm."""
+        pre-clip norm: each leaf's fsdp shard reduce-scattered, an expert
+        leaf divided by the expert size, then one bucketed mean a group of
+        the batch axes that remain (the replicated leaves' and the loss
+        over all of them, first)."""
         if mesh is None:
             return loss, grads, global_norm(grads)
         leaves = tree_leaves(grads)
         if tp is not None:
             sum_shared_(leaves, plans, tp.group)
-        if not fsdp:
-            # one bucketed mean over the batch ranks, the loss in the last bucket
-            sizes = (all_reduce_mean_([*leaves, loss.reshape(1)], bgroup)
-                     if batch_reduce else [])
-            comm.update(bytes=sum(sizes), buckets=len(sizes))
-            return loss, grads, norm(grads)
-        out, replicated, sharded = [], [], []
-        for g, spec in zip(leaves, spec_leaves):
-            ax = fsdp_axis(spec)
-            if ax is None:
-                replicated.append(g)
-                out.append(g)
-            else:
-                out.append(reduce_scatter_leaf(g, ax, fsdp_group))
-                sharded.append(out[-1])
-        sizes = all_reduce_mean_([*replicated, loss.reshape(1)], bgroup)
-        if cfg.mesh.data > 1:
-            sizes += all_reduce_mean_(sharded, data_group)
+        out, by_axes = [], {BATCH_AXES: []}
+        for i, g in enumerate(leaves):
+            spec = spec_leaves[i] if spec_leaves is not None else ()
+            f_cut = fsdp and fsdp_axis(spec) is not None
+            e_cut = ep is not None and expert_axis(spec) is not None
+            if f_cut:
+                g = reduce_scatter_leaf(g, fsdp_axis(spec), fsdp_group)
+            if e_cut:
+                g.div_(ep.size)
+            out.append(g)
+            by_axes.setdefault(mean_axes(f_cut, e_cut), []).append(g)
+        by_axes[BATCH_AXES].append(loss.reshape(1))
+        sizes = []
+        for axes, tensors in by_axes.items():
+            if axes in groups:
+                sizes += all_reduce_mean_(tensors, groups[axes])
         comm.update(bytes=sum(sizes), buckets=len(sizes))
         grads = _rebuild(grads, iter(out))
         return loss, grads, norm(grads)
@@ -174,7 +219,7 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     def step(params: dict, x: torch.Tensor, y: torch.Tensor):
         full = (tree_map(lambda t: t.requires_grad_(), gather_params(params, specs, fsdp_group))
                 if fsdp else params)
-        loss, grads = loss_and_grads(full, cfg, x, y, tp)
+        loss, grads = loss_and_grads(full, cfg, x, y, tp, route, ep)
         del full
         loss, grads, grad_norm = reduce(loss, grads)
         optimizer.step(params, grads, grad_norm)
@@ -189,17 +234,20 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
 
 def make_eval_step(cfg: TrainConfig, mesh=None):
     """Loss-only step, x/y (B, T), on full params (this rank's packed
-    shard with a tensor axis: the train step's forward); over a ``mesh``
-    x/y are this rank's rows and the loss is the mean over the batch
+    shard with a tensor axis, its experts with an expert axis: the train
+    step's forward); over a ``mesh`` x/y are this rank's rows, the MoE
+    routes the global batch and the loss is the mean over the batch
     ranks."""
-    tp = tensor_context(mesh) if mesh is not None else None
-    batch_reduce = mesh is not None and (cfg.data_parallel_size > 1 or tp is None)
+    tp, route, ep = ((tensor_context(mesh), route_context(mesh), expert_context(mesh))
+                     if mesh is not None else (None, None, None))
+    # a tensor-only mesh has one batch rank and no batch reduction
+    batch_reduce = mesh is not None and (route is not None or tp is None)
     if batch_reduce:
-        bgroup = batch_group(mesh)
+        bgroup = route.group if route is not None else None
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss = lm_loss(params, cfg.model, x, y, tp=tp)
+        loss = lm_loss(params, cfg.model, x, y, tp=tp, route=route, ep=ep)
         if batch_reduce:
             dist.all_reduce(loss, op=dist.ReduceOp.AVG, group=bgroup)
         return loss

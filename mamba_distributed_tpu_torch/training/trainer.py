@@ -14,22 +14,23 @@ any exception out of ``run()``.  Restarts after a crash are the CLI's
 (``train.py --auto-restart``).  The trainer runs on the card unless it
 is given ``device="cpu"``.
 
-Data parallel, FSDP and tensor parallel: when a ``torch.distributed``
+Data parallel, FSDP, tensor and expert parallel: when a ``torch.distributed``
 process group is up (``torchrun``, ``parallel/mesh.init_distributed``)
 the trainer is one rank of ``cfg.mesh``: its device is
 ``cuda:{LOCAL_RANK}`` (a card given with its index, e.g. ``cuda:0`` for
 two gloo ranks sharing one card, is kept; the CPU over gloo), its
 loaders read its block of the batch rows (the rank-strided windows of
-batch coordinate c of ``data_parallel_size``, over ``(data, fsdp)``
-only: the ranks of one tensor group read the same rows), every rank
-initialises the same full tree from the seed, packs its tensor shard
+batch coordinate c of ``data_parallel_size``, over ``(data, fsdp,
+expert)``: the ranks of one tensor group read the same rows), every
+rank initialises the same full tree from the seed, keeps its block of
+every MoE's experts, packs its tensor shard of that
 (``parallel/tp_layout.py``) and keeps its fsdp block of that, and the
-train step runs the blocks' tensor collectives and averages the
-gradients over the batch ranks (``training/train_step.py``).  Rank 0 is
+train step runs the blocks' tensor and expert collectives and reduces
+the gradients over the batch ranks (``training/train_step.py``).  Rank 0 is
 the master: only it logs, writes records, spans and the sentinel's dump,
 samples, prints and writes checkpoints (the logical full params and
-moments, gathered over fsdp, then over tensor and unpacked: today's
-format, plus every batch rank's loader cursor).  Validation runs the
+moments, gathered over fsdp, then over tensor and unpacked, then over
+expert: today's format, plus every batch rank's loader cursor).  Validation runs the
 train step's forward on the packed shards; sampling gathers the full
 params on every rank and runs today's ``generate()`` on the master (TP
 decode is a later slice).  MFU stays over the world's peak.  Without a
@@ -56,15 +57,15 @@ from mamba_distributed_tpu_torch.obs import (
     SpanTracer,
 )
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
-from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, tensor_context
+from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, expert_context, tensor_context
 from mamba_distributed_tpu_torch.parallel.sharding import (
     batch_coordinate,
     executed_specs,
+    expert_shard,
     gather_params,
     narrow_leaf,
     opt_state_specs,
     param_specs,
-    shard_params,
 )
 from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan
 from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
@@ -130,6 +131,9 @@ class Trainer:
         self._fsdp = self.mesh is not None and is_fsdp(cfg)
         self.tp = tensor_context(self.mesh) if self.mesh is not None else None
         self.plan = tp_plan(cfg.model, self.tp.size) if self.tp is not None else None
+        self.ep = expert_context(self.mesh) if self.mesh is not None else None
+        # params and moments live as shards of some axis
+        self._sharded = self._fsdp or self.tp is not None or self.ep is not None
 
         # data: synthetic shards when the data dir holds none (the master
         # writes them, the others wait)
@@ -159,11 +163,13 @@ class Trainer:
             m = cfg.mesh
             self.specs = param_specs(params, cfg.shard_params, m.fsdp, m.tensor, m.pipe,
                                      m.expert)
-            if self.tp is not None:  # every rank packs its tensor shard of the full tree
+            if self.ep is not None:  # every rank keeps its experts of the full tree
+                params = expert_shard(params, self.specs, self.ep)
+            if self.tp is not None:  # packs its tensor shard of that
                 params = pack_tp(params, self.plan, self.tp.rank)
                 self.specs = executed_specs(self.specs, params, m.fsdp, self.plan)
             if self._fsdp:  # and keeps its fsdp block of that
-                params = shard_params(params, self.specs, self.mesh.get_group("fsdp"))
+                params = self._fsdp_block(params)
         self.params = tree_map(lambda t: t.requires_grad_(), params)
         del params
         self.optimizer = AdamW(cfg, self.params)
@@ -210,31 +216,39 @@ class Trainer:
         return self._to_device(np.stack(xs)), self._to_device(np.stack(ys))
 
     def local_params(self) -> dict:
-        """This rank's packed tensor shard of every leaf, whole over fsdp
-        (gathered from the shards under FSDP: a collective, so every rank
-        calls it); the full tree without a tensor axis."""
+        """This rank's packed tensor shard and experts of every leaf, whole
+        over fsdp (gathered from the shards under FSDP: a collective, so
+        every rank calls it); the full tree without a tensor or expert
+        axis."""
         if not self._fsdp:
             return self.params
         return gather_params(self.params, self.specs, self.mesh.get_group("fsdp"))
 
     def full_params(self) -> dict:
         """The full (logical) parameter tree: gathered over fsdp, then over
-        tensor and unpacked (collectives, so every rank calls it)."""
-        if self.tp is None:
-            return self.local_params()
-        group = self.mesh.get_group("fsdp") if self._fsdp else None
-        return gather_params(self.params, self.specs, group, self.tp, self.plan)
+        tensor and unpacked, then over expert (collectives, so every rank
+        calls it)."""
+        return self._gather(self.params, self.specs)
 
-    def _own(self, tree: dict) -> dict:
-        """This rank's shard of a full (logical) tree: packed over tensor,
-        narrowed over fsdp."""
-        if self.tp is not None:
-            tree = pack_tp(tree, self.plan, self.tp.rank)
-        if not self._fsdp:
+    def _gather(self, tree: dict, specs: dict) -> dict:
+        if not self._sharded:
             return tree
+        group = self.mesh.get_group("fsdp") if self._fsdp else None
+        return gather_params(tree, specs, group, self.tp, self.plan, self.ep)
+
+    def _fsdp_block(self, tree: dict) -> dict:
         group = self.mesh.get_group("fsdp")
         index, size = dist.get_rank(group), dist.get_world_size(group)
         return tree_map(lambda t, s: narrow_leaf(t, s, index, size), tree, self.specs)
+
+    def _own(self, tree: dict) -> dict:
+        """This rank's shard of a full (logical) tree: its experts, packed
+        over tensor, narrowed over fsdp."""
+        if self.ep is not None:
+            tree = expert_shard(tree, self.specs, self.ep)
+        if self.tp is not None:
+            tree = pack_tp(tree, self.plan, self.tp.rank)
+        return self._fsdp_block(tree) if self._fsdp else tree
 
     def validate(self) -> float:
         """The mean loss over ``val_steps`` validation batches (every rank's
@@ -341,12 +355,11 @@ class Trainer:
             params, opt_state = self.params, self.optimizer.state_dict()
             loaders = None
             if self.mesh is not None:
-                if self._fsdp or self.tp is not None:
-                    group = self.mesh.get_group("fsdp") if self._fsdp else None
-                    params = gather_params(params, self.specs, group, self.tp, self.plan)
+                if self._sharded:
+                    params = self._gather(params, self.specs)
                     ospecs = opt_state_specs(opt_state, self.specs)
-                    opt_state = {k: gather_params(v, ospecs[k], group, self.tp, self.plan)
-                                 if ospecs[k] else v for k, v in opt_state.items()}
+                    opt_state = {k: self._gather(v, ospecs[k]) if ospecs[k] else v
+                                 for k, v in opt_state.items()}
                 pairs = [None] * self.world
                 dist.all_gather_object(pairs, (self.batch_rank, self.train_loader.state()))
                 by_rank = dict(pairs)
@@ -380,7 +393,7 @@ class Trainer:
         state = {"count": ck["opt_state"]["count"], "mu": ck["opt_state"]["mu"],
                  "nu": ck["opt_state"]["nu"]}
         params = ck["params"]
-        if self._fsdp or self.tp is not None:
+        if self._sharded:
             params = self._own(params)
             state["mu"], state["nu"] = self._own(state["mu"]), self._own(state["nu"])
         with torch.no_grad():

@@ -7,7 +7,7 @@ train step) against the JAX package's, on the CPU.
   stacked leaf is never fsdp's;
 * the config's checks raise the JAX messages, ``data_parallel_size``,
   ``grad_accum_steps`` and the two data-parallel presets equal JAX's,
-  the seq, pipe and expert axes are refused by name and tensor is taken;
+  the seq and pipe axes are refused by name, tensor and expert are taken;
 * the collectives: shard/gather round trips, the reduce-scatter mean,
   the bucketed all-reduce against one all-reduce a leaf, and
   ``sharded_global_norm`` against the full norm;
@@ -199,11 +199,12 @@ def test_config_refuses_later_axes_by_name(axis):
     model = MOE_OVER if axis == "expert" else {}
     jax_cfg, port_cfg = _both_cfgs(dict(mesh={axis: 2}), model)
     jax_cfg()  # the JAX package takes it
-    if axis == "tensor":  # trained since its slice: taken as JAX takes it
-        assert port_cfg().grad_accum_steps == jax_cfg().grad_accum_steps
+    if axis in ("tensor", "expert"):  # trained since their slices: taken as JAX takes them
+        port, jax_ = port_cfg(), jax_cfg()
+        assert port.grad_accum_steps == jax_.grad_accum_steps
+        assert port.data_parallel_size == jax_.data_parallel_size
         return
-    slice_word = {"seq": "sequence parallelism", "pipe": "pipeline",
-                  "expert": "expert parallelism"}[axis]
+    slice_word = {"seq": "sequence parallelism", "pipe": "pipeline"}[axis]
     with pytest.raises(ValueError, match=f"{axis} comes with .*{slice_word}"):
         port_cfg()
 
