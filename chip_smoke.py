@@ -227,8 +227,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    slice of the Chrome trace inside the run's wall-clock window; the
    summary's latency percentiles, goodput and ``serving_mfu``, and the
    report's numbers (``obs/report.py``) printed;
-7. data parallel (``parallel_phase``): mamba2-280m at full width and
-   depth (bf16, pallas, remat, seq 1024, micro-batch 32 or 16 if 32 does
+7. data parallel (``parallel_phase``): mamba2-280m at full width cut to
+   16 layers (bf16, pallas, remat, seq 1024, micro-batch 32 or 16 if 32 does
    not fit, accum 2) through the port's ``Trainer`` for 3 steps, (a) with
    no process group and (b) as rank 0 of a world of one on NCCL
    (``parallel/mesh.init_distributed`` on a free local TCP port, mesh
@@ -240,8 +240,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and launches a step, the bytes and buckets all-reduced a step and each
    run's peak memory are printed;
 8. tensor parallel (``tensor_phase``): hybrid-280m at full width through
-   the port's Trainer, (a) one process, bf16, 64 layers, micro-batch 8,
-   seq 1024, 3 steps, and (b) the same at mesh ``tensor=2`` in two
+   the port's Trainer, (a) one process, bf16, cut to 16 layers,
+   micro-batch 8, seq 1024, 3 steps, and (b) the same at mesh ``tensor=2`` in two
    processes sharing the one card over an explicitly requested gloo
    group (``--tensor-worker``; the kernels built by this process first);
    (c, d) as (a, b) in fp32 at 8 layers, 2 steps.  (d)'s losses and grad
@@ -269,7 +269,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    profiled step of (b) (count, bytes, their share of the step from the
    trace's spans), the dropped choices and each rank's peak memory are
    printed;
-10. print the serving and training numbers beside the card's name and
+10. sequence parallel (``seq_phase``): through the port's Trainer, bf16,
+   pallas, micro 1, 2 steps, remat, (a) one process and (b) mesh
+   ``seq=2`` in two processes sharing the card over gloo
+   (``--seq-worker``), on mamba2-2.8b-sp32's widths cut to 4 layers at
+   seq 8192 (the SSD state exchange), hybrid-7b's widths cut to 4 layers
+   (attention at 3) at seq 8192 with ring attention and then Ulysses, and
+   mamba1-280m cut to 8 layers at seq 8192 (the two-pass scan); (c, d) as
+   (a, b) in fp32 at 2 layers, seq 2048, on the hybrid with ring and on
+   Mamba-1.  (b)'s losses must be (a)'s within rtol 1e-3 and its grad
+   norms within 2e-3, (d)'s (c)'s within 1e-5; every rank must launch
+   ``ssd_fwd`` as often as one process, ``m1_scan`` twice as often, the
+   flash kernels r + 1 times as often on seq rank r under ring (the hops
+   not skipped) and as often under Ulysses; the step ms, the seq-group
+   exchanges of one profiled step (``SP_COMM``: count, bytes, their share
+   of the step from the trace's spans), device busy and each rank's peak
+   memory are printed.  The kernel phase holds the flash kernels at the
+   ring's fully-past hop (``tq == tk``, offset ``tk``: no masked pair) at
+   t 4096;
+11. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -988,8 +1006,9 @@ def check_flash(gen, micro: int):
     ragged 1000, GQA rep 1 and 3, offset 0 and a later query slice
     (tq < tk), head dims 64, 32 (hybrid-tiny) and 128; ragged cases for
     the tensor-core kernels' TMA zero fill and partial-tile masks (tk not
-    a multiple of 8, tq 1, hd 32 and 128 at tq != tk, tk_valid < tk); the
-    mixer's strided views and contiguous head-major copies; two launches
+    a multiple of 8, tq 1, hd 32 and 128 at tq != tk, tk_valid < tk); ring
+    attention's fully-past hop (tq == tk == 4096 at offset tk, no masked
+    pair) at hd 64 and 128; the mixer's strided views and contiguous head-major copies; two launches
     of each kernel bit-identical; then the whole
     FlashAttentionFunction's gradients against torch autograd of the
     plain ``blockwise_sdpa_causal``; then one attention layer of the
@@ -1013,6 +1032,11 @@ def check_flash(gen, micro: int):
         (1, 100, 250, 4, 2, 32, 150),
         (2, 65, 190, 6, 3, 128, 125),
         (1, 130, 200, 4, 2, 64, 70, 163),  # tk_valid < tk
+        # ring attention's fully-past hop (sequence parallelism): a rank's
+        # 4096 queries against the previous rank's 4096 keys, every pair
+        # unmasked, at hybrid-280m's and hybrid-7b's heads
+        (1, 4096, 4096, 12, 4, 64, 4096),
+        (1, 4096, 4096, 32, 8, 128, 4096),
     ]
     failures = []
 
@@ -1831,7 +1855,7 @@ def loss_peaks(card: str) -> None:
     the blocked loss, above the parameters' own bytes."""
     import dataclasses
 
-    from mamba_distributed_tpu_torch.config import get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.config import MeshConfig, get_preset, get_train_preset
     from mamba_distributed_tpu_torch.models.lm import init_lm_params, lm_loss
     from mamba_distributed_tpu_torch.training.optimizer import tree_map
     from mamba_distributed_tpu_torch.training.train_step import loss_and_grads
@@ -1845,8 +1869,9 @@ def loss_peaks(card: str) -> None:
             for _ in range(2))
     for impl in ("dense", "blocked"):
         m = dataclasses.replace(model, loss_impl=impl)
+        # the preset's 64-rank mesh made one device: this is one card
         cfg = get_train_preset("hybrid-7b", model=m, micro_batch_size=4,
-                               total_batch_size=4 * 4096)
+                               total_batch_size=4 * 4096, mesh=MeshConfig())
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1878,7 +1903,12 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 
     import gc
     import shutil
 
-    from mamba_distributed_tpu_torch.config import DataConfig, get_preset, get_train_preset
+    from mamba_distributed_tpu_torch.config import (
+        DataConfig,
+        MeshConfig,
+        get_preset,
+        get_train_preset,
+    )
     from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
     from mamba_distributed_tpu_torch.training import Trainer
 
@@ -1887,9 +1917,11 @@ def train_run(card: str, preset: str, path_kernels: tuple[str, ...], seq: int = 
     model = get_preset(preset, ssm_impl="pallas", compute_dtype="bfloat16", remat=True,
                        **model_fields)
     for micro in micros:
+        # one process: a one-device mesh, whatever the preset's (hybrid-7b's
+        # is fsdp 16 x seq 4)
         cfg = get_train_preset(
             preset, model=model, micro_batch_size=micro, total_batch_size=micro * seq,
-            seq_len=seq, val_steps=2, log_dir=str(root / "log"),
+            seq_len=seq, val_steps=2, log_dir=str(root / "log"), mesh=MeshConfig(),
             data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
         # what earlier runs left to the cyclic collector goes before this
         # run's peak is taken
@@ -4214,8 +4246,14 @@ def step_kernels(trainer, accum: int) -> dict:
     raise SystemExit("parallel: torch.profiler recorded no kernel in three step profiles")
 
 
+# the depth of the data-parallel and tensor-parallel phases' bf16 runs (cut
+# from the presets' 64 to keep the script inside its time limit)
+PARALLEL_LAYERS = 16
+
+
 def parallel_run(card: str, micro: int, seq: int, accum: int, nccl: bool) -> dict:
-    """mamba2-280m at full width and depth (bf16, pallas, remat) through
+    """mamba2-280m at full width cut to ``PARALLEL_LAYERS`` layers (bf16,
+    pallas, remat) through
     the port's Trainer for 3 steps of ``accum`` micro-batches, with no
     process group (``nccl`` False) or as rank 0 of a world of one on NCCL
     (``init_distributed`` on a free local TCP port, mesh ``data=1``: the
@@ -4235,7 +4273,8 @@ def parallel_run(card: str, micro: int, seq: int, accum: int, nccl: bool) -> dic
     root = Path(__file__).resolve().parent / "build" / "chip_smoke"
     log = root / f"log_parallel_{tag}"
     shutil.rmtree(log, ignore_errors=True)
-    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True)
+    model = get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="bfloat16", remat=True,
+                       n_layer=PARALLEL_LAYERS)
     cfg = get_train_preset(
         "mamba2-280m", model=model, micro_batch_size=micro,
         total_batch_size=micro * seq * accum, seq_len=seq, val_steps=1, log_dir=str(log),
@@ -4279,7 +4318,7 @@ def parallel_run(card: str, micro: int, seq: int, accum: int, nccl: bool) -> dic
 
 
 def parallel_phase(card: str) -> None:
-    """Data parallel on the card (phase 7): ``parallel_run`` without a
+    """Data parallel on the card (phase 7): ``parallel_run`` (16 layers) without a
     process group (a) and at a world of one on NCCL (b), micro-batch 32
     (16 if 32 does not fit), accum 2.  Fails unless (b)'s losses and
     pre-clip grad norms equal (a)'s bit for bit (a one-rank NCCL mean is
@@ -4314,7 +4353,7 @@ def parallel_phase(card: str) -> None:
     if not nccl:
         fails.append(f"no NCCL kernel in the profile of a step of (b); kernels only in (b): "
                      f"{sorted(only_b)}")
-    tag = (f"mamba2-280m 64 layers bf16 pallas remat micro={micro} seq={seq} "
+    tag = (f"mamba2-280m {PARALLEL_LAYERS} layers bf16 pallas remat micro={micro} seq={seq} "
            f"accum={accum} world=1")
     print(f"parallel {tag}: losses {[h[0] for h in a['hist']]}, grad norms "
           f"{[h[1] for h in a['hist']]}; plain and NCCL equal bit for bit: "
@@ -4349,8 +4388,9 @@ TP_WAIT_S = 420
 
 def tensor_cfg(tag: str, dtype: str, n_layer: int | None, micro: int, tensor: int):
     """hybrid-280m at full width (pallas, remat; ``n_layer`` cuts its depth,
-    attention at layer 3 then) for the tensor phase, seq 1024, accum 1,
-    one validation batch, synthetic shards under build/chip_smoke/."""
+    attention every 8th layer from layer 3 then) for the tensor phase, seq
+    1024, accum 1, one validation batch, synthetic shards under
+    build/chip_smoke/."""
     from mamba_distributed_tpu_torch.config import (
         DataConfig,
         MeshConfig,
@@ -4359,7 +4399,8 @@ def tensor_cfg(tag: str, dtype: str, n_layer: int | None, micro: int, tensor: in
     )
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    cut = {} if n_layer is None else dict(n_layer=n_layer, attn_layer_idx=(3,))
+    cut = ({} if n_layer is None
+           else dict(n_layer=n_layer, attn_layer_idx=tuple(range(3, n_layer, 8))))
     model = get_preset("hybrid-280m", ssm_impl="pallas", compute_dtype=dtype, remat=True, **cut)
     return get_train_preset(
         "hybrid-280m", model=model, mesh=MeshConfig(tensor=tensor), micro_batch_size=micro,
@@ -4472,7 +4513,7 @@ def tensor_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
     """One rank of the tensor phase's world (``--tensor-worker``): two
     processes on ``cuda:0`` over an explicitly requested gloo group (NCCL
     refuses two ranks on one card).  Runs (d) fp32 8 layers 2 steps, then
-    (b) bf16 64 layers 3 steps and one profiled step, each in a group of
+    (b) bf16 16 layers 3 steps and one profiled step, each in a group of
     its own (``finish()`` destroys the group), and writes its results to
     ``work/rank{rank}.json``."""
     import os
@@ -4485,7 +4526,7 @@ def tensor_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
     res = {}
     for tag, port, cfg, steps, prof in (
             ("d", ports[0], tensor_cfg("d", "float32", 8, 8, world), 2, False),
-            ("b", ports[1], tensor_cfg("b", "bfloat16", None, 8, world), 3, True)):
+            ("b", ports[1], tensor_cfg("b", "bfloat16", PARALLEL_LAYERS, 8, world), 3, True)):
         init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
         res[tag] = tensor_train(cfg, steps, prof)
         res[tag]["tp_rank"] = rank
@@ -4506,10 +4547,10 @@ def free_ports(n: int) -> list[int]:
             s.close()
 
 
-def run_workers(phase: str, wait_s: int, world: int = 2) -> list[dict]:
+def run_workers(phase: str, wait_s: int, world: int = 2, n_ports: int = 2) -> list[dict]:
     """Run ``python3 chip_smoke.py --{phase}-worker RANK WORLD PORTS DIR``
     in ``world`` processes sharing this card (``LOCAL_RANK=0``, gloo on the
-    loopback, two free ports: one group a run), each rank's log in
+    loopback, ``n_ports`` free ports: one group a run), each rank's log in
     ``build/chip_smoke/{phase}/log_{rank}.txt``; a rank that fails or
     outlasts ``wait_s`` stops the phase with its log, and every rank is
     killed on the way out.  Returns each rank's ``rank{r}.json``."""
@@ -4519,7 +4560,7 @@ def run_workers(phase: str, wait_s: int, world: int = 2) -> list[dict]:
     work = Path(__file__).resolve().parent / "build" / "chip_smoke" / phase
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    ports = free_ports(2)
+    ports = free_ports(n_ports)
     env = {**os.environ, "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo"}
     procs, logs = [], [work / f"log_{r}.txt" for r in range(world)]
     for r in range(world):
@@ -4549,7 +4590,7 @@ def run_workers(phase: str, wait_s: int, world: int = 2) -> list[dict]:
 
 def tensor_phase(card: str) -> None:
     """Tensor parallelism on the card (phase 8): hybrid-280m at full width
-    through the port's Trainer, (a) one process with no group, bf16, 64
+    through the port's Trainer, (a) one process with no group, bf16, 16
     layers, micro 8, 3 steps; (b) the same at mesh ``tensor=2`` in two
     processes on ``cuda:0`` over gloo; (c, d) as (a, b) in fp32 cut to 8
     layers, 2 steps.  Fails unless (d)'s losses and pre-clip grad norms
@@ -4566,7 +4607,7 @@ def tensor_phase(card: str) -> None:
     a replay of the same all-reduces back to back (the collectives alone,
     on the host clock, over the step span), each rank's peak memory."""
     t0 = time.perf_counter()
-    a = tensor_train(tensor_cfg("a", "bfloat16", None, 8, 1), 3, False)
+    a = tensor_train(tensor_cfg("a", "bfloat16", PARALLEL_LAYERS, 8, 1), 3, False)
     c = tensor_train(tensor_cfg("c", "float32", 8, 8, 1), 2, False)
     t_plain = time.perf_counter() - t0
     ranks = run_workers("tensor", TP_WAIT_S)
@@ -4574,7 +4615,7 @@ def tensor_phase(card: str) -> None:
     fails = []
     # (tag, plain run, rtol on the losses, on the grad norms)
     for tag, plain, tol, ntol, what in (("d", c, 2e-4, 2e-4, "fp32 8 layers"),
-                                        ("b", a, 1e-3, 2e-3, "bf16 64 layers")):
+                                        ("b", a, 1e-3, 2e-3, f"bf16 {PARALLEL_LAYERS} layers")):
         ref = np.array(plain["hist"])
         for r, res in enumerate(ranks):
             got = np.array(res[tag]["hist"])
@@ -4593,7 +4634,8 @@ def tensor_phase(card: str) -> None:
                     fails.append(f"({tag}) rank {r} {k} launches {res[tag]['launches'][k]}, "
                                  f"plain {plain['launches'][k]}")
     b0 = ranks[0]["b"]
-    print(f"tensor hybrid-280m 64 layers bf16 micro=8 seq=1024: step ms (a) one process "
+    print(f"tensor hybrid-280m {PARALLEL_LAYERS} layers bf16 micro=8 seq=1024: step ms (a) one "
+          f"process "
           f"{a['step_ms']}, (b) tensor=2 over gloo on one card {b0['step_ms']} [{card}]",
           flush=True)
     comm, step_ms = b0["tp_comm"], b0["trace_step_ms"]
@@ -4875,6 +4917,252 @@ def expert_phase(card: str) -> None:
         raise SystemExit(f"expert phase: {fails}")
 
 
+# ----------------------------------------- sequence parallel over gloo (10)
+
+SP_WAIT_S = 480
+# the seq phase's models: tag -> (the preset whose widths, its depth cut,
+# seq_len); bf16 runs (a)/(b), then fp32 runs (c)/(d)
+SP_BF16 = {"ssd": ("mamba2-2.8b-sp32", dict(n_layer=4), 8192),
+           "hybrid": ("hybrid-7b", dict(n_layer=4, attn_layer_idx=(3,)), 8192),
+           "m1": ("mamba1-280m", dict(n_layer=8), 8192)}
+SP_FP32 = {"hybrid": ("hybrid-7b", dict(n_layer=2, attn_layer_idx=(1,)), 2048),
+           "m1": ("mamba1-280m", dict(n_layer=2), 2048)}
+# the worker's runs, in order, each in a group of its own: (tag, dtype,
+# model, attention under seq, profiled)
+SP_WORKER_RUNS = (("d-hybrid", "float32", "hybrid", "ring", False),
+                  ("d-m1", "float32", "m1", "ring", False),
+                  ("b-ssd", "bfloat16", "ssd", "ring", False),
+                  ("b-hybrid-ring", "bfloat16", "hybrid", "ring", True),
+                  ("b-hybrid-ulysses", "bfloat16", "hybrid", "ulysses", False),
+                  ("b-m1", "bfloat16", "m1", "ring", False))
+SP_KERNELS = ("ssd_fwd", "ssd_chunk_states", "ssd_bwd", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv", "m1_scan", "m1_entry_states", "m1_bwd")
+
+
+def seq_cfg(tag: str, dtype: str, model_tag: str, seq: int, attn_sp: str = "ring"):
+    """The seq phase's run ``model_tag`` (``SP_BF16`` in bf16, ``SP_FP32``
+    in fp32: the preset's widths at a cut depth; pallas, remat) at mesh
+    ``seq``, micro 1, accum 1, one validation batch, synthetic shards
+    under build/chip_smoke/."""
+    from mamba_distributed_tpu_torch.config import (
+        DataConfig,
+        MeshConfig,
+        get_preset,
+        get_train_preset,
+    )
+
+    preset, cut, seq_len = (SP_BF16 if dtype == "bfloat16" else SP_FP32)[model_tag]
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    model = get_preset(preset, ssm_impl="pallas", compute_dtype=dtype, remat=True,
+                       attn_sp_impl=attn_sp, **cut)
+    return get_train_preset(
+        preset, model=model, mesh=MeshConfig(seq=seq), micro_batch_size=1,
+        total_batch_size=seq_len, seq_len=seq_len, val_steps=1,
+        log_dir=str(root / f"log_seq_{tag}"),
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+
+
+def seq_train(cfg, steps: int, profile: bool) -> dict:
+    """``cfg`` through the port's Trainer on this process's card (one rank
+    of a seq group when one is up): ``steps`` steps from zeroed launch
+    counts; then, with ``profile``, one more step under ``torch.profiler``
+    (CPU and CUDA), the step and each seq-group exchange in a
+    ``record_function`` span of its own, ``SP_COMM`` zeroed before it.
+    Returns the history, launches, step ms, peak memory, and the trace's
+    step and exchange spans and device busy time."""
+    import gc
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel import collectives
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device=f"cuda:{torch.cuda.current_device()}")
+    out = {"seq_rank": trainer.seq.rank if trainer.seq is not None else 0}
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run(max_steps=steps)
+        out["launches"] = dict(LAUNCHES)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["hist"] = [trainer.history[s] for s in range(steps)]
+        if profile:
+            x, y = trainer._batch(cfg.grad_accum_steps, trainer.train_loader)
+            torch.cuda.synchronize()
+            collectives.SP_COMM.update(calls=0, bytes=0)
+            originals = (collectives.seq_exchange, collectives._tiled_all_to_all)
+
+            def spanned(fn):  # a span over the whole blocking call
+                def run(*args):
+                    with record_function("sp_exchange"):
+                        return fn(*args)
+                return run
+
+            collectives.seq_exchange, collectives._tiled_all_to_all = map(spanned, originals)
+            try:
+                t0 = time.perf_counter()
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
+                    with record_function("sp_train_step"):
+                        trainer.train_step(trainer.params, x, y)
+                        torch.cuda.synchronize()
+                out["profiled_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                collectives.seq_exchange, collectives._tiled_all_to_all = originals
+            out["sp_comm"] = dict(collectives.SP_COMM)
+            out["step_comm"] = dict(trainer.train_step.comm)
+            events = prof.key_averages()
+            spans = {e.key: (e.count, e.cpu_time_total / 1e3) for e in events
+                     if e.key in ("sp_train_step", "sp_exchange")
+                     and e.device_type == DeviceType.CPU}
+            if set(spans) != {"sp_train_step", "sp_exchange"} or not all(
+                    ms > 0 for _, ms in spans.values()):
+                raise SystemExit(f"seq: the trace holds spans {spans}")
+            out["trace_step_ms"] = spans["sp_train_step"][1]
+            out["trace_exchange"] = spans["sp_exchange"]
+            out["device_busy_ms"] = sum(e.self_device_time_total for e in events
+                                        if e.device_type == DeviceType.CUDA
+                                        and e.key not in spans) / 1e3
+    finally:
+        trainer.finish()
+    if trainer.master and (Path(cfg.log_dir) / "metrics.jsonl").exists():
+        recs = [json.loads(s) for s in (Path(cfg.log_dir) / "metrics.jsonl").read_text()
+                .splitlines()]
+        out["step_ms"] = [r["step_ms"] for r in recs if r["kind"] == "train"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
+    """One rank of the seq phase's world (``--seq-worker``): two processes
+    on ``cuda:0`` over an explicitly requested gloo group.  Runs
+    ``SP_WORKER_RUNS`` in order (2 steps each, the ring hybrid then one
+    profiled step), each in a group of its own, and writes its results to
+    ``work/rank{rank}.json``."""
+    import os
+
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    res = {}
+    for (tag, dtype, model_tag, attn_sp, prof), port in zip(SP_WORKER_RUNS, ports, strict=True):
+        init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
+        res[tag] = seq_train(seq_cfg(tag, dtype, model_tag, world, attn_sp), 2, prof)
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def seq_phase(card: str) -> None:
+    """Sequence parallelism on the card (phase 10): through the port's
+    Trainer, (a) one process with no group, bf16, micro 1, 2 steps, on
+    ``SP_BF16`` (mamba2-2.8b-sp32's widths at 4 layers, hybrid-7b's at 4
+    layers, mamba1-280m at 8 layers; seq 8192); (b) the same at mesh
+    ``seq=2`` in two processes on ``cuda:0`` over gloo, each on its 4096
+    tokens of the rows (the hybrid with ring attention, then Ulysses);
+    (c, d) as (a, b) in fp32 on ``SP_FP32`` (2 layers, seq 2048; the
+    hybrid with ring, Mamba-1).  Fails unless (b)'s losses are (a)'s
+    within rtol 1e-3 and its pre-clip grad norms within 2e-3, (d)'s
+    (c)'s within 1e-5, every rank launches the SSD kernels as often as
+    (a) or (c), the scan kernels twice as often (two passes), and the
+    flash kernels r + 1 times as often on seq rank r under ring (the hops
+    not skipped) and as often under Ulysses, and both ranks exit 0 in
+    time.  Prints the step ms, the seq-group exchanges of one profiled
+    step of the ring hybrid (``SP_COMM``: count, bytes, and their share of
+    the step from the trace's spans, an upper bound: each blocking
+    exchange also waits for the card's queued work), device busy and each
+    rank's peak memory."""
+    t0 = time.perf_counter()
+    plain = {}
+    for tag in SP_BF16:
+        plain[f"a-{tag}"] = seq_train(seq_cfg(f"a-{tag}", "bfloat16", tag, 1), 2, False)
+    for tag in SP_FP32:
+        plain[f"c-{tag}"] = seq_train(seq_cfg(f"c-{tag}", "float32", tag, 1), 2, False)
+    t_plain = time.perf_counter() - t0
+    ranks = sorted(run_workers("seq", SP_WAIT_S, n_ports=len(SP_WORKER_RUNS)),
+                   key=lambda r: r["b-ssd"]["seq_rank"])
+    t_sp = time.perf_counter() - t0 - t_plain
+    fails = []
+    for tag, _, model_tag, attn_sp, _ in SP_WORKER_RUNS:
+        fp32 = tag.startswith("d")
+        ref = plain[f"{'c' if fp32 else 'a'}-{model_tag}"]
+        tol, ntol = (1e-5, 1e-5) if fp32 else (1e-3, 2e-3)
+        preset, cut, seq_len = (SP_FP32 if fp32 else SP_BF16)[model_tag]
+        what = (f"{preset} widths {cut['n_layer']} layers {'fp32' if fp32 else 'bf16'} "
+                f"seq {seq_len}" + (f" {attn_sp}" if model_tag == "hybrid" else ""))
+        want = np.array(ref["hist"])
+        for r, res in enumerate(ranks):
+            got_res = res[tag]
+            got = np.array(got_res["hist"])
+            gap = np.abs(got - want) / np.abs(want)
+            print(f"seq ({tag}) {what} rank {r}: losses {got[:, 0].tolist()} against "
+                  f"{want[:, 0].tolist()}, grad norms {got[:, 1].tolist()} against "
+                  f"{want[:, 1].tolist()}; largest gap rel loss {gap[:, 0].max():.3e}, "
+                  f"grad norm {gap[:, 1].max():.3e} (tol {tol:.0e} on the losses, "
+                  f"{ntol:.0e} on the grad norms)", flush=True)
+            if (not np.isfinite(got).all() or gap[:, 0].max() > tol
+                    or gap[:, 1].max() > ntol):
+                fails.append(f"({tag}) rank {r}: rel loss {gap[:, 0].max():.3e} (tol {tol:.0e}), "
+                             f"grad norm {gap[:, 1].max():.3e} (tol {ntol:.0e})")
+            # the launches a rank makes for each of one process's
+            factor = {"m1_scan": 2, "m1_entry_states": 2, "m1_bwd": 2}
+            if model_tag == "hybrid" and attn_sp == "ring":
+                factor.update({k: got_res["seq_rank"] + 1
+                               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+            for k in SP_KERNELS:
+                n_ref, n_got = ref["launches"].get(k, 0), got_res["launches"].get(k, 0)
+                if n_got != factor.get(k, 1) * n_ref:
+                    fails.append(f"({tag}) rank {r} {k} launches {n_got}, one process {n_ref} "
+                                 f"(x{factor.get(k, 1)} expected)")
+            print(f"seq ({tag}) rank {r} (seq rank {got_res['seq_rank']}) launches "
+                  f"{ {k: got_res['launches'].get(k, 0) for k in SP_KERNELS} }, one process "
+                  f"{ {k: ref['launches'].get(k, 0) for k in SP_KERNELS} }", flush=True)
+        kernels = [k for k in SP_KERNELS if ref["launches"].get(k, 0)]
+        if not kernels:
+            fails.append(f"({tag}) one process launched no hand kernel")
+    for tag, _, model_tag, attn_sp, _ in SP_WORKER_RUNS:
+        if tag.startswith("b"):
+            a = plain[f"a-{model_tag}"]
+            print(f"seq ({tag}) step ms: (a) one process {a['step_ms']}, (b) seq=2 over gloo on "
+                  f"one card, rank 0 {ranks[0][tag]['step_ms']}; peak max_memory_allocated (a) "
+                  f"{a['peak_gib']:.2f} GiB, (b) rank 0 {ranks[0][tag]['peak_gib']:.2f}, rank 1 "
+                  f"{ranks[1][tag]['peak_gib']:.2f} [{card}]", flush=True)
+    for tag in SP_FP32:
+        print(f"seq (c/d-{tag}) fp32 peak max_memory_allocated: (c) "
+              f"{plain[f'c-{tag}']['peak_gib']:.2f} GiB, (d) "
+              f"{ranks[0][f'd-{tag}']['peak_gib']:.2f} / {ranks[1][f'd-{tag}']['peak_gib']:.2f} "
+              f"[{card}]", flush=True)
+    for r, res in enumerate(ranks):
+        b = res["b-hybrid-ring"]
+        comm, step_ms = b["sp_comm"], b["trace_step_ms"]
+        n_spans, span_ms = b["trace_exchange"]
+        if n_spans != comm["calls"]:
+            fails.append(f"(b-hybrid-ring) rank {r}: the trace holds {n_spans} exchange spans, "
+                         f"the step made {comm['calls']}")
+        print(f"seq (b-hybrid-ring) one profiled step of rank {r}: {comm['calls']} seq-group "
+              f"exchanges (SP_COMM), {comm['bytes']} bytes sent; the step's gradient mean "
+              f"{b['step_comm'].get('bytes')} bytes in {b['step_comm'].get('buckets')} buckets; "
+              f"torch.profiler trace: step span {step_ms:.1f} ms (host clock around the profile "
+              f"{b['profiled_ms']:.1f} ms), {n_spans} exchange spans {span_ms:.1f} ms, "
+              f"{span_ms / step_ms:.3f} of the step (upper bound: each also waits for the "
+              f"card's queued work); device busy {b['device_busy_ms']:.1f} ms "
+              f"({b['device_busy_ms'] / step_ms:.3f} of the step) [{card}]", flush=True)
+    print(f"seq phase: {time.perf_counter() - t0:.1f} s (plain runs {t_plain:.1f}, the two "
+          f"ranks {t_sp:.1f}) [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"seq phase: {fails}")
+
+
 def check_tp_shapes(gen) -> None:
     """The hand kernels at the per-rank shapes of tensor parallelism:
     ``ssd_fwd``, ``ssd_chunk_states`` and ``ssd_bwd`` at hybrid-7b's 64,
@@ -4990,11 +5278,14 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one rank of tensor_phase's world
     ap.add_argument("--expert-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of expert_phase's world
+    ap.add_argument("--seq-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of seq_phase's world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    for worker, fn in ((args.tensor_worker, tensor_worker), (args.expert_worker, expert_worker)):
+    for worker, fn in ((args.tensor_worker, tensor_worker), (args.expert_worker, expert_worker),
+                       (args.seq_worker, seq_worker)):
         if worker:
             rank, world, ports, work = worker
             return fn(int(rank), int(world), [int(p) for p in ports.split(",")], Path(work))
@@ -5136,6 +5427,7 @@ def main() -> int:
         parallel_phase(card)
         tensor_phase(card)
         expert_phase(card)
+        seq_phase(card)
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

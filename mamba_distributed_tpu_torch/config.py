@@ -10,10 +10,11 @@ in training and one-shot prefill, a paged KV cache in decode), with or
 without a gated MLP or a token-choice MoE after each mixer
 (``d_intermediate``, ``moe_*``), are served on one device, with
 multi-tenant LoRA adapters in serving (``lora_*``, ``tenant_max_slots``),
-and trained on one device or over the ``data``, ``fsdp``, ``tensor`` and
-``expert`` mesh axes.  The ``seq`` and ``pipe`` axes and the
-online-tuning ``tune_*`` fields are left out, and a config the port
-cannot run raises at construction with the reason.
+and trained on one device or over the ``data``, ``fsdp``, ``seq``, ``tensor``
+and ``expert`` mesh axes.  The ``pipe`` axis, ``seq`` composed with
+``tensor`` or ``expert``, and the online-tuning ``tune_*`` fields are left
+out, and a config the port cannot run raises at construction with the
+reason.
 
 Knob meanings carried over from the JAX package: ``ssm_impl="pallas"``
 and ``attn_impl="pallas"``/``"auto"`` mean "the hand-written CUDA
@@ -87,6 +88,10 @@ class ModelConfig:
     # -1 => full head dim; 0 => no rotary
     attn_rotary_dim: int = -1
     rope_theta: float = 10000.0
+    # attention under sequence parallelism: "ring" (KV shards rotate over
+    # the seq ranks, parallel/ring_attention.py) or "ulysses" (all-to-all
+    # head sharding, needs heads % seq == 0; parallel/ulysses.py)
+    attn_sp_impl: str = "ring"
     # "auto"/"pallas" -> the hand-written flash and ragged paged attention
     # kernels on a CUDA tensor (their plain versions on a CPU tensor);
     # "xla" -> the plain formulations everywhere
@@ -311,6 +316,11 @@ class ModelConfig:
                 f"attn_impl must be 'auto', 'xla' or 'pallas', got "
                 f"{self.attn_impl!r}"
             )
+        if self.attn_sp_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"attn_sp_impl must be 'ring' or 'ulysses', got "
+                f"{self.attn_sp_impl!r}"
+            )
         if self.kv_page_tokens < 8 or self.kv_page_tokens % 8:
             raise ValueError(
                 f"kv_page_tokens must be a positive multiple of 8, got "
@@ -526,6 +536,8 @@ PRESETS: dict[str, dict[str, Any]] = {
     # are in TRAIN_PRESETS)
     "mamba2-280m-dp8": dict(d_model=768, n_layer=64),
     "mamba2-1.3b-fsdp16": dict(d_model=2048, n_layer=48),
+    # the model of the JAX package's sequence-parallel preset
+    "mamba2-2.8b-sp32": dict(d_model=2560, n_layer=64),
 }
 
 
@@ -549,9 +561,11 @@ class MeshConfig:
     expert - expert parallel: the MoE's experts sharded over it, the
              routed rows moved by all-to-alls; a batch axis for every other
              layer
-    seq, pipe - the JAX package's sequence and pipeline axes; the port
-            trains with each of them at 1 (``TrainConfig`` refuses more,
-            naming the slice that adds it)
+    seq    - sequence parallel: each rank holds its block of every
+             sequence's tokens (parallel/seq_parallel.py); the ranks of one
+             seq group read the same batch rows
+    pipe   - the JAX package's pipeline axis; the port trains with it at 1
+             (``TrainConfig`` refuses more, naming the slice that adds it)
     """
 
     data: int = 1
@@ -729,9 +743,13 @@ def _hybrid_period(cfg: ModelConfig):
 
 # the mesh axes the port does not train over yet, and the slice that adds each
 _LATER_AXES = {
-    "seq": "sequence parallelism (sp_conv1d, sp_ssd, sp_selective_scan, ring and "
-           "Ulysses attention on the port's kernels)",
     "pipe": "the pipeline (lm_loss_pipelined and its schedule)",
+}
+# the axes the port trains over alone but not yet together with seq, and
+# the slice that adds each composition
+_LATER_WITH_SEQ = {
+    "tensor": "seq x tensor (the sequence-parallel blocks on packed tensor shards)",
+    "expert": "seq x expert (the MoE's global routing over tokens cut by sequence)",
 }
 
 
@@ -739,10 +757,13 @@ _LATER_AXES = {
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
     the JAX package's ``TrainConfig``).  The port trains over the
-    ``data``, ``fsdp``, ``tensor`` and ``expert`` mesh axes
+    ``data``, ``fsdp``, ``seq``, ``tensor`` and ``expert`` mesh axes
     (``parallel/``, one ``torch.distributed`` rank per device), alone or
-    together; a ``seq`` or ``pipe`` axis above 1 passes the JAX package's
-    checks and is then refused, naming the slice that adds it.  Like the
+    together, but for seq with tensor or expert; a ``pipe`` axis above 1,
+    and seq with tensor or expert, pass the JAX package's checks and are
+    then refused, naming the slice that adds each.  Under seq the
+    sequence must split into equal blocks no shorter than the conv's
+    halo (``d_conv - 1`` tokens).  Like the
     JAX package, no check asks the tensor size to divide the heads: a
     block whose heads it does not divide runs whole on each tensor rank
     (``parallel/tp_layout.py``)."""
@@ -819,8 +840,30 @@ class TrainConfig:
         if later:
             raise ValueError(
                 f"mesh axes {later}: the PyTorch port trains over data, fsdp, "
-                f"tensor and expert only; " + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
+                f"seq, tensor and expert only; "
+                + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
                 + ", each a later slice")
+        if m.seq > 1:
+            both = {k: getattr(m, k) for k in _LATER_WITH_SEQ if getattr(m, k) != 1}
+            if self.model.moe_num_experts:  # the MoE routes over the expert axis's tokens
+                both.setdefault("expert", m.expert)
+            if both:
+                raise ValueError(
+                    f"mesh seq={m.seq} with {both}"
+                    f"{' and a MoE model' if self.model.moe_num_experts else ''}: the "
+                    f"PyTorch port trains over seq with data and fsdp and a dense model "
+                    f"only; " + "; ".join(f"seq with {k} comes with {_LATER_WITH_SEQ[k]}"
+                                          for k in both) + ", each a later slice")
+            if self.seq_len % m.seq:
+                raise ValueError(
+                    f"seq_len={self.seq_len} does not split over mesh.seq={m.seq}: "
+                    f"sequence parallelism cuts every sequence into equal blocks")
+            halo = self.model.d_conv - 1
+            if self.seq_len // m.seq < halo:
+                raise ValueError(
+                    f"local sequence shard ({self.seq_len // m.seq} tokens of seq_len="
+                    f"{self.seq_len} over mesh.seq={m.seq}) shorter than the conv halo "
+                    f"({halo})")
         if self.micro_batch_size < 1 or self.seq_len < 1:
             raise ValueError(
                 f"micro_batch_size={self.micro_batch_size} and seq_len="
@@ -856,10 +899,15 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
                         max_steps=300, warmup_steps=20, val_every=25),
     "hybrid-280m": dict(),
     "mamba1-280m": dict(),
-    # the JAX preset's seq, micro-batch and total batch; its mesh (fsdp 16,
-    # seq 4) waits for the seq slice, so the whole 7B model does not fit
-    # one card for training
-    "hybrid-7b": dict(seq_len=4096, micro_batch_size=4, total_batch_size=4194304),
+    # the JAX preset's mesh (fsdp 16, seq 4: 64 ranks), seq, micro-batch
+    # and total batch (JAX config.py:1200-1215); one card trains it cut in
+    # depth, with a one-device mesh
+    "hybrid-7b": dict(mesh=MeshConfig(fsdp=16, seq=4), shard_params=True, seq_len=4096,
+                      micro_batch_size=4, total_batch_size=4194304),
+    # the JAX package's long-context preset (config.py:1189-1198): seq 8192
+    # cut over 4 seq ranks, params and moments sharded over 8 fsdp ranks
+    "mamba2-2.8b-sp32": dict(mesh=MeshConfig(fsdp=8, seq=4), shard_params=True,
+                             seq_len=8192, micro_batch_size=8, total_batch_size=2097152),
     # the JAX package's data-parallel presets (config.py:1174-1187): DDP
     # over 8 ranks, and params + AdamW moments sharded over 16
     "mamba2-280m-dp8": dict(mesh=MeshConfig(data=8)),

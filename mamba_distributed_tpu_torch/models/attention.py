@@ -45,8 +45,10 @@ whose plain versions serve a CPU tensor, and the blockwise online
 softmax that autograd differentiates (ops/blockwise_attention.py) under
 "xla".  The paged mixers run the hand-written ragged paged kernels on a
 CUDA tensor, or their plain versions (ops/cuda/attention_kernels.py).
-The sequence-parallel branches of the JAX mixer (ring and Ulysses) are
-not ported.
+Under sequence parallelism (``seq``) the full-sequence mixer runs on this
+rank's block of the sequence, RoPE at the block's global positions, through
+ring attention (parallel/ring_attention.py) or Ulysses
+(parallel/ulysses.py) as ``cfg.attn_sp_impl`` says.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ from mamba_distributed_tpu_torch.ops.cuda.attention_kernels import (
 from mamba_distributed_tpu_torch.ops.cuda.flash_kernels import flash_sdpa_causal
 from mamba_distributed_tpu_torch.ops.quant import Q_MAX, SCALE_EPS, kv_quantize, kv_requant
 from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp
+from mamba_distributed_tpu_torch.parallel.ring_attention import ring_attention
+from mamba_distributed_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = [
     "_sdpa_positions", "apply_rope", "attention_mixer", "attention_mixer_chunk",
@@ -148,11 +152,14 @@ def _split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp=None):
 
 
 def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
-                    return_final_state: bool = False, tp=None):
+                    return_final_state: bool = False, tp=None, seq=None):
     """Full-sequence causal attention (models/attention.py:120-182 of the
-    JAX package, without its sequence-parallel branches): u (b, t, d) ->
-    y (b, t, d).  RoPE at positions 0..t-1, then the flash kernels
-    ("pallas"/"auto") or the blockwise online softmax ("xla").  With
+    JAX package): u (b, t, d) -> y (b, t, d).  RoPE at positions 0..t-1,
+    then the flash kernels ("pallas"/"auto") or the blockwise online
+    softmax ("xla").  Under ``seq`` (a ``SeqContext``) u is this rank's
+    block of the sequence: RoPE at its global positions ``rank t + i``,
+    then ring attention or Ulysses (``cfg.attn_sp_impl``) on the same
+    kernels or softmax; no (k, v) are returned.  With
     ``return_final_state`` the raw (k, v) (b, t, nkv, hd) of the whole
     sequence come back too, for ``pack_attention_pages``.  Under ``tp``
     (a ``parallel/tp_layout.TPContext``) on this rank's query and KV
@@ -163,13 +170,22 @@ def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
         nh //= tp.size
     b, t, _ = u.shape
     cd = cfg.torch_compute_dtype
+    if seq is not None and return_final_state:
+        raise ValueError("sequence parallelism is a training/eval path: the attention "
+                         "mixer returns no (k, v) under seq")
     q, k, v = _split_qkv(linear(params["wqkv"], copy_to_tp(u, tp), cd), cfg, tp)
     if rot > 0:
-        angles = rope_angles(torch.arange(t, device=u.device), rot, cfg.rope_theta)
+        start = 0 if seq is None else seq.rank * t  # global positions
+        angles = rope_angles(torch.arange(start, start + t, device=u.device), rot,
+                             cfg.rope_theta)
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
-    attend = blockwise_sdpa_causal if cfg.attn_impl == "xla" else flash_sdpa_causal
-    out = attend(q, k, v)
+    if seq is not None:
+        sp_attend = ulysses_attention if cfg.attn_sp_impl == "ulysses" else ring_attention
+        out = sp_attend(seq, q, k, v, impl=cfg.attn_impl)
+    else:
+        attend = blockwise_sdpa_causal if cfg.attn_impl == "xla" else flash_sdpa_causal
+        out = attend(q, k, v)
     y = row_parallel_linear(params["out_proj"], out.reshape(b, t, nh * hd), cd, tp)
     if return_final_state:
         return y, (k, v)

@@ -494,18 +494,20 @@ def count_params(params: dict) -> int:
 
 
 def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool, tp=None,
-                 route=None, ep=None):
+                 route=None, ep=None, seq=None):
     """One prenorm block in the single-carry form of the JAX
-    ``_backbone`` (lm.py:437-444): the post-add stream -> (the next one,
-    the MoE aux term or None), through the attention mixer at an
-    attention layer.  ``tp``: the tensor group (``TPContext``); the
-    mixer and the FFN each split over it when their heads divide by its
-    size and run whole otherwise (``tp_layout.block_tp``).  ``route`` and
-    ``ep``: the MoE's batch ranks and expert group (``_moe_mlp``)."""
+    ``_backbone`` (lm.py:437-444; the JAX ``_block_fwd`` of training):
+    the post-add stream -> (the next one, the MoE aux term or None),
+    through the attention mixer at an attention layer.  ``tp``: the
+    tensor group (``TPContext``); the mixer and the FFN each split over it
+    when their heads divide by its size and run whole otherwise
+    (``tp_layout.block_tp``).  ``route`` and ``ep``: the MoE's batch
+    ranks and expert group (``_moe_mlp``).  ``seq``: the seq group
+    (``SeqContext``), ``res`` this rank's block of the sequence."""
     normed = rms_norm(res, bp["norm"]["weight"], cfg.norm_eps).to(cfg.torch_compute_dtype)
     mixer = attention_mixer if attn else _MIXERS[cfg.ssm_layer].forward
     mixer_tp = block_tp(tp, cfg, "attn" if attn else "ssm")
-    hidden, aux = mixer(bp["mixer"], cfg, normed, tp=mixer_tp), None
+    hidden, aux = mixer(bp["mixer"], cfg, normed, tp=mixer_tp, seq=seq), None
     if cfg.d_intermediate > 0:
         hidden, res, aux = _ffn(bp, cfg, hidden, res, tp=block_tp(tp, cfg, "ffn"),
                                 route=route, ep=ep)
@@ -513,7 +515,7 @@ def _train_block(bp: dict, cfg: ModelConfig, res: torch.Tensor, attn: bool, tp=N
 
 
 def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None, route=None,
-              ep=None):
+              ep=None, seq=None):
     """Embedding -> layer stack in global order -> (the post-add stream
     before the final norm, the sum of the MoE aux terms or None)
     (lm.py:415-519; the JAX periodic-hybrid scan over supersteps and its
@@ -523,7 +525,9 @@ def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None, 
     under ``tp`` a recompute runs the block's forward all-reduces again,
     in the same order on every tensor rank, and under ``route``/``ep``
     the MoE's count exchange and all-to-alls, which route exactly as the
-    forward did (the slots come from integer counts)."""
+    forward did (the slots come from integer counts); under ``seq``
+    (``input_ids`` this rank's block of the sequence) the halo, state
+    and ring or Ulysses exchanges, in the same order on every seq rank."""
     res = _embed(params, input_ids, cfg.torch_compute_dtype).to(_residual_dtype(cfg))
     remat = cfg.remat and torch.is_grad_enabled()
     mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
@@ -534,9 +538,9 @@ def _backbone(params: dict, cfg: ModelConfig, input_ids: torch.Tensor, tp=None, 
         bp = ablocks[j] if attn else mblocks[j]
         if remat:
             res, aux = remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn, tp,
-                                   route, ep)
+                                   route, ep, seq)
         else:
-            res, aux = _train_block(bp, cfg, res, attn, tp, route, ep)
+            res, aux = _train_block(bp, cfg, res, attn, tp, route, ep, seq)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return res, aux_total
@@ -568,7 +572,7 @@ def _mean_aux(cfg: ModelConfig, aux_total, like: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-               return_aux: bool = False, tp=None, route=None, ep=None):
+               return_aux: bool = False, tp=None, route=None, ep=None, seq=None):
     """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542)
     [, the per-layer mean of the MoE aux terms, 0 for a dense model].
 
@@ -578,9 +582,11 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     this rank's packed params over the tensor group
     (``parallel/tp_layout.py``); the head is replicated, so every tensor
     rank returns the whole logits.  ``route``/``ep``: this rank's block
-    of the global micro-batch and its experts (``_moe_mlp``)."""
+    of the global micro-batch and its experts (``_moe_mlp``).  ``seq``:
+    ``input_ids`` (b, t_local) is this rank's block of every sequence
+    (``SeqContext``), and so are the logits."""
     cd = cfg.torch_compute_dtype
-    res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep)
+    res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep, seq)
     normed = _final_norm(params, cfg, res)
     if cfg.tie_embeddings:
         logits = normed.to(cd) @ params["embedding"].to(cd).t()
@@ -592,22 +598,24 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-            targets: torch.Tensor, tp=None, route=None, ep=None) -> torch.Tensor:
+            targets: torch.Tensor, tp=None, route=None, ep=None, seq=None) -> torch.Tensor:
     """Mean cross-entropy in fp32 against the loader's pre-shifted
     targets, plus ``moe_aux_weight`` times the mean MoE aux term for a
     MoE model (lm.py:545-586).  ``loss_impl="dense"``: one head product,
     then ``logsumexp - gathered logit`` (no (b, t, V) log-prob tensor);
-    ``"blocked"``: ops/loss.py, where no (b, t, V) tensor exists at all."""
+    ``"blocked"``: ops/loss.py, where no (b, t, V) tensor exists at all.
+    Under ``seq`` the mean is over this rank's block of the tokens (the
+    step's mean over the seq ranks makes it the global one)."""
     if cfg.loss_impl == "blocked":
         from mamba_distributed_tpu_torch.ops.loss import blocked_cross_entropy
 
-        res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep)
+        res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep, seq)
         ce = blocked_cross_entropy(_final_norm(params, cfg, res), _head_matrix(params, cfg),
                                    targets, cfg.loss_vocab_blocks, cfg.torch_compute_dtype)
         aux = _mean_aux(cfg, aux_total, res)
     else:
         logits, aux = lm_forward(params, cfg, input_ids, return_aux=True, tp=tp,
-                                 route=route, ep=ep)
+                                 route=route, ep=ep, seq=seq)
         lf = logits.float()
         tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
         ce = (torch.logsumexp(lf, dim=-1) - tgt).mean()

@@ -43,6 +43,11 @@ from mamba_distributed_tpu_torch.ops.conv import causal_conv1d, causal_conv1d_up
 from mamba_distributed_tpu_torch.ops.cuda.scan_kernels import selective_scan_kernel
 from mamba_distributed_tpu_torch.ops.scan import selective_scan, selective_state_update
 from mamba_distributed_tpu_torch.parallel.collectives import all_reduce_tp, copy_to_tp
+from mamba_distributed_tpu_torch.parallel.seq_parallel import (
+    check_no_decode_state_under_sp,
+    sp_conv1d,
+    sp_selective_scan,
+)
 
 
 def init_mamba1_params(cfg: ModelConfig, generator: torch.Generator,
@@ -88,10 +93,13 @@ def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
 
 def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                  initial_conv_state=None, initial_ssm_state=None,
-                 return_final_state: bool = False, token_mask=None, tp=None):
+                 return_final_state: bool = False, token_mask=None, tp=None, seq=None):
     """Full-sequence mixer forward: u (b, t, d_model) -> y (b, t, d_model)
     [, (conv_state (b, d_conv-1, d_inner), ssm_state (b, d_inner, n) fp32)];
-    under ``tp`` on this rank's channels (module docstring).
+    under ``tp`` on this rank's channels (module docstring); under ``seq``
+    on this rank's block of the sequence, the conv taking the previous
+    rank's halo and the scan the state the earlier blocks leave
+    (``sp_conv1d``, ``sp_selective_scan``; no decode state).
 
     ``token_mask`` (b, t) {0,1} zeroes the conv and scan inputs at
     left-pad positions (before and after the conv, as in
@@ -99,20 +107,30 @@ def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     zero initial state stays zero through the pad prefix."""
     di = cfg.d_inner if tp is None else cfg.d_inner // tp.size
     cd = cfg.torch_compute_dtype
+    check_no_decode_state_under_sp(seq, initial_conv_state, initial_ssm_state,
+                                   return_final_state)
     xz = linear(params["in_proj"], copy_to_tp(u, tp), cd)
     x, z = xz[..., :di], xz[..., di:]
     if token_mask is not None:
+        if seq is not None:
+            raise ValueError("token_mask is a single-device prefill feature")
         x = x * token_mask[..., None].to(x.dtype)
-    x, conv_state = causal_conv1d(
-        x, params["conv"]["kernel"], params["conv"].get("bias"), activation="silu",
-        initial_state=initial_conv_state, return_final_state=True, impl=cfg.conv_impl,
-    )
+    if seq is not None:
+        x, conv_state = sp_conv1d(seq, x, params["conv"]["kernel"],
+                                  params["conv"].get("bias"), "silu", impl=cfg.conv_impl)
+    else:
+        x, conv_state = causal_conv1d(
+            x, params["conv"]["kernel"], params["conv"].get("bias"), activation="silu",
+            initial_state=initial_conv_state, return_final_state=True, impl=cfg.conv_impl,
+        )
     if token_mask is not None:
         x = x * token_mask[..., None].to(x.dtype)
     dt, A, B, C = _scan_inputs(params, cfg, x, tp)
     scan = selective_scan_kernel if cfg.ssm_impl == "pallas" else selective_scan
     kw = dict(D=params["D"], z=z, delta_bias=params["dt_proj"]["bias"], delta_softplus=True)
-    if initial_ssm_state is None and not return_final_state:
+    if seq is not None:
+        y, ssm_state = sp_selective_scan(seq, x, dt, A, B, C, **kw, ssm_impl=cfg.ssm_impl)
+    elif initial_ssm_state is None and not return_final_state:
         y, ssm_state = scan(x, dt, A, B, C, **kw), None
     else:
         y, ssm_state = scan(x, dt, A, B, C, **kw, initial_state=initial_ssm_state,

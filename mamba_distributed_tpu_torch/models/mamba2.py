@@ -13,6 +13,11 @@ the mixer runs on this rank's heads of the packed layout (z_r | x_r |
 B | C | dt_r, each rank holding B and C whole at ``ngroups = 1``): the
 input's gradient is summed over the tensor group, the gated norm's sum
 of squares too at ``ngroups = 1``, and ``out_proj`` is row-parallel.
+
+Under sequence parallelism (``seq``, a ``parallel/seq_parallel.SeqContext``)
+u is this rank's block of the sequence: the conv takes the previous
+rank's halo and the SSD the state the earlier blocks leave
+(``sp_conv1d``, ``sp_ssd``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,11 @@ from mamba_distributed_tpu_torch.ops.cuda.ssd_kernels import ssd_chunked_kernel
 from mamba_distributed_tpu_torch.ops.norm import rms_norm_gated
 from mamba_distributed_tpu_torch.ops.ssd import ssd_chunked, ssd_state_update
 from mamba_distributed_tpu_torch.parallel.collectives import copy_to_tp
+from mamba_distributed_tpu_torch.parallel.seq_parallel import (
+    check_no_decode_state_under_sp,
+    sp_conv1d,
+    sp_ssd,
+)
 
 
 def _dims(cfg: ModelConfig, tp=None):
@@ -93,11 +103,12 @@ def _D(params, cfg: ModelConfig, tp=None):
 
 def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                  initial_conv_state=None, initial_ssm_state=None,
-                 return_final_state: bool = False, token_mask=None, tp=None):
+                 return_final_state: bool = False, token_mask=None, tp=None, seq=None):
     """Full-sequence mixer forward: u (b, t, d_model) -> y (b, t, d_model)
     [, (conv_state (b, d_conv-1, conv_dim), ssm_state (b, h, p, n) fp32)];
     under ``tp`` on this rank's heads (module docstring), y summed over
-    the tensor group.
+    the tensor group; under ``seq`` on this rank's block of the sequence
+    (no decode state).
 
     ``token_mask`` (b, t) {0,1} zeroes the conv/SSM inputs at left-pad
     positions: BEFORE the conv (pads must look like the zero initial
@@ -107,16 +118,24 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     di, ds, g, nh, _, _ = _dims(cfg, tp)
     b, t, _ = u.shape
     cd = cfg.torch_compute_dtype
+    check_no_decode_state_under_sp(seq, initial_conv_state, initial_ssm_state,
+                                   return_final_state)
 
     u = copy_to_tp(u, tp)
     z, xBC, dt = _split_zxbcdt(linear(params["in_proj"], u, cd), cfg, tp)
     if token_mask is not None:
+        if seq is not None:
+            raise ValueError("token_mask is a single-device prefill feature")
         xBC = xBC * token_mask[..., None].to(xBC.dtype)
-    xBC, conv_state = causal_conv1d(
-        xBC, params["conv"]["kernel"], params["conv"].get("bias"),
-        activation="silu", initial_state=initial_conv_state,
-        return_final_state=True, impl=cfg.conv_impl,
-    )
+    if seq is not None:
+        xBC, conv_state = sp_conv1d(seq, xBC, params["conv"]["kernel"],
+                                    params["conv"].get("bias"), "silu", impl=cfg.conv_impl)
+    else:
+        xBC, conv_state = causal_conv1d(
+            xBC, params["conv"]["kernel"], params["conv"].get("bias"),
+            activation="silu", initial_state=initial_conv_state,
+            return_final_state=True, impl=cfg.conv_impl,
+        )
     if token_mask is not None:
         xBC = xBC * token_mask[..., None].to(xBC.dtype)
     x, B, C = _split_xbc(xBC, cfg, tp)
@@ -127,7 +146,9 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     A = -torch.exp(params["A_log"].float())
     ssd = ssd_chunked_kernel if cfg.ssm_impl == "pallas" else ssd_chunked
     kw = dict(chunk_size=cfg.chunk_size, D=_D(params, cfg, tp), compute_dtype=cd)
-    if initial_ssm_state is None and not return_final_state:
+    if seq is not None:
+        y, ssm_state = sp_ssd(seq, x, dtf, A, B, C, **kw, ssm_impl=cfg.ssm_impl)
+    elif initial_ssm_state is None and not return_final_state:
         # the training path: no final state, so under the "mixer" remat
         # policy the SSD's y alone is kept (ops/remat.py)
         y, ssm_state = ssd(x, dtf, A, B, C, **kw), None

@@ -332,6 +332,18 @@ def flash_pair_dkv(qt, kt, vt, do, lse, dlt, offset: int):
 # --------------------------------------------------------- the autograd core
 
 
+def readable_grad(do: torch.Tensor) -> torch.Tensor:
+    """An incoming output gradient as the backward kernels read it: a
+    fresh contiguous copy when its last axis is strided or, for the bf16
+    kernels' TMA, its layout is not one TMA reads (it may be expanded or
+    offset)."""
+    tc = do.is_cuda and do.dtype == torch.bfloat16  # read by TMA in both kernels
+    if do.stride(-1) != 1 or (tc and tma_layout_problem(
+            do.shape, do.stride(), do.element_size(), do.data_ptr()) is not None):
+        return do.clone(memory_format=torch.contiguous_format)
+    return do
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """``_fa_core`` with its ``custom_vjp`` (attention_kernels.py:432-453):
     head-major (qt, kt, vt) -> o, differentiable in q, k and v.  Under
@@ -348,11 +360,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qt, kt, vt, o, lse = ctx.saved_tensors
-        tc = do.is_cuda and do.dtype == torch.bfloat16  # read by TMA in both kernels
-        if do.stride(-1) != 1 or (tc and tma_layout_problem(
-                do.shape, do.stride(), do.element_size(), do.data_ptr()) is not None):
-            # an incoming gradient may be expanded or offset: a fresh copy
-            do = do.clone(memory_format=torch.contiguous_format)
+        do = readable_grad(do)
         # D_i = rowsum(dO * O) in fp32 (attention_kernels.py:353-355)
         delta = (do.float() * o.float()).sum(dim=-1).contiguous()
         tk = kt.shape[2]

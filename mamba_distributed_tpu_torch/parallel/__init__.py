@@ -1,6 +1,7 @@
-"""Data-parallel, FSDP and tensor-parallel training over
-``torch.distributed`` (the JAX package's ``parallel/`` mesh and sharding
-rules, for the ``data``, ``fsdp`` and ``tensor`` axes).
+"""Data-parallel, FSDP, sequence-parallel, tensor-parallel and
+expert-parallel training over ``torch.distributed`` (the JAX package's
+``parallel/`` mesh and sharding rules, for the ``data``, ``fsdp``,
+``seq``, ``tensor`` and ``expert`` axes).
 
 One process per device, started by ``torchrun`` (or by a caller that
 sets its ``RANK``, ``LOCAL_RANK`` and ``WORLD_SIZE``): ``mesh`` joins
@@ -10,15 +11,16 @@ an axis of the mesh cuts, ``tp_layout`` the packed per-rank layout of
 tensor parallelism (no JAX counterpart: GSPMD needs none), and
 ``collectives`` moves leaves between their shards and their full form
 and holds the blocks' tensor-group autograd collectives (the
-collectives XLA inserts itself in the JAX package).  The sequence,
-pipeline and expert axes are later slices: the rules for expert and
-pipe are ported (pure, held against the JAX package's), fsdp and tensor
-are executed.
+collectives XLA inserts itself in the JAX package); ``seq_parallel``,
+``ring_attention`` and ``ulysses`` run the mixers and attention on a
+rank's block of the sequence.  The pipeline axis is a later slice: its
+rule is ported (pure, held against the JAX package's), not executed.
 """
 
 from mamba_distributed_tpu_torch.parallel.mesh import (
     build_mesh,
     init_distributed,
+    seq_context,
     tensor_context,
 )
 from mamba_distributed_tpu_torch.parallel.sharding import (
@@ -36,6 +38,7 @@ __all__ = [
     "init_distributed",
     "pack_tp",
     "param_specs",
+    "seq_context",
     "shard_params",
     "tensor_context",
     "tp_plan",

@@ -11,8 +11,14 @@ each rank's per-expert choice counts (``gather_counts``) and sums its
 load-balance terms both ways (``route_sum``) over the batch ranks;
 expert parallelism moves the routed rows with ``all_to_all`` over the
 expert group, whose backward is the reverse all-to-all.  All three add
-to ``EP_COMM``.  ``torch.distributed`` gathers and scatters along dim 0, so
-a leaf whose fsdp axis is another one moves that axis to the front
+to ``EP_COMM``.  Sequence parallelism moves blocks of the sequence
+between the seq ranks: ``seq_shift`` hands each rank the value of the
+rank ``d`` before it (the conv halo, the SSD and scan state exchange,
+the ring's kv hops) and ``seq_all_to_all`` turns a sequence cut into a
+head cut and back (Ulysses); both are autograd Functions whose backward
+moves the gradient the other way, and both add to ``SP_COMM``.
+``torch.distributed`` gathers and scatters along dim 0, so a leaf whose
+fsdp axis is another one moves that axis to the front
 (contiguous), goes through the collective and moves it back.  Means
 are ``ReduceOp.AVG``, which NCCL computes as a pre-multiplied sum
 (exact at one rank: a multiply by 1.0).
@@ -311,6 +317,88 @@ def all_to_all(x: torch.Tensor, send: list, recv: list, ep) -> torch.Tensor:
     ``ep`` (``EPContext``), exchanged for the ``recv[i]`` rows each rank
     i sends this one (differentiable)."""
     return _AllToAll.apply(x, send, recv, ep.group)
+
+
+# the seq group's exchanges since the last reset: count and bytes (sent by
+# this rank)
+SP_COMM = {"calls": 0, "bytes": 0}
+
+
+def seq_exchange(x: torch.Tensor, seq, d: int, cyclic: bool) -> torch.Tensor:
+    """The value of ``x`` on seq rank ``rank - d`` (mod the size when
+    ``cyclic``; zeros where that rank does not exist).  One
+    ``all_to_all_single`` over the seq group in which every rank sends
+    its whole ``x`` to rank ``rank + d`` (mod the size) and receives from
+    rank ``rank - d``, so the sends and receives pair up on every rank
+    and no rank sends to itself (``0 < |d| < size``); a rank whose sender
+    does not exist drops what it receives.  Returns a fresh contiguous
+    tensor."""
+    n, r = seq.size, seq.rank
+    flat = x.detach().contiguous().reshape(-1)
+    send, recv = [0] * n, [0] * n
+    send[(r + d) % n], recv[(r - d) % n] = flat.numel(), flat.numel()
+    SP_COMM["calls"] += 1
+    SP_COMM["bytes"] += flat.numel() * flat.element_size()
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, recv, send, group=seq.group)
+    if not cyclic and not 0 <= r - d < n:
+        return torch.zeros_like(x, memory_format=torch.contiguous_format)
+    return out.view(x.shape)
+
+
+class _SeqShift(torch.autograd.Function):
+    """``seq_exchange`` forward; the gradient goes back ``d`` ranks the
+    other way (the backward of JAX's ``ppermute`` over the seq axis)."""
+
+    @staticmethod
+    def forward(ctx, x, seq, d, cyclic):
+        ctx.seq, ctx.d, ctx.cyclic = seq, d, cyclic
+        return seq_exchange(x, seq, d, cyclic)
+
+    @staticmethod
+    def backward(ctx, g):
+        return seq_exchange(g, ctx.seq, -ctx.d, ctx.cyclic), None, None, None
+
+
+def seq_shift(x: torch.Tensor, seq, d: int = 1, cyclic: bool = False) -> torch.Tensor:
+    """The value of ``x`` on the seq rank ``d`` before this one
+    (``seq``: a ``SeqContext``); zeros into the first ``d`` ranks unless
+    ``cyclic``, where rank r receives rank ``(r - d) mod size``'s.
+    Differentiable; every seq rank must call it, in the same order."""
+    return _SeqShift.apply(x, seq, d, cyclic)
+
+
+def _tiled_all_to_all(x: torch.Tensor, seq, split_axis: int, concat_axis: int) -> torch.Tensor:
+    n = seq.size
+    parts = torch.stack(x.chunk(n, split_axis)).contiguous()
+    SP_COMM["calls"] += 1
+    SP_COMM["bytes"] += parts.numel() * parts.element_size()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=seq.group)
+    return torch.cat(out.unbind(0), concat_axis)
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    """JAX's tiled ``all_to_all`` over the seq axis; its backward is the
+    reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, seq, split_axis, concat_axis):
+        ctx.seq, ctx.axes = seq, (split_axis, concat_axis)
+        return _tiled_all_to_all(x, seq, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _tiled_all_to_all(g, ctx.seq, concat_axis, split_axis), None, None, None
+
+
+def seq_all_to_all(x: torch.Tensor, seq, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """``x`` cut into ``seq.size`` blocks along ``split_axis``, block j
+    sent to seq rank j; the blocks received, in rank order, concatenated
+    along ``concat_axis`` (JAX's ``all_to_all(..., tiled=True)``).
+    Differentiable."""
+    return _SeqAllToAll.apply(x, seq, split_axis, concat_axis)
 
 
 def all_gather_list(t: torch.Tensor, group) -> list:

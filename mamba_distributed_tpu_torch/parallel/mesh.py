@@ -7,7 +7,8 @@ is one ``torch.distributed`` rank and ``init_device_mesh`` lays the
 ranks out row-major in the same order, expert innermost.  Axes of size
 1 are kept, so every rule can name all six.  The groups a step reduces
 over are the ranks that differ only on a set of axes (``axes_group``);
-the batch ranks are those of ``(data, fsdp, expert)``.
+the batch ranks are those of ``(data, fsdp, expert)``; the ranks of
+one seq group read the same rows and hold blocks of their tokens.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import MeshConfig
+from mamba_distributed_tpu_torch.parallel.seq_parallel import SeqContext
 from mamba_distributed_tpu_torch.parallel.sharding import batch_coordinate
 from mamba_distributed_tpu_torch.parallel.tp_layout import TPContext
 
@@ -190,3 +192,12 @@ def tensor_context(mesh) -> TPContext | None:
     if size == 1:
         return None
     return TPContext(mesh.get_group("tensor"), size, mesh.get_local_rank("tensor"))
+
+
+def seq_context(mesh) -> SeqContext | None:
+    """The seq group of ``mesh`` as the sequence-parallel ops take it,
+    None when the seq axis is 1."""
+    size = axis_size(mesh, ("seq",))
+    if size == 1:
+        return None
+    return SeqContext(mesh.get_group("seq"), size, mesh.get_local_rank("seq"))

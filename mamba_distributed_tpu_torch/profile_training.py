@@ -32,7 +32,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mamba_distributed_tpu_torch.config import TRAIN_PRESETS, get_preset, get_train_preset
+from mamba_distributed_tpu_torch.config import (
+    TRAIN_PRESETS,
+    MeshConfig,
+    get_preset,
+    get_train_preset,
+)
 from mamba_distributed_tpu_torch.models.lm import init_lm_params
 from mamba_distributed_tpu_torch.profile_serving import card_name, report_kernels
 from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
@@ -85,8 +90,9 @@ def main() -> int:
                        remat_policy=args.remat_policy, loss_impl=args.loss_impl, **depth)
     name = (f"{args.preset} ({model.n_layer} layers, remat {args.remat_policy}, "
             f"{args.loss_impl} loss)")
+    # one process on one card, whatever mesh the preset names
     cfg = get_train_preset(args.preset, model=model, micro_batch_size=b,
-                           total_batch_size=b * t, seq_len=t)
+                           total_batch_size=b * t, seq_len=t, mesh=MeshConfig())
     params = tree_map(lambda p: p.requires_grad_(), init_lm_params(
         model, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
     step = make_train_step(cfg, AdamW(cfg, params))

@@ -5,7 +5,8 @@
     python -m mamba_distributed_tpu_torch.train --preset mamba1-280m --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset mamba2-280m --remat-policy mixer \
         --loss-impl blocked --max-steps 3
-    python -m mamba_distributed_tpu_torch.train --preset hybrid-7b --n-layer 8 --max-steps 3
+    python -m mamba_distributed_tpu_torch.train --preset hybrid-7b --mesh-fsdp 1 --mesh-seq 1 \
+        --n-layer 8 --max-steps 3
     python -m mamba_distributed_tpu_torch.train --preset hybrid-tiny --device cpu --max-steps 5
 
 Data parallel and FSDP run one process per device under torchrun, as the
@@ -34,10 +35,21 @@ presets have no MoE, so ``--moe-num-experts`` makes one:
         --preset hybrid-tiny --d-intermediate 64 --moe-num-experts 4 --mesh-expert 2 \
         --device cpu --max-steps 2
 
-``--mesh-data``/``--mesh-fsdp``/``--mesh-tensor``/``--mesh-expert`` override the preset's
-mesh (their product must be the world size); ``--mesh-seq`` is refused
-by the config until its slice.  Only rank 0 prints and writes logs and
-checkpoints.
+Sequence parallelism is the ``seq`` axis (every sequence cut into equal
+blocks of tokens, one a rank; the conv halo, the SSD or scan state and
+the attention's KV (ring) or heads (Ulysses, ``--attn-sp-impl ulysses``)
+cross the ranks), alone or with data and fsdp; the long-context presets
+``mamba2-2.8b-sp32`` (fsdp 8 x seq 4) and ``hybrid-7b`` (fsdp 16 x seq 4)
+name it:
+
+    torchrun --standalone --nproc_per_node=2 -m mamba_distributed_tpu_torch.train \
+        --preset hybrid-tiny --mesh-seq 2 --device cpu --max-steps 2
+    torchrun --standalone --nproc_per_node=32 -m mamba_distributed_tpu_torch.train \
+        --preset mamba2-2.8b-sp32
+
+``--mesh-data``/``--mesh-fsdp``/``--mesh-seq``/``--mesh-tensor``/``--mesh-expert``
+override the preset's mesh (their product must be the world size).  Only
+rank 0 prints and writes logs and checkpoints.
 
 Telemetry (the JAX CLI's flags): ``--spans`` writes host spans to
 ``{log_dir}/events.jsonl``; the divergence sentinel is on by default and
@@ -49,10 +61,11 @@ checkpoint after a crash, up to N times, with the crashed trainer's
 device memory released first; a divergence is never retried.
 
 ``--preset hybrid-7b`` (gated MLP after every mixer) is the JAX
-package's 64-chip recipe on one card: its fp32 masters, gradients and
-AdamW moments take 16 bytes for each of its 8.9 billion parameters at
-32 layers, more than one 80 GB card holds, so train it cut with
-``--n-layer`` (8 layers, one period of its attention pattern, keep
+package's 64-chip recipe (fsdp 16 x seq 4); on one card give it a
+one-device mesh (``--mesh-fsdp 1 --mesh-seq 1``): its fp32 masters,
+gradients and AdamW moments take 16 bytes for each of its 8.9 billion
+parameters at 32 layers, more than one 80 GB card holds, so train it cut
+with ``--n-layer`` (8 layers, one period of its attention pattern, keep
 attention at layer 3).
 
 The SSD (Mamba-2) or selective scan (Mamba-1) runs through the
@@ -103,6 +116,10 @@ def parse_args(argv=None):
                    help="pallas (default): the hand-written SSD or scan kernels on the card "
                         "(their plain versions on the CPU); xla: plain PyTorch autograd")
     p.add_argument("--chunk-size", type=int, default=None, help="SSD chunk length")
+    p.add_argument("--attn-sp-impl", choices=["ring", "ulysses"], default=None,
+                   help="attention under --mesh-seq: ring (the KV blocks travel the seq "
+                        "ranks) or ulysses (an all-to-all to a head cut; heads must "
+                        "divide by the seq size)")
     p.add_argument("--remat-policy", choices=["all", "dots", "mixer"], default=None,
                    help="what each checkpointed block saves: all (nothing but its "
                         "input), dots (the 2-D matrix products) or mixer (each mixer "
@@ -181,6 +198,7 @@ def build_config(args) -> TrainConfig:
     model = get_preset(args.preset)
     model_over = {k: v for k, v in (("ssm_impl", args.ssm_impl),
                                     ("chunk_size", args.chunk_size),
+                                    ("attn_sp_impl", args.attn_sp_impl),
                                     ("remat_policy", args.remat_policy),
                                     ("loss_impl", args.loss_impl),
                                     ("conv_impl", args.conv_impl),

@@ -43,6 +43,15 @@ collectives XLA inserts from the JAX shardings are explicit:
   axes that remain.  The norm sums the expert leaves' squares over the
   expert group as well.
 
+Sequence parallel (``seq`` above 1, alone or with data and fsdp): the
+ranks of one seq group read the same rows and each runs the model on
+its block of the tokens (``lm_loss(..., seq=)``: the conv halo, the SSD
+or scan state and the ring or Ulysses exchanges over the seq group).
+Each rank's loss is the mean over its tokens, so a replicated leaf's
+gradient and the loss are averaged over ``(data, fsdp, expert, seq)``,
+and an fsdp shard, reduce-scattered over fsdp, over the rest of them.
+The params are replicated over seq, so the norm is unchanged.
+
 Over every mesh whose batch ranks number more than one, the MoE routes
 the global micro-batch as the JAX package's one jit does: a global
 capacity, global queue slots and global load-balance terms
@@ -69,6 +78,7 @@ from mamba_distributed_tpu_torch.parallel.mesh import (
     axis_size,
     expert_context,
     route_context,
+    seq_context,
     tensor_context,
 )
 from mamba_distributed_tpu_torch.parallel.sharding import expert_axis, fsdp_axis, gather_params
@@ -80,18 +90,23 @@ from mamba_distributed_tpu_torch.training.optimizer import (
     tree_map,
 )
 
+# the axes a replicated leaf's gradient and the loss are averaged over:
+# the batch ranks and the seq ranks (each rank's loss is its tokens' mean)
+MEAN_AXES = BATCH_AXES + ("seq",)
+
 
 def loss_and_grads(params: dict, cfg: TrainConfig, x: torch.Tensor, y: torch.Tensor,
-                   tp=None, route=None, ep=None):
+                   tp=None, route=None, ep=None, seq=None):
     """Mean loss and mean gradients over the accum axis of x, y
     (accum, B, T): (loss 0-d fp32 tensor, grads tree like params).
     ``tp``: the tensor group, ``params`` this rank's packed shard;
-    ``route``, ``ep``: the MoE's batch ranks and expert group."""
+    ``route``, ``ep``: the MoE's batch ranks and expert group; ``seq``:
+    the seq group, x and y this rank's block of the tokens."""
     leaves = tree_leaves(params)
     accum = x.shape[0]
     gsum, lsum = None, None
     for i in range(accum):
-        loss = lm_loss(params, cfg.model, x[i], y[i], tp=tp, route=route, ep=ep)
+        loss = lm_loss(params, cfg.model, x[i], y[i], tp=tp, route=route, ep=ep, seq=seq)
         g = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
         if gsum is None:
@@ -135,6 +150,8 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     With a tensor axis the params are this rank's packed shard and
     ``specs`` those of the packed tree (``sharding.executed_specs``).
 
+    With a seq axis x/y are this rank's block of the tokens of its rows.
+
     ``overflow_threshold`` (``TelemetryConfig``) appends a third output,
     the overflow flag: 1.0 when the pre-clip global norm exceeds the
     threshold or is non-finite, else 0.0, computed on the device from
@@ -145,8 +162,8 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     # so a dropped step (and the optimizer and params it holds) is freed
     # at once, not at the next cyclic collection
     comm = {}
-    tp, route, ep = ((tensor_context(mesh), route_context(mesh), expert_context(mesh))
-                     if mesh is not None else (None, None, None))
+    tp, route, ep, seq = ((tensor_context(mesh), route_context(mesh), expert_context(mesh),
+                           seq_context(mesh)) if mesh is not None else (None,) * 4)
     if fsdp:
         fsdp_group = mesh.get_group("fsdp")
     if mesh is not None:
@@ -161,19 +178,19 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
                       if ep is not None else None)
 
     def mean_axes(fsdp_cut_: bool, expert_cut_: bool) -> tuple:
-        """The batch axes a leaf's gradient is still averaged over: those
-        that do not cut it (a tensor-only mesh has none)."""
+        """The batch and seq axes a leaf's gradient is still averaged
+        over: those that do not cut it (a tensor-only mesh has none)."""
         cut = {"fsdp"} if fsdp_cut_ else set()
         cut |= {"expert"} if expert_cut_ else set()
-        return tuple(a for a in BATCH_AXES if a not in cut)
+        return tuple(a for a in MEAN_AXES if a not in cut)
 
     # every group the reduction uses, built now in one order on every rank
     if mesh is not None:
         groups = {axes: axes_group(mesh, axes)
                   for axes in (mean_axes(f, e) for f in (False, True) for e in (False, True))
                   if axis_size(mesh, axes) > 1}
-        if tp is None and BATCH_AXES not in groups:  # a world of one reduces, as DDP does
-            groups[BATCH_AXES] = None
+        if tp is None and MEAN_AXES not in groups:  # a world of one reduces, as DDP does
+            groups[MEAN_AXES] = None
 
     def norm(grads: dict) -> torch.Tensor:
         if tp is not None or ep is not None:
@@ -189,14 +206,14 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
         """The global loss, gradients (this rank's shards under FSDP) and
         pre-clip norm: each leaf's fsdp shard reduce-scattered, an expert
         leaf divided by the expert size, then one bucketed mean a group of
-        the batch axes that remain (the replicated leaves' and the loss
-        over all of them, first)."""
+        the batch and seq axes that remain (the replicated leaves' and the
+        loss over all of them, first)."""
         if mesh is None:
             return loss, grads, global_norm(grads)
         leaves = tree_leaves(grads)
         if tp is not None:
             sum_shared_(leaves, plans, tp.group)
-        out, by_axes = [], {BATCH_AXES: []}
+        out, by_axes = [], {MEAN_AXES: []}
         for i, g in enumerate(leaves):
             spec = spec_leaves[i] if spec_leaves is not None else ()
             f_cut = fsdp and fsdp_axis(spec) is not None
@@ -207,7 +224,7 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
                 g.div_(ep.size)
             out.append(g)
             by_axes.setdefault(mean_axes(f_cut, e_cut), []).append(g)
-        by_axes[BATCH_AXES].append(loss.reshape(1))
+        by_axes[MEAN_AXES].append(loss.reshape(1))
         sizes = []
         for axes, tensors in by_axes.items():
             if axes in groups:
@@ -219,7 +236,7 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     def step(params: dict, x: torch.Tensor, y: torch.Tensor):
         full = (tree_map(lambda t: t.requires_grad_(), gather_params(params, specs, fsdp_group))
                 if fsdp else params)
-        loss, grads = loss_and_grads(full, cfg, x, y, tp, route, ep)
+        loss, grads = loss_and_grads(full, cfg, x, y, tp, route, ep, seq)
         del full
         loss, grads, grad_norm = reduce(loss, grads)
         optimizer.step(params, grads, grad_norm)
@@ -235,19 +252,20 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
 def make_eval_step(cfg: TrainConfig, mesh=None):
     """Loss-only step, x/y (B, T), on full params (this rank's packed
     shard with a tensor axis, its experts with an expert axis: the train
-    step's forward); over a ``mesh`` x/y are this rank's rows, the MoE
-    routes the global batch and the loss is the mean over the batch
-    ranks."""
-    tp, route, ep = ((tensor_context(mesh), route_context(mesh), expert_context(mesh))
-                     if mesh is not None else (None, None, None))
+    step's forward); over a ``mesh`` x/y are this rank's rows (and its
+    block of their tokens with a seq axis), the MoE routes the global
+    batch and the loss is the mean over the batch and seq ranks."""
+    tp, route, ep, seq = ((tensor_context(mesh), route_context(mesh), expert_context(mesh),
+                           seq_context(mesh)) if mesh is not None else (None,) * 4)
     # a tensor-only mesh has one batch rank and no batch reduction
-    batch_reduce = mesh is not None and (route is not None or tp is None)
+    spread = mesh is not None and axis_size(mesh, MEAN_AXES) > 1
+    batch_reduce = mesh is not None and (spread or tp is None)
     if batch_reduce:
-        bgroup = route.group if route is not None else None
+        bgroup = axes_group(mesh, MEAN_AXES) if spread else None
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss = lm_loss(params, cfg.model, x, y, tp=tp, route=route, ep=ep)
+        loss = lm_loss(params, cfg.model, x, y, tp=tp, route=route, ep=ep, seq=seq)
         if batch_reduce:
             dist.all_reduce(loss, op=dist.ReduceOp.AVG, group=bgroup)
         return loss

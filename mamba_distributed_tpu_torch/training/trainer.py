@@ -57,7 +57,12 @@ from mamba_distributed_tpu_torch.obs import (
     SpanTracer,
 )
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
-from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, expert_context, tensor_context
+from mamba_distributed_tpu_torch.parallel.mesh import (
+    build_mesh,
+    expert_context,
+    seq_context,
+    tensor_context,
+)
 from mamba_distributed_tpu_torch.parallel.sharding import (
     batch_coordinate,
     executed_specs,
@@ -132,6 +137,8 @@ class Trainer:
         self.tp = tensor_context(self.mesh) if self.mesh is not None else None
         self.plan = tp_plan(cfg.model, self.tp.size) if self.tp is not None else None
         self.ep = expert_context(self.mesh) if self.mesh is not None else None
+        # a seq rank trains on its block of every row's tokens
+        self.seq = seq_context(self.mesh) if self.mesh is not None else None
         # params and moments live as shards of some axis
         self._sharded = self._fsdp or self.tp is not None or self.ep is not None
 
@@ -209,6 +216,11 @@ class Trainer:
                       else None)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A batch's (..., B, T) tokens on the device: under seq, this
+        rank's block of the T columns (JAX ``batch_sharding(seq_sharded=True)``)."""
+        if self.seq is not None:
+            tl = arr.shape[-1] // self.seq.size
+            arr = np.ascontiguousarray(arr[..., self.seq.rank * tl:(self.seq.rank + 1) * tl])
         return torch.from_numpy(arr).to(self.device, dtype=torch.int64)
 
     def _batch(self, accum: int, loader) -> tuple[torch.Tensor, torch.Tensor]:
@@ -304,6 +316,7 @@ class Trainer:
             dt = time.perf_counter() - t0
             loss_f, grad_norm_f = host[0], host[1]
             overflow = int(host[2]) if self._overflow_on else None
+            # the global batch, counted once (the seq ranks share its rows)
             tok_per_sec = cfg.total_batch_size / dt
             mfu = mfu_hw = None
             if self._peak is not None:

@@ -6,8 +6,8 @@ train step) against the JAX package's, on the CPU.
   and 8, tensor 2, expert 2, pipe 2 and a mix; the layer axis of a
   stacked leaf is never fsdp's;
 * the config's checks raise the JAX messages, ``data_parallel_size``,
-  ``grad_accum_steps`` and the two data-parallel presets equal JAX's,
-  the seq and pipe axes are refused by name, tensor and expert are taken;
+  ``grad_accum_steps`` and the mesh presets equal JAX's, the pipe axis
+  is refused by name, seq, tensor and expert are taken;
 * the collectives: shard/gather round trips, the reduce-scatter mean,
   the bucketed all-reduce against one all-reduce a leaf, and
   ``sharded_global_norm`` against the full norm;
@@ -56,11 +56,12 @@ WAIT_S = 150
 # ------------------------------------------------------------------ launcher
 
 
-def spawn(module: str, case: str, world: int, work: Path, timeout: float = WAIT_S) -> list:
-    """Run ``python -m module case rank world work`` in ``world`` processes
-    over a gloo group (``file://`` rendezvous in ``work``) and return each
-    rank's ``out_{rank}.pt``.  Logs go to ``work/log_{rank}.txt``; a hang
-    kills every worker."""
+def start(module: str, case: str, world: int, work: Path, timeout: float = WAIT_S):
+    """Start ``python -m module case rank world work`` in ``world``
+    processes over a gloo group (``file://`` rendezvous in ``work``) and
+    return a function that waits for them and returns each rank's
+    ``out_{rank}.pt`` (the caller may work meanwhile).  Logs go to
+    ``work/log_{rank}.txt``; a hang kills every worker."""
     work.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
            "WORLD_SIZE": str(world)}
@@ -72,22 +73,31 @@ def spawn(module: str, case: str, world: int, work: Path, timeout: float = WAIT_
                 [sys.executable, "-m", module, case, str(r), str(world), str(work)],
                 cwd=ROOT, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                 stdout=lf, stderr=subprocess.STDOUT))
-    timed_out = False
-    try:
-        for p in procs:
-            p.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        timed_out = True
-    finally:
-        for p in procs:  # one dead worker leaves the others blocked in a collective
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    text = [f.read_text() for f in logs]
-    assert not timed_out, "worker hang; logs:\n" + "\n---\n".join(t[-3000:] for t in text)
-    for p, t in zip(procs, text):
-        assert p.returncode == 0, t[-3000:]
-    return [torch.load(work / f"out_{r}.pt", weights_only=True) for r in range(world)]
+
+    def wait() -> list:
+        timed_out = False
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            timed_out = True
+        finally:
+            for p in procs:  # one dead worker leaves the others blocked in a collective
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        text = [f.read_text() for f in logs]
+        assert not timed_out, "worker hang; logs:\n" + "\n---\n".join(t[-3000:] for t in text)
+        for p, t in zip(procs, text):
+            assert p.returncode == 0, t[-3000:]
+        return [torch.load(work / f"out_{r}.pt", weights_only=True) for r in range(world)]
+
+    return wait
+
+
+def spawn(module: str, case: str, world: int, work: Path, timeout: float = WAIT_S) -> list:
+    """``start`` the workers and wait for them: each rank's ``out_{rank}.pt``."""
+    return start(module, case, world, work, timeout)()
 
 
 def join_group(world: int, work: Path, tag: str = "pg") -> None:
@@ -199,12 +209,13 @@ def test_config_refuses_later_axes_by_name(axis):
     model = MOE_OVER if axis == "expert" else {}
     jax_cfg, port_cfg = _both_cfgs(dict(mesh={axis: 2}), model)
     jax_cfg()  # the JAX package takes it
-    if axis in ("tensor", "expert"):  # trained since their slices: taken as JAX takes them
+    if axis in ("seq", "tensor", "expert"):  # trained since their slices: taken as JAX takes them
         port, jax_ = port_cfg(), jax_cfg()
         assert port.grad_accum_steps == jax_.grad_accum_steps
         assert port.data_parallel_size == jax_.data_parallel_size
+        assert dataclasses.asdict(port.mesh) == dataclasses.asdict(jax_.mesh)
         return
-    slice_word = {"seq": "sequence parallelism", "pipe": "pipeline"}[axis]
+    slice_word = {"pipe": "pipeline"}[axis]
     with pytest.raises(ValueError, match=f"{axis} comes with .*{slice_word}"):
         port_cfg()
 
@@ -227,8 +238,12 @@ def test_data_parallel_size_and_accum_match_jax(mesh):
     assert str(jerr.value) in str(perr.value)
 
 
-@pytest.mark.parametrize("name", ["mamba2-280m-dp8", "mamba2-1.3b-fsdp16"])
+@pytest.mark.parametrize("name", ["mamba2-280m-dp8", "mamba2-1.3b-fsdp16", "mamba2-2.8b-sp32",
+                                  "hybrid-7b"])
 def test_data_parallel_presets_match_jax(name):
+    """The mesh presets (data parallel, FSDP, and the two that train over
+    seq) equal the JAX package's field for field: every field the two
+    configs share, the mesh whole."""
     from mamba_distributed_tpu.config import get_preset as jax_preset
     from mamba_distributed_tpu_torch.config import get_train_preset
 
@@ -239,6 +254,13 @@ def test_data_parallel_presets_match_jax(name):
     assert dataclasses.asdict(t.mesh) == dataclasses.asdict(j.mesh)
     for f in ("d_model", "n_layer", "ssm_layer", "d_state", "headdim", "vocab_size_padded"):
         assert getattr(t.model, f) == getattr(j.model, f), f
+    for cfg_t, cfg_j in ((t, j), (t.model, j.model)):
+        shared = ({x.name for x in dataclasses.fields(cfg_t)}
+                  & {x.name for x in dataclasses.fields(cfg_j)}) - {"model", "mesh", "data",
+                                                                    "telemetry"}
+        assert shared
+        for f in sorted(shared):
+            assert getattr(cfg_t, f) == getattr(cfg_j, f), f
 
 
 # -------------------------------------------------------------- the workers
