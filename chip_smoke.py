@@ -287,7 +287,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    memory are printed.  The kernel phase holds the flash kernels at the
    ring's fully-past hop (``tq == tk``, offset ``tk``: no masked pair) at
    t 4096;
-11. print the serving and training numbers beside the card's name and
+11. composed meshes and the pipeline (``compose_phase``): through the
+   port's Trainer, bf16, pallas, remat, 2 steps each, (a) one process and
+   (b) one world of four processes sharing the card over gloo
+   (``--compose-worker``) that runs three meshes in turn: (i) ``seq=2 x
+   tensor=2`` on hybrid-7b's widths cut to 2 layers (Mamba-2, then
+   attention at 1, ring), micro 1, seq 8192; (ii) ``seq=2 x expert=2`` on
+   the expert phase's MoE cut to 4 layers (attention at 3), micro 1,
+   seq 8192; (iii) ``pipe=2 x data=2`` on hybrid-280m cut to 16 layers (2
+   supersteps, one a stage), micro 4, accum 4 (the pipeline's
+   microbatches), seq 1024; then (d) (i) in fp32 at seq 2048 against its
+   one-process (c).  (b)'s losses must be (a)'s within rtol 1e-3 and its
+   grad norms within 2e-3, (d)'s (c)'s within 1e-5; every rank must
+   launch the SSD kernels as often as (a) (half as often a stage under
+   pipe), the flash kernels r + 1 times as often on seq rank r (the
+   ring's hops), half as often a stage under pipe; the seq, tensor,
+   expert and pipe exchanges of one more measured step (count, bytes),
+   its ms, and each rank's peak memory are printed;
+12. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -5163,6 +5180,193 @@ def seq_phase(card: str) -> None:
         raise SystemExit(f"seq phase: {fails}")
 
 
+CP_WAIT_S = 480
+# the compose phase's runs: tag -> (preset whose widths, model overrides,
+# mesh of (b), micro-batch a batch rank, accum, seq_len)
+CP_RUNS = {"st": ("hybrid-7b", dict(n_layer=2, attn_layer_idx=(1,)), dict(seq=2, tensor=2),
+                  1, 1, 8192),
+           "se": ("hybrid-280m", dict(n_layer=4, attn_layer_idx=(3,), **EP_MOE),
+                  dict(seq=2, expert=2), 1, 1, 8192),
+           "pp": ("hybrid-280m", dict(n_layer=16, attn_layer_idx=(3, 11)),
+                  dict(pipe=2, data=2), 4, 4, 1024)}
+# fp32 (c)/(d): (i) at seq 2048
+CP_FP32 = ("st", 2048)
+# the world's runs, in order, each in a group of its own: (tag, dtype)
+CP_WORKER_RUNS = (("b-st", "bfloat16"), ("b-se", "bfloat16"), ("b-pp", "bfloat16"),
+                  ("d-st", "float32"))
+
+
+def compose_cfg(tag: str, dtype: str, run: str, mesh: dict | None):
+    """Compose run ``run`` (``CP_RUNS``; fp32 at ``CP_FP32``'s seq) at
+    ``mesh`` (None: one process, its micro-batch the global one), pallas,
+    remat, one validation batch, synthetic shards under build/chip_smoke/."""
+    from mamba_distributed_tpu_torch.config import (
+        DataConfig,
+        MeshConfig,
+        get_preset,
+        get_train_preset,
+    )
+
+    preset, over, cp_mesh, micro, accum, seq_len = CP_RUNS[run]
+    if dtype == "float32":
+        seq_len = CP_FP32[1]
+    dp = cp_mesh.get("data", 1) * cp_mesh.get("expert", 1)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    model = get_preset(preset, ssm_impl="pallas", compute_dtype=dtype, remat=True, **over)
+    return get_train_preset(
+        preset, model=model, mesh=MeshConfig(**(mesh or {})), shard_params=False,
+        micro_batch_size=micro if mesh else micro * dp, seq_len=seq_len,
+        total_batch_size=micro * dp * accum * seq_len, val_steps=1,
+        log_dir=str(root / f"log_compose_{tag}"),
+        data=DataConfig(data_dir=str(root / "data"), synthetic_tokens_per_shard=1 << 20))
+
+
+def compose_train(cfg, steps: int) -> dict:
+    """``cfg`` through the port's Trainer on this process's card (one rank
+    of a composed mesh when a group is up): ``steps`` steps from zeroed
+    launch counts, then one more step, host-timed to a synchronize, with
+    the seq, tensor, expert and pipe exchange counters zeroed before it.
+    Returns the history, launches, the measured step's ms and exchanges,
+    the ranks' coordinates and the peak memory."""
+    import gc
+    import shutil
+
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel import collectives
+    from mamba_distributed_tpu_torch.training import Trainer
+
+    shutil.rmtree(cfg.log_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device=f"cuda:{torch.cuda.current_device()}")
+    out = {"seq_rank": trainer.seq.rank if trainer.seq is not None else 0,
+           "stage": trainer.pipe.rank if trainer.pipe is not None else 0}
+    comms = {"sp": collectives.SP_COMM, "tp": collectives.TP_COMM, "ep": collectives.EP_COMM,
+             "pp": collectives.PP_COMM}
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.run(max_steps=steps)
+        out["launches"] = dict(LAUNCHES)
+        out["hist"] = [trainer.history[s] for s in range(steps)]
+        x, y = trainer._batch(cfg.grad_accum_steps, trainer.train_loader)
+        torch.cuda.synchronize()
+        for c in comms.values():
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.params, x, y)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["comm"] = {name: dict(c) for name, c in comms.items()}
+        out["reduce"] = dict(trainer.train_step.comm)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        trainer.finish()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compose_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
+    """One rank of the compose phase's world (``--compose-worker``): four
+    processes on ``cuda:0`` over an explicitly requested gloo group, the
+    runs of ``CP_WORKER_RUNS`` in turn, each in a group of its own;
+    writes its results to ``work/rank{rank}.json``."""
+    import os
+
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    res = {}
+    for (tag, dtype), port in zip(CP_WORKER_RUNS, ports, strict=True):
+        init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
+        run = tag.split("-")[1]
+        res[tag] = compose_train(compose_cfg(tag, dtype, run, CP_RUNS[run][2]), 2)
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def compose_phase(card: str) -> None:
+    """The composed meshes and the pipeline on the card (phase 11, module
+    docstring): the one-process runs (a) and (c) here, then the world of
+    four (b, d); the gates on the losses, grad norms and every rank's
+    launches, and the exchanges, step ms and peaks printed."""
+    t0 = time.perf_counter()
+    plain = {f"a-{run}": compose_train(compose_cfg(f"a-{run}", "bfloat16", run, None), 2)
+             for run in CP_RUNS}
+    plain["c-st"] = compose_train(compose_cfg("c-st", "float32", "st", None), 2)
+    t_plain = time.perf_counter() - t0
+    ranks = run_workers("compose", CP_WAIT_S, world=4, n_ports=len(CP_WORKER_RUNS))
+    t_world = time.perf_counter() - t0 - t_plain
+    fails = []
+    for tag, dtype in CP_WORKER_RUNS:
+        fp32 = dtype == "float32"
+        run = tag.split("-")[1]
+        preset, over, mesh, micro, accum, seq_len = CP_RUNS[run]
+        ref = plain[f"{'c' if fp32 else 'a'}-{run}"]
+        tol, ntol = (1e-5, 1e-5) if fp32 else (1e-3, 2e-3)
+        what = (f"{preset} widths {over['n_layer']} layers {'fp32' if fp32 else 'bf16'} "
+                f"seq {CP_FP32[1] if fp32 else seq_len} mesh {mesh}")
+        want = np.array(ref["hist"])
+        for r, res in enumerate(ranks):
+            got_res = res[tag]
+            got = np.array(got_res["hist"])
+            gap = np.abs(got - want) / np.abs(want)
+            print(f"compose ({tag}) {what} rank {r}: losses {got[:, 0].tolist()} against "
+                  f"{want[:, 0].tolist()}, grad norms {got[:, 1].tolist()} against "
+                  f"{want[:, 1].tolist()}; largest gap rel loss {gap[:, 0].max():.3e}, "
+                  f"grad norm {gap[:, 1].max():.3e} (tol {tol:.0e} on the losses, "
+                  f"{ntol:.0e} on the grad norms)", flush=True)
+            if (not np.isfinite(got).all() or gap[:, 0].max() > tol
+                    or gap[:, 1].max() > ntol):
+                fails.append(f"({tag}) rank {r}: rel loss {gap[:, 0].max():.3e} (tol {tol:.0e}), "
+                             f"grad norm {gap[:, 1].max():.3e} (tol {ntol:.0e})")
+            # a rank's launches against one process's: the ring's r + 1
+            # hops on seq rank r; half the layers a stage
+            factor = {}
+            if "seq" in mesh:
+                factor = {k: got_res["seq_rank"] + 1
+                          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            for k in SP_KERNELS:
+                n_ref, n_got = ref["launches"].get(k, 0), got_res["launches"].get(k, 0)
+                want_n = n_ref * factor.get(k, 1) / mesh.get("pipe", 1)
+                if n_got != want_n:
+                    fails.append(f"({tag}) rank {r} {k} launches {n_got}, one process {n_ref} "
+                                 f"({want_n} expected)")
+            comm = got_res["comm"]
+            print(f"compose ({tag}) rank {r} (seq rank {got_res['seq_rank']}, stage "
+                  f"{got_res['stage']}) launches "
+                  f"{ {k: got_res['launches'].get(k, 0) for k in SP_KERNELS} }, one process "
+                  f"{ {k: ref['launches'].get(k, 0) for k in SP_KERNELS} }; one measured step: "
+                  f"{got_res['step_ms']:.1f} ms, seq exchanges {comm['sp']['calls']} "
+                  f"({comm['sp']['bytes']} bytes), tensor all-reduces and head gathers "
+                  f"{comm['tp']['calls']} ({comm['tp']['bytes']} bytes), all-to-alls "
+                  f"{comm['ep']['calls']} ({comm['ep']['bytes']} bytes) and routing exchanges "
+                  f"{comm['ep']['route_calls']} ({comm['ep']['route_bytes']} bytes), pipe "
+                  f"shifts {comm['pp']['calls']} ({comm['pp']['bytes']} bytes), gradient "
+                  f"reduction {got_res['reduce'].get('bytes')} bytes in "
+                  f"{got_res['reduce'].get('buckets')} buckets; peak max_memory_allocated "
+                  f"{got_res['peak_gib']:.2f} GiB [{card}]", flush=True)
+            if ("seq" in mesh) != (comm["sp"]["calls"] > 0) or (
+                    ("pipe" in mesh) != (comm["pp"]["calls"] > 0)) or (
+                    ("tensor" in mesh) != (comm["tp"]["calls"] > 0)) or (
+                    ("expert" in mesh) != (comm["ep"]["calls"] > 0)):
+                fails.append(f"({tag}) rank {r}: exchanges {comm} do not match mesh {mesh}")
+        if not any(ref["launches"].get(k, 0) for k in SP_KERNELS):
+            fails.append(f"({tag}) one process launched no hand kernel")
+        print(f"compose ({tag}) one process: measured step {ref['step_ms']:.1f} ms, peak "
+              f"max_memory_allocated {ref['peak_gib']:.2f} GiB [{card}]", flush=True)
+    print(f"compose phase: {time.perf_counter() - t0:.1f} s (one-process runs {t_plain:.1f}, "
+          f"the world of four {t_world:.1f}) [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"compose phase: {fails}")
+
+
 def check_tp_shapes(gen) -> None:
     """The hand kernels at the per-rank shapes of tensor parallelism:
     ``ssd_fwd``, ``ssd_chunk_states`` and ``ssd_bwd`` at hybrid-7b's 64,
@@ -5280,12 +5484,14 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one rank of expert_phase's world
     ap.add_argument("--seq-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of seq_phase's world
+    ap.add_argument("--compose-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of compose_phase's world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     for worker, fn in ((args.tensor_worker, tensor_worker), (args.expert_worker, expert_worker),
-                       (args.seq_worker, seq_worker)):
+                       (args.seq_worker, seq_worker), (args.compose_worker, compose_worker)):
         if worker:
             rank, world, ports, work = worker
             return fn(int(rank), int(world), [int(p) for p in ports.split(",")], Path(work))
@@ -5428,6 +5634,7 @@ def main() -> int:
         tensor_phase(card)
         expert_phase(card)
         seq_phase(card)
+        compose_phase(card)
         # the hybrid-7b shapes' launches on their own paths
         paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}

@@ -741,27 +741,13 @@ def _hybrid_period(cfg: ModelConfig):
     return p, r
 
 
-# the mesh axes the port does not train over yet, and the slice that adds each
-_LATER_AXES = {
-    "pipe": "the pipeline (lm_loss_pipelined and its schedule)",
-}
-# the axes the port trains over alone but not yet together with seq, and
-# the slice that adds each composition
-_LATER_WITH_SEQ = {
-    "tensor": "seq x tensor (the sequence-parallel blocks on packed tensor shards)",
-    "expert": "seq x expert (the MoE's global routing over tokens cut by sequence)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training loop config (same field names, defaults and checks as
-    the JAX package's ``TrainConfig``).  The port trains over the
-    ``data``, ``fsdp``, ``seq``, ``tensor`` and ``expert`` mesh axes
-    (``parallel/``, one ``torch.distributed`` rank per device), alone or
-    together, but for seq with tensor or expert; a ``pipe`` axis above 1,
-    and seq with tensor or expert, pass the JAX package's checks and are
-    then refused, naming the slice that adds each.  Under seq the
+    the JAX package's ``TrainConfig``).  The port trains over every mesh
+    the JAX package takes (``parallel/``, one ``torch.distributed`` rank
+    per device): ``data``, ``fsdp``, ``seq``, ``tensor`` and ``expert``
+    in any composition, and ``pipe`` with data and fsdp.  Under seq the
     sequence must split into equal blocks no shorter than the conv's
     halo (``d_conv - 1`` tokens).  Like the
     JAX package, no check asks the tensor size to divide the heads: a
@@ -836,24 +822,7 @@ class TrainConfig:
             raise ValueError(
                 f"n_layer={self.model.n_layer} must divide over "
                 f"mesh.pipe={m.pipe} stages")
-        later = {k: getattr(m, k) for k in _LATER_AXES if getattr(m, k) != 1}
-        if later:
-            raise ValueError(
-                f"mesh axes {later}: the PyTorch port trains over data, fsdp, "
-                f"seq, tensor and expert only; "
-                + "; ".join(f"{k} comes with {_LATER_AXES[k]}" for k in later)
-                + ", each a later slice")
         if m.seq > 1:
-            both = {k: getattr(m, k) for k in _LATER_WITH_SEQ if getattr(m, k) != 1}
-            if self.model.moe_num_experts:  # the MoE routes over the expert axis's tokens
-                both.setdefault("expert", m.expert)
-            if both:
-                raise ValueError(
-                    f"mesh seq={m.seq} with {both}"
-                    f"{' and a MoE model' if self.model.moe_num_experts else ''}: the "
-                    f"PyTorch port trains over seq with data and fsdp and a dense model "
-                    f"only; " + "; ".join(f"seq with {k} comes with {_LATER_WITH_SEQ[k]}"
-                                          for k in both) + ", each a later slice")
             if self.seq_len % m.seq:
                 raise ValueError(
                     f"seq_len={self.seq_len} does not split over mesh.seq={m.seq}: "

@@ -164,7 +164,10 @@ def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     sequence come back too, for ``pack_attention_pages``.  Under ``tp``
     (a ``parallel/tp_layout.TPContext``) on this rank's query and KV
     heads: the input's gradient summed over the tensor group, ``out_proj``
-    row-parallel.  The paged serving halves stay single-device."""
+    row-parallel; under both, the seq exchanges run over this rank's
+    heads (Ulysses gathers them over tensor first when they do not divide
+    by the seq size, ``parallel/ulysses.py``).  The paged serving halves
+    stay single-device."""
     nh, _, hd, rot = _attn_dims(cfg)
     if tp is not None:
         nh //= tp.size
@@ -180,9 +183,10 @@ def attention_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                              cfg.rope_theta)
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
-    if seq is not None:
-        sp_attend = ulysses_attention if cfg.attn_sp_impl == "ulysses" else ring_attention
-        out = sp_attend(seq, q, k, v, impl=cfg.attn_impl)
+    if seq is not None and cfg.attn_sp_impl == "ulysses":
+        out = ulysses_attention(seq, q, k, v, impl=cfg.attn_impl, tp=tp)
+    elif seq is not None:
+        out = ring_attention(seq, q, k, v, impl=cfg.attn_impl)
     else:
         attend = blockwise_sdpa_causal if cfg.attn_impl == "xla" else flash_sdpa_causal
         out = attend(q, k, v)

@@ -60,6 +60,8 @@ post-add fp32 stream through the layers in global order, as the JAX
 ``_backbone`` does, each block (Mamba or attention) checkpointed as a
 whole under ``cfg.remat_policy`` when ``cfg.remat`` is on
 (ops/remat.py); a MoE model's load-balance terms are summed on the way.
+``lm_loss_pipelined`` streams microbatches through the same blocks cut
+into pipeline stages (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mamba_distributed_tpu_torch.config import ModelConfig
+from mamba_distributed_tpu_torch.config import ModelConfig, _hybrid_period
 from mamba_distributed_tpu_torch.models.attention import (
     attention_mixer,
     attention_mixer_chunk,
@@ -108,6 +110,7 @@ from mamba_distributed_tpu_torch.parallel.collectives import (
     reduce_from_tp,
     route_sum,
 )
+from mamba_distributed_tpu_torch.parallel.pipeline import from_last_stage, pipelined_layers
 from mamba_distributed_tpu_torch.parallel.tp_layout import block_tp
 
 
@@ -256,8 +259,9 @@ def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=
     combine, and the router reads ``x`` before ``copy_to_tp``, so only
     the experts' share of x's gradient is summed.
 
-    With ``route`` (``parallel/mesh.RouteContext``: the batch ranks of a
-    mesh) ``x`` is this rank's block of the global micro-batch and the
+    With ``route`` (``parallel/mesh.RouteContext``: the batch and seq
+    ranks of a mesh) ``x`` is this rank's block of the global micro-batch
+    (its rows, and its block of their tokens under seq) and the
     routing is the JAX package's on the whole of it (``_moe_routed``);
     with ``ep`` (``EPContext``) this rank holds only its block of the
     experts."""
@@ -305,19 +309,28 @@ def _experts(params: dict, xe: torch.Tensor, cd) -> torch.Tensor:
     return _einsum_f32("ecf,efd->ecd", h, params["w2"], cd)
 
 
-def moe_queue(counts: torch.Tensor, cap: int):
-    """The global queue of every batch rank's choices from their (R, k, E)
-    integer counts (rank r's tokens are the r-th block of the global
-    micro-batch): (first, kept), each (R, k, E).  ``first[r, j, e]`` is
-    the slot of rank r's first choice-j row at expert e in the JAX
-    package's priority order (every choice-j row of every rank after
-    every choice-(j-1) row; within one choice, ranks in order); its rows
-    take the next slots in token order, and ``kept`` of them fit under
-    ``cap``."""
-    total = counts.sum(0)  # (k, E)
-    first = (total.cumsum(0) - total)[None] + (counts.cumsum(0) - counts)
-    kept = (cap - first).clamp(min=0).minimum(counts)
-    return first, kept
+def moe_queue(counts: torch.Tensor, cap: int, seq: int = 1):
+    """The global queue of the global micro-batch's choices from every
+    token rank's per-row integer counts (R S, b, k, E): rank ``c S + s``
+    holds rows ``[c b, (c + 1) b)`` and their s-th block of tokens.
+    Returns (first, kept), each (R S, b, k, E).  ``first[g, i, j, e]``
+    is the slot of the first choice-j token of rank g's row i at expert
+    e in the JAX package's priority order, which flattens the global
+    (rows, tokens) row-major: every choice-j token after every
+    choice-(j-1) one; within one choice the rows in order, a row's S
+    blocks one after another, a block's tokens in order.  Its tokens take
+    the next slots, and ``kept`` of them fit under ``cap``."""
+    g, b, k, E = counts.shape
+    # the segments (row, block) in the queue's order: (c, i, s)
+    segs = counts.reshape(g // seq, seq, b, k, E).transpose(1, 2).reshape(-1, k, E)
+    total = segs.sum(0)  # (k, E)
+    first = (total.cumsum(0) - total)[None] + (segs.cumsum(0) - segs)
+    kept = (cap - first).clamp(min=0).minimum(segs)
+
+    def back(v):  # queue order -> rank order
+        return v.reshape(g // seq, b, seq, k, E).transpose(1, 2).reshape(g, b, k, E)
+
+    return back(first), back(kept)
 
 
 class MoERoute(NamedTuple):
@@ -328,56 +341,67 @@ class MoERoute(NamedTuple):
     probs: torch.Tensor      # (n, E) fp32
     pos: torch.Tensor        # (n, k) global slots in the experts' queues
     keep: torch.Tensor       # (n, k) bool: the slot is under the capacity
-    first: torch.Tensor      # (R, k, E) from moe_queue
-    kept: torch.Tensor       # (R, k, E)
+    first: torch.Tensor      # (R S, b, k, E) from moe_queue
+    kept: torch.Tensor       # (R S, b, k, E)
     cap: int
 
 
-def moe_route(params: dict, cfg: ModelConfig, xt: torch.Tensor, route=None) -> MoERoute:
-    """The routing of this rank's tokens ``xt`` (n, d) over the batch
-    ranks of ``route`` (None: one device, the tokens are the whole
-    micro-batch), as the JAX package routes the concatenated global
-    micro-batch: the capacity counts the global tokens, and a choice's
-    slot is its expert's count of the earlier choices, of the earlier
-    ranks' same choice and the local exclusive cumsum (``moe_queue``, from
-    every rank's (k, E) counts, all-gathered): exact integers, the JAX
-    package's float cumsum of one-hots."""
+def moe_route(params: dict, cfg: ModelConfig, xt: torch.Tensor, route=None,
+              rows: int = 1) -> MoERoute:
+    """The routing of this rank's tokens ``xt`` (n, d), ``rows`` rows of
+    n / rows tokens each, over the token ranks of ``route`` (None: one
+    device, the tokens are the whole micro-batch), as the JAX package
+    routes the concatenated global micro-batch: the capacity counts the
+    global tokens, and a choice's slot is its expert's count of the
+    earlier choices, of the earlier rows and row blocks' same choice
+    (``moe_queue``, from every rank's per-row (b, k, E) counts,
+    all-gathered over the batch and seq ranks) and the exclusive cumsum
+    within its row block: exact integers, the JAX package's float cumsum
+    of one-hots."""
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     n = xt.shape[0]
-    size, coord = (1, 0) if route is None else (route.size, route.coord)
-    cap = max(1, -(-int(cfg.moe_capacity_factor * k * n * size) // E))
+    ranks, seq, index = ((1, 1, 0) if route is None
+                         else (route.size * route.seq, route.seq, route.index))
+    cap = max(1, -(-int(cfg.moe_capacity_factor * k * n * ranks) // E))
     gate_vals, gate_idx, probs = _route_topk(params, xt, k)
-    oh = F.one_hot(gate_idx, E)  # (n, k, E) int64
-    counts = oh.sum(0)[None] if route is None else gather_counts(oh.sum(0), route.group, size)
-    first, kept = moe_queue(counts, cap)  # counts (R, k, E)
-    pos = ((oh.cumsum(0) - oh + first[coord]) * oh).sum(-1)
+    oh = F.one_hot(gate_idx, E).reshape(rows, n // rows, k, E)  # int64
+    counts = oh.sum(1)  # (b, k, E)
+    if route is None:
+        counts = counts[None]
+    else:
+        counts = gather_counts(counts, route.group, ranks)
+        if route.order is not None:  # into token order
+            counts = counts[list(route.order)]
+    first, kept = moe_queue(counts, cap, seq)
+    pos = ((oh.cumsum(1) - oh + first[index][:, None]) * oh).sum(-1).reshape(n, k)
     return MoERoute(gate_vals, gate_idx, probs, pos, pos < cap, first, kept, cap)
 
 
 def _moe_routed(params: dict, cfg: ModelConfig, x: torch.Tensor, cd, tp, route, ep):
-    """``_moe_mlp`` over the batch ranks of ``route``: the result of the
+    """``_moe_mlp`` over the token ranks of ``route``: the result of the
     JAX package's ``_moe_mlp`` on the concatenated global micro-batch,
-    for this rank's rows.
+    for this rank's tokens.
 
     The routing is ``moe_route``'s.  The load-balance sums are summed
-    over the batch ranks both ways (``route_sum``) and divided by the
-    global token count.
+    over the batch and seq ranks both ways (``route_sum``) and divided by
+    the global token count.
 
     The kept (token, choice) rows go, in the compute dtype (JAX's ``xe``),
     ordered by (expert, slot), to the rank that holds their expert: with
-    ``ep`` the expert rank of this rank's expert group, by one
-    all-to-all whose split sizes, like every received row's slot, every
-    rank reads off the gathered counts (so only the rows cross); without
-    ``ep``, this rank.  The expert rank scatters them into its (E/ep, C,
-    d) slots at their global slot, runs its experts' gated MLPs and
-    gathers the fp32 outputs back in received order; the reverse
+    ``ep`` the expert rank of this rank's expert group (the ranks that
+    differ from it on the expert axis alone, so the same seq block), by
+    one all-to-all whose split sizes, like every received row's slot,
+    every rank reads off the gathered counts (so only the rows cross);
+    without ``ep``, this rank.  The expert rank scatters them into its
+    (E/ep, C, d) slots at their global slot, runs its experts' gated MLPs
+    and gathers the fp32 outputs back in received order; the reverse
     all-to-all returns them, and the gate weights combine them at their
     source rank."""
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     b, t, d = x.shape
     n = b * t
     xt = x.reshape(n, d)
-    r = moe_route(params, cfg, xt, route)
+    r = moe_route(params, cfg, xt, route, rows=b)
     cap, first, kept = r.cap, r.first, r.kept
 
     # this rank's kept rows, ordered by (expert, slot)
@@ -388,20 +412,21 @@ def _moe_routed(params: dict, cfg: ModelConfig, x: torch.Tensor, cd, tp, route, 
     rows = copy_to_tp(xt, tp).to(cd)[tok]
     gate = copy_to_tp(r.gate_vals, tp)[tok, ch]
 
-    # the sources of the rows this rank's experts take, in order
+    # the sources of the rows this rank's experts take, in order: the
+    # token ranks of its expert group
     size, rank = (1, 0) if ep is None else (ep.size, ep.rank)
     el = E // size
-    srcs = torch.arange(size, device=x.device) + route.coord - rank
+    srcs = (torch.arange(size, device=x.device) + route.coord - rank) * route.seq + route.seq_rank
     if ep is not None:
-        per_rank = kept.sum(1).reshape(route.size, size, el).sum(-1).tolist()  # (R, size)
-        send = per_rank[route.coord]
+        per_rank = kept.sum((1, 2)).reshape(-1, size, el).sum(-1).tolist()  # (R S, size)
+        send = per_rank[route.index]
         recv = [per_rank[s][rank] for s in srcs.tolist()]
         rows = all_to_all(rows, send, recv, ep)
-    # received rows: by source, then local expert, then choice, then slot
+    # received rows: by source, then local expert, then choice, then row, then slot
     mine = slice(rank * el, (rank + 1) * el)
-    starts = first[srcs][:, :, mine].transpose(1, 2).reshape(-1)  # (size, el, k)
-    lengths = kept[srcs][:, :, mine].transpose(1, 2).reshape(-1)
-    local_e = torch.arange(el, device=x.device).repeat_interleave(k).repeat(size)
+    starts = first[srcs][..., mine].permute(0, 3, 2, 1).reshape(-1)  # (size, el, k, b)
+    lengths = kept[srcs][..., mine].permute(0, 3, 2, 1).reshape(-1)
+    local_e = torch.arange(el, device=x.device).repeat_interleave(k * b).repeat(size)
     offsets = lengths.cumsum(0) - lengths
     total = int(lengths.sum()) if ep is None else sum(recv)
     within = torch.arange(total, device=x.device) - offsets.repeat_interleave(lengths, 0,
@@ -417,7 +442,8 @@ def _moe_routed(params: dict, cfg: ModelConfig, x: torch.Tensor, cd, tp, route, 
 
     # the Switch aux over the global micro-batch: global f and P
     f = F.one_hot(r.gate_idx, E).sum((0, 1)).float()
-    f, p_mean = route_sum(torch.stack([f, r.probs.sum(0)]), route) / (n * route.size)
+    f, p_mean = route_sum(torch.stack([f, r.probs.sum(0)]), route) / (n * route.size
+                                                                      * route.seq)
     aux = E * (f * p_mean).sum() / k
     return out.reshape(b, t, d).to(x.dtype), aux
 
@@ -571,6 +597,23 @@ def _mean_aux(cfg: ModelConfig, aux_total, like: torch.Tensor) -> torch.Tensor:
     return aux_total / cfg.n_layer
 
 
+def _train_logits(params: dict, cfg: ModelConfig, res: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head of the post-add stream: one
+    compute-dtype GEMM (``lm_forward``)."""
+    cd = cfg.torch_compute_dtype
+    normed = _final_norm(params, cfg, res)
+    if cfg.tie_embeddings:
+        return normed.to(cd) @ params["embedding"].to(cd).t()
+    return linear(params["lm_head"], normed, cd)
+
+
+def _dense_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32: ``logsumexp - gathered logit``."""
+    lf = logits.float()
+    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return (torch.logsumexp(lf, dim=-1) - tgt).mean()
+
+
 def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                return_aux: bool = False, tp=None, route=None, ep=None, seq=None):
     """input_ids (b, t) -> logits (b, t, V) in the compute dtype (lm.py:522-542)
@@ -585,13 +628,8 @@ def lm_forward(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     of the global micro-batch and its experts (``_moe_mlp``).  ``seq``:
     ``input_ids`` (b, t_local) is this rank's block of every sequence
     (``SeqContext``), and so are the logits."""
-    cd = cfg.torch_compute_dtype
     res, aux_total = _backbone(params, cfg, input_ids, tp, route, ep, seq)
-    normed = _final_norm(params, cfg, res)
-    if cfg.tie_embeddings:
-        logits = normed.to(cd) @ params["embedding"].to(cd).t()
-    else:
-        logits = linear(params["lm_head"], normed, cd)
+    logits = _train_logits(params, cfg, res)
     if return_aux:
         return logits, _mean_aux(cfg, aux_total, res)
     return logits
@@ -616,12 +654,77 @@ def lm_loss(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     else:
         logits, aux = lm_forward(params, cfg, input_ids, return_aux=True, tp=tp,
                                  route=route, ep=ep, seq=seq)
-        lf = logits.float()
-        tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-        ce = (torch.logsumexp(lf, dim=-1) - tgt).mean()
+        ce = _dense_ce(logits, targets)
     if cfg.moe_num_experts:
         return ce + cfg.moe_aux_weight * aux
     return ce
+
+
+def lm_loss_pipelined(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+                      targets: torch.Tensor, pipe=None) -> torch.Tensor:
+    """``lm_loss`` averaged over the microbatches of input_ids/targets
+    (n_micro, b, t), the layer stack pipelined over the pipe group
+    ``pipe`` (``parallel/pipeline.PipeContext``; None: one stage)
+    (lm.py:589-660).  ``params`` holds this stage's block of every
+    stacked leaf (``parallel/sharding.stage_block``) and the whole of
+    the others.
+
+    The microbatches are the pipeline's (``pipelined_layers``).  Stage 0
+    embeds them; a uniform stack pipelines per layer, a periodic hybrid
+    per superstep ``[offset mamba] -> attn -> [rest mamba]`` (JAX
+    ``_group_mamba_stack``), each block checkpointed under
+    ``cfg.remat_policy`` when ``cfg.remat`` is on, as in
+    ``_backbone``.  The last stage alone runs the final norm, the head
+    and the dense loss, and broadcasts the loss to the other stages,
+    whose gradient of it runs the schedule's backward only: so the
+    embedding's gradient is stage 0's, the head's and the final norm's
+    the last stage's (a tied embedding gets both), and their sum over
+    the pipe group is the whole gradient (the train step's)."""
+    size, stage = (1, 0) if pipe is None else (pipe.size, pipe.rank)
+    rdt = _residual_dtype(cfg)
+    if stage == 0:
+        xs = _embed(params, input_ids, cfg.torch_compute_dtype).to(rdt)
+    else:  # only stage 0 reads the microbatches
+        xs = torch.zeros((*input_ids.shape, cfg.d_model), dtype=rdt, device=input_ids.device)
+
+    def block(bp, res, attn):
+        if cfg.remat and torch.is_grad_enabled():
+            return remat_block(_train_block, cfg.remat_policy, bp, cfg, res, attn)[0]
+        return _train_block(bp, cfg, res, attn)[0]
+
+    if cfg.attn_layer_idx:
+        period, offset = _hybrid_period(cfg)
+        groups = params["attn_blocks"]["norm"]["weight"].shape[0]  # this stage's supersteps
+        stacked = {"mamba": _map_leaves(lambda v: v.reshape(groups, period - 1, *v.shape[1:]),
+                                        params["blocks"]),
+                   "attn": params["attn_blocks"]}
+
+        def body(res, grp):
+            mamba = _unstack(grp["mamba"], period - 1)
+            for bp in mamba[:offset]:
+                res = block(bp, res, False)
+            res = block(grp["attn"], res, True)
+            for bp in mamba[offset:]:
+                res = block(bp, res, False)
+            return res
+    else:
+        stacked = params["blocks"]
+
+        def body(res, bp):
+            return block(bp, res, False)
+
+    res = pipelined_layers(body, stacked, xs, pipe)
+    if stage == size - 1:
+        ce = _dense_ce(_train_logits(params, cfg, res), targets)
+    else:  # no loss here; the zero ties the schedule's output to the graph
+        ce = res.sum() * 0.0
+    return ce if pipe is None else from_last_stage(ce, pipe)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _stack_states(states: list) -> tuple:

@@ -1,7 +1,7 @@
-"""Data-parallel, FSDP, sequence-parallel, tensor-parallel and
-expert-parallel training over ``torch.distributed`` (the JAX package's
-``parallel/`` mesh and sharding rules, for the ``data``, ``fsdp``,
-``seq``, ``tensor`` and ``expert`` axes).
+"""Data-parallel, FSDP, sequence-parallel, tensor-parallel,
+expert-parallel and pipeline-parallel training over
+``torch.distributed`` (the JAX package's ``parallel/`` mesh and sharding
+rules, for all six axes).
 
 One process per device, started by ``torchrun`` (or by a caller that
 sets its ``RANK``, ``LOCAL_RANK`` and ``WORLD_SIZE``): ``mesh`` joins
@@ -13,13 +13,14 @@ tensor parallelism (no JAX counterpart: GSPMD needs none), and
 and holds the blocks' tensor-group autograd collectives (the
 collectives XLA inserts itself in the JAX package); ``seq_parallel``,
 ``ring_attention`` and ``ulysses`` run the mixers and attention on a
-rank's block of the sequence.  The pipeline axis is a later slice: its
-rule is ported (pure, held against the JAX package's), not executed.
+rank's block of the sequence, and ``pipeline`` streams microbatches
+through the stages of the layer stack.
 """
 
 from mamba_distributed_tpu_torch.parallel.mesh import (
     build_mesh,
     init_distributed,
+    pipe_context,
     seq_context,
     tensor_context,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "init_distributed",
     "pack_tp",
     "param_specs",
+    "pipe_context",
     "seq_context",
     "shard_params",
     "tensor_context",

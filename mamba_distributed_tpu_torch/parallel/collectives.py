@@ -16,7 +16,9 @@ between the seq ranks: ``seq_shift`` hands each rank the value of the
 rank ``d`` before it (the conv halo, the SSD and scan state exchange,
 the ring's kv hops) and ``seq_all_to_all`` turns a sequence cut into a
 head cut and back (Ulysses); both are autograd Functions whose backward
-moves the gradient the other way, and both add to ``SP_COMM``.
+moves the gradient the other way, and both add to ``SP_COMM``.  The
+pipeline's stage-to-stage shifts are the same exchange over the pipe
+group and add to ``PP_COMM``.
 ``torch.distributed`` gathers and scatters along dim 0, so a leaf whose
 fsdp axis is another one moves that axis to the front
 (contiguous), goes through the collective and moves it back.  Means
@@ -75,10 +77,17 @@ def buckets(tensors: list[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> li
 def all_reduce_mean_(tensors: list[torch.Tensor], group=None,
                      bucket_bytes: int = BUCKET_BYTES) -> list[int]:
     """Replace every tensor by its mean over ``group``, in place, in its
-    own dtype: one async ``all_reduce`` a bucket (a flat copy of the
-    bucket's tensors; a lone contiguous tensor is reduced where it lies),
-    all of them waited on, then each copied back.  Returns each bucket's
-    bytes."""
+    own dtype (``all_reduce_``)."""
+    return all_reduce_(tensors, group, dist.ReduceOp.AVG, bucket_bytes)
+
+
+def all_reduce_(tensors: list[torch.Tensor], group, op,
+                bucket_bytes: int = BUCKET_BYTES) -> list[int]:
+    """Replace every tensor by its reduction ``op`` over ``group``, in
+    place, in its own dtype: one async ``all_reduce`` a bucket (a flat
+    copy of the bucket's tensors; a lone contiguous tensor is reduced
+    where it lies), all of them waited on, then each copied back.
+    Returns each bucket's bytes."""
     pending = []
     for idx in buckets(tensors, bucket_bytes):
         parts = [tensors[i] for i in idx]
@@ -86,7 +95,7 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group=None,
             flat = parts[0]
         else:
             flat = torch.cat([t.reshape(-1) for t in parts])
-        work = dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group, async_op=True)
+        work = dist.all_reduce(flat, op=op, group=group, async_op=True)
         pending.append((work, flat, parts))
     for work, flat, parts in pending:
         work.wait()
@@ -114,7 +123,8 @@ def sharded_global_norm(grads: dict, specs: dict, group=None) -> torch.Tensor:
 
 
 
-# tensor-group all-reduces since the last reset: count and bytes
+# tensor-group all-reduces (and head gathers) since the last reset: count
+# and bytes
 TP_COMM = {"calls": 0, "bytes": 0}
 
 
@@ -169,6 +179,33 @@ class _AllReduceTP(torch.autograd.Function):
         return tp_all_reduce_(g.contiguous().clone(), ctx.group), None
 
 
+class _GatherTP(torch.autograd.Function):
+    """Every tensor rank's ``x`` concatenated along ``axis`` in rank
+    order; the backward keeps this rank's block of the gradient.  It
+    serves values of which each rank then keeps only its own block's
+    results (the heads of a Ulysses exchange the local heads cannot
+    feed: every head's output depends on that head's inputs alone), so
+    no other rank's gradient reaches this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axis):
+        ctx.tp, ctx.axis, ctx.n = tp, axis, x.shape[axis]
+        TP_COMM["calls"] += 1
+        TP_COMM["bytes"] += x.numel() * x.element_size()
+        return torch.cat(all_gather_list(x, tp.group), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.axis, ctx.tp.rank * ctx.n, ctx.n), None, None
+
+
+def gather_heads_tp(x: torch.Tensor, tp, axis: int) -> torch.Tensor:
+    """``x``'s heads (``axis``) of every tensor rank of ``tp``, in rank
+    order (the global heads of the packed layout); differentiable, the
+    gradient of this rank's own heads only."""
+    return _GatherTP.apply(x, tp, axis)
+
+
 def copy_to_tp(x: torch.Tensor, tp) -> torch.Tensor:
     return x if tp is None else _CopyToTP.apply(x, tp.group)
 
@@ -201,22 +238,22 @@ def sum_shared_(grads: list, plans: list, group) -> None:
 
 
 def tp_global_norm(grads: list, plans: list, fsdp_cut: list, tensor_group,
-                   fsdp_group=None, expert_cut: list | None = None,
-                   expert_group=None) -> torch.Tensor:
+                   fsdp_group=None, cut: list | None = None, cut_group=None) -> torch.Tensor:
     """``optimizer.global_norm`` of the full gradients from this rank's
-    packed (and, where ``fsdp_cut``, fsdp-sharded; where ``expert_cut``,
-    expert-sharded) leaves: the positions a tensor rank holds alone
-    count once per shard (summed over the tensor group; with no tensor
-    group every leaf is ``"full"``), the replicated ones once; the
-    leaves fsdp cuts are summed over ``fsdp_group`` as well, and those
-    the expert axis cuts over ``expert_group``."""
+    packed (and, where ``fsdp_cut``, fsdp-sharded; where ``cut``, cut by
+    one more axis: the expert axis's experts or the pipe axis's stages)
+    leaves: the positions a tensor rank holds alone count once per shard
+    (summed over the tensor group; with no tensor group every leaf is
+    ``"full"``), the replicated ones once; the leaves fsdp cuts are
+    summed over ``fsdp_group`` as well, and those ``cut`` marks over
+    ``cut_group``."""
     zero = grads[0].new_zeros((), dtype=torch.float32)
-    # [own positions, replicated positions] x [fsdp-cut, whole] x [expert-cut, whole]
+    # [own positions, replicated positions] x [fsdp-cut, whole] x [cut, whole]
     acc = [[[zero, zero], [zero, zero]], [[zero, zero], [zero, zero]]]
-    for i, (g, lp, cut) in enumerate(zip(grads, plans, fsdp_cut)):
+    for i, (g, lp, sharded) in enumerate(zip(grads, plans, fsdp_cut)):
         g = g.float()
-        col = 0 if cut else 1
-        ex = 0 if expert_cut is not None and expert_cut[i] else 1
+        col = 0 if sharded else 1
+        ex = 0 if cut is not None and cut[i] else 1
         if lp.kind == "full":
             acc[1][col][ex] = acc[1][col][ex] + g.square().sum()
             continue
@@ -227,20 +264,20 @@ def tp_global_norm(grads: list, plans: list, fsdp_cut: list, tensor_group,
             acc[1][col][ex] = acc[1][col][ex] + g.index_select(ax, shared).square().sum()
             g = g.index_select(ax, own)
         acc[0][col][ex] = acc[0][col][ex] + g.square().sum()
-    # the fsdp-cut terms summed over fsdp, then the expert-cut ones over expert
+    # the fsdp-cut terms summed over fsdp, then the other cut ones over their axis
     for group, picks in ((fsdp_group, [(o, 0, e) for o in (0, 1) for e in (0, 1)]),
-                         (expert_group, [(o, c, 0) for o in (0, 1) for c in (0, 1)])):
+                         (cut_group, [(o, c, 0) for o in (0, 1) for c in (0, 1)])):
         if group is None:
             continue
         part = torch.stack([acc[o][c][e] for o, c, e in picks])
         dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
         for j, (o, c, e) in enumerate(picks):
             acc[o][c][e] = part[j]
-    own, cut, whole = ((acc[o][c][0] + acc[o][c][1]) for o, c in ((0, 0), (1, 0), (1, 1)))
+    own, sharded, whole = ((acc[o][c][0] + acc[o][c][1]) for o, c in ((0, 0), (1, 0), (1, 1)))
     own = own + acc[0][1][0] + acc[0][1][1]
     if tensor_group is not None:
         own = tp_all_reduce_(own.reshape(1), tensor_group)[0]
-    return torch.sqrt(own + cut + whole)
+    return torch.sqrt(own + sharded + whole)
 
 
 # the MoE's routing exchanges over the batch ranks (the choice counts, the
@@ -322,23 +359,28 @@ def all_to_all(x: torch.Tensor, send: list, recv: list, ep) -> torch.Tensor:
 # the seq group's exchanges since the last reset: count and bytes (sent by
 # this rank)
 SP_COMM = {"calls": 0, "bytes": 0}
+# the pipe group's shifts of the pipeline schedule, likewise
+PP_COMM = {"calls": 0, "bytes": 0}
 
 
-def seq_exchange(x: torch.Tensor, seq, d: int, cyclic: bool) -> torch.Tensor:
+def seq_exchange(x: torch.Tensor, seq, d: int, cyclic: bool, comm: dict = SP_COMM
+                 ) -> torch.Tensor:
     """The value of ``x`` on seq rank ``rank - d`` (mod the size when
     ``cyclic``; zeros where that rank does not exist).  One
     ``all_to_all_single`` over the seq group in which every rank sends
     its whole ``x`` to rank ``rank + d`` (mod the size) and receives from
     rank ``rank - d``, so the sends and receives pair up on every rank
     and no rank sends to itself (``0 < |d| < size``); a rank whose sender
-    does not exist drops what it receives.  Returns a fresh contiguous
+    does not exist drops what it receives.  ``seq`` is any group context
+    with ``group``, ``size`` and ``rank`` (the pipeline's too), and the
+    exchange is counted in ``comm``.  Returns a fresh contiguous
     tensor."""
     n, r = seq.size, seq.rank
     flat = x.detach().contiguous().reshape(-1)
     send, recv = [0] * n, [0] * n
     send[(r + d) % n], recv[(r - d) % n] = flat.numel(), flat.numel()
-    SP_COMM["calls"] += 1
-    SP_COMM["bytes"] += flat.numel() * flat.element_size()
+    comm["calls"] += 1
+    comm["bytes"] += flat.numel() * flat.element_size()
     out = torch.empty_like(flat)
     dist.all_to_all_single(out, flat, recv, send, group=seq.group)
     if not cyclic and not 0 <= r - d < n:

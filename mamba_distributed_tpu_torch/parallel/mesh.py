@@ -8,7 +8,9 @@ ranks out row-major in the same order, expert innermost.  Axes of size
 1 are kept, so every rule can name all six.  The groups a step reduces
 over are the ranks that differ only on a set of axes (``axes_group``);
 the batch ranks are those of ``(data, fsdp, expert)``; the ranks of
-one seq group read the same rows and hold blocks of their tokens.
+one seq group read the same rows and hold blocks of their tokens; the
+ranks of one pipe group read the same rows and hold blocks of the
+layers.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import MeshConfig
+from mamba_distributed_tpu_torch.parallel.pipeline import PipeContext
 from mamba_distributed_tpu_torch.parallel.seq_parallel import SeqContext
 from mamba_distributed_tpu_torch.parallel.sharding import batch_coordinate
 from mamba_distributed_tpu_torch.parallel.tp_layout import TPContext
@@ -28,6 +31,8 @@ from mamba_distributed_tpu_torch.parallel.tp_layout import TPContext
 # the mesh axes a batch's rows split over (expert is a batch axis for every
 # layer but the MoE's experts, as in the JAX package)
 BATCH_AXES = ("data", "fsdp", "expert")
+# the mesh axes a batch's tokens split over: its rows, then their columns
+TOKEN_AXES = BATCH_AXES + ("seq",)
 
 
 def init_distributed(device="cuda", init_method: str | None = None,
@@ -113,7 +118,9 @@ def axes_group(mesh, names):
     axes, from ``dist.new_group``, every rank building every such group
     in the same order (so every rank must ask for the same axes in the
     same order); None when it is the whole world (the default group).
-    Its rank order is the row-major order of ``names``."""
+    Its rank order is the global ranks' (``dist.new_group`` sorts them):
+    the row-major order of the mesh's axes, whatever the order of
+    ``names``."""
     cache = mesh.__dict__.setdefault("_axes_groups", {})
     names = tuple(n for n in names if axis_size(mesh, (n,)) > 1)
     if not names:
@@ -137,23 +144,29 @@ def axes_group(mesh, names):
     return mine
 
 
-def batch_group(mesh):
-    """The process group of the batch ranks: those that differ from this
-    rank only on the mesh axes data, fsdp and expert (``axes_group``;
-    at least one of them above 1), their group rank its batch
-    coordinate."""
-    return axes_group(mesh, BATCH_AXES)
-
-
 @dataclasses.dataclass(frozen=True)
 class RouteContext:
-    """What the MoE's global routing needs of the batch ranks: their
-    group, its size R and this rank's batch coordinate (its block of the
-    global micro-batch's rows, in the group's rank order)."""
+    """What the MoE's global routing needs of the ranks that hold the
+    global micro-batch's tokens: their group (the batch and seq ranks),
+    the number R of batch ranks and this rank's batch coordinate (its
+    block of the rows), the number S of seq ranks and this rank's seq
+    coordinate (its block of every row's tokens), and ``order``: the
+    group ranks in token order (batch coordinate, then seq coordinate;
+    the group's own order is the mesh's, seq before expert), None when
+    the two agree."""
 
     group: object
     size: int
     coord: int
+    seq: int = 1
+    seq_rank: int = 0
+    order: tuple | None = None
+
+    @property
+    def index(self) -> int:
+        """This rank's place in token order (its group rank is
+        ``order.index(index)`` when ``order`` is set)."""
+        return self.coord * self.seq + self.seq_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,12 +181,21 @@ class EPContext:
 
 
 def route_context(mesh) -> RouteContext | None:
-    """The batch ranks as the MoE routes over them, None when there is
-    one (the one-device routing)."""
-    size = axis_size(mesh, BATCH_AXES)
-    if size == 1:
+    """The batch and seq ranks as the MoE routes over them, None when
+    there is one (the one-device routing)."""
+    size, seq = axis_size(mesh, BATCH_AXES), axis_size(mesh, ("seq",))
+    if size * seq == 1:
         return None
-    return RouteContext(batch_group(mesh), size, batch_coordinate(mesh))
+    names = mesh.mesh_dim_names
+    here = tuple(slice(None) if n in TOKEN_AXES else mesh.get_local_rank(n) for n in names)
+    kept = [n for n in names if n in TOKEN_AXES]
+    # the token ranks' global ranks in token order; a group's rank is its
+    # global rank's place among them
+    ranks = mesh.mesh[here].permute(*[kept.index(n) for n in TOKEN_AXES]).reshape(-1).tolist()
+    order = tuple(sorted(ranks).index(r) for r in ranks)
+    return RouteContext(axes_group(mesh, TOKEN_AXES), size, batch_coordinate(mesh), seq,
+                        mesh.get_local_rank("seq"),
+                        None if order == tuple(range(len(order))) else order)
 
 
 def expert_context(mesh) -> EPContext | None:
@@ -201,3 +223,13 @@ def seq_context(mesh) -> SeqContext | None:
     if size == 1:
         return None
     return SeqContext(mesh.get_group("seq"), size, mesh.get_local_rank("seq"))
+
+
+def pipe_context(mesh) -> PipeContext | None:
+    """The pipe group of ``mesh`` as the pipeline schedule takes it (a
+    ``parallel/pipeline.PipeContext``: this rank's stage is its index on
+    the axis), None when the pipe axis is 1."""
+    size = axis_size(mesh, ("pipe",))
+    if size == 1:
+        return None
+    return PipeContext(mesh.get_group("pipe"), size, mesh.get_local_rank("pipe"))

@@ -11,15 +11,16 @@ inherit their param's spec and scalars replicate.  Batches split their
 rows over ``(data, fsdp)`` (and ``expert``, a pure-DP batch axis for
 the non-MoE layers), data outermost.
 
-The expert, fsdp and tensor axes are executed.  ``expert_shard`` cuts
-a MoE stack to this rank's block of experts (the axis JAX's spec gives
-``expert``); ``shard_params`` packs each leaf into this rank's tensor shard
+Every axis is executed.  ``expert_shard`` cuts a MoE stack to this
+rank's block of experts (the axis JAX's spec gives ``expert``);
+``shard_params`` packs each leaf into this rank's tensor shard
 (``parallel/tp_layout.py``: its own heads of every segment side by
 side, not JAX's even cut of the packed axis), then narrows it to its
-block of the fsdp axis; ``gather_params`` reverses all three.  The fsdp
-axis of a packed leaf is the one JAX's spec gives ``fsdp``, checked
-against the local shape (``executed_specs``).  The pipe branch is pure
-and waits for its slice.
+block of the fsdp axis; ``stage_block`` cuts every stacked leaf to
+this rank's pipeline stage (the layer axis JAX's spec gives ``pipe``);
+``gather_params`` reverses all four.  The fsdp axis of a packed leaf is
+the one JAX's spec gives ``fsdp``, checked against the local shape
+(``executed_specs``).
 """
 
 from __future__ import annotations
@@ -166,6 +167,12 @@ def expert_axis(spec: tuple) -> int | None:
     return spec.index("expert") if "expert" in spec else None
 
 
+def pipe_axis(spec: tuple) -> int | None:
+    """The axis of a leaf that the pipe axis cuts (a stacked leaf's layer
+    axis), or None."""
+    return spec.index("pipe") if "pipe" in spec else None
+
+
 def narrow_leaf(full: torch.Tensor, spec: tuple, index: int, size: int,
                 axis=fsdp_axis) -> torch.Tensor:
     """Block ``index`` of ``size`` along the leaf's fsdp axis (``axis``:
@@ -209,6 +216,16 @@ def expert_shard(params: dict, specs: dict, ep) -> dict:
                      params, specs)
 
 
+def stage_block(params: dict, specs: dict, pipe) -> dict:
+    """This rank's pipeline stage of every stacked leaf (``pipe``: the
+    ``PipeContext``), its contiguous block of layers (of supersteps, for a
+    periodic hybrid, whose Mamba and attention stacks cut alike); the
+    other leaves as they are."""
+    return _tree_map(lambda t, s: t if pipe_axis(s) is None
+                     else narrow_leaf(t.detach(), s, pipe.rank, pipe.size, pipe_axis),
+                     params, specs)
+
+
 def shard_params(params: dict, specs: dict, group=None, tp=None, plan=None) -> dict:
     """This rank's shard of every leaf (of its experts, ``expert_shard``,
     under an expert axis), contiguous clones: with ``tp`` (``TPContext``)
@@ -223,11 +240,12 @@ def shard_params(params: dict, specs: dict, group=None, tp=None, plan=None) -> d
 
 
 def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None,
-                  ep=None) -> dict:
+                  ep=None, pipe=None) -> dict:
     """The full leaves from every rank's shard: ``all_gather`` over the
     fsdp ``group``, then, with ``tp`` and its ``plan``, every tensor
     rank's packed leaf (the list form of ``all_gather``) unpacked into
-    the logical leaf, then, with ``ep``, every expert rank's experts.
+    the logical leaf, then, with ``ep``, every expert rank's experts,
+    then, with ``pipe``, every stage's layers.
     Fresh tensors; a leaf no axis cuts comes back as a detached alias of
     its own storage."""
     out = _tree_map(lambda t, s: t.detach() if fsdp_axis(s) is None
@@ -239,4 +257,7 @@ def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None,
     if ep is not None:
         out = _tree_map(lambda t, s: t if expert_axis(s) is None
                         else all_gather_leaf(t, expert_axis(s), ep.group), out, specs)
+    if pipe is not None:
+        out = _tree_map(lambda t, s: t if pipe_axis(s) is None
+                        else all_gather_leaf(t, pipe_axis(s), pipe.group), out, specs)
     return out

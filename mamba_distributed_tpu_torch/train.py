@@ -38,7 +38,8 @@ presets have no MoE, so ``--moe-num-experts`` makes one:
 Sequence parallelism is the ``seq`` axis (every sequence cut into equal
 blocks of tokens, one a rank; the conv halo, the SSD or scan state and
 the attention's KV (ring) or heads (Ulysses, ``--attn-sp-impl ulysses``)
-cross the ranks), alone or with data and fsdp; the long-context presets
+cross the ranks), alone or with data, fsdp, tensor and expert; the
+long-context presets
 ``mamba2-2.8b-sp32`` (fsdp 8 x seq 4) and ``hybrid-7b`` (fsdp 16 x seq 4)
 name it:
 
@@ -48,8 +49,10 @@ name it:
         --preset mamba2-2.8b-sp32
 
 ``--mesh-data``/``--mesh-fsdp``/``--mesh-seq``/``--mesh-tensor``/``--mesh-expert``
-override the preset's mesh (their product must be the world size).  Only
-rank 0 prints and writes logs and checkpoints.
+override the preset's mesh (their product must be the world size).  Like
+the JAX CLI, this one has no pipe flag: the pipeline axis is reached
+through ``TrainConfig.mesh`` and ``Trainer``.  Only rank 0 prints and
+writes logs and checkpoints.
 
 Telemetry (the JAX CLI's flags): ``--spans`` writes host spans to
 ``{log_dir}/events.jsonl``; the divergence sentinel is on by default and

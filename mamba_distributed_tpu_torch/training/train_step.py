@@ -52,10 +52,26 @@ gradient and the loss are averaged over ``(data, fsdp, expert, seq)``,
 and an fsdp shard, reduce-scattered over fsdp, over the rest of them.
 The params are replicated over seq, so the norm is unchanged.
 
-Over every mesh whose batch ranks number more than one, the MoE routes
-the global micro-batch as the JAX package's one jit does: a global
-capacity, global queue slots and global load-balance terms
+Seq composes with tensor (each rank runs the sequence-parallel mixers
+on its packed heads) and with expert: an expert group holds one seq
+block's tokens, so an expert leaf's gradient is partial over seq too and
+is averaged over ``(data, fsdp, seq)`` after the division by the expert
+size.
+
+Over every mesh whose batch or seq ranks number more than one, the MoE
+routes the global micro-batch as the JAX package's one jit does: a
+global capacity, global queue slots and global load-balance terms
 (``models/lm._moe_mlp(route=)``).
+
+Pipeline parallel (``pipe`` above 1, alone or with data and fsdp): each
+rank holds its stage's layers (``parallel/sharding.stage_block``) and
+the replicated rest, and the accum micro-batches are the pipeline's
+microbatches: one schedule a step (``models/lm.lm_loss_pipelined``), not
+a loop of accumulation.  Stage 0 alone embeds and the last stage alone
+runs the head and the loss, so a replicated leaf's gradient is summed
+over the pipe group (where no stage double counts it), then every
+gradient and the loss are averaged over the batch ranks ``(data,
+fsdp)``; the norm sums the stage leaves' squares over the pipe group.
 """
 
 from __future__ import annotations
@@ -64,8 +80,9 @@ import torch
 import torch.distributed as dist
 
 from mamba_distributed_tpu_torch.config import TrainConfig
-from mamba_distributed_tpu_torch.models.lm import lm_loss
+from mamba_distributed_tpu_torch.models.lm import lm_loss, lm_loss_pipelined
 from mamba_distributed_tpu_torch.parallel.collectives import (
+    all_reduce_,
     all_reduce_mean_,
     reduce_scatter_leaf,
     sharded_global_norm,
@@ -73,15 +90,21 @@ from mamba_distributed_tpu_torch.parallel.collectives import (
     tp_global_norm,
 )
 from mamba_distributed_tpu_torch.parallel.mesh import (
-    BATCH_AXES,
+    TOKEN_AXES,
     axes_group,
     axis_size,
     expert_context,
+    pipe_context,
     route_context,
     seq_context,
     tensor_context,
 )
-from mamba_distributed_tpu_torch.parallel.sharding import expert_axis, fsdp_axis, gather_params
+from mamba_distributed_tpu_torch.parallel.sharding import (
+    expert_axis,
+    fsdp_axis,
+    gather_params,
+    pipe_axis,
+)
 from mamba_distributed_tpu_torch.parallel.tp_layout import FULL_LEAF, plan_tree, tp_plan
 from mamba_distributed_tpu_torch.training.optimizer import (
     AdamW,
@@ -92,17 +115,25 @@ from mamba_distributed_tpu_torch.training.optimizer import (
 
 # the axes a replicated leaf's gradient and the loss are averaged over:
 # the batch ranks and the seq ranks (each rank's loss is its tokens' mean)
-MEAN_AXES = BATCH_AXES + ("seq",)
+MEAN_AXES = TOKEN_AXES
 
 
 def loss_and_grads(params: dict, cfg: TrainConfig, x: torch.Tensor, y: torch.Tensor,
-                   tp=None, route=None, ep=None, seq=None):
+                   tp=None, route=None, ep=None, seq=None, pipe=None):
     """Mean loss and mean gradients over the accum axis of x, y
     (accum, B, T): (loss 0-d fp32 tensor, grads tree like params).
     ``tp``: the tensor group, ``params`` this rank's packed shard;
     ``route``, ``ep``: the MoE's batch ranks and expert group; ``seq``:
-    the seq group, x and y this rank's block of the tokens."""
+    the seq group, x and y this rank's block of the tokens; ``pipe``:
+    the pipe group, ``params`` this rank's stage, the accum micro-batches
+    one pipeline schedule (this stage's gradients)."""
     leaves = tree_leaves(params)
+    if pipe is not None:
+        loss = lm_loss_pipelined(params, cfg.model, x, y, pipe)
+        # a stage that does not embed or run the head has no gradient there
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), _rebuild(params, iter(
+            torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)))
     accum = x.shape[0]
     gsum, lsum = None, None
     for i in range(accum):
@@ -152,67 +183,85 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
 
     With a seq axis x/y are this rank's block of the tokens of its rows.
 
+    With a pipe axis the params are this rank's stage (``specs`` say
+    which leaves are stage blocks) and x/y its rows, all of their
+    micro-batches; a dense loss only, as in the JAX package.
+
     ``overflow_threshold`` (``TelemetryConfig``) appends a third output,
     the overflow flag: 1.0 when the pre-clip global norm exceeds the
     threshold or is non-finite, else 0.0, computed on the device from
     the norm the step already has, so it rides the caller's one fetch
     (the host accumulates the flags, obs/sentinel.py)."""
+    if cfg.mesh.pipe > 1 and cfg.model.loss_impl == "blocked":
+        # the JAX package's refusal (train_step.py:80-87)
+        raise NotImplementedError(
+            "loss_impl='blocked' is not implemented for pipeline "
+            "parallelism (mesh.pipe > 1) — use the dense loss there")
     fsdp = mesh is not None and is_fsdp(cfg)
     # the last step's all-reduce; the closures hold this dict, not ``step``,
     # so a dropped step (and the optimizer and params it holds) is freed
     # at once, not at the next cyclic collection
     comm = {}
-    tp, route, ep, seq = ((tensor_context(mesh), route_context(mesh), expert_context(mesh),
-                           seq_context(mesh)) if mesh is not None else (None,) * 4)
+    tp, route, ep, seq, pipe = ((tensor_context(mesh), route_context(mesh),
+                                 expert_context(mesh), seq_context(mesh), pipe_context(mesh))
+                                if mesh is not None else (None,) * 5)
     if fsdp:
         fsdp_group = mesh.get_group("fsdp")
     if mesh is not None:
-        if specs is None and (fsdp or tp is not None or ep is not None):
+        if specs is None and (fsdp or tp is not None or ep is not None or pipe is not None):
             raise ValueError("make_train_step: a sharded mesh needs the params' specs")
         spec_leaves = tree_leaves(specs) if specs is not None else None
-    if tp is not None or ep is not None:
+    if tp is not None or ep is not None or pipe is not None:
         plans = (tree_leaves(plan_tree(specs, tp_plan(cfg.model, tp.size)))
                  if tp is not None else [FULL_LEAF] * len(spec_leaves))
         fsdp_cut = [fsdp and fsdp_axis(s) is not None for s in spec_leaves]
-        expert_cut = ([expert_axis(s) is not None for s in spec_leaves]
-                      if ep is not None else None)
+        # the leaves one more axis cuts: the expert axis's experts or the
+        # pipe axis's stages (pipe composes with neither expert nor tensor)
+        cut_axis, cut_ctx = (expert_axis, ep) if pipe is None else (pipe_axis, pipe)
+        cut = [cut_axis(s) is not None for s in spec_leaves] if cut_ctx is not None else None
 
     def mean_axes(fsdp_cut_: bool, expert_cut_: bool) -> tuple:
         """The batch and seq axes a leaf's gradient is still averaged
         over: those that do not cut it (a tensor-only mesh has none)."""
-        cut = {"fsdp"} if fsdp_cut_ else set()
-        cut |= {"expert"} if expert_cut_ else set()
-        return tuple(a for a in MEAN_AXES if a not in cut)
+        gone = {"fsdp"} if fsdp_cut_ else set()
+        gone |= {"expert"} if expert_cut_ else set()
+        return tuple(a for a in MEAN_AXES if a not in gone)
 
     # every group the reduction uses, built now in one order on every rank
     if mesh is not None:
         groups = {axes: axes_group(mesh, axes)
                   for axes in (mean_axes(f, e) for f in (False, True) for e in (False, True))
                   if axis_size(mesh, axes) > 1}
-        if tp is None and MEAN_AXES not in groups:  # a world of one reduces, as DDP does
-            groups[MEAN_AXES] = None
+        if tp is None and pipe is None and MEAN_AXES not in groups:
+            groups[MEAN_AXES] = None  # a world of one reduces, as DDP does
 
     def norm(grads: dict) -> torch.Tensor:
-        if tp is not None or ep is not None:
+        if tp is not None or ep is not None or pipe is not None:
             return tp_global_norm(tree_leaves(grads), plans, fsdp_cut,
                                   tp.group if tp is not None else None,
-                                  fsdp_group if fsdp else None, expert_cut,
-                                  ep.group if ep is not None else None)
+                                  fsdp_group if fsdp else None, cut,
+                                  cut_ctx.group if cut_ctx is not None else None)
         if fsdp:
             return sharded_global_norm(grads, specs, fsdp_group)
         return global_norm(grads)
 
     def reduce(loss, grads):
         """The global loss, gradients (this rank's shards under FSDP) and
-        pre-clip norm: each leaf's fsdp shard reduce-scattered, an expert
-        leaf divided by the expert size, then one bucketed mean a group of
-        the batch and seq axes that remain (the replicated leaves' and the
-        loss over all of them, first)."""
+        pre-clip norm: under pipe the replicated leaves summed over the
+        pipe group first (the embedding's stage and the head's), each
+        leaf's fsdp shard reduce-scattered, an expert leaf divided by the
+        expert size, then one bucketed mean a group of the batch and seq
+        axes that remain (the replicated leaves' and the loss over all of
+        them, first)."""
         if mesh is None:
             return loss, grads, global_norm(grads)
         leaves = tree_leaves(grads)
         if tp is not None:
             sum_shared_(leaves, plans, tp.group)
+        sizes = []
+        if pipe is not None:
+            sizes += all_reduce_([g for g, staged in zip(leaves, cut) if not staged],
+                                 pipe.group, dist.ReduceOp.SUM)
         out, by_axes = [], {MEAN_AXES: []}
         for i, g in enumerate(leaves):
             spec = spec_leaves[i] if spec_leaves is not None else ()
@@ -225,7 +274,6 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
             out.append(g)
             by_axes.setdefault(mean_axes(f_cut, e_cut), []).append(g)
         by_axes[MEAN_AXES].append(loss.reshape(1))
-        sizes = []
         for axes, tensors in by_axes.items():
             if axes in groups:
                 sizes += all_reduce_mean_(tensors, groups[axes])
@@ -236,7 +284,7 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
     def step(params: dict, x: torch.Tensor, y: torch.Tensor):
         full = (tree_map(lambda t: t.requires_grad_(), gather_params(params, specs, fsdp_group))
                 if fsdp else params)
-        loss, grads = loss_and_grads(full, cfg, x, y, tp, route, ep, seq)
+        loss, grads = loss_and_grads(full, cfg, x, y, tp, route, ep, seq, pipe)
         del full
         loss, grads, grad_norm = reduce(loss, grads)
         optimizer.step(params, grads, grad_norm)
@@ -251,21 +299,26 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamW, mesh=None, specs: dict |
 
 def make_eval_step(cfg: TrainConfig, mesh=None):
     """Loss-only step, x/y (B, T), on full params (this rank's packed
-    shard with a tensor axis, its experts with an expert axis: the train
-    step's forward); over a ``mesh`` x/y are this rank's rows (and its
-    block of their tokens with a seq axis), the MoE routes the global
-    batch and the loss is the mean over the batch and seq ranks."""
-    tp, route, ep, seq = ((tensor_context(mesh), route_context(mesh), expert_context(mesh),
-                           seq_context(mesh)) if mesh is not None else (None,) * 4)
-    # a tensor-only mesh has one batch rank and no batch reduction
+    shard with a tensor axis, its experts with an expert axis, its stage
+    with a pipe axis: the train step's forward, a pipeline of one
+    microbatch); over a ``mesh`` x/y are this rank's rows (and its block
+    of their tokens with a seq axis), the MoE routes the global batch
+    and the loss is the mean over the batch and seq ranks."""
+    tp, route, ep, seq, pipe = ((tensor_context(mesh), route_context(mesh),
+                                 expert_context(mesh), seq_context(mesh), pipe_context(mesh))
+                                if mesh is not None else (None,) * 5)
+    # a tensor- or pipe-only mesh has one batch rank and no batch reduction
     spread = mesh is not None and axis_size(mesh, MEAN_AXES) > 1
-    batch_reduce = mesh is not None and (spread or tp is None)
+    batch_reduce = mesh is not None and (spread or (tp is None and pipe is None))
     if batch_reduce:
         bgroup = axes_group(mesh, MEAN_AXES) if spread else None
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss = lm_loss(params, cfg.model, x, y, tp=tp, route=route, ep=ep, seq=seq)
+        if pipe is not None:
+            loss = lm_loss_pipelined(params, cfg.model, x[None], y[None], pipe)
+        else:
+            loss = lm_loss(params, cfg.model, x, y, tp=tp, route=route, ep=ep, seq=seq)
         if batch_reduce:
             dist.all_reduce(loss, op=dist.ReduceOp.AVG, group=bgroup)
         return loss

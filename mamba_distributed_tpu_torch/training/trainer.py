@@ -14,23 +14,26 @@ any exception out of ``run()``.  Restarts after a crash are the CLI's
 (``train.py --auto-restart``).  The trainer runs on the card unless it
 is given ``device="cpu"``.
 
-Data parallel, FSDP, tensor and expert parallel: when a ``torch.distributed``
-process group is up (``torchrun``, ``parallel/mesh.init_distributed``)
-the trainer is one rank of ``cfg.mesh``: its device is
+Data parallel, FSDP, sequence, tensor, expert and pipeline parallel:
+when a ``torch.distributed`` process group is up (``torchrun``,
+``parallel/mesh.init_distributed``) the trainer is one rank of
+``cfg.mesh``: its device is
 ``cuda:{LOCAL_RANK}`` (a card given with its index, e.g. ``cuda:0`` for
 two gloo ranks sharing one card, is kept; the CPU over gloo), its
 loaders read its block of the batch rows (the rank-strided windows of
 batch coordinate c of ``data_parallel_size``, over ``(data, fsdp,
-expert)``: the ranks of one tensor group read the same rows), every
-rank initialises the same full tree from the seed, keeps its block of
-every MoE's experts, packs its tensor shard of that
+expert)``: the ranks of one tensor, seq or pipe group read the same
+rows), every rank initialises the same full tree from the seed, keeps
+its pipeline stage's layers, its block of every MoE's experts, packs its
+tensor shard of that
 (``parallel/tp_layout.py``) and keeps its fsdp block of that, and the
 train step runs the blocks' tensor and expert collectives and reduces
 the gradients over the batch ranks (``training/train_step.py``).  Rank 0 is
 the master: only it logs, writes records, spans and the sentinel's dump,
 samples, prints and writes checkpoints (the logical full params and
 moments, gathered over fsdp, then over tensor and unpacked, then over
-expert: today's format, plus every batch rank's loader cursor).  Validation runs the
+expert, then over pipe: today's format, loadable on one device, plus
+every batch rank's loader cursor).  Validation runs the
 train step's forward on the packed shards; sampling gathers the full
 params on every rank and runs today's ``generate()`` on the master (TP
 decode is a later slice).  MFU stays over the world's peak.  Without a
@@ -60,6 +63,7 @@ from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.parallel.mesh import (
     build_mesh,
     expert_context,
+    pipe_context,
     seq_context,
     tensor_context,
 )
@@ -71,6 +75,7 @@ from mamba_distributed_tpu_torch.parallel.sharding import (
     narrow_leaf,
     opt_state_specs,
     param_specs,
+    stage_block,
 )
 from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan
 from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
@@ -139,8 +144,11 @@ class Trainer:
         self.ep = expert_context(self.mesh) if self.mesh is not None else None
         # a seq rank trains on its block of every row's tokens
         self.seq = seq_context(self.mesh) if self.mesh is not None else None
+        # a pipe rank holds its stage's layers
+        self.pipe = pipe_context(self.mesh) if self.mesh is not None else None
         # params and moments live as shards of some axis
-        self._sharded = self._fsdp or self.tp is not None or self.ep is not None
+        self._sharded = (self._fsdp or self.tp is not None or self.ep is not None
+                         or self.pipe is not None)
 
         # data: synthetic shards when the data dir holds none (the master
         # writes them, the others wait)
@@ -170,6 +178,8 @@ class Trainer:
             m = cfg.mesh
             self.specs = param_specs(params, cfg.shard_params, m.fsdp, m.tensor, m.pipe,
                                      m.expert)
+            if self.pipe is not None:  # every rank keeps its stage's layers
+                params = stage_block(params, self.specs, self.pipe)
             if self.ep is not None:  # every rank keeps its experts of the full tree
                 params = expert_shard(params, self.specs, self.ep)
             if self.tp is not None:  # packs its tensor shard of that
@@ -238,15 +248,15 @@ class Trainer:
 
     def full_params(self) -> dict:
         """The full (logical) parameter tree: gathered over fsdp, then over
-        tensor and unpacked, then over expert (collectives, so every rank
-        calls it)."""
+        tensor and unpacked, then over expert, then over pipe (collectives,
+        so every rank calls it)."""
         return self._gather(self.params, self.specs)
 
     def _gather(self, tree: dict, specs: dict) -> dict:
         if not self._sharded:
             return tree
         group = self.mesh.get_group("fsdp") if self._fsdp else None
-        return gather_params(tree, specs, group, self.tp, self.plan, self.ep)
+        return gather_params(tree, specs, group, self.tp, self.plan, self.ep, self.pipe)
 
     def _fsdp_block(self, tree: dict) -> dict:
         group = self.mesh.get_group("fsdp")
@@ -254,8 +264,10 @@ class Trainer:
         return tree_map(lambda t, s: narrow_leaf(t, s, index, size), tree, self.specs)
 
     def _own(self, tree: dict) -> dict:
-        """This rank's shard of a full (logical) tree: its experts, packed
-        over tensor, narrowed over fsdp."""
+        """This rank's shard of a full (logical) tree: its stage, its
+        experts, packed over tensor, narrowed over fsdp."""
+        if self.pipe is not None:
+            tree = stage_block(tree, self.specs, self.pipe)
         if self.ep is not None:
             tree = expert_shard(tree, self.specs, self.ep)
         if self.tp is not None:

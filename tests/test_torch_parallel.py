@@ -6,8 +6,8 @@ train step) against the JAX package's, on the CPU.
   and 8, tensor 2, expert 2, pipe 2 and a mix; the layer axis of a
   stacked leaf is never fsdp's;
 * the config's checks raise the JAX messages, ``data_parallel_size``,
-  ``grad_accum_steps`` and the mesh presets equal JAX's, the pipe axis
-  is refused by name, seq, tensor and expert are taken;
+  ``grad_accum_steps`` and the mesh presets equal JAX's, and the seq,
+  tensor, pipe and expert axes are taken as JAX takes them;
 * the collectives: shard/gather round trips, the reduce-scatter mean,
   the bucketed all-reduce against one all-reduce a leaf, and
   ``sharded_global_norm`` against the full norm;
@@ -209,15 +209,11 @@ def test_config_refuses_later_axes_by_name(axis):
     model = MOE_OVER if axis == "expert" else {}
     jax_cfg, port_cfg = _both_cfgs(dict(mesh={axis: 2}), model)
     jax_cfg()  # the JAX package takes it
-    if axis in ("seq", "tensor", "expert"):  # trained since their slices: taken as JAX takes them
-        port, jax_ = port_cfg(), jax_cfg()
-        assert port.grad_accum_steps == jax_.grad_accum_steps
-        assert port.data_parallel_size == jax_.data_parallel_size
-        assert dataclasses.asdict(port.mesh) == dataclasses.asdict(jax_.mesh)
-        return
-    slice_word = {"pipe": "pipeline"}[axis]
-    with pytest.raises(ValueError, match=f"{axis} comes with .*{slice_word}"):
-        port_cfg()
+    # every axis is trained since its slice: taken as JAX takes it
+    port, jax_ = port_cfg(), jax_cfg()
+    assert port.grad_accum_steps == jax_.grad_accum_steps
+    assert port.data_parallel_size == jax_.data_parallel_size
+    assert dataclasses.asdict(port.mesh) == dataclasses.asdict(jax_.mesh)
 
 
 @pytest.mark.parametrize("mesh", [dict(), dict(data=2), dict(fsdp=4), dict(data=2, fsdp=2),

@@ -61,6 +61,9 @@ LM_MODELS = {
                     loss_vocab_blocks=4),
 }
 WORLD4 = ("mamba2-pallas", "hybrid-ring")
+# the routing case's MoE layer, at capacity factor 1.0 so that choices drop
+ROUTE_MODEL = dict(d_model=32, d_intermediate=24, moe_num_experts=4, moe_top_k=2,
+                   moe_capacity_factor=1.0, compute_dtype="float32", vocab_size=256)
 # (chunk, world) of the SSD cases: two chunks a shard, then one
 SSD_CASES = {2: (16, 32), 4: (16,)}
 
@@ -92,6 +95,12 @@ def op_inputs() -> dict:
                  "attn": (B, T, 6, 32)}.get(name)
         if shape is not None:
             v["wts"] = f(*shape)
+    # heads that split over tensor 2 and then over seq 2 (4 and 2 a rank)
+    inp["attn8"] = {"q": f(B, T, 8, 16), "k": f(B, T, 4, 16), "v": f(B, T, 4, 16),
+                    "wts": f(B, T, 8, 16)}
+    # the pipeline's stacked layers (4) and microbatches (3)
+    inp["pipe"] = {"w": 0.3 * f(4, d, d), "b": 0.1 * f(4, d), "xs": f(3, B, d),
+                   "wts": f(3, B, d), "act": f(3, 1, 32, 64), "act_wts": f(3, 1, 32, 64)}
     return inp
 
 
@@ -235,6 +244,148 @@ def _lm(seq, lm: dict, names) -> dict:
     return out
 
 
+# the seq x tensor cases: each input's tensor axis (None: whole on every
+# tensor rank), the sequence being axis 1 of every input and output
+TP_AXES = {"conv": {"x": 2, "w": 0, "bias": 0},
+           "ssd": {"x": 2, "dt": 2, "B": 2, "C": 2, "A": 0, "D": 0},
+           "scan": {"u": 2, "dt": 2, "B": None, "C": None, "z": 2, "A": 0, "D": 0, "bias": 0},
+           "attn": {"q": 2, "k": 2, "v": 2}, "attn8": {"q": 2, "k": 2, "v": 2}}
+# the inputs that are not cut over seq (their gradients sum over it)
+WHOLE_OVER_SEQ = ("w", "bias", "A", "D")
+TP_LM = ("mamba2-pallas", "mamba1", "hybrid-ring", "hybrid-ulysses")
+
+
+def _tp_ops(inp: dict) -> dict:
+    """The sequence-parallel ops at seq=2 x tensor=2 on this rank's heads
+    or channels (``TP_AXES``) of its block of the sequence."""
+    from mamba_distributed_tpu_torch.config import MeshConfig
+    from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, seq_context, tensor_context
+    from mamba_distributed_tpu_torch.parallel.ring_attention import ring_attention
+    from mamba_distributed_tpu_torch.parallel.seq_parallel import (
+        sp_conv1d,
+        sp_selective_scan,
+        sp_ssd,
+    )
+    from mamba_distributed_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = build_mesh(MeshConfig(seq=2, tensor=2), "cpu")
+    seq, tp = seq_context(mesh), tensor_context(mesh)
+
+    def mine(name):
+        out = {}
+        for k, ax in TP_AXES[name].items():
+            v = inp[name][k] if ax is None else inp[name][k].chunk(tp.size, ax)[tp.rank]
+            out[k] = v.contiguous() if k in WHOLE_OVER_SEQ else _block(v, seq)
+        wts = inp[name]["wts"].chunk(tp.size, 2)[tp.rank]
+        return out, _block(wts, seq)
+
+    res = {"seq": seq.rank, "tp": tp.rank}
+    args, wts = mine("conv")
+    res["conv"] = _grads(lambda x, w, bias: sp_conv1d(seq, x, w, bias)[0], args, {}, wts)
+    args, wts = mine("ssd")
+    for impl in ("xla", "pallas"):
+        res[f"ssd_{impl}"] = _grads(
+            lambda x, dt, B, C, A, D: sp_ssd(seq, x, dt, A, B, C, 16, D=D,
+                                             compute_dtype=torch.float32, ssm_impl=impl)[0],
+            args, {}, wts)
+    args, wts = mine("scan")
+    for impl in ("xla", "pallas"):
+        res[f"scan_{impl}"] = _grads(
+            lambda u, dt, B, C, z, A, D, bias: sp_selective_scan(
+                seq, u, dt, A, B, C, D=D, z=z, delta_bias=bias, delta_softplus=True,
+                ssm_impl=impl)[0], args, {}, wts)
+    for name in ("attn", "attn8"):
+        args, wts = mine(name)
+        for impl in ("xla", "auto"):
+            res[f"ring_{name}_{impl}"] = _grads(
+                lambda q, k, v: ring_attention(seq, q, k, v, impl=impl), args, {}, wts)
+            # attn: 3 q and 1 KV heads a rank do not split over seq 2, so the
+            # heads are gathered over tensor first; attn8: 4 and 2 do
+            res[f"ulysses_{name}_{impl}"] = _grads(
+                lambda q, k, v: ulysses_attention(seq, q, k, v, impl=impl, tp=tp), args, {},
+                wts)
+    return res
+
+
+def _tp_lm(lm: dict) -> dict:
+    """``lm_loss`` at seq=2 x tensor=2 on this rank's packed params and
+    its block of the tokens, averaged over the seq ranks."""
+    import torch.distributed as dist
+
+    from mamba_distributed_tpu_torch.config import MeshConfig
+    from mamba_distributed_tpu_torch.models.lm import lm_loss
+    from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, seq_context, tensor_context
+    from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan
+
+    mesh = build_mesh(MeshConfig(seq=2, tensor=2), "cpu")
+    seq, tp = seq_context(mesh), tensor_context(mesh)
+    out = {}
+    for name in TP_LM:
+        cfg = ModelConfig(**LM_MODELS[name])
+        params = pack_tp(lm[name]["params"], tp_plan(cfg, tp.size), tp.rank)
+        with torch.no_grad():
+            loss = lm_loss(params, cfg, _block(lm[name]["x"], seq), _block(lm[name]["y"], seq),
+                           tp=tp, seq=seq)
+        dist.all_reduce(loss, op=dist.ReduceOp.AVG, group=seq.group)
+        out[name] = float(loss)
+    return out
+
+
+def _queue(r: dict) -> dict:
+    """The MoE's routing at data=2 x seq=2: each rank routes its 2 rows'
+    block of tokens (``moe_route``) and runs ``_moe_mlp`` on it."""
+    from mamba_distributed_tpu_torch.config import MeshConfig
+    from mamba_distributed_tpu_torch.models import lm
+    from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, route_context
+
+    route = route_context(build_mesh(MeshConfig(data=2, seq=2), "cpu"))
+    cfg = ModelConfig(**ROUTE_MODEL)
+    p = {"router": {"kernel": r["router"]}, "w1": r["w1"], "w2": r["w2"]}
+    b, t = r["x"].shape[0] // route.size, r["x"].shape[1] // route.seq
+    x = r["x"][route.coord * b:(route.coord + 1) * b,
+               route.seq_rank * t:(route.seq_rank + 1) * t]
+    got = lm.moe_route(p, cfg, x.reshape(-1, x.shape[-1]), route, rows=b)
+    out, aux = lm._moe_mlp(p, cfg, x, torch.float32, route=route)
+    return {"coord": route.coord, "seq_rank": route.seq_rank, "pos": got.pos.reshape(b, t, -1),
+            "keep": got.keep.reshape(b, t, -1), "cap": got.cap, "aux": float(aux), "out": out}
+
+
+def _pipe(inp: dict, lm: dict) -> dict:
+    """``pipelined_layers`` at pipe=2 (4 stacked layers, 3 microbatches):
+    an affine body and Mamba-2 blocks, the last stage's outputs and every
+    stage's gradients of a loss the last stage weighs; and
+    ``lm_loss_pipelined`` of the periodic hybrid (2 microbatches of one
+    row)."""
+    from mamba_distributed_tpu_torch.config import MeshConfig
+    from mamba_distributed_tpu_torch.models.lm import lm_loss_pipelined
+    from mamba_distributed_tpu_torch.parallel.collectives import PP_COMM
+    from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, pipe_context
+    from mamba_distributed_tpu_torch.parallel.pipeline import from_last_stage
+    from mamba_distributed_tpu_torch.parallel.sharding import param_specs, stage_block
+
+    from mamba_distributed_tpu_torch.parallel.pipeline import _shift
+
+    pipe = pipe_context(build_mesh(MeshConfig(pipe=2), "cpu"))
+    res = {"stage": pipe.rank}
+    # the schedule's shifts: one stage on (zeros into stage 0) and back
+    # (zeros into the last stage)
+    mark = torch.full((3,), float(pipe.rank + 1))
+    res["shifts"] = (_shift(mark, pipe, 1), _shift(mark, pipe, -1))
+    for name in PIPE_BODIES:
+        params, xs, wts = _pipe_case(name, inp["pipe"])
+        half = _map_tree(params, lambda v: v.chunk(pipe.size, 0)[pipe.rank])
+        PP_COMM.update(calls=0, bytes=0)
+        res[name] = _pipe_grads(name, half, xs, wts, pipe, from_last_stage)
+        res[name]["comm"] = dict(PP_COMM)
+    cfg = ModelConfig(**LM_MODELS["hybrid-ring"])
+    case = lm["hybrid-ring"]
+    params = stage_block(case["params"], param_specs(case["params"], False, 1, 1, 2), pipe)
+    with torch.no_grad():
+        res["lm"] = float(lm_loss_pipelined(params, cfg, case["x"][:, None], case["y"][:, None],
+                                            pipe))
+    return res
+
+
 def _case(rank: int, world: int, work: Path) -> dict:
     from mamba_distributed_tpu_torch.config import MeshConfig
     from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, seq_context
@@ -243,7 +394,97 @@ def _case(rank: int, world: int, work: Path) -> dict:
     inp = torch.load(work / "inputs.pt", weights_only=True)
     seq = seq_context(build_mesh(MeshConfig(seq=world), "cpu"))
     names = list(LM_MODELS) if world == 2 else list(WORLD4)
-    return {"rank": seq.rank, "ops": _ops(seq, inp["ops"]), "lm": _lm(seq, inp["lm"], names)}
+    out = {"rank": seq.rank, "ops": _ops(seq, inp["ops"]), "lm": _lm(seq, inp["lm"], names)}
+    if world == 4:  # then the composed meshes, one after another
+        out.update(tp_ops=_tp_ops(inp["ops"]), tp_lm=_tp_lm(inp["lm"]),
+                   queue=_queue(inp["route"]))
+    else:
+        out["pipe"] = _pipe(inp["ops"], inp["lm"])
+    return out
+
+
+# the pipeline bodies, run by the workers and in the test process alike
+PIPE_BODIES = ("affine", "mamba2")
+
+
+def _pipe_case(name: str, inp: dict):
+    """(stacked params of 4 layers, microbatches, the loss weights)."""
+    if name == "affine":
+        return {"w": torch.as_tensor(inp["w"]), "b": torch.as_tensor(inp["b"])}, inp["xs"], \
+            inp["wts"]
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+
+    cfg = ModelConfig(**{**TINY_MODEL, "n_layer": 4})
+    blocks = init_lm_params(cfg, torch.Generator().manual_seed(0))["blocks"]
+    return blocks, inp["act"], inp["act_wts"]
+
+
+def _pipe_body(name: str):
+    if name == "affine":
+        return lambda a, p: torch.tanh(a @ p["w"] + p["b"])
+    from mamba_distributed_tpu_torch.models.lm import _train_block
+
+    cfg = ModelConfig(**{**TINY_MODEL, "n_layer": 4})
+    return lambda a, p: _train_block(p, cfg, a, False)[0]
+
+
+def _flat_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _flat_leaves(v)]
+    return [tree]
+
+
+def _pipe_grads(name: str, params, xs, wts, pipe, from_last_stage=None) -> dict:
+    """``pipelined_layers`` of body ``name``: the outputs and the gradients
+    of sum(outs * wts) w.r.t. the microbatches and every param leaf (with
+    ``pipe``: the last stage's loss, broadcast to every stage)."""
+    from mamba_distributed_tpu_torch.parallel.pipeline import pipelined_layers
+
+    leaves = [t.clone().requires_grad_() for t in _flat_leaves(params)]
+    it = iter(leaves)
+    params = _rebuild_tree(params, it)
+    xs = xs.clone().requires_grad_()
+    outs = pipelined_layers(_pipe_body(name), params, xs, pipe)
+    loss = (outs * wts).sum()
+    if pipe is not None:
+        loss = from_last_stage(loss if pipe.rank == pipe.size - 1 else outs.sum() * 0.0, pipe)
+    g = torch.autograd.grad(loss, [xs, *leaves])
+    return {"out": outs.detach(), "dxs": g[0], "dparams": list(g[1:])}
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _rebuild_tree(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild_tree(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def _plain_layers(name: str, params, xs, wts) -> dict:
+    """The plain loop of body ``name`` over the 4 layers, each microbatch
+    alone: outputs and the gradients ``_pipe_grads`` takes."""
+    leaves = [t.clone().requires_grad_() for t in _flat_leaves(params)]
+    p = _rebuild_tree(params, iter(leaves))
+    xs = xs.clone().requires_grad_()
+    body = _pipe_body(name)
+    outs = []
+    for x in xs:
+        for i in range(4):
+            x = body(x, _layer(p, i))
+        outs.append(x)
+    outs = torch.stack(outs)
+    g = torch.autograd.grad((outs * wts).sum(), [xs, *leaves])
+    return {"out": outs.detach(), "dxs": g[0], "dparams": list(g[1:])}
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 # --------------------------------------------------------- the references
@@ -292,10 +533,49 @@ def jax_refs(inp: dict) -> dict:
                                                           delta_bias=bias,
                                                           delta_softplus=True),
         {k: m[k] for k in ("u", "dt", "B", "C", "z", "A", "D", "bias")}, m["wts"])
-    a = inp["attn"]
-    ref["attn"] = _jax_grads(blockwise_sdpa_causal, {k: a[k] for k in ("q", "k", "v")},
-                             a["wts"])
+    for name in ("attn", "attn8"):
+        a = inp[name]
+        ref[name] = _jax_grads(blockwise_sdpa_causal, {k: a[k] for k in ("q", "k", "v")},
+                               a["wts"])
     return ref
+
+
+def route_inputs() -> dict:
+    """One MoE layer's weights and a (4, 16, 32) batch: 2 rows a batch
+    rank at data=2, 8 tokens a row a seq rank at seq=2 (numpy seed)."""
+    rng = _rng(12)
+    d, di, E = ROUTE_MODEL["d_model"], ROUTE_MODEL["d_intermediate"], ROUTE_MODEL["moe_num_experts"]
+    return {"router": rng.standard_normal((d, E)).astype(np.float32),
+            "w1": (rng.standard_normal((E, d, 2 * di)) / np.sqrt(d)).astype(np.float32),
+            "w2": (rng.standard_normal((E, di, d)) / np.sqrt(di)).astype(np.float32),
+            "x": rng.standard_normal((4, 16, d)).astype(np.float32)}
+
+
+def jax_route(r: dict) -> dict:
+    """The JAX ``_moe_mlp`` on the whole routing batch: its queue slots
+    (the argument of its slot one-hot), capacity, aux and output."""
+    import jax
+    import jax.numpy as jnp
+
+    from mamba_distributed_tpu.config import ModelConfig as JaxConfig
+    from mamba_distributed_tpu.models import lm as jlm
+
+    seen, one_hot = [], jax.nn.one_hot
+
+    def spy(x, n, **kw):
+        seen.append((np.asarray(x), n))
+        return one_hot(x, n, **kw)
+
+    cfg = JaxConfig(**ROUTE_MODEL)
+    p = {"router": {"kernel": jnp.asarray(r["router"])}, "w1": jnp.asarray(r["w1"]),
+         "w2": jnp.asarray(r["w2"])}
+    jax.nn.one_hot = spy
+    try:
+        out, aux = jlm._moe_mlp(p, cfg, jnp.asarray(r["x"]), jnp.float32)
+    finally:
+        jax.nn.one_hot = one_hot
+    (pos, cap), = [(x, n) for x, n in seen if n != cfg.moe_num_experts]
+    return {"pos": pos, "cap": cap, "aux": float(aux), "out": np.asarray(out)}
 
 
 def jax_losses(lm: dict, jparams: dict) -> dict:
@@ -323,9 +603,10 @@ def jax_losses(lm: dict, jparams: dict) -> dict:
 # ---------------------------------------------------------------- fixtures
 
 
-def _run_world(tmp_path_factory, world: int, ops: dict, lm: dict):
+def _run_world(tmp_path_factory, world: int, ops: dict, lm: dict, route: dict):
     work = tmp_path_factory.mktemp(f"sp_{world}")
-    torch.save({"ops": _torchify(ops), "lm": _torchify(lm)}, work / "inputs.pt")
+    torch.save({"ops": _torchify(ops), "lm": _torchify(lm), "route": _torchify(route)},
+               work / "inputs.pt")
     return start(MODULE, "run", world, work)
 
 
@@ -333,9 +614,10 @@ def _run_world(tmp_path_factory, world: int, ops: dict, lm: dict):
 def runs(tmp_path_factory):
     """Both worlds' workers, started together, and the JAX references
     computed while they run."""
-    ops, (lm, jparams) = op_inputs(), lm_inputs()
-    waits = {w: _run_world(tmp_path_factory, w, ops, lm) for w in WORLDS}
+    ops, (lm, jparams), route = op_inputs(), lm_inputs(), route_inputs()
+    waits = {w: _run_world(tmp_path_factory, w, ops, lm, route) for w in WORLDS}
     refs, losses = jax_refs(ops), jax_losses(lm, jparams)
+    refs["route"] = jax_route(route)
     outs = {w: sorted(wait(), key=lambda o: o["rank"]) for w, wait in waits.items()}
     return outs, ops, refs, losses
 
@@ -446,6 +728,137 @@ def test_lm_loss_seq_sharded_matches_jax(runs, name, world):
     outs, _, _, losses = runs
     for o in outs[world]:
         np.testing.assert_allclose(o["lm"][name], losses[name], rtol=1e-5, err_msg=name)
+
+
+# each seq x tensor output and gradient: (its tensor axis or None when it
+# is summed over the tensor ranks, its seq axis or None when summed over seq)
+TP_PARTS = {"out": (2, 1), "dx": (2, 1), "dw": (0, None), "dbias": (0, None), "ddt": (2, 1),
+            "dB": (2, 1), "dC": (2, 1), "dA": (0, None), "dD": (0, None), "du": (2, 1),
+            "dz": (2, 1), "dq": (2, 1), "dk": (2, 1), "dv": (2, 1)}
+# the scan's B and C are whole on every tensor rank
+SCAN_PARTS = {"dB": (None, 1), "dC": (None, 1)}
+TP_OPS = {"conv": "conv", "ssd_xla": "ssd_16", "ssd_pallas": "ssd_16", "scan_xla": "scan",
+          "scan_pallas": "scan", **{f"{kind}_{a}_{impl}": a for kind in ("ring", "ulysses")
+                                    for a in ("attn", "attn8") for impl in ("xla", "auto")}}
+
+
+def _assemble(outs: list, key: str, part: str, axes) -> np.ndarray:
+    """The seq x tensor ranks' blocks of ``part`` put back together:
+    concatenated along a cut axis, summed over a whole one."""
+    t_ax, s_ax = axes
+    rows = []
+    for s in (0, 1):
+        blocks = [o["tp_ops"][key][part] for o in sorted(outs, key=lambda o: o["tp_ops"]["tp"])
+                  if o["tp_ops"]["seq"] == s]
+        rows.append(torch.cat(blocks, t_ax) if t_ax is not None else sum(blocks))
+    return (torch.cat(rows, s_ax) if s_ax is not None else sum(rows)).numpy()
+
+
+@pytest.mark.parametrize("key", list(TP_OPS))
+def test_sp_ops_at_seq2_tensor2_match_jax_full_sequence(runs, key):
+    """Each op on a rank's heads or channels of its block of the sequence
+    (the attn Ulysses cases gather their heads over tensor), put back
+    together, against JAX's full-sequence op on all the heads."""
+    outs, _, refs, _ = runs
+    ref = refs[TP_OPS[key]]
+    assert sorted((o["tp_ops"]["seq"], o["tp_ops"]["tp"]) for o in outs[4]) == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    for part in ref:
+        axes = SCAN_PARTS.get(part, TP_PARTS[part]) if key.startswith("scan") else TP_PARTS[part]
+        tol = 1e-5 if part == "out" and TP_OPS[key].startswith(("attn", "conv")) else (
+            1e-4 if part == "out" or TP_OPS[key].startswith("attn") else 2e-3)
+        _close(_assemble(outs[4], key, part, axes), ref[part], tol, f"{key} {part}")
+
+
+@pytest.mark.parametrize("name", TP_LM)
+def test_lm_loss_at_seq2_tensor2_matches_jax(runs, name):
+    outs, _, _, losses = runs
+    for o in outs[4]:
+        np.testing.assert_allclose(o["tp_lm"][name], losses[name], rtol=1e-5, err_msg=name)
+
+
+def test_moe_queue_order_at_data2_seq2_matches_jax(runs):
+    """Each rank's slots and keep masks, put back as the global (rows,
+    tokens) batch, equal the JAX slots on the whole batch exactly: every
+    choice-j token after every choice-(j-1) one, then the rows in order,
+    a row's seq blocks one after another (a queue over whole ranks' blocks
+    gets them wrong); the aux and the output too."""
+    outs, _, refs, _ = runs
+    ref = refs["route"]
+    q = {(o["queue"]["coord"], o["queue"]["seq_rank"]): o["queue"] for o in outs[4]}
+    assert sorted(q) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    pos = torch.cat([torch.cat([q[(c, s)]["pos"] for s in (0, 1)], 1) for c in (0, 1)])
+    keep = torch.cat([torch.cat([q[(c, s)]["keep"] for s in (0, 1)], 1) for c in (0, 1)])
+    out = torch.cat([torch.cat([q[(c, s)]["out"] for s in (0, 1)], 1) for c in (0, 1)])
+    want = ref["pos"].reshape(pos.shape)
+    assert all(o["cap"] == ref["cap"] for o in q.values())
+    np.testing.assert_array_equal(pos.numpy(), want)
+    np.testing.assert_array_equal(keep.numpy(), want < ref["cap"])
+    assert not keep.all()  # capacity factor 1.0: some choices drop
+    for o in q.values():
+        np.testing.assert_allclose(o["aux"], ref["aux"], rtol=1e-6)
+    np.testing.assert_allclose(out.numpy(), ref["out"], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", PIPE_BODIES)
+def test_pipelined_layers_match_a_plain_layer_loop(runs, name):
+    """pipe=2: the last stage's outputs, stage 0's microbatch gradients
+    and each stage's gradients of its half of the layers equal a plain
+    loop over all 4 layers; every stage makes the same shifts."""
+    outs, ops, _, _ = runs
+    params, xs, wts = _pipe_case(name, ops["pipe"])
+    ref = _plain_layers(name, params, torch.as_tensor(xs), torch.as_tensor(wts))
+    got = {o["pipe"]["stage"]: o["pipe"][name] for o in outs[2]}
+    tol = 1e-6 if name == "affine" else 2e-5
+    _close(got[1]["out"].numpy(), ref["out"].numpy(), tol, "out")
+    assert not got[0]["out"].any()  # only the last stage holds outputs
+    _close(got[0]["dxs"].numpy(), ref["dxs"].numpy(), tol, "dxs")
+    for i, g in enumerate(ref["dparams"]):
+        both = torch.cat([got[0]["dparams"][i], got[1]["dparams"][i]])
+        _close(both.numpy(), g.numpy(), tol, f"param {i}")
+    # 3 microbatches over 2 stages: 4 ticks, a shift after each but the last,
+    # forward and backward
+    assert got[0]["comm"] == got[1]["comm"] and got[0]["comm"]["calls"] == 6
+
+
+def test_pipe_shifts_are_not_cyclic(runs):
+    """A shift hands each stage the previous stage's value and stage 0
+    zeros (the last stage's output goes nowhere); the backward's shift
+    goes the other way, zeros into the last stage."""
+    outs, _, _, _ = runs
+    got = {o["pipe"]["stage"]: o["pipe"]["shifts"] for o in outs[2]}
+    assert got[0][0].tolist() == [0.0] * 3 and got[1][0].tolist() == [1.0] * 3
+    assert got[0][1].tolist() == [2.0] * 3 and got[1][1].tolist() == [0.0] * 3
+
+
+@pytest.mark.parametrize("name", PIPE_BODIES)
+def test_pipelined_layers_one_stage_is_the_plain_loop(name):
+    params, xs, wts = _pipe_case(name, op_inputs()["pipe"])
+    xs, wts = torch.as_tensor(xs), torch.as_tensor(wts)
+    got = _pipe_grads(name, params, xs, wts, None)
+    ref = _plain_layers(name, params, xs, wts)
+    for k in ("out", "dxs"):
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=0)
+    for a, b in zip(got["dparams"], ref["dparams"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_lm_loss_pipelined_periodic_hybrid_matches_lm_loss(runs):
+    """The hybrid (attention at 1 and 3 of 4 layers: 2 supersteps) in 2
+    microbatches of one row, pipelined over 2 stages and on one stage,
+    against the JAX ``lm_loss`` on the whole batch."""
+    from mamba_distributed_tpu_torch.models.lm import lm_loss_pipelined
+
+    outs, _, _, losses = runs
+    for o in outs[2]:
+        np.testing.assert_allclose(o["pipe"]["lm"], losses["hybrid-ring"], rtol=1e-5)
+    lm, _ = lm_inputs()
+    case = lm["hybrid-ring"]
+    x, y = torch.as_tensor(case["x"]), torch.as_tensor(case["y"])
+    with torch.no_grad():
+        one = lm_loss_pipelined(case["params"], ModelConfig(**LM_MODELS["hybrid-ring"]),
+                                x[:, None], y[:, None])
+    np.testing.assert_allclose(float(one), losses["hybrid-ring"], rtol=1e-5)
 
 
 CASES = {"run": _case}

@@ -1,24 +1,37 @@
-"""The port's train step, ``Trainer``, checkpoints and CLI over a seq
-mesh, on the CPU (gloo processes, the launcher of
-``tests/test_torch_parallel.py``).
+"""The port's train step, ``Trainer``, checkpoints and CLI over seq and
+pipe meshes, alone and composed, on the CPU (gloo processes, the
+launcher of ``tests/test_torch_parallel.py``).
 
-* ``data=2 x seq=2`` (4 ranks) trains the hybrid (ring attention, rotary
-  on) 2 steps (accum 2) on the JAX params and global batch, each rank on
-  its rows' block of tokens: losses and pre-clip grad norms equal the JAX
-  mesh step's at ``data=2, seq=2`` (with its ``SeqContext``) at rtol
-  1e-4, and the params after the steps at atol 1e-5;
-* ``fsdp=2 x seq=2`` with ``shard_params`` equals the port's one-device
-  step on the whole batch at the same tolerances, each rank holding half
-  of every sharded leaf;
+Each step case trains 2 steps (accum 2) from the JAX params on the
+global batch, each rank on its rows, its block of their tokens (seq),
+its packed heads (tensor), its experts (expert) or its stage (pipe):
+
+* against the JAX mesh step at the same mesh (with its ``SeqContext``
+  under seq): ``data=2 x seq=2`` (the hybrid, ring attention, rotary
+  on); ``seq=2 x tensor=2``: the hybrid with ring attention, with
+  Ulysses (1 KV head a tensor rank, so the heads are gathered over
+  tensor first) and Mamba-1; a MoE hybrid (capacity factor 1.0, so
+  choices drop) at ``data=2 x seq=2`` and at ``seq=2 x expert=2``;
+  ``pipe=2`` and ``pipe=2 x data=2``, a uniform Mamba-2 stack and a
+  periodic hybrid: losses and pre-clip grad norms at rtol 1e-4, the
+  params after the steps at atol 1e-5;
+* ``fsdp=2 x seq=2`` with ``shard_params`` against the port's
+  one-device step on the whole batch at the same tolerances, each rank
+  holding half of every sharded leaf;
 * a world-2 ``Trainer`` at ``seq=2``: both ranks read the same rows
   (batch coordinate 0) and log the same history; its checkpoint resumes
   bit for bit at ``seq=2`` and loads on one device, whose next step
-  equals the ``seq=2`` run's at rtol 2e-4;
+  equals the ``seq=2`` run's at rtol 2e-4; the same for ``pipe=2``,
+  each stage holding its half of the layers;
 * ``torchrun --nproc_per_node=2 -m mamba_distributed_tpu_torch.train
   --mesh-seq 2 --attn-sp-impl ulysses --device cpu`` exits 0 and prints
   each reference line once;
-* the refusals: seq with tensor, with expert (a MoE), a seq_len the seq
-  size does not divide, and a shard shorter than the conv halo.
+* the refusals: a seq_len the seq size does not divide, and a shard
+  shorter than the conv halo; the pipeline refuses the blocked loss with
+  JAX's message.
+
+The 4-rank cases run in one spawn, one mesh after another over one gloo
+group; the 2-rank pipe steps and both trainers in another.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import torch
 from mamba_distributed_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from tests.test_torch_parallel import (
     HYBRID_OVER,
+    MOE_OVER,
     ROOT,
     TINY_MODEL,
     batches,
@@ -49,34 +63,73 @@ pytestmark = pytest.mark.torch
 
 MODULE = "tests.test_torch_seq_parallel_train"
 HYBRID = {**TINY_MODEL, **HYBRID_OVER}
-# the step cases: (model, mesh, shard_params)
+# the composed meshes' hybrid: a Mamba-2 block, then attention
+HYBRID_2 = {**HYBRID, "n_layer": 2, "attn_layer_idx": (1,)}
+MAMBA1 = {**TINY_MODEL, "ssm_layer": "mamba1", "d_state": 16}
+# a MoE after every mixer, routed at capacity factor 1.0 so that choices drop
+MOE = {**HYBRID_2, **MOE_OVER, "moe_capacity_factor": 1.0}
+# the step cases: (model, mesh, shard_params); a mesh with fsdp is held
+# against the port's one-device step, every other against the JAX mesh step
 STEPS = {"data2-seq2": (HYBRID, dict(data=2, seq=2), False),
-         "fsdp2-seq2": (TINY_MODEL, dict(fsdp=2, seq=2), True)}
+         "fsdp2-seq2": (TINY_MODEL, dict(fsdp=2, seq=2), True),
+         "seq2-tensor2-ring": (HYBRID_2, dict(seq=2, tensor=2), False),
+         "seq2-tensor2-ulysses": ({**HYBRID_2, "attn_sp_impl": "ulysses"},
+                                  dict(seq=2, tensor=2), False),
+         "seq2-tensor2-mamba1": (MAMBA1, dict(seq=2, tensor=2), False),
+         "data2-seq2-moe": (MOE, dict(data=2, seq=2), False),
+         "seq2-expert2": (MOE, dict(seq=2, expert=2), False),
+         "pipe2-data2-mamba2": (TINY_MODEL, dict(pipe=2, data=2), False),
+         "pipe2-data2-hybrid": (HYBRID, dict(pipe=2, data=2), False),
+         "pipe2-mamba2": (TINY_MODEL, dict(pipe=2), False),
+         "pipe2-hybrid": (HYBRID, dict(pipe=2), False)}
+TWO = ("pipe2-mamba2", "pipe2-hybrid")
+FOUR = tuple(n for n in STEPS if n not in TWO)
 MICRO, T, ACCUM = 2, 64, 2
 
 
+def accum(mesh: dict) -> int:
+    """The micro-batches a step: a pipeline streams 4 through its 2 stages
+    (more microbatches than stages, as the JAX package's pipeline tests)."""
+    return 4 if "pipe" in mesh else ACCUM
+
+
+def batch_ranks(mesh: dict) -> int:
+    return mesh.get("data", 1) * mesh.get("fsdp", 1) * mesh.get("expert", 1)
+
+
 def step_cfg(model: dict, mesh: dict, shard: bool) -> TrainConfig:
-    dp = mesh.get("data", 1) * mesh.get("fsdp", 1)
     return TrainConfig(model=ModelConfig(**model), mesh=MeshConfig(**mesh), shard_params=shard,
                        micro_batch_size=MICRO, seq_len=T,
-                       total_batch_size=MICRO * T * dp * ACCUM, warmup_steps=2, max_steps=10)
+                       total_batch_size=MICRO * T * batch_ranks(mesh) * accum(mesh),
+                       warmup_steps=2,
+                       max_steps=10)
 
 
 # -------------------------------------------------------------- the workers
 
 
 def _mesh_step(name: str, case: dict) -> dict:
-    """The port's mesh train step at ``STEPS[name]``: this rank's fsdp
-    block, its rows and its block of their tokens, 2 steps, then the
-    gathered params."""
-    from mamba_distributed_tpu_torch.parallel.collectives import SP_COMM
-    from mamba_distributed_tpu_torch.parallel.mesh import build_mesh, seq_context
+    """The port's mesh train step at ``STEPS[name]``: this rank's stage,
+    experts, packed tensor shard and fsdp block, its rows and its block
+    of their tokens, 2 steps, then the gathered params."""
+    from mamba_distributed_tpu_torch.parallel.collectives import EP_COMM, PP_COMM, SP_COMM
+    from mamba_distributed_tpu_torch.parallel.mesh import (
+        build_mesh,
+        expert_context,
+        pipe_context,
+        seq_context,
+        tensor_context,
+    )
     from mamba_distributed_tpu_torch.parallel.sharding import (
         batch_coordinate,
+        executed_specs,
+        expert_shard,
         gather_params,
         param_specs,
         shard_params,
+        stage_block,
     )
+    from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, tp_plan
     from mamba_distributed_tpu_torch.training.optimizer import AdamW, tree_map
     from mamba_distributed_tpu_torch.training.train_step import make_train_step
 
@@ -84,23 +137,37 @@ def _mesh_step(name: str, case: dict) -> dict:
     cfg = step_cfg(model, mesh_kw, shard)
     m = cfg.mesh
     mesh = build_mesh(m, "cpu")
-    seq = seq_context(mesh)
+    seq, tp = seq_context(mesh), tensor_context(mesh)
+    ep, pipe = expert_context(mesh), pipe_context(mesh)
+    plan = tp_plan(cfg.model, tp.size) if tp is not None else None
     specs = param_specs(case["params"], shard, m.fsdp, m.tensor, m.pipe, m.expert)
+    params = case["params"]
+    if pipe is not None:
+        params = stage_block(params, specs, pipe)
+    if ep is not None:
+        params = expert_shard(params, specs, ep)
+    if tp is not None:
+        params = pack_tp(params, plan, tp.rank)
+        specs = executed_specs(specs, params, m.fsdp, plan)
     group = mesh.get_group("fsdp") if shard else None
-    params = shard_params(case["params"], specs, group) if shard else case["params"]
+    if shard:
+        params = shard_params(params, specs, group)
     params = tree_map(lambda t: t.clone().requires_grad_(), params)
     step = make_train_step(cfg, AdamW(cfg, params), mesh, specs)
     c = batch_coordinate(mesh)
     rows = slice(c * MICRO, (c + 1) * MICRO)
-    cols = slice(seq.rank * T // seq.size, (seq.rank + 1) * T // seq.size)
-    out = {"coordinate": c, "seq_rank": seq.rank, "losses": [], "norms": []}
-    SP_COMM.update(calls=0, bytes=0)
+    s, n = (0, 1) if seq is None else (seq.rank, seq.size)
+    cols = slice(s * T // n, (s + 1) * T // n)
+    out = {"coordinate": c, "seq_rank": s, "losses": [], "norms": []}
+    for comm in (SP_COMM, PP_COMM):
+        comm.update(calls=0, bytes=0)
+    EP_COMM.update(calls=0, bytes=0, route_calls=0, route_bytes=0)
     for x, y in zip(case["x"], case["y"]):
         loss, norm = step(params, x[:, rows, cols], y[:, rows, cols])
         out["losses"].append(float(loss))
         out["norms"].append(float(norm))
-    out["sp_comm"] = dict(SP_COMM)
-    full = gather_params(params, specs, group) if shard else params
+    out.update(sp_comm=dict(SP_COMM), pp_comm=dict(PP_COMM), ep_comm=dict(EP_COMM))
+    full = gather_params(params, specs, group, tp, plan, ep, pipe)
     out["params"] = {k: v.detach() for k, v in flat(full).items()}
     out["local"] = {k: v.numel() for k, v in flat(params).items()}
     return out
@@ -109,20 +176,26 @@ def _mesh_step(name: str, case: dict) -> dict:
 def _case_steps(rank: int, world: int, work: Path) -> dict:
     join_group(world, work)
     inp = torch.load(work / "inputs.pt", weights_only=True)
-    return {name: _mesh_step(name, inp[name]) for name in STEPS}
+    return {name: _mesh_step(name, inp[name]) for name in FOUR}
 
 
-def _case_trainer(rank: int, world: int, work: Path) -> dict:
+def _trainer_run(work: Path, mesh: dict, tag: str) -> dict:
+    """A world-2 ``Trainer`` at ``mesh``: 4 steps with a checkpoint at
+    step 2, then a fresh trainer resumed from it to step 4."""
     from mamba_distributed_tpu_torch.training import Trainer
 
-    cfg = trainer_cfg(work, dict(seq=2), 2, checkpoint_every=2)
-    join_group(world, work, "pg1")
+    work.mkdir(exist_ok=True)
+    cfg = trainer_cfg(work, mesh, 2, checkpoint_every=2)
+    join_group(2, work, f"{tag}1")
     a = Trainer(cfg, device="cpu")
     a.run(max_steps=4, checkpoint_dir=str(work / "ck"))
     ran = [a.history[s] for s in range(4)]
-    out = {"master": a.master, "batch_rank": a.batch_rank, "seq_rank": a.seq.rank}
+    out = {"master": a.master, "batch_rank": a.batch_rank,
+           "seq_rank": a.seq.rank if a.seq is not None else None,
+           "stage": a.pipe.rank if a.pipe is not None else None,
+           "local": {k: v.numel() for k, v in flat(a.params).items()}}
     a.finish()
-    join_group(world, work, "pg2")  # finish() destroyed the first group
+    join_group(2, work, f"{tag}2")  # finish() destroyed the first group
     b = Trainer(cfg, device="cpu", verbose=False)
     b.restore_checkpoint(str(work / "ck"))
     start_step = b.step
@@ -132,13 +205,25 @@ def _case_trainer(rank: int, world: int, work: Path) -> dict:
     return {**out, "ran": ran, "resumed": resumed, "start": start_step}
 
 
+def _case_trainer(rank: int, world: int, work: Path) -> dict:
+    import torch.distributed as dist
+
+    join_group(world, work, "steps")
+    inp = torch.load(work / "inputs.pt", weights_only=True)
+    steps = {name: _mesh_step(name, inp[name]) for name in TWO}
+    dist.destroy_process_group()
+    return {"steps": steps, "seq": _trainer_run(work / "seq", dict(seq=2), "pg"),
+            "pipe": _trainer_run(work / "pipe", dict(pipe=2), "pg")}
+
+
 # --------------------------------------------------------- the references
 
 
-def jax_seq_steps(model: dict, mesh: dict, params, x, y):
-    """The JAX package's mesh train step at ``mesh`` with its seq context
-    on the conftest's CPU devices, from the JAX ``params``: (losses,
-    norms, final params by port name)."""
+def jax_mesh_steps(model: dict, mesh: dict, params, x, y):
+    """The JAX package's mesh train step at ``mesh`` on the conftest's CPU
+    devices (with its ``SeqContext`` under seq, over the batch axes of
+    its batch spec), from the JAX ``params``: (losses, norms, final params
+    by port name)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -157,24 +242,27 @@ def jax_seq_steps(model: dict, mesh: dict, params, x, y):
     from mamba_distributed_tpu.training.train_step import make_train_step
     from mamba_distributed_tpu_torch import convert
 
-    dp = mesh.get("data", 1) * mesh.get("fsdp", 1)
     jcfg = JaxTrainConfig(model=JaxConfig(**model), mesh=JaxMesh(**mesh),
                           micro_batch_size=MICRO, seq_len=T,
-                          total_batch_size=MICRO * T * dp * ACCUM, warmup_steps=2,
-                          max_steps=10)
+                          total_batch_size=MICRO * T * batch_ranks(mesh) * accum(mesh),
+                          warmup_steps=2, max_steps=10)
     jmesh = build_mesh(jcfg.mesh, jax.devices()[:jcfg.mesh.num_devices])
     pshard = param_shardings(params, jmesh, False)
     p = jax.device_put(jax.tree.map(jnp.copy, params), pshard)
     optimizer = make_optimizer(jcfg)
     oshard = opt_state_shardings(jax.eval_shape(optimizer.init, p), params, pshard, jmesh)
     state = jax.jit(optimizer.init, out_shardings=oshard)(p)
-    step = make_train_step(jcfg, optimizer, jmesh, p, state,
-                           seq_ctx=SeqContext(jmesh, "seq", ("data", "fsdp")))
-    ashard = NamedSharding(jmesh, P(None, *batch_spec(jmesh, seq_sharded=True)))
+    sp = jcfg.mesh.seq > 1
+    seq_ctx = SeqContext(jmesh, "seq", tuple(batch_spec(jmesh)[0])) if sp else None
+    step = make_train_step(jcfg, optimizer, jmesh, p, state, seq_ctx=seq_ctx)
+    ashard = NamedSharding(jmesh, P(None, *batch_spec(jmesh, seq_sharded=sp)))
+    batch = [[jax.device_put(v.astype(np.int32), ashard) for v in xy] for xy in zip(x, y)]
+    # compiled without LLVM's optimizations: these steps are tiny, so the
+    # compile is most of a reference's time (the results agree to fp32)
+    step = step.lower(p, state, *batch[0]).compile({"xla_backend_optimization_level": 0})
     losses, norms = [], []
-    for xs, ys in zip(x, y):
-        p, state, loss, norm = step(p, state, jax.device_put(xs.astype(np.int32), ashard),
-                                    jax.device_put(ys.astype(np.int32), ashard))
+    for xs, ys in batch:
+        p, state, loss, norm = step(p, state, xs, ys)
         losses.append(float(loss))
         norms.append(float(norm))
     final = flat(convert.params_from_jax(jax.tree.map(np.asarray, p)))
@@ -210,10 +298,10 @@ def _cli(tmp_path: Path):
 # ---------------------------------------------------------------- fixtures
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The 4-rank step cases, the 2-rank trainer and the CLI, started
-    together; the JAX and one-device references computed while they run."""
+def _inputs() -> dict:
+    """Each step case's global batches and initial params (the JAX init,
+    through ``convert.params_from_jax``, where the JAX mesh step is the
+    reference, kept under "jax" too; the port's init otherwise)."""
     import jax
 
     from mamba_distributed_tpu.config import ModelConfig as JaxConfig
@@ -221,26 +309,63 @@ def runs(tmp_path_factory):
     from mamba_distributed_tpu_torch import convert
     from mamba_distributed_tpu_torch.models.lm import init_lm_params
 
-    work = tmp_path_factory.mktemp("sp_steps")
-    x, y = batches(5, 2, ACCUM, MICRO * 2, T, HYBRID["vocab_size"])
-    inp = {name: {"x": torch.from_numpy(x), "y": torch.from_numpy(y)} for name in STEPS}
-    jp = jax.jit(jax_init, static_argnums=1)(jax.random.PRNGKey(0), JaxConfig(**HYBRID))
-    inp["data2-seq2"]["params"] = convert.params_from_jax(jax.tree.map(np.asarray, jp))
-    inp["fsdp2-seq2"]["params"] = init_lm_params(ModelConfig(**TINY_MODEL),
+    inp, jparams = {}, {}
+    for name, (model, mesh, shard) in STEPS.items():
+        x, y = batches(5, 2, accum(mesh), MICRO * batch_ranks(mesh), T, model["vocab_size"])
+        inp[name] = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+        if shard:
+            inp[name]["params"] = init_lm_params(ModelConfig(**model),
                                                  torch.Generator().manual_seed(0))
-    torch.save(inp, work / "inputs.pt")
+            continue
+        key = tuple(sorted((k, v) for k, v in model.items() if k != "attn_sp_impl"))
+        if key not in jparams:
+            jparams[key] = jax.jit(jax_init, static_argnums=1)(jax.random.PRNGKey(0),
+                                                               JaxConfig(**model))
+        inp[name]["jax"] = jparams[key]
+        inp[name]["params"] = convert.params_from_jax(jax.tree.map(np.asarray, jparams[key]))
+    return inp
+
+
+def _ref(inp: dict, name: str) -> dict:
+    model, mesh, shard = STEPS[name]
+    x, y = inp[name]["x"].numpy(), inp[name]["y"].numpy()
+    if shard:
+        got = port_single(model, inp[name]["params"], x, y, MICRO * batch_ranks(mesh), T,
+                          accum(mesh))
+    else:
+        got = jax_mesh_steps(model, mesh, inp[name]["jax"], x, y)
+    return dict(zip(("losses", "norms", "params"), got))
+
+
+def _refs(inp: dict, names) -> dict:
+    """Every case's reference, three at a time (XLA compiles outside the
+    GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(3) as pool:
+        return dict(zip(names, pool.map(lambda n: _ref(inp, n), names)))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The 4-rank step cases, the 2-rank pipe steps and trainers, and the
+    CLI, started together; the JAX and one-device references computed
+    while they run."""
+    inp = _inputs()
+    ported = {n: {k: v for k, v in case.items() if k != "jax"} for n, case in inp.items()}
+    work = tmp_path_factory.mktemp("sp_steps")
+    torch.save(ported, work / "inputs.pt")
     steps = start(MODULE, "steps", 4, work)
     trainer_dir = tmp_path_factory.mktemp("sp_trainer")
+    torch.save({n: ported[n] for n in TWO}, trainer_dir / "inputs.pt")
     trainer = start(MODULE, "trainer", 2, trainer_dir)
     cli_dir = tmp_path_factory.mktemp("sp_cli")
     cli = _cli(cli_dir)
-    refs = {}
-    jl, jn, final = jax_seq_steps(HYBRID, dict(data=2, seq=2), jp, x, y)
-    refs["data2-seq2"] = {"losses": jl, "norms": jn, "params": final}
-    sl, sn, sp = port_single(TINY_MODEL, inp["fsdp2-seq2"]["params"], x, y, MICRO * 2, T,
-                             ACCUM)
-    refs["fsdp2-seq2"] = {"losses": sl, "norms": sn, "params": sp}
-    return {"steps": steps(), "refs": refs, "trainer": trainer(), "trainer_dir": trainer_dir,
+    refs = _refs(inp, STEPS)
+    two = trainer()
+    outs = {n: [o[n] for o in steps()] for n in FOUR}
+    outs.update({n: [o["steps"][n] for o in two] for n in TWO})
+    return {"steps": outs, "refs": refs, "trainer": two, "trainer_dir": trainer_dir,
             "cli": cli(), "cli_dir": cli_dir}
 
 
@@ -249,37 +374,48 @@ def runs(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(STEPS))
 def test_seq_mesh_step_matches_its_reference(runs, name):
-    """data=2 x seq=2 against the JAX mesh step at that mesh, fsdp=2 x
-    seq=2 against the one-device port."""
-    outs, ref = runs["steps"], runs["refs"][name]
-    got = sorted((o[name]["coordinate"], o[name]["seq_rank"]) for o in outs)
-    assert got == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    """Every step case against the JAX mesh step at its mesh (fsdp
+    against the one-device port)."""
+    outs, ref = runs["steps"][name], runs["refs"][name]
+    model, mesh, _ = STEPS[name]
+    seq = mesh.get("seq", 1)
+    got = sorted((o["coordinate"], o["seq_rank"]) for o in outs)
+    per_block = len(outs) // (batch_ranks(mesh) * seq)  # tensor or pipe ranks
+    assert got == sorted((c, s) for c in range(batch_ranks(mesh)) for s in range(seq)
+                         for _ in range(per_block))
     for o in outs:
-        r = o[name]
-        np.testing.assert_allclose(r["losses"], ref["losses"], rtol=1e-4, err_msg=name)
-        np.testing.assert_allclose(r["norms"], ref["norms"], rtol=1e-4, err_msg=name)
-        assert set(r["params"]) == set(ref["params"])
-        for k, v in r["params"].items():
+        np.testing.assert_allclose(o["losses"], ref["losses"], rtol=1e-4, err_msg=name)
+        np.testing.assert_allclose(o["norms"], ref["norms"], rtol=1e-4, err_msg=name)
+        assert set(o["params"]) == set(ref["params"])
+        for k, v in o["params"].items():
             np.testing.assert_allclose(v.numpy(), np.asarray(ref["params"][k]), atol=1e-5,
                                        rtol=0, err_msg=f"{name} {k}")
-        assert r["sp_comm"]["calls"] > 0 and r["sp_comm"]["bytes"] > 0
+        assert (o["sp_comm"]["calls"] > 0) == (seq > 1)
+        if "moe_num_experts" in model:  # routed over the batch and seq ranks
+            assert o["ep_comm"]["route_calls"] > 0
+            assert (o["ep_comm"]["calls"] > 0) == ("expert" in mesh)
+    full = {k: v.numel() for k, v in outs[0]["params"].items()}
     if name.startswith("fsdp"):  # half of each sharded leaf a rank
-        full = {k: v.numel() for k, v in outs[0][name]["params"].items()}
         for o in outs:
-            assert 2 * sum(o[name]["local"].values()) < 1.1 * sum(full.values())
+            assert 2 * sum(o["local"].values()) < 1.1 * sum(full.values())
+    if "pipe" in mesh:  # half of every stacked leaf a stage, the schedule's shifts
+        ticks = accum(mesh) + mesh["pipe"] - 1
+        for o in outs:
+            for k, n in o["local"].items():
+                assert n * (2 if "blocks." in k else 1) == full[k], k
+            # forward and backward, each step
+            assert o["pp_comm"]["calls"] == 2 * 2 * (ticks - 1), o["pp_comm"]
 
 
-def test_seq2_trainer_resumes_bit_for_bit_and_loads_on_one_device(runs):
+def _check_trainer(out: list, work: Path, mesh: dict):
     from mamba_distributed_tpu_torch.training import Trainer
     from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint
 
-    outs, work = runs["trainer"], runs["trainer_dir"]
-    assert [o["master"] for o in outs] == [True, False]
-    assert [o["batch_rank"] for o in outs] == [0, 0]  # one seq group reads one block
-    assert [o["seq_rank"] for o in outs] == [0, 1]
-    assert outs[0]["ran"] == outs[1]["ran"]
-    assert np.isfinite(np.array(outs[0]["ran"])).all()
-    for o in outs:
+    assert [o["master"] for o in out] == [True, False]
+    assert [o["batch_rank"] for o in out] == [0, 0]  # one seq or pipe group reads one block
+    assert out[0]["ran"] == out[1]["ran"]
+    assert np.isfinite(np.array(out[0]["ran"])).all()
+    for o in out:
         assert o["start"] == 2 and o["resumed"] == o["ran"][2:]  # bit for bit
     ck = restore_checkpoint(str(work / "ck"))
     assert ck["step"] == 2 and len(ck["loaders"]) == 1
@@ -289,11 +425,29 @@ def test_seq2_trainer_resumes_bit_for_bit_and_loads_on_one_device(runs):
     for k, v in flat(ck["params"]).items():
         assert torch.equal(flat(one.params)[k].detach(), v), k
     one.run(max_steps=3)
-    np.testing.assert_allclose(one.history[2], outs[0]["ran"][2], rtol=2e-4)
+    np.testing.assert_allclose(one.history[2], out[0]["ran"][2], rtol=2e-4)
     one.finish()
     lines = (work / "log" / "log.txt").read_text().splitlines()
     assert [ln.split()[:2] for ln in lines][:3] == [["0", "val"], ["0", "train"],
                                                     ["1", "train"]]
+
+
+def test_seq2_trainer_resumes_bit_for_bit_and_loads_on_one_device(runs):
+    out = [o["seq"] for o in runs["trainer"]]
+    assert [o["seq_rank"] for o in out] == [0, 1]
+    _check_trainer(out, runs["trainer_dir"] / "seq", dict(seq=2))
+
+
+def test_pipe2_trainer_resumes_bit_for_bit_and_loads_on_one_device(runs):
+    from mamba_distributed_tpu_torch.training.checkpoint import restore_checkpoint
+
+    out = [o["pipe"] for o in runs["trainer"]]
+    assert [o["stage"] for o in out] == [0, 1]
+    full = flat(restore_checkpoint(str(runs["trainer_dir"] / "pipe" / "ck"))["params"])
+    for o in out:  # each stage half the layers, the rest whole
+        for k, n in o["local"].items():
+            assert n * (2 if k.startswith("blocks.") else 1) == full[k].numel(), k
+    _check_trainer(out, runs["trainer_dir"] / "pipe", dict(pipe=2))
 
 
 def test_torchrun_cli_seq2_on_the_cpu(runs):
@@ -307,11 +461,6 @@ def test_torchrun_cli_seq2_on_the_cpu(runs):
 
 
 REFUSALS = {
-    "tensor": (dict(seq=2, tensor=2), {}, 64, "seq with tensor comes with seq x tensor"),
-    "expert": (dict(seq=2, expert=2), dict(d_intermediate=32, moe_num_experts=4), 64,
-               "seq with expert comes with seq x expert"),
-    "moe": (dict(seq=2, data=2), dict(d_intermediate=32, moe_num_experts=4), 64,
-            "and a MoE model.*seq with expert comes with"),
     "indivisible": (dict(seq=3), {}, 64, "seq_len=64 does not split over mesh.seq=3"),
     "halo": (dict(seq=32), {}, 64, "local sequence shard \\(2 tokens.*shorter than the "
              "conv halo \\(3\\)"),
@@ -324,6 +473,17 @@ def test_seq_mesh_refusals(case):
     with pytest.raises(ValueError, match=msg):
         TrainConfig(model=ModelConfig(**{**TINY_MODEL, **over}), mesh=MeshConfig(**mesh),
                     micro_batch_size=2, seq_len=t, total_batch_size=2 * t * 64)
+
+
+def test_pipeline_refuses_the_blocked_loss():
+    from mamba_distributed_tpu_torch.training.optimizer import AdamW
+    from mamba_distributed_tpu_torch.training.train_step import make_train_step
+
+    cfg = step_cfg({**TINY_MODEL, "loss_impl": "blocked", "loss_vocab_blocks": 4},
+                   dict(pipe=2), False)
+    with pytest.raises(NotImplementedError, match="loss_impl='blocked' is not implemented "
+                       "for pipeline parallelism"):
+        make_train_step(cfg, AdamW(cfg, {"w": torch.zeros(1, requires_grad=True)}))
 
 
 def test_sp_conv_refuses_a_shard_shorter_than_the_halo():

@@ -237,10 +237,6 @@ def test_config_rejects_later_slices():
         ModelConfig(**TINY, remat_policy="none")
     with pytest.raises(ValueError, match="loss_vocab_blocks"):
         ModelConfig(**TINY, loss_impl="blocked", loss_vocab_blocks=7)
-    with pytest.raises(ValueError, match="pipe comes with"):
-        TrainConfig(mesh=MeshConfig(pipe=2))
-    with pytest.raises(ValueError, match="seq with tensor comes with"):
-        TrainConfig(mesh=MeshConfig(seq=2, tensor=2))
     with pytest.raises(ValueError, match="divisible"):
         TrainConfig(total_batch_size=1000)
     with pytest.raises(ValueError, match="moe_num_experts"):
