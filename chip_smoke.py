@@ -94,8 +94,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    against the chunked one, and peak memory printed beside the rest;
 3b. the engine's admission and occupancy features (``engine_features_
    phase``, on the decode weights of the 280m runs above, bf16 unless
-   named, "pallas"; (a) and (b) on the first 16 of the 64 layers, the
-   cut that keeps the script near 900 s, (c) at full depth): (a) the
+   named, "pallas"; on the first 16 of the 64 layers, the cut that keeps
+   the script under its limit): (a) the
    prefix-state cache on
    mamba2-280m, hybrid-280m and int8 hybrid-280m, capacity 8: a
    600-token preamble under four 100-token and two 356-token suffixes
@@ -125,9 +125,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3c. speculative decoding (``spec_phase``, the same weights, K = 3,
    capacity 8, greedy) on mamba2-280m, hybrid-280m, int8 hybrid-280m and
    mamba1-280m over the serving mix (32 new tokens) and a repetitive mix
-   (8 prompts of a 32-token pattern tiled to 256, 64 new tokens), at 64
-   layers on mamba2-280m and on the first 16 layers (full width) of the
-   other three, whose verify checks run at 64 layers: the
+   (8 prompts of a 32-token pattern tiled to 256, 64 new tokens), on the
+   first 16 layers (full width) of each, whose verify checks run at 64
+   layers: the
    compacted spec engine's streams equal the spec engine's, a spec stream
    parts from the non-spec engine's only at a step whose full-width
    top-two margin is within the bf16 tolerance, the verify launches
@@ -139,8 +139,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (a seeded 4-layer mamba2 companion) on mamba2-280m's repetitive mix;
 3d. multi-tenant LoRA serving (``lora_phase``, the same weights, capacity
    8, greedy): four seeded random adapters (rank 8, alpha 16, every
-   target) and the base model spread over the serving mix, on full-width,
-   full-depth mamba2-280m and hybrid-280m: every stream against a solo
+   target) and the base model spread over the serving mix, on full-width
+   mamba2-280m and hybrid-280m cut to 16 layers: every stream against a solo
    greedy run on its adapter's merged weights, parting only at a step
    whose top-two margin is within the bf16 tolerance of that step's
    largest |logit|; the no-adapter streams bit-identical to a LoRA-less
@@ -304,7 +304,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ring's hops), half as often a stage under pipe; the seq, tensor,
    expert and pipe exchanges of one more measured step (count, bytes),
    its ms, and each rank's peak memory are printed;
-12. print the serving and training numbers beside the card's name and
+12. serving meshes (``serving_mesh_phase``, between phase 3's hybrid-7b
+   runs and phase 4): one world of four processes sharing the card over
+   gloo (``--mesh-worker``) serves the mix of phase 3 (capacity 8, 32 new
+   tokens, bf16, pallas, seeded weights, each rank building its shard:
+   hybrid-7b's ranks one at a time) at full width on (i) ``data=2 x
+   model=2`` on hybrid-280m cut to 16 layers with compacted ticks, (ii)
+   ``model=4`` on hybrid-7b cut to 8 layers, (iii) ``stage=2 x model=2``
+   on hybrid-280m cut to 16 layers, (iv) ``stage=4`` on mamba2-280m cut
+   to 16 layers with compacted ticks (the microbatched decode clock), and
+   in fp32 ``data=2 x model=2`` on (f) mamba1-280m and (g) hybrid-280m
+   cut to 4 layers, each against one process's engine on the same
+   weights; every rank's streams of the sampled 700-token requests (one
+   on each data shard) must equal its ``generate(mesh=)`` streams bit for
+   bit; the greedy request's logits at each of its 32 steps, one
+   process's greedy stream fed to both, must be one process's within
+   5e-2 (fp32: 1e-5) of the step's largest |logit|, and (i) with its
+   embedding's model sum taken out must part beyond that; the greedy
+   stream must be one process's or part only at a near tie; no page may
+   stay in use, every rank launch ``ssd_fwd``, ``m1_scan``, ``rpa_fwd``
+   and ``rpp_fwd`` as one process does (a stage its share, the prefills
+   summed over the data ranks), a rank of (ii) hold under 0.3 of one
+   process's weight bytes, and (iv) run the clock and bill its bubbles;
+   printed: the logits gaps, launches, one decode tick's ``SERVE_COMM``,
+   tick ms, TTFT, tokens/s, weight bytes, peaks and the bubble lanes.
+   The kernel phase holds
+   ``ssd_fwd``, ``rpa_fwd`` and ``rpp_fwd`` at those per-rank heads
+   (``check_serving_shapes``) and the model-split gated norm's sum of
+   squares (``check_norms``);
+13. print the serving and training numbers beside the card's name and
    power limit, one ``{"kernels": [...]}`` line, and last ``{"ok": true,
    "device": ...}``.
 
@@ -1184,6 +1212,13 @@ NORM_SHAPES = {
     "rms_norm_gated": ((8, 1536, None), (256, 1536, None), (256, 8192, None),
                        (256, 8192, 1024)),
 }
+# the sum of squares of the part of a gated row a serving mesh's model rank
+# holds: the d_inner a rank holds (hybrid-280m at model 2: 768; hybrid-7b
+# at model 4: 2048) at a data rank's decode rows and the chunk
+NORM_TP_SHAPES = {
+    "rms_norm_gated_sumsq": ((4, 768, None), (256, 768, None), (8, 2048, None),
+                             (256, 2048, None)),
+}
 NORM_SOURCE = "mamba_distributed_tpu_torch/ops/cuda/csrc/rms_norm.cu"
 NORM_NO_PALLAS = ("none: no pallas_call counterpart (mamba_distributed_tpu/ops/norm.py:23-75 "
                   "is plain jnp, left to XLA)")
@@ -1204,19 +1239,24 @@ def norm_case(gen, name: str, rows: int, d: int, group, dtype):
         return (lambda: nk.add_rms_norm_kernel(x, r, w), lambda: nk.add_rms_norm_plain(x, r, w),
                 rows * d * (e + 4 + e + 4) + d * 4)
     z = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    if name == "rms_norm_gated_sumsq":
+        return (lambda: (nk.rms_norm_gated_sumsq_kernel(x, z),),
+                lambda: (nk.rms_norm_gated_sumsq_plain(x, z),), rows * d * 2 * e + rows * 4)
     return (lambda: (nk.rms_norm_gated_kernel(x, z, w, group_size=group),),
             lambda: (nk.rms_norm_gated_plain(x, z, w, group_size=group),),
             rows * d * 3 * e + d * 4)
 
 
 def check_norms(gen) -> list[dict]:
-    """The two RMSNorm kernels (``rms_norm.cu``, no ``pallas_call``
+    """The three RMSNorm kernels (``rms_norm.cu``, no ``pallas_call``
     counterpart) against their plain versions in fp32 and bf16 at
-    ``NORM_SHAPES``, two launches bit-identical, timed in bf16 by device
-    time beside their bytes bound and the plain version's device time.
-    (Their row-count invariance is held in ``compaction_kernels``.)"""
+    ``NORM_SHAPES`` and ``NORM_TP_SHAPES``, two launches bit-identical,
+    timed in bf16 by device time beside their bytes bound and the plain
+    version's device time.  (The row-count invariance of the first two is
+    held in ``compaction_kernels``, of the sum of squares by the serving
+    mesh phase's compacted ticks.)"""
     rows = []
-    for name, shapes in NORM_SHAPES.items():
+    for name, shapes in {**NORM_SHAPES, **NORM_TP_SHAPES}.items():
         entries = []
         for n_rows, d, group in shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -2993,11 +3033,10 @@ FEATURE_NEW = (64, 8, 16, 8, 32, 8, 16, 8)  # the compaction mix's budgets
 MARGIN_TOL = TOL[torch.bfloat16]
 
 
-# the depth of phase 3b's (a) and (b) runs, of the eval phase's scorer
-# runs and of the speculative phase's fp32 run: cut from 64 layers to
-# keep the script near 900 s with the speculative and data-parallel
-# phases in it; the compaction and the bf16 speculative runs stay at
-# full depth
+# the depth of the engine features' runs (phase 3b's (a), (b) and the
+# compaction run (c)), of the speculative and LoRA runs and of the eval
+# phase's scorer runs: cut from 64 layers to keep the script under its
+# limit with the parallel and serving mesh phases in it
 CUT_LAYERS = 16
 
 
@@ -3259,8 +3298,8 @@ def timed_ticks(eng, log: list) -> None:
                     {k: LAUNCHES[k] - n0[k] for k in LAUNCHES if LAUNCHES[k] - n0[k]}))
         return out
 
-    eng._tick = lambda live: timed(full, eng.capacity, live)
-    eng._compact_tick = lambda live, width: timed(compact, width, live, width)
+    eng._tick = lambda live, *rest: timed(full, eng.capacity, live, *rest)
+    eng._compact_tick = lambda live, width, *rest: timed(compact, width, live, width, *rest)
 
 
 def merge_states(states: list, logits: list):
@@ -3487,14 +3526,15 @@ def compaction_kernels(card: str, dparams, cfg) -> None:
 
 
 def engine_features_phase(card: str, params: dict) -> None:
-    """The admission and occupancy features on the card at full width and
-    depth (phase 3b), on the decode weights the serving phase cast
-    (``params``: preset tag -> weights): the prefix cache (a), priorities,
-    preemption and SRPT grants (b), compacted ticks (c)."""
+    """The admission and occupancy features on the card at full width
+    (phase 3b), on the first ``CUT_LAYERS`` layers of the decode weights
+    the serving phase cast (``params``: preset tag -> weights): the prefix
+    cache (a), priorities, preemption and SRPT grants (b), compacted ticks
+    (c); the norm tick and the row-count probes at full depth."""
     t0 = time.perf_counter()
     presets = (("mamba2-280m", "mamba2-280m", {}), ("hybrid-280m", "hybrid-280m", {}),
                ("hybrid-280m int8", "hybrid-280m", FEATURE_INT8))
-    print(f"engine features (a) and (b): depth cut from 64 to {CUT_LAYERS} layers (their "
+    print(f"engine features (a), (b) and (c): depth cut from 64 to {CUT_LAYERS} layers (their "
           f"first {CUT_LAYERS} layers' weights), full width", flush=True)
     cut = {tag: feature_cfg(preset, CUT_LAYERS, **over) for tag, preset, over in presets}
     for tag, _, _ in presets:
@@ -3503,8 +3543,10 @@ def engine_features_phase(card: str, params: dict) -> None:
     srpt_run(card, layer_prefix(params["mamba2-280m"], cut["mamba2-280m"]), CUT_LAYERS)
     norm_tick(card, params["hybrid-280m"], feature_cfg("hybrid-280m"))
     compaction_kernels(card, params["hybrid-280m"], feature_cfg("hybrid-280m"))
-    for tag, preset, over in presets:
-        compaction_run(card, tag, params[tag], feature_cfg(preset, **over))
+    # (c) on the first CUT_LAYERS layers too, to leave the serving mesh phase
+    # room under the script's limit
+    for tag, _, _ in presets:
+        compaction_run(card, tag, layer_prefix(params[tag], cut[tag]), cut[tag])
     print(f"engine features phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
@@ -3757,9 +3799,9 @@ def spec_phase(card: str, params: dict) -> None:
     the serving phase cast (``params``: preset tag -> weights), full width:
     per preset ``verify_check`` at full depth (the verify's logits within
     the bf16 tolerance of K+1 decode steps', and the device ms of each),
-    then ``spec_run`` over the serving mix and the repetitive mix, at full
-    depth on mamba2-280m and on the first ``CUT_LAYERS`` layers of the
-    others (a cut that keeps the script near 900 s); then
+    then ``spec_run`` over the serving mix and the repetitive mix on the
+    first ``CUT_LAYERS`` layers of each (a cut that keeps the script
+    under its limit); then
     mamba2-280m in fp32 on its first ``CUT_LAYERS`` layers (seeded
     masters), where the verify's logits must
     sit within the fp32 tolerance and every spec stream equal the
@@ -3789,10 +3831,10 @@ def spec_phase(card: str, params: dict) -> None:
     for tag, preset, over in SPEC_PRESETS:
         cfg = feature_cfg(preset, **over)
         check(tag, params[tag], cfg)
-        run_tag, run_params = tag, params[tag]
-        if preset != "mamba2-280m":
-            cfg = cut_layers(cfg, CUT_LAYERS)
-            run_tag, run_params = f"{tag} {CUT_LAYERS} layers", layer_prefix(params[tag], cfg)
+        # every preset's runs on its first CUT_LAYERS layers, to leave the
+        # serving mesh phase room under the script's limit
+        cfg = cut_layers(cfg, CUT_LAYERS)
+        run_tag, run_params = f"{tag} {CUT_LAYERS} layers", layer_prefix(params[tag], cfg)
         for mix in ("serving", "repetitive"):
             bases[tag, mix] = spec_run(card, run_tag, run_params, cfg, mix)
     f32 = cut_layers(get_preset("mamba2-280m", ssm_impl="pallas", compute_dtype="float32"),
@@ -3805,8 +3847,9 @@ def spec_phase(card: str, params: dict) -> None:
     del masters, f32_params
     dcfg = feature_cfg("mamba2-280m", n_layer=4)
     dparams = init_lm_params(dcfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
-    spec_run(card, "mamba2-280m", params["mamba2-280m"], feature_cfg("mamba2-280m"),
-             "repetitive", base=bases["mamba2-280m", "repetitive"],
+    m2 = feature_cfg("mamba2-280m", CUT_LAYERS)
+    spec_run(card, f"mamba2-280m {CUT_LAYERS} layers", layer_prefix(params["mamba2-280m"], m2),
+             m2, "repetitive", base=bases["mamba2-280m", "repetitive"],
              drafter=lambda: ModelDrafter(dparams, dcfg), compacted=False)
     print(f"spec phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
@@ -3984,7 +4027,7 @@ def lora_uploads(reg) -> tuple[int, list]:
 
 
 def lora_preset(card: str, tag: str, dparams, cfg, sequential: bool) -> None:
-    """One preset at full width and depth (bf16, capacity 8): the LoRA mix
+    """One preset at full width (bf16, capacity 8; ``cfg``'s depth): the LoRA mix
     on a LoRA engine against the same prompts on a LoRA-less one (the
     no-adapter streams bit-identical), every stream against its
     merged-weights reference (``lora_gate``), with ``sequential`` the
@@ -4232,10 +4275,14 @@ def lora_phase(card: str, params: dict) -> None:
     """Multi-tenant LoRA serving on the card (phase 3d), on the decode
     weights the serving phase cast (``params``: preset tag -> weights):
     ``lora_preset`` on mamba2-280m (with the sequential engines) and
-    hybrid-280m at full depth, then ``lora_cells``."""
+    hybrid-280m on their first ``CUT_LAYERS`` layers (a cut that leaves
+    the serving mesh phase room under the script's limit), then
+    ``lora_cells``."""
     t0 = time.perf_counter()
     for tag in ("mamba2-280m", "hybrid-280m"):
-        lora_preset(card, tag, params[tag], feature_cfg(tag), sequential=tag == "mamba2-280m")
+        cfg = feature_cfg(tag, CUT_LAYERS)
+        lora_preset(card, f"{tag} {CUT_LAYERS} layers", layer_prefix(params[tag], cfg), cfg,
+                    sequential=tag == "mamba2-280m")
     lora_cells(card, params)
     print(f"lora phase: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
@@ -4564,19 +4611,23 @@ def free_ports(n: int) -> list[int]:
             s.close()
 
 
-def run_workers(phase: str, wait_s: int, world: int = 2, n_ports: int = 2) -> list[dict]:
+def run_workers(phase: str, wait_s: int, world: int = 2, n_ports: int = 2,
+                inputs: dict | None = None) -> list[dict]:
     """Run ``python3 chip_smoke.py --{phase}-worker RANK WORLD PORTS DIR``
     in ``world`` processes sharing this card (``LOCAL_RANK=0``, gloo on the
     loopback, ``n_ports`` free ports: one group a run), each rank's log in
-    ``build/chip_smoke/{phase}/log_{rank}.txt``; a rank that fails or
-    outlasts ``wait_s`` stops the phase with its log, and every rank is
-    killed on the way out.  Returns each rank's ``rank{r}.json``."""
+    ``build/chip_smoke/{phase}/log_{rank}.txt`` (``inputs``, if given, in
+    its ``inputs.json``); a rank that fails or outlasts ``wait_s`` stops
+    the phase with its log, and every rank is killed on the way out.
+    Returns each rank's ``rank{r}.json``."""
     import os
     import shutil
 
     work = Path(__file__).resolve().parent / "build" / "chip_smoke" / phase
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    if inputs is not None:
+        (work / "inputs.json").write_text(json.dumps(inputs))
     ports = free_ports(n_ports)
     env = {**os.environ, "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo"}
     procs, logs = [], [work / f"log_{r}.txt" for r in range(world)]
@@ -5367,6 +5418,359 @@ def compose_phase(card: str) -> None:
         raise SystemExit(f"compose phase: {fails}")
 
 
+# ------------------------------------------------------------ serving meshes
+
+SM_WAIT_S = 900
+# tag: (preset, layers (None: the preset's), (data, stage, model), compute dtype, overrides)
+# every mesh at full width, its depth cut to keep the script under its
+# limit: four ranks on one card stage every collective through the host,
+# 5-13 ms each by the machine (PERF.md §4-§5), and a tick costs its
+# collectives: hybrid-280m to 16 layers (attention at 3 and 11),
+# hybrid-7b to 8 (one period of its pattern, attention at 3), mamba2-280m
+# to 16; the fp32 meshes mamba1-280m and hybrid-280m (attention at 3) to 4
+SM_RUNS = {
+    "i": ("hybrid-280m", 16, (2, 1, 2), "bfloat16", dict(tick_compaction=True)),
+    "ii": ("hybrid-7b", 8, (1, 1, 4), "bfloat16", {}),
+    "iii": ("hybrid-280m", 16, (1, 2, 2), "bfloat16", {}),
+    "iv": ("mamba2-280m", 16, (1, 4, 1), "bfloat16", dict(tick_compaction=True)),
+    "f": ("mamba1-280m", 4, (2, 1, 2), "float32", {}),
+    "g": ("hybrid-280m", 4, (2, 1, 2), "float32", {}),
+}
+# the hand kernels of the served path (rows 1, 4, 10, 11); a data rank runs
+# the prefills of its own slots only
+SM_KERNELS = ("ssd_fwd", "m1_scan", "ragged_decode", "ragged_prefill")
+SM_PREFILL = ("ssd_fwd", "m1_scan", "ragged_prefill")
+SM_NORMS = ("rms_norm_gated_sumsq",)
+SM_NEW = 32
+# the requests of the mix held to generate(mesh=) bit for bit: the
+# sampled 700-token ones (three chunks), one on each data shard (requests
+# 3 and 7 land in slots 3 and 7); a solo call decodes its 32 steps alone,
+# over collectives of 5-13 ms each here, so the other streams are held by
+# the CPU tests, and the greedy one to one process
+SM_GATED = {1: (3,), 2: (3, 7)}
+# the greedy request's logits at each of its 32 steps, its one-process
+# stream fed to both sides, against one process's, relative to the step's
+# largest |logit|: bf16 at most SM_BF16_GAP (the sound meshes read up to
+# 2.3e-02, the planted fault of mesh SM_CONTROL, its embedding without the
+# model sum, about 1.35: PERF.md §5), fp32 at most SM_FP32_GAP
+SM_BF16_GAP = 5e-2
+SM_FP32_GAP = 1e-5
+SM_CONTROL = "i"
+
+
+def mesh_cfg(tag: str):
+    from mamba_distributed_tpu_torch.config import get_preset
+
+    preset, layers, _, dtype, over = SM_RUNS[tag]
+    return cut_layers(get_preset(preset, ssm_impl="pallas", compute_dtype=dtype, **over), layers)
+
+
+def forced_logits(params, cfg, prompt, tokens, mesh=None) -> torch.Tensor:
+    """The logits before each of ``tokens`` (len(tokens), V) fp32 on the
+    host: ``prompt`` prefilled as the engine admits it (a hybrid's through
+    the chunk step, a short pure-SSM prompt one-shot over its pow2
+    bucket), then one decode step a token fed, at one row; on ``mesh``
+    (its model and stage groups) when given."""
+    from mamba_distributed_tpu_torch.inference.bucketing import next_pow2_bucket, pad_to_bucket
+    from mamba_distributed_tpu_torch.models.lm import lm_prefill, lm_step
+    from mamba_distributed_tpu_torch.serving.prefill import chunked_prefill
+
+    emb = params["embedding"]
+    dev = (emb["kernel"] if isinstance(emb, dict) else emb).device
+    ids = torch.as_tensor(prompt, dtype=torch.int64)[None]
+    kw = {} if mesh is None else dict(tp=mesh.tp, stage=mesh.stage_ctx)
+    with torch.no_grad():
+        if cfg.attn_layer_idx:
+            logits, state = chunked_prefill(params, cfg, ids, max_len=len(prompt) + SM_NEW,
+                                            mesh=mesh)
+        else:
+            padded, mask = pad_to_bucket(ids.to(dev), next_pow2_bucket(len(prompt)))
+            logits, state = lm_prefill(params, cfg, padded, token_mask=mask, **kw)
+        out = [logits[0]]
+        for tok in tokens[:-1]:
+            logits, state = lm_step(params, cfg, state, torch.tensor([tok], device=dev), **kw)
+            out.append(logits[0])
+    return torch.stack(out).float().cpu()
+
+
+def no_embedding_sum():
+    """A planted fault for the gap gate's control: the vocab-parallel
+    embedding without its model-group sum (each rank keeps the rows of
+    its own vocab block, zeros elsewhere).  Returns the undo."""
+    from mamba_distributed_tpu_torch.models import lm
+
+    real = lm.serve_all_reduce_
+
+    def faulty(t, group, kind):
+        return t if kind == "embed" else real(t, group, kind)
+
+    lm.serve_all_reduce_ = faulty
+    return lambda: setattr(lm, "serve_all_reduce_", real)
+
+
+def mesh_serve(tag: str, work: Path) -> dict:
+    """One mesh of the serving mesh phase on this rank: build this rank's
+    shard of the seeded weights (hybrid-7b's ranks one at a time: the fp32
+    masters are 35.5 GB at full depth), serve the mix (no warm-up: the
+    first tick's setup falls out of the median), then the ``SM_GATED``
+    requests again through ``generate(mesh=)``; the rank's streams, the
+    requests' slots, launches, one decode tick's ``SERVE_COMM``, times,
+    bytes and peak, and rank 0's ``forced_logits`` along one process's
+    greedy stream (``work/inputs.json``) in ``work`` (for ``SM_CONTROL``
+    also with ``no_embedding_sum`` planted)."""
+    import torch.distributed as dist
+
+    from mamba_distributed_tpu_torch.inference.generate import generate
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.ops.cuda.build import LAUNCHES
+    from mamba_distributed_tpu_torch.parallel.collectives import SERVE_COMM, reset_serve_comm
+    from mamba_distributed_tpu_torch.parallel.mesh import serving_mesh
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+    from mamba_distributed_tpu_torch.serving.prefill import serving_shard
+
+    cfg = mesh_cfg(tag)
+    D, S, M = SM_RUNS[tag][2]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = serving_mesh(D, M, S, replicas=world // (D * S * M))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    big = cfg.d_model >= 4096
+    shard = None
+    for r in (range(world) if big else [rank]):
+        if r == rank:
+            masters = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                     device="cuda")
+            shard = serving_shard(masters, cfg, mesh)
+            del masters
+            torch.cuda.empty_cache()
+        if big:
+            dist.barrier()
+    build_gib = torch.cuda.max_memory_allocated() / 2**30
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    lens, prompts, requests = serving_mix(cfg, SM_NEW)
+    eng = ServingEngine(shard, cfg, capacity=8, mesh=mesh)
+    reqs = requests()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    ids = [eng.submit(r) for r in reqs]
+    tracked = {t.request_id: t for t in eng.scheduler}
+    ticks, comm, slots = [], None, [None] * len(ids)
+    while eng.pending:
+        prefill_pending = bool(eng.scheduler.depth or eng._prefill_queue)
+        reset_serve_comm()
+        ts = time.perf_counter()
+        events = eng.step()
+        for j, i in enumerate(ids):
+            if slots[j] is None:
+                slots[j] = tracked[i].slot
+        if events and not prefill_pending:
+            ticks.append((time.perf_counter() - ts) * 1e3)
+            comm = {"calls": SERVE_COMM["calls"], "bytes": SERVE_COMM["bytes"],
+                    "kinds": dict(SERVE_COMM["kinds"])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {k: LAUNCHES[k] for k in (*SM_KERNELS, *SM_NORMS)}
+    streams = [eng.results[i].new_tokens.tolist() for i in ids]
+    ttft = sorted((tracked[i].t_first_token - tracked[i].t_submit) * 1e3 for i in ids)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t2 = time.perf_counter()
+    solo = [generate(shard, cfg, torch.from_numpy(p)[None], seed=i, max_new_tokens=SM_NEW,
+                     top_k=1 if i == 0 else 50, decode_rows=8, mesh=mesh)[0, len(p):].tolist()
+            for i, p in enumerate(prompts) if i in SM_GATED[D]]
+    t_gen = time.perf_counter() - t2
+    fed = json.loads((work / "inputs.json").read_text())[tag]
+    forced = {"sound": forced_logits(shard, cfg, prompts[0], fed, mesh)}
+    if tag == SM_CONTROL:
+        undo = no_embedding_sum()
+        try:
+            forced["control"] = forced_logits(shard, cfg, prompts[0], fed, mesh)
+        finally:
+            undo()
+    if rank == 0:
+        torch.save(forced, work / f"forced_{tag}.pt")
+    return dict(coords=[mesh.data_rank, mesh.stage_rank, mesh.model_rank], streams=streams,
+                slots=slots, generate=solo, launches=launches, comm=comm, tick_ms=sorted(ticks),
+                ttft_ms=ttft[len(ttft) // 2], tokens_per_s=sum(map(len, streams)) / wall,
+                weight_bytes=eng.weight_bytes, peak_gib=peak, build_gib=build_gib,
+                pages=eng.page_pool.pages_in_use if eng.hybrid else 0,
+                pipeline=eng.metrics.summary()["pipeline"], build_s=t_build, serve_s=wall,
+                generate_s=t_gen)
+
+
+def mesh_worker(rank: int, world: int, ports: list[int], work: Path) -> int:
+    """One rank of the serving mesh phase's world (``--mesh-worker``): four
+    processes on ``cuda:0`` over an explicitly requested gloo group, the
+    meshes of ``SM_RUNS`` in turn, each in a group of its own; writes its
+    results to ``work/rank{rank}.json``."""
+    import os
+
+    import torch.distributed as dist
+
+    from mamba_distributed_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK="0", WORLD_SIZE=str(world))
+    res = {}
+    for tag, port in zip(SM_RUNS, ports, strict=True):
+        init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port}", backend="gloo")
+        res[tag] = mesh_serve(tag, work)
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def mesh_reference(tag: str) -> dict:
+    """One process's side of a mesh run on the same seeded weights: the
+    engine's streams, launches, weight bytes, peak and serving numbers
+    over the mix, the greedy stream's ``forced_logits`` and its top-two
+    margins."""
+    from mamba_distributed_tpu_torch.models.lm import init_lm_params
+    from mamba_distributed_tpu_torch.serving import ServingEngine
+    from mamba_distributed_tpu_torch.serving.prefill import serving_shard
+
+    cfg = mesh_cfg(tag)
+    preset = SM_RUNS[tag][0]
+    masters = init_lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dparams = serving_shard(masters, cfg)
+    del masters
+    torch.cuda.empty_cache()
+    lens, prompts, requests = serving_mix(cfg, SM_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(dparams, cfg, capacity=8)
+    ref = timed_drive(eng, requests())
+    ref.update(greedy=ref["streams"][0], weight_bytes=eng.weight_bytes,
+               ttft_ms=ref["ttft"][len(ref["ttft"]) // 2],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del eng
+    ref["forced"] = forced_logits(dparams, cfg, prompts[0], ref["greedy"])
+    (ref["margin_tokens"], ref["margins"], ref["peaks"]), = greedy_margins(
+        dparams, cfg, prompts[:1], [SM_NEW], 8)
+    del dparams
+    torch.cuda.empty_cache()
+    return ref
+
+
+def serving_mesh_phase(card: str) -> dict:
+    """The serving meshes on the card (phase 12, module docstring): one
+    process's references here, then one world of four processes sharing
+    the card over gloo (``--mesh-worker``) that serves the mix on every
+    mesh of ``SM_RUNS`` in turn.  Gates: every rank's streams of the
+    ``SM_GATED`` requests (one on each data shard) equal its
+    ``generate(mesh=)`` streams bit for bit (sampling on); the greedy
+    request's ``forced_logits`` (one process's greedy stream fed to both)
+    within ``SM_BF16_GAP`` (fp32: ``SM_FP32_GAP``) of one process's at
+    every step, relative to the step's largest |logit|, and the planted
+    fault of ``SM_CONTROL`` beyond it; the greedy stream equal to one
+    process's or parted only at a step whose top-two margin is within
+    that tolerance (bf16: ``MARGIN_TOL``) of the step's largest |logit|;
+    no page in use at the end; every rank launches rows 1, 4, 10 and 11
+    as one process does (a stage its share; the prefills summed over the
+    data ranks); a rank at model 4 holds under 0.3 of one process's
+    weight bytes; the stage-only mesh runs the microbatched clock and
+    bills its bubbles.  Printed: the logits gaps, launches, one decode
+    tick's ``SERVE_COMM``, tick ms, TTFT and tokens/s, weight bytes and
+    peaks a rank, the bubble lanes.  Returns rank 0's launches of runs
+    (i) and (ii)."""
+    t0 = time.perf_counter()
+    refs = {tag: mesh_reference(tag) for tag in SM_RUNS}
+    t_ref = time.perf_counter() - t0
+    ranks = run_workers("mesh", SM_WAIT_S, world=4, n_ports=len(SM_RUNS),
+                        inputs={tag: ref["greedy"] for tag, ref in refs.items()})
+    t_world = time.perf_counter() - t0 - t_ref
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "mesh"
+    fails = []
+    for tag, (preset, layers, (D, S, M), dtype, over) in SM_RUNS.items():
+        ref = refs[tag]
+        what = (f"{preset} {layers or 'all'} layers {dtype} mesh data={D} stage={S} model={M}"
+                f"{' ' + str(over) if over else ''}")
+        fp32 = dtype == "float32"
+        limit = SM_FP32_GAP if fp32 else SM_BF16_GAP
+        forced = torch.load(work / f"forced_{tag}.pt")
+        scale = ref["forced"].abs().amax(dim=-1)
+        for kind, got_logits in forced.items():
+            gaps = (got_logits - ref["forced"]).abs().amax(dim=-1) / scale
+            worst = int(gaps.argmax())
+            print(f"mesh ({tag}) {what}{'' if kind == 'sound' else ', the embedding without '
+                                         'its model sum planted'}: logits gap to one process "
+                  f"along its greedy stream, of the step's largest |logit|: first step "
+                  f"{gaps[0].item():.3e}, largest {gaps[worst].item():.3e} (step {worst} of "
+                  f"{len(gaps)}; limit {limit:.0e})", flush=True)
+            if kind == "sound" and not gaps.max().item() <= limit:
+                fails.append(f"({tag}) logits gap {gaps.max().item():.3e} > {limit:.0e}")
+            if kind == "control" and not gaps.max().item() > limit:
+                fails.append(f"({tag}) the planted fault's logits gap {gaps.max().item():.3e} "
+                             f"is within the limit {limit:.0e}")
+        tie_tol = SM_FP32_GAP if fp32 else MARGIN_TOL
+        gated_ids = SM_GATED[D]
+        for r, res in enumerate(ranks):
+            got = res[tag]
+            d, s, m = got["coords"]
+            gated = [got["streams"][i] for i in gated_ids] == got["generate"]
+            if not gated:
+                bad = [i for i, b in zip(gated_ids, got["generate"]) if got["streams"][i] != b]
+                fails.append(f"({tag}) rank {r}: engine streams {bad} != generate(mesh=)")
+            shards = sorted({got["slots"][i] // (8 // D) for i in gated_ids})
+            if shards != list(range(D)):
+                fails.append(f"({tag}) rank {r}: the gated requests {list(gated_ids)} sat on "
+                             f"data shards {shards} of {D}")
+            greedy, want = got["streams"][0], ref["greedy"]
+            part = next((j for j, (a, b) in enumerate(zip(greedy, want)) if a != b), None)
+            note = "equal"
+            if part is not None:
+                rel = ref["margins"][part] / ref["peaks"][part]
+                note = f"parted at step {part}, margin {rel:.4f} of the largest |logit|"
+                if ref["margin_tokens"][:part + 1] != want[:part + 1] or rel > tie_tol:
+                    fails.append(f"({tag}) rank {r}: greedy stream {note}")
+            if got["pages"]:
+                fails.append(f"({tag}) rank {r}: {got['pages']} KV pages in use at the end")
+            for k in SM_KERNELS:
+                n_ref, n_got = ref["launches"].get(k, 0), got["launches"][k]
+                if k in SM_PREFILL:
+                    n_got = sum(x[tag]["launches"][k] for x in ranks
+                                if x[tag]["coords"][1:] == [s, m])
+                if n_ref % S or n_got != n_ref // S:
+                    fails.append(f"({tag}) rank {r} {k}: {n_got} launches"
+                                 f"{' over the data ranks' if k in SM_PREFILL else ''}, one "
+                                 f"process {n_ref} ({n_ref / S} expected)")
+            print(f"mesh ({tag}) rank {r} (data {d}, stage {s}, model {m}): streams "
+                  f"{list(gated_ids)} (slots {[got['slots'][i] for i in gated_ids]}) == "
+                  f"generate(mesh=): {gated}; greedy against one "
+                  f"process: {note}; launches {got['launches']}, one process "
+                  f"{ {k: ref['launches'].get(k, 0) for k in SM_KERNELS} }; KV pages in use "
+                  f"{got['pages']}", flush=True)
+            print(f"mesh ({tag}) rank {r}: one decode tick's collectives {got['comm']}; tick "
+                  f"ms median {p50(got['tick_ms']) if got['tick_ms'] else None} of "
+                  f"{len(got['tick_ms'])}, TTFT median {got['ttft_ms']:.1f} ms, "
+                  f"{got['tokens_per_s']:.1f} tokens/s (one process: tick "
+                  f"{ref['tick_ms']}, TTFT {ref['ttft_ms']:.1f}, tokens/s "
+                  f"{ref['tokens_per_s']:.1f}); weight bytes {got['weight_bytes']} against "
+                  f"{ref['weight_bytes']} ({got['weight_bytes'] / ref['weight_bytes']:.3f}x); "
+                  f"peak max_memory_allocated {got['peak_gib']:.2f} GiB serving, "
+                  f"{got['build_gib']:.2f} building (one process {ref['peak_gib']:.2f}); "
+                  f"build {got['build_s']:.1f} s, "
+                  f"serve {got['serve_s']:.1f} s, generate {got['generate_s']:.1f} s [{card}]",
+                  flush=True)
+            if M >= 4 and got["weight_bytes"] > 0.3 * ref["weight_bytes"]:
+                fails.append(f"({tag}) rank {r}: {got['weight_bytes']} weight bytes, over 0.3 "
+                             f"of one process's {ref['weight_bytes']}")
+            if S > 1:
+                pipe = got["pipeline"]
+                print(f"mesh ({tag}) rank {r}: pipeline {pipe}", flush=True)
+                clocked = D == 1 and M == 1 and not SM_RUNS[tag][0].startswith("hybrid")
+                if pipe is None or (clocked and not (pipe["pipelined_ticks"]
+                                                     and pipe["bubble_lanes"])):
+                    fails.append(f"({tag}) rank {r}: the decode clock's bubbles {pipe}")
+    print(f"serving mesh phase: {time.perf_counter() - t0:.1f} s (one-process references "
+          f"{t_ref:.1f}, the world of four {t_world:.1f}) [{card}]", flush=True)
+    if fails:
+        raise SystemExit(f"serving mesh phase: {fails}")
+    return {tag: ranks[0][tag]["launches"] for tag in ("i", "ii")}
+
+
 def check_tp_shapes(gen) -> None:
     """The hand kernels at the per-rank shapes of tensor parallelism:
     ``ssd_fwd``, ``ssd_chunk_states`` and ``ssd_bwd`` at hybrid-7b's 64,
@@ -5474,6 +5878,90 @@ def check_tp_shapes(gen) -> None:
                          + "\n".join(failures))
 
 
+def check_serving_shapes(gen, rows: dict) -> None:
+    """Rows 1, 10 and 11 at the per-rank shapes of the serving mesh phase:
+    ``ssd_fwd`` at the serving chunk (b 1, t 256, seeded) on hybrid-280m's
+    24 SSD heads cut by model 2 (12) and hybrid-7b's 128 cut by model 4
+    (32); ``rpa_fwd`` over a data rank's 4 slots of hybrid-280m at data 2
+    on 12/2 = 6 query and 4/2 = 2 KV heads of 64, and over hybrid-7b's 8
+    slots at model 4 on 8 query and 2 KV heads of 128; ``rpp_fwd`` at the
+    second chunk of a 700-token prompt on the same heads.  Each is held
+    against its plain version within the bf16 tolerance and timed beside
+    its bound and SDPA; each result goes into its row's ``shapes`` with
+    ``path`` "mesh-i" or "mesh-ii", for the launches of those mesh runs."""
+    from mamba_distributed_tpu_torch.ops.cuda import attention_kernels as ak
+    from mamba_distributed_tpu_torch.ops.cuda import ssd_kernels as sk
+    from mamba_distributed_tpu_torch.ops.ssd import ssd_chunked
+
+    bf16, l = torch.bfloat16, 256
+    failures = []
+
+    def add(name, path, shape, err, ms, plain_ms, nbytes, flops, library_ms=None):
+        bound_ms, bound_by = bound(nbytes, flops)
+        lib = "" if library_ms is None else f", SDPA {library_ms:.4f} ms"
+        print(f"time {name} serving mesh {shape}: kernel {ms:.4f} ms (device time), plain "
+              f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
+              f"{flops} FLOP); max_abs_err={err[0]:.3e} (rel {err[1]:.2e}), tol rel "
+              f"{TOL[bf16]:.0e}", flush=True)
+        if not err[1] <= TOL[bf16]:
+            failures.append(f"{name} {shape}: rel {err[1]:.3e}")
+        rows[name].setdefault("shapes", []).append(dict(
+            shape=f"serving mesh {shape}", path=path, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, max_abs_err=err[0],
+            launches=None))
+
+    for path, tag, h in (("mesh-i", "hybrid-280m model 2", 12),
+                         ("mesh-ii", "hybrid-7b model 4", 32)):
+        inp = ssd_inputs(gen, 1, 256, 1, bf16, True, h=h)
+        kw = dict(chunk_size=l, return_final_state=True, compute_dtype=bf16)
+        yk, fk_ = sk.ssd_chunked_kernel(**inp, **kw)
+        yp, fp = ssd_chunked(**inp, **kw)
+        args = (inp["x"], inp["dt"], inp["A"], inp["B"], inp["C"], l, inp["initial_state"], bf16)
+        add("ssd_fwd", path, f"{tag}: b=1 t=256 l={l} h={h} seeded",
+            max(rel_err(yk, yp), rel_err(fk_, fp), key=lambda e: e[1]),
+            sum(device_ms(lambda: sk._ssd_fwd(*args), 20).values()),
+            cuda_ms(lambda: ssd_chunked(**inp, **kw), 3, 1),
+            *ssd_work(1, 256, h, 1, 64, 128, l, bf16, True))
+    for path, tag, S, nh, nkv, hd in (("mesh-i", "hybrid-280m data 2 x model 2", 4, 6, 2, 64),
+                                      ("mesh-ii", "hybrid-7b model 4", 8, 8, 2, 128)):
+        lens = RPA_TIMED[-1][:S]
+        args = rpa_case(gen, S, nh, nkv, hd, 64, 16, lens, bf16, False)
+        q, kp, vp, tbl, kv_len = args
+        kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, dtype=bf16)
+        kk, vv = (v.transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+                  for v in (kk, vv))
+        mask = torch.arange(16 * 64, device="cuda") < kv_len.clamp(min=1)[:, None]
+        sdpa = sum(device_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=mask[:, None, None]), 50).values())
+        add("rpa_fwd", path, f"{tag}: S={S} nh={nh} nkv={nkv} hd={hd} kv_len={lens}",
+            rel_err(ak.ragged_paged_decode_attention(*args),
+                    ak.ragged_paged_decode_attention_plain(*args)),
+            sum(device_ms(lambda: ak.ragged_paged_decode_attention(*args), 50).values()),
+            cuda_ms(lambda: ak.ragged_paged_decode_attention_plain(*args), 10), *rpa_work(args),
+            library_ms=sdpa)
+        args, real = rpp_case(gen, 1, 256, nh, nkv, 64, 16, [188], [256], bf16, False, hd=hd)
+        q, kc, vc, kp, vp, tbl, ln, cr = args
+        got = ak.ragged_paged_prefill_attention(q, kc, vc, kp.clone(), vp.clone(), tbl, ln, cr)[0]
+        ref = ak.ragged_paged_prefill_attention_plain(q, kc, vc, kp.clone(), vp.clone(), tbl, ln,
+                                                      cr)[0]
+        kk, vv = ak.gather_kv_pages(kp, vp, tbl, None, dtype=bf16)
+        kk, vv = (v[:, :444].transpose(1, 2).repeat_interleave(nh // nkv, dim=1).contiguous()
+                  for v in (kk, vv))
+        qpos = 188 + torch.arange(256, device="cuda")
+        mask = torch.arange(444, device="cuda")[None, :] <= qpos[:, None]
+        sdpa = sum(device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2).contiguous(), kk, vv, attn_mask=mask), 50).values())
+        add("rpp_fwd", path, f"{tag}: b=1 c=256 nh={nh} nkv={nkv} hd={hd} lengths=[188] "
+            f"chunk_real=[256]", rel_err(got[real], ref[real]),
+            sum(device_ms(lambda: ak.ragged_paged_prefill_attention(*args), 50).values()),
+            cuda_ms(lambda: ak.ragged_paged_prefill_attention_plain(*args), 10),
+            *rpp_work(args), library_ms=sdpa)
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("serving mesh kernel shapes disagree with the plain versions:\n"
+                         + "\n".join(failures))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5486,12 +5974,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one rank of seq_phase's world
     ap.add_argument("--compose-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
                     help=argparse.SUPPRESS)  # one rank of compose_phase's world
+    ap.add_argument("--mesh-worker", nargs=4, metavar=("RANK", "WORLD", "PORTS", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of serving_mesh_phase's world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     for worker, fn in ((args.tensor_worker, tensor_worker), (args.expert_worker, expert_worker),
-                       (args.seq_worker, seq_worker), (args.compose_worker, compose_worker)):
+                       (args.seq_worker, seq_worker), (args.compose_worker, compose_worker),
+                       (args.mesh_worker, mesh_worker)):
         if worker:
             rank, world, ports, work = worker
             return fn(int(rank), int(world), [int(p) for p in ports.split(",")], Path(work))
@@ -5556,6 +6047,7 @@ def main() -> int:
             *check_m1(gen), rpa_int8, rpp_int8]
     check_7b_shapes(gen, {r["name"]: r for r in rows})
     check_tp_shapes(gen)
+    check_serving_shapes(gen, {r["name"]: r for r in rows})
     check_verify_shapes(gen, {r["name"]: r for r in rows})
     # the RMSNorm kernels, which have no pallas_call counterpart
     rows += check_norms(gen)
@@ -5581,6 +6073,8 @@ def main() -> int:
         del served
         torch.cuda.empty_cache()
         big_serve, _ = serve_7b()
+        torch.cuda.empty_cache()
+        mesh_launches = serving_mesh_phase(card)
         torch.cuda.empty_cache()
         eval_and_import(card)
         print(f"torch.mm(..., out_dtype=torch.float32) differentiable: "
@@ -5636,12 +6130,14 @@ def main() -> int:
         seq_phase(card)
         compose_phase(card)
         # the hybrid-7b shapes' launches on their own paths
-        paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"]}
+        paths = {"serve": big_serve["launches"], "train": big_train["dense"]["launches"],
+                 "mesh-i": mesh_launches["i"], "mesh-ii": mesh_launches["ii"]}
         keys = {"rpa_fwd": "ragged_decode", "rpp_fwd": "ragged_prefill"}
         for row in rows:
             for entry in row.get("shapes", ()):
                 if "path" in entry:
-                    entry["launches"] = paths[entry["path"]][keys.get(row["name"], row["name"])]
+                    entry["launches"] = paths[entry["path"]].get(
+                        keys.get(row["name"], row["name"]))
         # each kernel's launches on its own path: the mamba2 serving run
         # for ssd_fwd, the mamba2 training run for the SSD backward
         # kernels, the hybrid serving run for the paged attention kernels,
@@ -5649,14 +6145,16 @@ def main() -> int:
         # serving run for m1_scan, the mamba1 training run for the scan
         # backward kernels, the int8 hybrid serving run for the int8
         # branches of the paged attention kernels, the mamba2 serving run
-        # for the two norm kernels
+        # for the two norm kernels, the serving mesh's run (i) (rank 0) for
+        # the model-split gated norm's sum of squares
         for row, n in zip(rows, (ssd_launches["ssd_fwd"], train_launches["ssd_chunk_states"],
                                  train_launches["ssd_bwd"], launches["ragged_decode"],
                                  launches["ragged_prefill"], *(hyb_launches[k] for k in flash),
                                  m1_launches["m1_scan"], m1_train_launches["m1_entry_states"],
                                  m1_train_launches["m1_bwd"], q8_launches["ragged_decode_int8"],
                                  q8_launches["ragged_prefill_int8"],
-                                 *(ssd_launches[k] for k in NORM_SHAPES)), strict=True):
+                                 *(ssd_launches[k] for k in NORM_SHAPES),
+                                 *(mesh_launches["i"][k] for k in NORM_TP_SHAPES)), strict=True):
             row["launches"] = n
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build to here", flush=True)
     print(smi())

@@ -180,6 +180,24 @@ class ModelConfig:
     # the matmul sites dequantize at use
     serving_weight_dtype: str = "bf16"
 
+    # --- serving meshes (parallel/mesh.serving_mesh; serving/engine.py) ---
+    # engine replicas a request router places over; read by the router,
+    # validated here
+    serving_replicas: int = 1
+    # data shards of the slot pool (and of a hybrid's page pool): data
+    # rank d holds slots [d C/D, (d+1) C/D) and its own page rows; the
+    # capacity must divide
+    serving_data_shards: int = 1
+    # tensor-parallel shards of the serving weights (the mixers' heads and
+    # channels, the MLP's inner axis, the vocab axis of the embedding and
+    # head); d_inner, the heads and the padded vocab must divide (checked
+    # at engine construction, parallel/sharding.validate_serving_model_shards)
+    serving_model_shards: int = 1
+    # pipeline stages of the serving layer stacks: stage s holds the s-th
+    # block of each layer family's weights, carries and KV page pools;
+    # each family must divide (validate_serving_stage_shards)
+    serving_stage_shards: int = 1
+
     # --- speculative decoding (serving/spec_decode.py) ---
     # draft tokens verified per serving tick; 0 (the default) turns it
     # off.  K > 0 makes every decode tick one draft-verify step: a
@@ -290,6 +308,10 @@ class ModelConfig:
                 f"prefill_schedule must be 'rr' or 'srpt', got "
                 f"{self.prefill_schedule!r}"
             )
+        for name in ("serving_replicas", "serving_data_shards", "serving_model_shards",
+                     "serving_stage_shards"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.compaction_hysteresis_ticks < 0:
             raise ValueError(
                 f"compaction_hysteresis_ticks must be >= 0 (0 shrinks the "

@@ -20,6 +20,14 @@ S.  Bit-identical streams therefore need the same row count on both
 sides: ``decode_rows`` pads the decode batch with idle rows, and a solo
 call with ``decode_rows=capacity`` reproduces a ``ServingEngine`` of that
 capacity token for token.
+
+Meshes.  ``generate(mesh=)`` runs on a serving mesh
+(parallel/mesh.serving_mesh; every rank calls it): the weights cut over
+its model and stage axes as the engine cuts them, each rank's decode
+batch the rows a data rank of the engine runs (``decode_rows / data``),
+so a solo call with ``mesh=engine.mesh, decode_rows=capacity`` is the
+engine's computation.  A data-only mesh cuts no weights and is dropped
+after the rows are set, as the JAX package drops it.
 """
 
 from __future__ import annotations
@@ -137,11 +145,25 @@ def _pad_rows(state: dict, logits: torch.Tensor, rows: int):
     return padded, plog
 
 
+def decode_micro(cfg: ModelConfig, mesh, width: int) -> int | None:
+    """Microbatches of the GPipe decode clock for a launch of ``width``
+    lanes (parallel/pipeline.pipelined_decode_layers), or None for the
+    layer walk: the clock runs where JAX's engine runs it
+    (``_pipeline_micro``), a pure-SSM stack on a mesh whose only axis
+    above 1 is the stage axis, at ``stage`` microbatches when the width
+    divides, else 1."""
+    if (mesh is None or mesh.stage <= 1 or cfg.attn_layer_idx or mesh.model > 1
+            or mesh.data > 1):
+        return None
+    return mesh.stage if width % mesh.stage == 0 else 1
+
+
 def decode_loop(params: dict, cfg: ModelConfig, state: dict, last_logits,
                 seeds, max_new_tokens: int, top_k: int, temperature: float,
-                eos_id: int | None, rows: int) -> torch.Tensor:
+                eos_id: int | None, rows: int, mesh=None) -> torch.Tensor:
     """(prefill state, last logits) -> (b, max_new_tokens) tokens.
-    ``params`` are decode-cast; ``state`` is updated in place."""
+    ``params`` are decode-cast; ``state`` is updated in place.  On a
+    serving ``mesh`` the params and state are this rank's part."""
     b = last_logits.shape[0]
     dev = last_logits.device
     state, logits = _pad_rows(state, last_logits, max(rows, b))
@@ -150,6 +172,8 @@ def decode_loop(params: dict, cfg: ModelConfig, state: dict, last_logits,
     row_top_k = torch.full((rows,), top_k, dtype=torch.int64, device=dev)
     temp = torch.full((rows,), temperature, dtype=torch.float32, device=dev)
     done = torch.zeros((rows,), dtype=torch.bool, device=dev)
+    mesh_kw = ({} if mesh is None else
+               dict(tp=mesh.tp, stage=mesh.stage_ctx, pipeline=decode_micro(cfg, mesh, rows)))
     out = []
     for i in range(max_new_tokens):
         u = [step_uniform(s, i) for s in seeds] + [0.5] * (rows - b)
@@ -162,7 +186,7 @@ def decode_loop(params: dict, cfg: ModelConfig, state: dict, last_logits,
             done = done | (tok == eos_id)
         out.append(tok[:b])
         if i + 1 < max_new_tokens:
-            logits, state = lm_step(params, cfg, state, tok)
+            logits, state = lm_step(params, cfg, state, tok, **mesh_kw)
     return torch.stack(out, dim=1)
 
 
@@ -172,7 +196,7 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
              temperature: float = 1.0, eos_id: int | None = None,
              length_bucketing: bool = True,
              decode_rows: int | None = None, prefix_cache=None,
-             drafter=None) -> torch.Tensor:
+             drafter=None, mesh=None) -> torch.Tensor:
     """prompt_ids (b, t) -> (b, t + max_new_tokens) tokens, on the
     device of ``params`` (fp32 masters, decode-cast here).
 
@@ -203,7 +227,11 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
     its stream equals a spec engine's (``decode_rows=capacity`` sets the
     verify's row count).  ``drafter`` overrides the config's (a
     ``Drafter``; ``spec_drafter="model"`` needs one) and moves only the
-    acceptance rate.  Sampled or batched calls take the normal path."""
+    acceptance rate.  Sampled or batched calls take the normal path.
+
+    ``mesh`` (a ``ServingMesh``; every rank of it calls this) runs on the
+    mesh as the module docstring says; ``params`` may then be the fp32
+    masters or this rank's ``serving/prefill.ServingShard``."""
     emb = params["embedding"]
     dev = (emb["kernel"] if isinstance(emb, dict) else emb).device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64).to(dev)
@@ -214,16 +242,25 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
         raise ValueError("max_new_tokens must be >= 1")
     if not 1 <= top_k <= cfg.vocab_size_padded:
         raise ValueError(f"top_k={top_k} out of range")
+    if mesh is not None:
+        # a data rank's rows; then a data-only mesh cuts nothing
+        decode_rows = decode_rows // mesh.data if decode_rows else None
+        if mesh.model == 1 and mesh.stage == 1:
+            mesh = None
     if cfg.spec_tokens > 0 and top_k == 1 and b == 1 and length_bucketing:
         # deferred import: serving imports this module
         from mamba_distributed_tpu_torch.serving.spec_decode import spec_generate
 
         return spec_generate(params, cfg, prompt, max_new_tokens=max_new_tokens,
                              eos_id=eos_id, prefix_cache=prefix_cache, drafter=drafter,
-                             decode_rows=decode_rows)
+                             decode_rows=decode_rows, mesh=mesh)
     if dev.type == "cuda":
         check_kernel_shapes(cfg)
-    dparams = _decode_params(params, cfg)
+    # deferred import: serving imports this module
+    from mamba_distributed_tpu_torch.serving.prefill import serving_shard
+
+    dparams = serving_shard(params, cfg, mesh)
+    tp, stage = (None, None) if mesh is None else (mesh.tp, mesh.stage_ctx)
     chunk = cfg.effective_prefill_chunk_tokens
     hybrid = bool(cfg.attn_layer_idx)
     if length_bucketing and ((chunk > 0) if hybrid else use_chunked_prefill(t, chunk)):
@@ -232,7 +269,8 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
 
         logits, state = chunked_prefill(dparams, cfg, prompt.cpu(),
                                         max_len=t + max_new_tokens if hybrid else 0,
-                                        prefix_cache=None if hybrid else prefix_cache)
+                                        prefix_cache=None if hybrid else prefix_cache,
+                                        mesh=mesh)
     elif (prefix_cache is not None and not hybrid and b == 1 and length_bucketing
           and (hit := prefix_cache.lookup(prompt[0].cpu().numpy(), None)) is not None):
         # one-shot full hit: decode from a clone (the decode writes its
@@ -246,8 +284,8 @@ def generate(params: dict, cfg: ModelConfig, prompt_ids, seed: int = 0,
         else:
             ids, mask = prompt, None
         logits, state = lm_prefill(dparams, cfg, ids, max_len=t + max_new_tokens,
-                                   token_mask=mask)
+                                   token_mask=mask, tp=tp, stage=stage)
     new = decode_loop(dparams, cfg, state, logits, [seed + r for r in range(b)],
                       max_new_tokens, top_k, temperature, eos_id,
-                      rows=decode_rows or b)
+                      rows=decode_rows or b, mesh=mesh)
     return torch.cat([prompt, new], dim=1)

@@ -207,13 +207,18 @@ def _kv_page_scale_init(n_pages: int, nkv: int, device=None) -> torch.Tensor:
     return torch.ones((n_pages, nkv), dtype=torch.float32, device=device)
 
 
-def init_attention_state(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_attention_state(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                         tp=None, pages: int | None = None):
     """Empty paged KV cache of one attention layer: (k_pages, v_pages) of
     shape (1 + batch * W, nkv, page, hd) in the compute dtype, page 0 the
     trash page (W = ``attention_page_count(cfg, max_len)``); int8 pools
-    return the 4-tuple with int8 pages and (P, nkv) scales."""
+    return the 4-tuple with int8 pages and (P, nkv) scales.  ``tp``: this
+    rank's KV heads; ``pages``: the page count P in place of ``1 + batch
+    W`` (a data shard's rows of a serving pool)."""
     _, nkv, hd, _ = _attn_dims(cfg)
-    P = 1 + batch * attention_page_count(cfg, max_len)
+    if tp is not None:
+        nkv //= tp.size
+    P = 1 + batch * attention_page_count(cfg, max_len) if pages is None else pages
     shape = (P, nkv, cfg.kv_page_tokens, hd)
     dtype = torch.int8 if cfg.kv_quantized else cfg.torch_compute_dtype
     pages = (torch.zeros(shape, dtype=dtype, device=device),
@@ -265,7 +270,7 @@ def pack_attention_pages(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
 def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
                          page_table: torch.Tensor, lengths: torch.Tensor,
                          write_mask: torch.Tensor | None = None,
-                         split_rows: int | None = None):
+                         split_rows: int | None = None, tp=None, rows: int | None = None):
     """Single-token decode against the paged KV cache: write, then attend.
 
     u_t (b, d); kv = (k_pages, v_pages), or the int8 4-tuple with the
@@ -276,8 +281,13 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
     pages).  An int8 write is page-granular (``_qwrite``).
     ``split_rows`` pins the card decode's split rule to that row count
     (``ragged_paged_decode_attention``).  The pages (and scales) are
-    written IN PLACE.  Returns (y (b, d), kv)."""
+    written IN PLACE.  Under ``tp`` (a serving mesh's model group) the
+    pages hold this rank's KV heads and the step runs its query heads,
+    ``out_proj`` summed over the group.  ``rows``: the row count its GEMMs
+    run at (``common.matmul``).  Returns (y (b, d), kv)."""
     nh, nkv, hd, rot = _attn_dims(cfg)
+    if tp is not None:
+        nh //= tp.size
     b = u_t.shape[0]
     cd = cfg.torch_compute_dtype
     k_pages, v_pages = kv[:2]
@@ -285,7 +295,7 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
     pg = cfg.kv_page_tokens
     W = page_table.shape[1]
 
-    q, k, v = _split_qkv(linear(params["wqkv"], u_t[:, None, :], cd), cfg)
+    q, k, v = _split_qkv(linear(params["wqkv"], u_t[:, None, :], cd, rows), cfg, tp)
     if rot > 0:
         angles = rope_angles(lengths[:, None], rot, cfg.rope_theta)
         q = apply_rope(q, angles)
@@ -314,7 +324,7 @@ def attention_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor, kv,
     else:
         out = ragged_paged_decode_attention(q[:, 0], k_pages, v_pages, page_table, kv_len,
                                             *scales, split_rows=split_rows)
-    y = linear(params["out_proj"], out.reshape(b, nh * hd), cd)
+    y = row_parallel_linear(params["out_proj"], out.reshape(b, nh * hd), cd, tp, rows)
     return y, kv
 
 
@@ -381,7 +391,7 @@ def _chunk_page_scales(k: torch.Tensor, v: torch.Tensor, real: torch.Tensor,
 
 def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
                           page_table: torch.Tensor, lengths: torch.Tensor,
-                          token_mask: torch.Tensor | None = None):
+                          token_mask: torch.Tensor | None = None, tp=None):
     """One prefill CHUNK against the paged cache: write the chunk's real
     tokens' K/V into this row's pages at positions [lengths, lengths +
     n_real), then attend every chunk query over prefix + chunk.
@@ -396,13 +406,16 @@ def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
     scales into fresh tensors; the chunk write reads the old and the new
     (old rows requantize, fresh rows quantize, the attend runs on the
     dequantized pages), then the new scales are copied into the layer's
-    scale tensors.  Returns (y (b, c, d), kv)."""
+    scale tensors.  Under ``tp`` on this rank's heads and pages, as the
+    step.  Returns (y (b, c, d), kv)."""
     nh, nkv, hd, rot = _attn_dims(cfg)
+    if tp is not None:
+        nh //= tp.size
     b, c, _ = u.shape
     cd = cfg.torch_compute_dtype
     k_pages, v_pages = kv[:2]
 
-    q, k, v = _split_qkv(linear(params["wqkv"], u, cd), cfg)
+    q, k, v = _split_qkv(linear(params["wqkv"], u, cd), cfg, tp)
     if token_mask is None:
         n_real = torch.full((b,), c, dtype=torch.int32, device=u.device)
     else:
@@ -426,5 +439,5 @@ def attention_mixer_chunk(params: dict, cfg: ModelConfig, u: torch.Tensor, kv,
     if scales:
         kv[2].copy_(scales[2])
         kv[3].copy_(scales[3])
-    y = linear(params["out_proj"], out.reshape(b, c, nh * hd), cd)
+    y = row_parallel_linear(params["out_proj"], out.reshape(b, c, nh * hd), cd, tp)
     return y, kv

@@ -109,8 +109,16 @@ from mamba_distributed_tpu_torch.parallel.collectives import (
     gather_counts,
     reduce_from_tp,
     route_sum,
+    serve_all_reduce_,
+    serve_broadcast_,
+    serve_gather,
+    stage_handoff,
 )
-from mamba_distributed_tpu_torch.parallel.pipeline import from_last_stage, pipelined_layers
+from mamba_distributed_tpu_torch.parallel.pipeline import (
+    from_last_stage,
+    pipelined_decode_layers,
+    pipelined_layers,
+)
 from mamba_distributed_tpu_torch.parallel.tp_layout import block_tp
 
 
@@ -202,37 +210,54 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _embed(params: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
+def _embed(params: dict, ids: torch.Tensor, compute_dtype, tp=None) -> torch.Tensor:
     """Embedding lookup; an int8 embedding dequantizes the gathered rows
-    in fp32, then casts once (lm.py:110-121)."""
+    in fp32, then casts once (lm.py:110-121).  Under a serving ``tp``
+    the embedding holds this rank's block of the vocab: each rank looks
+    up the ids in its block, zeroes the others and the model group sums
+    (exact: one row is nonzero)."""
     emb = params["embedding"]
-    if isinstance(emb, dict):
-        return (emb["kernel"][ids].float() * emb["scale"][ids]).to(compute_dtype)
-    return emb[ids].to(compute_dtype)
+    if tp is None:
+        if isinstance(emb, dict):
+            return (emb["kernel"][ids].float() * emb["scale"][ids]).to(compute_dtype)
+        return emb[ids].to(compute_dtype)
+    kernel = emb["kernel"] if isinstance(emb, dict) else emb
+    vl = kernel.shape[0]
+    local = ids - tp.rank * vl
+    inside = (local >= 0) & (local < vl)
+    rows = local.clamp(0, vl - 1)
+    x = (kernel[rows].float() * emb["scale"][rows] if isinstance(emb, dict)
+         else kernel[rows].to(compute_dtype))
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return serve_all_reduce_(x.contiguous(), tp.group, "embed").to(compute_dtype)
 
 
-def _tied_logits(params: dict, normed: torch.Tensor, compute_dtype) -> torch.Tensor:
+def _tied_logits(params: dict, normed: torch.Tensor, compute_dtype,
+                 rows: int | None = None) -> torch.Tensor:
     """Tied head: ``normed @ embedding.T`` with fp32 accumulation and fp32
     logits; an int8 embedding's per-vocab-row scales multiply the fp32
-    output (lm.py:124-141)."""
+    output (lm.py:124-141).  ``rows``: the row count the GEMM runs at
+    (``common.matmul``)."""
     emb = params["embedding"]
     if isinstance(emb, dict):
-        y = mm_f32(normed.to(compute_dtype), emb["kernel"].to(compute_dtype).t())
+        y = mm_f32(normed.to(compute_dtype), emb["kernel"].to(compute_dtype).t(), rows)
         return y * emb["scale"][:, 0]
-    return mm_f32(normed.to(compute_dtype), emb.to(compute_dtype).t())
+    return mm_f32(normed.to(compute_dtype), emb.to(compute_dtype).t(), rows)
 
 
 def _residual_dtype(cfg: ModelConfig):
     return torch.float32 if cfg.residual_in_fp32 else cfg.torch_compute_dtype
 
 
-def _gated_mlp(params: dict, x: torch.Tensor, compute_dtype, tp=None) -> torch.Tensor:
+def _gated_mlp(params: dict, x: torch.Tensor, compute_dtype, tp=None,
+               rows: int | None = None) -> torch.Tensor:
     """GatedMLP (lm.py:144-148): fc2(y * silu(gate)), the gate in fp32.
     Under ``tp`` fc1 holds this rank's y_r | gate_r columns and fc2 is
-    row-parallel."""
-    y, gate = linear(params["fc1"], copy_to_tp(x, tp), compute_dtype).chunk(2, dim=-1)
+    row-parallel.  ``rows``: the row count the GEMMs run at
+    (``common.matmul``)."""
+    y, gate = linear(params["fc1"], copy_to_tp(x, tp), compute_dtype, rows).chunk(2, dim=-1)
     return row_parallel_linear(params["fc2"], y * F.silu(gate.float()).to(y.dtype),
-                               compute_dtype, tp)
+                               compute_dtype, tp, rows)
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -286,7 +311,11 @@ def _moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor, compute_dtype, tp=
     cd = compute_dtype
     xe = _einsum_f32("nd,nec->ecd", copy_to_tp(xt, tp), dispatch, cd).to(cd)
     ye = _experts(params, xe, cd)  # (E, C, d)
-    out = reduce_from_tp(torch.einsum("nec,ecd->nd", combine, ye), tp)
+    out = torch.einsum("nec,ecd->nd", combine, ye)
+    if tp is not None and tp.serving:
+        out = serve_all_reduce_(out.contiguous(), tp.group, "sum")
+    else:
+        out = reduce_from_tp(out, tp)
 
     f = oh.sum(1).mean(0)  # share of choices routed to each expert
     aux = E * (f * probs.mean(0)).sum() / k
@@ -449,67 +478,69 @@ def _moe_routed(params: dict, cfg: ModelConfig, x: torch.Tensor, cd, tp, route, 
 
 
 def _ffn(bp: dict, cfg: ModelConfig, hidden, residual, residual_dtype=None, tp=None,
-         route=None, ep=None):
+         route=None, ep=None, rows: int | None = None):
     """The block's second half (lm.py:281-297): add + ``norm2``, then the
     gated MLP or the MoE -> (hidden, residual, aux or None).  The stream
     is carried in ``residual_dtype`` (default: the config's); ``tp``: the
     tensor group, when the FFN splits over it; ``route`` and ``ep``: the
-    MoE's batch ranks and expert group (``_moe_mlp``)."""
+    MoE's batch ranks and expert group (``_moe_mlp``); ``rows``: the row
+    count the gated MLP's GEMMs run at (``common.matmul``)."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm2"]["weight"], cfg.norm_eps,
                                     residual_dtype=residual_dtype or _residual_dtype(cfg))
     cd = cfg.torch_compute_dtype
     if cfg.moe_num_experts:
         hidden, aux = _moe_mlp(bp["moe"], cfg, normed, cd, tp, route, ep)
         return hidden, residual, aux
-    return _gated_mlp(bp["mlp"], normed, cd, tp), residual, None
+    return _gated_mlp(bp["mlp"], normed, cd, tp, rows), residual, None
 
 
 def _block_fwd(bp: dict, cfg: ModelConfig, hidden, residual, token_mask=None,
-               initial_state=None, attn: bool = False):
+               initial_state=None, attn: bool = False, tp=None):
     """One prenorm block with its mixer's decode state:
     (hidden, residual) -> (hidden, residual, state).  A Mamba block's
     ``initial_state``/state is ``(conv_state, ssm_state)``.  An attention
     block (``attn=True``) in a chunked prefill takes ``(kv, page_table,
     lengths)``, ``kv`` the layer's 2- or 4-tuple of pages, and returns
     them, written in place; with no ``initial_state`` (one-shot prefill) it returns the
-    raw full-sequence ``(k, v)``."""
+    raw full-sequence ``(k, v)``.  ``tp``: a serving mesh's model group
+    (each block on it when its heads divide, ``block_tp``)."""
     normed, residual = add_rms_norm(
         hidden, residual, bp["norm"]["weight"], cfg.norm_eps,
         residual_dtype=_residual_dtype(cfg),
     )
+    mixer_tp = block_tp(tp, cfg, "attn" if attn else "ssm")
     if attn and initial_state is None:
-        hidden, state = attention_mixer(bp["mixer"], cfg, normed, return_final_state=True)
+        hidden, state = attention_mixer(bp["mixer"], cfg, normed, return_final_state=True,
+                                        tp=mixer_tp)
     elif attn:
         kv, page_table, lengths = initial_state
         hidden, state = attention_mixer_chunk(bp["mixer"], cfg, normed, kv, page_table,
-                                              lengths, token_mask=token_mask)
+                                              lengths, token_mask=token_mask, tp=mixer_tp)
     else:
         ics, iss = (None, None) if initial_state is None else initial_state
         hidden, state = _MIXERS[cfg.ssm_layer].forward(
             bp["mixer"], cfg, normed, initial_conv_state=ics,
             initial_ssm_state=iss, return_final_state=True, token_mask=token_mask,
+            tp=mixer_tp,
         )
     if cfg.d_intermediate > 0:
-        hidden, residual, _ = _ffn(bp, cfg, hidden, residual)
+        hidden, residual, _ = _ffn(bp, cfg, hidden, residual, tp=block_tp(tp, cfg, "ffn"))
     return hidden, residual, state
 
 
-def _head_logits(params: dict, cfg: ModelConfig, normed: torch.Tensor) -> torch.Tensor:
+def _head_logits(params: dict, cfg: ModelConfig, normed: torch.Tensor,
+                 tp=None, rows: int | None = None) -> torch.Tensor:
     """LM head in serving: the tied head's fp32-accumulated fp32 logits,
     or the untied ``lm_head`` through ``linear``, rounded to the compute
-    dtype and returned in fp32 (lm.py:331-340, :1191-1195)."""
+    dtype and returned in fp32 (lm.py:331-340, :1191-1195).  Under a
+    serving ``tp`` the head is column-parallel over the vocab and the
+    model group gathers every rank's block, so each rank holds the full
+    row.  ``rows``: the row count the GEMM runs at (``common.matmul``)."""
     if cfg.tie_embeddings:
-        return _tied_logits(params, normed, cfg.torch_compute_dtype)
-    return linear(params["lm_head"], normed, cfg.torch_compute_dtype).float()
-
-
-def _final_logits(params: dict, cfg: ModelConfig, hidden, residual):
-    """Final add+norm -> LM head, fp32 logits."""
-    normed, _ = add_rms_norm(
-        hidden, residual, params["norm_f"]["weight"], cfg.norm_eps,
-        residual_dtype=_residual_dtype(cfg),
-    )
-    return _head_logits(params, cfg, normed)
+        logits = _tied_logits(params, normed, cfg.torch_compute_dtype, rows)
+    else:
+        logits = linear(params["lm_head"], normed, cfg.torch_compute_dtype, rows).float()
+    return logits if tp is None else serve_gather(logits, tp, -1, "logits")
 
 
 def count_params(params: dict) -> int:
@@ -733,12 +764,84 @@ def _stack_states(states: list) -> tuple:
     return tuple(torch.stack(parts) for parts in zip(*states))
 
 
+
+
+# ------------------------------------------------ serving over a stage axis
+
+
+def stage_layers(cfg: ModelConfig, stages: int) -> tuple[int, int]:
+    """Layers of each family a stage holds: (Mamba, attention).  Stage s
+    holds the s-th contiguous block of each stack (``blocks`` and
+    ``attn_blocks`` cut separately, JAX ``validate_serving_stage_shards``)."""
+    n_attn = len(cfg.attn_layer_idx)
+    return (cfg.n_layer - n_attn) // stages, n_attn // stages
+
+
+def _walk(cfg: ModelConfig, hidden, residual, run, stage=None):
+    """The layer plan in order: ``run(attn, j, hidden, residual) ->
+    (hidden, residual)`` for each layer, ``j`` its index in this rank's
+    stack of its family.  With ``stage`` (a serving mesh's stage group)
+    only the layers this stage owns run here, and before a layer owned
+    by another stage than the one holding the activation pair, the pair
+    moves there point to point (``stage_handoff``); a hybrid plan can
+    cross a stage boundary more than once.  The last layer of each
+    family lives on the last stage, so the pair ends there."""
+    if stage is None:
+        for attn, j in _layer_plan(cfg):
+            hidden, residual = run(attn, j, hidden, residual)
+        return hidden, residual
+    per = stage_layers(cfg, stage.size)
+    cur = 0
+    for attn, j in _layer_plan(cfg):
+        owner, jl = divmod(j, per[1] if attn else per[0])
+        if owner != cur:
+            hidden = stage_handoff(hidden, stage, cur, owner)
+            residual = stage_handoff(residual, stage, cur, owner)
+            cur = owner
+        if owner == stage.rank:
+            hidden, residual = run(attn, jl, hidden, residual)
+    return hidden, residual
+
+
+def _start(params: dict, cfg: ModelConfig, ids: torch.Tensor, residual_dtype, tp=None,
+           stage=None):
+    """The embedded ids and a zero residual (stage 0 embeds; a later
+    stage holds buffers of their shape until the pair reaches it)."""
+    cd = cfg.torch_compute_dtype
+    if stage is None or stage.rank == 0:
+        hidden = _embed(params, ids, cd, tp)
+    else:
+        hidden = torch.empty((*ids.shape, cfg.d_model), dtype=cd, device=ids.device)
+    return hidden, torch.zeros_like(hidden, dtype=residual_dtype)
+
+
+def _stage_logits(params: dict, cfg: ModelConfig, hidden, residual, residual_dtype,
+                  tp=None, stage=None, rows: int | None = None) -> torch.Tensor:
+    """Final add+norm -> LM head, fp32 logits, on the last stage, which
+    then broadcasts them over the stage group (JAX's psum from the last
+    stage); every rank returns them.  ``rows``: as in ``_head_logits``."""
+    if stage is None or stage.rank == stage.size - 1:
+        normed, _ = add_rms_norm(hidden, residual, params["norm_f"]["weight"], cfg.norm_eps,
+                                 residual_dtype=residual_dtype)
+        logits = _head_logits(params, cfg, normed, tp, rows)
+    else:
+        logits = torch.empty((*hidden.shape[:-1], cfg.vocab_size_padded),
+                             dtype=torch.float32, device=hidden.device)
+    if stage is not None:
+        serve_broadcast_(logits, stage, stage.size - 1, "stage_logits")
+    return logits
+
+
 def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-               max_len: int = 0, token_mask: torch.Tensor | None = None):
+               max_len: int = 0, token_mask: torch.Tensor | None = None, tp=None,
+               stage=None):
     """Parallel prefill: one full-sequence forward that also returns
     every layer's decode state (lm.py:672-801).  ``token_mask`` (b, t)
     marks left-padded bucketed prompts (inference/bucketing.py; pure-SSM
-    stacks only).
+    stacks only).  ``tp`` and ``stage``: a serving mesh's model and
+    stage groups (``params`` then this rank's serving shard,
+    parallel/tp_layout.serving_plan and ``stage_cut``; the state is this
+    rank's heads of its stage's layers).
 
     Returns (last_logits (b, V) fp32, state): ``{"blocks": (conv, ssm)}``,
     and for a hybrid stack each attention layer's K/V packed into an
@@ -757,20 +860,24 @@ def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
             "attend the pad keys); hybrid bucketed prompts go through the "
             "chunk step (serving/prefill.py) instead"
         )
-    cd = cfg.torch_compute_dtype
-    hidden = _embed(params, input_ids, cd)
-    residual = torch.zeros_like(hidden, dtype=_residual_dtype(cfg))
-    mblocks = _unstack(params["blocks"], cfg.n_layer - len(cfg.attn_layer_idx))
-    ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx)) if hybrid else []
+    rdt = _residual_dtype(cfg)
+    hidden, residual = _start(params, cfg, input_ids, rdt, tp, stage)
+    n_m, n_a = stage_layers(cfg, 1 if stage is None else stage.size)
+    mblocks = _unstack(params["blocks"], n_m)
+    ablocks = _unstack(params["attn_blocks"], n_a) if hybrid else []
     states, pages = [], []
-    for attn, j in _layer_plan(cfg):
+
+    def run(attn, j, hidden, residual):
         hidden, residual, st = _block_fwd(ablocks[j] if attn else mblocks[j], cfg, hidden,
-                                          residual, token_mask=token_mask, attn=attn)
+                                          residual, token_mask=token_mask, attn=attn, tp=tp)
         if attn:
             pages.append(pack_attention_pages(cfg, *st, max_len))
         else:
             states.append(st)
-    logits = _final_logits(params, cfg, hidden[:, -1:], residual[:, -1:])
+        return hidden, residual
+
+    hidden, residual = _walk(cfg, hidden, residual, run, stage)
+    logits = _stage_logits(params, cfg, hidden[:, -1:], residual[:, -1:], rdt, tp, stage)
     state = {"blocks": _stack_states(states)}
     if hybrid:
         state["attn_blocks"] = _stack_states(pages)
@@ -780,32 +887,34 @@ def lm_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 
 def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,
-                    token_mask=None):
+                    token_mask=None, tp=None, stage=None):
     """Embed -> carry-threaded layer stack -> (hidden, residual, state').
     Hybrid stacks write each attention layer's pages in place and
     advance ``lengths`` by the chunk's real tokens."""
-    cd = cfg.torch_compute_dtype
-    hidden = _embed(params, input_ids, cd)
-    residual = torch.zeros_like(hidden, dtype=_residual_dtype(cfg))
+    hidden, residual = _start(params, cfg, input_ids, _residual_dtype(cfg), tp, stage)
     conv, ssm = state["blocks"]
     mblocks = _unstack(params["blocks"], conv.shape[0])
     states = []
     if cfg.attn_layer_idx:
-        ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
         kv_all = state["attn_blocks"]
+        ablocks = _unstack(params["attn_blocks"], kv_all[0].shape[0])
         tbl, lengths = state["attn_meta"]
-    for attn, j in _layer_plan(cfg):
+
+    def run(attn, j, hidden, residual):
         if attn:
             hidden, residual, _ = _block_fwd(
                 ablocks[j], cfg, hidden, residual, token_mask=token_mask,
-                initial_state=(tuple(x[j] for x in kv_all), tbl, lengths), attn=True,
+                initial_state=(tuple(x[j] for x in kv_all), tbl, lengths), attn=True, tp=tp,
             )
         else:
             hidden, residual, st = _block_fwd(
                 mblocks[j], cfg, hidden, residual, token_mask=token_mask,
-                initial_state=(conv[j], ssm[j]),
+                initial_state=(conv[j], ssm[j]), tp=tp,
             )
             states.append(st)
+        return hidden, residual
+
+    hidden, residual = _walk(cfg, hidden, residual, run, stage)
     new_state = {"blocks": _stack_states(states)}
     if cfg.attn_layer_idx:
         b, c = input_ids.shape
@@ -818,21 +927,25 @@ def _chunk_backbone(params: dict, cfg: ModelConfig, input_ids, state,
 
 
 def lm_prefill_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-                     state: dict, token_mask: torch.Tensor | None = None):
+                     state: dict, token_mask: torch.Tensor | None = None, tp=None,
+                     stage=None):
     """Resumable prefill of one chunk: every layer's mixer starts from
     ``state`` (what ``init_lm_state`` or a previous chunk produced).
     Returns (last_logits (b, V) fp32, new state).  The conv and SSM
     carries of ``state`` are not modified; a hybrid stack's KV pages are
     written IN PLACE (the new state holds the same page tensors) and its
-    lengths advance by the chunk's real tokens."""
+    lengths advance by the chunk's real tokens.  ``tp``/``stage``: as in
+    ``lm_prefill``."""
     hidden, residual, new_state = _chunk_backbone(params, cfg, input_ids,
-                                                  state, token_mask)
-    logits = _final_logits(params, cfg, hidden[:, -1:], residual[:, -1:])
+                                                  state, token_mask, tp, stage)
+    logits = _stage_logits(params, cfg, hidden[:, -1:], residual[:, -1:],
+                           _residual_dtype(cfg), tp, stage)
     return logits[:, 0].float(), new_state
 
 
 def lm_verify_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-                    state: dict, token_mask: torch.Tensor | None = None):
+                    state: dict, token_mask: torch.Tensor | None = None, tp=None,
+                    stage=None):
     """The speculative-decoding verify step (lm.py:844-872): the chunk
     step of ``lm_prefill_chunk`` (the same carry threading and paged KV
     write) with the logits of EVERY position.  Returns (logits (b, c, V)
@@ -844,59 +957,72 @@ def lm_verify_chunk(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     untouched (serving/spec_decode.py).  A hybrid's pages are written in
     place at ``[lengths, lengths + n_real)``; on a rejection the caller
     does not advance its lengths, so those cells stay dead and the next
-    verify writes them again."""
+    verify writes them again.  ``tp``/``stage``: as in ``lm_prefill``."""
     hidden, residual, new_state = _chunk_backbone(params, cfg, input_ids,
-                                                  state, token_mask)
-    return _final_logits(params, cfg, hidden, residual).float(), new_state
+                                                  state, token_mask, tp, stage)
+    return _stage_logits(params, cfg, hidden, residual, _residual_dtype(cfg), tp,
+                         stage).float(), new_state
 
 
-def init_lm_blocks_state(cfg: ModelConfig, batch: int, device=None):
+def init_lm_blocks_state(cfg: ModelConfig, batch: int, device=None, tp=None, stages: int = 1):
     """Layer-stacked zero conv+SSM decode states of the Mamba layers (in a
-    hybrid stack the attention layers' KV lives in the paged cache)."""
-    cs, ss = _MIXERS[cfg.ssm_layer].init_state(cfg, batch, device)
-    n = cfg.n_layer - len(cfg.attn_layer_idx)
+    hybrid stack the attention layers' KV lives in the paged cache); on a
+    serving mesh, this rank's heads (``tp``) of one stage's layers (of
+    ``stages``)."""
+    cs, ss = _MIXERS[cfg.ssm_layer].init_state(cfg, batch, device, tp=tp)
+    n = stage_layers(cfg, stages)[0]
     return (cs[None].repeat(n, *([1] * cs.ndim)),
             ss[None].repeat(n, *([1] * ss.ndim)))
 
 
 def init_lm_state(cfg: ModelConfig, batch: int, max_len: int = 0,
-                  device=None) -> dict:
+                  device=None, tp=None, stages: int = 1) -> dict:
     """Zero decode state.  Hybrid stacks add a private paged KV cache
     sized for ``max_len`` tokens per row (identity page table, zero
-    lengths), one page pool per attention layer."""
-    state = {"blocks": init_lm_blocks_state(cfg, batch, device)}
+    lengths), one page pool per attention layer.  ``tp``/``stages``: as
+    in ``init_lm_blocks_state``."""
+    state = {"blocks": init_lm_blocks_state(cfg, batch, device, tp, stages)}
     if cfg.attn_layer_idx:
-        n_attn = len(cfg.attn_layer_idx)
+        n_attn = stage_layers(cfg, stages)[1]
         state["attn_blocks"] = tuple(
             x[None].repeat(n_attn, *([1] * x.ndim))
-            for x in init_attention_state(cfg, batch, max_len, device))
+            for x in init_attention_state(cfg, batch, max_len, device,
+                                          tp=block_tp(tp, cfg, "attn")))
         state["attn_meta"] = attention_page_meta(cfg, batch, max_len, device)
     return state
 
 
-def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None):
+def _block_step(bp: dict, cfg: ModelConfig, hidden, residual, st, attn_ctx=None, tp=None,
+                rows: int | None = None):
     """One decode-step block; its state ``st`` is updated in place.  A
     Mamba block's ``st`` is ``(conv, ssm)``; an attention block's is
     ``(k_pages, v_pages)`` (int8: with ``k_scale, v_scale``) and
-    ``attn_ctx = (page_table, lengths, write_mask, split_rows)``."""
+    ``attn_ctx = (page_table, lengths, write_mask, split_rows)``.
+    ``tp``: a serving mesh's model group; ``rows``: the row count the
+    block's GEMMs run at (``common.matmul``)."""
     normed, residual = add_rms_norm(hidden, residual, bp["norm"]["weight"],
                                     cfg.norm_eps)
     if attn_ctx is not None:
-        hidden, _ = attention_mixer_step(bp["mixer"], cfg, normed, st, *attn_ctx)
+        hidden, _ = attention_mixer_step(bp["mixer"], cfg, normed, st, *attn_ctx,
+                                         tp=block_tp(tp, cfg, "attn"), rows=rows)
     else:
-        hidden, _ = _MIXERS[cfg.ssm_layer].step(bp["mixer"], cfg, normed, *st)
+        hidden, _ = _MIXERS[cfg.ssm_layer].step(bp["mixer"], cfg, normed, *st,
+                                                tp=block_tp(tp, cfg, "ssm"), rows=rows)
     if cfg.d_intermediate > 0:
+        ffn_tp = block_tp(tp, cfg, "ffn")
         if cfg.moe_num_experts:
             # the MoE routes a (b, 1) token block (lm.py:1047-1058)
             hidden, residual, _ = _ffn(bp, cfg, hidden[:, None], residual[:, None],
-                                       torch.float32)
+                                       torch.float32, tp=ffn_tp)
             return hidden[:, 0], residual[:, 0]
-        hidden, residual, _ = _ffn(bp, cfg, hidden, residual, torch.float32)
+        hidden, residual, _ = _ffn(bp, cfg, hidden, residual, torch.float32, tp=ffn_tp,
+                                   rows=rows)
     return hidden, residual
 
 
 def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
-            write_mask: torch.Tensor | None = None, split_rows: int | None = None):
+            write_mask: torch.Tensor | None = None, split_rows: int | None = None,
+            tp=None, stage=None, pipeline: int | None = None, gemm_rows: int | None = None):
     """One decode step: token (b,) -> (logits (b, V) fp32, state).
 
     The state is updated IN PLACE (each layer's conv cache and SSM state,
@@ -906,27 +1032,48 @@ def lm_step(params: dict, cfg: ModelConfig, state: dict, token: torch.Tensor,
     ``lengths`` advance by one per row (by ``write_mask`` when given: its
     masked rows write the trash page and keep their length) in a new
     ``attn_meta`` of the returned state dict.  ``split_rows`` pins the
-    paged decode's split rule (``models/attention.attention_mixer_step``)."""
-    cd = cfg.torch_compute_dtype
-    hidden = _embed(params, token, cd)
-    residual = torch.zeros_like(hidden, dtype=torch.float32)
+    paged decode's split rule (``models/attention.attention_mixer_step``);
+    ``gemm_rows`` the row count every GEMM of the step runs at, zero-padded
+    (``models/common.matmul``; None: the batch's own).
+
+    ``tp``/``stage``: a serving mesh's model and stage groups (as in
+    ``lm_prefill``).  ``pipeline=n_micro`` (a pure-SSM stack over
+    ``stage``) runs the Mamba stack through the GPipe decode clock
+    (``parallel/pipeline.pipelined_decode_layers``, JAX lm.py:1166-1185)
+    instead of the layer walk: the same per-lane arithmetic."""
+    hidden, residual = _start(params, cfg, token, torch.float32, tp, stage)
     conv, ssm = state["blocks"]
     mblocks = _unstack(params["blocks"], conv.shape[0])
+    if pipeline is not None:
+        if cfg.attn_layer_idx or stage is None:
+            raise ValueError("lm_step(pipeline=) runs a pure-SSM stack over a stage group")
+
+        def body(act, bp, st):
+            return _block_step(bp, cfg, *act, st, tp=tp, rows=gemm_rows)
+
+        out, _ = pipelined_decode_layers(
+            body, mblocks, (conv, ssm), (hidden, residual), stage, n_micro=pipeline,
+            n_layer=cfg.n_layer)
+        if out is not None:  # the last stage's; the others' logits come from it
+            hidden, residual = out
+        logits = _stage_logits(params, cfg, hidden, residual, torch.float32, tp, stage,
+                               gemm_rows)
+        return logits, state
     if cfg.attn_layer_idx:
-        ablocks = _unstack(params["attn_blocks"], len(cfg.attn_layer_idx))
         kv_all = state["attn_blocks"]
+        ablocks = _unstack(params["attn_blocks"], kv_all[0].shape[0])
         tbl, lengths = state["attn_meta"]
         attn_ctx = (tbl, lengths, write_mask, split_rows)
-    for attn, j in _layer_plan(cfg):
+
+    def run(attn, j, hidden, residual):
         if attn:
-            hidden, residual = _block_step(ablocks[j], cfg, hidden, residual,
-                                           tuple(x[j] for x in kv_all), attn_ctx)
-        else:
-            hidden, residual = _block_step(mblocks[j], cfg, hidden, residual,
-                                           (conv[j], ssm[j]))
-    normed, _ = add_rms_norm(hidden, residual, params["norm_f"]["weight"],
-                             cfg.norm_eps)
-    logits = _head_logits(params, cfg, normed)
+            return _block_step(ablocks[j], cfg, hidden, residual,
+                               tuple(x[j] for x in kv_all), attn_ctx, tp=tp, rows=gemm_rows)
+        return _block_step(mblocks[j], cfg, hidden, residual, (conv[j], ssm[j]), tp=tp,
+                           rows=gemm_rows)
+
+    hidden, residual = _walk(cfg, hidden, residual, run, stage)
+    logits = _stage_logits(params, cfg, hidden, residual, torch.float32, tp, stage, gemm_rows)
     if cfg.attn_layer_idx:
         adv = 1 if write_mask is None else write_mask.to(lengths.dtype)
         state = {**state, "attn_meta": (tbl, lengths + adv)}

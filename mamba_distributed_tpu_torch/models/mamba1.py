@@ -36,6 +36,7 @@ from mamba_distributed_tpu_torch.models.common import (
     init_dt_proj,
     init_linear,
     linear,
+    matmul,
     out_proj_rescale,
     row_parallel_linear,
 )
@@ -76,18 +77,24 @@ def init_mamba1_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
+def _scan_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None,
+                 rows: int | None = None):
     """x (conv output, compute dtype) -> (dt fp32 without its bias, A,
     B fp32, C fp32); under ``tp`` x is this rank's channels and the
-    ``x_proj`` product is summed over the tensor group."""
+    ``x_proj`` product is summed over the tensor group.  ``rows``: the
+    row count the GEMMs run at (``common.matmul``)."""
     ds, dtr = cfg.effective_d_state, cfg.effective_dt_rank
     cd = cfg.torch_compute_dtype
-    x_db = all_reduce_tp(linear(params["x_proj"], x, cd), tp)
+    if tp is not None and tp.serving:
+        x_db = row_parallel_linear(params["x_proj"], x, cd, tp, rows)
+    else:
+        x_db = all_reduce_tp(linear(params["x_proj"], x, cd), tp)
     B = x_db[..., dtr:dtr + ds].float()
     C = x_db[..., dtr + ds:].float()
     # dt_proj without its bias: the bias folds into the scan's delta_bias
     # so the softplus happens in fp32
-    dt = x_db[..., :dtr].float() @ params["dt_proj"]["kernel"].to(cd).float()
+    dt = matmul(x_db[..., :dtr].float(), params["dt_proj"]["kernel"].to(cd).float(),
+                rows=rows)
     return dt, -torch.exp(params["A_log"].float()), B, C
 
 
@@ -141,32 +148,37 @@ def mamba1_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     return out
 
 
-def init_mamba1_state(cfg: ModelConfig, batch: int, device=None, dtype=None):
+def init_mamba1_state(cfg: ModelConfig, batch: int, device=None, dtype=None, tp=None):
     """Zero decode state of one mixer: conv cache (b, d_conv-1, d_inner)
-    in the compute dtype, SSM state (b, d_inner, n) in fp32."""
+    in the compute dtype, SSM state (b, d_inner, n) in fp32 (this rank's
+    channels under ``tp``)."""
     dtype = cfg.torch_compute_dtype if dtype is None else dtype
-    di = cfg.d_inner
+    di = cfg.d_inner if tp is None else cfg.d_inner // tp.size
     return (torch.zeros((batch, cfg.d_conv - 1, di), dtype=dtype, device=device),
             torch.zeros((batch, di, cfg.effective_d_state), dtype=torch.float32,
                         device=device))
 
 
 def mamba1_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor,
-                      conv_state: torch.Tensor, ssm_state: torch.Tensor):
+                      conv_state: torch.Tensor, ssm_state: torch.Tensor, tp=None,
+                      rows: int | None = None):
     """O(1) decode step: u_t (b, d_model) -> (y_t (b, d_model),
     (conv_state, ssm_state)).  The two states are updated IN PLACE (the
-    caller's tensors are overwritten and returned)."""
-    di = cfg.d_inner
+    caller's tensors are overwritten and returned).  Under ``tp`` (a
+    serving mesh's model group) on this rank's channels, ``x_proj`` and
+    ``out_proj`` summed over the group.  ``rows``: the row count its
+    GEMMs run at (``common.matmul``)."""
+    di = cfg.d_inner if tp is None else cfg.d_inner // tp.size
     cd = cfg.torch_compute_dtype
-    xz = linear(params["in_proj"], u_t, cd)
+    xz = linear(params["in_proj"], u_t, cd, rows)
     x, z = xz[..., :di], xz[..., di:]
     x, conv_state = causal_conv1d_update(
         x, conv_state, params["conv"]["kernel"], params["conv"].get("bias"),
         activation="silu", out_state=conv_state,
     )
-    dt, A, B, C = _scan_inputs(params, cfg, x)
+    dt, A, B, C = _scan_inputs(params, cfg, x, tp, rows)
     y, ssm_state = selective_state_update(
         ssm_state, x, dt, A, B, C, D=params["D"], z_t=z,
         dt_bias=params["dt_proj"]["bias"], dt_softplus=True, out=ssm_state,
     )
-    return linear(params["out_proj"], y, cd), (conv_state, ssm_state)
+    return row_parallel_linear(params["out_proj"], y, cd, tp, rows), (conv_state, ssm_state)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.common import (
+    gated_out_proj,
     init_conv,
     init_dt_bias,
     init_linear,
@@ -101,6 +102,24 @@ def _D(params, cfg: ModelConfig, tp=None):
     return params["D"].reshape(_dims(cfg, tp)[3], cfg.headdim)
 
 
+def _norm_out_proj(params: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor, tp,
+                   rows: int | None = None):
+    """The gated norm and the row-parallel ``out_proj``: groups of d_inner
+    / ngroups channels, which a tensor rank holds whole; at ngroups 1 one
+    row spans the tensor group, and on a serving mesh's model group the
+    norm's sum rides out_proj's (``models/common.gated_out_proj``).
+    ``rows``: the row count the GEMM runs at (``common.matmul``)."""
+    cd = cfg.torch_compute_dtype
+    grouped = cfg.ngroups > 1
+    if tp is not None and tp.serving and not grouped:
+        return gated_out_proj(y, z, params["norm"]["weight"], params["out_proj"],
+                              cfg.norm_eps, cd, tp, rows)
+    y = rms_norm_gated(y, z, params["norm"]["weight"], cfg.norm_eps,
+                       group_size=cfg.d_inner // cfg.ngroups if grouped else None,
+                       tp=None if grouped else tp)
+    return row_parallel_linear(params["out_proj"], y, cd, tp, rows)
+
+
 def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
                  initial_conv_state=None, initial_ssm_state=None,
                  return_final_state: bool = False, token_mask=None, tp=None, seq=None):
@@ -155,48 +174,44 @@ def mamba2_mixer(params: dict, cfg: ModelConfig, u: torch.Tensor,
     else:
         y, ssm_state = ssd(x, dtf, A, B, C, **kw, initial_state=initial_ssm_state,
                            return_final_state=True)
-    # groups of d_inner / ngroups channels, which a tensor rank holds
-    # whole; at ngroups 1 one row spans the tensor group
-    grouped = cfg.ngroups > 1
-    y = rms_norm_gated(y.reshape(b, t, di), z, params["norm"]["weight"], cfg.norm_eps,
-                       group_size=cfg.d_inner // cfg.ngroups if grouped else None,
-                       tp=None if grouped else tp)
-    out = row_parallel_linear(params["out_proj"], y, cd, tp)
+    out = _norm_out_proj(params, cfg, y.reshape(b, t, di), z, tp)
     if return_final_state:
         return out, (conv_state, ssm_state)
     return out
 
 
-def init_mamba2_state(cfg: ModelConfig, batch: int, device=None, dtype=None):
+def init_mamba2_state(cfg: ModelConfig, batch: int, device=None, dtype=None, tp=None):
     """Zero decode state of one mixer: conv cache in the compute dtype,
-    SSM state in fp32."""
-    _, ds, _, nh, _, conv_dim = _dims(cfg)
+    SSM state in fp32 (this rank's heads under ``tp``)."""
+    _, ds, _, nh, _, conv_dim = _dims(cfg, tp)
     dtype = cfg.torch_compute_dtype if dtype is None else dtype
     return (torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype, device=device),
             torch.zeros((batch, nh, cfg.headdim, ds), dtype=torch.float32, device=device))
 
 
 def mamba2_mixer_step(params: dict, cfg: ModelConfig, u_t: torch.Tensor,
-                      conv_state: torch.Tensor, ssm_state: torch.Tensor):
+                      conv_state: torch.Tensor, ssm_state: torch.Tensor, tp=None,
+                      rows: int | None = None):
     """O(1) decode step: u_t (b, d_model) -> (y_t (b, d_model),
     (conv_state, ssm_state)).  The two states are updated IN PLACE (the
-    caller's tensors are overwritten and returned)."""
-    di, ds, g, nh, _, _ = _dims(cfg)
+    caller's tensors are overwritten and returned).  Under ``tp`` (a
+    serving mesh's model group) on this rank's heads, as the full
+    forward: the gated norm's squares and ``out_proj`` summed over the
+    group.  ``rows``: the row count its GEMMs run at (``common.matmul``)."""
+    di, ds, g, nh, _, _ = _dims(cfg, tp)
     b = u_t.shape[0]
     cd = cfg.torch_compute_dtype
 
-    z, xBC, dt = _split_zxbcdt(linear(params["in_proj"], u_t, cd), cfg)
+    z, xBC, dt = _split_zxbcdt(linear(params["in_proj"], u_t, cd, rows), cfg, tp)
     xBC, conv_state = causal_conv1d_update(
         xBC, conv_state, params["conv"]["kernel"], params["conv"].get("bias"),
         activation="silu", out_state=conv_state,
     )
-    x, B, C = _split_xbc(xBC, cfg)
+    x, B, C = _split_xbc(xBC, cfg, tp)
     y, ssm_state = ssd_state_update(
         ssm_state, x.reshape(b, nh, cfg.headdim), dt.float(),
         -torch.exp(params["A_log"].float()), B.reshape(b, g, ds),
-        C.reshape(b, g, ds), _D(params, cfg), dt_bias=params["dt_bias"],
+        C.reshape(b, g, ds), _D(params, cfg, tp), dt_bias=params["dt_bias"],
         dt_softplus=True, out=ssm_state,
     )
-    y = rms_norm_gated(y.reshape(b, di), z, params["norm"]["weight"],
-                       cfg.norm_eps, group_size=di // g if g > 1 else None)
-    return linear(params["out_proj"], y, cd), (conv_state, ssm_state)
+    return _norm_out_proj(params, cfg, y.reshape(b, di), z, tp, rows), (conv_state, ssm_state)

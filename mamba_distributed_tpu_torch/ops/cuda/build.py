@@ -41,7 +41,8 @@ LAUNCHES = {"ssd_fwd": 0, "ssd_chunk_states": 0, "ssd_bwd": 0,
             "ragged_decode_int8": 0, "ragged_prefill_int8": 0,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "m1_scan": 0, "m1_entry_states": 0, "m1_bwd": 0,
-            "add_rms_norm": 0, "rms_norm_gated": 0}
+            "add_rms_norm": 0, "rms_norm_gated": 0,
+            "rms_norm_gated_sumsq": 0}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",

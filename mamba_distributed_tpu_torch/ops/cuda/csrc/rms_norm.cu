@@ -1,7 +1,8 @@
 // RMSNorm kernels of the port whose reduction order does not depend on the
 // row count: the residual add + RMSNorm (``add_rms_norm``, and
 // ``rms_norm`` with no residual) and the gated RMSNorm (``rms_norm_gated``)
-// of ops/norm.py.
+// of ops/norm.py, and the sum of squares of a gated row's part that a
+// serving mesh's model rank holds (``rms_norm_gated_sumsq``).
 //
 // Replaces no TPU kernel: the JAX package leaves these norms to XLA
 // (mamba_distributed_tpu/ops/norm.py).  They were added because PyTorch's
@@ -133,6 +134,26 @@ rms_norm_gated_kernel(const void* __restrict__ x, int64_t x_stride, int x_code,
   }
 }
 
+// The gated norm of a row that a serving mesh's model ranks hold a part
+// each (ops/norm.gated_sum_squares): one CTA a row sums the squares of its
+// part, ss[row] = sum_i (x * silu(z))_i^2, in the order above; the sum over
+// the model group rides the row-parallel out_proj's (models/common).
+__global__ void __launch_bounds__(kThreads)
+rms_norm_gated_sumsq_kernel(const void* __restrict__ x, int64_t x_stride, int x_code,
+                            const void* __restrict__ z, int64_t z_stride, int z_code,
+                            float* __restrict__ ss_out, int d) {
+  __shared__ float smem[kWarps + 1];
+  const int64_t row = blockIdx.x;
+  const int64_t xo = row * x_stride, zo = row * z_stride;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    const float v = gated(x, xo + i, x_code, z, zo + i, z_code);
+    ss += v * v;
+  }
+  const float total = block_sum(ss, smem);
+  if (threadIdx.x == 0) ss_out[row] = total;
+}
+
 bool bad_code(int code) { return code != kF32 && code != kBF16; }
 
 }  // namespace
@@ -167,6 +188,17 @@ int mdt_rms_norm_gated(const void* x, long long x_stride, int x_code, const void
                           static_cast<cudaStream_t>(stream)>>>(
       x, x_stride, x_code, z, z_stride, z_code, static_cast<const float*>(w), out, out_code, d,
       group, eps);
+  return cudaGetLastError();
+}
+
+int mdt_rms_norm_gated_sumsq(const void* x, long long x_stride, int x_code, const void* z,
+                             long long z_stride, int z_code, void* ss, long long rows, int d,
+                             void* stream) {
+  if (rows < 1 || d < 1 || bad_code(x_code) || bad_code(z_code) || rows > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  rms_norm_gated_sumsq_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, x_stride, x_code, z, z_stride, z_code, static_cast<float*>(ss), d);
   return cudaGetLastError();
 }
 

@@ -13,13 +13,20 @@ fixed by the width alone.
   residual add in ``residual_dtype``, then RMSNorm with fp32 statistics;
   with no residual it is ``rms_norm``;
 * ``rms_norm_gated_kernel``: ``rms_norm(x * silu(z))`` per contiguous
-  group of ``group_size`` channels.
+  group of ``group_size`` channels;
+* ``rms_norm_gated_sumsq_kernel``: each row's sum of squares of
+  ``x * silu(z)``, the part of a gated row that a serving mesh's model
+  rank holds (``ops/norm.gated_sum_squares``; the model group sums it
+  with the row-parallel out_proj's partial product).  Its order is fixed
+  as above, so compacted ticks keep their bits at
+  ``serving_model_shards > 1`` too.
 
 The plain versions are ops/norm.py's expressions; ``ops/norm.py`` picks
 between the two by ``ops/dispatch.use_norm_kernel``.  These wrappers
 take CUDA tensors only: they raise on any other (the plain route is the
 caller's).  ``build.LAUNCHES`` counts each launch under
-``"add_rms_norm"`` (``rms_norm`` included) and ``"rms_norm_gated"``.
+``"add_rms_norm"`` (``rms_norm`` included), ``"rms_norm_gated"`` and
+``"rms_norm_gated_sumsq"``.
 Inputs are fp32 or bf16, (..., d) with a contiguous last axis and rows
 that ``reshape(-1, d)`` can view (a strided slice such as the mixer's z
 is read in place); outputs are new contiguous tensors.
@@ -81,6 +88,11 @@ def rms_norm_gated_plain(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float()).to(x.dtype)
 
 
+def rms_norm_gated_sumsq_plain(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares of ``x * silu(z)`` in fp32, (..., 1)."""
+    return (x.float() * F.silu(z.float())).square().sum(dim=-1, keepdim=True)
+
+
 # ------------------------------------------------------------------ kernels
 
 
@@ -100,7 +112,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      ctypes.c_float, _P]
     lib.mdt_rms_norm_gated.argtypes = [_P, _L, _I, _P, _L, _I, _P, _P, _I, _L, _I, _I,
                                        ctypes.c_float, _P]
+    lib.mdt_rms_norm_gated_sumsq.argtypes = [_P, _L, _I, _P, _L, _I, _P, _L, _I, _P]
     lib.mdt_add_rms_norm.restype = lib.mdt_rms_norm_gated.restype = _I
+    lib.mdt_rms_norm_gated_sumsq.restype = _I
     return lib
 
 
@@ -197,3 +211,27 @@ def rms_norm_gated_kernel(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor
             raise RuntimeError(f"rms_norm_gated launch failed: cudaError {err}")
         LAUNCHES["rms_norm_gated"] += 1
     return out
+
+
+def _gated_pair(name: str, x: torch.Tensor, z: torch.Tensor):
+    _cuda_only(name, x)
+    d = x.shape[-1]
+    _check(tuple(z.shape) == tuple(x.shape), name,
+           f"z shape {tuple(z.shape)} != x shape {tuple(x.shape)}")
+    return d, _rows(name, "x", x, d, x.device), _rows(name, "z", z, d, x.device)
+
+
+def rms_norm_gated_sumsq_kernel(x: torch.Tensor, z: torch.Tensor, *, lib=None) -> torch.Tensor:
+    """``rms_norm_gated_sumsq_plain`` on the card: (..., 1) fp32."""
+    name = "rms_norm_gated_sumsq_kernel"
+    d, x2, z2 = _gated_pair(name, x, z)
+    ss = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    if x2.shape[0]:
+        err = (lib or _lib()).mdt_rms_norm_gated_sumsq(
+            x2.data_ptr(), x2.stride(0), _CODE[x.dtype], z2.data_ptr(), z2.stride(0),
+            _CODE[z.dtype], ss.data_ptr(), x2.shape[0], d,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rms_norm_gated_sumsq launch failed: cudaError {err}")
+        LAUNCHES["rms_norm_gated_sumsq"] += 1
+    return ss

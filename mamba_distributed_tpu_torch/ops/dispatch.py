@@ -22,7 +22,9 @@ on the CPU.  One case is named and takes a composite on the card too:
 the gated norm of a row that spans a tensor group (Mamba-2 at
 ``ngroups = 1`` under tensor parallelism), whose sum of squares is
 all-reduced over the group, which the kernel, normalising its local
-row, does not do.  A kernel that fails to build or launch raises.
+row, does not do.  (Serving over a mesh fuses that norm into the
+row-parallel out_proj; its part's sum of squares asks the rule above.)
+A kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ part each: ``rms_norm_gated(..., tp=)`` sums each row's squares over the
 tensor group (both ways: every rank's gradient of the sum is partial)
 and divides by the full width.  That composite runs on the card too
 (the named exception of ``ops/dispatch``): the kernel normalises the
-local row only.
+local row only.  Serving over a mesh's model axis does not call it: the
+block's out_proj sums the part's squares with its partial product in one
+reduction (``models/common.gated_out_proj``), and ``gated_sum_squares``
+takes those squares, through a kernel of fixed order on the card.
 """
 
 from __future__ import annotations
@@ -64,3 +67,12 @@ def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
     if use_norm_kernel(x, z, weight):
         return nk.rms_norm_gated_kernel(x, z, weight, eps, group_size)
     return nk.rms_norm_gated_plain(x, z, weight, eps, group_size)
+
+
+def gated_sum_squares(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares of ``x * silu(z)`` in fp32, (..., 1): on
+    the card (no autograd) through ``rms_norm_gated_sumsq``, whose order
+    does not depend on the row count."""
+    if use_norm_kernel(x, z):
+        return nk.rms_norm_gated_sumsq_kernel(x, z)
+    return nk.rms_norm_gated_sumsq_plain(x, z)

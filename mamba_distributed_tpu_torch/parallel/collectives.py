@@ -18,7 +18,14 @@ the ring's kv hops) and ``seq_all_to_all`` turns a sequence cut into a
 head cut and back (Ulysses); both are autograd Functions whose backward
 moves the gradient the other way, and both add to ``SP_COMM``.  The
 pipeline's stage-to-stage shifts are the same exchange over the pipe
-group and add to ``PP_COMM``.
+group and add to ``PP_COMM``.  Serving over a ``serving_mesh`` runs no
+autograd: its model group sums the row-parallel partials, the
+vocab-parallel embedding and the gated norm's squares, and gathers the
+logits' vocab blocks; its data group gathers each tick's token blocks
+and shares prefix-cache and preemption carries; its stage group hands
+the (hidden, residual) pair to the stage of the next layer, shifts the
+microbatched decode clock's blocks and broadcasts the last stage's
+logits.  All of these add to ``SERVE_COMM``, by kind.
 ``torch.distributed`` gathers and scatters along dim 0, so a leaf whose
 fsdp axis is another one moves that axis to the front
 (contiguous), goes through the collective and moves it back.  Means
@@ -456,3 +463,81 @@ def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
     return [tree]
+
+
+# the serving mesh's collectives since the last reset: count and bytes
+# (sent by this rank), in all and by kind
+SERVE_COMM = {"calls": 0, "bytes": 0, "kinds": {}}
+
+
+def reset_serve_comm() -> None:
+    SERVE_COMM.update(calls=0, bytes=0, kinds={})
+
+
+def _serve_count(kind: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    SERVE_COMM["calls"] += 1
+    SERVE_COMM["bytes"] += n
+    calls, nbytes = SERVE_COMM["kinds"].get(kind, (0, 0))
+    SERVE_COMM["kinds"][kind] = (calls + 1, nbytes + n)
+
+
+def serve_all_reduce_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """Sum ``t`` (contiguous) over ``group`` in place (serving: no
+    autograd), counted in ``SERVE_COMM`` under ``kind``.
+
+    Every element is summed in the group's rank order, wherever it lies in
+    ``t``: every rank's ``t`` is gathered and added left to right.  A ring
+    all-reduce sums each segment of the flat buffer starting at another
+    rank, so over more than two ranks an element's bits would follow its
+    position, and a slot's row would round otherwise in the engine's
+    batch than in a solo ``generate()``."""
+    _serve_count(kind, t)
+    parts = all_gather_list(t, group)
+    t.copy_(parts[0])
+    for part in parts[1:]:
+        t.add_(part)
+    return t
+
+
+def serve_gather(t: torch.Tensor, ctx, axis: int, kind: str) -> torch.Tensor:
+    """Every rank's ``t`` of the group ``ctx`` (``group``, ``size``)
+    concatenated along ``axis`` in rank order: the logits' vocab blocks
+    over the model group, a tick's token blocks over the data group."""
+    _serve_count(kind, t)
+    return torch.cat(all_gather_list(t, ctx.group), axis)
+
+
+def serve_broadcast_(t: torch.Tensor, ctx, src: int, kind: str) -> torch.Tensor:
+    """``t`` of the group's rank ``src`` on every rank of ``ctx`` (which
+    carries the group's global ``ranks``), in place."""
+    _serve_count(kind, t)
+    dist.broadcast(t, src=ctx.ranks[src], group=ctx.group)
+    return t
+
+
+def stage_handoff(x: torch.Tensor, stage, src: int, dst: int) -> torch.Tensor:
+    """Point to point over the stage group: stage ``dst`` receives stage
+    ``src``'s ``x`` (every stage calls it; the others pass their ``x``
+    through).  One ``all_to_all_single`` in which only ``src`` sends and
+    only ``dst`` receives."""
+    n, r = stage.size, stage.rank
+    flat = x.contiguous().reshape(-1)
+    send, recv = [0] * n, [0] * n
+    if r == src:
+        send[dst] = flat.numel()
+        _serve_count("handoff", flat)
+    if r == dst:
+        recv[src] = flat.numel()
+    out = flat.new_empty((sum(recv),))
+    dist.all_to_all_single(out, flat if r == src else flat[:0], recv, send,
+                           group=stage.group)
+    return out.view(x.shape) if r == dst else x
+
+
+def stage_shift(x: torch.Tensor, stage) -> torch.Tensor:
+    """The value of ``x`` on the stage before this one, zeros on stage 0
+    (the decode clock's non-cyclic shift over a serving mesh's stage
+    group)."""
+    _serve_count("shift", x)
+    return seq_exchange(x, stage, 1, False, {"calls": 0, "bytes": 0})

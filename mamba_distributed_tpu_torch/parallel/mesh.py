@@ -11,6 +11,13 @@ the batch ranks are those of ``(data, fsdp, expert)``; the ranks of
 one seq group read the same rows and hold blocks of their tokens; the
 ranks of one pipe group read the same rows and hold blocks of the
 layers.
+
+Serving has a mesh of its own (``serving_mesh``, JAX ``mesh.py:45-100``):
+``(data, model)``, or ``(data, stage, model)`` with a stage axis, model
+innermost.  It is one process per coordinate; ``ServingMesh`` holds this
+rank's coordinates and its three groups: the model group as a
+``TPContext`` (``serving=True``), the data group and the stage group as
+``GroupContext``s.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from mamba_distributed_tpu_torch.parallel.pipeline import PipeContext
 from mamba_distributed_tpu_torch.parallel.seq_parallel import SeqContext
 from mamba_distributed_tpu_torch.parallel.sharding import batch_coordinate
 from mamba_distributed_tpu_torch.parallel.tp_layout import TPContext
+
+SERVING_AXES = ("data", "stage", "model")
 
 # the mesh axes a batch's rows split over (expert is a batch axis for every
 # layer but the MoE's experts, as in the JAX package)
@@ -233,3 +242,99 @@ def pipe_context(mesh) -> PipeContext | None:
     if size == 1:
         return None
     return PipeContext(mesh.get_group("pipe"), size, mesh.get_local_rank("pipe"))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupContext:
+    """One axis of a serving mesh: its group, size, this rank's index on
+    the axis and the group's global ranks in axis order (what a
+    broadcast names as its source)."""
+
+    group: object
+    size: int
+    rank: int
+    ranks: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """This rank's place on a serving mesh (``serving_mesh``): the axis
+    sizes and coordinates, the model group (``tp``, None at model 1) and
+    the data and stage groups (None at size 1)."""
+
+    data: int
+    stage: int
+    model: int
+    data_rank: int
+    stage_rank: int
+    model_rank: int
+    tp: TPContext | None
+    data_ctx: GroupContext | None
+    stage_ctx: GroupContext | None
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as the JAX ``mesh.shape`` (no stage axis at
+        stage 1)."""
+        if self.stage == 1:
+            return {"data": self.data, "model": self.model}
+        return {"data": self.data, "stage": self.stage, "model": self.model}
+
+
+def serving_mesh(num_shards: int, model_shards: int = 1, stage_shards: int = 1,
+                 replicas: int = 1) -> ServingMesh:
+    """The serving mesh over the process group (JAX ``serving_mesh``):
+    ``(data, model)``, or ``(data, stage, model)`` when ``stage_shards >
+    1``, model innermost, so rank ``(d S + s) M + m`` of a mesh sits at
+    (data d, stage s, model m).  The world must hold exactly ``replicas``
+    meshes of ``num_shards x stage_shards x model_shards`` ranks (one
+    process per coordinate; replica k the ranks ``[k n, (k+1) n)``, each
+    an engine of its own); a world of one needs no process group.  Every
+    rank must call it: it builds every group of each axis above 1 of
+    every replica, in the same order."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if model_shards < 1:
+        raise ValueError(f"model_shards must be >= 1, got {model_shards}")
+    if stage_shards < 1:
+        raise ValueError(f"stage_shards must be >= 1, got {stage_shards}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    want = num_shards * stage_shards * model_shards
+    if want * replicas > world:
+        raise ValueError(
+            f"serving mesh wants {num_shards} x {stage_shards} x "
+            f"{model_shards} = {want} devices, have {world}")
+    if want * replicas < world:
+        raise ValueError(
+            f"serving mesh of {num_shards} x {stage_shards} x {model_shards} = {want} "
+            f"ranks ({replicas} replica(s)) in a world of {world}: the port runs one "
+            f"process per mesh coordinate, so the world size must equal the product")
+    me = dist.get_rank() if dist.is_initialized() else 0
+    D, S, M = num_shards, stage_shards, model_shards
+    local = me % want
+    d, s, m = local // (S * M), (local // M) % S, local % M
+
+    def rank(k, dd, ss, mm):
+        return k * want + (dd * S + ss) * M + mm
+
+    def axis(size, members):
+        """This rank's group of an axis above 1 (every rank builds every
+        group of the axis, in one order), None at 1."""
+        if size == 1:
+            return None
+        mine = None
+        for ranks in members:
+            group = dist.new_group(list(ranks))
+            if me in ranks:
+                mine = GroupContext(group, size, ranks.index(me), tuple(ranks))
+        return mine
+
+    reps = range(replicas)
+    data_ctx = axis(D, [[rank(k, dd, ss, mm) for dd in range(D)]
+                        for k in reps for ss in range(S) for mm in range(M)])
+    stage_ctx = axis(S, [[rank(k, dd, ss, mm) for ss in range(S)]
+                         for k in reps for dd in range(D) for mm in range(M)])
+    model_ctx = axis(M, [[rank(k, dd, ss, mm) for mm in range(M)]
+                         for k in reps for dd in range(D) for ss in range(S)])
+    tp = None if model_ctx is None else TPContext(model_ctx.group, M, m, serving=True)
+    return ServingMesh(D, S, M, d, s, m, tp, data_ctx, stage_ctx)

@@ -1,5 +1,6 @@
 """Pipeline parallelism over the layer stack (counterpart of the JAX
-package's ``parallel/pipeline.py``, ``pipelined_layers``).
+package's ``parallel/pipeline.py``: ``pipelined_layers`` for training,
+``pipelined_decode_layers`` for the serving tick).
 
 The stacked layers are cut on their layer axis over the mesh's ``pipe``
 ranks, one contiguous block of layers a stage, and the microbatches
@@ -22,6 +23,13 @@ which would not call the shifts of a bubble tick, whose values no loss
 reads.  Each microbatch's stage graph is built in the forward (the
 layers checkpointed as the caller's body asks) and released as its
 backward runs.
+
+``pipelined_decode_layers`` is the serving decode step's clock on the
+same schedule, with no autograd: the microbatches are blocks of the
+decode lanes, and every layer's recurrent state stays on the stage that
+owns the layer, advanced in place on the microbatch's rows (a bubble
+tick touches none).  Its shifts run over a serving mesh's stage group
+and count in ``SERVE_COMM``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from mamba_distributed_tpu_torch.parallel.collectives import PP_COMM, seq_exchange
+from mamba_distributed_tpu_torch.parallel.collectives import PP_COMM, seq_exchange, stage_shift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,3 +199,59 @@ def from_last_stage(x: torch.Tensor, pipe: PipeContext) -> torch.Tensor:
     the last, a zero that reaches the schedule's output, so their
     backward runs its shifts)."""
     return _FromLastStage.apply(x, pipe)
+
+
+def pipelined_decode_layers(body_fn: Callable, stage_params: list, stage_state: tuple,
+                            act: tuple, stage, n_micro: int | None = None,
+                            n_layer: int | None = None):
+    """One stateful decode sub-step over the layer stack, GPipe-pipelined
+    over a serving mesh's stage group (JAX ``pipelined_decode_layers``,
+    ``pipeline.py:151-311``).
+
+    ``stage_params``: this stage's layers (a list of per-layer trees);
+    ``stage_state``: their layer-stacked state leaves (L_local, S, ...),
+    lane axis 1, advanced IN PLACE; ``act``: a tuple of (S, ...) leaves,
+    every lane (stage 0's are read); ``body_fn(act, layer_params,
+    layer_state) -> act`` runs one layer on one lane block and writes
+    its state rows in place.  ``n_layer``: the whole stack's depth (this
+    stage's times the stages by default); ``n_micro`` (default the stage
+    count) must divide the lanes.  The clock runs ``n_micro + S - 1``
+    ticks; at tick t stage s runs microbatch ``m = t - s`` (lanes ``[m
+    S/n_micro, (m + 1) S/n_micro)``) through its layers when ``0 <= m <
+    n_micro``, then every stage shifts its block one stage on
+    (non-cyclic).  Each lane meets the same ops in the same order as in
+    the sequential layer loop.  Returns ``(act_out, stage_state)``,
+    ``act_out`` on the last stage only (None elsewhere: the caller's head
+    runs there, as JAX's psum from the last stage feeds it)."""
+    n_stages = 1 if stage is None else stage.size
+    s = 0 if stage is None else stage.rank
+    n_layer = len(stage_params) * n_stages if n_layer is None else n_layer
+    if n_layer % n_stages != 0:
+        raise ValueError(
+            f"pipelined_decode_layers: n_layer ({n_layer}) must divide "
+            f"evenly over the {n_stages} pipeline stages of mesh axis 'stage'")
+    n_lanes = act[0].shape[0]
+    n_micro = n_stages if n_micro is None else n_micro
+    if n_lanes % n_micro != 0:
+        raise ValueError(
+            f"pipelined_decode_layers: lane count ({n_lanes}) must "
+            f"divide over n_micro ({n_micro}) microbatches")
+    mw = n_lanes // n_micro
+    n_ticks = n_micro + n_stages - 1
+    buf = tuple(x[:mw] for x in act)
+    outs = []
+    for t in range(n_ticks):
+        if s == 0 and t < n_micro:
+            buf = tuple(x[t * mw:(t + 1) * mw] for x in act)
+        m = t - s
+        if 0 <= m < n_micro:
+            lanes = slice(m * mw, (m + 1) * mw)
+            for j, bp in enumerate(stage_params):
+                buf = body_fn(buf, bp, tuple(x[j, lanes] for x in stage_state))
+            if s == n_stages - 1:
+                outs.append(buf)
+        if n_stages > 1 and t + 1 < n_ticks:
+            buf = tuple(stage_shift(x, stage) for x in buf)
+    if s != n_stages - 1:
+        return None, stage_state
+    return tuple(torch.cat(parts) for parts in zip(*outs)), stage_state

@@ -261,3 +261,164 @@ def gather_params(shards: dict, specs: dict, group=None, tp=None, plan=None,
         out = _tree_map(lambda t, s: t if pipe_axis(s) is None
                         else all_gather_leaf(t, pipe_axis(s), pipe.group), out, specs)
     return out
+
+
+# ------------------------------------------- serving tensor parallelism
+
+
+def _tp_rule_end_axis(names: list[str]) -> int | None:
+    """The raw rule axis from the end (-1 column-parallel, -2
+    row-parallel) of a param path: what the LoRA factor rules key off."""
+    for pattern, ax in _TP_RULES:
+        if tuple(names[-len(pattern):]) == pattern:
+            return ax
+    return None
+
+
+def serving_param_specs(params: dict, model_shards: int, stage_shards: int = 1) -> dict:
+    """Spec tree of the SERVING weights over a serving mesh (JAX
+    ``serving_param_specs``, ``sharding.py:192-284``): the leading layer
+    axis of every ``blocks``/``attn_blocks`` leaf (LoRA factor pools
+    included) over ``stage`` when it divides, and over ``model`` the
+    training ``_TP_RULES`` axis, the vocab axis of the embedding (0) and
+    of an untied ``lm_head`` (last), an int8 ``scale`` riding its
+    kernel's axis, and the LoRA ``A`` on ``d_in`` beside a row-parallel
+    kernel, ``B`` on ``d_out`` beside a column-parallel one.  What does
+    not divide replicates; ``()`` is replicated.  The specs are the
+    record of what each rank holds: the port executes them with
+    ``parallel/tp_layout.serving_plan`` (its packed cut of the model
+    axis) and ``stage_cut``."""
+
+    def leaf_spec(names, shape):
+        spec: list = [None] * len(shape)
+        if (stage_shards > 1 and shape and ("blocks" in names or "attn_blocks" in names)
+                and shape[0] % stage_shards == 0):
+            spec[0] = "stage"
+        if model_shards > 1 and len(names) >= 2 and names[-2] == "lora":
+            base_ax = _tp_rule_end_axis(names[:-2] + ["kernel"])
+            ax = None
+            if names[-1] == "A" and base_ax == -2:
+                ax = len(shape) - 2
+            elif names[-1] == "B" and base_ax == -1:
+                ax = len(shape) - 1
+            if ax is not None and shape[ax] % model_shards == 0:
+                spec[ax] = "model"
+            return () if all(s is None for s in spec) else tuple(spec)
+        if model_shards > 1 and shape:
+            lookup = names[:-1] + ["kernel"] if names and names[-1] == "scale" else names
+            stacked = "blocks" in lookup or "attn_blocks" in lookup
+            ax = _tp_axis(lookup, len(shape), stacked)
+            if ax is None:
+                if lookup[-1] == "embedding" or lookup[-2:] == ["embedding", "kernel"]:
+                    ax = 0
+                elif lookup[-2:] == ["lm_head", "kernel"]:
+                    ax = len(shape) - 1
+            if ax is not None and shape[ax] % model_shards == 0:
+                spec[ax] = "model"
+        return () if all(s is None for s in spec) else tuple(spec)
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + [str(k)]) for k, v in tree.items()}
+        return leaf_spec(names, tuple(tree.shape))
+
+    return walk(params, [])
+
+
+def validate_serving_model_shards(cfg, model_shards: int) -> None:
+    """Refuse a ``serving_model_shards`` the model's dimensions cannot
+    tile, at engine construction, naming each (JAX
+    ``validate_serving_model_shards``, its rules and message)."""
+    if model_shards <= 1:
+        return
+    problems = []
+    if cfg.d_inner % model_shards:
+        problems.append(f"d_inner={cfg.d_inner} (expand * d_model — the Mamba "
+                        f"in/out projection and conv/SSM channel axis)")
+    if cfg.ssm_layer == "mamba2":
+        g, ds, nh = cfg.ngroups, cfg.effective_d_state, cfg.nheads
+        d_in_proj = 2 * cfg.d_inner + 2 * g * ds + nh
+        conv_dim = cfg.d_inner + 2 * g * ds
+        if nh % model_shards:
+            problems.append(f"nheads={nh} (d_inner/headdim — the per-head "
+                            f"A_log/dt_bias/D axis and the dt segment of in_proj)")
+        if d_in_proj % model_shards:
+            problems.append(f"in_proj width {d_in_proj} (the packed "
+                            f"2*d_inner + 2*ngroups*d_state + nheads column axis)")
+        if conv_dim % model_shards:
+            problems.append(f"conv width {conv_dim} (d_inner + 2*ngroups*d_state)")
+    if cfg.vocab_size_padded % model_shards:
+        problems.append(f"padded vocab={cfg.vocab_size_padded} (the embedding/"
+                        f"lm_head vocab axis)")
+    if cfg.attn_layer_idx:
+        nh = cfg.effective_attn_num_heads
+        nkv = cfg.effective_attn_num_kv_heads
+        if nh % model_shards:
+            problems.append(f"attn_num_heads={nh}")
+        if nkv % model_shards:
+            problems.append(f"attn_num_kv_heads={nkv}")
+    if problems:
+        raise ValueError(
+            f"serving_model_shards={model_shards} does not divide "
+            + "; ".join(problems)
+            + " — pick a divisor of every listed dimension (or 1 to "
+              "replicate weights)")
+
+
+def validate_serving_stage_shards(cfg, stage_shards: int) -> None:
+    """Refuse a ``serving_stage_shards`` the layer stacks cannot tile:
+    every stacked family must divide (JAX
+    ``validate_serving_stage_shards``, its rules and message)."""
+    if stage_shards <= 1:
+        return
+    problems = []
+    n_attn = len(cfg.attn_layer_idx)
+    n_mamba = cfg.n_layer - n_attn
+    if cfg.n_layer % stage_shards:
+        problems.append(f"n_layer={cfg.n_layer} (the layer stack)")
+    if n_attn:
+        if n_mamba % stage_shards:
+            problems.append(
+                f"mamba stack={n_mamba} (n_layer - the "
+                f"{n_attn} attention layers — the hybrid 'blocks' "
+                f"family shards separately)")
+        if n_attn % stage_shards:
+            problems.append(
+                f"attention stack={n_attn} (the hybrid 'attn_blocks' "
+                f"family — per-layer KV page pools shard with it)")
+    if problems:
+        raise ValueError(
+            f"serving_stage_shards={stage_shards} does not divide "
+            + "; ".join(problems)
+            + " — pick a divisor of every listed stack (or 1 to keep "
+              "the layer stacks unsharded)")
+
+
+def slot_pool_specs(pool: dict, num_shards: int, stage_shards: int = 1) -> dict:
+    """Spec tree of a serving slot pool over a serving mesh (JAX
+    ``slot_pool_specs``, ``sharding.py:413-466``): the slot axis (axis 1
+    of a ``blocks`` leaf (L, S, ...), the page axis 1 of an
+    ``attn_blocks`` leaf (A, P+1, ...), axis 0 of ``logits`` and every
+    ``meta`` leaf) over ``data`` where it divides, and at ``stage_shards
+    > 1`` the layer axis of the stacked leaves over ``stage``.  Every
+    spec keeps one entry per axis (JAX's ``P(*spec)``).  The tuples of
+    the pool's ``state`` stacks are walked like the JAX tree's."""
+
+    def leaf_spec(names, shape):
+        stacked = "blocks" in names or "attn_blocks" in names
+        ax = 1 if stacked else 0
+        spec: list = [None] * len(shape)
+        if len(shape) > ax and shape[ax] % num_shards == 0:
+            spec[ax] = "data"
+        if stage_shards > 1 and stacked and shape and shape[0] % stage_shards == 0:
+            spec[0] = "stage"
+        return tuple(spec)
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + [str(k)]) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, names + [str(i)]) for i, v in enumerate(tree))
+        return leaf_spec(names, tuple(tree.shape))
+
+    return walk(pool, [])

@@ -51,11 +51,17 @@ SPLIT, PARTIAL, FULL = "split", "partial", "full"
 @dataclasses.dataclass(frozen=True)
 class TPContext:
     """What a block needs of the tensor group: the group, its size and
-    this rank's index in it."""
+    this rank's index in it.  ``serving`` marks a serving mesh's model
+    group (parallel/mesh.serving_mesh): the model code that reads it
+    (``models/common.row_parallel_linear``, Mamba-2's gated norm, Mamba-1's
+    ``x_proj``, the MoE's sum) sums fp32 partials once in rank order with
+    ``collectives.serve_all_reduce_`` (no autograd; counted in
+    ``SERVE_COMM``); the training collectives never read it."""
 
     group: object
     size: int
     rank: int
+    serving: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +212,55 @@ def tp_plan(cfg: ModelConfig, size: int) -> TPPlan:
         for stack in stacks:
             leaves.update({(stack, *k): v for k, v in _ffn_leaves(cfg, size).items()})
     return TPPlan(leaves)
+
+
+class ServingPlan(TPPlan):
+    """The packed layout of a SERVING tree over the model axis
+    (``serving_plan``): the training plan's leaves, the vocab axis of the
+    embedding and of an untied head, an int8 ``scale`` riding its
+    kernel's plan (the scale keeps the kernel's rank with its channel
+    axis whole), and the LoRA factor pools beside their kernel: ``A``
+    (L, n, d_in, r) cut on d_in like a row-parallel kernel's rows, ``B``
+    (L, n, r, d_out) on d_out like a column-parallel kernel's columns
+    (JAX ``sharding.py:240-262``); the other factor of each pair stays
+    whole."""
+
+    def leaf(self, path) -> LeafPlan:
+        path = tuple(path)
+        if path and path[-1] == "scale":
+            path = path[:-1] + ("kernel",)
+        if len(path) >= 2 and path[-2] == "lora":
+            base = self.leaves.get(path[:-2] + ("kernel",), FULL_LEAF)
+            wanted = {"A": -2, "B": -1}.get(path[-1])
+            return base if base.kind != FULL and base.axis == wanted else FULL_LEAF
+        return self.leaves.get(path, FULL_LEAF)
+
+
+def serving_plan(cfg: ModelConfig, size: int) -> ServingPlan:
+    """The packed layout of a serving tree over ``size`` model ranks: the
+    training layout (``tp_plan``) plus the vocab-parallel embedding (V,
+    d) and ``lm_head`` (d, V), each rank its contiguous block of the
+    padded vocab (``ServingPlan``)."""
+    leaves = dict(tp_plan(cfg, size).leaves)
+    if size > 1:
+        vocab = [(cfg.vocab_size_padded, True)]
+        leaves[("embedding",)] = _leaf(vocab, size, -2)
+        leaves[("embedding", "kernel")] = _leaf(vocab, size, -2)
+        leaves[("lm_head", "kernel")] = _leaf(vocab, size, -1)
+    return ServingPlan(leaves)
+
+
+def stage_cut(tree: dict, size: int, rank: int, path: tuple = ()) -> dict:
+    """Stage ``rank``'s block of every layer-stacked leaf (those under
+    ``blocks``/``attn_blocks``, LoRA pools included: axis 0 cut into
+    ``size`` contiguous blocks, fresh tensors, so the full tree can be
+    freed); the other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: stage_cut(v, size, rank, (*path, k)) for k, v in tree.items()}
+    if size == 1 or not ("blocks" in path or "attn_blocks" in path):
+        return tree
+    n = tree.shape[0] // size
+    return tree[rank * n:(rank + 1) * n].clone()
 
 
 def plan_tree(tree, plan: TPPlan, path: tuple = ()):

@@ -380,7 +380,7 @@ class AdapterCache:
     ``version`` bumps on every pool write."""
 
     def __init__(self, registry: AdapterRegistry, slots: int,
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, device=None, cut=None):
         if slots < 1:
             raise ValueError(f"need >= 1 adapter cache slot, got {slots}")
         self.registry = registry
@@ -388,13 +388,18 @@ class AdapterCache:
         self.dtype = compute_dtype
         self.device = torch.device("cpu" if device is None else device)
         r = registry.rank
+        # ``cut(path, part, factor)``: this rank's part of one adapter's
+        # (n, d_in, r) or (n, r, d_out) factor on a serving mesh (its
+        # stage's layers; A's d_in rows beside a row-parallel kernel, B's
+        # d_out columns beside a column-parallel one); None keeps it whole
+        self._cut = cut or (lambda path, part, t: t)
+
+        def pool(path, part, shape):
+            n, *rest = self._cut(path, part, torch.empty(shape, device="meta")).shape
+            return torch.zeros((n, slots + 1, *rest), dtype=self.dtype, device=self.device)
+
         self.pools: dict[str, dict] = {
-            path: {
-                "A": torch.zeros((n, slots + 1, d_in, r), dtype=self.dtype,
-                                 device=self.device),
-                "B": torch.zeros((n, slots + 1, r, d_out), dtype=self.dtype,
-                                 device=self.device),
-            }
+            path: {"A": pool(path, "A", (n, d_in, r)), "B": pool(path, "B", (n, r, d_out))}
             for path, (n, d_in, d_out) in registry.targets.items()
         }
         self.version = 0  # bumps on every pool write
@@ -493,7 +498,7 @@ class AdapterCache:
                 if fac is None:
                     row.zero_()
                 else:
-                    row.copy_(torch.from_numpy(fac[part]).to(
+                    row.copy_(self._cut(path, part, torch.from_numpy(fac[part])).to(
                         self.device, self.dtype))
         self.version += 1
 

@@ -106,9 +106,29 @@ carry the adapter's salt.  ``hot_swap_adapter`` moves a decoding stream
 to another adapter version without losing a token.  Int8 weights with
 LoRA raise at construction.
 
-Left out of the port for now: sessions' parking, migration, meshes and
-sharded page pools, the router's adapter affinity and the online-tuning
-plane.
+Serving meshes (``mesh=``, or ``cfg.serving_*_shards`` > 1; JAX
+``engine.py:461-531``): one process per coordinate of a
+``parallel/mesh.serving_mesh``, each building the engine from the same
+params, config and requests.  The host loop (scheduler, admission, the
+``PagePool``, the prefix cache, compaction, speculation's acceptance, the
+adapter cache) runs the same way on every rank and reads only what every
+rank holds, so every rank takes the same decisions.  The weights are cut
+over ``model`` (the packed per-rank heads, the vocab axis of the
+embedding and head) and ``stage`` (each stage its block of each layer
+family), and the slots over ``data``: data rank d holds slots ``[d C/D,
+(d+1) C/D)`` and its shard's page rows, runs the tick on its block (and
+the prefills and chunks of its slots only), and the tick's one host sync
+gathers the token blocks over ``data``.  A prefix-cache entry's or a
+preempted stream's carry is broadcast over ``data`` from its slot's
+shard, so a hit or a resume on any shard reads it; a hybrid entry's
+pages stay in their shard.  Engine streams equal a solo
+``generate(mesh=engine.mesh, decode_rows=capacity)`` bit for bit.  The
+records gain ``model_shards`` and, at a stage axis, ``stage_shards`` and
+``bubble_lanes`` (the microbatched decode clock's ramp, billed into
+goodput).
+
+Left out of the port for now: sessions' parking, migration, the router's
+adapter affinity and the online-tuning plane.
 """
 
 from __future__ import annotations
@@ -123,6 +143,7 @@ import torch
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.inference.bucketing import next_pow2_bucket, pad_to_bucket
 from mamba_distributed_tpu_torch.inference.generate import (
+    decode_micro,
     step_uniform,
     top_k_sample,
     vocab_pad_mask,
@@ -136,15 +157,23 @@ from mamba_distributed_tpu_torch.models.lm import (
 from mamba_distributed_tpu_torch.obs import NULL_TRACER, StreamingHistogram
 from mamba_distributed_tpu_torch.ops.dispatch import check_kernel_shapes
 from mamba_distributed_tpu_torch.ops.quant import param_bytes
+from mamba_distributed_tpu_torch.parallel.collectives import serve_broadcast_, serve_gather
+from mamba_distributed_tpu_torch.parallel.mesh import serving_mesh
+from mamba_distributed_tpu_torch.parallel.sharding import (
+    validate_serving_model_shards,
+    validate_serving_stage_shards,
+)
+from mamba_distributed_tpu_torch.parallel.tp_layout import pack_leaf, serving_plan
 from mamba_distributed_tpu_torch.serving import prefix_cache as prefix_cache_mod
 from mamba_distributed_tpu_torch.serving import adapters as adapters_mod
 from mamba_distributed_tpu_torch.serving import spec_decode, state_cache
 from mamba_distributed_tpu_torch.serving.prefix_cache import PrefixCache
 from mamba_distributed_tpu_torch.serving.prefill import (
-    cast_decode_params,
+    ServingShard,
     chunk_inputs,
     plan_chunks,
     prefill_chunk,
+    serving_shard,
 )
 from mamba_distributed_tpu_torch.serving.scheduler import (
     FCFSScheduler,
@@ -203,6 +232,13 @@ class ServingEngine:
         under adapter ``a`` matches a solo ``generate()`` on
         ``adapters.merge(params, a)`` up to the re-association of the
         delta's sums.
+      mesh: a ``parallel/mesh.ServingMesh`` (every rank of it builds the
+        engine alike); None builds one from ``cfg.serving_data_shards`` x
+        ``cfg.serving_stage_shards`` x ``cfg.serving_model_shards`` when
+        any is above 1 (the world must hold that many ranks).  ``params``
+        may then be this rank's ``serving/prefill.ServingShard`` instead
+        of the fp32 masters (not with LoRA, whose registry reads the
+        masters).
     """
 
     # the SRPT starvation guard: grants a prefill may be passed over in a
@@ -220,7 +256,8 @@ class ServingEngine:
                  slo=None, tick_regression=None,
                  prefix_cache: PrefixCache | None = None,
                  drafter: spec_decode.Drafter | None = None,
-                 adapters: adapters_mod.AdapterRegistry | None = None):
+                 adapters: adapters_mod.AdapterRegistry | None = None,
+                 mesh=None):
         if not 1 <= max_top_k <= cfg.vocab_size_padded:
             raise ValueError(
                 f"max_top_k={max_top_k} must be in [1, {cfg.vocab_size_padded}]")
@@ -244,14 +281,45 @@ class ServingEngine:
                 "ServingEngine runs on the card by default and this host has "
                 "none; pass device='cpu' to serve with the plain versions"
             )
+        if mesh is None and (cfg.serving_data_shards > 1 or cfg.serving_model_shards > 1
+                             or cfg.serving_stage_shards > 1):
+            mesh = serving_mesh(cfg.serving_data_shards, cfg.serving_model_shards,
+                                cfg.serving_stage_shards)
+        self.mesh = mesh
+        self.num_shards = 1 if mesh is None else mesh.data
+        self.model_shards = 1 if mesh is None else mesh.model
+        self.stage_shards = 1 if mesh is None else mesh.stage
+        if capacity % self.num_shards:
+            raise ValueError(
+                f"capacity={capacity} must divide over "
+                f"serving_data_shards={self.num_shards} (each data shard "
+                f"holds capacity/shards slot rows)")
+        validate_serving_model_shards(cfg, self.model_shards)
+        validate_serving_stage_shards(cfg, self.stage_shards)
+        # this rank's block of slots: [_slot_base, _slot_base + _per)
+        self._per = capacity // self.num_shards
+        self._data_rank = 0 if mesh is None else mesh.data_rank
+        self._slot_base = self._data_rank * self._per
+        # the model and stage groups of every forward (None: one device)
+        self._mesh_kw = ({} if mesh is None
+                         else dict(tp=mesh.tp, stage=mesh.stage_ctx))
+        # the row count a compacted decode launch's GEMMs run at (None:
+        # the launch's own): over the model axis, a shard's full block,
+        # since cuBLAS picks its kernel, and so a row's summation order,
+        # by the row count, and a rank's halved products parted compacted
+        # ticks from full ones on the card (one process's did not)
+        self._gemm_rows = self._per if self.model_shards > 1 else None
         self.cfg = cfg
         self.device = device
         self.capacity = capacity
         self.max_top_k = max_top_k
         self.tokens_per_tick = tokens_per_tick
         self.prefill_tokens_per_tick = prefill_tokens_per_tick
-        self._params = cast_decode_params(_to_device(params, device), cfg)
-        self.pool = state_cache.init_pool(cfg, capacity, device)
+        if isinstance(params, ServingShard):
+            self._params = ServingShard(_to_device(params, device))
+        else:
+            self._params = serving_shard(_to_device(params, device), cfg, mesh)
+        self.pool = state_cache.init_pool(cfg, capacity, device, mesh)
         self.metrics = metrics or ServingMetrics(capacity)
         # speculative decoding: K = cfg.spec_tokens > 0 runs one verify
         # launch of width K+1 a step instead of the sub-step loop; K = 0
@@ -272,7 +340,8 @@ class ServingEngine:
         self.hybrid = bool(cfg.attn_layer_idx)
         if self.hybrid:
             self.page_pool = state_cache.PagePool(
-                state_cache.hybrid_pool_pages(cfg, capacity))
+                state_cache.hybrid_pool_pages(cfg, capacity, self.num_shards),
+                self.num_shards)
             # host-owned paged-KV metadata: each slot's page-table row
             # (unreserved entries name the trash page 0) and KV length.
             # Spec mode adds a column that always names the trash page:
@@ -306,20 +375,24 @@ class ServingEngine:
                                                    convention="model"),
             flops_per_prefill_token=flops_per_token(cfg, prefill_seq, training=False,
                                                     convention="model"),
-            peak_flops=peak_flops(device) if device.type == "cuda" else None)
+            peak_flops=(peak_flops(device) * self.num_shards * self.model_shards
+                        * self.stage_shards if device.type == "cuda" else None))
+        if self.stage_shards > 1:
+            self.metrics.configure_pipeline(self.stage_shards)
         # int8 serving: the resident-bytes gauges and the dtype stamp, only
         # when weights or KV pages are int8 (other records carry neither)
         self.quantized_weights = cfg.serving_weight_dtype == "int8"
         self.quantized_kv = self.hybrid and cfg.kv_quantized
+        # the resident weight bytes of this rank's shard
+        self.weight_bytes = param_bytes(self._params)
         if self.quantized_weights or self.quantized_kv:
-            self._weight_bytes = param_bytes(self._params)
             self._pool_bytes = (
                 sum(t.numel() * t.element_size() for t in self.pool["state"]["attn_blocks"])
                 if self.hybrid else None)
             self._quant_stamp = {"weights": cfg.serving_weight_dtype,
                                  "kv": cfg.kv_page_dtype}
             self.metrics.configure_memory(
-                weight_bytes=self._weight_bytes, page_pool_bytes=self._pool_bytes or 0,
+                weight_bytes=self.weight_bytes, page_pool_bytes=self._pool_bytes or 0,
                 weight_dtype=cfg.serving_weight_dtype, kv_dtype=cfg.kv_page_dtype)
         # the prefix-state cache (off unless configured): hybrid entries
         # pin pages of this pool, which the LRU's evict hook releases
@@ -333,9 +406,15 @@ class ServingEngine:
             if self.hybrid:
                 prefix_cache.evict_hook = self._drop_entry_pages
                 # bytes one physical page holds across every layer's K and V
-                # (and int8 scales): the KV share of an entry's bytes
-                self._page_nbytes = sum(t.numel() * t.element_size() // t.shape[1]
-                                        for t in self.pool["state"]["attn_blocks"])
+                # (and int8 scales): the KV share of an entry's bytes, of
+                # the whole model (the same on every rank of a mesh)
+                self._page_nbytes = sum(
+                    t.numel() * t.element_size() // t.shape[1]
+                    for t in state_cache.init_pool(cfg, 1, "meta")["state"]["attn_blocks"])
+            # the bytes of one whole-model carry (every rank prices an
+            # entry alike, so the cache's byte cap evicts alike)
+            self._carry_nbytes = prefix_cache_mod.state_nbytes(
+                {"blocks": init_lm_blocks_state(cfg, 1, "meta")})
             self.metrics.configure_prefix_cache()
         # compacted ticks: the current pow2 lane bucket and the run of
         # ticks that would have fit a smaller one
@@ -349,6 +428,9 @@ class ServingEngine:
         # attaches nothing and stamps nothing
         self.lora = cfg.lora_max_adapters > 0
         if self.lora:
+            if isinstance(params, ServingShard):
+                raise ValueError("a LoRA engine's adapter registry reads the fp32 master "
+                                 "params: pass them, not a ServingShard")
             if self.quantized_weights:
                 raise ValueError(
                     "int8 base weights + a LoRA delta is a ROADMAP "
@@ -363,9 +445,12 @@ class ServingEngine:
                     f"adapter registry rank {self.adapters.rank} != "
                     f"cfg.lora_rank {cfg.lora_rank} — the factor pools "
                     f"are static-shape; one rank per engine")
+            if self.model_shards > 1:
+                self._serve_plan = serving_plan(cfg, self.model_shards)
             self.adapter_cache = adapters_mod.AdapterCache(
                 self.adapters, cfg.effective_lora_cache_slots,
-                compute_dtype=cfg.torch_compute_dtype, device=device)
+                compute_dtype=cfg.torch_compute_dtype, device=device,
+                cut=None if mesh is None else self._lora_cut)
             self._base_decode_params = self._params
             self._lora_version = -1
             self._refresh_lora_params()
@@ -437,11 +522,12 @@ class ServingEngine:
                     f"max_new_tokens) > cfg.kv_slot_tokens="
                     f"{self.cfg.kv_slot_tokens}")
             need_pages = attention_page_count(self.cfg, need)
-            if need_pages > self.page_pool.num_pages:
+            if need_pages > self._max_shard_pages():
                 raise ValueError(
                     f"hybrid request needs {need_pages} KV pages but the page "
-                    f"pool holds {self.page_pool.num_pages} (cfg.kv_pool_pages): "
-                    f"it could never be admitted")
+                    f"pool's widest shard holds {self._max_shard_pages()} "
+                    f"({self.page_pool.num_pages} over {self.num_shards} shard(s); "
+                    f"cfg.kv_pool_pages): it could never be admitted")
         return self.scheduler.submit(request).request_id
 
     def _slot_meta(self, tracked: _Tracked) -> dict:
@@ -450,6 +536,76 @@ class ServingEngine:
                     temperature=r.temperature,
                     eos_id=-1 if r.eos_id is None else r.eos_id,
                     adapter_id=tracked.adapter_slot or 0)
+
+    # ------------------------------------------------------- serving mesh
+
+    def _slot_shard(self, slot: int) -> int:
+        """The data shard whose ranks hold ``slot``'s pool rows."""
+        return slot * self.num_shards // self.capacity
+
+    def _owns(self, slot: int) -> bool:
+        """Does this rank hold ``slot``'s rows (its data shard's)?"""
+        return self._slot_shard(slot) == self._data_rank
+
+    def _row(self, slot: int) -> int:
+        """``slot``'s row in this rank's block of the pool."""
+        return slot - self._slot_base
+
+    def _max_shard_pages(self) -> int:
+        """The most pages one shard could ever have free: the bound on
+        one request's reservation (a slot draws from its shard only)."""
+        return max(self.page_pool.shard_capacity(d) for d in range(self.num_shards))
+
+    def _local_pages(self, ids):
+        """This rank's page-array rows of global page ids (numpy)."""
+        return self.page_pool.local_rows(np.asarray(ids, np.int32), self._data_rank)
+
+    def _table(self, slots) -> torch.Tensor:
+        """The page-table rows of ``slots`` on the device, as this rank's
+        page rows (a row of another shard, or unreserved, reads the
+        local trash row)."""
+        return torch.from_numpy(self._local_pages(self._page_tbl[slots])).to(self.device)
+
+    def _lora_cut(self, path: str, part: str, factor: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one adapter factor (``AdapterCache(cut=)``):
+        its model rank's cut (``tp_layout.ServingPlan``) of its stage's
+        layers."""
+        if self.model_shards > 1:
+            lp = self._serve_plan.leaf((*path.split("/"), "lora", part))
+            factor = pack_leaf(factor, lp, self.mesh.model_rank)
+        if self.stage_shards > 1:
+            n = factor.shape[0] // self.stage_shards
+            factor = factor[self.mesh.stage_rank * n:(self.mesh.stage_rank + 1) * n]
+        return factor
+
+    def _share_carry(self, state: dict | None, logits, shard: int,
+                     with_logits: bool = True):
+        """A batch-1 carry (and its last logits, ``with_logits``) that the
+        ranks of data shard ``shard`` computed, on every data rank: one
+        broadcast over the data group a tensor, the others passing
+        buffers of this rank's shapes.  ``state``/``logits`` are read on
+        ``shard``'s ranks only.  Identity with one data shard."""
+        if self.num_shards == 1:
+            return state, logits
+        if self._data_rank == shard:
+            bufs = [*state["blocks"]] + ([logits] if with_logits else [])
+        else:
+            bufs = list(init_lm_blocks_state(self.cfg, 1, self.device, self.mesh.tp,
+                                             self.stage_shards))
+            if with_logits:
+                bufs.append(torch.empty((1, self.cfg.vocab_size_padded), device=self.device))
+        ctx = self.mesh.data_ctx
+        out = [serve_broadcast_(t.contiguous(), ctx, shard, "carry") for t in bufs]
+        return {"blocks": tuple(out[:2])}, (out[2] if with_logits else None)
+
+    def _gather_blocks(self, *blocks: torch.Tensor) -> list:
+        """Host arrays of this rank's (steps, lanes) blocks gathered over
+        the data group along the lanes, in shard order: the tick's one
+        host sync (one gather for all of them)."""
+        stacked = torch.stack([b.to(torch.int64) for b in blocks])
+        if self.num_shards > 1:
+            stacked = serve_gather(stacked, self.mesh.data_ctx, 2, "tokens")
+        return list(stacked.cpu().numpy())
 
     # ---------------------------------------------------- multi-tenant LoRA
 
@@ -594,30 +750,48 @@ class ServingEngine:
         cow = False
         if self.hybrid:
             n_pages = attention_page_count(self.cfg, len(r.prompt_ids) + r.max_new_tokens)
+            slot = None
             if hit is not None:
-                # whole shared pages stay read-only; a prefix ending
-                # mid-page costs one more fresh page, its copy
+                # a cached prefix's pages lie in one data shard: attaching
+                # takes a free slot of that shard with fresh pages there
+                # for all it will write; whole shared pages stay
+                # read-only, a prefix ending mid-page costs one more fresh
+                # page, its copy
                 page = self.cfg.kv_page_tokens
                 shared_n = hit[0].kv_len // page
                 cow = bool(hit[0].kv_len % page)
                 fresh_n = n_pages - shared_n
-                if fresh_n > self.page_pool.free_pages:
+                slot = next((s for s in self._free if self._slot_shard(s) == hit[0].shard
+                             and fresh_n <= self.page_pool.free_pages_in(hit[0].shard)),
+                            None)
+                if slot is None:
                     hit = None  # served cold (and committed as a miss)
-            if hit is None and n_pages > self.page_pool.free_pages \
-                    and not self._reclaim_cache_pages(n_pages):
-                # page-stalled: the adapter ref goes too (the retry takes
-                # it again), so a waiting request pins no cache row
-                self._release_adapter_ref(tracked)
-                self.scheduler.requeue(tracked)
-                return False
-        slot = self._free.pop(0)
+            if hit is None:
+                # the first free slot whose shard covers the reservation
+                def fits():
+                    return next((s for s in self._free if n_pages
+                                 <= self.page_pool.free_pages_in(self._slot_shard(s))), None)
+
+                slot = fits()
+                if slot is None and self._reclaim_cache_pages(n_pages):
+                    slot = fits()
+                if slot is None:
+                    # page-stalled: the adapter ref goes too (the retry
+                    # takes it again), so a waiting request pins no cache row
+                    self._release_adapter_ref(tracked)
+                    self.scheduler.requeue(tracked)
+                    return False
+            self._free.remove(slot)
+        else:
+            slot = self._free.pop(0)
+        owner, row, shard = self._owns(slot), self._row(slot), self._slot_shard(slot)
         tracked.status = RequestStatus.PREFILL
         entry = hit[0] if hit is not None else None
         full_hit = entry is not None and entry.full
         t0 = time.perf_counter()
         try:
             if self.hybrid and entry is not None:
-                fresh = self.page_pool.alloc(fresh_n)
+                fresh = self.page_pool.alloc(fresh_n, entry.shard)
                 shared = list(entry.kv_pages[:shared_n])
                 self.page_pool.incref(shared)
                 # the gauges count page refs taken and dropped, so allocs
@@ -627,8 +801,10 @@ class ServingEngine:
                 if cow:
                     # the slot's first write lands at kv_len, inside the
                     # prefix's last (partial) page: it appends into a copy
-                    state_cache.copy_page(self.pool["state"]["attn_blocks"],
-                                          entry.kv_pages[shared_n], fresh[0])
+                    if owner:
+                        state_cache.copy_page(
+                            self.pool["state"]["attn_blocks"],
+                            *self._local_pages([entry.kv_pages[shared_n], fresh[0]]).tolist())
                     self.cow_copies += 1
                 self._page_tbl[slot] = 0
                 self._page_tbl[slot, :n_pages] = tracked.pages
@@ -637,8 +813,9 @@ class ServingEngine:
                 # the snapshot is the prefill's output: insert and decode
                 with self.tracer.span("serving_prefill", slot=slot, request=tracked.request_id,
                                       trace=tracked.trace_id, cache="full"):
-                    state_cache.insert(self.pool, slot, {"blocks": entry.state["blocks"]},
-                                       entry.logits, **self._slot_meta(tracked))
+                    if owner:
+                        state_cache.insert(self.pool, row, {"blocks": entry.state["blocks"]},
+                                           entry.logits, **self._slot_meta(tracked))
                     self._seed_spec(tracked, entry.logits)
             elif entry is not None:
                 # partial hit: the remaining chunks run the computation a
@@ -647,46 +824,60 @@ class ServingEngine:
                 tracked.chunks_done = hit[1]
                 tracked.prefill_dt = 0.0
                 tracked.prefill_seeded_tokens = entry.tokens
-                state_cache.stash_prefill(self.pool, slot, {"blocks": entry.state["blocks"]},
-                                          **self._slot_meta(tracked))
+                if owner:
+                    state_cache.stash_prefill(self.pool, row, {"blocks": entry.state["blocks"]},
+                                              **self._slot_meta(tracked))
             elif plan is None:
                 # one span per one-shot prefill, trace-stamped, so even a
                 # short prompt's journey has an anchor in the stream
                 with self.tracer.span("serving_prefill", slot=slot,
                                       request=tracked.request_id, trace=tracked.trace_id):
-                    prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
-                                             device=self.device)[None]
-                    ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
-                    logits, state = lm_prefill(self._bound_params(self._lora_ids(tracked)),
-                                               self.cfg, ids, token_mask=mask)
-                    state_cache.insert(self.pool, slot, state, logits,
-                                       **self._slot_meta(tracked))
+                    logits = state = None
+                    if owner:
+                        prompt = torch.as_tensor(r.prompt_ids, dtype=torch.int64,
+                                                 device=self.device)[None]
+                        ids, mask = pad_to_bucket(prompt, next_pow2_bucket(prompt.shape[1]))
+                        logits, state = lm_prefill(
+                            self._bound_params(self._lora_ids(tracked)), self.cfg, ids,
+                            token_mask=mask, **self._mesh_kw)
+                        state_cache.insert(self.pool, row, state, logits,
+                                           **self._slot_meta(tracked))
+                    key = prefix_cache_mod.oneshot_key(r.prompt_ids, salt)
+                    store = self.prefix_cache is not None and self.prefix_cache.wants(key)
+                    if store or self.spec:
+                        # the stream's host decisions read the logits on every rank
+                        state, logits = self._share_carry(state, logits, shard)
                     self._seed_spec(tracked, logits)
-                    if self.prefix_cache is not None:
+                    if store:
                         # insert copied the state into the pool, so the
                         # prefill's own tensors can be kept
-                        self.prefix_cache.maybe_store_full(r.prompt_ids, state, logits,
-                                                           salt=salt)
+                        self.prefix_cache.put(key, prefix_cache_mod.PrefixEntry(
+                            state=state, tokens=len(r.prompt_ids), chunks=0, logits=logits,
+                            nbytes=self._carry_nbytes + prefix_cache_mod.tensor_nbytes(logits)))
             else:
                 tracked.plan = plan
                 tracked.chunks_done = 0
                 tracked.prefill_dt = 0.0
                 if self.hybrid:
-                    tracked.pages = self.page_pool.alloc(n_pages)
+                    tracked.pages = self.page_pool.alloc(n_pages, shard)
                     self._page_allocs += n_pages
                     self._page_tbl[slot] = 0
                     self._page_tbl[slot, :n_pages] = tracked.pages
                     self._kv_len[slot] = 0
-                state_cache.stash_prefill(
-                    self.pool, slot,
-                    {"blocks": init_lm_blocks_state(self.cfg, 1, self.device)},
-                    **self._slot_meta(tracked))
+                if owner:
+                    state_cache.stash_prefill(
+                        self.pool, row,
+                        {"blocks": init_lm_blocks_state(self.cfg, 1, self.device,
+                                                        self._mesh_kw.get("tp"),
+                                                        self.stage_shards)},
+                        **self._slot_meta(tracked))
         except Exception:
             # a failed prefill leaks neither the slot nor its pages nor its
             # adapter ref, and does not drop the request
             self._release_pages(slot, tracked)
             self._release_adapter_ref(tracked)
             self._free.insert(0, slot)
+            self._free.sort()
             self.scheduler.requeue(tracked)
             raise
         if self.prefix_cache is not None:
@@ -734,25 +925,33 @@ class ServingEngine:
         tracked.spec_pending_emitted = 0
 
     def _advance_prefill(self, slot: int, budget_left: float) -> float:
-        """Run ONE chunk of ``slot``'s prefill; returns the budget left."""
+        """Run ONE chunk of ``slot``'s prefill; returns the budget left.
+        On a mesh only the ranks of the slot's data shard run it; the
+        others keep the same host books."""
         tracked = self._slots[slot]
         plan, r = tracked.plan, tracked.request
+        owner, row, shard = self._owns(slot), self._row(slot), self._slot_shard(slot)
         try:
-            state = state_cache.read_state(self.pool, slot)
-            if self.hybrid:
-                # the chunk step writes this slot's pages of the shared
-                # pool in place, through its table row and length
-                state["attn_blocks"] = self.pool["state"]["attn_blocks"]
-                state["attn_meta"] = (
-                    torch.tensor(self._page_tbl[slot:slot + 1], device=self.device),
-                    torch.tensor(self._kv_len[slot:slot + 1], device=self.device))
             i = tracked.chunks_done
-            ids, mask = chunk_inputs(r.prompt_ids, plan, i, device=self.device)
+            logits = state = None
             t0 = time.perf_counter()
             with self.tracer.span("serving_prefill_chunk", slot=slot, chunk=i,
                                   of=plan.n_chunks, trace=tracked.trace_id):
-                logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg,
-                                              adapter_ids=self._lora_ids(tracked))
+                if owner:
+                    state = state_cache.read_state(self.pool, row)
+                    if self.hybrid:
+                        # the chunk step writes this slot's pages of the
+                        # shared pool in place, through its table row and
+                        # length
+                        state["attn_blocks"] = self.pool["state"]["attn_blocks"]
+                        state["attn_meta"] = (
+                            self._table(slice(slot, slot + 1)),
+                            torch.tensor(self._kv_len[slot:slot + 1], device=self.device))
+                    ids, mask = chunk_inputs(r.prompt_ids, plan, i, device=self.device)
+                    logits, state = prefill_chunk(self._params, ids, mask, state, self.cfg,
+                                                  adapter_ids=self._lora_ids(tracked),
+                                                  mesh=self.mesh)
+                    state = {"blocks": state["blocks"]}
             dt = time.perf_counter() - t0  # host dispatch time
             if self.hybrid:
                 # the left pad of chunk 0 is never written
@@ -764,19 +963,26 @@ class ServingEngine:
             # share of this window's prefill lanes
             self._pending_chunk_real_tokens += plan.real_tokens(i)
             self._prefill_queue.remove(slot)
+            last = tracked.chunks_done == plan.n_chunks
+            shared = last and self.num_shards > 1 and (self.spec
+                                                       or self.prefix_cache is not None)
+            if shared:
+                # the stream's host decisions (the spec seed, the cache)
+                # read them on every rank
+                state, logits = self._share_carry(state, logits, shard)
             # the prefix cache keeps this boundary's carry (the chunk
             # step's output, which nothing writes in place: the pool
             # takes a copy); the last boundary too, which seeds longer
             # prompts with the same left pad
-            state = {"blocks": state["blocks"]}
             salt = self._adapter_salt(r)
-            self._store_prefix(r.prompt_ids, plan, i, state, slot, salt=salt)
-            if tracked.chunks_done == plan.n_chunks:
+            self._store_prefix(r.prompt_ids, plan, i, state, slot, salt=salt, shared=shared)
+            if last:
                 # ...and the full-prompt entry, which an exact repeat
                 # takes without a prefill
                 self._store_prefix(r.prompt_ids, plan, i, state, slot, logits=logits,
-                                   salt=salt)
-                state_cache.finish_prefill(self.pool, slot, state, logits)
+                                   salt=salt, full=True, shared=shared)
+                if owner:
+                    state_cache.finish_prefill(self.pool, row, state, logits)
                 self._seed_spec(tracked, logits)
                 tracked.status = RequestStatus.DECODE
                 # only the computed tokens: a partial hit's seeded ones
@@ -784,11 +990,14 @@ class ServingEngine:
                 self.metrics.record_prefill(plan.prompt_len - tracked.prefill_seeded_tokens,
                                             tracked.prefill_dt)
             else:
-                state_cache.stash_prefill(self.pool, slot, state, **self._slot_meta(tracked))
+                if owner:
+                    state_cache.stash_prefill(self.pool, row, state,
+                                              **self._slot_meta(tracked))
                 # rotate to the back: the next grant goes to the others first
                 self._prefill_queue.append(slot)
         except Exception:
-            state_cache.evict(self.pool, slot)
+            if owner:
+                state_cache.evict(self.pool, row)
             self._release_pages(slot, tracked)
             self._release_adapter_ref(tracked)
             if slot in self._prefill_queue:
@@ -809,18 +1018,21 @@ class ServingEngine:
             self.page_pool.free(list(entry.kv_pages))
             self._page_frees += len(entry.kv_pages)
 
-    def _store_prefix(self, prompt_ids, plan, i: int, state: dict, slot: int,
-                      logits=None, salt: bytes = b"") -> None:
-        """Snapshot chunk ``i``'s carry into the prefix cache (with
-        ``logits``: the full-prompt entry).  A hybrid entry holds refs on
-        the whole pages of the prefix and a frozen copy of its partial
-        last page, if any (the slot goes on writing its own; see the
-        module docstring); with no free page for that copy the entry is
-        not stored."""
+    def _store_prefix(self, prompt_ids, plan, i: int, state: dict | None, slot: int,
+                      logits=None, salt: bytes = b"", full: bool = False,
+                      shared: bool = False) -> None:
+        """Snapshot chunk ``i``'s carry into the prefix cache (``full``:
+        the full-prompt entry, with ``logits``).  A hybrid entry holds
+        refs on the whole pages of the prefix and a frozen copy of its
+        partial last page, if any (the slot goes on writing its own; see
+        the module docstring); with no free page for that copy in the
+        slot's shard the entry is not stored.  On a mesh the carry is
+        broadcast from the slot's data shard unless it already was
+        (``shared``), and every rank prices the entry alike."""
         pc = self.prefix_cache
         if pc is None:
             return
-        if logits is not None:
+        if full:
             key = prefix_cache_mod.full_key(prompt_ids, plan.chunk, salt)
             tokens = plan.prompt_len
         else:
@@ -828,39 +1040,46 @@ class ServingEngine:
             tokens = (i + 1) * plan.chunk - plan.pad
         if not pc.wants(key):
             return
+        shard = self._slot_shard(slot)
         kv_pages, kv_len, page_bytes = None, 0, 0
         if self.hybrid:
             kv_len = tokens
             whole, tail = divmod(kv_len, self.cfg.kv_page_tokens)
             pages = self._slots[slot].pages
-            if tail and not self.page_pool.free_pages:
+            if tail and not self.page_pool.free_pages_in(shard):
                 return
             self.page_pool.incref(pages[:whole])
             kv_pages = list(pages[:whole])
             if tail:
-                (frozen,) = self.page_pool.alloc(1)
-                state_cache.copy_page(self.pool["state"]["attn_blocks"], pages[whole], frozen)
+                (frozen,) = self.page_pool.alloc(1, shard)
+                if self._owns(slot):
+                    state_cache.copy_page(self.pool["state"]["attn_blocks"],
+                                          *self._local_pages([pages[whole], frozen]).tolist())
                 kv_pages.append(frozen)
             kv_pages = tuple(kv_pages)
             # refs taken (balanced by the evict hook's frees in the gauges)
             self._page_allocs += len(kv_pages)
             page_bytes = len(kv_pages) * self._page_nbytes
-        nbytes = (prefix_cache_mod.state_nbytes(state) + page_bytes
-                  + (prefix_cache_mod.tensor_nbytes(logits) if logits is not None else 0))
+        if not shared:
+            state, logits = self._share_carry(state, logits, shard, with_logits=full)
+        nbytes = (self._carry_nbytes + page_bytes
+                  + (prefix_cache_mod.tensor_nbytes(logits) if full else 0))
         pc.put(key, prefix_cache_mod.PrefixEntry(
-            state=state, tokens=tokens, chunks=i + 1, nbytes=nbytes, logits=logits,
-            kv_pages=kv_pages, kv_len=kv_len))
+            state=state, tokens=tokens, chunks=i + 1, nbytes=nbytes,
+            logits=logits if full else None, kv_pages=kv_pages, kv_len=kv_len, shard=shard))
 
     def _reclaim_cache_pages(self, n_pages: int) -> bool:
-        """Admission's pressure valve: evict page-pinning cache entries,
-        least recently used first, until ``n_pages`` are free (cache refs
-        would otherwise never release while admission waits on them).
-        Returns True when the reservation fits now."""
+        """Admission's pressure valve: evict page-pinning cache entries of
+        the free slots' shards, least recently used first, until one of
+        those shards has ``n_pages`` free (cache refs would otherwise
+        never release while admission waits on them).  Returns True when
+        the reservation fits now."""
         pc = self.prefix_cache
         if pc is None or not self._free:
             return False
-        while n_pages > self.page_pool.free_pages:
-            if not pc.evict_one_pinned():
+        shards = {self._slot_shard(s) for s in self._free}
+        while not any(n_pages <= self.page_pool.free_pages_in(d) for d in shards):
+            if not pc.evict_one_pinned(shards):
                 return False
         return True
 
@@ -908,20 +1127,28 @@ class ServingEngine:
     def _preempt(self, tracked: _Tracked) -> None:
         """Swap a decoding slot out to host memory: copy its carry and last
         logits off the card (a synchronizing copy: the swap-out is a move
-        to the host), keep its page refs on the tracker, free the slot and
-        requeue it.  ``_resume`` restores it with the token count, so the
-        stream goes on as if never interrupted."""
+        to the host; on a mesh first broadcast from the slot's data
+        shard, so a resume on any shard has them), keep its page refs on
+        the tracker, free the slot and requeue it.  ``_resume`` restores
+        it with the token count, so the stream goes on as if never
+        interrupted."""
         slot = tracked.slot
         with self.tracer.span("serving_preempt", slot=slot, request=tracked.request_id,
                               trace=tracked.trace_id):
+            owner, row, shard = self._owns(slot), self._row(slot), self._slot_shard(slot)
+            state = logits = None
+            if owner:
+                state = {"blocks": tuple(t[:, row:row + 1] for t in self.pool["state"]["blocks"])}
+                logits = self.pool["logits"][row:row + 1]
+            state, logits = self._share_carry(state, logits, shard)
             # copies even when the pool lies on the host (.cpu() would alias)
             snap = {
-                "blocks": tuple(t[:, slot:slot + 1].to("cpu", copy=True)
-                                for t in self.pool["state"]["blocks"]),
-                "logits": self.pool["logits"][slot:slot + 1].to("cpu", copy=True),
+                "blocks": tuple(t.to("cpu", copy=True) for t in state["blocks"]),
+                "logits": logits.to("cpu", copy=True),
                 # the device step counter of the current request (a hot-
                 # swapped continuation restarted it at swap_base)
                 "step": len(tracked.new_tokens) - tracked.swap_base,
+                "shard": shard,
             }
             if self.hybrid:
                 snap["kv_len"] = int(self._kv_len[slot])
@@ -931,7 +1158,8 @@ class ServingEngine:
             tracked.preempted += 1
             self._preemptions += 1
             self.metrics.record_preemption()
-            state_cache.evict(self.pool, slot)
+            if owner:
+                state_cache.evict(self.pool, row)
             del self._slots[slot]
             self._free.append(slot)
             self._free.sort()
@@ -939,21 +1167,28 @@ class ServingEngine:
 
     def _resume(self, tracked: _Tracked) -> bool:
         """Re-admit a preempted request from its host snapshot into the
-        first free slot, its token count restored (its page refs rode on
-        the tracker).  Returns False, requeued, when no slot is free."""
+        first free slot (a hybrid's: of the shard its pages lie in), its
+        token count restored (its page refs rode on the tracker).
+        Returns False, requeued, when no such slot is free."""
+        snap = tracked.snapshot
+        if self.hybrid:
+            slot = next((s for s in self._free if self._slot_shard(s) == snap["shard"]), None)
+        else:
+            slot = self._free[0] if self._free else None
         # the adapter row first (a preempted request's ref rode along)
-        if not self._free or not self._acquire_adapter_ref(tracked):
+        if slot is None or not self._acquire_adapter_ref(tracked):
             self.scheduler.requeue(tracked)
             return False
-        snap = tracked.snapshot
-        slot = self._free.pop(0)
+        self._free.remove(slot)
         try:
             with self.tracer.span("serving_resume", slot=slot, request=tracked.request_id,
                                   trace=tracked.trace_id):
-                state_cache.restore(
-                    self.pool, slot,
-                    {"blocks": tuple(t.to(self.device) for t in snap["blocks"])},
-                    snap["logits"].to(self.device), snap["step"], **self._slot_meta(tracked))
+                if self._owns(slot):
+                    state_cache.restore(
+                        self.pool, self._row(slot),
+                        {"blocks": tuple(t.to(self.device) for t in snap["blocks"])},
+                        snap["logits"].to(self.device), snap["step"],
+                        **self._slot_meta(tracked))
                 if self.hybrid:
                     self._page_tbl[slot] = 0
                     self._page_tbl[slot, :len(tracked.pages)] = tracked.pages
@@ -1058,14 +1293,18 @@ class ServingEngine:
         return self.scheduler.depth + len(self._slots)
 
     def _sub_steps(self, state: dict, logits, meta: dict, u, attn_meta=None,
-                   split_rows: int | None = None):
+                   split_rows: int | None = None, n_micro: int | None = None,
+                   gemm_rows: int | None = None):
         """The tick's ``tokens_per_tick`` sub-steps over one set of rows
         (the pool's, or a compacted tick's lanes): sample, then
         ``lm_step``, which writes ``state`` in place.  A LoRA engine binds
         the rows' adapter ids (``meta["adapter_id"]``) once for the whole
-        tick: admission happens between ticks.  Returns the last logits,
-        the rows' step and done counters and the per-sub-step tokens, live
-        flags and done flags."""
+        tick: admission happens between ticks.  ``n_micro`` runs the
+        decode step on the stage axis's microbatched clock; ``split_rows``
+        and ``gemm_rows`` pin the paged decode's split rule and the GEMMs'
+        row count (``lm_step``).  Returns the
+        last logits, the rows' step and done counters and the
+        per-sub-step tokens, live flags and done flags."""
         params = self._bound_params(meta["adapter_id"])
         has_eos = meta["eos_id"] >= 0
         step, done = meta["step"], meta["done"]
@@ -1080,10 +1319,12 @@ class ServingEngine:
                 # lanes) write the trash page only and keep their length
                 logits, stepped = lm_step(params, self.cfg,
                                           {**state, "attn_meta": attn_meta}, tok,
-                                          write_mask=live, split_rows=split_rows)
+                                          write_mask=live, split_rows=split_rows,
+                                          gemm_rows=gemm_rows, **self._mesh_kw)
                 attn_meta = stepped["attn_meta"]
             else:
-                logits, _ = lm_step(params, self.cfg, state, tok)
+                logits, _ = lm_step(params, self.cfg, state, tok, pipeline=n_micro,
+                                    gemm_rows=gemm_rows, **self._mesh_kw)
             step = step + live
             done = done | (live & ((has_eos & (tok == meta["eos_id"]))
                                    | (step >= meta["max_new"])))
@@ -1092,9 +1333,11 @@ class ServingEngine:
             dones.append(done)
         return logits, step, done, toks, emitted, dones
 
-    def _uniforms(self, lanes: dict[int, int], width: int) -> torch.Tensor:
-        """(steps, width) draws: lane ``lanes[s]`` of decoding slot s
-        samples token len(new_tokens) + j of its request at sub-step j."""
+    def _uniforms(self, lanes: dict[int, int], width: int, lo: int = 0,
+                  n: int | None = None) -> torch.Tensor:
+        """(steps, n) draws of lanes ``[lo, lo + n)`` of a launch of
+        ``width`` lanes (default all): lane ``lanes[s]`` of decoding slot
+        s samples token len(new_tokens) + j of its request at sub-step j."""
         u = np.full((self.tokens_per_tick, width), 0.5, np.float32)
         for s, lane in lanes.items():
             t = self._slots[s]
@@ -1102,18 +1345,20 @@ class ServingEngine:
             n0 = len(t.new_tokens) - t.swap_base
             u[:, lane] = [step_uniform(t.request.seed, n0 + j)
                           for j in range(self.tokens_per_tick)]
-        return torch.from_numpy(u).to(self.device)
+        n = width - lo if n is None else n
+        return torch.from_numpy(np.ascontiguousarray(u[:, lo:lo + n])).to(self.device)
 
-    def _tick(self, live_slots: list[int]):
+    def _tick(self, live_slots: list[int], n_micro: int | None = None):
         """Advance every decodable slot ``tokens_per_tick`` tokens at the
-        full slot count.  Returns host arrays (tokens, emitted, done),
-        each (steps, S)."""
+        full slot count (on a mesh: this data rank's block of slots).
+        Returns host arrays (tokens, emitted, done), each (steps, S)."""
         dev = self.device
         pool, meta = self.pool, self.pool["meta"]
-        u = self._uniforms({s: s for s in live_slots}, self.capacity)
+        lo, per = self._slot_base, self._per
+        u = self._uniforms({s: s for s in live_slots}, self.capacity, lo, per)
         # lm_step updates the pool's state rows in place; a prefilling
         # slot's rows hold a real carry, so save and restore them
-        held = sorted(self._prefill_queue)
+        held = [self._row(s) for s in sorted(self._prefill_queue) if self._owns(s)]
         if held:
             idx = torch.tensor(held, device=dev)
             saved = [t.index_select(1, idx) for t in pool["state"]["blocks"]]
@@ -1125,34 +1370,43 @@ class ServingEngine:
             # keeps the tick's shapes static.  generate() sizes its private
             # table to the same width, so the plain version reduces over
             # the same width on both sides and streams stay bit-identical.
-            attn_meta = (torch.tensor(self._page_tbl, device=dev),
-                         torch.tensor(self._kv_len, device=dev))
+            attn_meta = (self._table(slice(lo, lo + per)),
+                         torch.tensor(self._kv_len[lo:lo + per], device=dev))
         logits, step, done, toks, emitted, dones = self._sub_steps(
-            pool["state"], pool["logits"], meta, u, attn_meta)
+            pool["state"], pool["logits"], meta, u, attn_meta, n_micro=n_micro)
         if held:
             for t, v in zip(pool["state"]["blocks"], saved):
                 t.index_copy_(1, idx, v)
         pool["logits"] = logits
         meta["step"], meta["done"] = step, done
         # the one host sync of the tick
-        tokens, emitted = torch.stack(toks).cpu().numpy(), torch.stack(emitted).cpu().numpy()
+        tokens, emitted, done = self._gather_blocks(torch.stack(toks), torch.stack(emitted),
+                                                    torch.stack(dones))
+        emitted, done = emitted.astype(bool), done.astype(bool)
         if self.hybrid:
             # mirror the device-side lengths: +1 per live sub-step
             self._kv_len += emitted.sum(axis=0).astype(np.int32)
-        return tokens, emitted, torch.stack(dones).cpu().numpy()
+        return tokens, emitted, done
 
     # ----------------------------------------------------- compacted ticks
 
     def _compaction_width(self, live_slots: list[int]) -> int | None:
         """Lane width of this tick's compacted launch, or None for the
-        full-width tick (compaction off, or no narrower than capacity).
-        The bucket is the pow2 of the live count, grown at once and
-        shrunk only after ``cfg.compaction_hysteresis_ticks`` ticks in a
-        row that would have fit the smaller one; the launch takes at
-        least ``COMPACT_MIN_LANES`` lanes."""
-        if not self.compaction:
+        full-width tick (compaction off, or no narrower than a shard's
+        block).  The bucket is the pow2 of the busiest data shard's live
+        count (every shard runs as many lanes), grown at once and shrunk
+        only after ``cfg.compaction_hysteresis_ticks`` ticks in a row
+        that would have fit the smaller one; a shard launches at least
+        ``COMPACT_MIN_LANES`` lanes.  The width is the shards' lanes in
+        all (JAX ``engine.py:2315-2342``).  A speculative engine over the
+        model axis verifies at the full width: the verify's GEMMs run at
+        their own row count (``_gemm_rows`` pins the decode step's)."""
+        if not self.compaction or (self.spec and self._gemm_rows is not None):
             return None
-        need = next_pow2_bucket(max(1, len(live_slots)), min_bucket=1)
+        by_shard = [0] * self.num_shards
+        for s in live_slots:
+            by_shard[self._slot_shard(s)] += 1
+        need = next_pow2_bucket(max(1, max(by_shard)), min_bucket=1)
         b = self._compact_bucket
         if need > b:
             b, self._shrink_streak = need, 0
@@ -1164,78 +1418,92 @@ class ServingEngine:
             self._shrink_streak = 0
         self._compact_bucket = b
         width = max(b, self.COMPACT_MIN_LANES)
-        return None if width >= self.capacity else width
+        return None if width >= self._per else width * self.num_shards
 
     def _gather_lanes(self, live_slots: list[int], width: int):
-        """Gather the decodable slots' rows into ``width`` lanes (live
-        slots in slot order, pad lanes repeating slot 0 as the JAX engine
-        pads).  Returns the lane map {slot: lane}, the scatter maps (inv,
-        touched) on the device, the pool's per-slot rows, their gathered
-        copies and the lanes' launch state: the gathered carries and, for
-        a hybrid, the shared pages and an ``attn_meta`` whose pad lanes
-        point at the trash page with length 0."""
+        """Gather the decodable slots' rows into lanes: data shard d's
+        live slots, in slot order, into its ``width / D`` lanes ``[d b, d
+        b + n_d)`` (pad lanes repeating the shard's first slot, as the
+        JAX engine pads; JAX ``engine.py:2344-2370``); this rank gathers
+        its own shard's lanes from its block.  Returns the lane map
+        {slot: lane} (every shard's), this rank's scatter maps (inv,
+        touched) on the device, its pool rows, their gathered copies and
+        the lanes' launch state: the gathered carries and, for a hybrid,
+        the shared pages and an ``attn_meta`` whose pad lanes point at
+        the trash page with length 0."""
         dev = self.device
-        lanes = {s: j for j, s in enumerate(sorted(live_slots))}
-        idx = np.zeros((width,), np.int64)
-        inv = np.zeros((self.capacity,), np.int64)
-        touched = np.zeros((self.capacity,), bool)
-        for s, j in lanes.items():
-            idx[j], inv[s], touched[s] = s, j, True
+        b = width // self.num_shards
+        fill = [d * b for d in range(self.num_shards)]
+        lanes = {}
+        for s in sorted(live_slots):
+            d = self._slot_shard(s)
+            lanes[s] = fill[d]
+            fill[d] += 1
+        lo = self._data_rank * b
+        idx = np.zeros((b,), np.int64)
+        inv = np.zeros((self._per,), np.int64)
+        touched = np.zeros((self._per,), bool)
+        n_live = 0
+        for s, lane in lanes.items():
+            if self._owns(s):
+                idx[lane - lo], inv[self._row(s)], touched[self._row(s)] = (
+                    self._row(s), lane - lo, True)
+                n_live += 1
         rows = {"blocks": self.pool["state"]["blocks"], "logits": self.pool["logits"],
                 "meta": self.pool["meta"]}
         lane_rows = state_cache.gather_slots(rows, torch.from_numpy(idx).to(dev))
         state = {"blocks": lane_rows["blocks"]}
         if self.hybrid:
             state["attn_blocks"] = self.pool["state"]["attn_blocks"]
-            tbl = self._page_tbl[idx]
-            lengths = self._kv_len[idx]
-            tbl[len(lanes):] = 0
-            lengths[len(lanes):] = 0
-            state["attn_meta"] = (torch.from_numpy(tbl).to(dev),
+            slots = idx + self._slot_base
+            tbl = self._page_tbl[slots]
+            lengths = self._kv_len[slots]
+            tbl[n_live:] = 0
+            lengths[n_live:] = 0
+            state["attn_meta"] = (torch.from_numpy(self._local_pages(tbl)).to(dev),
                                   torch.from_numpy(lengths).to(dev))
         return (lanes, torch.from_numpy(inv).to(dev), torch.from_numpy(touched).to(dev),
                 rows, lane_rows, state)
 
-    def _compact_tick(self, live_slots: list[int], width: int):
+    def _compact_tick(self, live_slots: list[int], width: int, n_micro: int | None = None):
         """One compacted tick: gather the decodable slots' rows into
-        ``width`` lanes (live slots in slot order, pad lanes repeating
-        slot 0 as the JAX engine pads), run the full tick's sub-steps at
-        that width and scatter the live lanes back; mid-prefill rows are
-        never gathered, so none needs saving.  Pad lanes' table rows
+        ``width`` lanes (``_gather_lanes``), run the full tick's sub-steps
+        at that width and scatter the live lanes back; mid-prefill rows
+        are never gathered, so none needs saving.  Pad lanes' table rows
         point at the trash page with length 0, so their KV writes land
         there.
 
         The launch is made to compute what the full tick computes for
         each live row: every op of the decode step is per row, the page
         table keeps its full width, the paged decode's split rule is
-        pinned to the capacity (``split_rows``), and no launch goes below
-        ``COMPACT_MIN_LANES`` rows (a one-row fp32 product takes the
-        CPU's matrix-vector path, which rounds differently).  Two
-        row-count effects remain.  On the CPU an elementwise kernel
-        computes the scalar tail of a small tensor with other rounding
-        than its vector body (the softplus of dt, (lanes, heads), at 24
-        heads), so a carry can differ in its last bit with its lane; on
-        the card a GEMM may pick another kernel at another row count.
-        Either moves a carry by an ulp; the CPU tests hold the streams
-        equal at their size, and ``chip_smoke.py`` measures the card.
+        pinned to a shard's full block (``split_rows``), over the model
+        axis every GEMM runs at that block's rows, zero-padded
+        (``_gemm_rows``), and no launch goes below ``COMPACT_MIN_LANES``
+        rows.  One row-count
+        effect remains on the CPU: an elementwise kernel computes the
+        scalar tail of a small tensor with other rounding than its vector
+        body (the softplus of dt, (lanes, heads), at 24 heads), so a carry
+        can differ in its last bit with its lane; the CPU tests hold the
+        streams equal at their size, and ``chip_smoke.py`` measures the
+        card.
         Returns (tokens, emitted, done) at full width (steps, S)."""
         lanes, inv, touched, rows, lane_rows, state = self._gather_lanes(live_slots, width)
         attn_meta = state.pop("attn_meta", None)
-        u = self._uniforms(lanes, width)
+        b = width // self.num_shards
+        u = self._uniforms(lanes, width, self._data_rank * b, b)
         logits, step, done, toks, emitted, dones = self._sub_steps(
             state, lane_rows["logits"], lane_rows["meta"], u, attn_meta,
-            split_rows=self.capacity)
+            split_rows=self._per, n_micro=n_micro, gemm_rows=self._gemm_rows)
         state_cache.scatter_slots(
             rows, {"blocks": state["blocks"], "logits": logits,
                    "meta": {**lane_rows["meta"], "step": step, "done": done}}, inv, touched)
         # the one host sync of the tick
-        tokens = torch.stack(toks).cpu().numpy()
-        emitted = torch.stack(emitted).cpu().numpy()
-        done = torch.stack(dones).cpu().numpy()
+        tokens, emitted, done = self._gather_blocks(torch.stack(toks), torch.stack(emitted),
+                                                    torch.stack(dones))
         cols = np.fromiter(lanes.keys(), np.int64, len(lanes))
         ls = np.fromiter(lanes.values(), np.int64, len(lanes))
         out = [np.zeros((self.tokens_per_tick, self.capacity), a.dtype)
-               for a in (tokens, emitted, done)]
+               for a in (tokens, emitted.astype(bool), done.astype(bool))]
         for full, lane in zip(out, (tokens, emitted, done)):
             full[:, cols] = lane[:, ls]
         if self.hybrid:
@@ -1276,28 +1544,33 @@ class ServingEngine:
         decodable slot's feed (``_spec_feed``), run ONE ``spec_verify``
         over the pool's rows (or, with ``width``, over the compacted
         lanes, scattered back after), fetch the (rows, W) greedy matrix
-        (the tick's one host sync) and decide per slot.  A full accept
-        commits the launch's carries and final logits (the state moved W
-        tokens) and banks the last position's argmax as the next pending;
-        a rejection keeps the pre-tick carries (``spec_commit``'s per-row
-        select) and banks the accepted prefix and the model's correction.
-        Masked rows (empty, mid-prefill, pad lanes) write no KV cell and
-        keep their carries.  A hybrid's lengths advance by W on full
-        accepts only.  Returns (tokens, emitted, done), each (W+1, S)."""
+        (the tick's one host sync; on a mesh each data rank verifies its
+        own block and the matrix is gathered over ``data``) and decide
+        per slot.  A full accept commits the launch's carries and final
+        logits (the state moved W tokens) and banks the last position's
+        argmax as the next pending; a rejection keeps the pre-tick
+        carries (``spec_commit``'s per-row select) and banks the accepted
+        prefix and the model's correction.  Masked rows (empty,
+        mid-prefill, pad lanes) write no KV cell and keep their carries.
+        A hybrid's lengths advance by W on full accepts only.  Returns
+        (tokens, emitted, done), each (W+1, S)."""
         W, S, dev = self.spec_width, self.capacity, self.device
         live = {s: self._slots[s] for s in live_slots}
         if width is not None:
             lanes, inv, touched, rows, lane_rows, state = self._gather_lanes(live_slots, width)
+            n_lanes, n_local = width, width // self.num_shards
         else:
             lanes = {s: s for s in live}
             rows = lane_rows = {"blocks": self.pool["state"]["blocks"],
                                 "logits": self.pool["logits"], "meta": self.pool["meta"]}
             state = {"blocks": rows["blocks"]}
+            n_lanes, n_local = S, self._per
             if self.hybrid:
+                lo = self._slot_base
                 state["attn_blocks"] = self.pool["state"]["attn_blocks"]
-                state["attn_meta"] = (torch.tensor(self._page_tbl, device=dev),
-                                      torch.tensor(self._kv_len, device=dev))
-        n_lanes = S if width is None else width
+                state["attn_meta"] = (self._table(slice(lo, lo + n_local)),
+                                      torch.tensor(self._kv_len[lo:lo + n_local], device=dev))
+        lo = self._data_rank * n_local  # this rank's lanes
         ids = np.zeros((n_lanes, W), np.int64)
         tmask = np.zeros((n_lanes, W), np.float32)
         trusted = {}
@@ -1306,10 +1579,12 @@ class ServingEngine:
             tmask[lanes[slot]] = 1.0
             trusted[slot] = len(tracked.spec_pending)
         greedy_d, final_logits, new_state, old = spec_decode.spec_verify(
-            self._params, state, torch.from_numpy(ids).to(dev),
-            torch.from_numpy(tmask).to(dev), self.cfg,
-            adapter_ids=lane_rows["meta"]["adapter_id"] if self.lora else None)
-        greedy = greedy_d.cpu().numpy()  # the one host sync of the tick
+            self._params, state, torch.from_numpy(ids[lo:lo + n_local]).to(dev),
+            torch.from_numpy(tmask[lo:lo + n_local]).to(dev), self.cfg,
+            adapter_ids=lane_rows["meta"]["adapter_id"] if self.lora else None,
+            mesh=self.mesh)
+        (greedy,) = self._gather_blocks(greedy_d.t())  # the one host sync
+        greedy = greedy.T
         tokens = np.zeros((W + 1, S), np.int64)
         emitted = np.zeros((W + 1, S), bool)
         done = np.zeros((W + 1, S), bool)
@@ -1346,7 +1621,7 @@ class ServingEngine:
         self._spec_streams += len(live)
         spec_decode.spec_commit(new_state, old["blocks"], lane_rows["logits"],
                                 lane_rows["meta"], final_logits,
-                                torch.from_numpy(advance).to(dev), W)
+                                torch.from_numpy(advance[lo:lo + n_local]).to(dev), W)
         if width is not None:
             state_cache.scatter_slots(rows, lane_rows, inv, touched)
         if self.hybrid:
@@ -1355,6 +1630,18 @@ class ServingEngine:
                 adv_full[slot] = advance[lane]
             self._kv_len += W * adv_full
         return tokens, emitted, done
+
+    def _pipeline_micro(self, width: int | None) -> int | None:
+        """Microbatches of the stage axis's GPipe decode clock for this
+        tick's launch, or None for the layer walk (JAX ``engine.py:
+        2421-2447``): ``inference/generate.decode_micro``'s rule (a
+        pure-SSM stack on a mesh whose only axis above 1 is the stage
+        axis, ``stage`` microbatches when the width divides, else 1),
+        off under speculation (chunk-shaped launches) and LoRA."""
+        if self.spec or self.lora:
+            return None
+        return decode_micro(self.cfg, self.mesh,
+                            self.capacity if width is None else width)
 
     @torch.no_grad()
     def step(self) -> list[TokenEvent]:
@@ -1374,6 +1661,15 @@ class ServingEngine:
         # the lane width this tick launches (None: the full width);
         # mid-prefill residents are left out of a compacted launch
         width = self._compaction_width(live_slots)
+        # the stage axis's microbatched decode clock for this launch (None:
+        # the layer walk) and its ramp's bill: (stages - 1) idle stage
+        # ticks a sub-step, each a microbatch of full-depth lanes
+        n_micro = self._pipeline_micro(width)
+        bubble_lanes = 0
+        if n_micro:
+            bubble_lanes = ((self.stage_shards - 1)
+                            * ((self.capacity if width is None else width) // n_micro)
+                            * self.tokens_per_tick)
         # the requests this tick advances (mid-prefill residents sample
         # nothing), stamped on the span and the tick record
         live_traces = sorted(self._slots[s].trace_id for s in live_slots)
@@ -1384,9 +1680,9 @@ class ServingEngine:
             if self.spec:
                 tokens, emitted, done = self._spec_tick(live_slots, width)
             elif width is None:
-                tokens, emitted, done = self._tick(live_slots)
+                tokens, emitted, done = self._tick(live_slots, n_micro)
             else:
-                tokens, emitted, done = self._compact_tick(live_slots, width)
+                tokens, emitted, done = self._compact_tick(live_slots, width, n_micro)
         t_now = time.perf_counter()
         dt = t_now - t0
         events: list[TokenEvent] = []
@@ -1430,7 +1726,8 @@ class ServingEngine:
         for slot in [s for s, t in self._slots.items()
                      if t.status is RequestStatus.FINISHED]:
             tracked = self._slots.pop(slot)
-            state_cache.evict(self.pool, slot)
+            if self._owns(slot):
+                state_cache.evict(self.pool, self._row(slot))
             self._release_pages(slot, tracked)
             self._release_adapter_ref(tracked)
             self._free.append(slot)
@@ -1487,7 +1784,7 @@ class ServingEngine:
                           prefix_cache_bytes=self.prefix_cache.nbytes)
             self._pc_hits = self._pc_misses = self._pc_saved_tokens = 0
         if self.quantized_weights or self.quantized_kv:
-            gauges.update(quantized=self._quant_stamp, weight_bytes=self._weight_bytes,
+            gauges.update(quantized=self._quant_stamp, weight_bytes=self.weight_bytes,
                           page_pool_bytes=self._pool_bytes)
         if self.spec:
             # the window's draft and accept counts and live slot-launches
@@ -1527,6 +1824,11 @@ class ServingEngine:
             compaction_width=(((self.capacity if width is None else width)
                                if self.compaction else None)),
             traces=live_traces, preemptions=self._preemptions,
+            # mesh stamps only on a mesh's model or stage axis, so other
+            # engines' records keep their bytes
+            model_shards=self.model_shards if self.model_shards > 1 else None,
+            stage_shards=self.stage_shards if self.stage_shards > 1 else None,
+            bubble_lanes=bubble_lanes if self.stage_shards > 1 else None,
             # stamped only when nonzero
             tenant_quota_stalls=self._quota_stalls, adapter_hot_swaps=self._hot_swaps,
             **gauges)
@@ -1592,7 +1894,8 @@ class ServingEngine:
                               trace=tracked.trace_id, adapter=new):
             # the release keys off the old request's adapter: before the
             # request changes
-            state_cache.evict(self.pool, slot)
+            if self._owns(slot):
+                state_cache.evict(self.pool, self._row(slot))
             self._release_pages(slot, tracked)
             self._release_adapter_ref(tracked)
             del self._slots[slot]

@@ -30,12 +30,40 @@ from mamba_distributed_tpu_torch.inference.bucketing import (
 from mamba_distributed_tpu_torch.inference.generate import _decode_params
 from mamba_distributed_tpu_torch.models.attention import attention_page_count
 from mamba_distributed_tpu_torch.models.lm import init_lm_state, lm_prefill_chunk
+from mamba_distributed_tpu_torch.parallel.tp_layout import pack_tp, serving_plan, stage_cut
 from mamba_distributed_tpu_torch.serving.adapters import bind_adapter_ids
+
+
+class ServingShard(dict):
+    """One rank's decode-cast serving tree (``serving_shard``): the engine
+    and ``generate()`` take it as it is, with no cast and no cut."""
 
 
 def cast_decode_params(params: dict, cfg: ModelConfig) -> dict:
     """The decode-layout cast shared by the engine and ``generate()``."""
+    if isinstance(params, ServingShard):
+        return params
     return _decode_params(params, cfg)
+
+
+def serving_shard(params: dict, cfg: ModelConfig, mesh=None) -> ServingShard:
+    """This rank's decode-cast serving tree on a serving ``mesh``
+    (parallel/mesh.ServingMesh; None: the whole cast tree): the fp32
+    masters cut to this stage's layers (``stage_cut``) and this model
+    rank's packed shard (``tp_layout.serving_plan``), then cast (and with
+    int8 serving weights quantized) as the whole tree would be: every
+    cast is elementwise and every int8 scale is per channel along an axis
+    the cut keeps whole, so the shard's scales are the cut of the whole
+    tree's (the quantized embedding keeps its vocab cut), and a rank
+    never holds more than its fp32 shard beside the masters.  A
+    ``ServingShard`` passes through."""
+    if isinstance(params, ServingShard):
+        return params
+    if mesh is not None and mesh.stage > 1:
+        params = stage_cut(params, mesh.stage, mesh.stage_rank)
+    if mesh is not None and mesh.model > 1:
+        params = pack_tp(params, serving_plan(cfg, mesh.model), mesh.model_rank)
+    return ServingShard(_decode_params(params, cfg))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,16 +122,19 @@ def chunk_inputs(prompt_ids, plan: ChunkPlan, i: int, device=None):
 
 
 def prefill_chunk(params: dict, ids, mask, state: dict, cfg: ModelConfig,
-                  adapter_ids: torch.Tensor | None = None):
+                  adapter_ids: torch.Tensor | None = None, mesh=None):
     """The chunk step: (ids, mask, carry) -> (last logits, carry').
     ``params`` must already be decode-cast (``cast_decode_params``).  A
     hybrid carry's KV pages are written in place.  ``adapter_ids`` (LoRA
     engines only; (b,) int32) binds the rows' factor-pool rows into the
     attached pools (serving/adapters.py), so the chunk adds the
-    request's delta as the ticks will."""
+    request's delta as the ticks will.  On a serving ``mesh`` the params
+    are this rank's shard (``serving_shard``) and the carry its part; the
+    step runs over the mesh's model and stage groups."""
     if adapter_ids is not None:
         params = bind_adapter_ids(params, adapter_ids)
-    return lm_prefill_chunk(params, cfg, ids, state, token_mask=mask)
+    tp, stage = (None, None) if mesh is None else (mesh.tp, mesh.stage_ctx)
+    return lm_prefill_chunk(params, cfg, ids, state, token_mask=mask, tp=tp, stage=stage)
 
 
 def private_page_count(cfg: ModelConfig, max_len: int) -> int:
@@ -122,7 +153,7 @@ def _clone_blocks(blocks) -> tuple:
 @torch.no_grad()
 def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
                     plan: ChunkPlan | None = None, max_len: int = 0,
-                    prefix_cache=None):
+                    prefix_cache=None, mesh=None):
     """Drive a whole prompt through the chunk step (the solo
     ``generate()`` path; the engine paces the same loop itself).
     ``params`` must already be decode-cast.  For hybrid stacks
@@ -139,7 +170,8 @@ def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
     place by the caller, so the last chunk's carry is stored as a clone.
     Cached carries are outputs of this exact layout's chunk steps, so
     warm results are bit-identical to cold ones, and to a cache-enabled
-    engine's."""
+    engine's.  ``mesh``: a serving mesh, ``params`` this rank's shard
+    (``prefill_chunk``)."""
     dev = params["norm_f"]["weight"].device  # the embedding may be int8 codes + scales
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64)
     if prompt.ndim == 1:
@@ -160,7 +192,9 @@ def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
             f"request: max_len={max_len} < prompt length {t}"
         )
     pages = private_page_count(cfg, max_len) if hybrid else 0
-    state = init_lm_state(cfg, batch=b, max_len=pages * cfg.kv_page_tokens, device=dev)
+    tp, stages = (None, 1) if mesh is None else (mesh.tp, mesh.stage)
+    state = init_lm_state(cfg, batch=b, max_len=pages * cfg.kv_page_tokens, device=dev,
+                          tp=tp, stages=stages)
     use_cache = prefix_cache is not None and not hybrid and b == 1
     start = 0
     if use_cache:
@@ -173,7 +207,7 @@ def chunked_prefill(params: dict, cfg: ModelConfig, prompt_ids,
     logits = None
     for i in range(start, plan.n_chunks):
         ids, mask = chunk_inputs(prompt, plan, i, device=dev)
-        logits, state = prefill_chunk(params, ids, mask, state, cfg)
+        logits, state = prefill_chunk(params, ids, mask, state, cfg, mesh=mesh)
         if use_cache:
             last = i == plan.n_chunks - 1
             keep = {"blocks": _clone_blocks(state["blocks"]) if last else state["blocks"]}

@@ -63,6 +63,7 @@ from mamba_distributed_tpu_torch.serving.prefill import (
     cast_decode_params,
     chunked_prefill,
     plan_chunks,
+    serving_shard,
 )
 
 # calls of each step: the verify and commit of the engine and
@@ -82,7 +83,7 @@ TRACE_COUNTS = {
 
 
 def spec_verify(params: dict, state: dict, ids: torch.Tensor, token_mask: torch.Tensor,
-                cfg: ModelConfig, adapter_ids: torch.Tensor | None = None):
+                cfg: ModelConfig, adapter_ids: torch.Tensor | None = None, mesh=None):
     """The verify launch: feed every row's ``ids`` (b, W) through
     ``lm_verify_chunk`` from ``state`` and score all W positions.
 
@@ -98,14 +99,20 @@ def spec_verify(params: dict, state: dict, ids: torch.Tensor, token_mask: torch.
 
     ``adapter_ids`` (LoRA engines only; (b,) int32) binds the rows'
     factor-pool rows (serving/adapters.py): streams under different
-    adapters share this one verify launch as they share the tick."""
+    adapters share this one verify launch as they share the tick.
+    ``mesh``: a serving mesh; ``params`` and ``state`` are this rank's
+    part, and every rank returns the full-vocab greedy argmax (the
+    logits are gathered over the model group and broadcast from the
+    last stage), so the acceptance on the host is the same on each."""
     TRACE_COUNTS["verify"] += 1
     if adapter_ids is not None:
         params = bind_adapter_ids(params, adapter_ids)
     old = {"blocks": state["blocks"]}
     if "attn_meta" in state:
         old["attn_meta"] = state["attn_meta"]
-    pos_logits, new_state = lm_verify_chunk(params, cfg, ids, state, token_mask=token_mask)
+    tp, stage = (None, None) if mesh is None else (mesh.tp, mesh.stage_ctx)
+    pos_logits, new_state = lm_verify_chunk(params, cfg, ids, state, token_mask=token_mask,
+                                            tp=tp, stage=stage)
     pad_mask = vocab_pad_mask(cfg, pos_logits.device)
     greedy = torch.argmax(pos_logits + pad_mask[None, None, :], dim=-1)
     return greedy, pos_logits[:, -1], new_state, old
@@ -337,7 +344,8 @@ def spec_page_len(cfg: ModelConfig, need: int) -> int:
 @torch.no_grad()
 def spec_generate(params: dict, cfg: ModelConfig, prompt_ids, max_new_tokens: int = 32,
                   eos_id: int | None = None, prefix_cache=None,
-                  drafter: Drafter | None = None, decode_rows: int | None = None):
+                  drafter: Drafter | None = None, decode_rows: int | None = None,
+                  mesh=None):
     """The solo ``generate()`` speculative path (batch 1, greedy): the
     draft -> verify -> accept/rollback loop of the engine's spec tick,
     with the same prefill layouts, the same ``spec_verify`` and the same
@@ -345,6 +353,8 @@ def spec_generate(params: dict, cfg: ModelConfig, prompt_ids, max_new_tokens: in
     the same deterministic drafter.  ``decode_rows`` pads the verify
     batch with masked rows (as ``generate(decode_rows=)`` pads decode):
     ``decode_rows=capacity`` runs every launch at the engine's row count.
+    ``mesh``: a serving mesh (``generate(mesh=)`` passes it with a data
+    rank's rows already set in ``decode_rows``).
 
     Returns (1, t + max_new_tokens) int64 on the params' device; with
     ``eos_id`` set, the suffix past an emitted eos repeats it."""
@@ -362,16 +372,19 @@ def spec_generate(params: dict, cfg: ModelConfig, prompt_ids, max_new_tokens: in
     t = prompt.shape[1]
     hybrid = bool(cfg.attn_layer_idx)
     W = cfg.spec_tokens + 1
-    dparams = cast_decode_params(params, cfg)
+    dparams = serving_shard(params, cfg, mesh)
+    tp, stage = (None, None) if mesh is None else (mesh.tp, mesh.stage_ctx)
     plan = plan_chunks(t, cfg.effective_prefill_chunk_tokens, force=hybrid)
     if hybrid:
         # the capacity covers prompt + budget + the verify overshoot (the
         # last tick may feed W tokens past the budget: they must land in
         # allocated dead cells, never clamp onto a live one)
         logits, state = chunked_prefill(
-            dparams, cfg, prompt, max_len=spec_page_len(cfg, t + max_new_tokens + W))
+            dparams, cfg, prompt, max_len=spec_page_len(cfg, t + max_new_tokens + W),
+            mesh=mesh)
     elif plan is not None:
-        logits, state = chunked_prefill(dparams, cfg, prompt, prefix_cache=prefix_cache)
+        logits, state = chunked_prefill(dparams, cfg, prompt, prefix_cache=prefix_cache,
+                                        mesh=mesh)
     else:
         hit = prefix_cache.lookup(prompt[0], None) if prefix_cache is not None else None
         if hit is not None:
@@ -380,7 +393,7 @@ def spec_generate(params: dict, cfg: ModelConfig, prompt_ids, max_new_tokens: in
         else:
             TRACE_COUNTS["prefill"] += 1
             ids, mask = pad_to_bucket(torch.from_numpy(prompt).to(dev), next_pow2_bucket(t))
-            logits, state = lm_prefill(dparams, cfg, ids, token_mask=mask)
+            logits, state = lm_prefill(dparams, cfg, ids, token_mask=mask, tp=tp, stage=stage)
     # the commit writes the carries in place, and a cache entry's (or a
     # chunked prefill's stored) carry must live on: work on a copy
     state = {**state, "blocks": tuple(x.clone() for x in state["blocks"])}
@@ -413,7 +426,7 @@ def spec_generate(params: dict, cfg: ModelConfig, prompt_ids, max_new_tokens: in
         ids = torch.zeros((rows, W), dtype=torch.int64)
         ids[0] = torch.tensor(fed)
         greedy_d, final_logits, new_state, old = spec_verify(
-            dparams, state, ids.to(dev), tmask, cfg)
+            dparams, state, ids.to(dev), tmask, cfg, mesh=mesh)
         a, advance, nxt = verify_greedy(fed, greedy_d[0].tolist(), len(pending))
         stream = pending[pending_emitted:] + fed[len(pending):len(pending) + a] + [nxt]
         for tok in stream:

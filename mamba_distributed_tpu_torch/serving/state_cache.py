@@ -1,6 +1,6 @@
 """Pooled recurrent-state cache: the slot pool under the serving engine,
 and the KV page allocator of hybrid stacks (counterpart of
-``mamba_distributed_tpu/serving/state_cache.py``, single shard).
+``mamba_distributed_tpu/serving/state_cache.py``).
 
 Mamba's decode state is O(1) per sequence, so the serving "KV cache" is
 a fixed-capacity pool of S slots whose tensors never change shape:
@@ -35,15 +35,23 @@ The admission and occupancy features of the engine add: ``restore`` (a
 preempted request back mid-decode), ``copy_page`` (the prefix cache's
 copy-on-write of a shared page) and ``gather_slots``/``scatter_slots``
 (the compacted tick's lanes).
+
+On a serving mesh each rank's pool is its part (``init_pool(mesh=)``):
+the writes below take that pool's rows (a slot's row within its data
+shard's block, a page's row within its shard's tile), and gathers and
+scatters stay within the shard.
 """
 
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from mamba_distributed_tpu_torch.config import ModelConfig
 from mamba_distributed_tpu_torch.models.attention import init_attention_state
-from mamba_distributed_tpu_torch.models.lm import init_lm_blocks_state
+from mamba_distributed_tpu_torch.models.lm import init_lm_blocks_state, stage_layers
+from mamba_distributed_tpu_torch.parallel.tp_layout import block_tp
 
 
 class PagePoolError(RuntimeError):
@@ -52,29 +60,69 @@ class PagePoolError(RuntimeError):
     instead of corrupting the free list."""
 
 
+def page_shard_ranges(num_pages: int, num_shards: int) -> list[tuple[int, int]]:
+    """Each data shard's usable page ids ``[lo, hi)``: the (P+1) page ids
+    (trash page 0 included) cut into equal contiguous tiles, shard d
+    owning ``[d (P+1)/n, (d+1) (P+1)/n)`` minus page 0, which lies in
+    shard 0 and is never handed out (JAX ``state_cache.py:94-122``).
+    Needs ``(num_pages + 1) % num_shards == 0`` (``hybrid_pool_pages``
+    rounds up to it)."""
+    rows = num_pages + 1
+    if rows % num_shards:
+        raise ValueError(
+            f"page array of {rows} rows (pages + trash) does not divide "
+            f"over {num_shards} shards"
+        )
+    per = rows // num_shards
+    if per < 2:
+        raise ValueError(
+            f"{num_pages} usable pages over {num_shards} shards leaves "
+            f"shard 0 with none (its tile is the trash page); raise "
+            f"cfg.kv_pool_pages or lower serving_data_shards"
+        )
+    return [(max(1, d * per), (d + 1) * per) for d in range(num_shards)]
+
+
 class PagePool:
-    """Host-side KV page allocator of a hybrid pool: a free list over the
+    """Host-side KV page allocator of a hybrid pool: free lists over the
     physical pages [1, num_pages]; page 0 is the trash page and is never
     handed out.  Pages are refcounted: ``alloc`` hands them out at one
     holder, ``incref`` adds a holder, ``free`` drops one and returns a
-    page to the free list at zero.  One shard only: the JAX package's
-    mesh-sharded pools wait for the port of the serving meshes."""
+    page to its shard's free list at zero.
+
+    With ``num_shards > 1`` (a serving mesh's data axis) the pages fall
+    into per-shard free lists along ``page_shard_ranges``: a slot of data
+    shard d allocates only from shard d's pages, which only shard d's
+    ranks hold (``local_rows`` maps a shard's global ids to its rows of
+    the page arrays).  The model and stage axes never cut pages."""
 
     def __init__(self, num_pages: int, num_shards: int = 1):
         if num_pages < 1:
             raise ValueError(f"need >= 1 usable page, got {num_pages}")
-        if num_shards != 1:
-            raise ValueError(
-                f"num_shards={num_shards}: sharded page pools wait for the "
-                f"port of the serving meshes; the port has one shard"
-            )
+        if num_shards < 1:
+            raise ValueError(f"need >= 1 shard, got {num_shards}")
         self.num_pages = num_pages
-        self._free = list(range(1, num_pages + 1))
+        self.num_shards = num_shards
+        self._ranges = page_shard_ranges(num_pages, num_shards)
+        self._free_lists = [list(range(lo, hi)) for lo, hi in self._ranges]
         self._refs: dict[int, int] = {}  # allocated page -> holder count
 
     @property
+    def _free(self) -> list[int]:
+        """Every free page, sorted (shard-blind callers and tests)."""
+        return sorted(p for lst in self._free_lists for p in lst)
+
+    @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(lst) for lst in self._free_lists)
+
+    def free_pages_in(self, shard: int) -> int:
+        return len(self._free_lists[shard])
+
+    def shard_capacity(self, shard: int) -> int:
+        """Pages shard ``shard`` could ever have free (its range)."""
+        lo, hi = self._ranges[shard]
+        return hi - lo
 
     @property
     def pages_in_use(self) -> int:
@@ -84,14 +132,36 @@ class PagePool:
         """Current holder count (0 = free or never allocated)."""
         return self._refs.get(page, 0)
 
-    def alloc(self, n: int) -> list[int]:
-        """Reserve ``n`` pages at refcount 1, lowest ids first, or raise
-        when the pool cannot cover them (callers check ``free_pages``
-        first: admission waits)."""
-        if n > len(self._free):
+    def _owner(self, page: int) -> int:
+        if not 1 <= page <= self.num_pages:
+            raise ValueError(f"page {page} outside every shard range")
+        return page // ((self.num_pages + 1) // self.num_shards)
+
+    def shard_rows(self) -> int:
+        """Rows of a shard's page arrays: the whole pool with its trash
+        page at one shard, else one tile and a local trash row 0."""
+        if self.num_shards == 1:
+            return self.num_pages + 1
+        return (self.num_pages + 1) // self.num_shards + 1
+
+    def local_rows(self, ids, shard: int):
+        """Shard ``shard``'s rows of the page arrays for global page ids
+        (a numpy array): its own pages at ``id - lo + 1``, every other id
+        (the trash page 0, another shard's page) at its local trash row
+        0, so no rank writes a page it does not hold.  The identity at
+        one shard."""
+        lo, hi = self._ranges[shard]
+        return np.where((ids >= lo) & (ids < hi), ids - lo + 1, 0).astype(ids.dtype)
+
+    def alloc(self, n: int, shard: int = 0) -> list[int]:
+        """Reserve ``n`` pages of ``shard``'s range at refcount 1, lowest
+        ids first, or raise when it cannot cover them (callers check
+        ``free_pages_in`` first: admission waits)."""
+        lst = self._free_lists[shard]
+        if n > len(lst):
             raise RuntimeError(
-                f"KV page pool exhausted: want {n}, have {len(self._free)}")
-        ids, self._free = self._free[:n], self._free[n:]
+                f"KV page pool exhausted: want {n}, shard {shard} has {len(lst)}")
+        ids, self._free_lists[shard] = lst[:n], lst[n:]
         for page in ids:
             self._refs[page] = 1
         return ids
@@ -107,9 +177,10 @@ class PagePool:
             self._refs[page] += 1
 
     def free(self, ids: list[int]) -> None:
-        """Drop one holder per page; a page returns to the free list at
-        refcount 0.  Raises ``PagePoolError`` on the trash page, on ids
-        outside the pool and on double frees."""
+        """Drop one holder per page; a page returns to its shard's free
+        list at refcount 0.  Raises ``PagePoolError`` on the trash page,
+        on ids outside the pool and on double frees."""
+        touched = set()
         for page in ids:
             if page == 0:
                 raise PagePoolError(
@@ -125,35 +196,49 @@ class PagePool:
                     f"free or never allocated)")
             if rc == 1:
                 del self._refs[page]
-                self._free.append(page)
+                d = self._owner(page)
+                self._free_lists[d].append(page)
+                touched.add(d)
             else:
                 self._refs[page] = rc - 1
-        self._free.sort()  # deterministic reuse order
+        for d in touched:
+            self._free_lists[d].sort()  # deterministic reuse order
 
 
-def hybrid_pool_pages(cfg: ModelConfig, capacity: int) -> int:
+def hybrid_pool_pages(cfg: ModelConfig, capacity: int, num_shards: int = 1) -> int:
     """Usable pages of a serving pool (the trash page excluded):
     ``cfg.kv_pool_pages``, or every slot's full ``kv_slot_tokens``
-    budget at once."""
-    return cfg.kv_pool_pages or capacity * cfg.kv_pages_per_slot
+    budget at once; over data shards, rounded up so the (P+1) page ids
+    divide over them."""
+    pages = cfg.kv_pool_pages or capacity * cfg.kv_pages_per_slot
+    if num_shards > 1 and (pages + 1) % num_shards:
+        pages += num_shards - (pages + 1) % num_shards
+    return pages
 
 
-def init_pool(cfg: ModelConfig, capacity: int, device=None) -> dict:
+def init_pool(cfg: ModelConfig, capacity: int, device=None, mesh=None) -> dict:
     """An empty slot pool for ``capacity`` concurrent requests; hybrid
-    stacks add the KV page pool (``hybrid_pool_pages`` pages + trash)."""
+    stacks add the KV page pool (``hybrid_pool_pages`` pages + trash).
+    On a serving ``mesh`` (parallel/mesh.ServingMesh) it is this rank's
+    part only: its data shard's block of ``capacity / data`` slots and
+    page rows (``PagePool.shard_rows``), its model rank's heads and its
+    stage's layers (``parallel/sharding.slot_pool_specs`` records the
+    cut)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
-    S = capacity
+    tp, stages, shards = (None, 1, 1) if mesh is None else (mesh.tp, mesh.stage, mesh.data)
+    S = capacity // shards
 
     def full(v, dtype):
         return torch.full((S,), v, dtype=dtype, device=device)
 
-    state = {"blocks": init_lm_blocks_state(cfg, S, device)}
+    state = {"blocks": init_lm_blocks_state(cfg, S, device, tp, stages)}
     if cfg.attn_layer_idx:
-        n_attn = len(cfg.attn_layer_idx)
-        # one page per "row" of init_attention_state: 1 + n_pages pages
-        layer = init_attention_state(cfg, hybrid_pool_pages(cfg, capacity),
-                                     cfg.kv_page_tokens, device)
+        n_attn = stage_layers(cfg, stages)[1]
+        pages = hybrid_pool_pages(cfg, capacity, shards)
+        rows = PagePool(pages, shards).shard_rows()
+        layer = init_attention_state(cfg, 0, cfg.kv_page_tokens, device,
+                                     tp=block_tp(tp, cfg, "attn"), pages=rows)
         state["attn_blocks"] = tuple(x[None].repeat(n_attn, *([1] * x.ndim))
                                      for x in layer)
     return {

@@ -86,7 +86,7 @@ def emit_bench_record(record: dict, json_path: str | None = None) -> None:
 
 
 # summary() sections of engine features the port does not have yet
-# (pipeline stages, admission, sessions, the compile watchdog): the JAX
+# (admission, sessions, the compile watchdog): the JAX
 # package's summary() holds them as None while the feature is off, so
 # the port's holds the same keys at None.  The "tuning" section carries
 # the quota and hot-swap counters; its tune_* counters stay 0 until the
@@ -126,8 +126,10 @@ class ServingMetrics:
     ``record_quota_stall``, ``record_hot_swap``) feed their summary
     sections and record fields only when the engine turns them on:
     records and summaries with them off are the same bytes as without
-    them.  Left out until the port has the features that feed them: the
-    migration, pipeline, tune-job, session, admission and
+    them.  The serving mesh's stage axis feeds ``configure_pipeline`` and
+    the ``stage_shards``/``bubble_lanes`` stamps (its model axis the
+    ``model_shards`` stamp).  Left out until the port has the features
+    that feed them: the migration, tune-job, session, admission and
     compile-watchdog methods.
     """
 
@@ -190,6 +192,16 @@ class ServingMetrics:
         # speculative decoding: configure_speculation() unlocks
         # summary()["speculation"]: draft and accept counts, the accept
         # rate histogram (in percent) and tokens per stream per launch
+        # the serving mesh's stage axis: configure_pipeline() (engines at
+        # serving_stage_shards > 1) unlocks summary()["pipeline"]: the
+        # stage width, the ticks that ran the microbatched decode clock
+        # and the bubble lanes its warmup and drain idled (billed into
+        # goodput's wasted lanes)
+        self._pipeline_on = False
+        self.stage_shards_cfg: int | None = None
+        self.pipeline_ticks = 0
+        self.pipeline_bubble_lanes = 0
+        self._pipeline_slot_lanes = 0
         self._spec_on = False
         self.spec_tokens_cfg: int | None = None
         self.spec_drafter: str | None = None
@@ -289,6 +301,14 @@ class ServingMetrics:
         gains its ``compaction`` section and tick records their
         ``compaction_width`` stamp."""
         self._compaction_on = True
+
+    def configure_pipeline(self, stage_shards: int) -> None:
+        """Mark the serving mesh's stage axis live (engine construction,
+        only at ``serving_stage_shards > 1``): ``summary()`` gains its
+        ``pipeline`` section and tick records their ``stage_shards``/
+        ``bubble_lanes`` stamps."""
+        self._pipeline_on = True
+        self.stage_shards_cfg = int(stage_shards)
 
     def configure_speculation(self, spec_tokens: int, drafter: str) -> None:
         """Mark speculative decoding on (engine construction): ``summary()``
@@ -410,6 +430,9 @@ class ServingMetrics:
         adapter_cache_misses: int = 0,
         adapter_cache_evictions: int = 0,
         adapters_live: int = 0,
+        model_shards: int | None = None,
+        stage_shards: int | None = None,
+        bubble_lanes: int | None = None,
     ) -> None:
         """One decode tick.  ``prefill_stall_ms`` is the host time spent
         on prefill work since the previous tick record (a step that runs
@@ -442,7 +465,11 @@ class ServingMetrics:
         ``adapters_resident`` (LoRA on) gauges the adapter cache, with
         ``adapter_cache_hits``/``_misses``/``_evictions`` its window churn
         and ``adapters_live`` the distinct adapters the tick's launch
-        mixed."""
+        mixed.  ``model_shards`` (engines on a serving mesh's model axis,
+        > 1) and ``stage_shards`` (its stage axis, > 1) are stamped only
+        when given; ``bubble_lanes`` bills the microbatched decode clock's
+        warmup and drain into the computed lanes (0 on ticks that walked
+        the layers), so records without a stage axis keep their bytes."""
         self.ticks += 1
         self.decode_tokens += tokens_emitted
         self.decode_time_s += dt_s
@@ -453,7 +480,8 @@ class ServingMetrics:
         # tick plus the prefill work attributed to it)
         window_s = dt_s + prefill_stall_ms / 1000.0
         useful = tokens_emitted + prefill_real_tokens + prefill_oneshot_tokens
-        lanes = slot_lanes + prefill_chunk_tokens + prefill_oneshot_lanes
+        lanes = (slot_lanes + prefill_chunk_tokens + prefill_oneshot_lanes
+                 + (bubble_lanes or 0))
         self.useful_tokens += useful
         self.computed_token_lanes += lanes
         self._goodput_window_s += window_s
@@ -481,6 +509,15 @@ class ServingMetrics:
         }
         if traces is not None:
             record["traces"] = list(traces)
+        if model_shards is not None:
+            record["model_shards"] = model_shards
+        if stage_shards is not None:
+            record["stage_shards"] = stage_shards
+            record["bubble_lanes"] = bubble_lanes or 0
+            if bubble_lanes:
+                self.pipeline_ticks += 1
+                self.pipeline_bubble_lanes += bubble_lanes
+                self._pipeline_slot_lanes += slot_lanes
         if preemptions:
             record["preemptions"] = preemptions
         if tenant_quota_stalls:
@@ -615,7 +652,18 @@ class ServingMetrics:
                                      sorted(self.compaction_hist.items())},
                 "lanes_saved": self.compaction_lanes_saved,
             }),
-            "pipeline": None,
+            "pipeline": (None if not self._pipeline_on else {
+                "stage_shards": self.stage_shards_cfg,
+                # ticks that ran the microbatched clock (the others walked
+                # the layers: the same bits, no ramp) and the ramp's idle
+                # lanes
+                "pipelined_ticks": self.pipeline_ticks,
+                "bubble_lanes": self.pipeline_bubble_lanes,
+                "bubble_fraction": (
+                    round(self.pipeline_bubble_lanes
+                          / (self.pipeline_bubble_lanes + self._pipeline_slot_lanes), 4)
+                    if (self.pipeline_bubble_lanes + self._pipeline_slot_lanes) else None),
+            }),
             "speculation": (None if not self._spec_on else {
                 "spec_tokens": self.spec_tokens_cfg,
                 "drafter": self.spec_drafter,

@@ -234,7 +234,7 @@ def test_page_pool_refcounts_and_named_errors():
         pool.incref([5])
     with pytest.raises(RuntimeError, match="exhausted"):
         pool.alloc(5)
-    with pytest.raises(ValueError, match="sharded"):
+    with pytest.raises(ValueError, match="does not divide over 2 shards"):
         PagePool(6, num_shards=2)
 
 
